@@ -1,0 +1,133 @@
+"""Where the time goes on the card: ``torch.profiler`` over the port's paths.
+
+    python -m kokoro_tpu_torch.cli.profile_paths
+
+At full width on seeded random weights (hidden 512, 6+6 layers, 8 heads,
+ff 1536, vocab 59) it profiles
+
+* the teacher-forced forward, kernel path, on the batch ``chip_smoke.py``
+  drives (``teacher_forced_batch``: B=16, T=512, L=128), f32 and bf16;
+* AR decode steps (``KokoroModel.decode_step``) at B=1 and B=4 over a
+  400-frame cache;
+* HiFi-GAN (committed universal-V1 weights) on 4 x 256 frames;
+
+and prints one JSON line per path: wall ms per call (host clock around work
+that ends in ``torch.cuda.synchronize()``, without and with the profiler),
+device busy ms per call (sum of kernel self times in the profiled window),
+the device's idle share in that window, kernels launched per call, and the
+top kernels by device time.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def teacher_forced_batch(cfg, B: int, T: int, L: int, device) -> dict:
+    """A seeded teacher-forced batch: given durations 1-6 per phoneme, rows
+    with 0, 8, 16 or 24 padded phonemes, mel frames past each row's total
+    duration padded (``chip_smoke.py`` drives the same batch)."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    dur = torch.randint(1, 7, (B, L), generator=g)
+    pad = torch.zeros(B, L, dtype=torch.bool)
+    for b in range(B):
+        pad[b, L - (b % 4) * 8:] = b % 4 > 0
+    dur = torch.where(pad, 0, dur)
+    mel_len = torch.clamp(dur.sum(1), max=T)
+    batch = dict(
+        phoneme_indices=torch.randint(1, cfg.vocab_size, (B, L), generator=g),
+        mel_specs=torch.randn(B, T, cfg.n_mels, generator=g) * 2.0 - 5.0,
+        phoneme_durations=dur,
+        stress_indices=torch.randint(0, 3, (B, L), generator=g),
+        text_padding_mask=pad,
+        mel_padding_mask=torch.arange(T)[None, :] >= mel_len[:, None],
+    )
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _profile(name: str, fn, calls: int, **meta) -> None:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # kernels only: an operator's entry repeats the time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    print(json.dumps({
+        "path": name, **meta, "calls": calls, "wall_ms_unprofiled": plain_wall_ms,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if events else "not measured",
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if events else "not measured",
+        "kernels_per_call": sum(e.count for e in events) / calls,
+        "top_kernels": [{"name": e.key[:90], "ms_per_call": e.self_device_time_total / 1e3 / calls,
+                         "count_per_call": e.count / calls} for e in top],
+    }), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_paths: CUDA is not available", file=sys.stderr)
+        return 2
+    from kokoro_tpu_torch.config import KokoroConfig
+    from kokoro_tpu_torch.inference.vocoder import VocoderManager
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    cfg = KokoroConfig(use_flash_attention=True)
+    model = KokoroModel(cfg).init_weights(g).to(dev).eval()
+    B, T, L = 16, 512, 128
+    batch = teacher_forced_batch(cfg, B, T, L, dev)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype)
+            inputs = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in batch.items()}
+            _profile("teacher_forced_forward", lambda: model(**inputs), 3,
+                     dtype=str(dtype), B=B, T=T, L=L)
+        model.to(torch.float32)
+        S = 400
+        for Bd in (1, 4):
+            mem = torch.randn(Bd, S, 512, generator=g).to(dev)
+            cross = model.project_memory_kv(mem)
+            mask = torch.zeros(Bd, S, dtype=torch.bool, device=dev)
+            caches = [{"k": torch.zeros(Bd, 8, S, 64, device=dev),
+                       "v": torch.zeros(Bd, 8, S, 64, device=dev), "index": 0}
+                      for _ in range(6)]
+            frame = torch.zeros(Bd, 1, 80, device=dev)
+            state = {"t": 0}
+
+            def step():
+                for c in caches:
+                    c["index"] = state["t"] % 200
+                model.decode_step(frame, state["t"], caches, cross, mask)
+                state["t"] += 1
+
+            _profile("ar_decode_step", step, 50, dtype="torch.float32", B=Bd, cache=S)
+        voc = VocoderManager(vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"), device=dev)
+        mels = (torch.rand(4, 256, 80, generator=g) * 9 - 9).numpy()
+        _profile("hifigan", lambda: voc.mel_to_audio_batch(mels), 3, B=4, frames=256)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,340 @@
+"""Transformer building blocks: multi-head attention (RoPE or ALiBi, per-head
+RMSNorm on Q, K and V), GLU feed-forward, stochastic depth, pre-norm encoder
+and decoder blocks.
+
+Port of ``kokoro_tpu/models/blocks.py``.  What must match the flax modules:
+
+* LayerNorm and RMSNorm use eps 1e-6 and float32 statistics, the variance as
+  E[x^2] - E[x]^2 clipped at 0 (flax's fast variance);
+* GELU is the tanh approximation;
+* w_q, w_k, w_v are bias-free, w_o has a bias; a flax Dense ``kernel (in, out)``
+  is a torch ``weight (out, in)``;
+* logits and softmax are float32 with the -1e9 masked constant;
+* ALiBi reproduces the reference's bidirectional quirk (positive bias toward
+  distant future keys in non-causal attention) on purpose.
+
+Attention routes: full-sequence decoder self-attention (causal) and
+cross-attention (q_len == kv_len) go through the packed dispatcher
+(``ops/fused_attention.py``) when ``use_flash`` is set; everything else (the
+encoder, the cached decode step, precomputed cross K/V) is plain
+matmul/softmax, as the JAX package leaves it to XLA.  KV caches are
+preallocated ``(B, H, S, Dh)`` tensors updated in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kokoro_tpu_torch.models.positional import apply_rope, apply_rope_heads_last
+from kokoro_tpu_torch.ops.fused_attention import SUPPORTED_HEAD_DIMS, packed_attention
+
+NEG_INF = -1e9
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: eps 1e-6, f32 statistics, fast variance."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm``: eps 1e-6, f32 statistics, scale only."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = (x32 * x32).mean(-1, keepdim=True)
+        return (x32 * (torch.rsqrt(var + self.eps) * self.weight.float())).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Per-sample stochastic depth."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    return torch.tensor(
+        [2.0 ** (-8.0 * (i + 1) / num_heads) for i in range(num_heads)], dtype=torch.float32
+    )
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with optional RoPE/ALiBi and per-head q/k/v RMSNorm.
+
+    ``forward`` returns ``(output, updated_kv_cache_or_None)``.  A
+    ``kv_cache={'k': (B,H,S,Dh), 'v': ..., 'index': i}`` runs a cached decode
+    step: the new K/V are written in place at ``index`` and attention spans
+    ``[0, index + Tq)``.  ``precomputed_kv=(K, V)`` attends a fixed memory."""
+
+    def __init__(
+        self, d_model: int, num_heads: int, dropout: float = 0.1, *,
+        use_rope: bool = False, use_alibi: bool = False, qk_norm: bool = False,
+        use_flash: bool = False,
+    ):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.dropout = dropout
+        self.use_rope = use_rope
+        self.use_alibi = use_alibi
+        self.qk_norm = qk_norm
+        self.use_flash = use_flash
+        self.w_q = nn.Linear(d_model, d_model, bias=False)
+        self.w_k = nn.Linear(d_model, d_model, bias=False)
+        self.w_v = nn.Linear(d_model, d_model, bias=False)
+        self.w_o = nn.Linear(d_model, d_model, bias=True)
+        if qk_norm:
+            self.q_norm = RMSNorm(self.head_dim)
+            self.k_norm = RMSNorm(self.head_dim)
+            self.v_norm = RMSNorm(self.head_dim)
+        self.attn_dropout = nn.Dropout(dropout)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        return x.reshape(B, T, self.num_heads, -1).transpose(1, 2)
+
+    def _norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, name)(x) if self.qk_norm else x
+
+    def project_kv(self, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K/V ``(B, H, S, Dh)`` for a fixed memory."""
+        k = self._norm("k_norm", self._heads(self.w_k(memory)))
+        v = self._norm("v_norm", self._heads(self.w_v(memory)))
+        return k, v
+
+    def _packed(self, query, key, key_padding_mask, causal, rate):
+        """Heads-last packed projections -> the packed dispatcher -> w_o; no
+        head transpose is ever materialised."""
+        B, T, _ = query.shape
+        H, Dh = self.num_heads, self.head_dim
+
+        def heads_last(lin, norm, x, rope_pos):
+            h = self._norm(norm, lin(x).reshape(B, T, H, Dh))
+            if self.use_rope and rope_pos is not None:
+                h = apply_rope_heads_last(h, rope_pos)
+            return h.reshape(B, T, self.d_model).contiguous()
+
+        if causal:
+            pos = torch.arange(T, device=query.device)
+            q = heads_last(self.w_q, "q_norm", query, pos)
+            k = heads_last(self.w_k, "k_norm", query, pos)
+            v = heads_last(self.w_v, "v_norm", query, None)
+            kv_lens = None
+        else:
+            q = heads_last(self.w_q, "q_norm", query, None)
+            k = heads_last(self.w_k, "k_norm", key, None)
+            v = heads_last(self.w_v, "v_norm", key, None)
+            kv_lens = (
+                None if key_padding_mask is None
+                else (T - key_padding_mask.sum(-1)).to(torch.int32)
+            )
+        out = packed_attention(
+            q, k, v, num_heads=H, scale=1.0 / math.sqrt(Dh), causal=causal,
+            kv_lengths=kv_lens, dropout_rate=rate,
+        )
+        return self.w_o(out)
+
+    def forward(
+        self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
+        value: Optional[torch.Tensor] = None, *, causal: bool = False,
+        key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
+        kv_cache: Optional[dict] = None,
+        precomputed_kv: Optional[tuple] = None,
+    ):
+        B, Tq, _ = query.shape
+        rate = self.dropout if self.training else 0.0
+        full_seq = (
+            self.use_flash and kv_cache is None and precomputed_kv is None
+            and not self.use_alibi and self.head_dim in SUPPORTED_HEAD_DIMS
+        )
+        # causal self-attention needs no key mask under suffix padding: a
+        # padded key is visible only to padded queries, masked downstream
+        if full_seq and causal and key is None and value is None:
+            return self._packed(query, None, None, True, rate), None
+        if (
+            full_seq and not causal and key is not None
+            and (value is None or value is key) and not self.use_rope
+            and Tq == key.shape[1]
+        ):
+            return self._packed(query, key, key_padding_mask, False, rate), None
+
+        q = self._norm("q_norm", self._heads(self.w_q(query)))
+        new_cache = None
+        if precomputed_kv is not None:
+            k, v = precomputed_kv
+        elif kv_cache is not None:
+            key = query if key is None else key
+            k_new = self._norm("k_norm", self._heads(self.w_k(key)))
+            v_new = self._norm("v_norm", self._heads(self.w_v(key)))
+            index = int(kv_cache["index"])
+            if self.use_rope:
+                pos_new = index + torch.arange(Tq, device=query.device)
+                k_new = apply_rope(k_new, pos_new)
+                q = apply_rope(q, pos_new)
+            k, v = kv_cache["k"], kv_cache["v"]
+            k[:, :, index : index + Tq] = k_new.to(k.dtype)
+            v[:, :, index : index + Tq] = v_new.to(v.dtype)
+            new_cache = {"k": k, "v": v, "index": index + Tq}
+            S = k.shape[2]
+            # cache slots beyond the write frontier are masked
+            invalid = torch.arange(S, device=query.device) > (index + Tq - 1)
+            key_padding_mask = (
+                invalid.expand(B, S) if key_padding_mask is None
+                else (key_padding_mask.to(torch.bool) | invalid)
+            )
+        else:
+            key = query if key is None else key
+            value = key if value is None else value
+            k = self._norm("k_norm", self._heads(self.w_k(key)))
+            v = self._norm("v_norm", self._heads(self.w_v(value)))
+            if self.use_rope:
+                pos = torch.arange(k.shape[2], device=query.device)
+                q = apply_rope(q, pos[:Tq])
+                k = apply_rope(k, pos)
+
+        Tk = k.shape[2]
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+            1.0 / math.sqrt(self.head_dim)
+        )
+        if self.use_alibi:
+            slopes = alibi_slopes(self.num_heads).to(query.device)
+            if kv_cache is not None:
+                q_pos = (kv_cache["index"] + torch.arange(Tq, device=query.device)).float()
+            else:
+                q_pos = (torch.arange(Tq, device=query.device) + (Tk - Tq)).float()
+            dist = torch.arange(Tk, device=query.device, dtype=torch.float32)[None, :] - q_pos[:, None]
+            logits = logits + slopes[None, :, None, None] * dist[None, None]
+        neg = torch.full((), NEG_INF, device=query.device)
+        if causal and kv_cache is None:
+            mask = torch.ones(Tq, Tk, dtype=torch.bool, device=query.device).tril(Tk - Tq)
+            logits = torch.where(mask[None, None], logits, neg)
+        if key_padding_mask is not None:
+            logits = torch.where(key_padding_mask[:, None, None, :].to(torch.bool), neg, logits)
+        weights = self.attn_dropout(torch.softmax(logits, dim=-1).to(query.dtype))
+        out = torch.matmul(weights, v.to(weights.dtype))
+        out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
+        return self.w_o(out), new_cache
+
+
+class GLUFeedForward(nn.Module):
+    """linear1 -> split (gate, linear) -> gelu(gate) * linear -> dropout ->
+    linear2 -> optional RMSNorm -> dropout (flax's gelu: the tanh form)."""
+
+    def __init__(self, d_model: int, dim_feedforward: int, dropout: float = 0.1,
+                 use_output_norm: bool = False):
+        super().__init__()
+        self.linear1 = nn.Linear(d_model, dim_feedforward * 2)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.output_norm = RMSNorm(d_model) if use_output_norm else None
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, linear = self.linear1(x).chunk(2, dim=-1)
+        h = self.linear2(self.dropout(F.gelu(gate, approximate="tanh") * linear))
+        if self.output_norm is not None:
+            h = self.output_norm(h)
+        return self.dropout(h)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-norm encoder block: self-attention + GLU FFN."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dropout: float, drop_path_rate: float = 0.0, qk_norm: bool = False,
+                 ffn_output_norm: bool = False, attention_weight_dropout: bool = True,
+                 use_flash: bool = False, rel_pos_type: str = "rope"):
+        super().__init__()
+        self.drop_path_rate = drop_path_rate
+        self.norm1 = LayerNorm(d_model)
+        self.self_attn = MultiHeadAttention(
+            d_model, num_heads, dropout if attention_weight_dropout else 0.0,
+            use_rope=rel_pos_type == "rope", use_alibi=rel_pos_type == "alibi",
+            qk_norm=qk_norm, use_flash=use_flash,
+        )
+        self.norm2 = LayerNorm(d_model)
+        self.ff = GLUFeedForward(d_model, dim_feedforward, dropout,
+                                 use_output_norm=ffn_output_norm)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None):
+        attn_out, _ = self.self_attn(self.norm1(x), key_padding_mask=padding_mask)
+        x = x + self.dropout(drop_path(attn_out, self.drop_path_rate, self.training))
+        ff_out = self.ff(self.norm2(x))
+        return x + self.dropout(drop_path(ff_out, self.drop_path_rate, self.training))
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm decoder block: causal self-attention (RoPE) + cross-attention
+    (no positions) + GLU FFN."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dropout: float, drop_path_rate: float = 0.0, qk_norm: bool = False,
+                 ffn_output_norm: bool = False, attention_weight_dropout: bool = True,
+                 use_flash: bool = False, rel_pos_type: str = "rope"):
+        super().__init__()
+        attn_p = dropout if attention_weight_dropout else 0.0
+        self.drop_path_rate = drop_path_rate
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.self_attn = MultiHeadAttention(
+            d_model, num_heads, attn_p, use_rope=rel_pos_type == "rope",
+            use_alibi=rel_pos_type == "alibi", qk_norm=qk_norm, use_flash=use_flash,
+        )
+        self.cross_attn = MultiHeadAttention(
+            d_model, num_heads, attn_p, use_rope=False, qk_norm=qk_norm,
+            use_flash=use_flash,
+        )
+        self.ff = GLUFeedForward(d_model, dim_feedforward, dropout,
+                                 use_output_norm=ffn_output_norm)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(
+        self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+        memory_padding_mask: Optional[torch.Tensor] = None,
+        tgt_padding_mask: Optional[torch.Tensor] = None,
+        self_kv_cache: Optional[dict] = None, cross_kv: Optional[tuple] = None,
+    ):
+        """Full-sequence or cached single-step forward; returns
+        ``(y, new_self_kv_cache)``."""
+        rate, training = self.drop_path_rate, self.training
+        attn_out, new_cache = self.self_attn(
+            self.norm1(x), causal=True, key_padding_mask=tgt_padding_mask,
+            kv_cache=self_kv_cache,
+        )
+        x = x + self.dropout(drop_path(attn_out, rate, training))
+        cross_out, _ = self.cross_attn(
+            self.norm2(x), memory, memory, key_padding_mask=memory_padding_mask,
+            precomputed_kv=cross_kv,
+        )
+        x = x + self.dropout(drop_path(cross_out, rate, training))
+        ff_out = self.ff(self.norm3(x))
+        return x + self.dropout(drop_path(ff_out, rate, training)), new_cache
+
+    def project_cross_kv(self, memory: torch.Tensor):
+        return self.cross_attn.project_kv(memory)

@@ -1,0 +1,224 @@
+"""The Kokoro acoustic model: text encoder + variance adaptor + autoregressive
+mel decoder with a stop-token head.
+
+Port of ``kokoro_tpu/models/kokoro.py``: text embedding scaled by
+sqrt(hidden), additive 3-way stress embedding whose index 0 contributes
+nothing, sinusoidal PE, a pre-norm encoder with a final LayerNorm, the
+variance adaptor, a teacher-forced causal decoder over mel frames shifted
+right by one, and mel + stop heads, the stop head on detached features.
+Remat (``torch.utils.checkpoint``) and SpecAugment come with the training
+slice.
+
+Parameter names follow the flax tree (``convert.kokoro_state_dict_from_flax``
+maps one onto the other): ``encoder_layer_i`` is ``encoder_layers.i``, the
+adaptor is ``variance_adaptor`` or, with ``use_variance_predictor=False``,
+``duration_adaptor``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kokoro_tpu_torch.config import KokoroConfig
+from kokoro_tpu_torch.models.blocks import DecoderBlock, EncoderBlock, LayerNorm
+from kokoro_tpu_torch.models.positional import add_positional_encoding
+from kokoro_tpu_torch.models.variance import SimpleDurationAdaptor, VarianceAdaptor
+
+
+class KokoroModel(nn.Module):
+    def __init__(self, config: KokoroConfig):
+        super().__init__()
+        c = self.config = config
+        d = c.hidden_dim
+        self.text_embedding = nn.Embedding(c.vocab_size, d)
+        if c.use_stress_embedding:
+            self.stress_embedding = nn.Embedding(3, d)
+
+        def rates(n):
+            return [
+                (i / max(n - 1, 1)) * c.stochastic_depth_rate if c.use_stochastic_depth else 0.0
+                for i in range(n)
+            ]
+
+        common = dict(qk_norm=c.qk_norm, ffn_output_norm=c.ffn_output_norm,
+                      attention_weight_dropout=c.attention_weight_dropout,
+                      use_flash=c.use_flash_attention, rel_pos_type=c.rel_pos_type)
+        self.encoder_layers = nn.ModuleList(
+            EncoderBlock(d, c.n_heads, c.encoder_ff_dim, c.encoder_dropout,
+                         drop_path_rate=r, **common)
+            for r in rates(c.n_encoder_layers)
+        )
+        self.encoder_norm = LayerNorm(d)
+        if c.use_variance_predictor:
+            self.adaptor_name = "variance_adaptor"
+            adaptor = VarianceAdaptor(
+                hidden_dim=d, filter_size=c.variance_filter_size,
+                kernel_size=c.variance_kernel_size, dropout=c.variance_dropout,
+                n_bins=c.n_variance_bins,
+                length_regulator_stop_gradient=c.length_regulator_stop_gradient,
+            )
+        else:
+            self.adaptor_name = "duration_adaptor"
+            adaptor = SimpleDurationAdaptor(hidden_dim=d, dropout=c.encoder_dropout)
+        self.add_module(self.adaptor_name, adaptor)
+        self.mel_projection_in = nn.Linear(c.n_mels, d)
+        self.decoder_layers = nn.ModuleList(
+            DecoderBlock(d, c.n_heads, c.decoder_ff_dim, c.decoder_dropout,
+                         drop_path_rate=r, **common)
+            for r in rates(c.n_decoder_layers)
+        )
+        self.decoder_norm = LayerNorm(d)
+        self.mel_projection_out = nn.Linear(d, c.n_mels)
+        self.stop_token_predictor = nn.Linear(d, 1)
+        self.input_dropout = nn.Dropout(c.decoder_input_dropout)
+        self.pe_dropout = nn.Dropout(c.encoder_dropout)
+
+    @property
+    def adaptor(self) -> nn.Module:
+        return getattr(self, self.adaptor_name)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "KokoroModel":
+        """Seeded weights drawn like the flax initializers: xavier-uniform
+        attention/FFN/predictor kernels (gain 0.5 for the FFN output),
+        lecun-normal projections, N(0, 1/sqrt(d)) text and N(0, 0.02) stress
+        embeddings, N(0, 1) pitch/energy embeddings, zero biases except the
+        duration head's log1p(5)."""
+        def xavier(w, gain=1.0):
+            fan_out, fan_in = w.shape[0], w[0].numel()
+            rf = w[0, 0].numel() if w.dim() > 2 else 1
+            bound = gain * math.sqrt(6.0 / (fan_in + fan_out * rf))
+            w.uniform_(-bound, bound, generator=generator)
+
+        def lecun(w):
+            w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
+
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+        for m in self.modules():
+            if isinstance(m, nn.Conv1d):
+                xavier(m.weight)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+        for name, m in self.named_modules():
+            if not isinstance(m, nn.Linear):
+                continue
+            if name.endswith("ff.linear2"):
+                xavier(m.weight, gain=0.5)
+            elif any(k in name for k in ("w_q", "w_k", "w_v", "w_o", "linear")):
+                xavier(m.weight)
+            else:
+                lecun(m.weight)
+        d = self.config.hidden_dim
+        self.text_embedding.weight.normal_(0.0, 1.0 / math.sqrt(d), generator=generator)
+        if self.config.use_stress_embedding:
+            self.stress_embedding.weight.normal_(0.0, 0.02, generator=generator)
+        if self.config.use_variance_predictor:
+            self.adaptor.duration_predictor.linear.bias.fill_(math.log1p(5.0))
+        return self
+
+    # -- encoder ---------------------------------------------------------
+    def encode_text(self, phoneme_indices, stress_indices, padding_mask):
+        d = self.config.hidden_dim
+        x = self.text_embedding(phoneme_indices) * math.sqrt(d)
+        if self.config.use_stress_embedding and stress_indices is not None:
+            stress = self.stress_embedding(stress_indices)
+            x = x + stress * (stress_indices != 0)[..., None].to(stress.dtype)
+        x = self.pe_dropout(add_positional_encoding(x, 0))
+        for layer in self.encoder_layers:
+            x = layer(x, padding_mask)
+        x = self.encoder_norm(x)
+        return torch.where(padding_mask[:, :, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+    def encode_and_expand(self, phoneme_indices, stress_indices, padding_mask,
+                          max_frames: int, pitch_targets=None, energy_targets=None,
+                          phoneme_durations=None):
+        text_encoded = self.encode_text(phoneme_indices, stress_indices, padding_mask)
+        return self.adaptor(
+            text_encoded, max_frames, mask=padding_mask, pitch_target=pitch_targets,
+            energy_target=energy_targets, duration_target=phoneme_durations,
+        )
+
+    # -- teacher-forced decoder ------------------------------------------
+    def prepare_decoder_input(self, mel_specs: torch.Tensor) -> torch.Tensor:
+        """Mel shifted right by one (zero first frame), input projection,
+        input dropout, PE."""
+        decoder_input = F.pad(mel_specs[:, :-1, :], (0, 0, 1, 0))
+        return add_positional_encoding(self.input_dropout(self.mel_projection_in(decoder_input)), 0)
+
+    def finish_decoding(self, x: torch.Tensor):
+        x = self.decoder_norm(x)
+        return self.mel_projection_out(x), self.stop_token_predictor(x.detach())[..., 0]
+
+    def decode_training(self, memory, memory_padding_mask, mel_specs, mel_padding_mask=None):
+        x = self.prepare_decoder_input(mel_specs)
+        for layer in self.decoder_layers:
+            x, _ = layer(x, memory, memory_padding_mask, mel_padding_mask)
+        return self.finish_decoding(x)
+
+    def forward(self, phoneme_indices, mel_specs, phoneme_durations, stress_indices=None,
+                text_padding_mask=None, mel_padding_mask=None, pitch_targets=None,
+                energy_targets=None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (``model.eval()`` for the deterministic
+        validation forward).  Returns predicted_mel (B,T,M),
+        predicted_log_durations (B,L), predicted_stop_logits (B,T),
+        predicted_pitch (B,T), predicted_energy (B,T), frame_padding_mask."""
+        T = mel_specs.shape[1]
+        if text_padding_mask is None:
+            text_padding_mask = torch.zeros(phoneme_indices.shape, dtype=torch.bool,
+                                            device=phoneme_indices.device)
+        memory, dur_pred, pitch_pred, energy_pred, frame_mask = self.encode_and_expand(
+            phoneme_indices, stress_indices, text_padding_mask, T,
+            pitch_targets=pitch_targets, energy_targets=energy_targets,
+            phoneme_durations=phoneme_durations,
+        )
+        predicted_mel, stop_logits = self.decode_training(
+            memory, frame_mask, mel_specs, mel_padding_mask
+        )
+        return {
+            "predicted_mel": predicted_mel,
+            "predicted_log_durations": dur_pred,
+            "predicted_stop_logits": stop_logits,
+            "predicted_pitch": pitch_pred,
+            "predicted_energy": energy_pred,
+            "frame_padding_mask": frame_mask,
+        }
+
+    # -- inference helpers (the AR generator) ------------------------------
+    def encode_for_inference(self, phoneme_indices, stress_indices, text_padding_mask,
+                             max_frames: int):
+        """Encode + expand with predicted durations.  Returns (memory,
+        frame_padding_mask, expected_length (B,) int32)."""
+        memory, dur_pred, _, _, frame_mask = self.encode_and_expand(
+            phoneme_indices, stress_indices, text_padding_mask, max_frames
+        )
+        durations = torch.clamp(torch.round(torch.expm1(dur_pred)), min=0)
+        durations = torch.where(text_padding_mask, torch.zeros((), dtype=durations.dtype, device=durations.device), durations)
+        expected = durations.sum(dim=1).to(torch.int32)
+        return memory, frame_mask, expected
+
+    def project_memory_kv(self, memory: torch.Tensor) -> List[tuple]:
+        return [layer.project_cross_kv(memory) for layer in self.decoder_layers]
+
+    def decode_step(self, mel_frame, t: int, self_kv_caches: List[dict],
+                    cross_kvs: List[tuple], memory_padding_mask: Optional[torch.Tensor]):
+        """One AR step: (mel (B,1,M), stop_logit (B,1), new_self_kv_caches).
+        The caches are updated in place."""
+        x = add_positional_encoding(
+            self.mel_projection_in(mel_frame), t, max_len=self.config.max_decoder_seq_len
+        )
+        new_caches = []
+        for layer, cache, ckv in zip(self.decoder_layers, self_kv_caches, cross_kvs):
+            x, new_cache = layer(x, None, memory_padding_mask, None, cache, ckv)
+            new_caches.append(new_cache)
+        x = self.decoder_norm(x)
+        return self.mel_projection_out(x), self.stop_token_predictor(x)[..., 0], new_caches

@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``kokoro_tpu_torch/csrc/`` compiles with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, into ``kokoro_tpu_torch/build/``
+(listed in ``.gitignore``); a library is named after the hash of its source
+and flags, so an edited source builds anew and an unchanged one is reused.
+Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+
+# library name -> source file under csrc/
+SOURCES = {"packed_attention": "packed_attention.cu"}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
+            "kernels are built on the machine with the card"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / SOURCES[name]
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source that has no library yet, one ``nvcc`` process per
+    source, all started together.  Returns ``{name: library path}``; the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside each library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in SOURCES}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp)
+    failures = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        paths[name].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, building it first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                path = build_all()[name]
+            lib = ctypes.CDLL(str(path))
+            _declare(name, lib)
+            _loaded[name] = lib
+        return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "packed_attention":
+        fn = lib.kokoro_packed_attention_fwd
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.restype = i

@@ -1,0 +1,66 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports torch and the port only (no JAX), so it runs on the machine with the
+card:  python -m pytest tests/test_torch_kernels_cuda.py -q
+Every test here is marked ``cuda`` and skips where CUDA is missing.
+Tolerances: f32 2e-5 and bf16 2e-2 abs/rel, the reference's own forward
+tolerances (docs/attention_numerics_tpu.json ``tolerances``); the plain
+version runs with TF32 off.
+"""
+
+import pytest
+import torch
+
+from kokoro_tpu_torch.ops import fused_attention as port
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(B, T, H, Dh, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(B, T, H * Dh, generator=g).to(device, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 63, 128, 200, 432])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
+def test_packed_attention_kernel_matches_plain(cuda, dtype, Dh, T, causal):
+    B, H = 3, 2
+    q, k, v = _qkv(B, T, H, Dh, dtype, cuda, seed=T + Dh)
+    lens = torch.tensor([max(1, T // 3), T, max(1, T - 5)], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=causal,
+              kv_lengths=None if causal else lens)
+    before = port.total_launches()
+    out = port.packed_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert port.total_launches() == before + 1
+    ref = port.packed_attention_reference(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_all_masked_rows_average_uniformly(cuda):
+    q, k, v = _qkv(2, 100, 1, 64, torch.float32, cuda, seed=5)
+    lens = torch.tensor([0, 100], dtype=torch.int32, device=cuda)
+    out = port.packed_attention(q, k, v, num_heads=1, scale=0.125, causal=False, kv_lengths=lens)
+    ref = port.packed_attention_reference(q, k, v, num_heads=1, scale=0.125, causal=False,
+                                          kv_lengths=lens)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_refuses_non_contiguous(cuda):
+    q = torch.zeros(1, 128, 256, device=cuda)[:, :, :128]
+    with pytest.raises(ValueError, match="contiguous"):
+        port.packed_attention_causal(q, q, q, num_heads=2, scale=1.0)
