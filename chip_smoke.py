@@ -7,23 +7,46 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source.
-2. kernels: each kernel against its plain PyTorch version on the card (TF32
-   off for the plain version), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
-   reference's own forward tolerances; then times at the decoder's shape
-   B=32, T=512, H=8, Dh=64: kernel, plain version, one
-   ``scaled_dot_product_attention`` call (timed as a yardstick only; the
-   port never calls it) and the bound.
-3. forward: the teacher-forced forward at full width (hidden 512, 6+6
+2. kernels: each forward kernel against its plain PyTorch version on the
+   card (TF32 off for the plain version), f32 at 2e-5 and bf16 at 2e-2
+   abs/rel, the reference's own forward tolerances.
+3. kernel_times: at the decoder's shape B=32, T=512, H=8, Dh=64, each kernel
+   (forward at rates 0 and 0.1, backward at rates 0 and 0.1), its plain
+   version, one PyTorch library call (``scaled_dot_product_attention``
+   forward; for the backward, SDPA forward+backward through autograd minus
+   its forward; timed as a yardstick only, the port never calls it) and the
+   bound.
+4. kernels_bwd: the forward kernels with in-kernel dropout (rate 0.1) and
+   the backward kernels (rates 0 and 0.1) against the plain forward and
+   backward with the same seed, f32 and bf16, a kv-length row of length 0
+   included; gradients at the reference's f32 1e-4 / bf16 3e-2.
+5. dropout: the kernels' dropout semantics, measured as
+   ``scripts/verify_attention_numerics.py`` measures the TPU's: identity-block
+   probes read out the forward's and the backward's dropped weights; keep
+   rate, survivor scale, fwd/bwd mask agreement, determinism per seed, and a
+   finite-difference check along the gradient.
+6. forward: the teacher-forced forward at full width (hidden 512, 6+6
    layers, 8 heads, ff 1536, vocab 59; B=16, T=512, L=128, given durations),
-   kernel path against plain path, f32 and bf16; each kernel must be launched
-   exactly once per decoder layer per forward.
-4. serve: a full-width model directory with seeded random weights and the
+   kernel path against plain path, f32 and bf16; each forward kernel must be
+   launched exactly once per decoder layer per forward, the backward ones
+   never.
+7. serve: a full-width model directory with seeded random weights and the
    committed HiFi-GAN (docs/hifigan_v1_int8.npz), ``TTSServer`` on
    127.0.0.1, five concurrent Russian texts (two phoneme buckets); every
    answer a WAV of (the frames the pipeline reports) x 256 samples, fewer
    dispatches than requests.
+8. train: the training step at full width, B=32, L=96, T=512 (``bench.py``'s
+   compute-only shape, seeded synthetic batch).  (a) kernel path against
+   plain path: f32, TF32 off, every dropout rate 0, SpecAugment off, 3 steps
+   from one init; per-step loss and gradient norm and what the steps moved
+   the parameters must agree, and a control run with a planted dK fault must
+   fail those limits.  (b) the throughput preset (bf16 compute on f32 parameters,
+   attention dropout in the kernels, SpecAugment, no remat): 2 warm-up and
+   10 timed steps, every loss finite, every step taken, each of the four
+   kernel wrappers launched exactly once per decoder layer per step.
 
-Then the kernels' JSON line, the ``nvidia-smi`` line and, last,
+Then the script's wall time, the kernels' JSON line (launches: one bf16
+preset training step), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls back
 to the CPU or to a plain version.  Exits non-zero without CUDA or without the
 repository around it.
@@ -33,6 +56,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,6 +70,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
             "float32": 67e12}      # f32 outside the tensor cores (no TF32)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # docs/attention_numerics_tpu.json
+DROPOUT_LIMITS = {"keep_rate_abs": 0.01, "scale_rel": 1e-3, "fd_rel": 2e-3}  # the same file
+# the rate the reference's numerics artifact checks its kernel's dropout at
+# (``dropout_semantics``); the preset trains the decoder at decoder_dropout 0.2
+RATE = 0.1
 # full-width forward, kernel path against plain path (mel and stop logits on
 # valid frames): f32 at the port's CPU forward parity tolerance (1e-4,
 # tests/test_torch_model.py); bf16 at 0.1, twice the largest difference read
@@ -100,6 +129,28 @@ def attention_bound_ms(B, T, H, Dh, dtype_name, causal, lens) -> tuple[float, st
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_bwd_bound_ms(B, T, H, Dh, dtype_name, causal, lens) -> tuple[float, str]:
+    """Least time for the backward this input needs: q, k, v, o, dO and the
+    f32 lse read once, dq, dk, dv written once; 10*Dh operations per visible
+    (query, key) pair (S, dPd, dV, dQ, dK: five products of 2*Dh)."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = 8 * B * T * H * Dh * elem + 4 * B * H * T + (0 if causal else 4 * B)
+    pairs = B * T * (T + 1) // 2 if causal else T * sum(min(x, T) if x > 0 else T for x in lens)
+    ops = 10 * Dh * H * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def close_or_raise(what, out, ref, tol):
+    import torch
+
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: kernel disagrees with plain version, max abs err {err}")
+    return err
+
+
 # ---------------------------------------------------------------------------
 def phase_device():
     from kokoro_tpu_torch.ops import kernels
@@ -143,7 +194,7 @@ def phase_kernels():
         for B, T, Dh in shapes:
             q, k, v = qkv(B, T, H, Dh, dtype)
             lens = torch.tensor([T, T - 37, T // 2, 1] * (B // 4), dtype=torch.int32, device=dev)
-            for kern in fa.KERNELS:
+            for kern in fa.FWD_KERNELS:
                 kw = dict(num_heads=H, scale=Dh ** -0.5,
                           kv_lengths=None if kern.causal else lens)
                 out = kern(q, k, v, **kw)
@@ -172,7 +223,7 @@ def phase_kernels():
         q, k, v = qkv(B, T, H, Dh, dtype)
         qh, kh, vh = (x.view(B, T, H, Dh).transpose(1, 2) for x in (q, k, v))
         keep = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        for kern in fa.KERNELS:
+        for kern in fa.FWD_KERNELS:
             kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if kern.causal else lens)
             out = kern(q, k, v, **kw)
             ref = fa.packed_attention_reference(q, k, v, causal=kern.causal, **kw)
@@ -192,9 +243,183 @@ def phase_kernels():
                 "library_ms": cuda_time_ms(lib),
                 "bound_ms": bound, "bound_by": bound_by,
             }
+            drop = dict(kw, dropout_rate=RATE, seed=11)
+            timings[(kern.name, dname)]["ms_rate_0.1"] = cuda_time_ms(lambda: kern(q, k, v, **drop))
+        timings.update(backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv))
     emit({"phase": "kernel_times", "shape": "B=32 T=512 H=8 Dh=64",
           "kv_lengths": "512 - 8*b", "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
     return timings
+
+
+def backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv):
+    """The backward kernels at rates 0 and 0.1, their plain version, and
+    SDPA's backward (forward+backward through autograd minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[1]
+    q, k, v = qkv(B, T, H, Dh, dtype)
+    do = qkv(B, T, H, Dh, dtype)[0]
+    heads = [x.view(B, T, H, Dh).transpose(1, 2).contiguous().requires_grad_(True)
+             for x in (q, k, v)]
+    do_h = do.view(B, T, H, Dh).transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    out = {}
+    for kern in fa.BWD_KERNELS:
+        fwd = fa.packed_attention_causal if kern.causal else fa.packed_attention_kvlen
+        kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if kern.causal else lens)
+        o, lse = fwd(q, k, v, return_lse=True, **kw)
+        grads = kern(q, k, v, o, do, lse, **kw)
+        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=kern.causal, **kw)
+        err = max(close_or_raise(f"{kern.name} {dname} d{n}", a, b, GRAD_TOL[dname])
+                  for n, a, b in zip("qkv", grads, ref))
+        sdpa_kw = dict(is_causal=True) if kern.causal else dict(attn_mask=mask)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*heads, scale=Dh ** -0.5, **sdpa_kw)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), heads, do_h)
+
+        bound, bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, kern.causal, lens_list)
+        row = {
+            "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: kern(q, k, v, o, do, lse, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+                q, k, v, do, causal=kern.causal, **kw), iters=5),
+            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - cuda_time_ms(sdpa_fwd),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        drop = dict(kw, dropout_rate=RATE, seed=11)
+        o, lse = fwd(q, k, v, return_lse=True, **drop)
+        row["ms_rate_0.1"] = cuda_time_ms(lambda: kern(q, k, v, o, do, lse, **drop))
+        row["plain_ms_rate_0.1"] = cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+            q, k, v, do, causal=kern.causal, **drop), iters=3)
+        out[(kern.name, dname)] = row
+    return out
+
+
+def phase_kernels_bwd():
+    """Forward at rate 0.1 and backward at rates 0 and 0.1, kernel against
+    plain version with the same seed, over the bucket ladder."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    H = 8
+    shapes = [(4, T, Dh) for Dh in (64, 128) for T in (128, 432, 512, 848, 896)]
+    shapes.append((32, 512, 64))
+    worst, checks = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for B, T, Dh in shapes:
+            q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            lens = torch.tensor([T, T - 37, T // 2, 0] * (B // 4), dtype=torch.int32, device=dev)
+            for fwd, bwd in zip(fa.FWD_KERNELS, fa.BWD_KERNELS):
+                for rate in (0.0, RATE):
+                    kw = dict(num_heads=H, scale=Dh ** -0.5,
+                              kv_lengths=None if fwd.causal else lens,
+                              dropout_rate=rate, seed=1000 + T if rate else None)
+                    o, lse = fwd(q, k, v, return_lse=True, **kw)
+                    grads = bwd(q, k, v, o, do, lse, **kw)
+                    torch.cuda.synchronize()
+                    where = f"{bwd.name} {dname} B={B} T={T} Dh={Dh} rate={rate}"
+                    errs = [close_or_raise(where + " o", o, fa.packed_attention_reference(
+                        q, k, v, causal=fwd.causal, **kw), TOL[dname])]
+                    ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=fwd.causal, **kw)
+                    errs += [close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                             for n, a, b in zip("qkv", grads, ref)]
+                    key = f"{bwd.name}/{dname}/rate={rate}"
+                    worst[key] = max(worst.get(key, 0.0), *errs[1:])
+                    worst[f"{fwd.name}/{dname}/rate={rate}"] = max(
+                        worst.get(f"{fwd.name}/{dname}/rate={rate}", 0.0), errs[0])
+                    checks += 1
+    emit({"phase": "kernels_bwd", "checks": checks,
+          "shapes": "H=8; B=4 Dh{64,128} T{128,432,512,848,896}; B=32 T=512 Dh=64; "
+                    "kv_lengths [T, T-37, T/2, 0]", "rates": [0.0, RATE],
+          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
+
+
+def phase_dropout():
+    """The kernels' dropout semantics, as scripts/verify_attention_numerics.py
+    measures the TPU's: f32, causal, B=2, H=4, T=128, Dh=64."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    B, H, T, Dh, keep = 2, 4, 128, 64, 1.0 - RATE
+    q, k = (0.1 * torch.randn(B, T, H * Dh, generator=gen).to(dev) for _ in range(2))
+    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=True)
+
+    def eye_block(j0):
+        e = torch.zeros(T, Dh, device=dev)
+        e[j0:j0 + Dh] = torch.eye(Dh, device=dev)
+        return e[None, :, None, :].expand(B, T, H, Dh).reshape(B, T, H * Dh).contiguous()
+
+    def pd_forward(seed, rate=RATE):
+        cols = [fa.packed_attention(q, k, eye_block(j0), dropout_rate=rate, seed=seed, **kw)
+                for j0 in range(0, T, Dh)]
+        return torch.cat([c.view(B, T, H, Dh) for c in cols], -1).permute(0, 2, 1, 3)
+
+    def pd_backward(seed):
+        vx = torch.randn(B, T, H * Dh, generator=gen).to(dev).requires_grad_(True)
+        rows = []
+        for j0 in range(0, T, Dh):
+            out = fa.packed_attention(q, k, vx, dropout_rate=RATE, seed=seed, **kw)
+            (dv,) = torch.autograd.grad(out, vx, eye_block(j0))
+            rows.append(dv.view(B, T, H, Dh).permute(0, 2, 3, 1))  # [b, h, row, key]
+        return torch.cat(rows, 2)
+
+    seed = 41
+    pd_fwd, pd_fwd2, pd_other = pd_forward(seed), pd_forward(seed), pd_forward(seed + 1)
+    p_det = pd_forward(None, rate=0.0)
+    pd_bwd = pd_backward(seed)
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev)).expand_as(pd_fwd)
+    mask_fwd, mask_bwd = pd_fwd != 0, pd_bwd != 0
+    disagree = int((causal & (mask_fwd != mask_bwd)).sum())
+    kept = causal & mask_fwd & mask_bwd
+    pd_rel = ((pd_fwd - pd_bwd).abs()[kept] / pd_fwd.abs()[kept].clamp(min=1e-12)).max().item()
+    keep_hat = mask_fwd[causal].float().mean().item()
+    sel = kept & (p_det > 1e-8)
+    scale_err = ((pd_fwd[sel] - p_det[sel] / keep).abs() / (p_det[sel] / keep)).max().item()
+    # finite difference along the gradient, true f32
+    qs, ks, vs = (torch.randn(1, 128, 2 * 64, generator=gen).to(dev) for _ in range(3))
+    fkw = dict(num_heads=2, scale=0.125, dropout_rate=RATE, seed=55)
+
+    def f(qq):
+        return (fa.packed_attention(qq, ks, vs, **fkw) ** 2).sum()
+
+    leaf = qs.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(f(leaf), leaf)
+    gnorm = g.norm().item()
+    d, eps = g / gnorm, 1e-2
+    with torch.no_grad():
+        fd = (f(qs + eps * d).item() - f(qs - eps * d).item()) / (2 * eps)
+    fd_rel = abs(fd - gnorm) / max(abs(fd), 1e-12)
+    result = {
+        "phase": "dropout", "rate": RATE, "keep_rate_observed": keep_hat,
+        "keep_rate_abs_err": abs(keep_hat - keep),
+        "surviving_weight_scale_max_rel_err": scale_err,
+        "mask_fwd_bwd_disagreements": disagree, "mask_positions_checked": int(causal.sum()),
+        "pd_fwd_bwd_max_rel_err": pd_rel, "grad_fd_rel_err": fd_rel,
+        "same_seed_deterministic": bool(torch.equal(pd_fwd, pd_fwd2)),
+        "other_seed_differs": bool(not torch.equal(mask_fwd, pd_other != 0)),
+        "limits": DROPOUT_LIMITS,
+    }
+    emit(result)
+    if not (result["keep_rate_abs_err"] <= DROPOUT_LIMITS["keep_rate_abs"]
+            and scale_err <= DROPOUT_LIMITS["scale_rel"] and disagree == 0
+            and fd_rel <= DROPOUT_LIMITS["fd_rel"] and result["same_seed_deterministic"]
+            and result["other_seed_differs"]):
+        raise AssertionError(f"dropout semantics outside the limits: {result}")
 
 
 def phase_forward():
@@ -228,10 +453,11 @@ def phase_forward():
             out_k = m_fused(**inputs)
             torch.cuda.synchronize()
             counts[dname] = {kern.name: kern.launches for kern in fa.KERNELS}
-            for name, launches in counts[dname].items():
-                if launches != n_layers:
-                    raise AssertionError(f"{name}: {launches} launches in one "
-                                         f"forward, expected {n_layers}")
+            for kern in fa.KERNELS:  # no gradient: the backward kernels stay idle
+                expected = n_layers if kern in fa.FWD_KERNELS else 0
+                if counts[dname][kern.name] != expected:
+                    raise AssertionError(f"{kern.name}: {counts[dname][kern.name]} launches "
+                                         f"in one forward, expected {expected}")
             out_p = m_plain(**inputs)
             for key in ("predicted_mel", "predicted_stop_logits"):
                 if not torch.isfinite(out_k[key]).all():
@@ -344,6 +570,166 @@ def phase_serve():
           "kernel_launches": fa.total_launches() - launches0})
 
 
+# kernel path against plain path, full-width f32 training.  Each tensor's
+# gradient at the init, the per-step loss and gradient norm over 3 steps, and
+# what the 3 steps moved the parameters (d = after - init; Adam moves a
+# weight by about lr whatever its gradient's size, so raw values say little),
+# each as |kernel - plain| / |plain|, per tensor ("leaf") and over all
+# tensors.  Limits from the readings on the H100 (PERF.md), sound run / the
+# planted dK below: grad leaf 7.9e-4 / 4.7e-3, grad all 9.4e-5 / 1.2e-4,
+# moved leaf at most 1.3e-2 / 2.3e-2, moved all at most 1.9e-3 / 2.4e-3.
+# The gradient per tensor catches the planted fault; the moved-parameter
+# limits catch an update that is missed (reads 1) or wrong-signed (reads 2)
+TRAIN_LIMIT = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_leaf_rel": 2e-3,
+               "grad_all_rel": 3e-4, "moved_leaf_rel": 3e-2, "moved_all_rel": 5e-3}
+# the control: the causal backward's dK plus Gaussian noise of this share of
+# its RMS, which the limits must catch
+PLANTED_DK_NOISE = 1e-2
+
+
+class PlantedDk:
+    """A backward wrapper whose dK carries seeded noise (the control)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls = kernel, 0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        dq, dk, dv = self.kernel(*args, **kwargs)
+        gen = torch.Generator(device=dk.device).manual_seed(self.calls)
+        self.calls += 1
+        noise = torch.randn(dk.shape, generator=gen, device=dk.device)
+        rms = dk.float().pow(2).mean().sqrt()
+        return dq, (dk.float() + PLANTED_DK_NOISE * rms * noise).to(dk.dtype), dv
+
+
+def relative_gap(ref, other):
+    """Per tensor and over all tensors, |other - ref| / |ref|: (the worst
+    tensor's value, its name, the value over all tensors)."""
+    if set(ref) != set(other):
+        raise AssertionError(f"different tensors: {sorted(set(ref) ^ set(other))}")
+    worst, name, diff2, size2 = 0.0, None, 0.0, 0.0
+    for n, r in ref.items():
+        diff, size = (other[n] - r).norm().item(), r.norm().item()
+        leaf = diff / size if size > 0 else (0.0 if diff == 0 else math.inf)
+        if name is None or leaf > worst:
+            worst, name = leaf, n
+        diff2, size2 = diff2 + diff * diff, size2 + size * size
+    return worst, name, math.sqrt(diff2 / size2)
+
+
+def phase_train():
+    """(a) kernel path vs plain path, f32, 3 steps; (b) the throughput preset
+    in bf16, 2 warm-up + 10 timed steps.  Returns the launches of each kernel
+    wrapper in the last timed step (the main path's run)."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import preset_train_step, training_batch
+    from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.models.rng import Rng
+    from kokoro_tpu_torch.ops import fused_attention as fa
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import (
+        create_train_state, make_loss_fn, make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    B, L, T = 32, 96, 512
+    no_dropout = dict(encoder_dropout=0.0, decoder_dropout=0.0, decoder_input_dropout=0.0,
+                      variance_dropout=0.0, use_stochastic_depth=False)
+    cfg = TrainingConfig(compute_dtype="float32", gradient_checkpointing=False,
+                         use_spec_augment=False, warmup_steps=2)
+    init = KokoroModel(KokoroConfig(**no_dropout)).init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    batch = training_batch(KokoroConfig(), B, T, L, dev)
+    paths = {}
+    for name, flash in (("kernel", True), ("plain", False), ("planted_dk", True)):
+        model = KokoroModel(KokoroConfig(**no_dropout, use_flash_attention=flash))
+        model.load_state_dict(init)
+        state = create_train_state(model.to(dev), cfg, total_steps=20000)
+        step = make_train_step(cfg, build_preclip_norms(state.names, cfg), spec_augment=False)
+        params = dict(model.named_parameters())
+        launches0 = fa.total_launches()
+        real_bwd = fa.packed_attention_bwd_causal
+        if name == "planted_dk":
+            fa.packed_attention_bwd_causal = PlantedDk(real_bwd)
+        try:
+            total, _ = make_loss_fn(model, cfg, spec_augment=False)(
+                batch, Rng.from_generator(torch.Generator().manual_seed(0)))
+            grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+            grads = {n: g for n, g in zip(params, grads) if g is not None}
+            metrics = [step(state, batch, torch.Generator().manual_seed(i)) for i in range(3)]
+        finally:
+            fa.packed_attention_bwd_causal = real_bwd
+        torch.cuda.synchronize()
+        launched = fa.total_launches() - launches0
+        if (launched == 0) == flash:
+            raise AssertionError(f"{name} path launched {launched} kernels")
+        moved = {n: p.detach() - init[n].to(dev) for n, p in params.items()}
+        paths[name] = (metrics, grads, moved)
+        del model, state, step, params, total
+        torch.cuda.empty_cache()
+    mp, gp, dp = paths["plain"]
+    parity = {}
+    for name in ("kernel", "planted_dk"):
+        mk, gk, dk = paths[name]
+        grad_leaf, grad_name, grad_all = relative_gap(gp, gk)
+        moved_leaf, moved_name, moved_all = relative_gap(dp, dk)
+        parity[name] = {
+            "loss_rel": max(abs(a["total"] - b["total"]) / abs(b["total"])
+                            for a, b in zip(mk, mp)),
+            "grad_norm_rel": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                 for a, b in zip(mk, mp)),
+            "grad_leaf_rel": grad_leaf, "worst_grad": grad_name, "grad_all_rel": grad_all,
+            "moved_leaf_rel": moved_leaf, "worst_moved": moved_name,
+            "moved_all_rel": moved_all, "stepped": [m["stepped"] for m in mk]}
+    emit({"phase": "train_parity", "steps": 3, "limits": TRAIN_LIMIT, **parity,
+          "plain_path": [{k: m[k] for k in ("total", "grad_norm", "stepped")} for m in mp]})
+    del paths, gp, dp, gk, dk
+    torch.cuda.empty_cache()
+    sound, planted = parity["kernel"], parity["planted_dk"]
+    if not all(m["stepped"] == 1.0 for m in mp) or sound["stepped"] != [1.0] * 3 or any(
+            sound[k] > TRAIN_LIMIT[k] for k in TRAIN_LIMIT):
+        raise AssertionError(f"kernel path and plain path training disagree: {sound}")
+    if all(planted[k] <= TRAIN_LIMIT[k] for k in TRAIN_LIMIT):
+        raise AssertionError(f"the parity limits do not catch a planted dK fault: {planted}")
+
+    # (b) the preset
+    state, step, batch = preset_train_step(dev)
+    n_layers = state.model.config.n_decoder_layers
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for kern in fa.KERNELS:  # each step is a main-path run: counts from 0
+            kern.launches = 0
+        steps.append(step(state, batch, gen))
+        per_step.append({kern.name: kern.launches for kern in fa.KERNELS})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    for m, counts in zip(steps, per_step):
+        if not (all(math.isfinite(m[k]) for k in ("total", "grad_norm")) and m["stepped"] == 1.0):
+            raise AssertionError(f"preset step not finite or skipped: {m}")
+        if any(c != n_layers for c in counts.values()):
+            raise AssertionError(f"launches per step {counts}, expected {n_layers} each")
+    emit({"phase": "train", "preset": "get_high_performance_config (bf16 compute, f32 params, "
+          "attention dropout in the kernels, SpecAugment, no remat)",
+          "B": B, "L": L, "T": T, "timed_steps": 10, "ms_per_step": ms,
+          "mel_frames_per_s": B * T / (ms / 1e3),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_per_step": per_step[-1],
+          "losses": [m["total"] for m in steps], "grad_norms": [m["grad_norm"] for m in steps]})
+    del state, step
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
 def main() -> int:
     try:
         import torch
@@ -362,10 +748,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = phase_device()
     timings = phase_kernels()
-    counts = phase_forward()["bfloat16"]  # every number of the kernels line is bf16
+    phase_kernels_bwd()
+    phase_dropout()
+    phase_forward()
     phase_serve()
+    counts = phase_train()  # launches in one bf16 preset training step
     torch.cuda.synchronize()
 
     kernels = []
@@ -376,9 +766,11 @@ def main() -> int:
             "replaces": kern.replaces, "launches": counts[kern.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "dtype": "bfloat16",
-            "shape": "B=32 T=512 H=8 Dh=64",
+            "library_ms": r["library_ms"], "ms_rate_0.1": r["ms_rate_0.1"],
+            "dtype": "bfloat16", "shape": "B=32 T=512 H=8 Dh=64",
+            "launches_are": "per bf16 preset training step",
         })
+    emit({"wall_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ ff 1536, vocab 59) it profiles
 
 * the teacher-forced forward, kernel path, on the batch ``chip_smoke.py``
   drives (``teacher_forced_batch``: B=16, T=512, L=128), f32 and bf16;
+* the training step under the throughput preset
+  (``config.get_high_performance_config``: bf16 compute on f32 parameters,
+  attention-weight dropout in the packed kernels, SpecAugment, no remat) on
+  ``training_batch`` (B=32, L=96, T=512), which ``chip_smoke.py`` trains on;
 * AR decode steps (``KokoroModel.decode_step``) at B=1 and B=4 over a
   400-frame cache;
 * HiFi-GAN (committed universal-V1 weights) on 4 x 256 frames;
@@ -52,6 +56,40 @@ def teacher_forced_batch(cfg, B: int, T: int, L: int, device) -> dict:
         mel_padding_mask=torch.arange(T)[None, :] >= mel_len[:, None],
     )
     return {k: v.to(device) for k, v in batch.items()}
+
+
+def training_batch(cfg, B: int, T: int, L: int, device) -> dict:
+    """A seeded synthetic training batch of ``bench.py``'s compute-only
+    phase: every phoneme lasts T // L frames, every mel frame is valid, stop
+    targets zero."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    batch = dict(
+        phoneme_indices=torch.randint(1, cfg.vocab_size, (B, L), generator=g),
+        stress_indices=torch.randint(0, 3, (B, L), generator=g),
+        phoneme_durations=torch.full((B, L), T // L, dtype=torch.int32),
+        mel_specs=torch.randn(B, T, cfg.n_mels, generator=g),
+        pitch_targets=torch.rand(B, T, generator=g),
+        energy_targets=torch.rand(B, T, generator=g),
+        stop_token_targets=torch.zeros(B, T),
+        mel_lengths=torch.full((B,), T, dtype=torch.int32),
+        phoneme_lengths=torch.full((B,), L, dtype=torch.int32),
+    )
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def preset_train_step(device, seed: int = 0):
+    """(state, step, batch) of the throughput preset at full width on seeded
+    random weights, B=32, L=96, T=512."""
+    from kokoro_tpu_torch.config import get_high_performance_config
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    model_cfg, train_cfg = get_high_performance_config()
+    model = KokoroModel(model_cfg).init_weights(torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device), train_cfg, total_steps=20000)
+    step = make_train_step(train_cfg, build_preclip_norms(state.names, train_cfg))
+    return state, step, training_batch(model_cfg, train_cfg.batch_size, 512, 96, device)
 
 
 def _profile(name: str, fn, calls: int, **meta) -> None:
@@ -126,6 +164,13 @@ def main() -> int:
         voc = VocoderManager(vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"), device=dev)
         mels = (torch.rand(4, 256, 80, generator=g) * 9 - 9).numpy()
         _profile("hifigan", lambda: voc.mel_to_audio_batch(mels), 3, B=4, frames=256)
+    del model, voc
+    torch.cuda.empty_cache()
+    state, step, batch = preset_train_step(dev)
+    gen = torch.Generator().manual_seed(0)
+    B, T = batch["mel_specs"].shape[:2]
+    _profile("train_step", lambda: step(state, batch, gen), 5, dtype="bf16 compute, f32 params",
+             preset="get_high_performance_config", B=B, T=T, L=batch["phoneme_indices"].shape[1])
     return 0
 
 

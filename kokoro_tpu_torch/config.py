@@ -1,15 +1,16 @@
-"""Model and audio configuration of the port.
+"""Configuration of the port.
 
-The model fields of ``kokoro_tpu/config.py::TrainingConfig`` with the same
-names and defaults (the training, data and mesh fields come with the
-training slice).
+:class:`KokoroConfig` holds the model and audio fields of
+``kokoro_tpu/config.py::TrainingConfig``, :class:`TrainingConfig` the fields
+the training step reads, both with the reference's names and defaults (the
+data, mesh and TPU dispatch fields have no counterpart yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 
 @dataclass
@@ -58,3 +59,112 @@ class KokoroConfig:
         kw = {k: v for k, v in meta.items() if k in names}
         kw.update(overrides)
         return cls(**kw)
+
+
+@dataclass
+class TrainingConfig:
+    """The fields of ``kokoro_tpu/config.py::TrainingConfig`` that the
+    training step reads, with the same names and defaults (the model's own
+    fields are :class:`KokoroConfig`'s; the trainer loop's, data, mesh and
+    TPU dispatch fields have no counterpart here).  Gradient accumulation
+    follows the batch: a leading microbatch axis."""
+
+    num_epochs: int = 30
+    batch_size: int = 16
+    learning_rate: float = 5.0e-5
+
+    # LR schedule: linear warmup -> OneCycle cosine, or per-epoch warm restarts
+    use_onecycle_lr: bool = True
+    max_lr_multiplier: float = 1.0
+    pct_start: float = 0.20
+    use_warmup: bool = True
+    warmup_steps: int = 1200          # optimizer steps, not batches
+    warmup_start_lr_ratio: float = 0.01
+    lr_T_0: int = 20
+    lr_T_mult: int = 2
+    lr_eta_min: float = 1.0e-6
+
+    # per-group LR multipliers (the ten groups of training/optimizer.py)
+    encoder_lr_multiplier: float = 0.65
+    stop_head_lr_multiplier: float = 0.1
+    decoder_ffn_lr_multiplier: float = 0.30
+    decoder_attn_lr_multiplier: float = 0.15
+    variance_embedding_lr_multiplier: float = 0.15
+
+    # EMA: an update every N successful steps
+    ema_update_every: int = 1
+
+    # loss weights
+    duration_loss_weight: float = 0.35
+    stop_token_loss_weight: float = 0.010
+    pitch_loss_weight: float = 1.0
+    energy_loss_weight: float = 1.0
+    pitch_huber_delta: float = 0.05
+    energy_huber_delta: float = 0.05
+    duration_huber_delta: float = 1.0
+    stop_token_pos_weight: float = 17.0
+
+    # SpecAugment on the expanded encoder memory
+    use_spec_augment: bool = True
+    spec_augment_time_mask_max: int = 5
+    spec_augment_freq_mask_max: int = 3
+    spec_augment_num_time_masks: int = 1
+    spec_augment_num_freq_masks: int = 2
+
+    # gradient clipping and stability
+    max_grad_norm: float = 1.5
+    projection_spike_clip_norm: float = 20.0
+    attention_spike_clip_norm: float = 4.0
+    ffn_spike_clip_norm: float = 3.0
+    encoder_ffn_spike_clip_norm: float = 8.0
+    stop_head_spike_clip_norm: float = 0.5
+    dec_ffn_max_weight_norm: float = 95.0
+    grad_explosion_warmup_steps: int = 400
+    grad_explosion_warmup_floor: float = 8000.0
+    grad_explosion_min_ema_steps: int = 100
+    grad_explosion_ema_decay: float = 0.95
+    grad_explosion_ema_multiplier: float = 3.0
+    grad_explosion_final_floor: float = 1000.0
+    emergency_clip_norm: float = 0.3
+    stabilization_soft_frames: int = 1400
+    stabilization_max_duration: int = 150
+
+    # remat (torch.utils.checkpoint): decoder per layer, encoder in segments
+    gradient_checkpointing: bool = True
+    checkpoint_segments: int = 2
+
+    # optimizer
+    weight_decay: float = 0.04
+    ffn_weight_decay: float = 0.1
+    decoder_ffn_weight_decay: float = 0.35
+    adam_eps: float = 1e-8
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+
+    # dtype policy: parameters and optimizer in param_dtype, every
+    # Dense/Conv/Embed computes in compute_dtype (flax dtype/param_dtype)
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    def spec_augment_args(self) -> Dict[str, int]:
+        """The SpecAugment knobs as ``ops/specaugment.apply_spec_augment``
+        takes them."""
+        return dict(time_mask_max=self.spec_augment_time_mask_max,
+                    freq_mask_max=self.spec_augment_freq_mask_max,
+                    num_time_masks=self.spec_augment_num_time_masks,
+                    num_freq_masks=self.spec_augment_num_freq_masks)
+
+
+def get_high_performance_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
+    """The reference's throughput preset (``get_high_performance_config``):
+    bf16 compute on f32 parameters, no remat, B=32 (no accumulation: the
+    batch carries no microbatch axis), and the
+    decoder's attention through the packed kernels with attention-weight
+    dropout.  Returns ``(model config, training config)``; ``overrides`` go
+    to whichever of the two has the field."""
+    model_fields = {f.name for f in dataclasses.fields(KokoroConfig)}
+    model = dict(use_flash_attention=True, attention_weight_dropout=True)
+    train = dict(batch_size=32, gradient_checkpointing=False)
+    for key, value in overrides.items():
+        (model if key in model_fields else train)[key] = value
+    return KokoroConfig(**model), TrainingConfig(**train)

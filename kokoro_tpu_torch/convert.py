@@ -14,6 +14,9 @@ tree; the port itself reads only the ``.npz``).  The mapping:
 * Embed ``embedding`` and norm ``scale`` -> ``weight``; everything else keeps
   its name.
 
+:func:`train_state_from_flax` carries a whole training state across (params,
+AdamW moments and count, EMA, the step counters).
+
 A model directory holds ``model.pt`` (the state dict), ``metadata.json``
 (``{"model_metadata": {...}}`` with the keys of
 ``kokoro_tpu/training/checkpoint.py::build_model_metadata`` and the inference
@@ -120,3 +123,33 @@ def load_model_dir(path: str | Path) -> tuple[Dict[str, torch.Tensor], Dict[str,
     meta = json.loads((path / METADATA_FILE).read_text())["model_metadata"]
     state = torch.load(path / MODEL_FILE, map_location="cpu", weights_only=True)
     return state, meta
+
+
+def train_state_from_flax(
+    model: torch.nn.Module, config, total_steps: int, *,
+    params: Mapping[str, np.ndarray], mu: Mapping[str, np.ndarray],
+    nu: Mapping[str, np.ndarray], ema: Mapping[str, np.ndarray], count: int,
+    opt_step: int, ema_updates: int, grad_ema: float, grad_ema_steps: int,
+    skipped_steps: int,
+):
+    """The port's ``TrainState`` from the JAX package's ``TrainState``: its
+    params, ``FusedAdamWState`` (count, mu, nu), EMA params (each flattened
+    to ``/``-joined flax paths, as numpy) and its counters.  ``model`` takes
+    the params; ``config`` is the port's ``TrainingConfig``.  A state taken
+    mid-training (past warmup, explosion detector live) resumes exactly."""
+    from kokoro_tpu_torch.training.train_step import create_train_state
+
+    model.load_state_dict(kokoro_state_dict_from_flax(params), strict=True)
+    state = create_train_state(model, config, total_steps)
+    mu_t, nu_t, ema_t = (kokoro_state_dict_from_flax(x) for x in (mu, nu, ema))
+    opt = state.optimizer
+    with torch.no_grad():
+        for i, name in enumerate(opt.names):
+            opt.mu[i].copy_(mu_t[name])
+            opt.nu[i].copy_(nu_t[name])
+            state.ema[name].copy_(ema_t[name])
+    opt.count = int(count)
+    state.opt_step, state.ema_updates = int(opt_step), int(ema_updates)
+    state.grad_ema, state.grad_ema_steps = float(grad_ema), int(grad_ema_steps)
+    state.skipped_steps = int(skipped_steps)
+    return state

@@ -6,13 +6,17 @@
 //   K2  non-causal cross-attention     (causal = 0, keys at col >= kv_lengths[b]
 //                                        masked; q_len == kv_len)
 // on q, k, v, o of shape (B, T, H*Dh), heads packed last, float32 or bfloat16,
-// Dh in {64, 128}, any T >= 1.  Dropout is not implemented here (the wrapper
-// refuses rate > 0); it comes with the backward kernel.
+// Dh in {64, 128}, any T >= 1, with optional attention-weight dropout drawn in
+// the kernel (attention_common.cuh: Philox keyed on the call's seed).
 //
 // What it computes, per (b, h): S = Q K^T * scale in f32; masked logits are
 // -1e9 (not -inf), as in the reference, so a row whose keys are all masked
-// averages V uniformly; softmax in f32; P rounded to the input type before
-// P V (bf16: P rounded to bf16, products and sums in f32); O in the input type.
+// averages V uniformly; softmax in f32; dropped weights are 0 and kept ones
+// scaled by 1/keep; P rounded to the input type before P V (bf16: P rounded
+// to bf16, products and sums in f32); O in the input type.  With `lse`
+// given it also writes the f32 row log-sum-exp m + log(l) of the scaled,
+// masked logits, shape (B, H, T), which the backward kernels recompute P
+// from.
 //
 // What bounds it on an H100: at the decoder's shapes (B=32, T=512, H=8, Dh=64)
 // the call moves 4 * B*T*H*Dh elements (67 MB in bf16, about 20 us at
@@ -33,83 +37,28 @@
 // (T not a multiple of 64) is masked by bounds: rows and columns past T are
 // zero-filled on load, excluded from the softmax, and never stored.  The
 // kernel indexes the packed (B, T, H*Dh) layout directly, so no head
-// transpose exists.
+// transpose exists.  With dropout the CTA fills the key tile's keep flags in
+// shared memory while it loads K and V; the row sum l stays the sum of all
+// weights (dropout acts on the normalised P), the dropped weights leave the
+// P tile, and 1/keep joins 1/l at the end.  Rate 0 compiles the same code
+// without the flags (a template parameter).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // key columns per tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 4 columns of S
-constexpr float kMasked = -1e9f;
+using namespace kokoro_attn;
 
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
-// P in the input type before P V, as the reference casts its weights.
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// rows [row0, row0 + 64) of one head -> shared memory as f32, row stride
-// STRIDE; rows at or past row_end are zero.
-template <typename T, int DH, int STRIDE>
-__device__ __forceinline__ void load_tile(float* dst, const T* head, int row0,
-                                          int row_end, int D) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = DH / V;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * V;
-    float vals[V];
-    if (row0 + r < row_end) {
-      load16(head + (size_t)(row0 + r) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; i += 4) store4(dst + r * STRIDE + c + i, vals + i);
-  }
-}
-
-template <typename T, int DH>
+template <typename T, int DH, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
 packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse,
                             const int* __restrict__ kv_lengths, int T_len,
-                            int H, float scale, int causal) {
+                            int H, float scale, int causal, uint32_t threshold,
+                            float inv_keep, uint32_t seed_lo, uint32_t seed_hi) {
   constexpr int QS = DH + 4;    // padded strides: conflict-free float4 reads
   constexpr int KS = DH + 4;
   constexpr int VS = DH;
@@ -120,12 +69,14 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Qs + kBQ * QS;
   float* Vs = Ks + kBK * KS;
   float* Ps = Vs + kBK * VS;
+  uint8_t* keep = reinterpret_cast<uint8_t*>(Ps + kBQ * PS);  // DROPOUT only
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = H * DH;
   const size_t base = (size_t)b * T_len * D + (size_t)h * DH;
+  const uint32_t bh = (uint32_t)(b * H + h);
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
@@ -151,35 +102,14 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's P V is done with Ks, Vs, Ps
+    __syncthreads();  // the previous tile's P V is done with Ks, Vs, Ps, keep
     load_tile<T, DH, KS>(Ks, k + base, k0, T_len, D);
     load_tile<T, DH, VS>(Vs, v + base, k0, T_len, D);
+    if (DROPOUT) dropout_tile(keep, bh, q0, k0, threshold, seed_lo, seed_hi);
     __syncthreads();
 
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * QS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * KS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
+    dot_tile<DH, QS, KS>(Qs, Ks, ty, tx, s);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -209,7 +139,9 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         row_sum += p;
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = round_to(p, q);
+        float kept = round_to(p, q);
+        if (DROPOUT && !keep[(ty * 4 + i) * 64 + tx + 16 * j]) kept = 0.f;
+        Ps[(ty * 4 + i) * PS + tx + 16 * j] = kept;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -250,7 +182,7 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= T_len) continue;
-    const float inv = 1.f / l[i];
+    const float inv = (DROPOUT ? inv_keep : 1.f) / l[i];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float out[4];
@@ -258,52 +190,78 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) out[e] = acc[i][4 * g + e] * inv;
       store4(o + base + (size_t)row * D + 64 * g + tx * 4, out);
     }
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * T_len + row] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <typename T, int DH, bool DROPOUT>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* kv_lengths, int B, int T_len, int H, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, uint32_t threshold, float inv_keep,
+                   unsigned long long seed, cudaStream_t stream) {
   constexpr size_t smem =
-      sizeof(float) * (kBQ * (DH + 4) + kBK * (DH + 4) + kBK * DH + kBQ * (kBK + 4));
+      sizeof(float) * (kBQ * (DH + 4) + kBK * (DH + 4) + kBK * DH + kBQ * (kBK + 4)) +
+      (DROPOUT ? kBQ * kBK : 0);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        packed_attention_fwd_kernel<T, DH>,
+        packed_attention_fwd_kernel<T, DH, DROPOUT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
-  packed_attention_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  packed_attention_fwd_kernel<T, DH, DROPOUT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_lengths, T_len, H,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_lengths, T_len, H,
+      scale, causal, threshold, inv_keep, (uint32_t)(seed & 0xffffffffull),
+      (uint32_t)(seed >> 32));
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_rate(const void* q, const void* k, const void* v, void* o, float* lse,
+                        const int* kv_lengths, int B, int T_len, int H, float scale,
+                        int causal, int dropout, uint32_t threshold, float inv_keep,
+                        unsigned long long seed, cudaStream_t s) {
+  if (dropout)
+    return launch<T, DH, true>(q, k, v, o, lse, kv_lengths, B, T_len, H, scale, causal,
+                               threshold, inv_keep, seed, s);
+  return launch<T, DH, false>(q, k, v, o, lse, kv_lengths, B, T_len, H, scale, causal,
+                              threshold, inv_keep, seed, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_lengths: NULL or B int32 on the
-// device.  Returns a cudaError_t (0 on success); launches on `stream` and does
-// not synchronise.
+// device.  lse: NULL or B*H*T float32 on the device.  dropout: 0 or 1; a
+// weight is kept iff its Philox word is below `threshold`, and kept weights
+// are scaled by inv_keep.  Returns a cudaError_t (0 on success); launches on
+// `stream` and does not synchronise.
 extern "C" int kokoro_packed_attention_fwd(const void* q, const void* k,
-                                           const void* v, void* o,
+                                           const void* v, void* o, float* lse,
                                            const int* kv_lengths, int B,
                                            int T_len, int H, int Dh,
                                            float scale, int causal, int dtype,
+                                           int dropout, uint32_t threshold,
+                                           float inv_keep, unsigned long long seed,
                                            void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && Dh == 64)
-    return (int)launch<float, 64>(q, k, v, o, kv_lengths, B, T_len, H, scale, causal, s);
+    return (int)launch_rate<float, 64>(q, k, v, o, lse, kv_lengths, B, T_len, H, scale,
+                                       causal, dropout, threshold, inv_keep, seed, s);
   if (dtype == 0 && Dh == 128)
-    return (int)launch<float, 128>(q, k, v, o, kv_lengths, B, T_len, H, scale, causal, s);
+    return (int)launch_rate<float, 128>(q, k, v, o, lse, kv_lengths, B, T_len, H, scale,
+                                        causal, dropout, threshold, inv_keep, seed, s);
   if (dtype == 1 && Dh == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, kv_lengths, B, T_len, H, scale, causal, s);
+    return (int)launch_rate<__nv_bfloat16, 64>(q, k, v, o, lse, kv_lengths, B, T_len, H,
+                                               scale, causal, dropout, threshold,
+                                               inv_keep, seed, s);
   if (dtype == 1 && Dh == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, kv_lengths, B, T_len, H, scale, causal, s);
+    return (int)launch_rate<__nv_bfloat16, 128>(q, k, v, o, lse, kv_lengths, B, T_len, H,
+                                                scale, causal, dropout, threshold,
+                                                inv_keep, seed, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,10 +15,18 @@ Port of ``kokoro_tpu/models/blocks.py``.  What must match the flax modules:
 
 Attention routes: full-sequence decoder self-attention (causal) and
 cross-attention (q_len == kv_len) go through the packed dispatcher
-(``ops/fused_attention.py``) when ``use_flash`` is set; everything else (the
-encoder, the cached decode step, precomputed cross K/V) is plain
-matmul/softmax, as the JAX package leaves it to XLA.  KV caches are
-preallocated ``(B, H, S, Dh)`` tensors updated in place.
+(``ops/fused_attention.py``, differentiable, with in-kernel dropout) when
+``use_flash`` is set; everything else (the encoder, the cached decode step,
+precomputed cross K/V) is plain matmul/softmax, as the JAX package leaves it
+to XLA.  KV caches are preallocated ``(B, H, S, Dh)`` tensors updated in
+place.
+
+Training: every random draw (dropout, stochastic depth, the kernels'
+attention dropout) comes from the ``rng`` argument (``models/rng.py``), one
+named child per site; the global RNG is never read.  :class:`Linear` and
+:class:`Embedding` compute in their ``compute_dtype`` when it is set (flax's
+``dtype`` over ``param_dtype``: input and weight are cast, the f32 parameters
+keep the gradient); the norms keep f32 statistics and f32 scales.
 """
 
 from __future__ import annotations
@@ -31,9 +39,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from kokoro_tpu_torch.models.positional import apply_rope, apply_rope_heads_last
+from kokoro_tpu_torch.models.rng import Rng, attention_seed, drop_path, dropout, fold
 from kokoro_tpu_torch.ops.fused_attention import SUPPORTED_HEAD_DIMS, packed_attention
 
 NEG_INF = -1e9
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (None: the weight's
+    dtype), as a flax ``Dense(dtype=..., param_dtype=...)`` does."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose table is read in ``compute_dtype`` (flax
+    ``Embed(dtype=...)``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight.to(self.compute_dtype or self.weight.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -67,15 +98,6 @@ class RMSNorm(nn.Module):
         return (x32 * (torch.rsqrt(var + self.eps) * self.weight.float())).to(x.dtype)
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Per-sample stochastic depth."""
-    if rate == 0.0 or not training:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def alibi_slopes(num_heads: int) -> torch.Tensor:
     return torch.tensor(
         [2.0 ** (-8.0 * (i + 1) / num_heads) for i in range(num_heads)], dtype=torch.float32
@@ -104,15 +126,14 @@ class MultiHeadAttention(nn.Module):
         self.use_alibi = use_alibi
         self.qk_norm = qk_norm
         self.use_flash = use_flash
-        self.w_q = nn.Linear(d_model, d_model, bias=False)
-        self.w_k = nn.Linear(d_model, d_model, bias=False)
-        self.w_v = nn.Linear(d_model, d_model, bias=False)
-        self.w_o = nn.Linear(d_model, d_model, bias=True)
+        self.w_q = Linear(d_model, d_model, bias=False)
+        self.w_k = Linear(d_model, d_model, bias=False)
+        self.w_v = Linear(d_model, d_model, bias=False)
+        self.w_o = Linear(d_model, d_model, bias=True)
         if qk_norm:
             self.q_norm = RMSNorm(self.head_dim)
             self.k_norm = RMSNorm(self.head_dim)
             self.v_norm = RMSNorm(self.head_dim)
-        self.attn_dropout = nn.Dropout(dropout)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
@@ -127,7 +148,7 @@ class MultiHeadAttention(nn.Module):
         v = self._norm("v_norm", self._heads(self.w_v(memory)))
         return k, v
 
-    def _packed(self, query, key, key_padding_mask, causal, rate):
+    def _packed(self, query, key, key_padding_mask, causal, rate, rng):
         """Heads-last packed projections -> the packed dispatcher -> w_o; no
         head transpose is ever materialised."""
         B, T, _ = query.shape
@@ -137,7 +158,8 @@ class MultiHeadAttention(nn.Module):
             h = self._norm(norm, lin(x).reshape(B, T, H, Dh))
             if self.use_rope and rope_pos is not None:
                 h = apply_rope_heads_last(h, rope_pos)
-            return h.reshape(B, T, self.d_model).contiguous()
+            # the projections' compute dtype, as the reference's astype(dtype)
+            return h.reshape(B, T, self.d_model).to(lin.compute_dtype or h.dtype).contiguous()
 
         if causal:
             pos = torch.arange(T, device=query.device)
@@ -155,7 +177,7 @@ class MultiHeadAttention(nn.Module):
             )
         out = packed_attention(
             q, k, v, num_heads=H, scale=1.0 / math.sqrt(Dh), causal=causal,
-            kv_lengths=kv_lens, dropout_rate=rate,
+            kv_lengths=kv_lens, dropout_rate=rate, seed=attention_seed(rng, rate),
         )
         return self.w_o(out)
 
@@ -165,6 +187,7 @@ class MultiHeadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
         kv_cache: Optional[dict] = None,
         precomputed_kv: Optional[tuple] = None,
+        rng: Optional[Rng] = None,
     ):
         B, Tq, _ = query.shape
         rate = self.dropout if self.training else 0.0
@@ -175,13 +198,13 @@ class MultiHeadAttention(nn.Module):
         # causal self-attention needs no key mask under suffix padding: a
         # padded key is visible only to padded queries, masked downstream
         if full_seq and causal and key is None and value is None:
-            return self._packed(query, None, None, True, rate), None
+            return self._packed(query, None, None, True, rate, rng), None
         if (
             full_seq and not causal and key is not None
             and (value is None or value is key) and not self.use_rope
             and Tq == key.shape[1]
         ):
-            return self._packed(query, key, key_padding_mask, False, rate), None
+            return self._packed(query, key, key_padding_mask, False, rate, rng), None
 
         q = self._norm("q_norm", self._heads(self.w_q(query)))
         new_cache = None
@@ -235,7 +258,8 @@ class MultiHeadAttention(nn.Module):
             logits = torch.where(mask[None, None], logits, neg)
         if key_padding_mask is not None:
             logits = torch.where(key_padding_mask[:, None, None, :].to(torch.bool), neg, logits)
-        weights = self.attn_dropout(torch.softmax(logits, dim=-1).to(query.dtype))
+        weights = dropout(torch.softmax(logits, dim=-1).to(query.dtype), self.dropout, rng,
+                          self.training)
         out = torch.matmul(weights, v.to(weights.dtype))
         out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
         return self.w_o(out), new_cache
@@ -248,17 +272,19 @@ class GLUFeedForward(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int, dropout: float = 0.1,
                  use_output_norm: bool = False):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, dim_feedforward * 2)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward * 2)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.output_norm = RMSNorm(d_model) if use_output_norm else None
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[Rng] = None) -> torch.Tensor:
         gate, linear = self.linear1(x).chunk(2, dim=-1)
-        h = self.linear2(self.dropout(F.gelu(gate, approximate="tanh") * linear))
+        h = dropout(F.gelu(gate, approximate="tanh") * linear, self.dropout,
+                    fold(rng, "dropout_0"), self.training)
+        h = self.linear2(h)
         if self.output_norm is not None:
             h = self.output_norm(h)
-        return self.dropout(h)
+        return dropout(h, self.dropout, fold(rng, "dropout_1"), self.training)
 
 
 class EncoderBlock(nn.Module):
@@ -279,13 +305,19 @@ class EncoderBlock(nn.Module):
         self.norm2 = LayerNorm(d_model)
         self.ff = GLUFeedForward(d_model, dim_feedforward, dropout,
                                  use_output_norm=ffn_output_norm)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None):
-        attn_out, _ = self.self_attn(self.norm1(x), key_padding_mask=padding_mask)
-        x = x + self.dropout(drop_path(attn_out, self.drop_path_rate, self.training))
-        ff_out = self.ff(self.norm2(x))
-        return x + self.dropout(drop_path(ff_out, self.drop_path_rate, self.training))
+    def _residual(self, out, i, rng):
+        out = drop_path(out, self.drop_path_rate, fold(rng, f"drop_path_{i}"), self.training)
+        return dropout(out, self.dropout, fold(rng, f"dropout_{i}"), self.training)
+
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                rng: Optional[Rng] = None):
+        attn_out, _ = self.self_attn(self.norm1(x), key_padding_mask=padding_mask,
+                                     rng=fold(rng, "self_attn"))
+        x = x + self._residual(attn_out, 0, rng)
+        ff_out = self.ff(self.norm2(x), rng=fold(rng, "ff"))
+        return x + self._residual(ff_out, 1, rng)
 
 
 class DecoderBlock(nn.Module):
@@ -312,29 +344,31 @@ class DecoderBlock(nn.Module):
         )
         self.ff = GLUFeedForward(d_model, dim_feedforward, dropout,
                                  use_output_norm=ffn_output_norm)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
+
+    _residual = EncoderBlock._residual
 
     def forward(
         self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
         memory_padding_mask: Optional[torch.Tensor] = None,
         tgt_padding_mask: Optional[torch.Tensor] = None,
         self_kv_cache: Optional[dict] = None, cross_kv: Optional[tuple] = None,
+        rng: Optional[Rng] = None,
     ):
         """Full-sequence or cached single-step forward; returns
         ``(y, new_self_kv_cache)``."""
-        rate, training = self.drop_path_rate, self.training
         attn_out, new_cache = self.self_attn(
             self.norm1(x), causal=True, key_padding_mask=tgt_padding_mask,
-            kv_cache=self_kv_cache,
+            kv_cache=self_kv_cache, rng=fold(rng, "self_attn"),
         )
-        x = x + self.dropout(drop_path(attn_out, rate, training))
+        x = x + self._residual(attn_out, 0, rng)
         cross_out, _ = self.cross_attn(
             self.norm2(x), memory, memory, key_padding_mask=memory_padding_mask,
-            precomputed_kv=cross_kv,
+            precomputed_kv=cross_kv, rng=fold(rng, "cross_attn"),
         )
-        x = x + self.dropout(drop_path(cross_out, rate, training))
-        ff_out = self.ff(self.norm3(x))
-        return x + self.dropout(drop_path(ff_out, rate, training)), new_cache
+        x = x + self._residual(cross_out, 1, rng)
+        ff_out = self.ff(self.norm3(x), rng=fold(rng, "ff"))
+        return x + self._residual(ff_out, 2, rng), new_cache
 
     def project_cross_kv(self, memory: torch.Tensor):
         return self.cross_attn.project_kv(memory)

@@ -6,8 +6,16 @@ sqrt(hidden), additive 3-way stress embedding whose index 0 contributes
 nothing, sinusoidal PE, a pre-norm encoder with a final LayerNorm, the
 variance adaptor, a teacher-forced causal decoder over mel frames shifted
 right by one, and mel + stop heads, the stop head on detached features.
-Remat (``torch.utils.checkpoint``) and SpecAugment come with the training
-slice.
+
+Training (``model.train()``): every random draw comes from ``rng``
+(``models/rng.py``), one named child per module as flax's ``make_rng``;
+SpecAugment masks the expanded memory when ``spec_augment`` (its knobs) is
+given; ``checkpoint_segments > 0`` turns on remat with
+``torch.utils.checkpoint`` (non-reentrant): the decoder per layer, the encoder
+in that many segments, as ``nn.remat`` does in the reference.  The seeds are
+fixed before the forward, so a recompute applies the same masks.
+:meth:`KokoroModel.set_compute_dtype` sets the dtype every Dense/Conv/Embed
+computes in while the parameters stay f32 (flax ``dtype`` / ``param_dtype``).
 
 Parameter names follow the flax tree (``convert.kokoro_state_dict_from_flax``
 maps one onto the other): ``encoder_layer_i`` is ``encoder_layers.i``, the
@@ -23,11 +31,21 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kokoro_tpu_torch.config import KokoroConfig
-from kokoro_tpu_torch.models.blocks import DecoderBlock, EncoderBlock, LayerNorm
+from kokoro_tpu_torch.models.blocks import (
+    DecoderBlock, Embedding, EncoderBlock, LayerNorm, Linear,
+)
 from kokoro_tpu_torch.models.positional import add_positional_encoding
+from kokoro_tpu_torch.models.rng import Rng, dropout, fold
 from kokoro_tpu_torch.models.variance import SimpleDurationAdaptor, VarianceAdaptor
+from kokoro_tpu_torch.ops.specaugment import apply_spec_augment
+
+
+def _remat(fn, *args):
+    # the seeds travel in args, so the recompute needs no saved RNG state
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class KokoroModel(nn.Module):
@@ -35,9 +53,9 @@ class KokoroModel(nn.Module):
         super().__init__()
         c = self.config = config
         d = c.hidden_dim
-        self.text_embedding = nn.Embedding(c.vocab_size, d)
+        self.text_embedding = Embedding(c.vocab_size, d)
         if c.use_stress_embedding:
-            self.stress_embedding = nn.Embedding(3, d)
+            self.stress_embedding = Embedding(3, d)
 
         def rates(n):
             return [
@@ -66,21 +84,27 @@ class KokoroModel(nn.Module):
             self.adaptor_name = "duration_adaptor"
             adaptor = SimpleDurationAdaptor(hidden_dim=d, dropout=c.encoder_dropout)
         self.add_module(self.adaptor_name, adaptor)
-        self.mel_projection_in = nn.Linear(c.n_mels, d)
+        self.mel_projection_in = Linear(c.n_mels, d)
         self.decoder_layers = nn.ModuleList(
             DecoderBlock(d, c.n_heads, c.decoder_ff_dim, c.decoder_dropout,
                          drop_path_rate=r, **common)
             for r in rates(c.n_decoder_layers)
         )
         self.decoder_norm = LayerNorm(d)
-        self.mel_projection_out = nn.Linear(d, c.n_mels)
-        self.stop_token_predictor = nn.Linear(d, 1)
-        self.input_dropout = nn.Dropout(c.decoder_input_dropout)
-        self.pe_dropout = nn.Dropout(c.encoder_dropout)
+        self.mel_projection_out = Linear(d, c.n_mels)
+        self.stop_token_predictor = Linear(d, 1)
 
     @property
     def adaptor(self) -> nn.Module:
         return getattr(self, self.adaptor_name)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "KokoroModel":
+        """Every Dense/Conv/Embed computes in ``dtype`` (None: its weight's
+        dtype); parameters keep their own dtype and receive the gradients."""
+        for m in self.modules():
+            if hasattr(type(m), "compute_dtype"):
+                m.compute_dtype = dtype
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "KokoroModel":
@@ -127,62 +151,114 @@ class KokoroModel(nn.Module):
         return self
 
     # -- encoder ---------------------------------------------------------
-    def encode_text(self, phoneme_indices, stress_indices, padding_mask):
-        d = self.config.hidden_dim
+    def encode_text(self, phoneme_indices, stress_indices, padding_mask,
+                    rng: Optional[Rng] = None, checkpoint_segments: int = 0):
+        c = self.config
+        d = c.hidden_dim
         x = self.text_embedding(phoneme_indices) * math.sqrt(d)
-        if self.config.use_stress_embedding and stress_indices is not None:
+        if c.use_stress_embedding and stress_indices is not None:
             stress = self.stress_embedding(stress_indices)
             x = x + stress * (stress_indices != 0)[..., None].to(stress.dtype)
-        x = self.pe_dropout(add_positional_encoding(x, 0))
-        for layer in self.encoder_layers:
-            x = layer(x, padding_mask)
+        x = dropout(add_positional_encoding(x, 0), c.encoder_dropout, fold(rng, "pe_dropout"),
+                    self.training)
+        n = len(self.encoder_layers)
+        rngs = [fold(rng, f"encoder_layer_{i}") for i in range(n)]
+        if checkpoint_segments > 0 and n:
+            per = -(-n // max(1, min(checkpoint_segments, n)))
+            for lo in range(0, n, per):
+                hi = min(lo + per, n)
+
+                def run_segment(h, mask, lo=lo, hi=hi):
+                    for i in range(lo, hi):
+                        h = self.encoder_layers[i](h, mask, rngs[i])
+                    return h
+
+                x = _remat(run_segment, x, padding_mask)
+        else:
+            for layer, layer_rng in zip(self.encoder_layers, rngs):
+                x = layer(x, padding_mask, layer_rng)
         x = self.encoder_norm(x)
         return torch.where(padding_mask[:, :, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
 
     def encode_and_expand(self, phoneme_indices, stress_indices, padding_mask,
                           max_frames: int, pitch_targets=None, energy_targets=None,
-                          phoneme_durations=None):
-        text_encoded = self.encode_text(phoneme_indices, stress_indices, padding_mask)
+                          phoneme_durations=None, rng: Optional[Rng] = None,
+                          checkpoint_segments: int = 0):
+        text_encoded = self.encode_text(phoneme_indices, stress_indices, padding_mask, rng,
+                                        checkpoint_segments)
         return self.adaptor(
             text_encoded, max_frames, mask=padding_mask, pitch_target=pitch_targets,
             energy_target=energy_targets, duration_target=phoneme_durations,
+            rng=fold(rng, self.adaptor_name),
         )
 
     # -- teacher-forced decoder ------------------------------------------
-    def prepare_decoder_input(self, mel_specs: torch.Tensor) -> torch.Tensor:
+    def prepare_decoder_input(self, mel_specs: torch.Tensor,
+                              rng: Optional[Rng] = None) -> torch.Tensor:
         """Mel shifted right by one (zero first frame), input projection,
         input dropout, PE."""
         decoder_input = F.pad(mel_specs[:, :-1, :], (0, 0, 1, 0))
-        return add_positional_encoding(self.input_dropout(self.mel_projection_in(decoder_input)), 0)
+        x = dropout(self.mel_projection_in(decoder_input), self.config.decoder_input_dropout,
+                    fold(rng, "input_dropout"), self.training)
+        return add_positional_encoding(x, 0)
 
     def finish_decoding(self, x: torch.Tensor):
         x = self.decoder_norm(x)
         return self.mel_projection_out(x), self.stop_token_predictor(x.detach())[..., 0]
 
-    def decode_training(self, memory, memory_padding_mask, mel_specs, mel_padding_mask=None):
-        x = self.prepare_decoder_input(mel_specs)
-        for layer in self.decoder_layers:
-            x, _ = layer(x, memory, memory_padding_mask, mel_padding_mask)
+    def decode_training(self, memory, memory_padding_mask, mel_specs, mel_padding_mask=None,
+                        rng: Optional[Rng] = None, remat: bool = False):
+        x = self.prepare_decoder_input(mel_specs, rng)
+        for i, layer in enumerate(self.decoder_layers):
+            args = (x, memory, memory_padding_mask, mel_padding_mask, None, None,
+                    fold(rng, f"decoder_layer_{i}"))
+            x, _ = _remat(layer, *args) if remat else layer(*args)
         return self.finish_decoding(x)
 
-    def forward(self, phoneme_indices, mel_specs, phoneme_durations, stress_indices=None,
-                text_padding_mask=None, mel_padding_mask=None, pitch_targets=None,
-                energy_targets=None) -> Dict[str, torch.Tensor]:
-        """Teacher-forced forward (``model.eval()`` for the deterministic
-        validation forward).  Returns predicted_mel (B,T,M),
-        predicted_log_durations (B,L), predicted_stop_logits (B,T),
-        predicted_pitch (B,T), predicted_energy (B,T), frame_padding_mask."""
-        T = mel_specs.shape[1]
+    def forward_memory(self, phoneme_indices, stress_indices, text_padding_mask,
+                       max_frames: int, pitch_targets=None, energy_targets=None,
+                       phoneme_durations=None, rng: Optional[Rng] = None,
+                       spec_augment: Optional[dict] = None, checkpoint_segments: int = 0):
+        """Everything before the decoder stack: encode + expand, then in
+        training SpecAugment on the expanded memory when ``spec_augment``
+        (``TrainingConfig.spec_augment_args()``) is given.  Returns (memory,
+        dur_pred, pitch_pred, energy_pred, frame_mask)."""
         if text_padding_mask is None:
             text_padding_mask = torch.zeros(phoneme_indices.shape, dtype=torch.bool,
                                             device=phoneme_indices.device)
         memory, dur_pred, pitch_pred, energy_pred, frame_mask = self.encode_and_expand(
+            phoneme_indices, stress_indices, text_padding_mask, max_frames,
+            pitch_targets=pitch_targets, energy_targets=energy_targets,
+            phoneme_durations=phoneme_durations, rng=rng,
+            checkpoint_segments=checkpoint_segments,
+        )
+        if self.training and spec_augment is not None:
+            if rng is None:
+                raise ValueError("SpecAugment in a training forward needs an Rng")
+            gen = rng.fold("specaugment").generator(memory.device)
+            memory = apply_spec_augment(memory, gen, **spec_augment)
+        return memory, dur_pred, pitch_pred, energy_pred, frame_mask
+
+    def forward(self, phoneme_indices, mel_specs, phoneme_durations, stress_indices=None,
+                text_padding_mask=None, mel_padding_mask=None, pitch_targets=None,
+                energy_targets=None, rng: Optional[Rng] = None,
+                spec_augment: Optional[dict] = None,
+                checkpoint_segments: int = 0) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (``model.eval()`` for the deterministic
+        validation forward; ``model.train()`` with ``rng`` for the training
+        forward).  Returns predicted_mel (B,T,M), predicted_log_durations
+        (B,L), predicted_stop_logits (B,T), predicted_pitch (B,T),
+        predicted_energy (B,T), frame_padding_mask."""
+        T = mel_specs.shape[1]
+        memory, dur_pred, pitch_pred, energy_pred, frame_mask = self.forward_memory(
             phoneme_indices, stress_indices, text_padding_mask, T,
             pitch_targets=pitch_targets, energy_targets=energy_targets,
-            phoneme_durations=phoneme_durations,
+            phoneme_durations=phoneme_durations, rng=rng, spec_augment=spec_augment,
+            checkpoint_segments=checkpoint_segments,
         )
         predicted_mel, stop_logits = self.decode_training(
-            memory, frame_mask, mel_specs, mel_padding_mask
+            memory, frame_mask, mel_specs, mel_padding_mask, rng,
+            remat=checkpoint_segments > 0,
         )
         return {
             "predicted_mel": predicted_mel,

@@ -15,7 +15,9 @@ Port of ``kokoro_tpu/models/variance.py``:
   ``length_regulate``, no pitch/energy (``use_variance_predictor=False``).
 
 Convolutions run on ``(B, C, L)``; the modules keep the reference's
-``(B, L, C)`` layout at their interfaces.
+``(B, L, C)`` layout at their interfaces.  Training draws its dropout from the
+``rng`` argument (``models/rng.py``); the layers compute in their
+``compute_dtype`` as in ``models/blocks.py``.
 """
 
 from __future__ import annotations
@@ -27,12 +29,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kokoro_tpu_torch.models.blocks import Embedding, Linear
+from kokoro_tpu_torch.models.rng import Rng, dropout, fold
 from kokoro_tpu_torch.ops.lengths import expand_tokens, length_regulate, token_to_frame_map
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` that computes in ``compute_dtype`` (None: the weight's
+    dtype), as a flax ``Conv(dtype=..., param_dtype=...)`` does."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 def masked_group_norm(x, scale, bias, valid, eps: float = 1e-5):
     """GroupNorm(1) over (L, C) per sample of ``x`` (B, L, C), statistics over
-    the frames where ``valid`` (B, L) is True (all frames when None)."""
+    the frames where ``valid`` (B, L) is True (all frames when None).  The
+    result has the promoted type of ``x`` and ``scale``, as in the reference
+    (f32 scales lift a bf16 input to f32)."""
     x32 = x.float()
     if valid is None:
         mean = x32.mean(dim=(1, 2), keepdim=True)
@@ -43,7 +61,7 @@ def masked_group_norm(x, scale, bias, valid, eps: float = 1e-5):
         mean = (x32 * v).sum(dim=(1, 2), keepdim=True) / count
         var = (((x32 - mean) ** 2) * v).sum(dim=(1, 2), keepdim=True) / count
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * scale.float() + bias.float()).to(torch.promote_types(x.dtype, scale.dtype))
 
 
 class VariancePredictor(nn.Module):
@@ -56,22 +74,23 @@ class VariancePredictor(nn.Module):
         self.num_layers = num_layers
         for i in range(num_layers):
             cin = hidden_dim if i == 0 else filter_size
-            self.add_module(f"conv{i}", nn.Conv1d(cin, filter_size, kernel_size,
-                                                  padding=(kernel_size - 1) // 2))
+            self.add_module(f"conv{i}", Conv1d(cin, filter_size, kernel_size,
+                                               padding=(kernel_size - 1) // 2))
             self.register_parameter(f"norm{i}_scale", nn.Parameter(torch.ones(filter_size)))
             self.register_parameter(f"norm{i}_bias", nn.Parameter(torch.zeros(filter_size)))
-        self.linear = nn.Linear(filter_size, 1)
-        self.dropout = nn.Dropout(dropout)
+        self.linear = Linear(filter_size, 1)
+        self.dropout = dropout
         with torch.no_grad():
             self.linear.bias.fill_(output_bias)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rng: Optional[Rng] = None) -> torch.Tensor:
         valid = None if mask is None else ~mask.to(torch.bool)
         for i in range(self.num_layers):
             x = getattr(self, f"conv{i}")(x.transpose(1, 2)).transpose(1, 2)
             x = masked_group_norm(x, getattr(self, f"norm{i}_scale"),
                                   getattr(self, f"norm{i}_bias"), valid)
-            x = self.dropout(F.relu(x))
+            x = dropout(F.relu(x), self.dropout, fold(rng, f"dropout_{i}"), self.training)
             if valid is not None:
                 x = torch.where(valid[:, :, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
         out = self.linear(x)[..., 0]
@@ -86,15 +105,17 @@ class SimpleDurationAdaptor(nn.Module):
 
     def __init__(self, hidden_dim: int = 512, dropout: float = 0.1):
         super().__init__()
-        self.linear1 = nn.Linear(hidden_dim, hidden_dim)
-        self.linear2 = nn.Linear(hidden_dim, hidden_dim // 2)
-        self.linear3 = nn.Linear(hidden_dim // 2, 1)
-        self.dropout = nn.Dropout(dropout)
+        self.linear1 = Linear(hidden_dim, hidden_dim)
+        self.linear2 = Linear(hidden_dim, hidden_dim // 2)
+        self.linear3 = Linear(hidden_dim // 2, 1)
+        self.dropout = dropout
 
     def forward(self, encoder_output, max_frames: int, mask=None, pitch_target=None,
-                energy_target=None, duration_target=None):
-        h = self.dropout(F.relu(self.linear1(encoder_output)))
-        h = self.dropout(F.relu(self.linear2(h)))
+                energy_target=None, duration_target=None, rng: Optional[Rng] = None):
+        h = dropout(F.relu(self.linear1(encoder_output)), self.dropout,
+                    fold(rng, "dropout_0"), self.training)
+        h = dropout(F.relu(self.linear2(h)), self.dropout, fold(rng, "dropout_1"),
+                    self.training)
         dur_pred = self.linear3(h)[..., 0]
         if mask is not None:
             dur_pred = torch.where(mask.to(torch.bool), torch.zeros((), dtype=dur_pred.dtype, device=dur_pred.device), dur_pred)
@@ -129,8 +150,8 @@ class VarianceAdaptor(nn.Module):
         self.duration_predictor = VariancePredictor(output_bias=math.log1p(5.0), **common)
         self.pitch_predictor = VariancePredictor(**common)
         self.energy_predictor = VariancePredictor(**common)
-        self.pitch_embedding = nn.Embedding(n_bins, hidden_dim)
-        self.energy_embedding = nn.Embedding(n_bins, hidden_dim)
+        self.pitch_embedding = Embedding(n_bins, hidden_dim)
+        self.energy_embedding = Embedding(n_bins, hidden_dim)
 
     def quantize(self, values: torch.Tensor) -> torch.Tensor:
         boundaries = torch.linspace(0.0, 1.0, self.n_bins - 1, device=values.device)
@@ -149,10 +170,11 @@ class VarianceAdaptor(nn.Module):
         return F.pad(t, (0, max_frames - t.shape[1])) if t.shape[1] < max_frames else t
 
     def forward(self, encoder_output, max_frames: int, mask=None, pitch_target=None,
-                energy_target=None, duration_target=None):
+                energy_target=None, duration_target=None, rng: Optional[Rng] = None):
         """Returns (adapted (B,T,H), duration_pred (B,L) log1p-domain,
         pitch_pred (B,T), energy_pred (B,T), frame_mask (B,T) True = padding)."""
-        duration_pred = self.duration_predictor(encoder_output, mask)
+        duration_pred = self.duration_predictor(encoder_output, mask,
+                                                rng=fold(rng, "duration_predictor"))
         if duration_target is not None:
             durations = duration_target
         else:
@@ -166,8 +188,8 @@ class VarianceAdaptor(nn.Module):
         _, frame_valid, _ = token_to_frame_map(durations, max_frames)
         frame_mask = ~frame_valid
 
-        pitch_pred = self.pitch_predictor(x, frame_mask)
-        energy_pred = self.energy_predictor(x, frame_mask)
+        pitch_pred = self.pitch_predictor(x, frame_mask, rng=fold(rng, "pitch_predictor"))
+        energy_pred = self.energy_predictor(x, frame_mask, rng=fold(rng, "energy_predictor"))
         if pitch_target is not None:
             p_val = self._normalize(self._frames(pitch_target, max_frames), *self.PITCH_RANGE)
         else:

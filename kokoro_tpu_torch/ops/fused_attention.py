@@ -1,25 +1,37 @@
-"""Packed fused attention: the Hopper kernel, its plain version, the dispatcher.
+"""Packed fused attention: the Hopper kernels, their plain versions, the
+autograd Function and the dispatcher.
 
-Port of ``kokoro_tpu/ops/fused_attention.py::fused_attention_packed`` (the
-forward of ``_call_fwd_packed``): attention on PACKED projections
-``(B, T, H*Dh) -> (B, T, H*Dh)``, either causal (decoder self-attention, K1)
-or non-causal with per-row ``kv_lengths`` (decoder cross-attention, K2, where
-keys at ``col >= kv_lengths[b]`` are masked and q_len == kv_len).
+Port of ``kokoro_tpu/ops/fused_attention.py::fused_attention_packed`` and its
+custom VJP (``_fused_packed``: ``_call_fwd_packed`` / ``_call_bwd_packed``):
+attention on PACKED projections ``(B, T, H*Dh) -> (B, T, H*Dh)``, either
+causal (decoder self-attention, K1) or non-causal with per-row
+``kv_lengths`` (decoder cross-attention, K2, where keys at
+``col >= kv_lengths[b]`` are masked and q_len == kv_len), with optional
+attention-weight dropout.
 
-* :func:`packed_attention_reference` is the plain PyTorch version of the
-  function: f32 logits, the -1e9 masked constant, f32 softmax, the weights
-  cast to the input dtype, then P @ V with f32 sums.
-* :data:`packed_attention_causal` (K1) and :data:`packed_attention_kvlen`
-  (K2) launch the CUDA kernel (``csrc/packed_attention.cu``) and count their
-  launches.
-* :func:`packed_attention` is the one dispatcher the model calls: CPU tensors
-  take the plain version, CUDA tensors launch the kernel or raise.  Nothing
-  falls back.
+* :func:`packed_attention_reference` and :func:`packed_attention_bwd_reference`
+  are the plain PyTorch versions of the forward and of the reference's
+  recompute backward: f32 logits, the -1e9 masked constant, f32 softmax,
+  dropout ``where(keep, p / keep_rate, 0)``, the weights (and dS * scale)
+  cast to the input dtype before their products, f32 sums.
+* Dropout is Philox4x32-10 keyed on a 64-bit ``seed`` (``ops/philox.py``); the
+  kernels draw the same mask in-kernel, so the TPU's bits are not
+  reproduced, only its distribution and its fwd/bwd agreement.
+* :data:`packed_attention_causal` / :data:`packed_attention_kvlen` launch the
+  forward kernel (``csrc/packed_attention.cu``),
+  :data:`packed_attention_bwd_causal` / :data:`packed_attention_bwd_kvlen`
+  the backward kernels (``csrc/packed_attention_bwd.cu``); each wrapper
+  counts its launches.
+* :class:`PackedAttentionFunction` is the ``torch.autograd.Function``: on CPU
+  tensors plain forward and plain backward, on CUDA tensors the kernels and
+  nothing else.
+* :func:`packed_attention` is the one dispatcher the model calls.  Nothing
+  falls back: a CUDA tensor launches a kernel or raises.
 
 The TPU-only gates of the reference (``MIN/MAX_FUSED_LEN``, zero-padding T to
 a multiple of 128, the 128-lane head-panel rule) do not carry over: the
-kernel masks by bounds at any T.  Attention-weight dropout (rate > 0) is not
-implemented yet and raises; it comes with the backward kernel.
+kernels mask by bounds at any T.  One consequence: a kv-length row of length
+0 averages the T real keys here, the reference the 128-padded ones.
 """
 
 from __future__ import annotations
@@ -29,16 +41,18 @@ from typing import Optional
 
 import torch
 
+from kokoro_tpu_torch.ops.philox import attention_keep_mask, keep_threshold
+
 NEG_INF = -1e9  # masked-logit constant, as in models/blocks.py
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
-def _check(q, k, v, num_heads, kv_lengths, dropout_rate):
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "packed attention with dropout_rate > 0 is not ported yet"
-        )
+def _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1); got {dropout_rate}")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q, k, v must share one (B, T, H*Dh) shape; got "
@@ -61,18 +75,20 @@ def _check(q, k, v, num_heads, kv_lengths, dropout_rate):
         raise ValueError("kv_lengths must be (B,) on the device of q")
 
 
-def packed_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
-    scale: float, causal: bool = True, kv_lengths: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain PyTorch packed attention, the kernel's contract (any head_dim)."""
-    B, T, D = q.shape
-    H = num_heads
+def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.reshape(B, T, H, D // H).transpose(1, 2).float()
 
-    def heads(x):
-        return x.reshape(B, T, H, D // H).transpose(1, 2)
 
-    s = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2)) * scale
+def _packed(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    B, H, T, Dh = x.shape
+    return x.to(dtype).transpose(1, 2).reshape(B, T, H * Dh)
+
+
+def _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, seed):
+    """f32 softmax weights (B, H, T, T) and the keep flags (None at rate 0)."""
+    B, T, _ = q.shape
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * scale
     cols = torch.arange(T, device=q.device)
     if causal:
         visible = (cols[None, :] <= cols[:, None])[None, None]
@@ -82,9 +98,73 @@ def packed_attention_reference(
         visible = None
     if visible is not None:
         s = torch.where(visible, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.matmul(p.float(), heads(v).float()).to(q.dtype)
-    return o.transpose(1, 2).reshape(B, T, D)
+    p = torch.softmax(s, dim=-1)
+    keep = None
+    if dropout_rate > 0.0:
+        keep = attention_keep_mask(seed, B, num_heads, T, dropout_rate, device=q.device)
+    return p, keep
+
+
+def packed_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
+    scale: float, causal: bool = True, kv_lengths: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0, seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch packed attention, the forward kernel's contract (any
+    head_dim)."""
+    p, keep = _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, seed)
+    if keep is not None:
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), torch.zeros((), device=q.device))
+    o = torch.matmul(p.to(q.dtype).float(), _heads(v, num_heads))
+    return _packed(o, q.dtype)
+
+
+def packed_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    num_heads: int, scale: float, causal: bool = True,
+    kv_lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward ``(dq, dk, dv)``: the reference's recompute
+    (``_bwd_kernel_packed``) step by step, the backward kernels' contract."""
+    dtype, H = q.dtype, num_heads
+    p, keep = _probs_and_keep(q, k, H, scale, causal, kv_lengths, dropout_rate, seed)
+    zero = torch.zeros((), device=q.device)
+    inv_keep = 1.0 / (1.0 - dropout_rate)
+    pd = p if keep is None else torch.where(keep, p * inv_keep, zero)
+    do_h, v_h = _heads(do, H), _heads(v, H)
+    dv = torch.matmul(pd.to(dtype).float().transpose(-1, -2), do_h)
+    dpd = torch.matmul(do_h, v_h.transpose(-1, -2))
+    dp = dpd if keep is None else torch.where(keep, dpd * inv_keep, zero)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds16 = (ds * scale).to(dtype).float()
+    dq = torch.matmul(ds16, _heads(k, H))
+    dk = torch.matmul(ds16.transpose(-1, -2), _heads(q, H))
+    return _packed(dq, dtype), _packed(dk, dtype), _packed(dv, dtype)
+
+
+# -- the CUDA kernels ------------------------------------------------------
+def _kernel_inputs(tensors, kv_lengths, causal):
+    for label, x in tensors.items():
+        if x.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors; {label} is on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{label} must be 16-byte aligned")
+    if kv_lengths is not None and not causal:
+        kv_lengths = kv_lengths.to(torch.int32).contiguous()
+        return kv_lengths, kv_lengths.data_ptr()
+    return None, None
+
+
+def _dropout_args(dropout_rate: float, seed: Optional[int]):
+    """(flag, threshold, 1/keep, seed) as the kernels take them."""
+    if dropout_rate <= 0.0:
+        return 0, ctypes.c_uint32(0), ctypes.c_float(1.0), ctypes.c_uint64(0)
+    return (1, ctypes.c_uint32(keep_threshold(dropout_rate)),
+            ctypes.c_float(1.0 / (1.0 - dropout_rate)),
+            ctypes.c_uint64(int(seed) & 0xFFFFFFFFFFFFFFFF))
 
 
 class PackedAttentionKernel:
@@ -103,60 +183,147 @@ class PackedAttentionKernel:
     def __call__(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         num_heads: int, scale: float, kv_lengths: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        _check(q, k, v, num_heads, kv_lengths, 0.0)
-        if q.device.type != "cuda":
-            raise ValueError(f"the CUDA kernel needs CUDA tensors; got {q.device}")
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
-        lens_ptr = None
-        if kv_lengths is not None and not self.causal:
-            kv_lengths = kv_lengths.to(torch.int32).contiguous()
-            lens_ptr = kv_lengths.data_ptr()
+        dropout_rate: float = 0.0, seed: Optional[int] = None, return_lse: bool = False,
+    ):
+        """``o``, or ``(o, lse)`` with the f32 row log-sum-exp ``(B, H, T)``
+        the backward kernel needs."""
+        _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
+        kv_lengths, lens_ptr = _kernel_inputs({"q": q, "k": k, "v": v}, kv_lengths,
+                                              self.causal)
         from kokoro_tpu_torch.ops import kernels
 
         lib = kernels.load("packed_attention")
         B, T, D = q.shape
         o = torch.empty_like(q)
+        lse = torch.empty(B, num_heads, T, device=q.device) if return_lse else None
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = lib.kokoro_packed_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lens_ptr,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), lens_ptr,
                 B, T, num_heads, D // num_heads, ctypes.c_float(float(scale)),
-                int(self.causal), 0 if q.dtype == torch.float32 else 1, stream,
+                int(self.causal), 0 if q.dtype == torch.float32 else 1,
+                *_dropout_args(dropout_rate, seed), stream,
             )
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t {err}")
         self.launches += 1
-        return o
+        return (o, lse) if return_lse else o
+
+
+class PackedAttentionBwdKernel:
+    """Wrapper of ``kokoro_packed_attention_bwd`` (the dQ kernel, then the
+    dK/dV kernel) for one variant.  ``launches`` counts the calls that
+    launched them."""
+
+    source = "kokoro_tpu_torch/csrc/packed_attention_bwd.cu"
+    replaces = "kokoro_tpu/ops/fused_attention.py:354 (_call_bwd_packed)"
+
+    def __init__(self, causal: bool) -> None:
+        self.causal = causal
+        self.name = "packed_attention_bwd_" + ("causal" if causal else "kvlen")
+        self.launches = 0
+
+    def __call__(
+        self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        do: torch.Tensor, lse: torch.Tensor, *, num_heads: int, scale: float,
+        kv_lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+        seed: Optional[int] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
+        B, T, D = q.shape
+        for label, x in (("o", o), ("do", do)):
+            if x.shape != q.shape or x.dtype != q.dtype:
+                raise ValueError(f"{label} must match q's shape and dtype")
+        if lse.shape != (B, num_heads, T) or lse.dtype != torch.float32:
+            raise ValueError("lse must be float32 (B, H, T)")
+        kv_lengths, lens_ptr = _kernel_inputs(
+            {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse},
+            kv_lengths, self.causal)
+        from kokoro_tpu_torch.ops import kernels
+
+        lib = kernels.load("packed_attention_bwd")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            err = lib.kokoro_packed_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lens_ptr,
+                B, T, num_heads, D // num_heads, ctypes.c_float(float(scale)),
+                int(self.causal), 0 if q.dtype == torch.float32 else 1,
+                *_dropout_args(dropout_rate, seed), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t {err}")
+        self.launches += 1
+        return dq, dk, dv
 
 
 packed_attention_causal = PackedAttentionKernel(causal=True)
 packed_attention_kvlen = PackedAttentionKernel(causal=False)
-KERNELS = (packed_attention_causal, packed_attention_kvlen)
+packed_attention_bwd_causal = PackedAttentionBwdKernel(causal=True)
+packed_attention_bwd_kvlen = PackedAttentionBwdKernel(causal=False)
+FWD_KERNELS = (packed_attention_causal, packed_attention_kvlen)
+BWD_KERNELS = (packed_attention_bwd_causal, packed_attention_bwd_kvlen)
+KERNELS = FWD_KERNELS + BWD_KERNELS
 
 
 def total_launches() -> int:
     return sum(kern.launches for kern in KERNELS)
 
 
+class PackedAttentionFunction(torch.autograd.Function):
+    """Packed attention with its backward: plain forward and plain backward
+    on CPU tensors, the forward and backward kernels on CUDA tensors.  Saved
+    for the backward: q, k, v, o, the kernel's lse (CUDA, and only when a
+    gradient is wanted) and kv_lengths; the seed and the other arguments are
+    plain Python values."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, num_heads, scale, causal, dropout_rate, seed):
+        kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
+                  dropout_rate=dropout_rate, seed=seed)
+        lse = None
+        if q.device.type == "cpu":
+            o = packed_attention_reference(q, k, v, causal=causal, **kw)
+        else:
+            kernel = packed_attention_causal if causal else packed_attention_kvlen
+            if any(ctx.needs_input_grad[:3]):
+                o, lse = kernel(q, k, v, return_lse=True, **kw)
+            else:
+                o = kernel(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
+        ctx.args = (num_heads, scale, causal, dropout_rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        num_heads, scale, causal, dropout_rate, seed = ctx.args
+        kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
+                  dropout_rate=dropout_rate, seed=seed)
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = packed_attention_bwd_reference(q, k, v, do, causal=causal, **kw)
+        else:
+            kernel = packed_attention_bwd_causal if causal else packed_attention_bwd_kvlen
+            dq, dk, dv = kernel(q, k, v, o, do, lse, **kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def packed_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
     scale: float, causal: bool = True, kv_lengths: Optional[torch.Tensor] = None,
-    dropout_rate: float = 0.0,
+    dropout_rate: float = 0.0, seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Packed attention ``(B, T, H*Dh) -> (B, T, H*Dh)``.
+    """Packed attention ``(B, T, H*Dh) -> (B, T, H*Dh)``, differentiable.
 
-    CPU tensors run :func:`packed_attention_reference`; CUDA tensors launch the
-    kernel.  Refuses ``dropout_rate > 0``, dtypes other than float32/bfloat16
-    and head_dim outside {64, 128} on every device."""
-    _check(q, k, v, num_heads, kv_lengths, dropout_rate)
+    CPU tensors run the plain versions; CUDA tensors launch the kernels.
+    ``dropout_rate > 0`` needs ``seed`` (a 64-bit int): the mask is a pure
+    function of it, so a call with the same seed drops the same weights.
+    Refuses dtypes other than float32/bfloat16 and head_dim outside
+    {64, 128} on every device."""
+    _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
     kv_lengths = None if causal else kv_lengths
-    if q.device.type == "cpu":
-        return packed_attention_reference(q, k, v, num_heads=num_heads, scale=scale,
-                                          causal=causal, kv_lengths=kv_lengths)
-    kernel = packed_attention_causal if causal else packed_attention_kvlen
-    return kernel(q, k, v, num_heads=num_heads, scale=scale, kv_lengths=kv_lengths)
+    return PackedAttentionFunction.apply(q, k, v, kv_lengths, num_heads, scale,
+                                         causal, dropout_rate, seed)

@@ -23,8 +23,11 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-# library name -> source file under csrc/
-SOURCES = {"packed_attention": "packed_attention.cu"}
+# library name -> source file under csrc/ (each includes the csrc/*.cuh headers)
+SOURCES = {
+    "packed_attention": "packed_attention.cu",
+    "packed_attention_bwd": "packed_attention_bwd.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -99,8 +104,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # dropout flag, threshold, 1/keep, seed
+    dropout = [i, ctypes.c_uint32, f, ctypes.c_uint64]
     if name == "packed_attention":
         fn = lib.kokoro_packed_attention_fwd
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = i
+        # q k v o lse lens, B T H Dh, scale, causal dtype, dropout..., stream
+        fn.argtypes = [p] * 6 + [i] * 4 + [f, i, i] + dropout + [p]
+    elif name == "packed_attention_bwd":
+        fn = lib.kokoro_packed_attention_bwd
+        # q k v o do lse dq dk dv lens, B T H Dh, scale, causal dtype, dropout..., stream
+        fn.argtypes = [p] * 10 + [i] * 4 + [f, i, i] + dropout + [p]
+    fn.restype = i

@@ -1,0 +1,166 @@
+"""Training losses and validation metrics.
+
+Port of ``kokoro_tpu/training/losses.py``, in float32 whatever the model's
+compute dtype:
+
+* mel: L1 over the mel mask AND finite elements;
+* duration: Huber (torch form) on ``log(d + 1)`` targets over the phoneme
+  mask AND d > 0;
+* stop: BCE-with-logits with ``pos_weight``, softplus as ``logaddexp(v, 0)``,
+  over the mel mask;
+* pitch/energy: Huber on frame-level targets cut to the mel length, over the
+  mel mask;
+* per-loss clamps (mel/duration/stop <= 100, pitch/energy <= 10) and the
+  weighted total.
+
+A masked mean skips non-finite values and is 0 when nothing is valid.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    valid = mask & torch.isfinite(values)
+    total = torch.where(valid, values, torch.zeros((), dtype=values.dtype,
+                                                    device=values.device)).sum()
+    count = valid.sum()
+    return torch.where(count > 0, total / torch.clamp(count, min=1), torch.zeros_like(total))
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred - target).abs()
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float) -> torch.Tensor:
+    """torch.nn.HuberLoss elementwise: 0.5 e^2 below delta, delta (|e| - delta / 2) above."""
+    err = (pred - target).abs()
+    return torch.where(err < delta, 0.5 * err ** 2, delta * (err - 0.5 * delta))
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    pos_weight: float = 1.0) -> torch.Tensor:
+    """``pw * z * softplus(-x) + (1 - z) * softplus(x)``."""
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    return (pos_weight * targets * torch.logaddexp(-logits, zero)
+            + (1.0 - targets) * torch.logaddexp(logits, zero))
+
+
+def calculate_training_losses(
+    *,
+    predicted_mel: torch.Tensor,            # (B, T, M)
+    predicted_log_durations: torch.Tensor,  # (B, L)
+    predicted_stop_logits: torch.Tensor,    # (B, T)
+    mel_specs: torch.Tensor,                # (B, T, M)
+    phoneme_durations: torch.Tensor,        # (B, L)
+    stop_token_targets: torch.Tensor,       # (B, T)
+    mel_lengths: torch.Tensor,              # (B,)
+    phoneme_lengths: torch.Tensor,          # (B,)
+    predicted_pitch: Optional[torch.Tensor] = None,
+    predicted_energy: Optional[torch.Tensor] = None,
+    pitch_targets: Optional[torch.Tensor] = None,
+    energy_targets: Optional[torch.Tensor] = None,
+    duration_loss_weight: float = 0.35,
+    stop_token_loss_weight: float = 0.010,
+    pitch_loss_weight: float = 1.0,
+    energy_loss_weight: float = 1.0,
+    stop_token_pos_weight: float = 17.0,
+    duration_huber_delta: float = 1.0,
+    pitch_huber_delta: float = 0.05,
+    energy_huber_delta: float = 0.05,
+) -> Dict[str, torch.Tensor]:
+    """Returns total, mel, duration, stop, pitch, energy (f32 scalars)."""
+    def f32(x):
+        return None if x is None else x.float()
+
+    predicted_mel, mel_specs = f32(predicted_mel), f32(mel_specs)
+    predicted_log_durations = f32(predicted_log_durations)
+    predicted_stop_logits, stop_token_targets = f32(predicted_stop_logits), f32(stop_token_targets)
+    predicted_pitch, pitch_targets = f32(predicted_pitch), f32(pitch_targets)
+    predicted_energy, energy_targets = f32(predicted_energy), f32(energy_targets)
+    device = mel_specs.device
+    T, L = mel_specs.shape[1], phoneme_durations.shape[1]
+    mel_mask = torch.arange(T, device=device)[None, :] < mel_lengths[:, None]
+    phoneme_mask = torch.arange(L, device=device)[None, :] < phoneme_lengths[:, None]
+
+    loss_mel = masked_mean(l1_loss(predicted_mel, mel_specs), mel_mask[:, :, None])
+    target_log_durations = torch.log(phoneme_durations.float() + 1.0)
+    loss_duration = masked_mean(
+        huber_loss(predicted_log_durations, target_log_durations, duration_huber_delta),
+        phoneme_mask & (phoneme_durations > 0))
+    loss_stop = masked_mean(
+        bce_with_logits(predicted_stop_logits, stop_token_targets, stop_token_pos_weight),
+        mel_mask)
+    zero = torch.zeros((), device=device)
+    loss_pitch = zero
+    if predicted_pitch is not None and pitch_targets is not None:
+        loss_pitch = masked_mean(huber_loss(predicted_pitch[:, :T], pitch_targets[:, :T],
+                                            pitch_huber_delta), mel_mask)
+    loss_energy = zero
+    if predicted_energy is not None and energy_targets is not None:
+        loss_energy = masked_mean(huber_loss(predicted_energy[:, :T], energy_targets[:, :T],
+                                             energy_huber_delta), mel_mask)
+
+    loss_mel = torch.clamp(loss_mel, max=100.0)
+    loss_duration = torch.clamp(loss_duration, max=100.0)
+    loss_stop = torch.clamp(loss_stop, max=100.0)
+    loss_pitch = torch.clamp(loss_pitch, max=10.0)
+    loss_energy = torch.clamp(loss_energy, max=10.0)
+    total = (loss_mel + loss_duration * duration_loss_weight
+             + loss_stop * stop_token_loss_weight + loss_pitch * pitch_loss_weight
+             + loss_energy * energy_loss_weight)
+    return {"total": total, "mel": loss_mel, "duration": loss_duration, "stop": loss_stop,
+            "pitch": loss_pitch, "energy": loss_energy}
+
+
+def build_stop_token_targets(T: int, lengths: torch.Tensor, tail: int = 6,
+                             decay: float = 0.5) -> torch.Tensor:
+    """Smoothed stop targets (B, T): ``frame[len - 1 - k] = decay**k`` for
+    k = 0..tail, zero elsewhere."""
+    pos = torch.arange(T, device=lengths.device)[None, :]
+    k = (lengths[:, None] - 1) - pos
+    in_tail = (k >= 0) & (k <= tail) & (pos < lengths[:, None])
+    return torch.where(in_tail, decay ** torch.clamp(k, min=0).float(),
+                       torch.zeros((), device=lengths.device))
+
+
+def spectral_convergence(pred_mel: torch.Tensor, target_mel: torch.Tensor,
+                         mel_mask: torch.Tensor) -> torch.Tensor:
+    """||pred - target||_F / ||target||_F over valid frames."""
+    m = mel_mask[:, :, None]
+    zero = torch.zeros((), dtype=pred_mel.dtype, device=pred_mel.device)
+    diff = torch.where(m, pred_mel - target_mel, zero)
+    tgt = torch.where(m, target_mel, zero)
+    return torch.sqrt((diff ** 2).sum()) / torch.clamp(torch.sqrt((tgt ** 2).sum()), min=1e-8)
+
+
+def f0_rmse(pred_pitch: torch.Tensor, target_pitch: torch.Tensor,
+            mel_mask: torch.Tensor) -> torch.Tensor:
+    """Frame-level F0 RMSE over voiced and valid frames."""
+    valid = mel_mask & (target_pitch > 0)
+    se = torch.where(valid, (pred_pitch - target_pitch) ** 2,
+                     torch.zeros((), dtype=pred_pitch.dtype, device=pred_pitch.device))
+    return torch.sqrt(se.sum() / torch.clamp(valid.sum(), min=1))
+
+
+def mel_cepstral_distortion(pred_log_mel: torch.Tensor, target_log_mel: torch.Tensor,
+                            mel_mask: torch.Tensor, n_coeffs: int = 13) -> torch.Tensor:
+    """Mel-cepstral distortion in dB: orthonormal DCT-II of the natural-log
+    mel per frame, coefficients 1..n_coeffs, ``(10 / ln 10) sqrt(2 sum dc^2)``
+    averaged over valid frames."""
+    M = pred_log_mel.shape[-1]
+    device = pred_log_mel.device
+    n = torch.arange(M, device=device, dtype=torch.float32)
+    k = torch.arange(M, device=device, dtype=torch.float32)[:, None]
+    basis = torch.cos(math.pi * k * (2 * n[None, :] + 1) / (2 * M))
+    basis = basis * torch.where(k == 0, math.sqrt(1.0 / M), math.sqrt(2.0 / M))
+    c_pred = torch.einsum("btm,km->btk", pred_log_mel.float(), basis)
+    c_tgt = torch.einsum("btm,km->btk", target_log_mel.float(), basis)
+    dc = (c_pred - c_tgt)[..., 1:n_coeffs + 1]
+    per_frame = (10.0 / math.log(10.0)) * torch.sqrt(2.0 * (dc ** 2).sum(-1) + 1e-12)
+    valid = mel_mask.float()
+    return (per_frame * valid).sum() / torch.clamp(valid.sum(), min=1.0)

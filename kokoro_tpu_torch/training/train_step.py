@@ -1,0 +1,284 @@
+"""The training step: forward + loss -> gradients -> stability machinery ->
+fused AdamW -> EMA.
+
+Port of ``kokoro_tpu/training/train_step.py``:
+
+* adaptive stabilization: loss scale and clip norm from the batch's risk
+  ratios (max TRUE mel length / ``stabilization_soft_frames``, max duration /
+  ``stabilization_max_duration``);
+* gradient accumulation over a leading microbatch axis (``mel_specs`` 4-D):
+  gradients and losses summed and divided by A, the clip the minimum over the
+  microbatches;
+* the explosion detector (EMA of global norms against a decaying floor; a
+  trigger drops the clip to ``emergency_clip_norm``), per-tensor pre-clips,
+  then the global clip;
+* the non-finite skip: a step whose gradient norm or loss is not finite
+  leaves parameters, both moments, the optimizer count, EMA and the
+  explosion EMA untouched and counts one ``skipped_steps``;
+* the FFN weight-norm projection and the EMA (every ``ema_update_every``
+  successful steps).
+
+What differs, on purpose: the reference keeps every decision on the device
+(``jnp.where`` merges of whole pytrees); here one small host read per step
+(the norms, the losses and the clip) decides them, and a skipped step does
+no update at all instead of computing one and discarding it.  The state is
+updated in place.  Every random draw of a step comes from the
+``torch.Generator`` it is given: one :class:`~kokoro_tpu_torch.models.rng.Rng`
+per microbatch, drawn before its forward.  No ``make_multi_step`` (a TPU
+dispatch device), no null-step tail padding, no data or pipeline
+parallelism.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from kokoro_tpu_torch.config import TrainingConfig
+from kokoro_tpu_torch.models.kokoro import KokoroModel
+from kokoro_tpu_torch.models.rng import Rng
+from kokoro_tpu_torch.training.losses import (
+    calculate_training_losses, f0_rmse, mel_cepstral_distortion, spectral_convergence,
+)
+from kokoro_tpu_torch.training.optimizer import (
+    FusedAdamW, apply_preclips, apply_weight_norm_constraints, ema_update,
+    grad_explosion_threshold, update_grad_explosion_ema,
+)
+
+LOSS_KEYS = ("total", "mel", "duration", "stop", "pitch", "energy")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class TrainState:
+    """Model (its f32 parameters), optimizer (moments and count), EMA
+    parameters and the step counters."""
+
+    model: KokoroModel
+    optimizer: FusedAdamW
+    ema: Dict[str, torch.Tensor]
+    opt_step: int = 0          # successful optimizer steps
+    ema_updates: int = 0
+    grad_ema: float = 0.0      # explosion-detector EMA of global norms
+    grad_ema_steps: int = 0
+    skipped_steps: int = 0     # non-finite skips
+
+    @property
+    def names(self) -> List[str]:
+        """Parameter names, in the optimizer's order."""
+        return self.optimizer.names
+
+    @property
+    def params(self) -> Dict[str, torch.nn.Parameter]:
+        return dict(self.model.named_parameters())
+
+
+def create_train_state(model: KokoroModel, config: TrainingConfig,
+                       total_steps: int) -> TrainState:
+    """A fresh state; the model computes in ``config.compute_dtype`` from now
+    on (its parameters keep ``config.param_dtype``)."""
+    model.to(DTYPES[config.param_dtype]).set_compute_dtype(DTYPES[config.compute_dtype])
+    params = dict(model.named_parameters())
+    return TrainState(
+        model=model, optimizer=FusedAdamW(params, config, total_steps),
+        ema={n: p.detach().clone() for n, p in params.items()},
+    )
+
+
+def batch_masks(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    L = batch["phoneme_indices"].shape[-1]
+    T = batch["mel_specs"].shape[-2]
+    device = batch["mel_specs"].device
+    text_pad = torch.arange(L, device=device)[None, :] >= batch["phoneme_lengths"][:, None]
+    mel_pad = torch.arange(T, device=device)[None, :] >= batch["mel_lengths"][:, None]
+    return text_pad, mel_pad
+
+
+def adaptive_stabilization(batch: Dict[str, torch.Tensor],
+                           config: TrainingConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss_scale, clip_norm) as f32 device scalars from the batch's risk:
+    risk > 1 scales the loss by max(0.25, 1/risk) and clips at
+    max(0.05, 0.5/sqrt(risk))."""
+    mel_len = batch["mel_lengths"].max().float()
+    max_dur = batch["phoneme_durations"].max().float()
+    risk = torch.maximum(mel_len / float(config.stabilization_soft_frames),
+                         max_dur / float(config.stabilization_max_duration))
+    one = torch.ones((), device=risk.device)
+    loss_scale = torch.where(risk > 1.0, torch.clamp(1.0 / risk, min=0.25), one)
+    clip = torch.where(risk > 1.0, torch.clamp(0.5 / torch.sqrt(risk), min=0.05),
+                       one * config.max_grad_norm)
+    return loss_scale, clip
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [t.float() for t in tensors])))
+
+
+def _model_outputs(model: KokoroModel, batch, rng, spec_augment, segments, params=None):
+    text_pad, mel_pad = batch_masks(batch)
+    kwargs = dict(
+        phoneme_indices=batch["phoneme_indices"], mel_specs=batch["mel_specs"],
+        phoneme_durations=batch["phoneme_durations"],
+        stress_indices=batch.get("stress_indices"), text_padding_mask=text_pad,
+        mel_padding_mask=mel_pad, pitch_targets=batch.get("pitch_targets"),
+        energy_targets=batch.get("energy_targets"), rng=rng,
+        spec_augment=spec_augment, checkpoint_segments=segments,
+    )
+    out = model(**kwargs) if params is None else functional_call(model, params, (), kwargs)
+    return out, mel_pad
+
+
+def _losses(out, batch, config: TrainingConfig):
+    return calculate_training_losses(
+        predicted_mel=out["predicted_mel"],
+        predicted_log_durations=out["predicted_log_durations"],
+        predicted_stop_logits=out["predicted_stop_logits"],
+        mel_specs=batch["mel_specs"], phoneme_durations=batch["phoneme_durations"],
+        stop_token_targets=batch["stop_token_targets"], mel_lengths=batch["mel_lengths"],
+        phoneme_lengths=batch["phoneme_lengths"], predicted_pitch=out["predicted_pitch"],
+        predicted_energy=out["predicted_energy"], pitch_targets=batch.get("pitch_targets"),
+        energy_targets=batch.get("energy_targets"),
+        duration_loss_weight=config.duration_loss_weight,
+        stop_token_loss_weight=config.stop_token_loss_weight,
+        pitch_loss_weight=config.pitch_loss_weight,
+        energy_loss_weight=config.energy_loss_weight,
+        stop_token_pos_weight=config.stop_token_pos_weight,
+        duration_huber_delta=config.duration_huber_delta,
+        pitch_huber_delta=config.pitch_huber_delta,
+        energy_huber_delta=config.energy_huber_delta,
+    )
+
+
+def make_loss_fn(model: KokoroModel, config: TrainingConfig, spec_augment: bool = True):
+    """``loss_fn(batch, rng, deterministic=False) -> (total, losses)``.
+    ``spec_augment=False`` skips SpecAugment (the reference's epochs before
+    ``spec_augment_start_epoch``); ``deterministic=True`` is the eval-mode
+    forward and draws nothing."""
+    segments = max(1, config.checkpoint_segments) if config.gradient_checkpointing else 0
+    sa_args = config.spec_augment_args() if (spec_augment and config.use_spec_augment) else None
+
+    def loss_fn(batch, rng: Optional[Rng] = None, deterministic: bool = False):
+        model.train(not deterministic)
+        out, _ = _model_outputs(model, batch, None if deterministic else rng,
+                                None if deterministic else sa_args,
+                                0 if deterministic else segments)
+        losses = _losses(out, batch, config)
+        return losses["total"], losses
+
+    return loss_fn
+
+
+def apply_gradient_update(state: TrainState, grads: List[torch.Tensor],
+                          losses: Dict[str, torch.Tensor], clip_norm: torch.Tensor, *,
+                          config: TrainingConfig,
+                          preclip_norms: Optional[Dict[str, float]] = None,
+                          ema_decay: float = 0.999) -> Dict[str, float]:
+    """Everything after the gradients (in place on ``state`` and ``grads``);
+    returns the step's metrics as floats."""
+    raw_norm = global_norm(grads)
+    if preclip_norms is not None:
+        apply_preclips(grads, [preclip_norms[n] for n in state.names])
+    clipped_norm = global_norm(grads)
+    # the step's one host read: everything below is decided from these
+    values = torch.stack([raw_norm, clipped_norm, clip_norm.float()]
+                         + [losses[k].float() for k in LOSS_KEYS]).tolist()
+    raw, clipped, clip = values[:3]
+    metrics = dict(zip(LOSS_KEYS, values[3:]))
+    threshold = grad_explosion_threshold(state.grad_ema, state.grad_ema_steps,
+                                         state.opt_step, config)
+    exploded = raw > threshold
+    if exploded:
+        clip = config.emergency_clip_norm
+    finite = math.isfinite(raw) and math.isfinite(metrics["total"])
+    if finite:
+        torch._foreach_mul_(grads, min(1.0, clip / (clipped + 1e-6)))
+        state.optimizer.step(grads)
+        params = state.params
+        apply_weight_norm_constraints(params, config)
+        every = max(int(config.ema_update_every), 1)
+        if every == 1 or (state.opt_step + 1) % every == 0:
+            ema_update([state.ema[n] for n in state.names],
+                       [params[n].detach() for n in state.names], ema_decay)
+            state.ema_updates += 1
+        state.grad_ema = update_grad_explosion_ema(state.grad_ema, state.grad_ema_steps,
+                                                   raw, config.grad_explosion_ema_decay)
+        state.grad_ema_steps += 1
+        state.opt_step += 1
+    else:
+        state.skipped_steps += 1
+    metrics.update(grad_norm=raw, grad_norm_clipped=min(clipped, clip), clip_norm=clip,
+                   exploded=float(exploded), stepped=float(finite))
+    return metrics
+
+
+def make_train_step(config: TrainingConfig, preclip_norms: Optional[Dict[str, float]] = None,
+                    ema_decay: float = 0.999, spec_augment: bool = True
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor], torch.Generator],
+                                  Dict[str, float]]:
+    """``train_step(state, batch, generator) -> metrics``.  ``batch`` values
+    may carry a leading microbatch axis (gradient accumulation);
+    ``generator`` is a CPU ``torch.Generator``, from which each microbatch
+    draws the one seed of its forward."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator) -> Dict[str, float]:
+        loss_fn = make_loss_fn(state.model, config, spec_augment)
+        params = [p for _, p in state.model.named_parameters()]
+        if batch["mel_specs"].dim() == 4:
+            A = batch["mel_specs"].shape[0]
+            micro = [{k: v[a] for k, v in batch.items()} for a in range(A)]
+        else:
+            A, micro = 1, [batch]
+        grads, losses, clip = None, None, None
+        for mb in micro:
+            rng = Rng.from_generator(generator)
+            loss_scale, mb_clip = adaptive_stabilization(mb, config)
+            total, mb_losses = loss_fn(mb, rng)
+            mb_grads = torch.autograd.grad(total, params, allow_unused=True)
+            mb_grads = [torch.zeros_like(p) if g is None else g
+                        for g, p in zip(mb_grads, params)]
+            torch._foreach_mul_(mb_grads, loss_scale)
+            if grads is None:
+                grads, losses, clip = mb_grads, dict(mb_losses), mb_clip
+            else:
+                torch._foreach_add_(grads, mb_grads)
+                losses = {k: losses[k] + mb_losses[k] for k in LOSS_KEYS}
+                clip = torch.minimum(clip, mb_clip)
+        if A > 1:
+            torch._foreach_div_(grads, float(A))
+            losses = {k: v / A for k, v in losses.items()}
+            clip = torch.minimum(clip, torch.full_like(clip, config.max_grad_norm))
+        return apply_gradient_update(state, grads, losses, clip, config=config,
+                                     preclip_norms=preclip_norms, ema_decay=ema_decay)
+
+    return train_step
+
+
+def make_eval_step(model: KokoroModel, config: TrainingConfig):
+    """``eval_step(batch, params=None) -> metrics``: one deterministic
+    forward (on ``params``, e.g. the EMA, when given) for the losses,
+    spectral convergence, MCD and, with pitch targets, F0 RMSE."""
+
+    @torch.no_grad()
+    def eval_step(batch, params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
+        model.eval()
+        out, mel_pad = _model_outputs(model, batch, None, None, 0, params)
+        metrics = _losses(out, batch, config)
+        mel_mask = ~mel_pad
+        pred = out["predicted_mel"].float()
+        target = batch["mel_specs"].float()
+        metrics["spectral_convergence"] = spectral_convergence(pred, target, mel_mask)
+        metrics["mcd"] = mel_cepstral_distortion(pred, target, mel_mask)
+        if batch.get("pitch_targets") is not None and out["predicted_pitch"] is not None:
+            metrics["f0_rmse"] = f0_rmse(out["predicted_pitch"].float(),
+                                         batch["pitch_targets"][:, :mel_mask.shape[1]].float(),
+                                         mel_mask)
+        return {k: float(v) for k, v in metrics.items()}
+
+    return eval_step
+

@@ -66,8 +66,10 @@ def test_all_masked_row_averages_values_uniformly():
 
 
 def test_dispatcher_refuses_dropout():
+    """dropout_rate > 0 without a seed raises, as the reference's
+    ``dropout_requires_rng``."""
     q = torch.zeros(1, 128, 128)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="seed"):
         port.packed_attention(q, q, q, num_heads=2, scale=1.0, dropout_rate=0.1)
 
 

@@ -3,9 +3,10 @@
 Imports torch and the port only (no JAX), so it runs on the machine with the
 card:  python -m pytest tests/test_torch_kernels_cuda.py -q
 Every test here is marked ``cuda`` and skips where CUDA is missing.
-Tolerances: f32 2e-5 and bf16 2e-2 abs/rel, the reference's own forward
-tolerances (docs/attention_numerics_tpu.json ``tolerances``); the plain
-version runs with TF32 off.
+Tolerances: forward f32 2e-5 and bf16 2e-2, gradients f32 1e-4 and bf16
+3e-2, abs/rel, the reference's own tolerances
+(docs/attention_numerics_tpu.json ``tolerances``); the plain version runs
+with TF32 off.
 """
 
 import pytest
@@ -64,3 +65,58 @@ def test_kernel_refuses_non_contiguous(cuda):
     q = torch.zeros(1, 128, 256, device=cuda)[:, :, :128]
     with pytest.raises(ValueError, match="contiguous"):
         port.packed_attention_causal(q, q, q, num_heads=2, scale=1.0)
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 63, 200, 432])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
+def test_backward_kernel_matches_plain(cuda, causal, T, Dh, dtype, rate):
+    """Forward (with its lse) and backward kernels through the autograd
+    Function against the plain forward and backward, a length-0 row included."""
+    B, H = 3, 2
+    q, k, v = _qkv(B, T, H, Dh, dtype, cuda, seed=2 * T + Dh)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(T)).to(cuda, dtype)
+    lens = torch.tensor([max(1, T // 3), T, 0], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=causal, kv_lengths=None if causal else lens,
+              dropout_rate=rate, seed=77 if rate else None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [kern.launches for kern in port.KERNELS]
+    out = port.packed_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    fwd, bwd = (0, 2) if causal else (1, 3)
+    assert [kern.launches - b for kern, b in zip(port.KERNELS, before)] == [
+        int(i in (fwd, bwd)) for i in range(4)]
+    ref = port.packed_attention_reference(q, k, v, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    grads = port.packed_attention_bwd_reference(q, k, v, do, **kw)
+    tol = GRAD_TOL[dtype]
+    for name, a, b in zip("qkv", grads, leaves):
+        assert b.grad.dtype == dtype
+        torch.testing.assert_close(b.grad.float(), a.float(), rtol=tol, atol=tol, msg=f"d{name}")
+
+
+def test_dropout_mask_is_the_plain_mask(cuda):
+    """Identity-block values read out the forward kernel's dropped weights;
+    their pattern is the plain Philox mask, and the same seed repeats it."""
+    B, H, T, Dh, rate = 2, 2, 128, 64, 0.1
+    q, k, _ = (x * 0.1 for x in _qkv(B, T, H, Dh, torch.float32, cuda, seed=4))
+    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=False, dropout_rate=rate, seed=2 ** 40 + 5)
+    blocks = []
+    for j0 in range(0, T, Dh):
+        blk = torch.zeros(B, T, H * Dh, device=cuda)
+        for h in range(H):
+            blk[:, j0:j0 + Dh, h * Dh:(h + 1) * Dh] = torch.eye(Dh, device=cuda)
+        out = port.packed_attention(q, k, blk, **kw)
+        assert torch.equal(out, port.packed_attention(q, k, blk, **kw))
+        blocks.append(out.reshape(B, T, H, Dh))
+    pd = torch.cat(blocks, -1).permute(0, 2, 1, 3)
+    from kokoro_tpu_torch.ops.philox import attention_keep_mask
+
+    assert torch.equal(pd != 0, attention_keep_mask(kw["seed"], B, H, T, rate, device=cuda))
