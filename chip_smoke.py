@@ -1,55 +1,71 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (kokoro_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase, the contract lines
+    python3 chip_smoke.py --phases kernels_flash,long   # some phases; its last line is
+                                                        # {"partial_run": [...], ...}, no "ok"
 
 Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build of
-   every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source.
-2. kernels: each forward kernel against its plain PyTorch version on the
-   card (TF32 off for the plain version), f32 at 2e-5 and bf16 at 2e-2
-   abs/rel, the reference's own forward tolerances.
-3. kernel_times: at the decoder's shape B=32, T=512, H=8, Dh=64, each kernel
-   (forward at rates 0 and 0.1, backward at rates 0 and 0.1), its plain
-   version, one PyTorch library call (``scaled_dot_product_attention``
-   forward; for the backward, SDPA forward+backward through autograd minus
-   its forward; timed as a yardstick only, the port never calls it) and the
-   bound.
-4. kernels_bwd: the forward kernels with in-kernel dropout (rate 0.1) and
-   the backward kernels (rates 0 and 0.1) against the plain forward and
-   backward with the same seed, f32 and bf16, a kv-length row of length 0
-   included; gradients at the reference's f32 1e-4 / bf16 3e-2.
-5. dropout: the kernels' dropout semantics, measured as
-   ``scripts/verify_attention_numerics.py`` measures the TPU's: identity-block
-   probes read out the forward's and the backward's dropped weights; keep
-   rate, survivor scale, fwd/bwd mask agreement, determinism per seed, and a
-   finite-difference check along the gradient.
-6. forward: the teacher-forced forward at full width (hidden 512, 6+6
-   layers, 8 heads, ff 1536, vocab 59; B=16, T=512, L=128, given durations),
-   kernel path against plain path, f32 and bf16; each forward kernel must be
-   launched exactly once per decoder layer per forward, the backward ones
-   never.
-7. serve: a full-width model directory with seeded random weights and the
+   every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
+   all started together.
+2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
+   plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
+   reference's own forward tolerances; then kernel_times at the decoder's
+   shape B=32, T=512, H=8, Dh=64: each kernel (forward and backward, rates 0
+   and 0.1), its plain version, one PyTorch library call (SDPA forward; for a
+   backward, SDPA forward+backward through autograd minus its forward; timed
+   as a yardstick only, the port never calls it) and the bound.
+3. kernels_bwd: the packed forward with in-kernel dropout and the backward
+   kernels (rates 0 and 0.1) against the plain versions with the same seed,
+   a kv-length row of length 0 included; gradients at f32 1e-4 / bf16 3e-2.
+4. dropout: the packed kernels' dropout semantics, as
+   ``scripts/verify_attention_numerics.py`` measures the TPU's.
+5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
+   against their plain versions, Dh 64/128 x T 1024/1408/1536/1920 x causal
+   and not x segment ids none/suffix/interior, f32 and bf16; then its times at
+   the long path's shape B=12, T=1408, H=8, Dh=64.  Then the long path's other
+   attention kernels, K2 forward and the packed kv-length backward, at its
+   cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
+   versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
+   gives them and a mixed set with a row of length 0), and their times there.
+6. kernels_folded: K3 (the packed kernels on the folded (B*H, T, Dh) view)
+   against the plain version, T 128/432/512/848, Dh 64/128, rates 0 and 0.1,
+   and bit for bit equal to the packed kernels at rate 0.1; its times at
+   B=32, T=512; the launches of one ``fused_attention`` forward and backward.
+7. forward: the teacher-forced forward at full width (hidden 512, 6+6
+   layers, 8 heads, ff 1536, vocab 59; B=16, T=512, L=128), kernel path
+   against plain path, f32 and bf16; each packed forward kernel launched once
+   per decoder layer, every other wrapper never.
+8. serve: a full-width model directory with seeded random weights and the
    committed HiFi-GAN (docs/hifigan_v1_int8.npz), ``TTSServer`` on
-   127.0.0.1, five concurrent Russian texts (two phoneme buckets); every
-   answer a WAV of (the frames the pipeline reports) x 256 samples, fewer
-   dispatches than requests.
-8. train: the training step at full width, B=32, L=96, T=512 (``bench.py``'s
-   compute-only shape, seeded synthetic batch).  (a) kernel path against
-   plain path: f32, TF32 off, every dropout rate 0, SpecAugment off, 3 steps
-   from one init; per-step loss and gradient norm and what the steps moved
-   the parameters must agree, and a control run with a planted dK fault must
-   fail those limits.  (b) the throughput preset (bf16 compute on f32 parameters,
-   attention dropout in the kernels, SpecAugment, no remat): 2 warm-up and
-   10 timed steps, every loss finite, every step taken, each of the four
-   kernel wrappers launched exactly once per decoder layer per step.
+   127.0.0.1, five concurrent Russian texts; every answer a WAV of (the frames
+   the pipeline reports) x 256 samples, fewer dispatches than requests.
+9. train: the training step at full width, B=32, L=96, T=512.  (a) kernel path
+   against plain path in f32, 3 steps from one init, per-step loss and
+   gradient norm, each tensor's gradient at the init and what the steps moved
+   the parameters, with a control whose planted dK fault must break a limit;
+   (b) the throughput preset: 2 warm-up and 10 timed steps, each packed
+   wrapper launched once per decoder layer per step.
+10. long: the long-utterance regime of ``scripts/quality_run.py --long`` at
+   full width.  (a) ``KokoroTrainer`` on a synthetic 26-utterance corpus of
+   16.3 s (every utterance in the 1408-frame bucket), one epoch, then a second
+   resumed from ``auto``: every step finite and taken with the stabilization's
+   loss scale < 1, K4 and K2 forward and backward launched once per decoder
+   layer per microbatch, K1 and K3 never; validation launches K4 and K2
+   forward only; the run directory synthesises through ``KokoroTTS``.  (b)
+   kernel path against plain path of the long step in f32 (B=4, L=256,
+   T=1408) with the limits of (9a), the planted fault on K4's dK.  (c) the
+   bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.
 
-Then the script's wall time, the kernels' JSON line (launches: one bf16
-preset training step), the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls back
-to the CPU or to a plain version.  Exits non-zero without CUDA or without the
-repository around it.
+Then the script's wall time, the kernels' JSON line (eight wrappers, each
+with the launches of its main-path run: a preset step, a long step or a
+kernels_folded call; K2 and its backward also carry ``long_shape``, their
+times at T=1408 and launches per long step), the ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
+back to the CPU or to a plain version.  Exits non-zero without CUDA or
+without the repository around it.
 """
 
 from __future__ import annotations
@@ -87,6 +103,10 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
     "Мы идём в лес.",
     "Сегодня хорошая погода, и мы идём гулять в большой парк у реки.",
 ]
+
+
+PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
+          "serve", "train", "long"]
 
 
 def emit(obj) -> None:
@@ -422,6 +442,296 @@ def phase_dropout():
         raise AssertionError(f"dropout semantics outside the limits: {result}")
 
 
+def _flash_masks(kind, B, T, dev, gen):
+    """(q_valid, kv_valid) bool on the card, or (None, None)."""
+    import torch
+
+    if kind == "none":
+        return None, None
+    if kind == "suffix":  # right padding, as collate makes it
+        lens = torch.tensor([T, T - 37, T // 2, T - 300][:B], device=dev)
+        valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        return valid, valid
+    # interior (non-suffix) padding on the key side, every query valid
+    valid = (torch.rand(B, T, generator=gen) > 0.3).to(dev)
+    valid[:, 0] = True
+    return torch.ones(B, T, dtype=torch.bool, device=dev), valid
+
+
+def phase_kernels_flash():
+    """K4 forward and backward against their plain versions, then the times
+    at the long training shape B=12, T=1408, H=8, Dh=64."""
+    import torch
+    import torch.nn.functional as F
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    B, H = 2, 8
+    worst, checks = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for Dh in (64, 128):
+            for T in (1024, 1408, 1536, 1920):
+                q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
+                               for _ in range(4))
+                for causal in (True, False):
+                    for kind in ("none", "suffix", "interior"):
+                        q_valid, kv_valid = _flash_masks(kind, B, T, dev, gen)
+                        q_seg, kv_seg = fl.segment_ids(q, k, q_valid, kv_valid)
+                        kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+                        o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+                        grads = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+                        torch.cuda.synchronize()
+                        where = f"{dname} T={T} Dh={Dh} causal={causal} masks={kind}"
+                        ref_o = fl.flash_attention_reference(q, k, v, **kw)
+                        err_o = close_or_raise(where + " o", o, ref_o, TOL[dname])
+                        ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+                        err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                                    for n, a, b in zip("qkv", grads, ref))
+                        for key, err in ((f"fwd/{dname}", err_o), (f"bwd/{dname}", err_g)):
+                            worst[key] = max(worst.get(key, 0.0), err)
+                        checks += 1
+    emit({"phase": "kernels_flash", "checks": checks,
+          "shapes": "B=2 H=8; Dh{64,128} x T{1024,1408,1536,1920} x causal/non-causal "
+                    "x segment ids none/suffix/interior",
+          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
+
+    B, T, H, Dh = 12, 1408, 8, 64  # the long path's decoder self-attention
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
+        kw = dict(causal=True, scale=Dh ** -0.5)
+        o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        err_o = close_or_raise(f"flash fwd {dname} long shape", o,
+                               fl.flash_attention_reference(q, k, v, **kw), TOL[dname])
+        grads = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+        err_g = max(close_or_raise(f"flash bwd {dname} long shape d{n}", a, b, GRAD_TOL[dname])
+                    for n, a, b in zip("qkv", grads, ref))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True, scale=Dh ** -0.5)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), leaves, do)
+
+        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, True, None)
+        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, True, None)
+        sdpa_ms = cuda_time_ms(sdpa_fwd)
+        timings[("flash_attention_fwd", dname)] = {
+            "max_abs_err": err_o, "ms": cuda_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
+            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
+        timings[("flash_attention_bwd", dname)] = {
+            "max_abs_err": err_g,
+            "ms": cuda_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
+                q, k, v, o, do, **kw), iters=3),
+            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
+            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+        del q, k, v, do, o, lse, grads, ref, leaves
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 H=8 Dh=64 causal",
+          "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
+    timings.update(long_cross_attention(gen))
+    return timings
+
+
+def long_cross_attention(gen):
+    """K2 forward (``packed_attention_kvlen``) and the packed kv-length
+    backward at the long path's decoder cross-attention shape, B=12, T=1408,
+    H=8, Dh=64, f32 and bf16, rates 0 (the long path's) and 0.1, against their
+    plain versions: with the kv lengths the long batch gives (every frame
+    valid: 1408) and with a mixed set holding a row of length 0.  Then their
+    times at the long batch's lengths, keyed ``(name, dtype, "long")``."""
+    import torch
+    import torch.nn.functional as F
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    B, T, H, Dh = 12, 1408, 8, 64
+    fwd, bwd = fa.packed_attention_kvlen, fa.packed_attention_bwd_kvlen
+    lens_sets = {"long_batch": [T] * B, "mixed": [T, T - 37, T // 2, 0] * (B // 4)}
+    worst, checks, timings = {}, 0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype) for _ in range(4))
+        for set_name, lens_list in lens_sets.items():
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            for rate in (0.0, RATE):
+                kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens, dropout_rate=rate,
+                          seed=3000 if rate else None)
+                o, lse = fwd(q, k, v, return_lse=True, **kw)
+                grads = bwd(q, k, v, o, do, lse, **kw)
+                torch.cuda.synchronize()
+                where = f"K2 long shape {dname} lens={set_name} rate={rate}"
+                err_o = close_or_raise(where + " o", o, fa.packed_attention_reference(
+                    q, k, v, causal=False, **kw), TOL[dname])
+                ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
+                err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                            for n, a, b in zip("qkv", grads, ref))
+                for key, err in ((f"{fwd.name}/{dname}/rate={rate}", err_o),
+                                 (f"{bwd.name}/{dname}/rate={rate}", err_g)):
+                    worst[key] = max(worst.get(key, 0.0), err)
+                checks += 1
+                del o, lse, grads, ref
+                torch.cuda.empty_cache()
+
+        lens_list = lens_sets["long_batch"]
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens)
+        o, lse = fwd(q, k, v, return_lse=True, **kw)
+        heads = [x.view(B, T, H, Dh).transpose(1, 2).contiguous().requires_grad_(True)
+                 for x in (q, k, v)]
+        do_h = do.view(B, T, H, Dh).transpose(1, 2).contiguous()
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*heads, attn_mask=mask, scale=Dh ** -0.5)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), heads, do_h)
+
+        sdpa_ms = cuda_time_ms(sdpa_fwd)
+        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, False, lens_list)
+        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, False, lens_list)
+        timings[(fwd.name, dname, "long")] = {
+            "max_abs_err": worst[f"{fwd.name}/{dname}/rate=0.0"],
+            "ms": cuda_time_ms(lambda: fwd(q, k, v, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_reference(
+                q, k, v, causal=False, **kw), iters=3),
+            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
+        timings[(bwd.name, dname, "long")] = {
+            "max_abs_err": worst[f"{bwd.name}/{dname}/rate=0.0"],
+            "ms": cuda_time_ms(lambda: bwd(q, k, v, o, do, lse, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+                q, k, v, do, causal=False, **kw), iters=3),
+            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
+            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+        del q, k, v, do, o, lse, heads, do_h
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_cross_long", "checks": checks,
+          "shape": "B=12 T=1408 H=8 Dh=64 non-causal, kv lengths 1408 (the long batch) and "
+                   "[T, T-37, T/2, 0]", "rates": [0.0, RATE],
+          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst,
+          "times_at_long_batch_lengths": {f"{n}/{d}": r for (n, d, _), r in timings.items()}})
+    return timings
+
+
+def phase_kernels_folded():
+    """K3 (the packed kernels on the folded (B*H, T, Dh) view) against the
+    plain version, folded against packed bit for bit at rate 0.1, then the
+    times at B=32, T=512, H=8, Dh=64 and the launches of one
+    ``fused_attention`` forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    worst, checks, H = {}, 0, 8
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for Dh in (64, 128):
+            for T in (128, 432, 512, 848):
+                B = 4
+                q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
+                               for _ in range(4))
+                fold = lambda x: x.reshape(B * H, T, Dh)
+                pack = lambda x: x.transpose(1, 2).reshape(B, T, H * Dh).contiguous()
+                for rate in (0.0, RATE):
+                    kw = dict(num_heads=1, scale=Dh ** -0.5, dropout_rate=rate,
+                              seed=2000 + T if rate else None)
+                    o, lse = fa.folded_attention_fwd(fold(q), fold(k), fold(v),
+                                                     return_lse=True, **kw)
+                    grads = fa.folded_attention_bwd(fold(q), fold(k), fold(v), o, fold(do),
+                                                    lse, **kw)
+                    torch.cuda.synchronize()
+                    where = f"folded {dname} T={T} Dh={Dh} rate={rate}"
+                    err_o = close_or_raise(where + " o", o, fa.packed_attention_reference(
+                        fold(q), fold(k), fold(v), causal=True, **kw), TOL[dname])
+                    ref = fa.packed_attention_bwd_reference(fold(q), fold(k), fold(v), fold(do),
+                                                            causal=True, **kw)
+                    err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                                for n, a, b in zip("qkv", grads, ref))
+                    for key, err in ((f"fwd/{dname}/rate={rate}", err_o),
+                                     (f"bwd/{dname}/rate={rate}", err_g)):
+                        worst[key] = max(worst.get(key, 0.0), err)
+                    if rate:
+                        pkw = dict(kw, num_heads=H)
+                        o_p, lse_p = fa.packed_attention_causal(pack(q), pack(k), pack(v),
+                                                                return_lse=True, **pkw)
+                        grads_p = fa.packed_attention_bwd_causal(
+                            pack(q), pack(k), pack(v), o_p, pack(do), lse_p, **pkw)
+                        unfold = lambda x: pack(x.view(B, H, T, Dh))
+                        if not (torch.equal(unfold(o), o_p) and all(
+                                torch.equal(unfold(a), b) for a, b in zip(grads, grads_p))):
+                            raise AssertionError(f"{where}: folded and packed kernels differ")
+                    checks += 1
+    emit({"phase": "kernels_folded", "checks": checks,
+          "shapes": "B=4 H=8; Dh{64,128} x T{128,432,512,848}", "rates": [0.0, RATE],
+          "folded_equals_packed_bitwise_at_rate": RATE,
+          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
+
+    B, T, H, Dh = 32, 512, 8, 64
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(B * H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
+        kw = dict(num_heads=1, scale=Dh ** -0.5)
+        o, lse = fa.folded_attention_fwd(q, k, v, return_lse=True, **kw)
+        err_o = close_or_raise(f"folded fwd {dname} B=32 T=512", o, fa.packed_attention_reference(
+            q, k, v, causal=True, **kw), TOL[dname])
+        grads = fa.folded_attention_bwd(q, k, v, o, do, lse, **kw)
+        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=True, **kw)
+        err_g = max(close_or_raise(f"folded bwd {dname} d{n}", a, b, GRAD_TOL[dname])
+                    for n, a, b in zip("qkv", grads, ref))
+        heads = [x.view(B, H, T, Dh).clone().requires_grad_(True) for x in (q, k, v)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*heads, is_causal=True, scale=Dh ** -0.5)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), heads, do.view(B, H, T, Dh))
+
+        sdpa_ms = cuda_time_ms(sdpa_fwd)
+        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, True, None)
+        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, True, None)
+        timings[("folded_attention_fwd", dname)] = {
+            "max_abs_err": err_o,
+            "ms": cuda_time_ms(lambda: fa.folded_attention_fwd(q, k, v, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_reference(
+                q, k, v, causal=True, **kw), iters=5),
+            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
+        timings[("folded_attention_bwd", dname)] = {
+            "max_abs_err": err_g,
+            "ms": cuda_time_ms(lambda: fa.folded_attention_bwd(q, k, v, o, do, lse, **kw)),
+            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+                q, k, v, do, causal=True, **kw), iters=5),
+            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
+            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+    emit({"phase": "kernel_times_folded", "shape": "B=32 T=512 H=8 Dh=64 causal",
+          "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
+
+    # the main path of this phase: one fused_attention forward and backward
+    x = [t.view(B, H, T, Dh).clone().requires_grad_(True) for t in (q, k, v)]
+    for kern in fa.FOLDED_KERNELS:
+        kern.launches = 0
+    out = fa.fused_attention(*x, scale=Dh ** -0.5, dropout_rate=RATE, seed=9)
+    torch.autograd.grad(out, x, do.view(B, H, T, Dh))
+    torch.cuda.synchronize()
+    counts = {kern.name: kern.launches for kern in fa.FOLDED_KERNELS}
+    if any(c != 1 for c in counts.values()):
+        raise AssertionError(f"fused_attention launched {counts}, expected one each")
+    return timings, counts
+
+
 def phase_forward():
     import torch
 
@@ -448,12 +758,11 @@ def phase_forward():
         m_fused = fused.to(dev, dtype).eval()
         inputs = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in batch.items()}
         with torch.no_grad():
-            for kern in fa.KERNELS:  # the main path's run: counts from 0
-                kern.launches = 0
+            zero_counts()  # the main path's run: counts from 0
             out_k = m_fused(**inputs)
             torch.cuda.synchronize()
-            counts[dname] = {kern.name: kern.launches for kern in fa.KERNELS}
-            for kern in fa.KERNELS:  # no gradient: the backward kernels stay idle
+            counts[dname] = read_counts()
+            for kern in all_kernels():  # no gradient: the backward kernels stay idle
                 expected = n_layers if kern in fa.FWD_KERNELS else 0
                 if counts[dname][kern.name] != expected:
                     raise AssertionError(f"{kern.name}: {counts[dname][kern.name]} launches "
@@ -516,7 +825,7 @@ def phase_serve():
     if len(set(buckets)) != 2 or buckets.count(buckets[0]) != 4:
         raise AssertionError(f"texts do not fall in two buckets of 4 + 1: {buckets}")
     server.start()
-    launches0 = fa.total_launches()
+    launches0 = sum(read_counts().values())
 
     def post(text):
         t0 = time.perf_counter()
@@ -567,7 +876,7 @@ def phase_serve():
     total_audio = sum(r["audio_s"] for r in requests)
     emit({"phase": "serve", "requests": requests, "wall_s": wall,
           "aggregate_rtf": wall / total_audio, "stats": stats,
-          "kernel_launches": fa.total_launches() - launches0})
+          "kernel_launches": sum(read_counts().values()) - launches0})
 
 
 # kernel path against plain path, full-width f32 training.  Each tensor's
@@ -619,13 +928,33 @@ def relative_gap(ref, other):
     return worst, name, math.sqrt(diff2 / size2)
 
 
-def phase_train():
-    """(a) kernel path vs plain path, f32, 3 steps; (b) the throughput preset
-    in bf16, 2 warm-up + 10 timed steps.  Returns the launches of each kernel
-    wrapper in the last timed step (the main path's run)."""
+def all_kernels():
+    """Every kernel wrapper of the port: packed K1/K2 forward and backward,
+    folded K3 forward and backward, flash K4 forward and backward."""
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    return fa.KERNELS + fl.KERNELS
+
+
+def zero_counts():
+    for kern in all_kernels():
+        kern.launches = 0
+
+
+def read_counts():
+    return {kern.name: kern.launches for kern in all_kernels()}
+
+
+def train_parity(B, L, T, planted_module, planted_attr):
+    """Kernel path against plain path at full width in f32 (TF32 off, every
+    dropout rate 0, SpecAugment off), 3 steps from one init, and the control
+    with seeded noise planted on ``planted_module.planted_attr``'s dK.
+    Returns the readings; raises when the sound run breaks a limit or the
+    planted one breaks none."""
     import torch
 
-    from kokoro_tpu_torch.cli.profile_paths import preset_train_step, training_batch
+    from kokoro_tpu_torch.cli.profile_paths import training_batch
     from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
     from kokoro_tpu_torch.models.kokoro import KokoroModel
     from kokoro_tpu_torch.models.rng import Rng
@@ -636,7 +965,6 @@ def phase_train():
     )
 
     dev = torch.device("cuda")
-    B, L, T = 32, 96, 512
     no_dropout = dict(encoder_dropout=0.0, decoder_dropout=0.0, decoder_input_dropout=0.0,
                       variance_dropout=0.0, use_stochastic_depth=False)
     cfg = TrainingConfig(compute_dtype="float32", gradient_checkpointing=False,
@@ -651,10 +979,10 @@ def phase_train():
         state = create_train_state(model.to(dev), cfg, total_steps=20000)
         step = make_train_step(cfg, build_preclip_norms(state.names, cfg), spec_augment=False)
         params = dict(model.named_parameters())
-        launches0 = fa.total_launches()
-        real_bwd = fa.packed_attention_bwd_causal
+        launches0 = sum(read_counts().values())
+        real_bwd = getattr(planted_module, planted_attr)
         if name == "planted_dk":
-            fa.packed_attention_bwd_causal = PlantedDk(real_bwd)
+            setattr(planted_module, planted_attr, PlantedDk(real_bwd))
         try:
             total, _ = make_loss_fn(model, cfg, spec_augment=False)(
                 batch, Rng.from_generator(torch.Generator().manual_seed(0)))
@@ -662,9 +990,9 @@ def phase_train():
             grads = {n: g for n, g in zip(params, grads) if g is not None}
             metrics = [step(state, batch, torch.Generator().manual_seed(i)) for i in range(3)]
         finally:
-            fa.packed_attention_bwd_causal = real_bwd
+            setattr(planted_module, planted_attr, real_bwd)
         torch.cuda.synchronize()
-        launched = fa.total_launches() - launches0
+        launched = sum(read_counts().values()) - launches0
         if (launched == 0) == flash:
             raise AssertionError(f"{name} path launched {launched} kernels")
         moved = {n: p.detach() - init[n].to(dev) for n, p in params.items()}
@@ -685,16 +1013,32 @@ def phase_train():
             "grad_leaf_rel": grad_leaf, "worst_grad": grad_name, "grad_all_rel": grad_all,
             "moved_leaf_rel": moved_leaf, "worst_moved": moved_name,
             "moved_all_rel": moved_all, "stepped": [m["stepped"] for m in mk]}
-    emit({"phase": "train_parity", "steps": 3, "limits": TRAIN_LIMIT, **parity,
-          "plain_path": [{k: m[k] for k in ("total", "grad_norm", "stepped")} for m in mp]})
+    result = {"steps": 3, "B": B, "L": L, "T": T, "planted": planted_attr,
+              "limits": TRAIN_LIMIT, **parity,
+              "plain_path": [{k: m[k] for k in ("total", "grad_norm", "stepped")} for m in mp]}
     del paths, gp, dp, gk, dk
     torch.cuda.empty_cache()
     sound, planted = parity["kernel"], parity["planted_dk"]
     if not all(m["stepped"] == 1.0 for m in mp) or sound["stepped"] != [1.0] * 3 or any(
             sound[k] > TRAIN_LIMIT[k] for k in TRAIN_LIMIT):
-        raise AssertionError(f"kernel path and plain path training disagree: {sound}")
+        raise AssertionError(f"kernel path and plain path training disagree: {result}")
     if all(planted[k] <= TRAIN_LIMIT[k] for k in TRAIN_LIMIT):
-        raise AssertionError(f"the parity limits do not catch a planted dK fault: {planted}")
+        raise AssertionError(f"the parity limits do not catch a planted dK fault: {result}")
+    return result
+
+
+def phase_train():
+    """(a) kernel path vs plain path, f32, 3 steps; (b) the throughput preset
+    in bf16, 2 warm-up + 10 timed steps.  Returns the launches of each kernel
+    wrapper in the last timed step (the main path's run)."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import preset_train_step
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    B, L, T = 32, 96, 512
+    emit({"phase": "train_parity", **train_parity(B, L, T, fa, "packed_attention_bwd_causal")})
 
     # (b) the preset
     state, step, batch = preset_train_step(dev)
@@ -707,17 +1051,18 @@ def phase_train():
     steps, per_step = [], []
     t0 = time.perf_counter()
     for _ in range(10):
-        for kern in fa.KERNELS:  # each step is a main-path run: counts from 0
-            kern.launches = 0
+        zero_counts()  # each step is a main-path run: counts from 0
         steps.append(step(state, batch, gen))
-        per_step.append({kern.name: kern.launches for kern in fa.KERNELS})
+        per_step.append(read_counts())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / 10
+    packed = {kern.name for kern in fa.FWD_KERNELS + fa.BWD_KERNELS}
     for m, counts in zip(steps, per_step):
         if not (all(math.isfinite(m[k]) for k in ("total", "grad_norm")) and m["stepped"] == 1.0):
             raise AssertionError(f"preset step not finite or skipped: {m}")
-        if any(c != n_layers for c in counts.values()):
-            raise AssertionError(f"launches per step {counts}, expected {n_layers} each")
+        if any(c != (n_layers if name in packed else 0) for name, c in counts.items()):
+            raise AssertionError(f"launches per step {counts}, expected {n_layers} for each "
+                                 f"packed wrapper and 0 for the others")
     emit({"phase": "train", "preset": "get_high_performance_config (bf16 compute, f32 params, "
           "attention dropout in the kernels, SpecAugment, no remat)",
           "B": B, "L": L, "T": T, "timed_steps": 10, "ms_per_step": ms,
@@ -728,6 +1073,214 @@ def phase_train():
     del state, step
     torch.cuda.empty_cache()
     return per_step[-1]
+
+
+LONG_WORDS = [
+    "привет", "мир", "как", "дела", "всё", "хорошо", "говорит", "москва", "сегодня",
+    "завтра", "погода", "ясная", "ветер", "слабый", "дождь", "вечером", "утром", "новости",
+    "слушайте", "внимательно", "спасибо", "пожалуйста", "конечно", "возможно", "правда",
+    "работа", "время",
+]
+
+
+def build_long_corpus(root, n_utts: int, seed: int = 11) -> None:
+    """The long-mode synthetic corpus of ``scripts/quality_run.py``
+    (``build_corpus(long_mode=True)``): 18-30 Russian words per utterance, a
+    harmonic source with per-word pitch moves and onset noise bursts, padded
+    to 16.34 s, so every utterance lands in the 1408-frame bucket."""
+    import numpy as np
+
+    from kokoro_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(seed)
+    sr, lines = 22050, []
+    for i in range(n_utts):
+        words = list(rng.choice(LONG_WORDS, size=int(rng.integers(18, 31))))
+        base_f0 = float(rng.uniform(100, 200))
+        pieces = []
+        for w in words:
+            dur = 0.12 + 0.05 * len(w) + float(rng.uniform(0, 0.08))
+            n = int(sr * dur)
+            tt = np.arange(n) / sr
+            f0 = base_f0 * (1.0 + 0.2 * rng.standard_normal()) * (1.0 - 0.1 * tt / max(dur, 1e-6))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            voiced = 0.5 * np.sin(phase) + 0.25 * np.sin(2 * phase) + 0.12 * np.sin(3 * phase)
+            noise = np.zeros(n)
+            burst = int(0.25 * n)
+            noise[:burst] = 0.2 * rng.standard_normal(burst)
+            env = np.minimum(1.0, np.arange(n) / (0.02 * sr))
+            env *= env[::-1]
+            pieces.append((voiced + noise) * env)
+            pieces.append(np.zeros(int(sr * rng.uniform(0.02, 0.08))))
+        audio = np.concatenate(pieces)
+        target = int(16.34 * sr)
+        audio = np.pad(audio, (0, max(0, target - audio.shape[0])))[:target]
+        audio += 0.01 * rng.standard_normal(audio.shape[0])
+        save_wav(root / "wavs" / f"q{i:04d}.wav",
+                 (0.8 * audio / np.abs(audio).max()).astype(np.float32), sr)
+        lines.append(f"q{i:04d}|{' '.join(words)}")
+    (root / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
+
+
+def phase_long():
+    """The long-utterance regime at full width: (a) the trainer over a
+    synthetic corpus, one epoch, then a second after a resume; (b) kernel
+    path against plain path of the long step in f32, with a planted K4 dK
+    control; (c) the bf16 long step's throughput.  Returns the launches of
+    each wrapper in the last timed step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, long_train_step
+    from kokoro_tpu_torch.config import get_default_config
+    from kokoro_tpu_torch.inference.tts import KokoroTTS
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+    from kokoro_tpu_torch.training.trainer import KokoroTrainer
+
+    dev = torch.device("cuda")
+    n_layers = 6
+    flash = {kern.name for kern in fl.KERNELS}
+    cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
+
+    class CountingTrainer(KokoroTrainer):
+        """Records each step's metrics and kernel launches, and the
+        launches of each validation."""
+
+        steps, validations = [], []
+
+        def _train_step(self, spec_augment):
+            step = super()._train_step(spec_augment)
+
+            def counted(state, batch, generator):
+                zero_counts()
+                metrics = step(state, batch, generator)
+                torch.cuda.synchronize()
+                micro = batch["mel_specs"].shape[0] if batch["mel_specs"].dim() == 4 else 1
+                self.steps.append((metrics, read_counts(), micro))
+                return metrics
+
+            return counted
+
+        def validate_epoch(self, epoch):
+            zero_counts()
+            out = super().validate_epoch(epoch)
+            torch.cuda.synchronize()
+            self.validations.append((read_counts(), len(self.val_batcher.build_batches(0))))
+            return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        build_long_corpus(root / "corpus", 26)
+        epochs = 2
+
+        def config(num_epochs):
+            return get_default_config(**{
+                **LONG_REGIME, "data_dir": str(root / "corpus"), "output_dir": str(root / "run"),
+                "num_epochs": num_epochs, "save_every": 1, "keep_checkpoints": 50,
+                "warmup_steps": min(200, epochs * 10), "resume_checkpoint": "auto"})
+
+        first = CountingTrainer(*config(1), device="cuda")
+        first.train()
+        step_at_break = first.state.opt_step
+        del first
+        torch.cuda.empty_cache()
+        second = CountingTrainer(*config(epochs), device="cuda")
+        second.train()
+        resumed_from = second.start_epoch
+        final_step, skipped = second.state.opt_step, second.state.skipped_steps
+        n_train, n_val = len(second.train_dataset), len(second.val_dataset)
+        del second
+        torch.cuda.empty_cache()
+        trainer_s = time.perf_counter() - t0
+        tts = KokoroTTS(str(root / "run"), device="cuda", max_len=200,
+                        vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"))
+        audio = tts.text_to_speech("Привет, мир! Сегодня хорошая погода.")
+        del tts
+    steps, validations = CountingTrainer.steps, CountingTrainer.validations
+    for metrics, counts, micro in steps:
+        if not (metrics["stepped"] == 1.0 and all(
+                math.isfinite(metrics[k]) for k in ("total", "grad_norm"))):
+            raise AssertionError(f"long trainer step not finite or skipped: {metrics}")
+        if not metrics["loss_scale"] < 1.0:
+            raise AssertionError(f"stabilization not live at 1408 frames: {metrics}")
+        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"long step launches {counts}, expected {want}")
+    for counts, n_batches in validations:
+        want = {name: (n_layers * n_batches if name in (fl.flash_attention_fwd.name,
+                                                        fa.packed_attention_kvlen.name) else 0)
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"validation launches {counts}, expected {want}")
+    if not (final_step > step_at_break > 0 and resumed_from == 1 and skipped == 0):
+        raise AssertionError(f"resume did not continue: {step_at_break} -> {final_step}, "
+                             f"resumed at epoch {resumed_from}, {skipped} skipped")
+    if not (audio.size > 0 and np.isfinite(audio).all()):
+        raise AssertionError("the trained run directory did not synthesise finite audio")
+    emit({"phase": "long_trainer", "utterances": {"train": n_train, "val": n_val},
+          "epochs": epochs, "resume_after_epoch": 1, "opt_step_at_break": step_at_break,
+          "opt_step_final": final_step, "skipped_steps": skipped,
+          "steps": [{"total": m["total"], "grad_norm": m["grad_norm"],
+                     "loss_scale": m["loss_scale"], "microbatches": micro,
+                     "launches": {k: v for k, v in c.items() if v}} for m, c, micro in steps],
+          "validation_launches": [{k: v for k, v in c.items() if v} for c, _ in validations],
+          "tts_audio_s": audio.size / 22050, "wall_s": trainer_s})
+
+    # (b) kernel path against plain path of the long step, f32
+    emit({"phase": "long_parity", **train_parity(4, LONG_SHAPE["L"], LONG_SHAPE["T"], fl,
+                                                 "flash_attention_bwd")})
+
+    # (c) throughput of the bf16 long step
+    state, step, batch = long_train_step(dev)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(10):
+        zero_counts()  # each step is a main-path run: counts from 0
+        metrics.append(step(state, batch, gen))
+        per_step.append(read_counts())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    for m, counts in zip(metrics, per_step):
+        if not (m["stepped"] == 1.0 and math.isfinite(m["total"]) and m["loss_scale"] < 1.0):
+            raise AssertionError(f"long step not finite, skipped or unstabilised: {m}")
+        want = {name: (n_layers if name in flash | cross else 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"long step launches {counts}, expected {want}")
+    B, T = LONG_SHAPE["B"], LONG_SHAPE["T"]
+    emit({"phase": "long", "config": "scripts/quality_run.py --long through get_default_config "
+          "(bf16 compute, f32 params, no attention-weight dropout, SpecAugment, no remat)",
+          **LONG_SHAPE, "timed_steps": 10, "ms_per_step": ms,
+          "mel_frames_per_s": B * T / (ms / 1e3),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_per_step": per_step[-1], "loss_scale": metrics[-1]["loss_scale"],
+          "losses": [m["total"] for m in metrics]})
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
+def parse_phases(argv) -> list:
+    """Every phase with no arguments (the contract run); ``--phases a,b`` runs
+    a subset, for a short call after a change, and prints no contract lines."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated subset of {','.join(PHASES)}")
+    names = parser.parse_args(argv).phases.split(",")
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}")
+    return [p for p in PHASES if p in names]
 
 
 def main() -> int:
@@ -741,36 +1294,72 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from kokoro_tpu_torch.ops import fused_attention as fa
+        import kokoro_tpu_torch  # noqa: F401
     except ImportError as err:
         print(f"chip_smoke: the kokoro_tpu_torch package is missing ({err})", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    phases = parse_phases(sys.argv[1:])
     t_start = time.perf_counter()
     smi = phase_device()
-    timings = phase_kernels()
-    phase_kernels_bwd()
-    phase_dropout()
-    phase_forward()
-    phase_serve()
-    counts = phase_train()  # launches in one bf16 preset training step
+    timings, counts, long_counts = {}, {}, {}
+    if "kernels" in phases:
+        timings.update(phase_kernels())
+    for name, fn in (("kernels_bwd", phase_kernels_bwd), ("dropout", phase_dropout)):
+        if name in phases:
+            fn()
+    if "kernels_flash" in phases:
+        timings.update(phase_kernels_flash())
+    if "kernels_folded" in phases:
+        folded_times, folded_counts = phase_kernels_folded()
+        timings.update(folded_times)
+        counts.update({name: (c, "per kernels_folded call: one fused_attention forward and "
+                                 "backward, B=32 T=512 H=8 Dh=64 bf16") for name, c in folded_counts.items()})
+    for name, fn in (("forward", phase_forward), ("serve", phase_serve)):
+        if name in phases:
+            fn()
+    if "train" in phases:  # launches in one bf16 preset training step
+        for name, c in phase_train().items():
+            if c:
+                counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
+    long_step = "per bf16 long training step (B=12 L=256 T=1408)"
+    if "long" in phases:  # launches in one bf16 long training step
+        for name, c in phase_long().items():
+            if name.startswith("flash"):
+                counts[name] = (c, long_step)
+            elif c:
+                long_counts[name] = c
     torch.cuda.synchronize()
+    emit({"wall_s": time.perf_counter() - t_start, "phases": phases})
+    if phases != PHASES:
+        # a subset run checks no contract: its last line says so, and has no "ok"
+        emit({"partial_run": phases, "contract_checked": False})
+        return 0
 
+    shapes = {"packed": "B=32 T=512 H=8 Dh=64", "folded": "B=32 T=512 H=8 Dh=64 (folded B*H=256)",
+              "flash": "B=12 T=1408 H=8 Dh=64 causal"}
     kernels = []
-    for kern in fa.KERNELS:
+    for kern in all_kernels():
         r = timings[(kern.name, "bfloat16")]
-        kernels.append({
+        launches, launches_are = counts[kern.name]
+        row = {
             "name": kern.name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "launches": counts[kern.name],
+            "replaces": kern.replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "ms_rate_0.1": r["ms_rate_0.1"],
-            "dtype": "bfloat16", "shape": "B=32 T=512 H=8 Dh=64",
-            "launches_are": "per bf16 preset training step",
-        })
-    emit({"wall_s": time.perf_counter() - t_start})
+            "library_ms": r["library_ms"], "dtype": "bfloat16",
+            "shape": shapes[kern.name.split("_")[0]], "launches_are": launches_are,
+        }
+        if "ms_rate_0.1" in r:
+            row["ms_rate_0.1"] = r["ms_rate_0.1"]
+        if (kern.name, "bfloat16", "long") in timings:  # K2 and its backward
+            row["long_shape"] = {
+                **timings[(kern.name, "bfloat16", "long")],
+                "shape": "B=12 T=1408 H=8 Dh=64, kv lengths 1408",
+                "launches": long_counts[kern.name], "launches_are": long_step}
+        kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ ff 1536, vocab 59) it profiles
   (``config.get_high_performance_config``: bf16 compute on f32 parameters,
   attention-weight dropout in the packed kernels, SpecAugment, no remat) on
   ``training_batch`` (B=32, L=96, T=512), which ``chip_smoke.py`` trains on;
+* the long-utterance training step (``LONG_REGIME``: the long configuration
+  of ``scripts/quality_run.py --long`` through ``get_default_config``; bf16
+  compute, no attention-weight dropout, so the decoder's self-attention runs
+  K4, SpecAugment, no remat) on ``training_batch`` at B=12, L=256, T=1408;
 * AR decode steps (``KokoroModel.decode_step``) at B=1 and B=4 over a
   400-frame cache;
 * HiFi-GAN (committed universal-V1 weights) on 4 x 256 frames;
@@ -75,6 +79,34 @@ def training_batch(cfg, B: int, T: int, L: int, device) -> dict:
         phoneme_lengths=torch.full((B,), L, dtype=torch.int32),
     )
     return {k: v.to(device) for k, v in batch.items()}
+
+
+# the long configuration of scripts/quality_run.py (make_cfg with --long),
+# the overrides it gives the reference's get_default_config
+LONG_REGIME = dict(
+    use_speed_perturbation=False, validation_split=0.1, log_every_steps=10,
+    max_seq_length=1408, mel_bucket_sizes=(1408,), phoneme_bucket_sizes=(256,),
+    max_frames_per_batch=18000, max_batch_size=12, batch_size_multiple=12,
+    use_flash_attention=True, attention_weight_dropout=False, gradient_checkpointing=False,
+)
+LONG_SHAPE = dict(B=12, L=256, T=1408)
+
+
+def long_train_step(device, seed: int = 0, **overrides):
+    """(state, step, batch) of the long regime at full width on seeded random
+    weights, B=12, L=256, T=1408 (one batch per step, no microbatch axis)."""
+    from kokoro_tpu_torch.config import get_default_config
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    model_cfg, train_cfg = get_default_config(**{**LONG_REGIME, **overrides})
+    model = KokoroModel(model_cfg).init_weights(torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device), train_cfg, total_steps=20000)
+    step = make_train_step(train_cfg, build_preclip_norms(state.names, train_cfg),
+                           spec_augment=train_cfg.use_spec_augment)
+    B, L, T = LONG_SHAPE["B"], LONG_SHAPE["L"], LONG_SHAPE["T"]
+    return state, step, training_batch(model_cfg, B, T, L, device)
 
 
 def preset_train_step(device, seed: int = 0):
@@ -171,6 +203,11 @@ def main() -> int:
     B, T = batch["mel_specs"].shape[:2]
     _profile("train_step", lambda: step(state, batch, gen), 5, dtype="bf16 compute, f32 params",
              preset="get_high_performance_config", B=B, T=T, L=batch["phoneme_indices"].shape[1])
+    del state, step, batch
+    torch.cuda.empty_cache()
+    state, step, batch = long_train_step(dev)
+    _profile("long_train_step", lambda: step(state, batch, gen), 5,
+             dtype="bf16 compute, f32 params", preset="LONG_REGIME", **LONG_SHAPE)
     return 0
 
 

@@ -2,15 +2,18 @@
 
 :class:`KokoroConfig` holds the model and audio fields of
 ``kokoro_tpu/config.py::TrainingConfig``, :class:`TrainingConfig` the fields
-the training step reads, both with the reference's names and defaults (the
-data, mesh and TPU dispatch fields have no counterpart yet).
+the training step, the data pipeline and the trainer read, both with the
+reference's names and defaults.  The mesh and TPU dispatch fields have no
+counterpart (ROADMAP.md lists them); MFA alignments are not ported, so the
+durations are always the fallback ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -64,14 +67,19 @@ class KokoroConfig:
 @dataclass
 class TrainingConfig:
     """The fields of ``kokoro_tpu/config.py::TrainingConfig`` that the
-    training step reads, with the same names and defaults (the model's own
-    fields are :class:`KokoroConfig`'s; the trainer loop's, data, mesh and
-    TPU dispatch fields have no counterpart here).  Gradient accumulation
-    follows the batch: a leading microbatch axis."""
+    training step, the data pipeline (``data/``) and the trainer
+    (``training/trainer.py``) read, with the same names and defaults (the
+    model's own fields are :class:`KokoroConfig`'s).  The training step takes
+    gradient accumulation from the batch (a leading microbatch axis); the
+    trainer stacks ``gradient_accumulation_steps`` batches into one."""
 
+    data_dir: str = "data/processed_data"
+    output_dir: str = "output_models"
     num_epochs: int = 30
     batch_size: int = 16
     learning_rate: float = 5.0e-5
+    gradient_accumulation_steps: int = 2
+    seed: int = 42
 
     # LR schedule: linear warmup -> OneCycle cosine, or per-epoch warm restarts
     use_onecycle_lr: bool = True
@@ -91,7 +99,10 @@ class TrainingConfig:
     decoder_attn_lr_multiplier: float = 0.15
     variance_embedding_lr_multiplier: float = 0.15
 
-    # EMA: an update every N successful steps
+    # EMA: an update every N successful steps; decay None -> from the
+    # half-life in epochs (optimizer.recommended_ema_decay)
+    ema_decay: Optional[float] = None
+    ema_half_life_epochs: float = 1.0
     ema_update_every: int = 1
 
     # loss weights
@@ -103,6 +114,8 @@ class TrainingConfig:
     energy_huber_delta: float = 0.05
     duration_huber_delta: float = 1.0
     stop_token_pos_weight: float = 17.0
+    stop_token_smooth_tail: int = 6
+    stop_token_smooth_decay: float = 0.5
 
     # SpecAugment on the expanded encoder memory
     use_spec_augment: bool = True
@@ -110,6 +123,7 @@ class TrainingConfig:
     spec_augment_freq_mask_max: int = 3
     spec_augment_num_time_masks: int = 1
     spec_augment_num_freq_masks: int = 2
+    spec_augment_start_epoch: int = 1
 
     # gradient clipping and stability
     max_grad_norm: float = 1.5
@@ -146,6 +160,73 @@ class TrainingConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
+    # features (the model's sample_rate, hop_length and n_mels are
+    # KokoroConfig's)
+    max_seq_length: int = 1800
+    win_length: int = 1024
+    n_fft: int = 1024
+    f_min: float = 0.0
+    f_max: float = 8000.0
+    pitch_extract_fmin: float = 50.0
+    pitch_extract_fmax: float = 800.0
+
+    # speed perturbation (training items only)
+    use_speed_perturbation: bool = True
+    speed_perturb_range: float = 0.1
+    speed_perturb_prob: float = 0.5
+
+    # feature cache: per-utterance .npz files plus an in-RAM LRU; the
+    # default directory is <data_dir>/.feature_cache_torch, apart from the
+    # JAX package's
+    use_feature_cache: bool = True
+    feature_cache_dir: str = ""
+    use_memory_cache: bool = True
+
+    # batching: frame budget + static length buckets (data/batching.py)
+    use_dynamic_batching: bool = True
+    max_frames_per_batch: int = 15000
+    min_batch_size: int = 4
+    max_batch_size: int = 8
+    mel_bucket_sizes: Tuple[int, ...] = (256, 512, 768, 1024, 1280, 1536, 1800)
+    phoneme_bucket_sizes: Tuple[int, ...] = (32, 64, 96, 128, 192, 256)
+    max_sequence_dim_cap: int = 2000
+    batch_order: str = "spread"
+    carry_tail: bool = False
+    pack_mode: str = "quantile"
+    batch_size_multiple: Optional[int] = None
+
+    # checkpoints (training/checkpoint.py)
+    save_every: int = 5
+    resume_checkpoint: str = "auto"
+    keep_checkpoints: int = 5
+
+    # validation and early stopping
+    validation_split: float = 0.1
+    validation_interval: int = 1
+    early_stopping_patience: int = 15
+    early_stopping_min_delta: float = 0.001
+
+    # logging
+    log_every_steps: int = 10
+
+    def __post_init__(self) -> None:
+        if not self.feature_cache_dir:
+            self.feature_cache_dir = str(Path(self.data_dir) / ".feature_cache_torch")
+        if self.win_length > self.n_fft:
+            raise ValueError(f"win_length ({self.win_length}) cannot exceed n_fft ({self.n_fft})")
+        if self.pack_mode not in ("quantile", "bucket"):
+            raise ValueError(f"pack_mode must be 'quantile' or 'bucket', got {self.pack_mode!r}")
+        if self.batch_order not in ("spread", "shape_major"):
+            raise ValueError(f"batch_order must be 'spread' or 'shape_major', "
+                             f"got {self.batch_order!r}")
+        self.mel_bucket_sizes = tuple(sorted(self.mel_bucket_sizes))
+        self.phoneme_bucket_sizes = tuple(sorted(self.phoneme_bucket_sizes))
+        if self.mel_bucket_sizes and self.mel_bucket_sizes[-1] < self.max_seq_length:
+            self.mel_bucket_sizes = self.mel_bucket_sizes + (self.max_seq_length,)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
     def spec_augment_args(self) -> Dict[str, int]:
         """The SpecAugment knobs as ``ops/specaugment.apply_spec_augment``
         takes them."""
@@ -155,6 +236,27 @@ class TrainingConfig:
                     num_freq_masks=self.spec_augment_num_freq_masks)
 
 
+def _split(model: Dict[str, Any], train: Dict[str, Any], overrides: Dict[str, Any]
+           ) -> Tuple[KokoroConfig, TrainingConfig]:
+    model_fields = {f.name for f in dataclasses.fields(KokoroConfig)}
+    train_fields = {f.name for f in dataclasses.fields(TrainingConfig)}
+    for key, value in overrides.items():
+        if key in model_fields:
+            model[key] = value
+        elif key in train_fields:
+            train[key] = value
+        else:
+            raise TypeError(f"no config field named {key!r}")
+    return KokoroConfig(**model), TrainingConfig(**train)
+
+
+def get_default_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
+    """The reference's defaults (``get_default_config``) as ``(model config,
+    training config)``; ``overrides`` go to whichever of the two has the
+    field."""
+    return _split({}, {}, overrides)
+
+
 def get_high_performance_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
     """The reference's throughput preset (``get_high_performance_config``):
     bf16 compute on f32 parameters, no remat, B=32 (no accumulation: the
@@ -162,9 +264,5 @@ def get_high_performance_config(**overrides) -> Tuple[KokoroConfig, TrainingConf
     decoder's attention through the packed kernels with attention-weight
     dropout.  Returns ``(model config, training config)``; ``overrides`` go
     to whichever of the two has the field."""
-    model_fields = {f.name for f in dataclasses.fields(KokoroConfig)}
-    model = dict(use_flash_attention=True, attention_weight_dropout=True)
-    train = dict(batch_size=32, gradient_checkpointing=False)
-    for key, value in overrides.items():
-        (model if key in model_fields else train)[key] = value
-    return KokoroConfig(**model), TrainingConfig(**train)
+    return _split(dict(use_flash_attention=True, attention_weight_dropout=True),
+                  dict(batch_size=32, gradient_checkpointing=False), overrides)

@@ -21,6 +21,8 @@ A model directory holds ``model.pt`` (the state dict), ``metadata.json``
 (``{"model_metadata": {...}}`` with the keys of
 ``kokoro_tpu/training/checkpoint.py::build_model_metadata`` and the inference
 controls) and ``phoneme_processor.json`` (the processor's ``to_dict()``).
+:func:`load_model_dir` also reads a port trainer's run directory
+(``training/checkpoint.py``), which holds the same processor file.
 """
 
 from __future__ import annotations
@@ -118,8 +120,13 @@ def save_model_dir(
 
 
 def load_model_dir(path: str | Path) -> tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """``(state_dict, model_metadata)`` of a model directory."""
+    """``(state_dict, model_metadata)`` of a model directory, or of a
+    trainer's run directory (``training/checkpoint.py::load_inference_weights``)."""
     path = Path(path)
+    if not (path / MODEL_FILE).exists():
+        from kokoro_tpu_torch.training.checkpoint import load_inference_weights
+
+        return load_inference_weights(path)
     meta = json.loads((path / METADATA_FILE).read_text())["model_metadata"]
     state = torch.load(path / MODEL_FILE, map_location="cpu", weights_only=True)
     return state, meta

@@ -1,7 +1,8 @@
-// Helpers shared by the packed-attention forward (packed_attention.cu) and
-// backward (packed_attention_bwd.cu) kernels: 64 x 64 tiles, 256 threads as a
-// 16 x 16 grid, loads of the packed (B, T, H*Dh) layout into f32 shared
-// memory, and the counter-based dropout mask.
+// Helpers of the attention kernels (attention_kernels.cuh): 64 x 64 tiles,
+// 256 threads as a 16 x 16 grid, loads of rows D elements apart (the packed
+// (B, T, H*Dh) layout, or head-first (B, H, T, Dh) with D = Dh) into f32
+// shared memory, the backward's row statistics, and the counter-based
+// dropout mask of the packed kernels.
 //
 // Dropout: the TPU kernels draw attention-weight dropout from the TPU core's
 // hardware PRNG (kokoro_tpu/ops/fused_attention.py::_dropout_mask), whose
@@ -19,6 +20,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace kokoro_attn {
@@ -26,7 +28,10 @@ namespace kokoro_attn {
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key columns per tile
 constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 4 columns of a tile
-constexpr float kMasked = -1e9f;
+constexpr float kMasked = -1e9f;  // the packed kernels' masked logit (reference: -1e9)
+// the flash kernels' mask value, ADDED to a masked logit (the library's
+// DEFAULT_MASK_VALUE)
+constexpr float kFlashMask = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 v = *reinterpret_cast<const float4*>(src);
@@ -113,6 +118,37 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty
         s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
         s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
       }
+  }
+}
+
+// rowsum(dO * O) and the saved lse of query rows [q0, q0 + 64) -> shared
+// memory (0 for rows at or past T_len); rows are D elements apart from
+// `base`.  Four threads per row.  The backward kernels' di.
+template <typename T, int DH>
+__device__ __forceinline__ void row_stats(const T* o, const T* dout, const float* lse,
+                                          size_t base, size_t lse_base, int q0, int T_len,
+                                          int D, float* delta_s, float* lse_s) {
+  constexpr int V = 16 / sizeof(T);
+  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+  const int row = q0 + r;
+  float sum = 0.f;
+  if (row < T_len) {
+    const T* orow = o + base + (size_t)row * D;
+    const T* drow = dout + base + (size_t)row * D;
+#pragma unroll
+    for (int c = part * V; c < DH; c += 4 * V) {
+      float a[V], d[V];
+      load16(orow + c, a);
+      load16(drow + c, d);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum = fmaf(a[e], d[e], sum);
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (part == 0) {
+    delta_s[r] = sum;
+    lse_s[r] = row < T_len ? lse[lse_base + row] : 0.f;
   }
 }
 

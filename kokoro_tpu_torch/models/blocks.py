@@ -13,13 +13,22 @@ Port of ``kokoro_tpu/models/blocks.py``.  What must match the flax modules:
 * ALiBi reproduces the reference's bidirectional quirk (positive bias toward
   distant future keys in non-causal attention) on purpose.
 
-Attention routes: full-sequence decoder self-attention (causal) and
-cross-attention (q_len == kv_len) go through the packed dispatcher
-(``ops/fused_attention.py``, differentiable, with in-kernel dropout) when
-``use_flash`` is set; everything else (the encoder, the cached decode step,
-precomputed cross K/V) is plain matmul/softmax, as the JAX package leaves it
-to XLA.  KV caches are preallocated ``(B, H, S, Dh)`` tensors updated in
-place.
+Attention routes with ``use_flash``, in the reference's order
+(``MultiHeadAttention.__call__``), for full-sequence attention without ALiBi:
+
+1. K4 (``ops/flash_attention.py``): causal attention at T >= 1024 in multiples
+   of 128 with attention dropout inactive, on the head-split path;
+2. K1 (``ops/fused_attention.py``, packed): any other causal self-attention;
+3. K2 (packed, kv lengths): cross-attention with q_len == kv_len;
+4. K3 (``fused_attention``, folded): causal attention on the head-split path
+   (a key given) with q_len == kv_len;
+5. everything else (the encoder, the cached decode step, precomputed cross
+   K/V) is plain matmul/softmax, as the JAX package leaves it to XLA.
+
+The packed routes take any T: the reference's TPU-only gates (128 <= T <=
+896) do not carry over, so K1 and K2 also run outside K4's regime where the
+reference uses einsum.  KV caches are preallocated ``(B, H, S, Dh)`` tensors
+updated in place.
 
 Training: every random draw (dropout, stochastic depth, the kernels'
 attention dropout) comes from the ``rng`` argument (``models/rng.py``), one
@@ -40,7 +49,10 @@ from torch import nn
 
 from kokoro_tpu_torch.models.positional import apply_rope, apply_rope_heads_last
 from kokoro_tpu_torch.models.rng import Rng, attention_seed, drop_path, dropout, fold
-from kokoro_tpu_torch.ops.fused_attention import SUPPORTED_HEAD_DIMS, packed_attention
+from kokoro_tpu_torch.ops.flash_attention import flash_attention, flash_supported
+from kokoro_tpu_torch.ops.fused_attention import (
+    SUPPORTED_HEAD_DIMS, fused_attention, packed_attention,
+)
 
 NEG_INF = -1e9
 
@@ -181,6 +193,19 @@ class MultiHeadAttention(nn.Module):
         )
         return self.w_o(out)
 
+    def _head_split_kernel(self, q, k, v, flash, rate, rng):
+        """Head-first q, k, v -> K4 (``flash``) or K3 -> w_o.  Causal under
+        suffix padding needs no key mask (as in :meth:`_packed`)."""
+        B, H, Tq, Dh = q.shape
+        dt = self.w_q.compute_dtype or self.w_q.weight.dtype
+        q, k, v = (x.to(dt) for x in (q, k, v))
+        if flash:
+            out = flash_attention(q, k, v, causal=True, scale=1.0 / math.sqrt(Dh))
+        else:
+            out = fused_attention(q, k, v, scale=1.0 / math.sqrt(Dh), dropout_rate=rate,
+                                  seed=attention_seed(rng, rate))
+        return self.w_o(out.transpose(1, 2).reshape(B, Tq, self.d_model))
+
     def forward(
         self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
         value: Optional[torch.Tensor] = None, *, causal: bool = False,
@@ -195,9 +220,13 @@ class MultiHeadAttention(nn.Module):
             self.use_flash and kv_cache is None and precomputed_kv is None
             and not self.use_alibi and self.head_dim in SUPPORTED_HEAD_DIMS
         )
+        Tk = Tq if key is None else key.shape[1]
+        # K4 takes the long causal regime when no attention weight is dropped
+        flash = (full_seq and causal and rate == 0.0
+                 and flash_supported(Tq, Tk, self.head_dim, causal))
         # causal self-attention needs no key mask under suffix padding: a
         # padded key is visible only to padded queries, masked downstream
-        if full_seq and causal and key is None and value is None:
+        if full_seq and causal and key is None and value is None and not flash:
             return self._packed(query, None, None, True, rate, rng), None
         if (
             full_seq and not causal and key is not None
@@ -239,6 +268,8 @@ class MultiHeadAttention(nn.Module):
                 pos = torch.arange(k.shape[2], device=query.device)
                 q = apply_rope(q, pos[:Tq])
                 k = apply_rope(k, pos)
+            if full_seq and causal and (flash or Tq == Tk):
+                return self._head_split_kernel(q, k, v, flash, rate, rng), None
 
         Tk = k.shape[2]
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (

@@ -1,5 +1,5 @@
-"""Packed fused attention: the Hopper kernels, their plain versions, the
-autograd Function and the dispatcher.
+"""Packed and folded fused attention: the Hopper kernels, their plain
+versions, the autograd Function and the dispatchers.
 
 Port of ``kokoro_tpu/ops/fused_attention.py::fused_attention_packed`` and its
 custom VJP (``_fused_packed``: ``_call_fwd_packed`` / ``_call_bwd_packed``):
@@ -25,8 +25,17 @@ attention-weight dropout.
 * :class:`PackedAttentionFunction` is the ``torch.autograd.Function``: on CPU
   tensors plain forward and plain backward, on CUDA tensors the kernels and
   nothing else.
-* :func:`packed_attention` is the one dispatcher the model calls.  Nothing
+* :func:`packed_attention` is the dispatcher of the packed layout.  Nothing
   falls back: a CUDA tensor launches a kernel or raises.
+* K3, :func:`fused_attention` (``_call_fwd`` / ``_call_bwd`` behind
+  ``fused_attention``): causal attention on head-first ``(B, H, T, Dh)``.
+  Made contiguous and folded to ``(B*H, T, Dh)`` it is the packed layout with
+  one head, so :data:`folded_attention_fwd` / :data:`folded_attention_bwd`
+  launch the packed kernels on that view and count their own launches.  The
+  Philox counter ``(b*H + h, row, col/4)`` is then the packed layout's, so
+  one seed drops the same weights in both layouts, bit for bit (the
+  reference's ``packed_layout_identity``).  Its plain version is
+  :func:`packed_attention_reference` on the folded view.
 
 The TPU-only gates of the reference (``MIN/MAX_FUSED_LEN``, zero-padding T to
 a multiple of 128, the 128-lane head-panel rule) do not carry over: the
@@ -77,7 +86,7 @@ def _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed):
 
 def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
     B, T, D = x.shape
-    return x.reshape(B, T, H, D // H).transpose(1, 2).float()
+    return x.reshape(B, T, H, D // H).transpose(1, 2).float().contiguous()
 
 
 def _packed(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -173,11 +182,13 @@ class PackedAttentionKernel:
     launches this wrapper made, and nothing else."""
 
     source = "kokoro_tpu_torch/csrc/packed_attention.cu"
-    replaces = "kokoro_tpu/ops/fused_attention.py:322 (_call_fwd_packed)"
 
-    def __init__(self, causal: bool) -> None:
+    def __init__(self, causal: bool, name: Optional[str] = None,
+                 replaces: str = "kokoro_tpu/ops/fused_attention.py:322 (_call_fwd_packed)"
+                 ) -> None:
         self.causal = causal
-        self.name = "packed_attention_fwd_" + ("causal" if causal else "kvlen")
+        self.name = name or "packed_attention_fwd_" + ("causal" if causal else "kvlen")
+        self.replaces = replaces
         self.launches = 0
 
     def __call__(
@@ -217,11 +228,13 @@ class PackedAttentionBwdKernel:
     launched them."""
 
     source = "kokoro_tpu_torch/csrc/packed_attention_bwd.cu"
-    replaces = "kokoro_tpu/ops/fused_attention.py:354 (_call_bwd_packed)"
 
-    def __init__(self, causal: bool) -> None:
+    def __init__(self, causal: bool, name: Optional[str] = None,
+                 replaces: str = "kokoro_tpu/ops/fused_attention.py:354 (_call_bwd_packed)"
+                 ) -> None:
         self.causal = causal
-        self.name = "packed_attention_bwd_" + ("causal" if causal else "kvlen")
+        self.name = name or "packed_attention_bwd_" + ("causal" if causal else "kvlen")
+        self.replaces = replaces
         self.launches = 0
 
     def __call__(
@@ -263,51 +276,70 @@ packed_attention_causal = PackedAttentionKernel(causal=True)
 packed_attention_kvlen = PackedAttentionKernel(causal=False)
 packed_attention_bwd_causal = PackedAttentionBwdKernel(causal=True)
 packed_attention_bwd_kvlen = PackedAttentionBwdKernel(causal=False)
+# K3: the same kernels on the folded (B*H, T, Dh) view, counted apart
+folded_attention_fwd = PackedAttentionKernel(
+    causal=True, name="folded_attention_fwd",
+    replaces="kokoro_tpu/ops/fused_attention.py:153 (_call_fwd)")
+folded_attention_bwd = PackedAttentionBwdKernel(
+    causal=True, name="folded_attention_bwd",
+    replaces="kokoro_tpu/ops/fused_attention.py:179 (_call_bwd)")
 FWD_KERNELS = (packed_attention_causal, packed_attention_kvlen)
 BWD_KERNELS = (packed_attention_bwd_causal, packed_attention_bwd_kvlen)
-KERNELS = FWD_KERNELS + BWD_KERNELS
+FOLDED_KERNELS = (folded_attention_fwd, folded_attention_bwd)
+KERNELS = FWD_KERNELS + BWD_KERNELS + FOLDED_KERNELS
 
 
 def total_launches() -> int:
     return sum(kern.launches for kern in KERNELS)
 
 
+def _kernel_pair(variant: str):
+    """(forward, backward) wrappers of a variant, looked up when called."""
+    if variant == "folded":
+        return folded_attention_fwd, folded_attention_bwd
+    if variant == "causal":
+        return packed_attention_causal, packed_attention_bwd_causal
+    return packed_attention_kvlen, packed_attention_bwd_kvlen
+
+
 class PackedAttentionFunction(torch.autograd.Function):
     """Packed attention with its backward: plain forward and plain backward
-    on CPU tensors, the forward and backward kernels on CUDA tensors.  Saved
-    for the backward: q, k, v, o, the kernel's lse (CUDA, and only when a
-    gradient is wanted) and kv_lengths; the seed and the other arguments are
-    plain Python values."""
+    on CPU tensors, the forward and backward kernels of ``variant``
+    ("causal", "kvlen" or "folded") on CUDA tensors.  Saved for the backward:
+    q, k, v, o, the kernel's lse (CUDA, and only when a gradient is wanted)
+    and kv_lengths; the seed and the other arguments are plain Python
+    values."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lengths, num_heads, scale, causal, dropout_rate, seed):
+    def forward(ctx, q, k, v, kv_lengths, num_heads, scale, variant, dropout_rate, seed):
+        causal = variant != "kvlen"
         kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
                   dropout_rate=dropout_rate, seed=seed)
         lse = None
         if q.device.type == "cpu":
             o = packed_attention_reference(q, k, v, causal=causal, **kw)
         else:
-            kernel = packed_attention_causal if causal else packed_attention_kvlen
+            kernel = _kernel_pair(variant)[0]
             if any(ctx.needs_input_grad[:3]):
                 o, lse = kernel(q, k, v, return_lse=True, **kw)
             else:
                 o = kernel(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
-        ctx.args = (num_heads, scale, causal, dropout_rate, seed)
+        ctx.args = (num_heads, scale, variant, dropout_rate, seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lengths = ctx.saved_tensors
-        num_heads, scale, causal, dropout_rate, seed = ctx.args
+        num_heads, scale, variant, dropout_rate, seed = ctx.args
         kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
                   dropout_rate=dropout_rate, seed=seed)
         do = do.contiguous()
         if q.device.type == "cpu":
-            dq, dk, dv = packed_attention_bwd_reference(q, k, v, do, causal=causal, **kw)
+            dq, dk, dv = packed_attention_bwd_reference(q, k, v, do,
+                                                        causal=variant != "kvlen", **kw)
         else:
-            kernel = packed_attention_bwd_causal if causal else packed_attention_bwd_kvlen
-            dq, dk, dv = kernel(q, k, v, o, do, lse, **kw)
+            dq, dk, dv = _kernel_pair(variant)[1](q, k, v, o, do, lse, **kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -326,4 +358,26 @@ def packed_attention(
     _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
     kv_lengths = None if causal else kv_lengths
     return PackedAttentionFunction.apply(q, k, v, kv_lengths, num_heads, scale,
-                                         causal, dropout_rate, seed)
+                                         "causal" if causal else "kvlen", dropout_rate, seed)
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    dropout_rate: float = 0.0, seed: Optional[int] = None,
+) -> torch.Tensor:
+    """K3: causal self-attention ``(B, H, T, Dh) -> (B, H, T, Dh)``,
+    differentiable (the counterpart of ``fused_attention.py::fused_attention``).
+
+    The inputs are folded to ``(B*H, T, Dh)``, the packed layout with one
+    head: CPU tensors run the packed plain versions on that view, CUDA
+    tensors launch the folded wrappers.  The reference's zero-padding of T to
+    a multiple of 128 is TPU-only; the kernels mask by bounds.  ``seed`` as
+    in :func:`packed_attention`."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one (B, H, T, Dh) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, T, Dh = q.shape
+    folded = [x.contiguous().view(B * H, T, Dh) for x in (q, k, v)]
+    _check(*folded, 1, None, dropout_rate, seed)
+    out = PackedAttentionFunction.apply(*folded, None, 1, scale, "folded", dropout_rate, seed)
+    return out.view(B, H, T, Dh)

@@ -27,6 +27,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = {
     "packed_attention": "packed_attention.cu",
     "packed_attention_bwd": "packed_attention_bwd.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (
@@ -115,4 +117,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.kokoro_packed_attention_bwd
         # q k v o do lse dq dk dv lens, B T H Dh, scale, causal dtype, dropout..., stream
         fn.argtypes = [p] * 10 + [i] * 4 + [f, i, i] + dropout + [p]
+    elif name == "flash_attention":
+        fn = lib.kokoro_flash_attention_fwd
+        # q k v o lse q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream
+        fn.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
+    elif name == "flash_attention_bwd":
+        fn = lib.kokoro_flash_attention_bwd
+        # q k v o do lse dq dk dv q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream
+        fn.argtypes = [p] * 11 + [i] * 5 + [f, i, i, p]
     fn.restype = i

@@ -1,11 +1,13 @@
-"""Hann window, HTK mel filterbank and Griffin-Lim (the vocoder fallback).
+"""Hann window, HTK mel filterbank, STFT framing, the log-mel feature and
+Griffin-Lim (the vocoder fallback).
 
-Port of the parts of ``kokoro_tpu/ops/stft.py`` that Griffin-Lim needs.  The
-filterbank is torchaudio's ``melscale_fbanks(mel_scale='htk', norm=None)``;
-Griffin-Lim inverts ``log(mel)`` by ``exp``, a least-squares (pseudo-inverse)
-mel inversion and ``n_iter`` phase-recovery iterations with centered,
-reflect-padded frames.  The log-mel feature path comes with the training
-slice.
+Port of ``kokoro_tpu/ops/stft.py``.  The log-mel is the reference's feature
+definition: torchaudio ``MelSpectrogram(power=2)`` (periodic hann window,
+centered reflect-padded frames, HTK mel scale without filterbank
+normalisation, torchaudio's ``melscale_fbanks(mel_scale='htk', norm=None)``)
+followed by ``log(mel + 1e-9)``.  Griffin-Lim inverts ``log(mel)`` by
+``exp``, a least-squares (pseudo-inverse) mel inversion and ``n_iter``
+phase-recovery iterations.  Everything runs on the input's device.
 """
 
 from __future__ import annotations
@@ -53,6 +55,44 @@ def _window(n_fft: int, win_length: int, dtype, device) -> torch.Tensor:
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
     return window
+
+
+def frame_signal(waveform: torch.Tensor, frame_length: int, hop_length: int,
+                 center: bool = True) -> torch.Tensor:
+    """``(..., samples)`` -> overlapping frames ``(..., n_frames,
+    frame_length)``; ``center`` reflect-pads ``frame_length // 2`` on both
+    sides (torch.stft's convention: ``n_frames = samples // hop + 1``)."""
+    if center:
+        pad = frame_length // 2
+        lead = waveform.shape[:-1]
+        waveform = F.pad(waveform.reshape(-1, 1, waveform.shape[-1]), (pad, pad),
+                         mode="reflect").reshape(*lead, -1)
+    return waveform.unfold(-1, frame_length, hop_length)
+
+
+def stft_power(waveform: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+               center: bool = True) -> torch.Tensor:
+    """``|STFT|^2`` ``(..., n_frames, n_fft // 2 + 1)`` with a periodic hann
+    window zero-padded to ``n_fft``."""
+    frames = frame_signal(waveform, n_fft, hop_length, center=center)
+    spec = torch.fft.rfft(frames * _window(n_fft, win_length, frames.dtype, frames.device),
+                          n=n_fft, dim=-1)
+    return spec.abs() ** 2
+
+
+def log_mel_spectrogram(
+    waveform: torch.Tensor, sample_rate: int = 22050, n_fft: int = 1024,
+    hop_length: int = 256, win_length: int = 1024, n_mels: int = 80, f_min: float = 0.0,
+    f_max: Optional[float] = 8000.0, eps: float = 1e-9,
+) -> torch.Tensor:
+    """Log-mel ``(..., n_frames, n_mels)`` of ``(..., samples)`` float32
+    audio: ``log(mel_power + eps)``."""
+    if f_max is None:
+        f_max = sample_rate / 2.0
+    power = stft_power(waveform.float(), n_fft, hop_length, win_length)
+    fb = torch.as_tensor(mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max),
+                         device=waveform.device)
+    return torch.log(power @ fb + eps)
 
 
 def griffin_lim(

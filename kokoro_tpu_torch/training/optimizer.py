@@ -257,6 +257,14 @@ class FusedAdamW:
 
 
 # -- EMA and the explosion detector ----------------------------------------
+def recommended_ema_decay(steps_per_epoch: int, half_life_epochs: float) -> float:
+    """decay = exp(-ln 2 / (steps_per_epoch * half_life_epochs)), clipped to
+    [0.9, 0.9999]."""
+    if steps_per_epoch <= 0 or half_life_epochs <= 0:
+        return 0.9999
+    return max(0.9, min(math.exp(-math.log(2.0) / (steps_per_epoch * half_life_epochs)), 0.9999))
+
+
 @torch.no_grad()
 def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
     torch._foreach_mul_(ema, decay)

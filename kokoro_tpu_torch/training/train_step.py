@@ -174,21 +174,22 @@ def make_loss_fn(model: KokoroModel, config: TrainingConfig, spec_augment: bool 
 
 
 def apply_gradient_update(state: TrainState, grads: List[torch.Tensor],
-                          losses: Dict[str, torch.Tensor], clip_norm: torch.Tensor, *,
-                          config: TrainingConfig,
+                          losses: Dict[str, torch.Tensor], clip_norm: torch.Tensor,
+                          loss_scale: torch.Tensor, *, config: TrainingConfig,
                           preclip_norms: Optional[Dict[str, float]] = None,
                           ema_decay: float = 0.999) -> Dict[str, float]:
     """Everything after the gradients (in place on ``state`` and ``grads``);
-    returns the step's metrics as floats."""
+    returns the step's metrics as floats, ``loss_scale`` (the
+    stabilization's smallest loss scale of the step) among them."""
     raw_norm = global_norm(grads)
     if preclip_norms is not None:
         apply_preclips(grads, [preclip_norms[n] for n in state.names])
     clipped_norm = global_norm(grads)
     # the step's one host read: everything below is decided from these
-    values = torch.stack([raw_norm, clipped_norm, clip_norm.float()]
+    values = torch.stack([raw_norm, clipped_norm, clip_norm.float(), loss_scale.float()]
                          + [losses[k].float() for k in LOSS_KEYS]).tolist()
-    raw, clipped, clip = values[:3]
-    metrics = dict(zip(LOSS_KEYS, values[3:]))
+    raw, clipped, clip, scale = values[:4]
+    metrics = dict(zip(LOSS_KEYS, values[4:]), loss_scale=scale)
     threshold = grad_explosion_threshold(state.grad_ema, state.grad_ema_steps,
                                          state.opt_step, config)
     exploded = raw > threshold
@@ -234,10 +235,11 @@ def make_train_step(config: TrainingConfig, preclip_norms: Optional[Dict[str, fl
             micro = [{k: v[a] for k, v in batch.items()} for a in range(A)]
         else:
             A, micro = 1, [batch]
-        grads, losses, clip = None, None, None
+        grads, losses, clip, scale = None, None, None, None
         for mb in micro:
             rng = Rng.from_generator(generator)
             loss_scale, mb_clip = adaptive_stabilization(mb, config)
+            scale = loss_scale if scale is None else torch.minimum(scale, loss_scale)
             total, mb_losses = loss_fn(mb, rng)
             mb_grads = torch.autograd.grad(total, params, allow_unused=True)
             mb_grads = [torch.zeros_like(p) if g is None else g
@@ -253,7 +255,7 @@ def make_train_step(config: TrainingConfig, preclip_norms: Optional[Dict[str, fl
             torch._foreach_div_(grads, float(A))
             losses = {k: v / A for k, v in losses.items()}
             clip = torch.minimum(clip, torch.full_like(clip, config.max_grad_norm))
-        return apply_gradient_update(state, grads, losses, clip, config=config,
+        return apply_gradient_update(state, grads, losses, clip, scale, config=config,
                                      preclip_norms=preclip_norms, ema_decay=ema_decay)
 
     return train_step

@@ -36,8 +36,17 @@ def test_no_jax_or_reference_imports(path):
 def test_port_files_exist():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for required in ("chip_smoke.py", "kokoro_tpu_torch/ops/fused_attention.py",
-                     "kokoro_tpu_torch/serving/server.py", "kokoro_tpu_torch/cli/serve.py"):
+                     "kokoro_tpu_torch/ops/flash_attention.py", "kokoro_tpu_torch/ops/pitch.py",
+                     "kokoro_tpu_torch/ops/energy.py", "kokoro_tpu_torch/data/dataset.py",
+                     "kokoro_tpu_torch/data/batching.py",
+                     "kokoro_tpu_torch/training/checkpoint.py",
+                     "kokoro_tpu_torch/training/trainer.py", "kokoro_tpu_torch/cli/args.py",
+                     "kokoro_tpu_torch/cli/train.py", "kokoro_tpu_torch/serving/server.py",
+                     "kokoro_tpu_torch/cli/serve.py"):
         assert required in names
+    for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
+                   "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh"):
+        assert (ROOT / "kokoro_tpu_torch" / "csrc" / source).is_file(), source
 
 
 def _no_cuda(monkeypatch):
@@ -62,4 +71,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         VocoderManager(vocoder_type="griffin_lim")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--model", str(tmp_path), "--port", "0"])
+    from kokoro_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--data-dir", str(tmp_path), "--output-dir", str(tmp_path / "run")])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -12,6 +12,7 @@ with TF32 off.
 import pytest
 import torch
 
+from kokoro_tpu_torch.ops import flash_attention as flash
 from kokoro_tpu_torch.ops import fused_attention as port
 
 pytestmark = pytest.mark.cuda
@@ -91,7 +92,7 @@ def test_backward_kernel_matches_plain(cuda, causal, T, Dh, dtype, rate):
     torch.cuda.synchronize()
     fwd, bwd = (0, 2) if causal else (1, 3)
     assert [kern.launches - b for kern, b in zip(port.KERNELS, before)] == [
-        int(i in (fwd, bwd)) for i in range(4)]
+        int(i in (fwd, bwd)) for i in range(len(port.KERNELS))]
     ref = port.packed_attention_reference(q, k, v, **kw)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -120,3 +121,68 @@ def test_dropout_mask_is_the_plain_mask(cuda):
     from kokoro_tpu_torch.ops.philox import attention_keep_mask
 
     assert torch.equal(pd != 0, attention_keep_mask(kw["seed"], B, H, T, rate, device=cuda))
+
+
+@pytest.mark.parametrize("masks", ["none", "suffix"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 63, 200, 1024])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernels_match_plain(cuda, causal, T, Dh, dtype, masks):
+    """K4 forward and backward through the autograd Function against the
+    plain forward and backward."""
+    B, H = 2, 2
+    g = torch.Generator().manual_seed(3 * T + Dh)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, dtype) for _ in range(4))
+    valid = None
+    if masks == "suffix":
+        valid = torch.arange(T, device=cuda)[None, :] < torch.tensor(
+            [[T], [max(1, T - 17)]], device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [kern.launches for kern in flash.KERNELS]
+    out = flash.flash_attention(*leaves, causal=causal, scale=Dh ** -0.5, q_valid=valid,
+                                kv_valid=valid)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(flash.KERNELS, before)] == [1, 1]
+    q_seg, kv_seg = flash.segment_ids(q, k, valid, valid)
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    ref = flash.flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    grads = flash.flash_attention_bwd_reference(q, k, v, out.detach(), do, **kw)
+    for name, a, b in zip("qkv", grads, leaves):
+        torch.testing.assert_close(b.grad.float(), a.float(), rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype], msg=f"d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [1, 63, 200, 432])
+def test_folded_kernels_match_plain_and_equal_packed(cuda, T, dtype, rate):
+    """K3 (the packed kernels on the folded view) against the plain version,
+    and bit for bit equal to the packed layout with the same seed."""
+    B, H, Dh = 2, 2, 64
+    g = torch.Generator().manual_seed(T + 9)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, dtype) for _ in range(4))
+    kw = dict(scale=Dh ** -0.5, dropout_rate=rate, seed=91 if rate else None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [kern.launches for kern in port.FOLDED_KERNELS]
+    out = port.fused_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(port.FOLDED_KERNELS, before)] == [1, 1]
+    fold = lambda x: x.reshape(B * H, T, Dh)  # noqa: E731
+    pkw = dict(kw, num_heads=1, causal=True)
+    ref = port.packed_attention_reference(fold(q), fold(k), fold(v), **pkw)
+    torch.testing.assert_close(fold(out).float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    grads = port.packed_attention_bwd_reference(fold(q), fold(k), fold(v), fold(do), **pkw)
+    for name, a, b in zip("qkv", grads, leaves):
+        torch.testing.assert_close(fold(b.grad).float(), a.float(), rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype], msg=f"d{name}")
+    pack = lambda x: x.transpose(1, 2).reshape(B, T, H * Dh).contiguous()  # noqa: E731
+    packed = [pack(x).requires_grad_(True) for x in (q, k, v)]
+    out_p = port.packed_attention(*packed, num_heads=H, **kw)
+    out_p.backward(pack(do))
+    assert torch.equal(pack(out.detach()), out_p.detach())
+    for a, b in zip(leaves, packed):
+        assert torch.equal(pack(a.grad), b.grad)
