@@ -9,21 +9,26 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
-   all started together.
+   all started together; ptxas's registers and spills per kernel, and a
+   failure if a tensor-core kernel (``csrc/attention_tc.cuh``) spills.
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; then kernel_times at the decoder's
    shape B=32, T=512, H=8, Dh=64: each kernel (forward and backward, rates 0
    and 0.1), its plain version, one PyTorch library call (SDPA forward; for a
    backward, SDPA forward+backward through autograd minus its forward; timed
-   as a yardstick only, the port never calls it) and the bound.
+   as a yardstick only, the port never calls it), the bound, the achieved
+   TFLOP/s and the share of the bound.  Kernels and library calls are timed
+   on the device (20 calls in a CUDA graph, the median of 5 replays), the
+   plain versions by CUDA events around the calls.
 3. kernels_bwd: the packed forward with in-kernel dropout and the backward
    kernels (rates 0 and 0.1) against the plain versions with the same seed,
-   a kv-length row of length 0 included; gradients at f32 1e-4 / bf16 3e-2.
+   B=4 over the bucket ladder and T=1433, Dh 64 and 128, a kv-length row of
+   length 0 included; gradients at f32 1e-4 / bf16 3e-2.
 4. dropout: the packed kernels' dropout semantics, as
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
-   against their plain versions, Dh 64/128 x T 1024/1408/1536/1920 x causal
+   against their plain versions, Dh 64/128 x T 1024/1408/1433/1536/1920 x causal
    and not x segment ids none/suffix/interior, f32 and bf16; then its times at
    the long path's shape B=12, T=1408, H=8, Dh=64.  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
@@ -61,8 +66,9 @@ Phases, each printing one JSON line:
 
 Then the script's wall time, the kernels' JSON line (eight wrappers, each
 with the launches of its main-path run: a preset step, a long step or a
-kernels_folded call; K2 and its backward also carry ``long_shape``, their
-times at T=1408 and launches per long step), the ``nvidia-smi`` line and, last,
+kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
+and its backward also carry ``long_shape``, their times at T=1408 and
+launches per long step), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
 without the repository around it.
@@ -122,6 +128,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time of one call of ``fn`` between CUDA events around ``iters``
+    back-to-back calls issued from the host: for the plain versions and the
+    full-width forward, whose device work outlasts their host work."""
     import torch
 
     for _ in range(warmup):
@@ -136,30 +145,88 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, T, H, Dh, dtype_name, causal, lens) -> tuple[float, str]:
-    """Least time for the work this input needs: q, k, v read once, o written
-    once; 4*Dh operations per visible (query, key) pair."""
-    elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * B * T * H * Dh * elem + (0 if causal else 4 * B)
-    # a row with every key masked (length 0) still averages all T keys
-    pairs = B * T * (T + 1) // 2 if causal else T * sum(min(x, T) if x > 0 else T for x in lens)
-    ops = 4 * Dh * H * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def graph_time_ms(fn) -> float:
+    """Device time of one call of ``fn``: 20 calls captured in one CUDA graph,
+    the graph replayed between CUDA events, the median of 5 replays over 20.
+    No host work (argument checks, ``torch.empty``, the ctypes call) falls
+    inside the timed window, so a kernel of 0.1 ms is timed by the device
+    and not by its wrapper."""
+    import statistics
+
+    import torch
+
+    iters = 20
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
 
 
-def attention_bwd_bound_ms(B, T, H, Dh, dtype_name, causal, lens) -> tuple[float, str]:
-    """Least time for the backward this input needs: q, k, v, o, dO and the
-    f32 lse read once, dq, dk, dv written once; 10*Dh operations per visible
-    (query, key) pair (S, dPd, dV, dQ, dK: five products of 2*Dh)."""
+def visible_pairs(B, T, causal, lens=None, segments=None) -> int:
+    """The (query, key) pairs the attention of this input computes, over B
+    rows of T queries and T keys (heads not counted): the causal triangle, or
+    each row's kv length (a packed row of length 0 averages all T keys), or,
+    with flash segment ids ``(q_seg, kv_seg)``, the pairs of equal segment
+    (inside the triangle when causal)."""
+    if segments is not None:
+        import torch
+
+        q_seg, kv_seg = (x.to("cpu", torch.int64) for x in segments)
+        same = q_seg[:, :, None] == kv_seg[:, None, :]
+        if causal:
+            same &= torch.ones(T, T, dtype=torch.bool).tril()
+        return int(same.sum())
+    if causal:
+        return B * T * (T + 1) // 2
+    if lens is None:
+        return B * T * T
+    return T * sum(min(x, T) if x > 0 else T for x in lens)
+
+
+def attention_bound(B, T, H, Dh, dtype_name, causal, lens=None, *, backward=False) -> dict:
+    """Least time for the work this input needs, and the operations it
+    counts.  Forward: q, k, v read once, o written once; 4*Dh operations per
+    visible (query, key) pair (two products of 2*Dh).  Backward: q, k, v, o,
+    dO and the f32 lse read once, dq, dk, dv written once; 10*Dh operations
+    per visible pair (S, dPd, dV, dQ, dK).  kv lengths (4 bytes a row) count
+    as read."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 8 * B * T * H * Dh * elem + 4 * B * H * T + (0 if causal else 4 * B)
-    pairs = B * T * (T + 1) // 2 if causal else T * sum(min(x, T) if x > 0 else T for x in lens)
-    ops = 10 * Dh * H * pairs
+    tensors = 8 if backward else 4
+    nbytes = tensors * B * T * H * Dh * elem + (4 * B * H * T if backward else 0)
+    nbytes += 4 * B if lens is not None else 0
+    ops = (10 if backward else 4) * Dh * H * visible_pairs(B, T, causal, lens)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
+
+
+def timed_row(bound: dict, ms: float, **fields) -> dict:
+    """A timed kernel's row: its fields, the bound, and the achieved TFLOP/s
+    and share of the bound (bound_ms / ms) of the measured time."""
+    return {**fields, "ms": ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "tflops": bound["ops"] / (ms * 1e-3) / 1e12, "bound_share": bound["bound_ms"] / ms}
+
+
+def library_bwd_ms(fwd, fwd_bwd) -> float:
+    """The library's backward alone: its forward and backward through
+    autograd minus its forward, each timed by graph replay (the median of 5)."""
+    return graph_time_ms(fwd_bwd) - graph_time_ms(fwd)
 
 
 def close_or_raise(what, out, ref, tol):
@@ -180,15 +247,34 @@ def phase_device():
     t0 = time.perf_counter()
     libs = kernels.build_all()
     build_s = time.perf_counter() - t0
-    regs = {}
+    regs, spills = {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        regs[name] = [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln] if log.exists() else []
+        lines = log.read_text().splitlines() if log.exists() else []
+        regs[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+        spills.update(ptxas_spills(lines))
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-          "ptxas": regs, "tf32_matmul": False, "tf32_cudnn": False})
+          "ptxas": regs, "spills": spills, "tf32_matmul": False, "tf32_cudnn": False})
+    tensor_core = {fn: sp for fn, sp in spills.items() if "kokoro_attn2tc" in fn}
+    if tensor_core:
+        raise AssertionError(f"the tensor-core kernels spill registers: {tensor_core}")
     return smi
+
+
+def ptxas_spills(lines) -> dict:
+    """``{mangled kernel name: its ptxas spill line}`` for every kernel of an
+    ``-Xptxas -v`` log that spills (ptxas names the kernel in a "Function
+    properties for" line, then its stack frame and spills)."""
+    out, current = {}, None
+    for ln in lines:
+        if "Function properties for" in ln:
+            current = ln.rsplit(" ", 1)[-1].strip()
+        elif "spill stores" in ln and current is not None:
+            if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                out[current] = ln.strip()
+            current = None
+    return out
 
 
 def phase_kernels():
@@ -254,17 +340,15 @@ def phase_kernels():
                 lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=Dh ** -0.5)
             else:
                 lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep, scale=Dh ** -0.5)
-            bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, kern.causal, lens_list)
-            timings[(kern.name, dname)] = {
-                "max_abs_err": err,
-                "ms": cuda_time_ms(lambda: kern(q, k, v, **kw)),
-                "plain_ms": cuda_time_ms(lambda: fa.packed_attention_reference(
-                    q, k, v, causal=kern.causal, **kw), iters=5),
-                "library_ms": cuda_time_ms(lib),
-                "bound_ms": bound, "bound_by": bound_by,
-            }
+            bound = attention_bound(B, T, H, Dh, dname, kern.causal,
+                                    None if kern.causal else lens_list)
             drop = dict(kw, dropout_rate=RATE, seed=11)
-            timings[(kern.name, dname)]["ms_rate_0.1"] = cuda_time_ms(lambda: kern(q, k, v, **drop))
+            timings[(kern.name, dname)] = timed_row(
+                bound, graph_time_ms(lambda: kern(q, k, v, **kw)), max_abs_err=err,
+                plain_ms=cuda_time_ms(lambda: fa.packed_attention_reference(
+                    q, k, v, causal=kern.causal, **kw), iters=5),
+                library_ms=graph_time_ms(lib),
+                **{"ms_rate_0.1": graph_time_ms(lambda: kern(q, k, v, **drop))})
         timings.update(backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv))
     emit({"phase": "kernel_times", "shape": "B=32 T=512 H=8 Dh=64",
           "kv_lengths": "512 - 8*b", "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
@@ -304,18 +388,16 @@ def backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv):
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), heads, do_h)
 
-        bound, bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, kern.causal, lens_list)
-        row = {
-            "max_abs_err": err,
-            "ms": cuda_time_ms(lambda: kern(q, k, v, o, do, lse, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+        bound = attention_bound(B, T, H, Dh, dname, kern.causal,
+                                None if kern.causal else lens_list, backward=True)
+        row = timed_row(
+            bound, graph_time_ms(lambda: kern(q, k, v, o, do, lse, **kw)), max_abs_err=err,
+            plain_ms=cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
                 q, k, v, do, causal=kern.causal, **kw), iters=5),
-            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - cuda_time_ms(sdpa_fwd),
-            "bound_ms": bound, "bound_by": bound_by,
-        }
+            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
         drop = dict(kw, dropout_rate=RATE, seed=11)
         o, lse = fwd(q, k, v, return_lse=True, **drop)
-        row["ms_rate_0.1"] = cuda_time_ms(lambda: kern(q, k, v, o, do, lse, **drop))
+        row["ms_rate_0.1"] = graph_time_ms(lambda: kern(q, k, v, o, do, lse, **drop))
         row["plain_ms_rate_0.1"] = cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
             q, k, v, do, causal=kern.causal, **drop), iters=3)
         out[(kern.name, dname)] = row
@@ -332,7 +414,7 @@ def phase_kernels_bwd():
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     H = 8
-    shapes = [(4, T, Dh) for Dh in (64, 128) for T in (128, 432, 512, 848, 896)]
+    shapes = [(4, T, Dh) for Dh in (64, 128) for T in (128, 432, 512, 848, 896, 1433)]
     shapes.append((32, 512, 64))
     worst, checks = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -361,7 +443,7 @@ def phase_kernels_bwd():
                         worst.get(f"{fwd.name}/{dname}/rate={rate}", 0.0), errs[0])
                     checks += 1
     emit({"phase": "kernels_bwd", "checks": checks,
-          "shapes": "H=8; B=4 Dh{64,128} T{128,432,512,848,896}; B=32 T=512 Dh=64; "
+          "shapes": "H=8; B=4 Dh{64,128} T{128,432,512,848,896,1433}; B=32 T=512 Dh=64; "
                     "kv_lengths [T, T-37, T/2, 0]", "rates": [0.0, RATE],
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
 
@@ -473,7 +555,7 @@ def phase_kernels_flash():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for Dh in (64, 128):
-            for T in (1024, 1408, 1536, 1920):
+            for T in (1024, 1408, 1433, 1536, 1920):
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
                 for causal in (True, False):
@@ -494,7 +576,7 @@ def phase_kernels_flash():
                             worst[key] = max(worst.get(key, 0.0), err)
                         checks += 1
     emit({"phase": "kernels_flash", "checks": checks,
-          "shapes": "B=2 H=8; Dh{64,128} x T{1024,1408,1536,1920} x causal/non-causal "
+          "shapes": "B=2 H=8; Dh{64,128} x T{1024,1408,1433,1536,1920} x causal/non-causal "
                     "x segment ids none/suffix/interior",
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
 
@@ -519,20 +601,18 @@ def phase_kernels_flash():
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), leaves, do)
 
-        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, True, None)
-        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, True, None)
-        sdpa_ms = cuda_time_ms(sdpa_fwd)
-        timings[("flash_attention_fwd", dname)] = {
-            "max_abs_err": err_o, "ms": cuda_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
-            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
-        timings[("flash_attention_bwd", dname)] = {
-            "max_abs_err": err_g,
-            "ms": cuda_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
+        timings[("flash_attention_fwd", dname)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True),
+            graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
+            plain_ms=cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
+            library_ms=graph_time_ms(sdpa_fwd))
+        timings[("flash_attention_bwd", dname)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True, backward=True),
+            graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
+            max_abs_err=err_g,
+            plain_ms=cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
                 q, k, v, o, do, **kw), iters=3),
-            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
-            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
         del q, k, v, do, o, lse, grads, ref, leaves
         torch.cuda.empty_cache()
     emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 H=8 Dh=64 causal",
@@ -597,22 +677,20 @@ def long_cross_attention(gen):
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), heads, do_h)
 
-        sdpa_ms = cuda_time_ms(sdpa_fwd)
-        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, False, lens_list)
-        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, False, lens_list)
-        timings[(fwd.name, dname, "long")] = {
-            "max_abs_err": worst[f"{fwd.name}/{dname}/rate=0.0"],
-            "ms": cuda_time_ms(lambda: fwd(q, k, v, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_reference(
+        timings[(fwd.name, dname, "long")] = timed_row(
+            attention_bound(B, T, H, Dh, dname, False, lens_list),
+            graph_time_ms(lambda: fwd(q, k, v, **kw)),
+            max_abs_err=worst[f"{fwd.name}/{dname}/rate=0.0"],
+            plain_ms=cuda_time_ms(lambda: fa.packed_attention_reference(
                 q, k, v, causal=False, **kw), iters=3),
-            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
-        timings[(bwd.name, dname, "long")] = {
-            "max_abs_err": worst[f"{bwd.name}/{dname}/rate=0.0"],
-            "ms": cuda_time_ms(lambda: bwd(q, k, v, o, do, lse, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+            library_ms=graph_time_ms(sdpa_fwd))
+        timings[(bwd.name, dname, "long")] = timed_row(
+            attention_bound(B, T, H, Dh, dname, False, lens_list, backward=True),
+            graph_time_ms(lambda: bwd(q, k, v, o, do, lse, **kw)),
+            max_abs_err=worst[f"{bwd.name}/{dname}/rate=0.0"],
+            plain_ms=cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
                 q, k, v, do, causal=False, **kw), iters=3),
-            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
-            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
         del q, k, v, do, o, lse, heads, do_h
         torch.cuda.empty_cache()
     emit({"phase": "kernels_cross_long", "checks": checks,
@@ -700,22 +778,19 @@ def phase_kernels_folded():
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), heads, do.view(B, H, T, Dh))
 
-        sdpa_ms = cuda_time_ms(sdpa_fwd)
-        bound, bound_by = attention_bound_ms(B, T, H, Dh, dname, True, None)
-        bwd_bound, bwd_bound_by = attention_bwd_bound_ms(B, T, H, Dh, dname, True, None)
-        timings[("folded_attention_fwd", dname)] = {
-            "max_abs_err": err_o,
-            "ms": cuda_time_ms(lambda: fa.folded_attention_fwd(q, k, v, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_reference(
+        timings[("folded_attention_fwd", dname)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True),
+            graph_time_ms(lambda: fa.folded_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
+            plain_ms=cuda_time_ms(lambda: fa.packed_attention_reference(
                 q, k, v, causal=True, **kw), iters=5),
-            "library_ms": sdpa_ms, "bound_ms": bound, "bound_by": bound_by}
-        timings[("folded_attention_bwd", dname)] = {
-            "max_abs_err": err_g,
-            "ms": cuda_time_ms(lambda: fa.folded_attention_bwd(q, k, v, o, do, lse, **kw)),
-            "plain_ms": cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
+            library_ms=graph_time_ms(sdpa_fwd))
+        timings[("folded_attention_bwd", dname)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True, backward=True),
+            graph_time_ms(lambda: fa.folded_attention_bwd(q, k, v, o, do, lse, **kw)),
+            max_abs_err=err_g,
+            plain_ms=cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
                 q, k, v, do, causal=True, **kw), iters=5),
-            "library_ms": cuda_time_ms(sdpa_fwd_bwd) - sdpa_ms,
-            "bound_ms": bwd_bound, "bound_by": bwd_bound_by}
+            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
     emit({"phase": "kernel_times_folded", "shape": "B=32 T=512 H=8 Dh=64 causal",
           "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
 
@@ -1349,7 +1424,8 @@ def main() -> int:
             "replaces": kern.replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "dtype": "bfloat16",
+            "library_ms": r["library_ms"], "tflops": r["tflops"],
+            "bound_share": r["bound_share"], "dtype": "bfloat16",
             "shape": shapes[kern.name.split("_")[0]], "launches_are": launches_are,
         }
         if "ms_rate_0.1" in r:

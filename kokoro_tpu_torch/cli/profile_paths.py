@@ -22,8 +22,9 @@ ff 1536, vocab 59) it profiles
 and prints one JSON line per path: wall ms per call (host clock around work
 that ends in ``torch.cuda.synchronize()``, without and with the profiler),
 device busy ms per call (sum of kernel self times in the profiled window),
-the device's idle share in that window, kernels launched per call, and the
-top kernels by device time.  Needs CUDA.
+the device's idle share in that window, kernels launched per call, the
+device ms per call of the port's attention kernels, and the top kernels by
+device time.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -149,6 +150,9 @@ def _profile(name: str, fn, calls: int, **meta) -> None:
         "device_busy_ms": busy_ms if events else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if events else "not measured",
         "kernels_per_call": sum(e.count for e in events) / calls,
+        # the port's attention kernels (csrc/attention_kernels.cuh, attention_tc.cuh)
+        "attention_ms": sum(e.self_device_time_total for e in events
+                            if "kokoro_attn" in e.key) / 1e3 / calls,
         "top_kernels": [{"name": e.key[:90], "ms_per_call": e.self_device_time_total / 1e3 / calls,
                          "count_per_call": e.count / calls} for e in top],
     }), flush=True)

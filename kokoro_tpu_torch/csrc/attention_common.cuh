@@ -1,8 +1,9 @@
-// Helpers of the attention kernels (attention_kernels.cuh): 64 x 64 tiles,
-// 256 threads as a 16 x 16 grid, loads of rows D elements apart (the packed
-// (B, T, H*Dh) layout, or head-first (B, H, T, Dh) with D = Dh) into f32
-// shared memory, the backward's row statistics, and the counter-based
-// dropout mask of the packed kernels.
+// Helpers of the attention kernels (attention_kernels.cuh, attention_tc.cuh):
+// 64 x 64 tiles; for the f32 kernels 256 threads as a 16 x 16 grid and loads
+// of rows D elements apart (the packed (B, T, H*Dh) layout, or head-first
+// (B, H, T, Dh) with D = Dh) into f32 shared memory; the backward's row
+// statistics; the counter-based dropout mask of the packed kernels; the
+// arguments, layouts and mask tests both kernel families share.
 //
 // Dropout: the TPU kernels draw attention-weight dropout from the TPU core's
 // hardware PRNG (kokoro_tpu/ops/fused_attention.py::_dropout_mask), whose
@@ -53,20 +54,10 @@ __device__ __forceinline__ void store4(float* dst, const float* v) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
-// a value rounded to the input type (the reference's casts of P and dS)
+// a value rounded to the input type (the reference's casts of P and dS): the
+// identity for the f32 kernels; the bf16 kernels round where the values
+// become tensor-core operands (attention_tc.cuh, to_a_operand)
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // rows [row0, row0 + 64) of one head -> shared memory as f32, row stride
 // STRIDE; rows at or past row_end are zero.
@@ -123,20 +114,22 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty
 
 // rowsum(dO * O) and the saved lse of query rows [q0, q0 + 64) -> shared
 // memory (0 for rows at or past T_len); rows are D elements apart from
-// `base`.  Four threads per row.  The backward kernels' di.
-template <typename T, int DH>
+// `base`.  NT / 64 threads per row (NT the CTA's threads).  The backward
+// kernels' di.
+template <typename T, int DH, int NT = kThreads>
 __device__ __forceinline__ void row_stats(const T* o, const T* dout, const float* lse,
                                           size_t base, size_t lse_base, int q0, int T_len,
                                           int D, float* delta_s, float* lse_s) {
   constexpr int V = 16 / sizeof(T);
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+  constexpr int PER_ROW = NT / 64;
+  const int r = threadIdx.x / PER_ROW, part = threadIdx.x % PER_ROW;
   const int row = q0 + r;
   float sum = 0.f;
   if (row < T_len) {
     const T* orow = o + base + (size_t)row * D;
     const T* drow = dout + base + (size_t)row * D;
 #pragma unroll
-    for (int c = part * V; c < DH; c += 4 * V) {
+    for (int c = part * V; c < DH; c += PER_ROW * V) {
       float a[V], d[V];
       load16(orow + c, a);
       load16(drow + c, d);
@@ -144,8 +137,8 @@ __device__ __forceinline__ void row_stats(const T* o, const T* dout, const float
       for (int e = 0; e < V; ++e) sum = fmaf(a[e], d[e], sum);
     }
   }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+  for (int off = 1; off < PER_ROW; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (part == 0) {
     delta_s[r] = sum;
     lse_s[r] = row < T_len ? lse[lse_base + row] : 0.f;
@@ -170,12 +163,13 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
 }
 
 // Keep flags of the 64 x 64 tile (rows row0.., columns col0..; col0 a
-// multiple of 4) into shared bytes keep[r * 64 + c]: 1024 Philox calls, four
-// per thread.
+// multiple of 4) into shared bytes keep[r * 64 + c]: 1024 Philox calls shared
+// by the CTA's NT threads.
+template <int NT = kThreads>
 __device__ __forceinline__ void dropout_tile(uint8_t* keep, uint32_t bh, int row0,
                                              int col0, uint32_t threshold,
                                              uint32_t k0, uint32_t k1) {
-  for (int idx = threadIdx.x; idx < 64 * 16; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < 64 * 16; idx += NT) {
     const int r = idx / 16, g = idx % 16;
     const uint4 bits = philox4x32_10(
         make_uint4(bh, (uint32_t)(row0 + r), (uint32_t)(col0 / 4 + g), 0u), k0, k1);
@@ -183,6 +177,80 @@ __device__ __forceinline__ void dropout_tile(uint8_t* keep, uint32_t bh, int row
                                      bits.z < threshold, bits.w < threshold);
     *reinterpret_cast<uchar4*>(keep + r * 64 + 4 * g) = flags;
   }
+}
+
+
+// -- what both kernel families share (attention_kernels.cuh, attention_tc.cuh)
+
+// what a kernel needs besides the tensors
+struct AttnArgs {
+  const int* kv_lengths;  // packed: (B,) or NULL
+  const int* q_seg;       // flash: (B, Tq) segment ids or NULL
+  const int* kv_seg;      // flash: (B, Tk), given with q_seg
+  int Tq, Tk, H;          // packed: Tq == Tk
+  float scale;
+  int causal;
+  uint32_t threshold;  // dropout: a weight is kept iff its Philox word is below
+  float inv_keep;
+  uint32_t seed_lo, seed_hi;
+};
+
+// offset of row 0 of head h of batch b, and the distance between rows
+template <bool FLASH, int DH>
+__device__ __forceinline__ size_t head_offset(int b, int h, int H, int T) {
+  return FLASH ? ((size_t)b * H + h) * T * DH : (size_t)b * T * H * DH + (size_t)h * DH;
+}
+
+template <bool FLASH, int DH>
+__device__ __forceinline__ int row_stride(int H) {
+  return FLASH ? DH : H * DH;
+}
+
+// segment ids of positions [p0, p0 + 64) of row b -> shared memory (1 past
+// the end, as for a missing side)
+__device__ __forceinline__ void load_segments(int* dst, const int* seg, int b, int p0,
+                                              int len) {
+  if (threadIdx.x < 64) {
+    const int pos = p0 + threadIdx.x;
+    dst[threadIdx.x] = pos < len ? seg[(size_t)b * len + pos] : 1;
+  }
+}
+
+// The keys a CTA of query tile q0 visits end at kv_end; keys at col >= len
+// are masked.  A packed row of kv length 0 (uniform) sees every key.
+struct KeyRange {
+  int len, kv_end;
+  bool uniform;
+};
+
+template <bool FLASH>
+__device__ __forceinline__ KeyRange key_range(const AttnArgs& a, int b, int q0) {
+  KeyRange r{a.Tk, a.Tk, false};
+  if (a.causal) {
+    r.kv_end = min(a.Tk, q0 + kBQ);
+  } else if (!FLASH && a.kv_lengths != nullptr) {
+    r.len = a.kv_lengths[b];
+    r.uniform = r.len <= 0;
+    r.kv_end = r.uniform ? a.Tk : min(r.len, a.Tk);
+  }
+  return r;
+}
+
+// offset of the key/value head: packed q and kv share it (Tq == Tk)
+template <bool FLASH, int DH>
+__device__ __forceinline__ size_t kv_offset(size_t q_base, int b, int h, const AttnArgs& a) {
+  return FLASH ? head_offset<FLASH, DH>(b, h, a.H, a.Tk) : q_base;
+}
+
+// whether key col (< Tk) is visible to query row before segment ids: flash
+// the optional causal triangle, packed the causal triangle or the kv length.
+// The callers AND the segment test after it, so that the segment ids are
+// read only when there are any.
+template <bool FLASH>
+__device__ __forceinline__ bool is_visible(const AttnArgs& a, const KeyRange& keys, int row,
+                                           int col) {
+  if (FLASH) return !a.causal || col <= row;
+  return a.causal ? col <= row : col < keys.len;
 }
 
 }  // namespace kokoro_attn

@@ -1,6 +1,8 @@
-// The attention kernels of the port, templated on a mask policy; the entry
-// points (packed_attention.cu, packed_attention_bwd.cu, flash_attention.cu,
-// flash_attention_bwd.cu) are thin launches of these templates.
+// The attention kernels of the port, templated on a mask policy: the f32
+// templates here, the bf16 ones in attention_tc.cuh, and the dispatch between
+// them at the end of this file.  The entry points (packed_attention.cu,
+// packed_attention_bwd.cu, flash_attention.cu, flash_attention_bwd.cu) are
+// thin launches of these templates.
 //
 // Two policies (template parameter FLASH):
 //   packed (K1, K2, K3): q, k, v, o of shape (B, T, H*Dh), heads packed last
@@ -37,109 +39,59 @@
 // Design.  The TPU kernels keep a head's whole (T, T) score tile in VMEM (the
 // packed and folded kernels) or walk a sequential (q block, k block) grid
 // carrying m, l and the accumulator in VMEM scratch (flash); an SM has 227 KB
-// of shared memory and a CUDA CTA cannot carry state to another, so:
-//   * forward: one CTA of 256 threads owns one (b, h, 64-row query tile),
-//     keeps it in shared memory and loops over 64-column key tiles: S tile
-//     (each thread 4 rows x 4 columns) -> running row max and sum in f32 ->
-//     P tile through shared memory -> O accumulators in registers (each thread
-//     the same 4 rows, Dh/16 columns).
+// of shared memory and a CUDA CTA cannot carry state to another, so both
+// dtypes share one tiling:
+//   * forward: one CTA owns one (b, h, 64-row query tile) and loops over
+//     64-column key tiles: S tile -> running row max and sum in f32 -> P ->
+//     O accumulators in registers.
 //   * backward (FlashAttention-2's split, no atomics): a dK/dV kernel, one CTA
 //     per (b, h, 64-key tile), keeps K, V and the dK, dV accumulators and loops
-//     over 64-row query tiles (S and dPd tiles, P, Pd and dS through shared
-//     memory, then dV += Pd^T dO and dK += dS^T Q); a dQ kernel, one CTA per
-//     (b, h, 64-query tile), keeps Q, dO and the dQ accumulators and loops over
-//     key tiles.  Each CTA recomputes rowsum(dO * O) of a query tile from
-//     device memory, so the kernels share no scratch and each gradient element
-//     is written by one thread: bitwise deterministic.
+//     over 64-row query tiles (S and dPd tiles, then dV += Pd^T dO and
+//     dK += dS^T Q); a dQ kernel, one CTA per (b, h, 64-query tile), keeps Q,
+//     dO and the dQ accumulators and loops over key tiles.  Each CTA
+//     recomputes rowsum(dO * O) of its query tiles, so the kernels share no
+//     scratch and each gradient element is written by one thread: bitwise
+//     deterministic.
 // Causal CTAs stop at (forward, dQ) or start from (dK/dV) the diagonal tile;
 // with kv_lengths they stop at ceil(kv_lengths[b] / 64) tiles and a key tile
 // at or past kv_lengths[b] > 0 writes zero gradient (exp(-1e9 - lse) is 0 in
 // f32).  The packed kernels index (B, T, H*Dh) directly, so no head transpose
 // exists.  The dropout flags of each 64 x 64 tile come from Philox into shared
-// memory as the CTA loads the tile; rate 0 compiles without them (template
-// parameter DROPOUT).  Segment ids of the key tile sit in shared memory, the
-// query rows' in registers (forward) or shared memory (backward).  Scalar f32
-// FMA on the CUDA cores throughout: tensor cores (wgmma, TMA loads, warp
-// specialisation) are later work.
+// memory as the CTA reaches the tile; rate 0 compiles without them (template
+// parameter DROPOUT).
+//
+// bf16 runs on the tensor cores (attention_tc.cuh: one warpgroup per CTA,
+// wgmma products, TMA loads through a two-stage ring, P, Pd and dS kept in
+// registers as wgmma's A operand).  f32 runs the scalar templates below: a
+// 256-thread CTA as a 16 x 16 grid, each thread 4 rows x 4 columns of a tile,
+// tiles widened to f32 in shared memory, P and dS through shared memory, f32
+// FMA on the CUDA cores.  f32's contract (2e-5 forward, 1e-4 gradients,
+// docs/attention_numerics_tpu.json) is beyond TF32 tensor cores (10-bit
+// mantissa), and f32 runs only in the parity tests and the f32 validation
+// forward; there the scalar loop is within 0.8-1.5x of the library's
+// attention.
+//
+// What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32
+// FMA, 3.35 TB/s): a call moves 4 (forward) or 8 (backward) tensors of
+// B*T*H*Dh elements and does 4*Dh (forward) or 10*Dh (backward) operations per
+// visible (query, key) pair.  At the decoder's T=512 the bf16 calls are
+// bounded by their bytes (about 0.02 / 0.04 ms at B=32); at the long path's
+// T=1408 by their operations (0.025 ms for K4's forward, 0.123 ms for the
+// kv-length backward).  The f32 kernels are bounded by the CUDA cores' FMA
+// rate.  The tensor-core kernels reach 11-37 % of their bound: each tile's
+// products and its softmax run one after the other inside one warpgroup, the
+// overlap comes only from the other CTAs on the SM (2-4, limited by the
+// accumulators' registers: the Dh=64 dK/dV kernel holds two 64 x 64 f32
+// accumulators and the S and dPd tiles, about 190 registers a thread).
 
 #pragma once
 
 #include <math.h>
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace kokoro_attn {
-
-// what a kernel needs besides the tensors
-struct AttnArgs {
-  const int* kv_lengths;  // packed: (B,) or NULL
-  const int* q_seg;       // flash: (B, Tq) segment ids or NULL
-  const int* kv_seg;      // flash: (B, Tk), given with q_seg
-  int Tq, Tk, H;          // packed: Tq == Tk
-  float scale;
-  int causal;
-  uint32_t threshold;  // dropout: a weight is kept iff its Philox word is below
-  float inv_keep;
-  uint32_t seed_lo, seed_hi;
-};
-
-// offset of row 0 of head h of batch b, and the distance between rows
-template <bool FLASH, int DH>
-__device__ __forceinline__ size_t head_offset(int b, int h, int H, int T) {
-  return FLASH ? ((size_t)b * H + h) * T * DH : (size_t)b * T * H * DH + (size_t)h * DH;
-}
-
-template <bool FLASH, int DH>
-__device__ __forceinline__ int row_stride(int H) {
-  return FLASH ? DH : H * DH;
-}
-
-// segment ids of positions [p0, p0 + 64) of row b -> shared memory (1 past
-// the end, as for a missing side)
-__device__ __forceinline__ void load_segments(int* dst, const int* seg, int b, int p0,
-                                              int len) {
-  if (threadIdx.x < 64) {
-    const int pos = p0 + threadIdx.x;
-    dst[threadIdx.x] = pos < len ? seg[(size_t)b * len + pos] : 1;
-  }
-}
-
-// The keys a CTA of query tile q0 visits end at kv_end; keys at col >= len
-// are masked.  A packed row of kv length 0 (uniform) sees every key.
-struct KeyRange {
-  int len, kv_end;
-  bool uniform;
-};
-
-template <bool FLASH>
-__device__ __forceinline__ KeyRange key_range(const AttnArgs& a, int b, int q0) {
-  KeyRange r{a.Tk, a.Tk, false};
-  if (a.causal) {
-    r.kv_end = min(a.Tk, q0 + kBQ);
-  } else if (!FLASH && a.kv_lengths != nullptr) {
-    r.len = a.kv_lengths[b];
-    r.uniform = r.len <= 0;
-    r.kv_end = r.uniform ? a.Tk : min(r.len, a.Tk);
-  }
-  return r;
-}
-
-// offset of the key/value head: packed q and kv share it (Tq == Tk)
-template <bool FLASH, int DH>
-__device__ __forceinline__ size_t kv_offset(size_t q_base, int b, int h, const AttnArgs& a) {
-  return FLASH ? head_offset<FLASH, DH>(b, h, a.H, a.Tk) : q_base;
-}
-
-// whether key col (< Tk) is visible to query row before segment ids: flash
-// the optional causal triangle, packed the causal triangle or the kv length.
-// The callers AND the segment test after it, so that the segment ids are
-// read only when there are any.
-template <bool FLASH>
-__device__ __forceinline__ bool is_visible(const AttnArgs& a, const KeyRange& keys, int row,
-                                           int col) {
-  if (FLASH) return !a.causal || col <= row;
-  return a.causal ? col <= row : col < keys.len;
-}
 
 template <typename T, int DH, bool FLASH, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
@@ -596,16 +548,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; Dh 64 or 128
+// dtype: 0 = float32 (the scalar kernels above), 1 = bfloat16 (the
+// tensor-core kernels of attention_tc.cuh); Dh 64 or 128
 template <bool FLASH, bool DROPOUT>
 cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, const AttnArgs& a, cudaStream_t s) {
   if (dtype == 0 && Dh == 64) return launch_fwd<float, 64, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
   if (dtype == 0 && Dh == 128) return launch_fwd<float, 128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
-  if (dtype == 1 && Dh == 64)
-    return launch_fwd<__nv_bfloat16, 64, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
-  if (dtype == 1 && Dh == 128)
-    return launch_fwd<__nv_bfloat16, 128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
+  if (dtype == 1 && Dh == 64) return tc::launch_fwd<64, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
+  if (dtype == 1 && Dh == 128) return tc::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -618,11 +569,9 @@ cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const 
   if (dtype == 0 && Dh == 128)
     return launch_bwd<float, 128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 1 && Dh == 64)
-    return launch_bwd<__nv_bfloat16, 64, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B,
-                                                         a, s);
+    return tc::launch_bwd<64, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 1 && Dh == 128)
-    return launch_bwd<__nv_bfloat16, 128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv,
-                                                          B, a, s);
+    return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -21,8 +21,9 @@
 // Dh=64, causal) the call moves 4 * B*H*T*Dh elements (69 MB in bf16, about
 // 21 us at 3.35 TB/s) and does 4 * Dh operations per visible (query, key)
 // pair (95 M causal pairs: 24.4 GFLOP, about 25 us at the bf16 tensor-core
-// peak).  This first version computes on the CUDA cores in f32 FMA, so its
-// own ceiling is the 67 TFLOP/s f32 rate (0.36 ms here).
+// peak).  bf16 runs on the tensor cores (attention_tc.cuh: wgmma, TMA), f32
+// on the CUDA cores in f32 FMA, whose 67 TFLOP/s rate is its ceiling (0.36 ms
+// here).
 
 #include "attention_kernels.cuh"
 

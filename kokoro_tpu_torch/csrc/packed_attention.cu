@@ -16,9 +16,9 @@
 // What bounds it on an H100: at the decoder's shapes (B=32, T=512, H=8, Dh=64)
 // the call moves 4 * B*T*H*Dh elements (67 MB in bf16, about 20 us at
 // 3.35 TB/s) and does 4 * B*H*T*T*Dh operations (17.2 GFLOP non-causal, about
-// half causal; about 17 us at the bf16 tensor-core peak).  This first version
-// computes on the CUDA cores in f32 FMA (full f32 for f32 inputs, no TF32), so
-// its own ceiling is the 67 TFLOP/s f32 rate.
+// half causal; about 17 us at the bf16 tensor-core peak).  bf16 runs on the
+// tensor cores (attention_tc.cuh: wgmma, TMA); f32 on the CUDA cores in full
+// f32 FMA (no TF32), whose ceiling is the 67 TFLOP/s f32 rate.
 
 #include "attention_kernels.cuh"
 

@@ -14,9 +14,10 @@
 // What bounds it on an H100: it reads q, k, v, o, dO and writes dQ, dK, dV
 // (8 * B*T*H*Dh elements: 134 MB in bf16 at B=32, T=512, H=8, Dh=64, about
 // 40 us at 3.35 TB/s) and does 10 * Dh operations per visible (query, key)
-// pair (21.5 GFLOP causal at that shape: 22 us at the bf16 tensor-core peak,
-// 0.32 ms at the 67 TFLOP/s f32 FMA rate these CUDA-core kernels run at).
-// Shared memory: 109 KB (Dh 64) / 175 KB (Dh 128) for dK/dV.
+// pair (21.5 GFLOP causal at that shape: 22 us at the bf16 tensor-core peak
+// the bf16 kernels run on, 0.32 ms at the 67 TFLOP/s f32 FMA rate of the f32
+// kernels on the CUDA cores).  Shared memory of dK/dV: bf16 70 KB (Dh 64) /
+// 134 KB (Dh 128), f32 109 / 175 KB.
 
 #include "attention_kernels.cuh"
 

@@ -35,7 +35,7 @@ def _qkv(B, T, H, Dh, dtype, device, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("T", [1, 63, 128, 200, 432])
+@pytest.mark.parametrize("T", [1, 63, 128, 200, 432, 433])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
 def test_packed_attention_kernel_matches_plain(cuda, dtype, Dh, T, causal):
     B, H = 3, 2
@@ -74,7 +74,7 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("T", [1, 63, 200, 432])
+@pytest.mark.parametrize("T", [1, 63, 200, 432, 433])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
 def test_backward_kernel_matches_plain(cuda, causal, T, Dh, dtype, rate):
     """Forward (with its lse) and backward kernels through the autograd
@@ -103,30 +103,34 @@ def test_backward_kernel_matches_plain(cuda, causal, T, Dh, dtype, rate):
         torch.testing.assert_close(b.grad.float(), a.float(), rtol=tol, atol=tol, msg=f"d{name}")
 
 
-def test_dropout_mask_is_the_plain_mask(cuda):
+def _assert_dropout_mask_is_the_plain_mask(device, dtype, data_seed, seed):
     """Identity-block values read out the forward kernel's dropped weights;
     their pattern is the plain Philox mask, and the same seed repeats it."""
     B, H, T, Dh, rate = 2, 2, 128, 64, 0.1
-    q, k, _ = (x * 0.1 for x in _qkv(B, T, H, Dh, torch.float32, cuda, seed=4))
-    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=False, dropout_rate=rate, seed=2 ** 40 + 5)
+    q, k, _ = (x * 0.1 for x in _qkv(B, T, H, Dh, dtype, device, seed=data_seed))
+    kw = dict(num_heads=H, scale=Dh ** -0.5, causal=False, dropout_rate=rate, seed=seed)
     blocks = []
     for j0 in range(0, T, Dh):
-        blk = torch.zeros(B, T, H * Dh, device=cuda)
+        blk = torch.zeros(B, T, H * Dh, device=device, dtype=dtype)
         for h in range(H):
-            blk[:, j0:j0 + Dh, h * Dh:(h + 1) * Dh] = torch.eye(Dh, device=cuda)
+            blk[:, j0:j0 + Dh, h * Dh:(h + 1) * Dh] = torch.eye(Dh, device=device, dtype=dtype)
         out = port.packed_attention(q, k, blk, **kw)
         assert torch.equal(out, port.packed_attention(q, k, blk, **kw))
         blocks.append(out.reshape(B, T, H, Dh))
     pd = torch.cat(blocks, -1).permute(0, 2, 1, 3)
     from kokoro_tpu_torch.ops.philox import attention_keep_mask
 
-    assert torch.equal(pd != 0, attention_keep_mask(kw["seed"], B, H, T, rate, device=cuda))
+    assert torch.equal(pd != 0, attention_keep_mask(seed, B, H, T, rate, device=device))
+
+
+def test_dropout_mask_is_the_plain_mask(cuda):
+    _assert_dropout_mask_is_the_plain_mask(cuda, torch.float32, data_seed=4, seed=2 ** 40 + 5)
 
 
 @pytest.mark.parametrize("masks", ["none", "suffix"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("T", [1, 63, 200, 1024])
+@pytest.mark.parametrize("T", [1, 63, 200, 433, 1024])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_kernels_match_plain(cuda, causal, T, Dh, dtype, masks):
     """K4 forward and backward through the autograd Function against the
@@ -186,3 +190,56 @@ def test_folded_kernels_match_plain_and_equal_packed(cuda, T, dtype, rate):
     assert torch.equal(pack(out.detach()), out_p.detach())
     for a, b in zip(leaves, packed):
         assert torch.equal(pack(a.grad), b.grad)
+
+
+# -- the bf16 tensor-core kernels (csrc/attention_tc.cuh) -------------------
+BF16 = torch.bfloat16
+
+
+def test_bf16_kv_length_zero_row_averages_uniformly(cuda):
+    """A packed row of kv length 0 averages V uniformly, forward and
+    backward, in the tensor-core kernels."""
+    q, k, v = _qkv(2, 100, 2, 64, BF16, cuda, seed=6)
+    do = torch.randn(2, 100, 128, generator=torch.Generator().manual_seed(6)).to(cuda, BF16)
+    lens = torch.tensor([0, 100], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=2, scale=0.125, causal=False, kv_lengths=lens)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = port.packed_attention(*leaves, **kw)
+    out.backward(do)
+    mean_v = v[0].float().mean(0, keepdim=True).expand(100, -1)
+    torch.testing.assert_close(out[0].float(), mean_v, rtol=TOL[BF16], atol=TOL[BF16])
+    torch.testing.assert_close(out.float(), port.packed_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[BF16], atol=TOL[BF16])
+    for name, a, b in zip("qkv", port.packed_attention_bwd_reference(q, k, v, do, **kw), leaves):
+        torch.testing.assert_close(b.grad.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
+def test_bf16_flash_row_without_visible_key(cuda):
+    """Causal flash attention where the first queries of batch 1 see only
+    keys of another segment: O = 0 and lse = +inf on those rows, and no
+    gradient flows through them."""
+    B, H, T, Dh = 2, 2, 200, 64
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, BF16) for _ in range(4))
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    kv_seg = q_seg.clone()
+    kv_seg[1, :70] = 0  # queries 0..69 of batch 1 (segment 1) see no key
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o[1, :, :70], torch.zeros_like(o[1, :, :70]))
+    assert torch.isinf(lse[1, :, :70]).all() and torch.isfinite(lse[:, :, 70:]).all()
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[BF16], atol=TOL[BF16])
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert torch.equal(dq[1, :, :70], torch.zeros_like(dq[1, :, :70]))
+    for name, a, b in zip("qkv", flash.flash_attention_bwd_reference(q, k, v, o, do, **kw),
+                          (dq, dk, dv)):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
+def test_bf16_dropout_mask_is_the_plain_mask(cuda):
+    """At rate 0.1 the bf16 tensor-core forward drops exactly the weights of
+    the plain Philox mask."""
+    _assert_dropout_mask_is_the_plain_mask(cuda, BF16, data_seed=14, seed=2 ** 33 + 7)
