@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
    all started together; ptxas's registers and spills per kernel, and a
-   failure if a tensor-core kernel (``csrc/attention_tc.cuh``) spills.
+   failure if a tensor-core kernel (``csrc/attention_tc.cuh``) spills; and
+   the host-side C++ duration aligner (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; then kernel_times at the decoder's
@@ -46,7 +47,9 @@ Phases, each printing one JSON line:
 8. serve: a full-width model directory with seeded random weights and the
    committed HiFi-GAN (docs/hifigan_v1_int8.npz), ``TTSServer`` on
    127.0.0.1, five concurrent Russian texts; every answer a WAV of (the frames
-   the pipeline reports) x 256 samples, fewer dispatches than requests.
+   the pipeline reports) x 256 samples, fewer dispatches than requests; then
+   ``POST /profile {"seconds": 1}`` with a request under it: HTTP 200 and a
+   ``torch.profiler`` trace file.
 9. train: the training step at full width, B=32, L=96, T=512.  (a) kernel path
    against plain path in f32, 3 steps from one init, per-step loss and
    gradient norm, each tensor's gradient at the init and what the steps moved
@@ -63,12 +66,29 @@ Phases, each printing one JSON line:
    kernel path against plain path of the long step in f32 (B=4, L=256,
    T=1408) with the limits of (9a), the planted fault on K4's dK.  (c) the
    bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.
+11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
+   (10), each text ending in a word with a geminate, gets one TextGrid per
+   utterance (``write_alignments``); ``cli.preprocess --validate-only``
+   reports 100 % coverage; the native C++ aligner equals the Python DP on
+   every utterance (and is timed against it); ``precompute_features`` fills
+   the feature cache on the card (26 computed); one epoch of the long regime
+   through ``KokoroTrainer`` with ``use_mfa``, every item a batch takes
+   holding its aligned durations (not the fallback, summing to its frames),
+   launches as in (10a); a stale ``metrics.jsonl`` record past the
+   checkpoint, as a crash after the save leaves it, gone after the resume
+   for a second epoch, whose first step follows the restored one; then
+   ``cli.infer`` on the run directory: ``--file --batched`` writes one WAV
+   per line, ``--weights ema`` and ``model`` differ, a weight-normed ``.pth``
+   made from ``docs/hifigan_v1_int8.npz`` gives the ``.npz``'s audio within
+   1e-4, and ``--profile`` on a short run (``--max-len 16``) writes a trace
+   with device events.
 
-Then the script's wall time, the kernels' JSON line (eight wrappers, each
+Then the script's wall time and each phase's, the kernels' JSON line (eight wrappers, each
 with the launches of its main-path run: a preset step, a long step or a
 kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
 and its backward also carry ``long_shape``, their times at T=1408 and
-launches per long step), the ``nvidia-smi`` line and, last,
+launches per long step; the kernels of phase mfa carry ``mfa_path``, their
+launches per training step there), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
 without the repository around it.
@@ -79,8 +99,10 @@ from __future__ import annotations
 import http.client
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import wave
 from concurrent.futures import ThreadPoolExecutor
@@ -112,7 +134,7 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long"]
+          "serve", "train", "long", "mfa"]
 
 
 def emit(obj) -> None:
@@ -247,6 +269,10 @@ def phase_device():
     t0 = time.perf_counter()
     libs = kernels.build_all()
     build_s = time.perf_counter() - t0
+    from kokoro_tpu_torch import native
+
+    if not native.native_available():  # the host-side C++ aligner of phase mfa
+        raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
     regs, spills = {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -255,6 +281,7 @@ def phase_device():
         spills.update(ptxas_spills(lines))
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+          "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "tf32_matmul": False, "tf32_cudnn": False})
     tensor_core = {fn: sp for fn, sp in spills.items() if "kokoro_attn2tc" in fn}
     if tensor_core:
@@ -887,11 +914,12 @@ def phase_serve():
          "post_expected_stop_threshold": 0.2},
     )
     del model
+    profile_dir = Path(tempfile.mkdtemp(prefix="serve_profile_"))
     server = TTSServer.for_model(
         str(model_dir), device="cuda", max_len=max_len,
         vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"),
         config=ServeConfig(host="127.0.0.1", port=0, max_batch_delay_ms=500.0),
-        request_timeout_s=600.0,
+        request_timeout_s=600.0, profile_dir=str(profile_dir),
     )
     tts = server.tts
     if tts.vocoder.vocoder_type != "hifigan":
@@ -902,10 +930,10 @@ def phase_serve():
     server.start()
     launches0 = sum(read_counts().values())
 
-    def post(text):
+    def post(text, path="/tts", payload=None):
         t0 = time.perf_counter()
         conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
-        conn.request("POST", "/tts", body=json.dumps({"text": text}).encode("utf-8"),
+        conn.request("POST", path, body=json.dumps(payload or {"text": text}).encode("utf-8"),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
         body = resp.read()
@@ -922,8 +950,22 @@ def phase_serve():
         conn.request("GET", "/stats")
         stats = json.loads(conn.getresponse().read())
         conn.close()
+        # then POST /profile: a one-second trace with a request running under it
+        with ThreadPoolExecutor(2) as pool:
+            traced = pool.submit(post, None, "/profile", {"seconds": 1})
+            time.sleep(0.2)
+            under_trace = post(SERVE_TEXTS[0])
+            profile_status, profile_body = traced.result()[:2]
     finally:
         server.stop()
+    traces = list(profile_dir.glob("*.pt.trace.json"))
+    if profile_status != 200 or under_trace[0] != 200 or not traces:
+        raise AssertionError(f"POST /profile: HTTP {profile_status} {profile_body[:200]!r}, "
+                             f"/tts under it HTTP {under_trace[0]}, {len(traces)} trace files")
+    profile = {"status": profile_status, **trace_events(traces[0])}
+    shutil.rmtree(profile_dir)
+    if not profile["device_events"]:
+        raise AssertionError(f"POST /profile traced no device work: {profile}")
     requests = []
     for text, (status, body, (frames, generated), latency) in zip(SERVE_TEXTS, answers):
         if status != 200 or body[:4] != b"RIFF" or body[8:12] != b"WAVE":
@@ -950,7 +992,7 @@ def phase_serve():
                              f"{stats['requests']} requests")
     total_audio = sum(r["audio_s"] for r in requests)
     emit({"phase": "serve", "requests": requests, "wall_s": wall,
-          "aggregate_rtf": wall / total_audio, "stats": stats,
+          "aggregate_rtf": wall / total_audio, "stats": stats, "profile": profile,
           "kernel_launches": sum(read_counts().values()) - launches0})
 
 
@@ -1197,44 +1239,32 @@ def build_long_corpus(root, n_utts: int, seed: int = 11) -> None:
     (root / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
 
 
-def phase_long():
-    """The long-utterance regime at full width: (a) the trainer over a
-    synthetic corpus, one epoch, then a second after a resume; (b) kernel
-    path against plain path of the long step in f32, with a planted K4 dK
-    control; (c) the bf16 long step's throughput.  Returns the launches of
-    each wrapper in the last timed step."""
-    import tempfile
-
-    import numpy as np
+def counting_trainer():
+    """A ``KokoroTrainer`` subclass (a fresh class, with fresh records, per
+    call) that records each step's metrics, its kernel launches (counts set
+    to 0 just before the step and read just after), its microbatches, its
+    wall time (host clock, synchronised) and the step number it logs at, and
+    the launches of each validation."""
     import torch
 
-    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, long_train_step
-    from kokoro_tpu_torch.config import get_default_config
-    from kokoro_tpu_torch.inference.tts import KokoroTTS
-    from kokoro_tpu_torch.ops import flash_attention as fl
-    from kokoro_tpu_torch.ops import fused_attention as fa
     from kokoro_tpu_torch.training.trainer import KokoroTrainer
 
-    dev = torch.device("cuda")
-    n_layers = 6
-    flash = {kern.name for kern in fl.KERNELS}
-    cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
-
     class CountingTrainer(KokoroTrainer):
-        """Records each step's metrics and kernel launches, and the
-        launches of each validation."""
-
-        steps, validations = [], []
+        steps, validations, logged_steps, step_ms = [], [], [], []
 
         def _train_step(self, spec_augment):
             step = super()._train_step(spec_augment)
 
             def counted(state, batch, generator):
+                torch.cuda.synchronize()
                 zero_counts()
+                t0 = time.perf_counter()
                 metrics = step(state, batch, generator)
                 torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
                 micro = batch["mel_specs"].shape[0] if batch["mel_specs"].dim() == 4 else 1
                 self.steps.append((metrics, read_counts(), micro))
+                self.logged_steps.append(self.host_step + 1)
                 return metrics
 
             return counted
@@ -1245,6 +1275,57 @@ def phase_long():
             torch.cuda.synchronize()
             self.validations.append((read_counts(), len(self.val_batcher.build_batches(0))))
             return out
+
+    return CountingTrainer
+
+
+def check_long_run(steps, validations, n_layers: int) -> None:
+    """Every long-regime trainer step finite, taken and stabilised, K4 and K2
+    forward and backward launched once per decoder layer per microbatch and
+    no other kernel; each validation K4 and K2 forward once per decoder layer
+    per batch."""
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    flash = {kern.name for kern in fl.KERNELS}
+    cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
+    for metrics, counts, micro in steps:
+        if not (metrics["stepped"] == 1.0 and all(
+                math.isfinite(metrics[k]) for k in ("total", "grad_norm"))):
+            raise AssertionError(f"long trainer step not finite or skipped: {metrics}")
+        if not metrics["loss_scale"] < 1.0:
+            raise AssertionError(f"stabilization not live at 1408 frames: {metrics}")
+        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"long step launches {counts}, expected {want}")
+    for counts, n_batches in validations:
+        want = {name: (n_layers * n_batches if name in (fl.flash_attention_fwd.name,
+                                                        fa.packed_attention_kvlen.name) else 0)
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"validation launches {counts}, expected {want}")
+
+
+def phase_long():
+    """The long-utterance regime at full width: (a) the trainer over a
+    synthetic corpus, one epoch, then a second after a resume; (b) kernel
+    path against plain path of the long step in f32, with a planted K4 dK
+    control; (c) the bf16 long step's throughput.  Returns the launches of
+    each wrapper in the last timed step."""
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, long_train_step
+    from kokoro_tpu_torch.config import get_default_config
+    from kokoro_tpu_torch.inference.tts import KokoroTTS
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    n_layers = 6
+    flash = {kern.name for kern in fl.KERNELS}
+    cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
+    CountingTrainer = counting_trainer()
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1276,21 +1357,7 @@ def phase_long():
         audio = tts.text_to_speech("Привет, мир! Сегодня хорошая погода.")
         del tts
     steps, validations = CountingTrainer.steps, CountingTrainer.validations
-    for metrics, counts, micro in steps:
-        if not (metrics["stepped"] == 1.0 and all(
-                math.isfinite(metrics[k]) for k in ("total", "grad_norm"))):
-            raise AssertionError(f"long trainer step not finite or skipped: {metrics}")
-        if not metrics["loss_scale"] < 1.0:
-            raise AssertionError(f"stabilization not live at 1408 frames: {metrics}")
-        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
-        if counts != want:
-            raise AssertionError(f"long step launches {counts}, expected {want}")
-    for counts, n_batches in validations:
-        want = {name: (n_layers * n_batches if name in (fl.flash_attention_fwd.name,
-                                                        fa.packed_attention_kvlen.name) else 0)
-                for name in counts}
-        if counts != want:
-            raise AssertionError(f"validation launches {counts}, expected {want}")
+    check_long_run(steps, validations, n_layers)
     if not (final_step > step_at_break > 0 and resumed_from == 1 and skipped == 0):
         raise AssertionError(f"resume did not continue: {step_at_break} -> {final_step}, "
                              f"resumed at epoch {resumed_from}, {skipped} skipped")
@@ -1300,8 +1367,9 @@ def phase_long():
           "epochs": epochs, "resume_after_epoch": 1, "opt_step_at_break": step_at_break,
           "opt_step_final": final_step, "skipped_steps": skipped,
           "steps": [{"total": m["total"], "grad_norm": m["grad_norm"],
-                     "loss_scale": m["loss_scale"], "microbatches": micro,
-                     "launches": {k: v for k, v in c.items() if v}} for m, c, micro in steps],
+                     "loss_scale": m["loss_scale"], "microbatches": micro, "ms": ms,
+                     "launches": {k: v for k, v in c.items() if v}}
+                    for (m, c, micro), ms in zip(steps, CountingTrainer.step_ms)],
           "validation_launches": [{k: v for k, v in c.items() if v} for c, _ in validations],
           "tts_audio_s": audio.size / 22050, "wall_s": trainer_s})
 
@@ -1343,6 +1411,295 @@ def phase_long():
     return per_step[-1]
 
 
+GEMINATE_WORD = "суббота"  # its G2P gives b b: the TextGrids' geminate bː
+
+
+def trace_events(path: Path) -> dict:
+    """Events of a ``torch.profiler`` Chrome trace: all of them, and those of
+    the device (kernels and copies)."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return {"bytes": path.stat().st_size, "events": len(events), "device_events": len(device)}
+
+
+def write_alignments(corpus: Path, align: Path, seed: int = 23) -> dict:
+    """One TextGrid per utterance of ``corpus``, as ``mfa align`` would write
+    it: the utterance's G2P phones in MFA's inventory (about half the phones
+    that ``MFA_PHONE_MAP`` renames through its inverse, iotated vowels split
+    into j + vowel, the doubled phone as one geminate ``Xː``, the first
+    word's first three phones as one ``spn`` span, a pause per inter-word
+    ``<sil>``, leading and trailing ``sil``), over durations from a seeded
+    generator that sum to the wav's mel frames, each interval at least 2
+    frames.  Returns ``{stem: G2P phone sequence}``."""
+    import wave
+
+    import numpy as np
+
+    from kokoro_tpu_torch.data import mfa
+    from kokoro_tpu_torch.data.phonemes import RussianPhonemeProcessor
+    from kokoro_tpu_torch.data.text_utils import flatten_with_sil
+
+    processor, inverse = RussianPhonemeProcessor(), {v: k for k, v in mfa.MFA_PHONE_MAP.items()}
+    rng = np.random.default_rng(seed)
+    hop_s = 256 / 22050
+    align.mkdir(parents=True, exist_ok=True)
+    sequences = {}
+    for line in (corpus / "metadata.csv").read_text(encoding="utf-8").splitlines():
+        stem, text = line.split("|")
+        seq = flatten_with_sil(processor.process_text(text), processor.phoneme_to_id)
+        labels, floors, j = ["sil"], [2], 0
+        while j < len(seq):
+            p = seq[j]
+            if j == 0:
+                labels.append("spn")
+                floors.append(6)
+                j += 3
+                continue
+            if j + 1 < len(seq) and seq[j + 1] == p and p != "<sil>":
+                labels.append(p + mfa.LENGTH_MARK)
+                floors.append(4)
+                j += 2
+                continue
+            if p == "<sil>":
+                labels.append("")
+            elif p in mfa.IOTATED:
+                labels += ["j", mfa.IOTATED[p]]
+                floors.append(2)
+            else:
+                labels.append(inverse[p] if p in inverse and rng.random() < 0.5 else p)
+            floors.append(2)
+            j += 1
+        labels.append("")
+        floors.append(2)
+        with wave.open(str(corpus / "wavs" / f"{stem}.wav")) as w:
+            frames = min(w.getnframes() // 256 + 1, 1408)
+        counts = np.asarray(floors) + rng.multinomial(
+            frames - sum(floors), rng.dirichlet(np.ones(len(floors))))
+        edges = np.concatenate([[0], np.cumsum(counts)]) * hop_s
+        mfa.write_textgrid(align / f"{stem}.TextGrid",
+                           [(float(edges[i]), float(edges[i + 1]), lab)
+                            for i, lab in enumerate(labels)])
+        sequences[stem] = seq
+    return sequences
+
+
+def phase_mfa():
+    """The MFA-supervised training data path and kokoro-infer on the card:
+    alignments of the long corpus checked by ``cli.preprocess
+    --validate-only``, the native aligner against the Python DP, the feature
+    cache filled on the card, one epoch of the long regime on the aligned
+    durations, a resume that purges the log past the restored step, and
+    ``cli.infer`` on the run directory.  Returns the launches of each kernel
+    wrapper in the last training step."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.cli import infer, preprocess
+    from kokoro_tpu_torch.cli.precompute import precompute_features
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME
+    from kokoro_tpu_torch.config import get_default_config
+    from kokoro_tpu_torch.convert import hifigan_state_dict_from_flax
+    from kokoro_tpu_torch.data import audio_io, mfa
+    from kokoro_tpu_torch.data.dataset import build_fallback_durations
+    from kokoro_tpu_torch.inference.vocoder import VocoderManager, load_hifigan_npz
+    from kokoro_tpu_torch.native import binding
+
+    n_layers = 6
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, out = root / "corpus", root / "mfa_output"
+        build_long_corpus(corpus, 26)
+        meta = corpus / "metadata.csv"
+        meta.write_text("\n".join(f"{ln} {GEMINATE_WORD}" for ln in
+                                  meta.read_text(encoding="utf-8").splitlines()),
+                        encoding="utf-8")
+        sequences = write_alignments(corpus, out / "alignments")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = preprocess.main(["--corpus", str(corpus), "--output", str(out),
+                                  "--validate-only"])
+        report = json.loads(printed.getvalue().strip().splitlines()[-1])
+        if rc != 0 or report["alignment_rate"] != 1.0 or report["aligned_files"] != 26:
+            raise AssertionError(f"preprocess --validate-only: rc {rc}, {report}")
+
+        # the native aligner against the Python DP, utterance by utterance
+        integ = mfa.MFAIntegration(alignment_dir=str(out / "alignments"))
+        calls, native_s, python_s, expected = binding.calls, 0.0, 0.0, {}
+        for stem, seq in sequences.items():
+            flat = integ.aligned_phones(stem)
+            t = time.perf_counter()
+            native = mfa.align_durations(flat, seq)
+            native_s += time.perf_counter() - t
+            t = time.perf_counter()
+            python = mfa.align_durations(flat, seq, use_native=False)
+            python_s += time.perf_counter() - t
+            if native != python or len(native) != len(seq):
+                raise AssertionError(f"{stem}: native aligner {native} != Python DP {python}")
+            if min(native) < 1:
+                raise AssertionError(f"{stem}: a phone got no frames: {native}")
+            expected[stem] = np.asarray(native, np.int64)
+        if binding.calls != calls + len(sequences) or not binding.library_path().is_file():
+            raise AssertionError("the native aligner was not the one used")
+        aligner = {"utterances": len(sequences),
+                   "phones_per_utterance": float(np.mean([len(q) for q in sequences.values()])),
+                   "native_ms_per_utt": native_s * 1e3 / len(sequences),
+                   "python_ms_per_utt": python_s * 1e3 / len(sequences),
+                   "library": str(binding.library_path().relative_to(ROOT))}
+
+        def config(num_epochs):
+            return get_default_config(**{
+                **LONG_REGIME, "data_dir": str(corpus), "output_dir": str(root / "run"),
+                "num_epochs": num_epochs, "save_every": 1, "keep_checkpoints": 50,
+                "warmup_steps": 20, "resume_checkpoint": "auto", "log_every_steps": 1,
+                "use_mfa": True, "mfa_alignment_dir": str(out / "alignments")})
+
+        t = time.perf_counter()
+        stats = precompute_features(*config(1), device="cuda")
+        precompute_s = time.perf_counter() - t
+        if stats["computed"] != 26 or stats["failed"] != 0:
+            raise AssertionError(f"precompute on the card: {stats}")
+
+        CountingTrainer = counting_trainer()
+        seen = []
+
+        class AlignedTrainer(CountingTrainer):
+            """Checks every item a training batch takes: its durations are
+            the aligned ones of its utterance, not the fallback, and sum to
+            its mel frames."""
+
+            def _setup_datasets(self):
+                super()._setup_datasets()
+                get = self.train_dataset.get_features
+
+                def checked(idx, rng):
+                    item = get(idx, rng)
+                    durs, frames = item["phoneme_durations"], int(item["mel_length"])
+                    want = expected[item["audio_file"]].copy()  # the frame sum into the last
+                    want[-1] = max(1, want[-1] + frames - want.sum())
+                    if not (np.array_equal(durs, want) and durs.sum() == frames
+                            and not np.array_equal(durs, build_fallback_durations(
+                                len(durs), frames))):
+                        raise AssertionError(f"{item['audio_file']}: durations {durs} are "
+                                             f"not the aligned {want} over {frames} frames")
+                    seen.append(item["audio_file"])
+                    return item
+
+                self.train_dataset.get_features = checked
+
+        first = AlignedTrainer(*config(1), device="cuda")
+        first.train()
+        step_at_break = first.state.opt_step
+        train_stems = {smp["audio_file"] for smp in first.train_dataset.samples}
+        del first
+        torch.cuda.empty_cache()
+        # a crash after the last save leaves a record past its step
+        logs = root / "run" / "logs" / "metrics.jsonl"
+        with open(logs, "a") as f:
+            f.write(json.dumps({"tag": "loss/total", "value": 1e9,
+                                "step": step_at_break + 1}) + "\n")
+        steps_before = len(CountingTrainer.steps)
+        second = AlignedTrainer(*config(2), device="cuda")
+        second.train()
+        final_step, resumed_from = second.state.opt_step, second.start_epoch
+        del second
+        torch.cuda.empty_cache()
+        check_long_run(CountingTrainer.steps, CountingTrainer.validations, n_layers)
+        resumed = CountingTrainer.logged_steps[steps_before:]
+        records = [json.loads(x) for x in logs.read_text().splitlines() if x.strip()]
+        if any(r.get("value") == 1e9 for r in records) or not (
+                resumed_from == 1 and resumed and resumed[0] == step_at_break + 1
+                and final_step > step_at_break > 0):
+            raise AssertionError(f"resume: step {step_at_break} -> {final_step}, logged "
+                                 f"{resumed}, stale record kept: "
+                                 f"{any(r.get('value') == 1e9 for r in records)}")
+        totals = [r["step"] for r in records if r.get("tag") == "loss/total"]
+        if totals != sorted(set(totals)):
+            raise AssertionError(f"loss/total steps not monotonic after the purge: {totals}")
+        if set(seen) != train_stems:
+            raise AssertionError(f"{len(set(seen))} training utterances checked of "
+                                 f"{len(train_stems)}")
+        trainer_s = time.perf_counter() - t
+
+        # kokoro-infer on the run directory
+        t = time.perf_counter()
+        run, wavs = root / "run", root / "wavs"
+        npz = ROOT / "docs" / "hifigan_v1_int8.npz"
+        params, _ = load_hifigan_npz(npz)
+        state = {}
+        for name, w in hifigan_state_dict_from_flax(params).items():
+            theirs = name.replace(".conv.", ".")
+            if theirs.endswith(".weight"):  # weight-normed: g = ||w||, v = w
+                prefix = theirs[: -len(".weight")]
+                state[prefix + ".weight_g"] = w.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
+                state[prefix + ".weight_v"] = w
+            else:
+                state[theirs] = w
+        pth = root / "hifigan_v1.pth"
+        torch.save({"generator": state}, pth)
+        text_file = root / "lines.txt"
+        lines = ["Привет, мир!", "Сегодня хорошая погода.", "Как дела у тебя?"]
+        text_file.write_text("\n".join(lines), encoding="utf-8")
+        base = ["--model", str(run), "--max-len", "200"]
+        text = "Кот спит дома."
+        runs = {
+            "file_batched": ["--file", str(text_file), "--batched", "--output-dir", str(wavs)],
+            "ema": ["--text", text, "--weights", "ema", "--output", str(root / "ema.wav")],
+            "model": ["--text", text, "--weights", "model", "--output", str(root / "model.wav")],
+            "npz": ["--text", text, "--vocoder-path", str(npz), "--output", str(root / "npz.wav")],
+            "pth": ["--text", text, "--vocoder-path", str(pth), "--output", str(root / "pth.wav")],
+            # a short traced run: the check needs device events, not a long trace
+            "profile": ["--text", text, "--max-len", "16", "--output", str(root / "traced.wav"),
+                        "--profile", str(root / "trace")],
+        }
+        run_s = {}
+        for name, argv in runs.items():
+            t_run = time.perf_counter()
+            if infer.main(base + argv) != 0:
+                raise AssertionError(f"cli.infer {name} failed")
+            run_s[name] = time.perf_counter() - t_run
+        names = sorted(p.name for p in wavs.glob("*.wav"))
+        if names != [f"output_{i:04d}.wav" for i in range(len(lines))]:
+            raise AssertionError(f"--file --batched wrote {names}")
+        audio = {k: audio_io.read_wav(root / f"{k}.wav")[1] for k in ("ema", "model", "npz", "pth")}
+        if audio["ema"].shape == audio["model"].shape and np.array_equal(audio["ema"],
+                                                                         audio["model"]):
+            raise AssertionError("EMA and raw weights gave the same audio")
+        pth_err = float(np.abs(audio["pth"] - audio["npz"]).max())
+        mel = np.random.default_rng(0).uniform(-9.0, 0.0, (64, 80)).astype(np.float32)
+        a = VocoderManager(vocoder_path=str(npz), device="cuda").mel_to_audio(mel)
+        b = VocoderManager(vocoder_path=str(pth), device="cuda").mel_to_audio(mel)
+        vocoder_err = float(np.abs(a - b).max())
+        if audio["pth"].shape != audio["npz"].shape or pth_err > 1e-4 or vocoder_err > 1e-4:
+            raise AssertionError(f".pth audio differs from .npz: wav {pth_err}, "
+                                 f"vocoder {vocoder_err}")
+        traces = list((root / "trace").glob("*.pt.trace.json"))
+        if not traces:
+            raise AssertionError("--profile wrote no trace")
+        trace = trace_events(traces[0])
+        if not trace["device_events"]:
+            raise AssertionError(f"--profile traced no device work: {trace}")
+        infer_s = time.perf_counter() - t
+    steps = CountingTrainer.steps
+    emit({"phase": "mfa", "alignment_report": report, "aligner": aligner,
+          "precompute": stats, "precompute_s": precompute_s,
+          "train_utterances": len(train_stems), "opt_step_at_break": step_at_break,
+          "opt_step_final": final_step, "resumed_logged_steps": resumed,
+          "steps": [{"total": m["total"], "grad_norm": m["grad_norm"],
+                     "loss_scale": m["loss_scale"], "microbatches": micro, "ms": ms,
+                     "launches": {k: v for k, v in c.items() if v}}
+                    for (m, c, micro), ms in zip(steps, CountingTrainer.step_ms)],
+          "trainer_s": trainer_s,
+          "infer": {"wavs": names, "pth_vs_npz_max_abs": {"wav": pth_err, "vocoder": vocoder_err},
+                    "ema_vs_model_samples": [len(audio["ema"]), len(audio["model"])],
+                    "trace": trace, "run_s": run_s, "wall_s": infer_s},
+          "wall_s": time.perf_counter() - t0})
+    return steps[-1][1]
+
+
 def parse_phases(argv) -> list:
     """Every phase with no arguments (the contract run); ``--phases a,b`` runs
     a subset, for a short call after a change, and prints no contract lines."""
@@ -1378,36 +1735,48 @@ def main() -> int:
 
     phases = parse_phases(sys.argv[1:])
     t_start = time.perf_counter()
-    smi = phase_device()
+    phase_s = {}  # wall seconds of each phase, host clock
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("device", phase_device)
     timings, counts, long_counts = {}, {}, {}
     if "kernels" in phases:
-        timings.update(phase_kernels())
+        timings.update(timed("kernels", phase_kernels))
     for name, fn in (("kernels_bwd", phase_kernels_bwd), ("dropout", phase_dropout)):
         if name in phases:
-            fn()
+            timed(name, fn)
     if "kernels_flash" in phases:
-        timings.update(phase_kernels_flash())
+        timings.update(timed("kernels_flash", phase_kernels_flash))
     if "kernels_folded" in phases:
-        folded_times, folded_counts = phase_kernels_folded()
+        folded_times, folded_counts = timed("kernels_folded", phase_kernels_folded)
         timings.update(folded_times)
         counts.update({name: (c, "per kernels_folded call: one fused_attention forward and "
                                  "backward, B=32 T=512 H=8 Dh=64 bf16") for name, c in folded_counts.items()})
     for name, fn in (("forward", phase_forward), ("serve", phase_serve)):
         if name in phases:
-            fn()
+            timed(name, fn)
     if "train" in phases:  # launches in one bf16 preset training step
-        for name, c in phase_train().items():
+        for name, c in timed("train", phase_train).items():
             if c:
                 counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
     long_step = "per bf16 long training step (B=12 L=256 T=1408)"
     if "long" in phases:  # launches in one bf16 long training step
-        for name, c in phase_long().items():
+        for name, c in timed("long", phase_long).items():
             if name.startswith("flash"):
                 counts[name] = (c, long_step)
             elif c:
                 long_counts[name] = c
+    mfa_counts = {}
+    if "mfa" in phases:  # launches in the last long training step on MFA durations
+        mfa_counts = {name: c for name, c in timed("mfa", phase_mfa).items() if c}
     torch.cuda.synchronize()
-    emit({"wall_s": time.perf_counter() - t_start, "phases": phases})
+    emit({"wall_s": time.perf_counter() - t_start, "phases": phases, "phase_wall_s": phase_s})
     if phases != PHASES:
         # a subset run checks no contract: its last line says so, and has no "ok"
         emit({"partial_run": phases, "contract_checked": False})
@@ -1435,6 +1804,11 @@ def main() -> int:
                 **timings[(kern.name, "bfloat16", "long")],
                 "shape": "B=12 T=1408 H=8 Dh=64, kv lengths 1408",
                 "launches": long_counts[kern.name], "launches_are": long_step}
+        if kern.name in mfa_counts:  # the slice's own path: the trainer on MFA durations
+            row["mfa_path"] = {
+                "launches": mfa_counts[kern.name],
+                "launches_are": "per long training step on MFA durations (phase mfa: "
+                                "2 microbatches of B=12 L=256 T=1408)"}
         kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)

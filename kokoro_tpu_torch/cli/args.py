@@ -1,8 +1,10 @@
 """argparse -> ``(KokoroConfig, TrainingConfig)`` for ``kokoro-train``.
 
-Port of ``kokoro_tpu/cli/args.py`` for the fields the port reads; the MFA,
-precompute, dtype-profiling, compile-cache and mesh arguments have no
-counterpart (ROADMAP.md).
+Port of ``kokoro_tpu/cli/args.py`` for the fields the port reads, the MFA
+and precompute arguments included.  ``--no-ema`` sets a field that no code
+of the reference reads and the port's config does not have; the
+dtype-profiling, compile-cache and mesh arguments have no counterpart
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig, get_default_co
 VALUE_ARGS = {
     "epochs": "num_epochs", "batch_size": "batch_size", "learning_rate": "learning_rate",
     "gradient_accumulation": "gradient_accumulation_steps", "resume": "resume_checkpoint",
-    "seed": "seed", "validation_split": "validation_split",
+    "seed": "seed", "mfa_alignment_dir": "mfa_alignment_dir",
+    "validation_split": "validation_split",
     "validation_interval": "validation_interval",
     "max_frames_per_batch": "max_frames_per_batch", "min_batch_size": "min_batch_size",
     "max_batch_size": "max_batch_size", "compute_dtype": "compute_dtype",
@@ -24,6 +27,8 @@ VALUE_ARGS = {
 }
 # store_true argument -> (config field, value)
 FLAG_ARGS = {
+    "no_mfa": ("use_mfa", False),
+    "precompute_features": ("precompute_features", True),
     "no_dynamic_batching": ("use_dynamic_batching", False),
     "no_memory_cache": ("use_memory_cache", False),
     "no_spec_augment": ("use_spec_augment", False),
@@ -45,6 +50,10 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--gradient-accumulation", type=int, default=None)
     g.add_argument("--resume", default=None, help="'auto', a checkpoint path, or '' to disable")
     g.add_argument("--seed", type=int, default=None)
+    g.add_argument("--no-mfa", action="store_true",
+                   help="train on the fallback durations, not the MFA alignments")
+    g.add_argument("--mfa-alignment-dir", default=None,
+                   help="directory of <stem>.TextGrid alignments (cli.preprocess)")
     g.add_argument("--validation-split", type=float, default=None)
     g.add_argument("--validation-interval", type=int, default=None,
                    help="validate every N epochs")
@@ -58,6 +67,8 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--no-spec-augment", action="store_true")
     g.add_argument("--no-speed-perturbation", action="store_true")
     g.add_argument("--no-gradient-checkpointing", action="store_true")
+    g.add_argument("--precompute-features", action="store_true",
+                   help="fill the feature cache before training (cli.precompute)")
     g.add_argument("--flash-attention", action="store_true",
                    help="decoder attention through the hand-written kernels")
     g.add_argument("--no-attention-weight-dropout", action="store_true")

@@ -28,6 +28,10 @@ def main(argv=None) -> int:
     model_config, config = create_config_from_args(args)
     if not Path(config.data_dir).exists():
         parser.error(f"data directory not found: {config.data_dir}")
+    if config.precompute_features:
+        from kokoro_tpu_torch.cli.precompute import precompute_features
+
+        precompute_features(model_config, config, device=args.device)
     from kokoro_tpu_torch.training.trainer import train_model
 
     result = train_model(model_config, config, device=args.device)

@@ -4,8 +4,7 @@
 ``kokoro_tpu/config.py::TrainingConfig``, :class:`TrainingConfig` the fields
 the training step, the data pipeline and the trainer read, both with the
 reference's names and defaults.  The mesh and TPU dispatch fields have no
-counterpart (ROADMAP.md lists them); MFA alignments are not ported, so the
-durations are always the fallback ones.
+counterpart (ROADMAP.md lists them).
 """
 
 from __future__ import annotations
@@ -181,6 +180,16 @@ class TrainingConfig:
     use_feature_cache: bool = True
     feature_cache_dir: str = ""
     use_memory_cache: bool = True
+
+    # MFA durations (data/mfa.py): one TextGrid per stem under
+    # mfa_alignment_dir; without that directory the trainer warns and trains
+    # on the fallback durations
+    use_mfa: bool = True
+    mfa_alignment_dir: str = "./mfa_output/alignments"
+    mfa_acoustic_model: str = "russian_mfa"
+    mfa_dictionary: str = "russian_mfa"
+    # fill the feature cache (cli/precompute.py) before training starts
+    precompute_features: bool = False
 
     # batching: frame budget + static length buckets (data/batching.py)
     use_dynamic_batching: bool = True

@@ -28,6 +28,7 @@ controls) and ``phoneme_processor.json`` (the processor's ``to_dict()``).
 from __future__ import annotations
 
 import json
+import logging
 import re
 from pathlib import Path
 from typing import Any, Dict, Mapping
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 from kokoro_tpu_torch.config import KokoroConfig
+
+logger = logging.getLogger(__name__)
 
 MODEL_FILE = "model.pt"
 METADATA_FILE = "metadata.json"
@@ -119,14 +122,20 @@ def save_model_dir(
     return path
 
 
-def load_model_dir(path: str | Path) -> tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+def load_model_dir(path: str | Path, use_ema_weights: str = "auto"
+                   ) -> tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """``(state_dict, model_metadata)`` of a model directory, or of a
-    trainer's run directory (``training/checkpoint.py::load_inference_weights``)."""
+    trainer's run directory (``training/checkpoint.py::load_inference_weights``,
+    which takes ``use_ema_weights``: auto | ema | model).  A model directory
+    holds one set of weights, whatever ``use_ema_weights`` asks."""
     path = Path(path)
     if not (path / MODEL_FILE).exists():
         from kokoro_tpu_torch.training.checkpoint import load_inference_weights
 
-        return load_inference_weights(path)
+        return load_inference_weights(path, use_ema_weights)
+    if use_ema_weights != "auto":
+        logger.warning("%s holds one set of weights; use_ema_weights=%r does not apply",
+                       path, use_ema_weights)
     meta = json.loads((path / METADATA_FILE).read_text())["model_metadata"]
     state = torch.load(path / MODEL_FILE, map_location="cpu", weights_only=True)
     return state, meta

@@ -1,8 +1,7 @@
 """RUSLAN corpus dataset: metadata, feature extraction, the feature cache and
 the train/val split.
 
-Port of ``kokoro_tpu/data/dataset.py`` without MFA (alignments are not
-ported, so durations are always :func:`build_fallback_durations`):
+Port of ``kokoro_tpu/data/dataset.py``:
 
 * a pipe-separated ``metadata_RUSLAN_22200.csv`` / ``metadata.csv`` with a
   ``wavs/`` directory, or ``.wav`` + ``.txt`` pairs; per-utterance
@@ -13,7 +12,15 @@ ported, so durations are always :func:`build_fallback_durations`):
   (training items, cache bypass), log-mel, YIN pitch and mel energy
   (:class:`FeatureExtractor`, torch on the caller's device), G2P with
   inter-word ``<sil>`` and stress ids;
+* durations: the MFA alignment of the utterance's TextGrid
+  (:class:`~kokoro_tpu_torch.data.mfa.MFAIntegration`, when ``mfa`` is given
+  and ``use_mfa`` is set), rescaled to the frame count under speed
+  perturbation, the frame sum reconciled into the last phoneme and every
+  duration at least 1; :func:`build_fallback_durations` when there is no
+  TextGrid or no alignment path;
 * a two-tier cache: per-utterance ``.npz`` files plus a bounded in-RAM LRU.
+  As in the reference, an entry is keyed on the stem alone: a cache filled
+  before the alignments existed keeps its fallback durations.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
 from kokoro_tpu_torch.data import audio_io, text_utils
+from kokoro_tpu_torch.data.mfa import MFAIntegration
 from kokoro_tpu_torch.data.phonemes import RussianPhonemeProcessor
 from kokoro_tpu_torch.ops.pitch import extract_pitch, masked_quantile
 from kokoro_tpu_torch.ops.stft import log_mel_spectrogram
@@ -115,10 +123,11 @@ class RuslanDataset:
         self, data_dir: str, model_config: KokoroConfig, config: TrainingConfig,
         phoneme_processor: Optional[RussianPhonemeProcessor] = None,
         indices: Optional[Sequence[int]] = None, is_training: bool = True,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cpu", mfa: Optional[MFAIntegration] = None,
     ):
         self.data_dir = Path(data_dir)
         self.config = config
+        self.mfa = mfa
         self.hop_length = model_config.hop_length
         self.sample_rate = model_config.sample_rate
         self.is_training = is_training
@@ -274,11 +283,14 @@ class RuslanDataset:
         phoneme_indices = np.asarray(text_utils.phonemes_to_indices(phoneme_seq, p2i), np.int32)
         stress = text_utils.stress_indices_with_sil(raw, p2i)
         stress = (stress + [0] * len(phoneme_indices))[: len(phoneme_indices)]
+        durations = self._aligned_durations(stem, phoneme_seq, num_frames, factor)
+        if durations is None:
+            durations = build_fallback_durations(len(phoneme_indices), num_frames)
         payload = {
             "mel_spec": log_mel,
             "phoneme_indices": phoneme_indices,
             "stress_indices": np.asarray(stress, np.int32),
-            "phoneme_durations": build_fallback_durations(len(phoneme_indices), num_frames),
+            "phoneme_durations": durations.astype(np.int32),
             "pitch": pitch,
             "energy": energy,
             "mel_length": np.int32(num_frames),
@@ -287,6 +299,26 @@ class RuslanDataset:
         if factor == 1.0:
             self._save_cached(stem, payload)
         return dict(payload, text=sample["text"], audio_file=stem)
+
+
+    def _aligned_durations(self, stem: str, phoneme_seq: List[str], num_frames: int,
+                           factor: float) -> Optional[np.ndarray]:
+        """The MFA durations of ``stem`` fitted to ``num_frames`` (reference
+        dataset.py:462-479), or None without an alignment."""
+        if self.mfa is None or not self.config.use_mfa:
+            return None
+        aligned = self.mfa.get_aligned_durations(stem, phoneme_seq)
+        if aligned is None:
+            return None
+        durations = np.asarray(aligned, np.int64)
+        total = durations.sum()
+        if factor != 1.0 and total > 0:
+            # proportional rescale to the perturbed frame count
+            durations = np.maximum(np.round(durations * (num_frames / total)).astype(np.int64), 1)
+        diff = num_frames - durations.sum()  # the frame sum goes into the last phoneme
+        if diff != 0 and durations.size:
+            durations[-1] = max(1, durations[-1] + diff)
+        return np.maximum(durations, 1)
 
 
 def train_val_split(n: int, validation_split: float = 0.1,

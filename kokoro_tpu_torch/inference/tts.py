@@ -5,10 +5,13 @@ chunk G2P -> ``<sil>``-flatten -> indices + stress padded up to
 ``PHONEME_PAD_BUCKETS`` -> AR generation -> NaN / flat-output health checks
 -> clamp [-11.5, 2] -> adaptive trailing-silence trim -> vocoder -> 0.15 s
 silence between chunks.  ``synthesize_mel_batch`` decodes every text of one
-phoneme bucket in one batched AR run.
+phoneme bucket in one batched AR run; ``batch_text_to_speech`` writes one
+``output_{i:04d}.wav`` per text (kokoro-infer's file mode).
 
 The model directory is the port's (``convert.save_model_dir``): ``model.pt``,
-``metadata.json``, ``phoneme_processor.json``.
+``metadata.json``, ``phoneme_processor.json``; or a trainer's run directory,
+whose checkpoint gives the EMA or the raw weights (``use_ema_weights``: auto
+| ema | model; auto takes the EMA when the checkpoint recorded EMA updates).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ class KokoroTTS:
         device: str | torch.device = "cuda",
         vocoder_type: str = "hifigan",
         vocoder_path: Optional[str] = None,
+        use_ema_weights: str = "auto",
         max_len: Optional[int] = None,
         stop_threshold: Optional[float] = None,
         min_len_ratio: Optional[float] = None,
@@ -52,7 +56,7 @@ class KokoroTTS:
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.phoneme_processor = load_processor_json(self.model_dir / PROCESSOR_FILE)
-        state, meta = load_model_dir(self.model_dir)
+        state, meta = load_model_dir(self.model_dir, use_ema_weights)
         self.metadata = meta
         config = KokoroConfig.from_metadata(meta, use_stochastic_depth=False)
         self.model = KokoroModel(config)
@@ -210,3 +214,24 @@ class KokoroTTS:
             save_wav(output_path, final, self.sample_rate)
             logger.info("Saved %s (%.2f s)", output_path, len(final) / self.sample_rate)
         return final
+
+    def batch_text_to_speech(self, texts: List[str], output_dir: str,
+                             batched: bool = False) -> None:
+        """File mode: ``output_dir/output_{i:04d}.wav`` for text i.  With
+        ``batched``, the single-chunk texts decode together through
+        ``synthesize_mel_batch`` (one AR decode per phoneme bucket) and the
+        multi-chunk ones one after another, as without it."""
+        out = Path(output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        single = ([i for i, t in enumerate(texts) if len(self.split_text(t)) == 1]
+                  if batched else [])
+        for i, mel in zip(single, self.synthesize_mel_batch([texts[i] for i in single])):
+            if mel is None:
+                logger.warning("No output for %r", texts[i])
+                continue
+            audio = self.vocoder.mel_to_audio(mel)
+            path = out / f"output_{i:04d}.wav"
+            save_wav(path, audio, self.sample_rate)
+            logger.info("Saved %s (%.2f s)", path, len(audio) / self.sample_rate)
+        for i in sorted(set(range(len(texts))) - set(single)):
+            self.text_to_speech(texts[i], str(out / f"output_{i:04d}.wav"))

@@ -5,8 +5,13 @@ Port of ``kokoro_tpu/inference/vocoder.py``: ``vocoder_type`` 'hifigan' or
 weights are missing.  Weights come from an ``.npz`` of flax paths
 (``docs/hifigan_v1_int8.npz`` is universal V1, int8 with per-channel scales):
 a ``__config__`` JSON blob describes a non-universal generator, and a
-``<key>::scale`` sibling dequantizes an int8 leaf.  ``mel_to_audio_batch``
-vocodes a whole group at once, HiFi-GAN in chunks of 8 rows.
+``<key>::scale`` sibling dequantizes an int8 leaf.  A torch checkpoint
+(``.pth`` / ``.pt``; its ``"generator"`` entry when it has one) in the
+original HiFi-GAN layout loads too, weight norm folded
+(``models/hifigan.py::hifigan_state_dict_from_torch``), into the universal V1
+generator, as in the reference; an unknown layout logs an error and falls
+back.  ``mel_to_audio_batch`` vocodes a whole group at once,
+HiFi-GAN in chunks of 8 rows.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import torch
 
 from kokoro_tpu_torch.convert import hifigan_state_dict_from_flax
 from kokoro_tpu_torch.device import resolve_device
-from kokoro_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
+from kokoro_tpu_torch.models.hifigan import (
+    HiFiGANConfig, HiFiGANGenerator, hifigan_state_dict_from_torch,
+)
 from kokoro_tpu_torch.ops.stft import griffin_lim
 
 logger = logging.getLogger(__name__)
@@ -78,24 +85,36 @@ class VocoderManager:
         self.vocoder_type = vocoder_type
         self.hifigan: Optional[HiFiGANGenerator] = None
         if vocoder_type == "hifigan":
-            self.hifigan = self._load_hifigan(vocoder_path, n_mels)
+            self.hifigan = self._load_hifigan(vocoder_path, HiFiGANConfig(num_mels=n_mels))
             if self.hifigan is None:
                 logger.warning("HiFi-GAN weights unavailable; falling back to Griffin-Lim")
                 self.vocoder_type = "griffin_lim"
 
-    def _load_hifigan(self, path: Optional[str], n_mels: int) -> Optional[HiFiGANGenerator]:
+    def _load_hifigan(self, path: Optional[str], config: HiFiGANConfig
+                      ) -> Optional[HiFiGANGenerator]:
         if path is None:
             return None
         path = Path(path)
         if not path.exists():
             logger.error("HiFi-GAN weights not found: %s", path)
             return None
-        if path.suffix != ".npz":
-            logger.error("HiFi-GAN weights must be an .npz of flax paths: %s", path)
+        if path.suffix == ".npz":
+            params, cfg = load_hifigan_npz(path)
+            gen = HiFiGANGenerator(cfg or config)
+            gen.load_state_dict(hifigan_state_dict_from_flax(params))
+            return gen.to(self.device).eval()
+        try:  # a torch checkpoint (.pth / .pt / generator file)
+            ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+        except Exception as err:
+            logger.error("Cannot load torch HiFi-GAN checkpoint: %s", err)
             return None
-        params, cfg = load_hifigan_npz(path)
-        gen = HiFiGANGenerator(cfg or HiFiGANConfig(num_mels=n_mels))
-        gen.load_state_dict(hifigan_state_dict_from_flax(params))
+        state = ckpt.get("generator", ckpt) if isinstance(ckpt, dict) else ckpt
+        gen = HiFiGANGenerator(config)
+        try:
+            gen.load_state_dict(hifigan_state_dict_from_torch(state, gen.state_dict()))
+        except (KeyError, RuntimeError, AttributeError) as err:
+            logger.error("Unexpected HiFi-GAN checkpoint layout (%s)", err)
+            return None
         return gen.to(self.device).eval()
 
     @torch.no_grad()

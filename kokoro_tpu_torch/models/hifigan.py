@@ -8,13 +8,15 @@ and tanh; leaky-ReLU slope 0.1 throughout.
 
 The interface keeps the reference's layout, mel ``(B, T, n_mels)`` ->
 waveform ``(B, T * prod(rates))``; inside, convolutions run on ``(B, C, T)``.
-Module names follow the flax tree (``convert.hifigan_state_dict_from_flax``).
+Module names follow the flax tree (``convert.hifigan_state_dict_from_flax``);
+:func:`hifigan_state_dict_from_torch` reads the original torch HiFi-GAN
+layout (``.pth`` generators, weight-normed or not).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,3 +92,33 @@ class HiFiGANGenerator(nn.Module):
             x = acc / n_kernels
         x = self.conv_post(F.leaky_relu(x, LRELU_SLOPE))
         return torch.tanh(x)[:, 0, :]
+
+
+def fold_weight_norm(state: Mapping[str, torch.Tensor], prefix: str) -> torch.Tensor:
+    """The effective conv weight at ``prefix``: ``prefix.weight``, or
+    ``g * v / ||v||`` folded in float64 from a weight-normed checkpoint's
+    ``weight_g`` / ``weight_v`` (norm over every dimension but the first;
+    reference ``models/hifigan.py::_fold_weight_norm``)."""
+    if f"{prefix}.weight" in state:
+        return state[f"{prefix}.weight"].float()
+    g = state[f"{prefix}.weight_g"].double()
+    v = state[f"{prefix}.weight_v"].double()
+    norm = v.pow(2).sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
+    return (g * v / torch.clamp(norm, min=1e-12)).float()
+
+
+def hifigan_state_dict_from_torch(state: Mapping[str, torch.Tensor],
+                                  names: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`HiFiGANGenerator` (its parameter ``names``)
+    from a torch HiFi-GAN generator's: the same tensors without our
+    ``.conv`` level (``conv_pre``, ``ups.i``, ``resblocks.b.convs{1,2}.j``,
+    ``conv_post``), weights folded by :func:`fold_weight_norm`.  A missing
+    key raises ``KeyError``."""
+    out = {}
+    for name in names:
+        theirs = name.replace(".conv.", ".")
+        if theirs.endswith(".weight"):
+            out[name] = fold_weight_norm(state, theirs[: -len(".weight")])
+        else:
+            out[name] = state[theirs].float()
+    return out

@@ -7,7 +7,7 @@ cumulative ends), and expansion is a gather.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,3 +58,23 @@ def length_regulate(
     expanded = expand_tokens(encoder_outputs, dur, max_len, stop_gradient=stop_gradient)
     _, frame_valid, _ = token_to_frame_map(dur, max_len)
     return expanded, ~frame_valid
+
+
+def average_by_duration(
+    values: torch.Tensor, durations: torch.Tensor, mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Average ``(B, T)`` frame values back to ``(B, L)`` tokens: each token's
+    output is the mean of its frames; tokens of zero duration, and tokens
+    masked by ``mask`` (``(B, L)`` bool, True = padding), give 0.  The sums
+    and counts scatter-add over the frame -> token map, so gradients are
+    exact."""
+    frame_to_token, frame_valid, _ = token_to_frame_map(durations, values.shape[1])
+    weight = frame_valid.to(values.dtype)
+    shape = (values.shape[0], durations.shape[1])
+    sums = values.new_zeros(shape).scatter_add(1, frame_to_token, values * weight)
+    counts = values.new_zeros(shape).scatter_add(1, frame_to_token, weight)
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    out = torch.where(durations > 0, sums / torch.clamp(counts, min=1.0), zero)
+    if mask is not None:
+        out = torch.where(mask.to(torch.bool), zero, out)
+    return out

@@ -14,7 +14,10 @@ Port of ``kokoro_tpu/serving/server.py``, three layers:
 * ``TTSServer``: a stdlib ``ThreadingHTTPServer`` with ``POST /tts``
   (JSON ``{"text": ...}`` -> ``audio/wav``, with the request's mel frame
   counts in ``X-Mel-Frames`` / ``X-Generated-Frames``), ``GET /healthz``,
-  ``GET /stats``.
+  ``GET /stats``, and ``POST /profile`` (JSON ``{"seconds": s}``, at most
+  120): a ``torch.profiler`` trace of the live traffic over ``s`` seconds
+  into ``profile_dir`` (``utils/profiling.py::trace``); 403 when the server
+  has no ``profile_dir``, 409 while a trace runs.
 
 Requests coalesce, different buckets never share a decode, one request's
 failure does not fail its batchmates, and a full queue answers 503.
@@ -300,16 +303,26 @@ def wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
     return buf.getvalue()
 
 
+PROFILE_MAX_S = 120.0
+
+
 class TTSServer:
-    """HTTP front end: POST /tts, GET /healthz, GET /stats."""
+    """HTTP front end: POST /tts, GET /healthz, GET /stats, POST /profile."""
 
     def __init__(self, scheduler: BatchScheduler, sample_rate: int = 22050,
                  config: Optional[ServeConfig] = None,
-                 request_timeout_s: float = 900.0) -> None:
+                 request_timeout_s: float = 900.0,
+                 profile_dir: Optional[str] = None) -> None:
         self.scheduler = scheduler
         self.sample_rate = sample_rate
         self.config = config or scheduler.config
         self.request_timeout_s = request_timeout_s
+        self.profile_dir = profile_dir
+        self._profile_lock = threading.Lock()
+        if profile_dir:
+            from kokoro_tpu_torch.utils.profiling import init_profiler
+
+            init_profiler()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -345,6 +358,9 @@ class TTSServer:
                         pass
 
             def _post(self):
+                if self.path == "/profile":
+                    self._profile()
+                    return
                 if self.path != "/tts":
                     self._json(404, {"error": "not found"})
                     return
@@ -381,6 +397,30 @@ class TTSServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _profile(self):
+                if not outer.profile_dir:
+                    self._json(403, {"error": "profiling disabled (start the server with "
+                                              "--profile-dir)"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    seconds = min(float(req.get("seconds", 5.0)), PROFILE_MAX_S)
+                except (ValueError, TypeError, AttributeError) as err:
+                    self._json(400, {"error": f"bad request: {err}"})
+                    return
+                if not outer._profile_lock.acquire(blocking=False):
+                    self._json(409, {"error": "a trace is already running"})
+                    return
+                try:
+                    from kokoro_tpu_torch.utils.profiling import trace
+
+                    with trace(outer.profile_dir):
+                        time.sleep(seconds)  # live traffic runs under the trace
+                finally:
+                    outer._profile_lock.release()
+                self._json(200, {"ok": True, "seconds": seconds, "dir": outer.profile_dir})
+
         self._httpd = ThreadingHTTPServer((self.config.host, self.config.port), Handler)
         self.port = self._httpd.server_address[1]  # port 0 -> OS-assigned
         self._serve_thread: Optional[threading.Thread] = None
@@ -388,7 +428,8 @@ class TTSServer:
     @classmethod
     def for_model(cls, model_dir: str, device: str = "cuda",
                   config: Optional[ServeConfig] = None,
-                  request_timeout_s: float = 900.0, **tts_kwargs) -> "TTSServer":
+                  request_timeout_s: float = 900.0, profile_dir: Optional[str] = None,
+                  **tts_kwargs) -> "TTSServer":
         """KokoroTTS -> KokoroPipeline -> a started BatchScheduler -> server
         (not yet started).  ``device`` defaults to CUDA and raises without
         it."""
@@ -399,7 +440,7 @@ class TTSServer:
         cfg = config or ServeConfig()
         scheduler = BatchScheduler(pipeline.encode, pipeline.decode_batch, cfg).start()
         server = cls(scheduler, sample_rate=tts.sample_rate, config=cfg,
-                     request_timeout_s=request_timeout_s)
+                     request_timeout_s=request_timeout_s, profile_dir=profile_dir)
         server.tts, server.pipeline = tts, pipeline
         return server
 

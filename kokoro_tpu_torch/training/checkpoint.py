@@ -230,19 +230,36 @@ def _latest_epoch_checkpoint(run_dir: Path) -> Optional[Path]:
     return best
 
 
-def load_inference_weights(run_dir: str | Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """``(model state dict, model_metadata)`` of a trainer's run directory:
-    final > best > latest epoch, the EMA parameters when the EMA was
-    updated."""
+WEIGHT_CHOICES = ("auto", "ema", "model")
+
+
+def load_inference_weights(run_dir: str | Path, use_ema_weights: str = "auto",
+                           checkpoint: str | Path | None = None,
+                           ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """``(model state dict, model_metadata)`` of a trainer's run directory,
+    from ``checkpoint`` or else final > best > latest epoch.
+    ``use_ema_weights`` (the reference's ``KokoroTTS`` choice): ``"ema"``
+    the EMA parameters, ``"model"`` the raw ones, ``"auto"`` the EMA
+    parameters when the checkpoint recorded EMA updates."""
+    if use_ema_weights not in WEIGHT_CHOICES:
+        raise ValueError(f"use_ema_weights must be one of {WEIGHT_CHOICES}, "
+                         f"got {use_ema_weights!r}")
     run_dir = Path(run_dir)
-    path = next((run_dir / name for name in (FINAL_NAME, BEST_NAME)
-                 if (run_dir / name / METADATA_FILE).exists()), None)
-    path = path or _latest_epoch_checkpoint(run_dir)
+    if checkpoint:
+        path = Path(checkpoint)
+    else:
+        path = next((run_dir / name for name in (FINAL_NAME, BEST_NAME)
+                     if (run_dir / name / METADATA_FILE).exists()), None)
+        path = path or _latest_epoch_checkpoint(run_dir)
     if path is None:
         raise FileNotFoundError(f"no finished checkpoint under {run_dir}")
     doc = CheckpointManager.load_metadata(path)
     saved = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
     weights = dict(saved["model"])
-    if int(doc.get("counters", {}).get("ema_updates", 0)) > 0:
+    ema_updates = int(doc.get("counters", {}).get("ema_updates", 0))
+    if use_ema_weights == "ema" or (use_ema_weights == "auto" and ema_updates > 0):
         weights.update(saved["ema"])
+        logger.info("Using EMA weights of %s (%d updates)", path, ema_updates)
+    else:
+        logger.info("Using raw model weights of %s", path)
     return weights, doc["model_metadata"]

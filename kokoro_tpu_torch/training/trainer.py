@@ -3,10 +3,13 @@
 Port of ``kokoro_tpu/training/trainer.py`` (``KokoroTrainer`` /
 ``train_model``):
 
-* set-up: the RUSLAN dataset and its seed-42 90/10 split, the frame-budget
-  batcher (fixed-size batches for validation), the model (vocabulary from the
-  phoneme processor), the training state, the per-tensor pre-clips, the EMA
-  decay from its half-life, the checkpoint manager;
+* set-up: the RUSLAN dataset (durations from the MFA TextGrids under
+  ``mfa_alignment_dir`` when ``use_mfa`` is set and the directory exists,
+  else the fallback durations, with a warning) and its seed-42 90/10 split,
+  the frame-budget batcher (fixed-size batches for validation), the model
+  (vocabulary from the phoneme processor), the training state, the
+  per-tensor pre-clips, the EMA decay from its half-life, the checkpoint
+  manager;
 * the epoch loop: ``gradient_accumulation_steps`` consecutive batches are
   collated to common buckets and stacked on a leading microbatch axis, one
   ``make_train_step`` call per optimizer step, SpecAugment from
@@ -18,7 +21,9 @@ Port of ``kokoro_tpu/training/trainer.py`` (``KokoroTrainer`` /
   ``validation_interval`` epochs, best checkpoint on improvement, early
   stopping, epoch checkpoints every ``save_every`` epochs, the final model,
   and resume (``resume_checkpoint``) with the counters and the dropout
-  generator where they were.
+  generator where they were; at resume the log records past the restored
+  step, which a crash after the last save leaves, are purged
+  (``training/tb_events.py``).
 
 Every random draw of a step comes from one ``torch.Generator`` seeded
 ``seed + 1`` and saved in the checkpoints (the reference folds a step
@@ -30,8 +35,7 @@ the compile cache and ``prng_impl``, mesh / data / tensor / pipeline /
 sequence parallelism, AOT warm-up and the program-ladder prediction, scan
 chunks and ``pad_tail_steps``, ``cross_epoch_prefetch`` and the device_put
 worker pools, the memory-planner preflight, profiler traces, spectrogram
-images, weight and gradient histograms, and the TensorBoard event purge at
-resume.
+images, and weight and gradient histograms.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from kokoro_tpu_torch.data.batching import (
     FixedSizeBatcher, FrameBudgetBatcher, collate, effective_batch_quantum,
 )
 from kokoro_tpu_torch.data.dataset import RuslanDataset, train_val_split
+from kokoro_tpu_torch.data.mfa import MFAIntegration
 from kokoro_tpu_torch.data.phonemes import RussianPhonemeProcessor
 from kokoro_tpu_torch.device import resolve_device
 from kokoro_tpu_torch.models.kokoro import KokoroModel
@@ -124,7 +129,17 @@ class KokoroTrainer:
     # -- set-up ---------------------------------------------------------------
     def _setup_datasets(self) -> None:
         cfg, mcfg = self.config, self.model_config
-        data = dict(phoneme_processor=self.phoneme_processor, device=self.device)
+        mfa = None
+        if cfg.use_mfa:
+            if Path(cfg.mfa_alignment_dir).exists():
+                mfa = MFAIntegration(
+                    alignment_dir=cfg.mfa_alignment_dir, acoustic_model=cfg.mfa_acoustic_model,
+                    dictionary=cfg.mfa_dictionary, hop_length=mcfg.hop_length,
+                    sample_rate=mcfg.sample_rate)
+            else:
+                logger.warning("MFA alignment dir %s missing; falling back to estimated "
+                               "durations", cfg.mfa_alignment_dir)
+        data = dict(phoneme_processor=self.phoneme_processor, device=self.device, mfa=mfa)
         full = RuslanDataset(cfg.data_dir, mcfg, cfg, **data)
         train_idx, val_idx = train_val_split(len(full), cfg.validation_split, seed=cfg.seed)
         self.train_dataset = RuslanDataset(cfg.data_dir, mcfg, cfg, indices=train_idx,
@@ -326,8 +341,26 @@ class KokoroTrainer:
         self.best_val_loss = float(counters.get("best_val_loss", float("inf")))
         self.best_val_epoch = int(counters.get("best_val_epoch", -1))
         self.host_step = int(counters.get("host_step", self.state.opt_step))
+        self._purge_stale_events()
         logger.info("Resumed at epoch %d (opt step %d, best val %.4f)", self.start_epoch,
                     self.state.opt_step, self.best_val_loss)
+
+    def _purge_stale_events(self) -> None:
+        """Drop the log records past the restored step (reference
+        trainer.py:1616-1632), so the resumed series stay monotonic and free
+        of duplicates.  The step scalars are logged at ``host_step``, the
+        epoch scalars at the optimizer step, which is never larger.  The
+        writer is closed around the rewrite."""
+        from kokoro_tpu_torch.training.tb_events import purge_events_after
+
+        try:
+            self.writer.flush()
+            self.writer.close()
+            purge_events_after(self.output_dir / "logs", self.host_step)
+        except Exception as err:  # never fail a resume over log hygiene
+            logger.warning("Log event purge failed: %s", err)
+        finally:
+            self.writer = _make_writer(self.output_dir / "logs")
 
 
 def train_model(model_config: KokoroConfig, config: TrainingConfig,

@@ -42,10 +42,20 @@ def test_port_files_exist():
                      "kokoro_tpu_torch/training/checkpoint.py",
                      "kokoro_tpu_torch/training/trainer.py", "kokoro_tpu_torch/cli/args.py",
                      "kokoro_tpu_torch/cli/train.py", "kokoro_tpu_torch/serving/server.py",
-                     "kokoro_tpu_torch/cli/serve.py"):
+                     "kokoro_tpu_torch/cli/serve.py",
+                     # the MFA training data path and the kokoro-infer entry point
+                     "kokoro_tpu_torch/data/mfa.py", "kokoro_tpu_torch/native/__init__.py",
+                     "kokoro_tpu_torch/native/binding.py", "kokoro_tpu_torch/config.py",
+                     "kokoro_tpu_torch/cli/preprocess.py", "kokoro_tpu_torch/cli/precompute.py",
+                     "kokoro_tpu_torch/training/tb_events.py", "kokoro_tpu_torch/ops/lengths.py",
+                     "kokoro_tpu_torch/models/hifigan.py",
+                     "kokoro_tpu_torch/inference/vocoder.py", "kokoro_tpu_torch/inference/tts.py",
+                     "kokoro_tpu_torch/utils/profiling.py", "kokoro_tpu_torch/cli/infer.py",
+                     "kokoro_tpu_torch/models/model_loader.py"):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
-                   "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh"):
+                   "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
+                   "aligner.cpp"):
         assert (ROOT / "kokoro_tpu_torch" / "csrc" / source).is_file(), source
 
 
@@ -75,4 +85,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--data-dir", str(tmp_path), "--output-dir", str(tmp_path / "run")])
+    from kokoro_tpu_torch.cli import infer
+    from kokoro_tpu_torch.cli.precompute import precompute_features
+    from kokoro_tpu_torch.config import get_default_config
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        infer.main(["--model", str(tmp_path), "--text", "привет"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        precompute_features(*get_default_config(data_dir=str(tmp_path)))
     assert resolve_device("cpu") == torch.device("cpu")
