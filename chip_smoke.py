@@ -82,13 +82,35 @@ Phases, each printing one JSON line:
    made from ``docs/hifigan_v1_int8.npz`` gives the ``.npz``'s audio within
    1e-4, and ``--profile`` on a short run (``--max-len 16``) writes a trace
    with device events.
+12. tools: the trainer's tooling on the card.  (a) One epoch of the long
+   regime on the corpus of (10) with every diagnostic on
+   (``histogram_every_steps=1``, a profiler window over 2 steps, the
+   interbatch profiler, ``verbose``): the log holds every scalar family of
+   the reference's ``tests/unit/test_observability_tags.py``, ``weights/*``
+   (the flax paths of the model's parameters), ``gradients/*`` and
+   ``val_predictions/*`` histograms and the four ``spectrogram/*`` images;
+   the trace in ``profiler_logs/`` names K4 and the packed kernels among its
+   device events; the steps launch K4 and K2 as in (10a); the memory
+   preflight, the duration diagnostics and the interbatch report are logged.
+   (b) HiFi-GAN V1 on 4 x 256 frames with cuDNN TF32 on (torch's default,
+   what ``cli.serve`` and ``cli.infer`` run) and off.  (c) The bf16/f32 A/B
+   (``utils/profiling.profile_dtype_for_config``) on the throughput preset,
+   whose fixed model fields put the attention on the plain route, and the
+   same A/B on the preset's kernel route beside it.
+   (d) ``cli.plan`` (table and ``--json``) and ``utils.cache_manager
+   --status`` on the corpus's ``.feature_cache_torch``.  (e) The memory
+   sweep of ``utils/memory_planner.py`` (``bench.py``'s bucket ladder and
+   the long step), one line per shape, and the planner's estimate held
+   within 15 % of every measured allocated peak and of the peaks phases
+   ``train`` and ``long`` measured.
 
 Then the script's wall time and each phase's, the kernels' JSON line (eight wrappers, each
 with the launches of its main-path run: a preset step, a long step or a
 kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
 and its backward also carry ``long_shape``, their times at T=1408 and
-launches per long step; the kernels of phase mfa carry ``mfa_path``, their
-launches per training step there), the ``nvidia-smi`` line and, last,
+launches per long step; the kernels of phases mfa and tools carry
+``mfa_path`` and ``tools_path``, their launches per training step there),
+the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
 without the repository around it.
@@ -134,7 +156,10 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long", "mfa"]
+          "serve", "train", "long", "mfa", "tools"]
+# peak allocated bytes of the bf16 steps of phases train and long, which
+# phase tools holds the memory planner to
+MEASURED_PEAKS = {}
 
 
 def emit(obj) -> None:
@@ -1187,6 +1212,7 @@ def phase_train():
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": per_step[-1],
           "losses": [m["total"] for m in steps], "grad_norms": [m["grad_norm"] for m in steps]})
+    MEASURED_PEAKS["train"] = torch.cuda.max_memory_allocated()
     del state, step
     torch.cuda.empty_cache()
     return per_step[-1]
@@ -1406,6 +1432,7 @@ def phase_long():
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": per_step[-1], "loss_scale": metrics[-1]["loss_scale"],
           "losses": [m["total"] for m in metrics]})
+    MEASURED_PEAKS["long"] = torch.cuda.max_memory_allocated()
     del state, step, batch
     torch.cuda.empty_cache()
     return per_step[-1]
@@ -1700,6 +1727,239 @@ def phase_mfa():
     return steps[-1][1]
 
 
+# the reference's scalar families (tests/unit/test_observability_tags.py)
+SCALAR_FAMILIES = [
+    "loss/total", "loss/mel", "loss/duration", "loss/stop", "loss/pitch", "loss/energy",
+    "loss/val_total", "loss/val_mel",
+    "loss/train_total_epoch", "loss/train_mel_epoch", "loss/train_stop_epoch",
+    "loss/val_total_epoch", "loss/val_mel_epoch",
+    "stats/grad_norm", "stats/grad_norm_clipped",
+    "stats/lr_encoder", "stats/lr_decoder", "stats/lr_decoder_ffn",
+    "stats/lr_decoder_attn", "stats/lr_stop_head", "stats/lr_variance_embed",
+    "metrics/val_spectral_convergence", "metrics/val_f0_rmse", "metrics/val_mcd",
+    "metrics/train_spectral_convergence",
+]
+SPECTROGRAMS = ("spectrogram/val_predicted", "spectrogram/val_ground_truth",
+                "spectrogram/train_predicted", "spectrogram/train_ground_truth")
+PLANNER_LIMIT = 0.15  # |estimate / measured allocated peak - 1|
+
+
+def logged_tags(logdir: Path) -> dict:
+    """The tags of a trainer's log by kind (scalars, histograms, images):
+    ``metrics.jsonl`` where tensorboard is not installed, else the event
+    files."""
+    jsonl = logdir / "metrics.jsonl"
+    if jsonl.exists():
+        tags = {"scalars": set(), "histograms": set(), "images": set()}
+        for line in jsonl.read_text().splitlines():
+            rec = json.loads(line)
+            kind = {"histogram": "histograms", "image": "images"}.get(rec.get("kind"), "scalars")
+            tags[kind].add(rec["tag"])
+        return tags
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(logdir), size_guidance={"scalars": 0, "histograms": 0,
+                                                       "images": 0})
+    acc.Reload()
+    return {k: set(acc.Tags().get(k, [])) for k in ("scalars", "histograms", "images")}
+
+
+def attention_kernel_names(path: Path) -> dict:
+    """Device kernels of a Chrome trace named for the port's attention
+    templates, split by mask policy: ``flash`` (K4) and ``packed`` (K1-K3),
+    from the ``FLASH`` template argument, demangled or not."""
+    import re
+
+    names = {e.get("name", "") for e in json.loads(path.read_text()).get("traceEvents", [])
+             if e.get("cat") == "kernel"}
+    out = {"flash": set(), "packed": set()}
+    for name in names:
+        if "kokoro_attn" not in name:
+            continue
+        m = re.search(r"<(?:64|128), (true|false)", name) or re.search(r"ILi(?:64|128)ELb([01])",
+                                                                       name)
+        if m:
+            out["flash" if m.group(1) in ("true", "1") else "packed"].add(name)
+    return out
+
+
+def phase_tools():
+    """The trainer's tooling on the card (module docstring, phase 12).
+    Returns the launches of each kernel wrapper in the last training step."""
+    import ast
+    import contextlib
+    import io
+    import logging
+
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.cli import plan
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME
+    from kokoro_tpu_torch.config import get_default_config, get_high_performance_config
+    from kokoro_tpu_torch.convert import flax_names
+    from kokoro_tpu_torch.inference.vocoder import VocoderManager
+    from kokoro_tpu_torch.utils import cache_manager, memory_planner
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import create_train_state, make_train_step
+    from kokoro_tpu_torch.utils.profiling import (
+        compare_dtype_policies, dtype_ab_batch, profile_dtype_for_config,
+    )
+
+    n_layers = 6
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    handler = logging.StreamHandler(log)
+    trainer_log = logging.getLogger("kokoro_tpu_torch.training.trainer")
+    level = trainer_log.level
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        corpus, run = root / "corpus", root / "run"
+        build_long_corpus(corpus, 26)
+        CountingTrainer = counting_trainer()
+        trainer_log.addHandler(handler)
+        trainer_log.setLevel(logging.INFO)
+        try:
+            trainer = CountingTrainer(*get_default_config(**{
+                **LONG_REGIME, "data_dir": str(corpus), "output_dir": str(run),
+                "num_epochs": 1, "warmup_steps": 20, "log_every_steps": 1,
+                "histogram_every_steps": 1, "enable_profiling": True, "profile_epoch_start": 0,
+                "profile_steps": 2, "enable_interbatch_profiling": True, "verbose": True}),
+                device="cuda")
+            trainer.train()
+        finally:
+            trainer_log.removeHandler(handler)
+            trainer_log.setLevel(level)
+        trainer_s = time.perf_counter() - t0
+        check_long_run(CountingTrainer.steps, CountingTrainer.validations, n_layers)
+        weights = {f"weights/params/{p}" for p in flax_names(trainer.state.model).values()}
+        phases = sorted(trainer._interbatch.phases)
+        del trainer
+        torch.cuda.empty_cache()
+        tags = logged_tags(run / "logs")
+        missing = sorted(set(SCALAR_FAMILIES) - tags["scalars"]) + sorted(
+            set(SPECTROGRAMS) - tags["images"]) + sorted(
+            f"val_predictions/{k}" for k in ("log_durations", "pitch", "energy")
+            if f"val_predictions/{k}" not in tags["histograms"])
+        logged_weights = {t for t in tags["histograms"] if t.startswith("weights/")}
+        grads = {t for t in tags["histograms"] if t.startswith("gradients/")}
+        if missing or logged_weights != weights or grads != {
+                "gradients/" + t[len("weights/"):] for t in weights}:
+            raise AssertionError(f"trainer log: missing {missing}, weights/* {len(logged_weights)} "
+                                 f"of {len(weights)}, gradients/* {len(grads)}")
+        text = log.getvalue()
+        lines = {key: sum(key in ln for ln in text.splitlines()) for key in
+                 ("HBM plan", "Duration pred @", "interbatch profile:", "Feature cache:")}
+        if not all(lines.values()) or phases != ["data", "step"]:
+            raise AssertionError(f"trainer log lines {lines}, interbatch phases {phases}")
+        traces = list((run / "profiler_logs").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profiler window wrote {len(traces)} traces")
+        trace = trace_events(traces[0])
+        kernels = attention_kernel_names(traces[0])
+        if not (trace["device_events"] and kernels["flash"] and kernels["packed"]):
+            raise AssertionError(f"profiler trace {trace} names {kernels}")
+
+        # the CLIs on the card
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc_table = plan.main(["--data-dir", str(corpus)])
+        table = printed.getvalue()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc_json = plan.main(["--data-dir", str(corpus), "--json"])
+        plan_doc = json.loads(printed.getvalue())
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc_cache = cache_manager.main(["--corpus", str(corpus), "--status"])
+        cache = ast.literal_eval(printed.getvalue().strip())
+        if (rc_table, rc_json, rc_cache) != (0, 0, 0) or "HBM budget" not in table or not (
+                plan_doc["buckets"] and plan_doc["hbm_bytes"] > 0) or not (
+                cache["exists"] and cache["entries"] == 26 and cache["sampled_corrupt"] == 0):
+            raise AssertionError(f"CLIs: plan {rc_table}/{rc_json} {plan_doc.get('hbm_bytes')}, "
+                                 f"cache {cache}")
+    observability = {
+        "trainer_s": trainer_s, "steps": len(CountingTrainer.steps),
+        "step_ms": CountingTrainer.step_ms,
+        "launches_per_step": {k: v for k, v in CountingTrainer.steps[-1][1].items() if v},
+        "tags": {k: len(v) for k, v in tags.items()}, "log_lines": lines,
+        "interbatch_phases": phases, "trace": trace,
+        "trace_attention_kernels": {k: sorted(v) for k, v in kernels.items()}}
+
+    # HiFi-GAN V1 with cuDNN TF32 on (torch's default) against off
+    voc = VocoderManager(vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"), device="cuda")
+    mels = np.random.default_rng(0).uniform(-9.0, 0.0, (4, 256, 80)).astype(np.float32)
+    waves = {}
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        waves[tf32] = voc.mel_to_audio_batch(mels)
+    torch.backends.cudnn.allow_tf32 = False
+    diff = float(np.abs(waves[True] - waves[False]).max())
+    tf32 = {"frames": [4, 256], "max_abs_diff": diff,
+            "max_abs_diff_rel_to_peak": diff / float(np.abs(waves[False]).max()),
+            "f32_peak": float(np.abs(waves[False]).max()), "test_tolerance": 1e-4}
+    if not all(np.isfinite(w).all() for w in waves.values()):
+        raise AssertionError("HiFi-GAN waveform not finite")
+    del voc
+
+    # the bf16/f32 A/B on the throughput preset (the kernels were built in phase device);
+    # the reference's fixed model fields leave the attention on the plain route, so the
+    # same A/B on the preset's kernel route runs beside it for comparison
+    ab = {}
+    zero_counts()
+    chosen = profile_dtype_for_config(*get_high_performance_config(), device="cuda", results=ab)
+    torch.cuda.synchronize()
+    ab_launches = {k: v for k, v in read_counts().items() if v}
+    torch.cuda.empty_cache()
+    batch = dtype_ab_batch(80, "cuda")
+
+    def kernel_route_step(dtype):
+        m, c = get_high_performance_config(compute_dtype=dtype, vocab_size=64)
+        state = create_train_state(KokoroModel(m).init_weights(
+            torch.Generator().manual_seed(0)).cuda(), c, total_steps=1000)
+        step = make_train_step(c, build_preclip_norms(state.names, c), 0.999)
+        gen = torch.Generator().manual_seed(0)
+        return (lambda: step(state, batch, gen)), ()
+
+    zero_counts()
+    ab_kernels = compare_dtype_policies(kernel_route_step, n_steps=5)
+    torch.cuda.synchronize()
+    ab_kernels["launches"] = {k: v for k, v in read_counts().items() if v}
+    del batch
+    torch.cuda.empty_cache()
+
+    # the memory sweep and the planner
+    configs = {label: (m, c) for label, m, c, _ in memory_planner.sweep_configs()}
+
+    def rel_err(label, B, T, L, peak):
+        m, c = configs[label]
+        est = memory_planner.estimate_train_step_hbm(
+            m, c, B, T, L, n_params=memory_planner.count_params(m, m.vocab_size))
+        return est.total_bytes / peak - 1
+
+    swept = memory_planner.sweep(labels=("preset", "long"))
+    held = []
+    for r in swept["rows"]:
+        err = rel_err(r["config"], r["B"], r["T"], r["L"], r["peak_allocated_bytes"])
+        emit({"phase": "tools_sweep", **r, "estimate_rel_err": err})
+        held.append((f"sweep {r['config']} B={r['B']} T={r['T']}", err))
+    for name, label, shape in (("train", "preset", (32, 512, 96)),
+                               ("long", "long", memory_planner.LONG)):
+        if name in MEASURED_PEAKS:
+            held.append((f"phase {name}", rel_err(label, *shape, MEASURED_PEAKS[name])))
+    emit({"phase": "tools", "observability": observability, "tf32_vocoder": tf32,
+          "dtype_ab": {"chosen": chosen, "launches": ab_launches, **ab},
+          "dtype_ab_kernel_route": ab_kernels,
+          "planner": {"limit": PLANNER_LIMIT, "rel_err": dict(held),
+                      "total_memory_bytes": swept["total_memory_bytes"]},
+          "wall_s": time.perf_counter() - t0})
+    worst = max(held, key=lambda x: abs(x[1]))
+    if abs(worst[1]) > PLANNER_LIMIT:
+        raise AssertionError(f"memory planner off by {worst[1]:+.3f} at {worst[0]}")
+    return CountingTrainer.steps[-1][1]
+
+
 def parse_phases(argv) -> list:
     """Every phase with no arguments (the contract run); ``--phases a,b`` runs
     a subset, for a short call after a change, and prints no contract lines."""
@@ -1775,6 +2035,9 @@ def main() -> int:
     mfa_counts = {}
     if "mfa" in phases:  # launches in the last long training step on MFA durations
         mfa_counts = {name: c for name, c in timed("mfa", phase_mfa).items() if c}
+    tools_counts = {}
+    if "tools" in phases:  # launches in the last long training step with diagnostics on
+        tools_counts = {name: c for name, c in timed("tools", phase_tools).items() if c}
     torch.cuda.synchronize()
     emit({"wall_s": time.perf_counter() - t_start, "phases": phases, "phase_wall_s": phase_s})
     if phases != PHASES:
@@ -1809,6 +2072,11 @@ def main() -> int:
                 "launches": mfa_counts[kern.name],
                 "launches_are": "per long training step on MFA durations (phase mfa: "
                                 "2 microbatches of B=12 L=256 T=1408)"}
+        if kern.name in tools_counts:  # this slice's path: the trainer with its diagnostics
+            row["tools_path"] = {
+                "launches": tools_counts[kern.name],
+                "launches_are": "per long training step with the trainer's diagnostics on "
+                                "(phase tools: 2 microbatches of B=12 L=256 T=1408)"}
         kernels.append(row)
     emit({"kernels": kernels})
     print(smi, flush=True)

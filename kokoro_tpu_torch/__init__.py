@@ -9,6 +9,6 @@ ported path becomes a hand-written Hopper kernel under ``csrc/``, beside a
 plain PyTorch version of the same function.
 """
 
-__version__ = "0.1.0"
+from kokoro_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

@@ -1,15 +1,20 @@
 """argparse -> ``(KokoroConfig, TrainingConfig)`` for ``kokoro-train``.
 
-Port of ``kokoro_tpu/cli/args.py`` for the fields the port reads, the MFA
-and precompute arguments included.  ``--no-ema`` sets a field that no code
-of the reference reads and the port's config does not have; the
-dtype-profiling, compile-cache and mesh arguments have no counterpart
-(ROADMAP.md).
+Port of ``kokoro_tpu/cli/args.py``: every argument of the reference parses.
+``--no-ema`` (a field no code of the reference reads) and
+``--compile-cache-dir`` (XLA's compile cache) have no effect here and log a
+warning; ``--profile-dtypes`` is ``cli/train.py``'s bf16/f32 A/B.  One GPU
+is a mesh of one device: ``--mesh-shape`` of product 1 and ``--mesh-axes``
+parse and change nothing, while a larger mesh and ``--distributed`` exit
+with an error, since data, tensor, sequence and pipeline parallelism are the
+port's parallel slice (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import math
 from typing import Tuple
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig, get_default_config
@@ -36,7 +41,28 @@ FLAG_ARGS = {
     "no_gradient_checkpointing": ("gradient_checkpointing", False),
     "flash_attention": ("use_flash_attention", True),
     "no_attention_weight_dropout": ("attention_weight_dropout", False),
+    "verbose": ("verbose", True),
 }
+PARALLEL_SLICE = "the port's parallel slice (ROADMAP.md §1)"
+
+logger = logging.getLogger(__name__)
+
+
+def _mesh_shape(text: str) -> Tuple[int, ...]:
+    shape = tuple(int(x) for x in text.split(",") if x.strip())
+    if math.prod(shape) != 1:
+        raise argparse.ArgumentTypeError(
+            f"a mesh of {math.prod(shape)} devices needs {PARALLEL_SLICE}; one GPU is "
+            "--mesh-shape 1")
+    return shape
+
+
+class _Distributed(argparse.Action):
+    def __init__(self, option_strings, dest, **kwargs):
+        super().__init__(option_strings, dest, nargs=0, default=False, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string}: multi-host training needs {PARALLEL_SLICE}")
 
 
 def add_training_arguments(parser: argparse.ArgumentParser) -> None:
@@ -76,6 +102,18 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--save-every", type=int, default=None)
     g.add_argument("--early-stopping-patience", type=int, default=None)
     g.add_argument("--verbose", action="store_true")
+    g.add_argument("--no-ema", action="store_true", help="no effect in the port (warns)")
+    g.add_argument("--profile-dtypes", action="store_true",
+                   help="time bf16 against f32 training steps before training and train "
+                        "in the faster compute dtype")
+    g.add_argument("--compile-cache-dir", default=None, metavar="DIR",
+                   help="XLA's compile cache: no effect in the port (warns)")
+    d = parser.add_argument_group("parallelism")
+    d.add_argument("--mesh-shape", type=_mesh_shape, default=None,
+                   help="device-mesh shape; the port runs a mesh of one device ('1')")
+    d.add_argument("--mesh-axes", default=None, help="mesh axis names (no effect on one device)")
+    d.add_argument("--distributed", action=_Distributed,
+                   help=f"multi-host training: {PARALLEL_SLICE}")
 
 
 def create_config_from_args(args: argparse.Namespace) -> Tuple[KokoroConfig, TrainingConfig]:
@@ -89,4 +127,9 @@ def create_config_from_args(args: argparse.Namespace) -> Tuple[KokoroConfig, Tra
             overrides[field] = value
     if args.no_validation:
         overrides["validation_interval"] = 10**9
+    if args.no_ema:
+        logger.warning("--no-ema has no effect in the port: no code reads use_ema")
+    if args.compile_cache_dir is not None:
+        logger.warning("--compile-cache-dir has no effect in the port: PyTorch keeps no XLA "
+                       "compile cache")
     return get_default_config(**overrides)

@@ -32,6 +32,13 @@ def main(argv=None) -> int:
         from kokoro_tpu_torch.cli.precompute import precompute_features
 
         precompute_features(model_config, config, device=args.device)
+    if args.profile_dtypes:
+        # the reference's pre-train bf16/f32 A/B (kokoro_tpu/cli/train.py)
+        from kokoro_tpu_torch.utils.profiling import profile_dtype_for_config
+
+        config.compute_dtype = profile_dtype_for_config(model_config, config, device=args.device)
+        logging.getLogger(__name__).info("dtype profile selected compute_dtype=%s",
+                                         config.compute_dtype)
     from kokoro_tpu_torch.training.trainer import train_model
 
     result = train_model(model_config, config, device=args.device)

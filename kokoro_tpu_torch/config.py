@@ -4,7 +4,8 @@
 ``kokoro_tpu/config.py::TrainingConfig``, :class:`TrainingConfig` the fields
 the training step, the data pipeline and the trainer read, both with the
 reference's names and defaults.  The mesh and TPU dispatch fields have no
-counterpart (ROADMAP.md lists them).
+counterpart (ROADMAP.md lists them).  The four presets (default,
+low-memory, high-performance, smoke) set the reference's values.
 """
 
 from __future__ import annotations
@@ -215,8 +216,19 @@ class TrainingConfig:
     early_stopping_patience: int = 15
     early_stopping_min_delta: float = 0.001
 
-    # logging
+    # logging and profiling: a torch.profiler window over the first
+    # ``profile_steps`` optimizer steps of epoch ``profile_epoch_start``
+    # (0-based), the host's data/step phase times, and the diagnostic step
+    # (gradient histograms, train spectrograms, train spectral convergence)
+    # every ``histogram_every_steps`` optimizer steps (0: never)
+    enable_profiling: bool = False
+    profile_epoch_start: int = 1
+    profile_steps: int = 5
+    enable_interbatch_profiling: bool = False
+    interbatch_report_interval: int = 100
+    verbose: bool = False
     log_every_steps: int = 10
+    histogram_every_steps: int = 200
 
     def __post_init__(self) -> None:
         if not self.feature_cache_dir:
@@ -266,12 +278,37 @@ def get_default_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
     return _split({}, {}, overrides)
 
 
+def get_low_memory_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
+    """The reference's memory-lean preset (``get_low_memory_config``): B=8
+    with 4-way accumulation, a smaller frame budget, remat in 4 segments."""
+    return _split({}, dict(batch_size=8, gradient_accumulation_steps=4,
+                           max_frames_per_batch=8000, max_batch_size=6,
+                           gradient_checkpointing=True, checkpoint_segments=4), overrides)
+
+
 def get_high_performance_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
     """The reference's throughput preset (``get_high_performance_config``):
-    bf16 compute on f32 parameters, no remat, B=32 (no accumulation: the
-    batch carries no microbatch axis), and the
-    decoder's attention through the packed kernels with attention-weight
-    dropout.  Returns ``(model config, training config)``; ``overrides`` go
-    to whichever of the two has the field."""
+    bf16 compute on f32 parameters, no remat, B=32 and no accumulation, the
+    frame budget of 30000 frames in batches of up to 16 rows packed by
+    bucket, dispatched shape-major with ragged tails carried and the batch
+    rounded to 8 rows, and the decoder's attention through the kernels with
+    attention-weight dropout.  Returns ``(model config, training config)``;
+    ``overrides`` go to whichever of the two has the field."""
     return _split(dict(use_flash_attention=True, attention_weight_dropout=True),
-                  dict(batch_size=32, gradient_checkpointing=False), overrides)
+                  dict(batch_size=32, gradient_accumulation_steps=1,
+                       max_frames_per_batch=30000, max_batch_size=16,
+                       gradient_checkpointing=False, batch_order="shape_major",
+                       carry_tail=True, pack_mode="bucket", batch_size_multiple=8),
+                  overrides)
+
+
+def get_smoke_test_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:
+    """The reference's tiny model for smoke tests (``get_smoke_test_config``):
+    hidden 64, 2+2 layers, 4 heads, ff 128, one epoch of B=2, fixed-size
+    batches over mel buckets (64, 128), no MFA, no remat."""
+    return _split(dict(hidden_dim=64, n_encoder_layers=2, n_decoder_layers=2, n_heads=4,
+                       encoder_ff_dim=128, decoder_ff_dim=128, variance_filter_size=32),
+                  dict(num_epochs=1, batch_size=2, warmup_steps=2, use_mfa=False,
+                       use_dynamic_batching=False, use_speed_perturbation=False,
+                       mel_bucket_sizes=(64, 128), phoneme_bucket_sizes=(16, 32),
+                       max_seq_length=128, gradient_checkpointing=False), overrides)

@@ -15,7 +15,10 @@ tree; the port itself reads only the ``.npz``).  The mapping:
   its name.
 
 :func:`train_state_from_flax` carries a whole training state across (params,
-AdamW moments and count, EMA, the step counters).
+AdamW moments and count, EMA, the step counters).  :func:`flax_names` and
+:func:`flax_params_from_module` go the other way: the flax path of each
+parameter (the trainer's histogram tags) and the parameters in flax layout
+(``inference/vocoder.py::export_hifigan_npz``).
 
 A model directory holds ``model.pt`` (the state dict), ``metadata.json``
 (``{"model_metadata": {...}}`` with the keys of
@@ -69,6 +72,53 @@ def _torch_value(path: str, value: np.ndarray) -> torch.Tensor:
     if leaf == "kernel" and not transposed_conv:
         arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
     return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+_SINGULAR = {v: k for k, v in _LISTS.items()}
+_KERNEL_MODULES = (torch.nn.Linear, torch.nn.Conv1d, torch.nn.ConvTranspose1d)
+
+
+def _flax_leaves(module: torch.nn.Module):
+    """``(torch name, flax path, owning module, parameter)`` per parameter."""
+    for mod_name, mod in module.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] in _SINGULAR and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{_SINGULAR[parts[i]]}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        for leaf, param in mod.named_parameters(recurse=False):
+            flax_leaf = leaf
+            if leaf == "weight":
+                flax_leaf = ("kernel" if isinstance(mod, _KERNEL_MODULES)
+                             else "embedding" if isinstance(mod, torch.nn.Embedding)
+                             else "scale")
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            yield name, "/".join(path + [flax_leaf]), mod, param
+
+
+def flax_names(module: torch.nn.Module) -> Dict[str, str]:
+    """``{torch parameter name: flax path}``, the inverse of the name map
+    above: ``<list>.i`` -> ``<list item>_i``, and a ``weight`` leaf ->
+    ``kernel`` (Dense / Conv / ConvTranspose), ``embedding`` (Embed) or
+    ``scale`` (LayerNorm / RMSNorm)."""
+    return {name: path for name, path, _, _ in _flax_leaves(module)}
+
+
+def flax_params_from_module(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The module's parameters as float32 numpy arrays keyed by flax path,
+    in flax layout (Dense ``(in, out)``, Conv ``(k, in, out)``; transposed
+    convs keep the torch layout, as the flax tree stores them)."""
+    out = {}
+    for _, path, mod, param in _flax_leaves(module):
+        value = param.detach().cpu().float().numpy()
+        if path.endswith("/kernel") and not isinstance(mod, torch.nn.ConvTranspose1d):
+            value = value.T if value.ndim == 2 else value.transpose(2, 1, 0)
+        out[path] = np.ascontiguousarray(value)
+    return out
 
 
 def kokoro_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

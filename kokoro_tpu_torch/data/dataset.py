@@ -28,6 +28,7 @@ from __future__ import annotations
 import json
 import logging
 import random
+import time
 from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -140,6 +141,10 @@ class RuslanDataset:
         self._memory_cache_bytes = 0
         self.cache_requests = 0
         self.cache_misses = 0
+        self.cache_mem_hits = 0
+        self.cache_disk_hits = 0
+        self._mem_latency_ns = 0
+        self._disk_latency_ns = 0
 
         self.samples = self._load_samples()
         self._lengths = self._load_length_metadata()
@@ -213,9 +218,30 @@ class RuslanDataset:
         return len(self.samples)
 
     # -- feature cache ----------------------------------------------------------
+    def cache_stats(self) -> Dict[str, float]:
+        """Requests, misses and hit rate of the feature cache, its in-RAM
+        tier's size, and the mean latency of a memory and of a disk hit."""
+        return {
+            "requests": self.cache_requests,
+            "misses": self.cache_misses,
+            "hit_rate": (1.0 - self.cache_misses / self.cache_requests
+                         if self.cache_requests else 0.0),
+            "memory_entries": len(self._memory_cache),
+            "memory_mb": self._memory_cache_bytes / (1024 * 1024),
+            "mem_hits": self.cache_mem_hits,
+            "disk_hits": self.cache_disk_hits,
+            "mem_latency_ms": (self._mem_latency_ns / self.cache_mem_hits / 1e6
+                               if self.cache_mem_hits else 0.0),
+            "disk_latency_ms": (self._disk_latency_ns / self.cache_disk_hits / 1e6
+                                if self.cache_disk_hits else 0.0),
+        }
+
     def _load_cached(self, stem: str) -> Optional[Dict]:
+        t0 = time.perf_counter_ns()
         if stem in self._memory_cache:
             self._memory_cache.move_to_end(stem)
+            self.cache_mem_hits += 1
+            self._mem_latency_ns += time.perf_counter_ns() - t0
             return dict(self._memory_cache[stem])
         path = self.feature_cache_dir / f"{stem}.npz"
         if not path.exists():
@@ -229,6 +255,8 @@ class RuslanDataset:
             logger.warning("Corrupt feature cache %s: %s", path, err)
             return None
         self._memory_put(stem, payload)
+        self.cache_disk_hits += 1
+        self._disk_latency_ns += time.perf_counter_ns() - t0
         return dict(payload)
 
     def _memory_put(self, stem: str, payload: Dict) -> None:

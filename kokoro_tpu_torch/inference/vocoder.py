@@ -11,11 +11,14 @@ original HiFi-GAN layout loads too, weight norm folded
 (``models/hifigan.py::hifigan_state_dict_from_torch``), into the universal V1
 generator, as in the reference; an unknown layout logs an error and falls
 back.  ``mel_to_audio_batch`` vocodes a whole group at once,
-HiFi-GAN in chunks of 8 rows.
+HiFi-GAN in chunks of 8 rows.  :func:`export_hifigan_npz` writes a torch
+generator in that ``.npz`` format, f32 or int8, as the reference's exporter
+writes it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 from pathlib import Path
@@ -24,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kokoro_tpu_torch.convert import hifigan_state_dict_from_flax
+from kokoro_tpu_torch.convert import flax_params_from_module, hifigan_state_dict_from_flax
 from kokoro_tpu_torch.device import resolve_device
 from kokoro_tpu_torch.models.hifigan import (
     HiFiGANConfig, HiFiGANGenerator, hifigan_state_dict_from_torch,
@@ -60,6 +63,36 @@ def load_hifigan_npz(path: str | Path) -> Tuple[dict, Optional[HiFiGANConfig]]:
             v = v.astype(np.float32) * scales[k]
         params[k] = np.asarray(v, dtype=np.float32)
     return params, config
+
+
+def export_hifigan_npz(generator: HiFiGANGenerator, path: str | Path,
+                       config: Optional[HiFiGANConfig] = None,
+                       quantize: Optional[str] = None) -> None:
+    """Write ``generator``'s weights as the flax-path ``.npz`` that
+    :func:`load_hifigan_npz` and the reference's loader read (port of
+    ``kokoro_tpu/inference/vocoder.py::export_hifigan_npz``).  ``config``
+    embeds the architecture as a ``__config__`` JSON blob.
+    ``quantize="int8"`` stores every leaf of two or more dimensions as
+    symmetric per-output-channel int8 beside a ``<key>::scale`` f32 array
+    (absmax / 127 over every axis but the last, plus 1e-12), compressed;
+    biases stay f32.  The same weights give the reference's arrays and
+    scales."""
+    flat = flax_params_from_module(generator)
+    if quantize == "int8":
+        for k, v in list(flat.items()):
+            if v.ndim < 2:
+                continue
+            absmax = np.abs(v).max(axis=tuple(range(v.ndim - 1)), keepdims=True)
+            scale = (absmax / 127.0 + 1e-12).astype(np.float32)
+            flat[k] = np.clip(np.round(v / scale), -127, 127).astype(np.int8)
+            flat[f"{k}::scale"] = scale
+    elif quantize is not None:
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
+    if config is not None:
+        flat["__config__"] = np.frombuffer(
+            json.dumps(dataclasses.asdict(config)).encode("utf-8"), dtype=np.uint8)
+    save = np.savez_compressed if quantize else np.savez
+    save(Path(path), **flat)
 
 
 class VocoderManager:

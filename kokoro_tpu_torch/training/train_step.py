@@ -261,13 +261,47 @@ def make_train_step(config: TrainingConfig, preclip_norms: Optional[Dict[str, fl
     return train_step
 
 
+def make_diagnostic_step(model: KokoroModel, config: TrainingConfig):
+    """``diag(batch) -> (outputs, losses + spectral_convergence, grads)``:
+    one deterministic forward and backward of one microbatch on the model's
+    parameters (port of the reference's ``make_diagnostic_step``).  The
+    trainer's step consumes its gradients inside the fused AdamW, so the
+    gradient histograms and train spectrograms re-derive them here.  It
+    draws nothing from any generator, leaves no ``.grad`` on a parameter,
+    touches no optimizer or step counter and puts the model back in the mode
+    it found it in.  ``grads`` maps every parameter name to its gradient
+    (zeros where the loss does not reach it)."""
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+
+    def diag(batch: Dict[str, torch.Tensor]):
+        was_training = model.training
+        model.eval()
+        try:
+            out, mel_pad = _model_outputs(model, batch, None, None, 0)
+            losses = _losses(out, batch, config)
+            grads = torch.autograd.grad(losses["total"], params, allow_unused=True)
+        finally:
+            model.train(was_training)
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["spectral_convergence"] = spectral_convergence(
+            out["predicted_mel"].detach().float(), batch["mel_specs"].float(), ~mel_pad)
+        outputs = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
+        return outputs, losses, {n: torch.zeros_like(p) if g is None else g
+                                 for n, g, p in zip(names, grads, params)}
+
+    return diag
+
+
 def make_eval_step(model: KokoroModel, config: TrainingConfig):
     """``eval_step(batch, params=None) -> metrics``: one deterministic
     forward (on ``params``, e.g. the EMA, when given) for the losses,
-    spectral convergence, MCD and, with pitch targets, F0 RMSE."""
+    spectral convergence, MCD and, with pitch targets, F0 RMSE.
+    ``with_outputs=True`` returns ``(metrics, model outputs)``."""
 
     @torch.no_grad()
-    def eval_step(batch, params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
+    def eval_step(batch, params: Optional[Dict[str, torch.Tensor]] = None,
+                  with_outputs: bool = False):
         model.eval()
         out, mel_pad = _model_outputs(model, batch, None, None, 0, params)
         metrics = _losses(out, batch, config)
@@ -280,7 +314,8 @@ def make_eval_step(model: KokoroModel, config: TrainingConfig):
             metrics["f0_rmse"] = f0_rmse(out["predicted_pitch"].float(),
                                          batch["pitch_targets"][:, :mel_mask.shape[1]].float(),
                                          mel_mask)
-        return {k: float(v) for k, v in metrics.items()}
+        metrics = {k: float(v) for k, v in metrics.items()}
+        return (metrics, out) if with_outputs else metrics
 
     return eval_step
 

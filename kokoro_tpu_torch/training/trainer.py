@@ -23,23 +23,43 @@ Port of ``kokoro_tpu/training/trainer.py`` (``KokoroTrainer`` /
   and resume (``resume_checkpoint``) with the counters and the dropout
   generator where they were; at resume the log records past the restored
   step, which a crash after the last save leaves, are purged
-  (``training/tb_events.py``).
+  (``training/tb_events.py``);
+* observability, each piece where the reference has it: on cuda an
+  advisory memory preflight (``utils/memory_planner.py``; it never aborts
+  training); TensorBoard's custom-scalars layout; a ``torch.profiler``
+  window (``utils/profiling.trace``) into ``<run>/profiler_logs`` over the
+  first ``profile_steps`` optimizer steps of epoch ``profile_epoch_start``,
+  closed on an exception too; the ``InterbatchProfiler``'s ``data`` and
+  ``step`` phases; weight histograms every epoch; every
+  ``histogram_every_steps`` optimizer steps the diagnostic step
+  (``train_step.make_diagnostic_step``) for gradient histograms,
+  ``metrics/train_spectral_convergence``, the train spectrogram images and,
+  under ``verbose``, the duration diagnostics; validation spectrogram
+  images and ``val_predictions/*`` histograms; the host batch of a skipped
+  step as ``debug_batch_step_<n>.npz``; the feature-cache report every
+  epoch.  Histogram tags use the reference's flax paths
+  (``weights/params/<path>``, ``gradients/params/<path>``;
+  ``convert.flax_names``), so the two packages' runs line up.  The logging
+  is best-effort, as in the reference: an error is logged as a warning and
+  training goes on.  Without tensorboard, ``logs/metrics.jsonl`` takes
+  every record, a histogram as its summary statistics and an image as an
+  ``.npy`` file under ``logs/images/``.
 
 Every random draw of a step comes from one ``torch.Generator`` seeded
 ``seed + 1`` and saved in the checkpoints (the reference folds a step
 counter into ``PRNGKey(seed + 1)``); the batch plan and the data RNG are pure
 functions of ``seed`` and the epoch, as in the reference.
 
-No counterpart (TPU or XLA machinery, or work of later slices; ROADMAP.md):
+No counterpart (TPU or XLA machinery, or the parallel slice; ROADMAP.md):
 the compile cache and ``prng_impl``, mesh / data / tensor / pipeline /
 sequence parallelism, AOT warm-up and the program-ladder prediction, scan
 chunks and ``pad_tail_steps``, ``cross_epoch_prefetch`` and the device_put
-worker pools, the memory-planner preflight, profiler traces, spectrogram
-images, and weight and gradient histograms.
+worker pools.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -52,6 +72,7 @@ import numpy as np
 import torch
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
+from kokoro_tpu_torch.convert import flax_names
 from kokoro_tpu_torch.data.batching import (
     FixedSizeBatcher, FrameBudgetBatcher, collate, effective_batch_quantum,
 )
@@ -63,8 +84,10 @@ from kokoro_tpu_torch.models.kokoro import KokoroModel
 from kokoro_tpu_torch.training.checkpoint import CheckpointManager, build_model_metadata
 from kokoro_tpu_torch.training.optimizer import build_preclip_norms, recommended_ema_decay
 from kokoro_tpu_torch.training.train_step import (
-    LOSS_KEYS, create_train_state, make_eval_step, make_train_step,
+    LOSS_KEYS, batch_masks, create_train_state, make_diagnostic_step, make_eval_step,
+    make_train_step,
 )
+from kokoro_tpu_torch.utils.profiling import InterbatchProfiler, trace
 
 logger = logging.getLogger(__name__)
 
@@ -77,14 +100,34 @@ LR_TAGS = (
 
 class _JsonlWriter:
     """Metric writer when tensorboard is not installed: one JSON line per
-    scalar in ``logs/metrics.jsonl``."""
+    record in ``logs/metrics.jsonl``; a histogram as its count, min, max,
+    mean and standard deviation, an image as an ``.npy`` file under
+    ``logs/images/`` named in its line."""
 
     def __init__(self, logdir: Path):
         logdir.mkdir(parents=True, exist_ok=True)
+        self._dir = logdir
         self._f = open(logdir / "metrics.jsonl", "a")
 
+    def _write(self, record):
+        self._f.write(json.dumps(record) + "\n")
+
     def add_scalar(self, tag, value, step):
-        self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        self._write({"tag": tag, "value": float(value), "step": int(step)})
+
+    def add_histogram(self, tag, values, step):
+        v = np.asarray(values, np.float64).ravel()
+        stats = ({"min": float(v.min()), "max": float(v.max()), "mean": float(v.mean()),
+                  "std": float(v.std())} if v.size else {})
+        self._write({"tag": tag, "kind": "histogram", "step": int(step), "count": int(v.size),
+                     **stats})
+
+    def add_image(self, tag, image, step):
+        path = self._dir / "images" / f"{tag.replace('/', '_')}_{int(step)}.npy"
+        path.parent.mkdir(exist_ok=True)
+        np.save(path, np.asarray(image, np.float32))
+        self._write({"tag": tag, "kind": "image", "step": int(step),
+                     "file": str(path.relative_to(self._dir))})
 
     def flush(self):
         self._f.flush()
@@ -101,6 +144,35 @@ def _make_writer(logdir: Path):
     return SummaryWriter(str(logdir))
 
 
+def _mel_image(mel) -> np.ndarray:
+    """(T, n_mels) log-mel -> min/max-normalised CHW image."""
+    mel = np.asarray(mel, np.float32).T
+    lo, hi = mel.min(), mel.max()
+    return ((mel - lo) / max(hi - lo, 1e-6))[None]
+
+
+# the reference's custom-scalars layout: train/val pairs and the per-group LRs
+CUSTOM_SCALARS = {
+    "Epoch Losses": {
+        "Total Loss (train vs val)": ["Multiline", ["loss/train_total_epoch",
+                                                    "loss/val_total_epoch"]],
+        "Mel Loss (train vs val)": ["Multiline", ["loss/train_mel_epoch", "loss/val_mel_epoch"]],
+        "Stop Loss (train vs val)": ["Multiline", ["loss/train_stop_epoch",
+                                                   "loss/val_stop_epoch"]],
+        "Duration Loss (train vs val)": ["Multiline", ["loss/train_duration_epoch",
+                                                       "loss/val_duration_epoch"]],
+    },
+    "Spectral Metrics": {
+        "Spectral Convergence (train vs val)": ["Multiline", [
+            "metrics/train_spectral_convergence", "metrics/val_spectral_convergence"]],
+    },
+    "Learning Rate": {
+        "LR (encoder vs decoder vs stop vs ffn vs attn)": ["Multiline", [
+            tag for _, tag in LR_TAGS]],
+    },
+}
+
+
 def _round_up(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
 
@@ -113,13 +185,21 @@ class KokoroTrainer:
         self.output_dir = Path(config.output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.writer = _make_writer(self.output_dir / "logs")
+        self._add_custom_scalars_layout()
         self.ckpt = CheckpointManager(self.output_dir, keep=config.keep_checkpoints)
         self.phoneme_processor = RussianPhonemeProcessor()
         self.model_config = dataclasses.replace(
             model_config, vocab_size=self.phoneme_processor.get_vocab_size())
         self._setup_datasets()
         self._setup_state()
+        if self.device.type == "cuda":
+            self._preflight_memory_check()
         self.generator = torch.Generator().manual_seed(config.seed + 1)
+        self._flax_names = flax_names(self.state.model)
+        self._diag_step = None
+        self._interbatch = None
+        self._trace = None
+        self._trace_steps_left = 0
         self.best_val_loss = float("inf")
         self.best_val_epoch = -1
         self.epochs_without_improvement = 0
@@ -161,6 +241,41 @@ class KokoroTrainer:
         logger.info("Datasets: %d train / %d val utterances", len(self.train_dataset),
                     len(self.val_dataset))
 
+    def _add_custom_scalars_layout(self) -> None:
+        if hasattr(self.writer, "add_custom_scalars"):
+            try:
+                self.writer.add_custom_scalars(CUSTOM_SCALARS)
+            except Exception as err:
+                logger.warning("custom scalars layout failed: %s", err)
+
+    def _preflight_memory_check(self) -> None:
+        """The planner's estimate of the largest step the batcher can give
+        (the batch rows, rounded to the quantum, at the largest buckets)
+        against the card's memory: a warning when it does not fit, else one
+        info line.  Advisory only: it never stops training."""
+        from kokoro_tpu_torch.utils.memory_planner import (
+            DEFAULT_HBM_BYTES, _bucket_lists, estimate_train_step_hbm, live_hbm_bytes,
+        )
+
+        cfg = self.config
+        try:
+            mels, phons = _bucket_lists(cfg)
+            rows = cfg.max_batch_size if cfg.use_dynamic_batching else cfg.batch_size
+            est = estimate_train_step_hbm(
+                self.model_config, cfg, _round_up(rows, self._batch_quantum()), mels[-1],
+                phons[-1], n_params=sum(p.numel() for p in self.state.model.parameters()))
+            hbm = live_hbm_bytes() or DEFAULT_HBM_BYTES
+            if not est.fits(hbm, margin=0.95):
+                logger.warning("Estimated training-step memory exceeds the card (%.2f GiB "
+                               "estimated vs %.2f GiB available): %s; consider a smaller "
+                               "batch, gradient_checkpointing or use_flash_attention (see "
+                               "kokoro-plan)", est.total_bytes / 1024**3, hbm / 1024**3,
+                               est.summary())
+            else:
+                logger.info("HBM plan: %s", est.summary())
+        except Exception as err:  # planning never blocks training
+            logger.warning("memory preflight skipped: %s", err)
+
     def _batch_quantum(self) -> int:
         return effective_batch_quantum(self.config.batch_size_multiple,
                                        self.config.max_batch_size)
@@ -196,7 +311,15 @@ class KokoroTrainer:
         self._maybe_resume()
         for epoch in range(self.start_epoch, cfg.num_epochs):
             t0 = time.time()
-            train_metrics = self.train_epoch(epoch)
+            if cfg.enable_profiling and epoch == cfg.profile_epoch_start:
+                self._start_trace()
+                try:
+                    train_metrics = self.train_epoch(epoch)
+                finally:
+                    self._stop_trace()
+            else:
+                train_metrics = self.train_epoch(epoch)
+            self._log_weight_histograms()
             step = self.state.opt_step
             for k in LOSS_KEYS:
                 self.writer.add_scalar(f"loss/train_{k}_epoch", train_metrics.get(k, 0.0), step)
@@ -218,6 +341,7 @@ class KokoroTrainer:
                     break
             if (epoch + 1) % cfg.save_every == 0:
                 self._save(self.ckpt.save_epoch_checkpoint, epoch, epoch + 1)
+            self._report_cache_stats()
         self._save(self.ckpt.save_final_model, cfg.num_epochs - 1)
         self.writer.close()
         return {"best_val_loss": self.best_val_loss, "best_val_epoch": self.best_val_epoch}
@@ -237,10 +361,25 @@ class KokoroTrainer:
         accum = max(1, cfg.gradient_accumulation_steps)
         sums: Dict[str, float] = {}
         taken = 0
+        t_epoch = time.perf_counter()
+        ib = self._interbatch = (InterbatchProfiler(cfg.interbatch_report_interval)
+                                 if cfg.enable_interbatch_profiling else None)
         for start in range(0, len(batches), accum):
+            if ib is not None:
+                ib.start("data")
             batch = self._assemble(batches[start:start + accum], rng)
-            metrics = step_fn(self.state, self._to_device(batch), self.generator)
+            device_batch = self._to_device(batch)
+            if ib is not None:
+                ib.end("data")
+                ib.start("step")
+            metrics = step_fn(self.state, device_batch, self.generator)
+            if ib is not None:
+                ib.end("step")
             self.host_step += 1
+            if self._trace is not None:
+                self._trace_steps_left -= 1
+                if self._trace_steps_left <= 0:
+                    self._stop_trace()
             if metrics["stepped"]:
                 taken += 1
                 for k in LOSS_KEYS:
@@ -248,13 +387,142 @@ class KokoroTrainer:
             else:
                 logger.warning("Step skipped (non-finite gradients) at opt step %d",
                                self.host_step)
+                self._dump_debug_batch(batch, self.host_step)
             if metrics["total"] > 10.0:
                 logger.warning("Total loss %.2f > 10 at opt step %d: divergence suspected "
                                "(losses are clamped, not reset)", metrics["total"],
                                self.host_step)
             if self.host_step % cfg.log_every_steps == 0:
                 self._log_step(metrics, self.host_step)
+            if cfg.histogram_every_steps and self.host_step % cfg.histogram_every_steps == 0:
+                self._log_train_diagnostics(device_batch, batch, self.host_step)
+        if ib is not None:
+            elapsed = time.perf_counter() - t_epoch
+            n = len(ib.phases.get("step", []))
+            logger.info("Epoch %d: %d optimizer steps in %.1fs (%.2f steps/s)", epoch + 1, n,
+                        elapsed, n / max(elapsed, 1e-9))
+            if ib.phases:
+                logger.info(ib.report())
         return {k: v / max(taken, 1) for k, v in sums.items()}
+
+    # -- observability ---------------------------------------------------------
+    def _start_trace(self) -> None:
+        """Open the profiler window for the next ``profile_steps`` steps."""
+        self._trace = contextlib.ExitStack()
+        self._trace.enter_context(trace(self.output_dir / "profiler_logs"))
+        self._trace_steps_left = max(1, self.config.profile_steps)
+
+    def _stop_trace(self) -> None:
+        trace_stack, self._trace, self._trace_steps_left = self._trace, None, 0
+        if trace_stack is not None:
+            trace_stack.close()  # stops the profiler and writes the trace
+
+    def _log_histograms(self, prefix: str, tensors: Dict[str, torch.Tensor], step: int) -> None:
+        """One histogram per tensor under ``<prefix>/params/<flax path>``;
+        every tensor reaches the host in one copy."""
+        names = list(tensors)
+        flat = torch.cat([tensors[n].detach().reshape(-1).float() for n in names]).cpu().numpy()
+        sizes = np.cumsum([tensors[n].numel() for n in names])[:-1]
+        for name, values in zip(names, np.split(flat, sizes)):
+            self.writer.add_histogram(f"{prefix}/params/{self._flax_names[name]}", values, step)
+
+    def _log_weight_histograms(self) -> None:
+        """Per-epoch parameter histograms."""
+        try:
+            self._log_histograms("weights", self.state.params, self.state.opt_step)
+        except Exception as err:  # histograms are best-effort observability
+            logger.warning("weight histogram logging failed: %s", err)
+
+    def _log_train_diagnostics(self, device_batch: Dict[str, torch.Tensor],
+                               host_batch: Dict[str, np.ndarray], step: int) -> None:
+        """The diagnostic step on the first microbatch: gradient histograms,
+        the train spectral convergence, the train pred/GT spectrogram images
+        and, under ``verbose``, the duration diagnostics."""
+        try:
+            if self._diag_step is None:
+                self._diag_step = make_diagnostic_step(self.state.model, self.config)
+            if device_batch["mel_specs"].dim() == 4:
+                device_batch = {k: v[0] for k, v in device_batch.items()}
+                host_batch = {k: v[0] for k, v in host_batch.items()}
+            out, losses, grads = self._diag_step(device_batch)
+            self.writer.add_scalar("metrics/train_spectral_convergence",
+                                   float(losses["spectral_convergence"]), step)
+            if self.config.verbose:
+                self._log_duration_diagnostics(
+                    out["predicted_log_durations"].float().cpu().numpy(), host_batch, step)
+            self._log_histograms("gradients", grads, step)
+            t = int(host_batch["mel_lengths"][0])
+            self.writer.add_image("spectrogram/train_predicted", _mel_image(
+                out["predicted_mel"][0, :t].float().cpu().numpy()), step)
+            self.writer.add_image("spectrogram/train_ground_truth",
+                                  _mel_image(host_batch["mel_specs"][0, :t]), step)
+        except Exception as err:  # diagnostics are best-effort observability
+            logger.warning("train diagnostics logging failed: %s", err)
+
+    def _log_duration_diagnostics(self, pred_log_dur: np.ndarray,
+                                  micro: Dict[str, np.ndarray], step: int) -> None:
+        """Duration predictions against the targets, and the mask counts."""
+        L = micro["phoneme_indices"].shape[-1]
+        valid = np.arange(L)[None, :] < micro["phoneme_lengths"][:, None]
+        pred = pred_log_dur[valid]
+        targ = np.log1p(micro["phoneme_durations"].astype(np.float32))[valid]
+        pred, targ = pred[np.isfinite(pred)], targ[np.isfinite(targ)]
+
+        def stats(x):
+            return (x.mean(), x.std(), x.min(), x.max()) if x.size else (math.nan,) * 4
+
+        logger.info("Duration pred @%d: mean=%.4f std=%.4f min=%.4f max=%.4f | target: "
+                    "mean=%.4f std=%.4f min=%.4f max=%.4f | phoneme mask positions=%d, "
+                    "duration_valid positions=%d", step, *stats(pred), *stats(targ),
+                    int(valid.sum()), int((valid & (micro["phoneme_durations"] > 0)).sum()))
+
+    def _dump_debug_batch(self, batch: Dict[str, np.ndarray], step: int) -> None:
+        """The host batch of a step skipped for non-finite gradients."""
+        try:
+            path = self.output_dir / f"debug_batch_step_{step}.npz"
+            np.savez_compressed(path, **batch)
+            logger.warning("Dumped offending batch to %s", path)
+        except Exception as err:
+            logger.warning("debug batch dump failed: %s", err)
+
+    def _log_val_spectrograms(self, shown) -> None:
+        """Predicted and ground-truth validation spectrogram images of the
+        first batch, and the distributions of the predicted log-durations,
+        pitch and energy pooled over the shown batches: ``(host batch,
+        device batch, outputs)`` of the validation forwards (EMA parameters)."""
+        try:
+            step = self.state.opt_step
+            hist: Dict[str, List[np.ndarray]] = {"log_durations": [], "pitch": [], "energy": []}
+            for i, (batch, device_batch, out) in enumerate(shown):
+                text_pad, mel_pad = batch_masks(device_batch)
+                if i == 0:
+                    t = int(batch["mel_lengths"][0])
+                    self.writer.add_image("spectrogram/val_predicted", _mel_image(
+                        out["predicted_mel"][0, :t].float().cpu().numpy()), step)
+                    self.writer.add_image("spectrogram/val_ground_truth",
+                                          _mel_image(batch["mel_specs"][0, :t]), step)
+                hist["log_durations"].append(
+                    out["predicted_log_durations"][~text_pad].float().cpu().numpy())
+                if out["predicted_pitch"] is not None:
+                    frame_ok = ~mel_pad[:, :out["predicted_pitch"].shape[1]]
+                    hist["pitch"].append(out["predicted_pitch"][frame_ok].float().cpu().numpy())
+                    hist["energy"].append(
+                        out["predicted_energy"][frame_ok].float().cpu().numpy())
+            for key, chunks in hist.items():
+                if chunks:
+                    self.writer.add_histogram(f"val_predictions/{key}", np.concatenate(chunks),
+                                              step)
+        except Exception as err:  # images are best-effort observability
+            logger.warning("val spectrogram logging failed: %s", err)
+
+    def _report_cache_stats(self) -> None:
+        stats = self.train_dataset.cache_stats()
+        if stats["requests"]:
+            logger.info("Feature cache: %.1f%% hit rate (%d requests: %d mem / %d disk hits, "
+                        "%d entries = %.1f MB in RAM, latency mem %.3f ms / disk %.3f ms)",
+                        stats["hit_rate"] * 100, stats["requests"], stats["mem_hits"],
+                        stats["disk_hits"], stats["memory_entries"], stats["memory_mb"],
+                        stats["mem_latency_ms"], stats["disk_latency_ms"])
 
     def _log_step(self, metrics: Dict[str, float], step: int) -> None:
         for k in LOSS_KEYS:
@@ -304,13 +572,20 @@ class KokoroTrainer:
         rng = np.random.default_rng(0)
         sums: Dict[str, float] = {}
         n = 0
+        shown = []  # (host batch, device batch, outputs) of the first 4 batches
         for indices in self.val_batcher.build_batches(0):
             feats = [self.val_dataset.get_features(i, rng) for i in indices]
             batch = collate(feats, cfg, self.model_config.n_mels, pad_batch_to=cfg.batch_size)
-            metrics = self.eval_step(self._to_device(batch), params=self.state.ema)
+            device_batch = self._to_device(batch)
+            metrics, out = self.eval_step(device_batch, params=self.state.ema,
+                                          with_outputs=True)
+            if len(shown) < 4:
+                shown.append((batch, device_batch, out))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
             n += 1
+        if shown:
+            self._log_val_spectrograms(shown)
         avg = {k: v / max(n, 1) for k, v in sums.items()}
         step = self.state.opt_step
         for k in LOSS_KEYS:
@@ -361,6 +636,7 @@ class KokoroTrainer:
             logger.warning("Log event purge failed: %s", err)
         finally:
             self.writer = _make_writer(self.output_dir / "logs")
+            self._add_custom_scalars_layout()
 
 
 def train_model(model_config: KokoroConfig, config: TrainingConfig,

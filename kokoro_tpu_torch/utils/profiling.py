@@ -1,16 +1,35 @@
-"""Profiler traces of the port.
+"""Profiling tools: device traces, device memory stats, interbatch phases,
+step timing and the bf16/f32 A/B.
 
-Port of ``kokoro_tpu/utils/profiling.py::trace`` on ``torch.profiler``; the
-rest of that module (memory stats, step timing, interbatch phases) is a
-later slice (ROADMAP.md).
+Port of ``kokoro_tpu/utils/profiling.py`` on PyTorch:
+
+* :func:`trace` — ``torch.profiler`` CPU and CUDA activity into a Chrome
+  trace (Perfetto, TensorBoard's profiler plugin);
+* :class:`DeviceProfiler` — per-stage device memory from
+  ``torch.cuda.memory_stats()`` under the reference's keys
+  (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``);
+* :class:`InterbatchProfiler` — wall-clock phase times, the reference's API;
+* :func:`profile_step_fn` — step times that end in a device synchronise;
+* :func:`compare_dtype_policies` / :func:`profile_dtype_for_config` — the
+  bf16-against-f32 step-time A/B that ``kokoro-train --profile-dtypes``
+  runs before training.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import logging
+import statistics
+import time
 from pathlib import Path
+from typing import Callable, Dict, List
 
 import torch
+
+from kokoro_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 def _activities():
@@ -42,3 +61,172 @@ def trace(logdir: str | Path):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)),
     ) as prof:
         yield prof
+
+
+def _synchronize() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class DeviceProfiler:
+    """Per-stage device memory logging."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.stages: List[Dict] = []
+
+    @staticmethod
+    def memory_stats() -> Dict[str, float]:
+        """The caching allocator's bytes in use and their peak, and the
+        card's memory (``mem_get_info``); zeros without CUDA."""
+        if not torch.cuda.is_available():
+            return {"bytes_in_use": 0, "peak_bytes_in_use": 0, "bytes_limit": 0}
+        stats = torch.cuda.memory_stats()
+        return {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.mem_get_info()[1],
+        }
+
+    def log_stage(self, name: str) -> None:
+        if not self.enabled:
+            return
+        stats = self.memory_stats()
+        self.stages.append({"stage": name, **stats})
+        logger.info("[mem] %s: %.1f MB in use (peak %.1f MB)", name,
+                    stats["bytes_in_use"] / 1e6, stats["peak_bytes_in_use"] / 1e6)
+
+    def summary(self) -> str:
+        if not self.stages:
+            return "no stages recorded"
+        peak = max(s["peak_bytes_in_use"] for s in self.stages)
+        return f"{len(self.stages)} stages, peak {peak / 1e6:.1f} MB"
+
+
+class InterbatchProfiler:
+    """Wall-clock phase profiler (the trainer's ``data`` and ``step``)."""
+
+    def __init__(self, report_interval: int = 100):
+        self.report_interval = report_interval
+        self.phases: Dict[str, List[float]] = {}
+        self._marks: Dict[str, float] = {}
+        self._count = 0
+
+    def start(self, phase: str) -> None:
+        self._marks[phase] = time.perf_counter()
+
+    def end(self, phase: str) -> None:
+        t0 = self._marks.pop(phase, None)
+        if t0 is None:
+            return
+        self.phases.setdefault(phase, []).append(time.perf_counter() - t0)
+        if phase == "step":
+            self._count += 1
+            if self.report_interval and self._count % self.report_interval == 0:
+                logger.info(self.report())
+
+    def report(self) -> str:
+        lines = [f"{phase}: mean {statistics.mean(times) * 1e3:.1f}ms "
+                 f"median {statistics.median(times) * 1e3:.1f}ms n={len(times)}"
+                 for phase, times in sorted(self.phases.items()) if times]
+        return "interbatch profile: " + "; ".join(lines)
+
+    def throughput(self, items_per_step: float) -> float:
+        steps = self.phases.get("step", [])
+        total = sum(steps)
+        return len(steps) * items_per_step / total if total else 0.0
+
+
+def profile_step_fn(step_fn: Callable, args: tuple, n_steps: int = 10,
+                    warmup: int = 2) -> Dict[str, float]:
+    """Times of ``step_fn(*args)``, each ending in a device synchronise."""
+    for _ in range(warmup):
+        step_fn(*args)
+    _synchronize()
+    times = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        step_fn(*args)
+        _synchronize()
+        times.append(time.perf_counter() - t0)
+    return {
+        "mean_s": statistics.mean(times),
+        "median_s": statistics.median(times),
+        "min_s": min(times),
+        "max_s": max(times),
+        "steps_per_s": 1.0 / statistics.mean(times),
+    }
+
+
+def compare_dtype_policies(make_step: Callable[[str], tuple],
+                           n_steps: int = 10) -> Dict[str, Dict[str, float]]:
+    """bf16-vs-f32 A/B: ``make_step(dtype) -> (step_fn, args)``."""
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        step_fn, args = make_step(dtype)
+        results[dtype] = profile_step_fn(step_fn, args, n_steps)
+    speedup = results["float32"]["mean_s"] / results["bfloat16"]["mean_s"]
+    logger.info("bf16 speedup vs fp32: %.2fx", speedup)
+    results["speedup_bf16"] = {"value": speedup}
+    return results
+
+
+def dtype_ab_batch(n_mels: int, device) -> Dict[str, torch.Tensor]:
+    """The reference's synthetic A/B batch: B=8, L=64, T=512 from
+    ``numpy.random.default_rng(0)``, every phoneme 8 frames."""
+    import numpy as np
+
+    B, L, T = 8, 64, 512
+    rng = np.random.default_rng(0)
+    batch = {
+        "phoneme_indices": rng.integers(1, 60, (B, L)).astype(np.int32),
+        "stress_indices": rng.integers(0, 3, (B, L)).astype(np.int32),
+        "phoneme_durations": np.full((B, L), T // L, np.int32),
+        "mel_specs": rng.normal(size=(B, T, n_mels)).astype(np.float32),
+        "pitch_targets": rng.uniform(size=(B, T)).astype(np.float32),
+        "energy_targets": rng.uniform(size=(B, T)).astype(np.float32),
+        "stop_token_targets": np.zeros((B, T), np.float32),
+        "mel_lengths": np.full((B,), T, np.int32),
+        "phoneme_lengths": np.full((B,), L, np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def profile_dtype_for_config(model_config, config, n_steps: int = 5,
+                             device: str | torch.device = "cuda",
+                             results: Dict | None = None) -> str:
+    """Pre-train bf16-vs-f32 A/B on the configured widths; returns the faster
+    compute dtype.  The model takes the reference's fixed list of fields
+    (vocabulary 64, the widths, ``qk_norm``; no remat, no stochastic depth)
+    and leaves every other field at its default: ``use_flash_attention`` is
+    off, so both dtypes run the plain attention route (matmul and softmax,
+    attention-weight dropout from HBM masks), whatever the caller's config
+    routes.  ``results``, when given, receives :func:`compare_dtype_policies`'
+    readings."""
+    from kokoro_tpu_torch.config import KokoroConfig
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    dev = resolve_device(device)
+    batch = dtype_ab_batch(model_config.n_mels, dev)
+
+    def make_step(dtype: str):
+        cfg = dataclasses.replace(config, compute_dtype=dtype, gradient_checkpointing=False)
+        mcfg = KokoroConfig(
+            vocab_size=64, n_mels=model_config.n_mels, hidden_dim=model_config.hidden_dim,
+            n_encoder_layers=model_config.n_encoder_layers,
+            n_decoder_layers=model_config.n_decoder_layers, n_heads=model_config.n_heads,
+            encoder_ff_dim=model_config.encoder_ff_dim,
+            decoder_ff_dim=model_config.decoder_ff_dim, qk_norm=model_config.qk_norm,
+            use_stochastic_depth=False)
+        model = KokoroModel(mcfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, cfg, total_steps=1000)
+        step = make_train_step(cfg, build_preclip_norms(state.names, cfg), 0.999)
+        gen = torch.Generator().manual_seed(0)
+        return (lambda: step(state, batch, gen)), ()
+
+    out = compare_dtype_policies(make_step, n_steps=n_steps)
+    if results is not None:
+        results.update(out)
+    return "bfloat16" if out["speedup_bf16"]["value"] >= 1.0 else "float32"

@@ -51,7 +51,11 @@ def test_port_files_exist():
                      "kokoro_tpu_torch/models/hifigan.py",
                      "kokoro_tpu_torch/inference/vocoder.py", "kokoro_tpu_torch/inference/tts.py",
                      "kokoro_tpu_torch/utils/profiling.py", "kokoro_tpu_torch/cli/infer.py",
-                     "kokoro_tpu_torch/models/model_loader.py"):
+                     "kokoro_tpu_torch/models/model_loader.py",
+                     # the trainer's tooling
+                     "kokoro_tpu_torch/version.py", "kokoro_tpu_torch/utils/misc.py",
+                     "kokoro_tpu_torch/utils/cache_manager.py",
+                     "kokoro_tpu_torch/utils/memory_planner.py", "kokoro_tpu_torch/cli/plan.py"):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",

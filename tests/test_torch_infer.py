@@ -17,20 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from kokoro_tpu_torch.config import get_default_config
+from kokoro_tpu_torch.config import get_smoke_test_config
 from kokoro_tpu_torch.data.audio_io import save_wav
 from kokoro_tpu_torch.inference import vocoder
 from kokoro_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
 from kokoro_tpu_torch.training.checkpoint import FINAL_NAME, load_inference_weights
 from kokoro_tpu_torch.training.trainer import KokoroTrainer
 
-SMOKE = dict(  # kokoro_tpu/config.py::get_smoke_test_config widths, one epoch
-    hidden_dim=64, n_encoder_layers=2, n_decoder_layers=2, n_heads=4, encoder_ff_dim=128,
-    decoder_ff_dim=128, variance_filter_size=32, warmup_steps=2, use_dynamic_batching=False,
-    use_speed_perturbation=False, mel_bucket_sizes=(64, 128), phoneme_bucket_sizes=(16, 32),
-    max_seq_length=128, gradient_checkpointing=False, num_epochs=1, batch_size=2,
+SMOKE = dict(  # on top of get_smoke_test_config: one epoch of B=2
     gradient_accumulation_steps=1, validation_split=0.25, use_spec_augment=False,
-    compute_dtype="float32", use_mfa=False, save_every=1,
+    compute_dtype="float32", save_every=1,
 )
 MAX_LEN = 24
 LONG_TEXT = ("Сегодня хорошая погода, и мы идём гулять в большой парк у реки вместе с друзьями. "
@@ -48,7 +44,7 @@ def run_dir(tmp_path_factory):
         save_wav(root / "corpus" / "wavs" / f"s{i}.wav", audio.astype(np.float32), 22050)
         lines.append(f"s{i}|{text}")
     (root / "corpus" / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
-    KokoroTrainer(*get_default_config(**SMOKE, data_dir=str(root / "corpus"),
+    KokoroTrainer(*get_smoke_test_config(**SMOKE, data_dir=str(root / "corpus"),
                                       output_dir=str(root / "run")), device="cpu").train()
     return root / "run"
 
@@ -255,7 +251,7 @@ def test_resume_purges_log_records_past_the_restored_step(run_dir, tmp_path):
         f.write(json.dumps({"tag": "loss/total", "value": 1e9, "step": step + 1}) + "\n")
         f.write(json.dumps({"tag": "loss/total", "value": 0.5, "step": step}) + "\n")
     corpus = run_dir.parent / "corpus"
-    trainer = KokoroTrainer(*get_default_config(**{**SMOKE, "num_epochs": 2},
+    trainer = KokoroTrainer(*get_smoke_test_config(**{**SMOKE, "num_epochs": 2},
                                                 data_dir=str(corpus), output_dir=str(run)),
                             device="cpu")
     trainer.train()

@@ -1,6 +1,6 @@
 """Port's trainer (kokoro_tpu_torch/training/trainer.py) and checkpoints
-(training/checkpoint.py) on the CPU at the smoke widths of the JAX
-package's ``get_smoke_test_config`` (hidden 64, 2+2 layers, 4 heads, ff 128):
+(training/checkpoint.py) on the CPU under ``config.get_smoke_test_config``,
+the JAX package's smoke preset (hidden 64, 2+2 layers, 4 heads, ff 128):
 mirrors ``tests/unit/test_trainer_e2e.py``.  A two-epoch run with a resume
 that continues the optimizer count, a refused restore under another
 architecture, a bitwise checkpoint round trip, the run directory loading
@@ -14,18 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from kokoro_tpu_torch.config import get_default_config
+from kokoro_tpu_torch.config import get_smoke_test_config
 from kokoro_tpu_torch.data.audio_io import save_wav
 from kokoro_tpu_torch.training import checkpoint as ckpt_mod
 from kokoro_tpu_torch.training.trainer import KokoroTrainer, train_model
-
-SMOKE = dict(  # kokoro_tpu/config.py::get_smoke_test_config
-    hidden_dim=64, n_encoder_layers=2, n_decoder_layers=2, n_heads=4, encoder_ff_dim=128,
-    decoder_ff_dim=128, variance_filter_size=32, warmup_steps=2, use_dynamic_batching=False,
-    use_speed_perturbation=False, mel_bucket_sizes=(64, 128), phoneme_bucket_sizes=(16, 32),
-    max_seq_length=128, gradient_checkpointing=False,
-)
-
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
@@ -43,11 +35,11 @@ def corpus(tmp_path_factory):
 
 
 def make_config(corpus, out, **kw):
-    base = dict(SMOKE, data_dir=str(corpus), output_dir=str(out), num_epochs=2, batch_size=2,
+    base = dict(data_dir=str(corpus), output_dir=str(out), num_epochs=2,
                 gradient_accumulation_steps=1, validation_split=0.25, save_every=1,
                 log_every_steps=1, use_spec_augment=False, compute_dtype="float32")
     base.update(kw)
-    return get_default_config(**base)
+    return get_smoke_test_config(**base)
 
 
 def test_train_then_resume_continues_the_optimizer_count(corpus, tmp_path):
