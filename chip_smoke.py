@@ -103,13 +103,44 @@ Phases, each printing one JSON line:
    the long step), one line per shape, and the planner's estimate held
    within 15 % of every measured allocated peak and of the peaks phases
    ``train`` and ``long`` measured.
+13. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
+   on the one card.  (a) K1, K2 and the packed backward at B=32, T=512 with
+   H = 4 and 2 (the heads a rank holds at tp = 2 and 4; Dh 64); K2 and the
+   kv-length backward at the (2, 2) trainer's rows, B=6, T=1408, H=4, kv
+   lengths 1408 and a mixed set with a row of length 0; K4 forward and
+   backward at B=12 and 6, T=1408, H=4; both dtypes, rates 0 and 0.1 for
+   the packed kernels, against the plain versions within ``TOL`` /
+   ``GRAD_TOL``, and the dropout semantics at H = 4 and 2.  (b) World size 1 on NCCL (the
+   path of a multi-card run): the preset step through the parallel layer on
+   a (1, 1) ('data', 'model') mesh equal bit for bit to the unwrapped step
+   over 3 steps; ``kokoro-train --distributed`` under ``torch.distributed.run
+   --nproc-per-node 1`` for one epoch on the long corpus of (10).  (c) 2 and
+   4 ranks on the card over gloo (every rank on cuda:0; NCCL takes one rank
+   per card): 3 f32 steps at full width, B=8 (rows of 512 to 256 valid
+   frames), L=96, T=512, at (2,) data, (1, 2) data, model and (2, 2),
+   against the single process at the reference's limits (loss rtol 1e-5,
+   parameters rtol 2e-4 / atol 2e-5) and limits on the gradient at the init
+   per tensor, on each step's gradient norm and on what the steps moved each
+   tensor (``PARALLEL_LIMIT``), at a tenth of the reference's learning rate
+   (``PARALLEL_LR``, at which the parameter limit cannot fail on the update
+   itself); (2,) at the reference's rate as a reading; a control without
+   the model-group sum of the q/k/v norm scales' gradients must break a
+   limit; K1 and K2 launched once per decoder layer a step at H = 4.  (d) ``KokoroTrainer``
+   at (2, 2) in bf16, one epoch of the long regime on (10)'s corpus, 4
+   ranks: every step finite, on rank 0 K4 and K2 forward and backward once
+   per decoder layer a microbatch at H = 4, rank 0 alone writing the
+   checkpoint, which one process resumes for one more step.  Per-rank step
+   ms and all_reduce calls and bytes a step are printed; ranks sharing one
+   card over gloo are not a scaling measurement.
 
 Then the script's wall time and each phase's, the kernels' JSON line (eight wrappers, each
 with the launches of its main-path run: a preset step, a long step or a
 kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
 and its backward also carry ``long_shape``, their times at T=1408 and
 launches per long step; the kernels of phases mfa and tools carry
-``mfa_path`` and ``tools_path``, their launches per training step there),
+``mfa_path`` and ``tools_path``, their launches per training step there,
+and those of phase parallel ``parallel_path``, their launches per step on a
+rank of the (2, 2) mesh and the head count),
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
@@ -121,7 +152,9 @@ from __future__ import annotations
 import http.client
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -156,7 +189,7 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long", "mfa", "tools"]
+          "serve", "train", "long", "mfa", "tools", "parallel"]
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
@@ -503,13 +536,19 @@ def phase_kernels_bwd():
 def phase_dropout():
     """The kernels' dropout semantics, as scripts/verify_attention_numerics.py
     measures the TPU's: f32, causal, B=2, H=4, T=128, Dh=64."""
+    emit(dropout_semantics(4))
+
+
+def dropout_semantics(H: int) -> dict:
+    """The dropout semantics readings at B=2, T=128, Dh=64 and ``H`` heads;
+    raises when one is outside ``DROPOUT_LIMITS``."""
     import torch
 
     from kokoro_tpu_torch.ops import fused_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(3)
-    B, H, T, Dh, keep = 2, 4, 128, 64, 1.0 - RATE
+    B, T, Dh, keep = 2, 128, 64, 1.0 - RATE
     q, k = (0.1 * torch.randn(B, T, H * Dh, generator=gen).to(dev) for _ in range(2))
     kw = dict(num_heads=H, scale=Dh ** -0.5, causal=True)
 
@@ -559,7 +598,7 @@ def phase_dropout():
         fd = (f(qs + eps * d).item() - f(qs - eps * d).item()) / (2 * eps)
     fd_rel = abs(fd - gnorm) / max(abs(fd), 1e-12)
     result = {
-        "phase": "dropout", "rate": RATE, "keep_rate_observed": keep_hat,
+        "phase": "dropout", "heads": H, "rate": RATE, "keep_rate_observed": keep_hat,
         "keep_rate_abs_err": abs(keep_hat - keep),
         "surviving_weight_scale_max_rel_err": scale_err,
         "mask_fwd_bwd_disagreements": disagree, "mask_positions_checked": int(causal.sum()),
@@ -568,12 +607,12 @@ def phase_dropout():
         "other_seed_differs": bool(not torch.equal(mask_fwd, pd_other != 0)),
         "limits": DROPOUT_LIMITS,
     }
-    emit(result)
     if not (result["keep_rate_abs_err"] <= DROPOUT_LIMITS["keep_rate_abs"]
             and scale_err <= DROPOUT_LIMITS["scale_rel"] and disagree == 0
             and fd_rel <= DROPOUT_LIMITS["fd_rel"] and result["same_seed_deterministic"]
             and result["other_seed_differs"]):
         raise AssertionError(f"dropout semantics outside the limits: {result}")
+    return result
 
 
 def _flash_masks(kind, B, T, dev, gen):
@@ -1960,6 +1999,632 @@ def phase_tools():
     return CountingTrainer.steps[-1][1]
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: data and tensor parallelism (kokoro_tpu_torch/parallel/)
+NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, decoder_input_dropout=0.0,
+                  variance_dropout=0.0, use_stochastic_depth=False)
+# N ranks against the single process.  The reference's own limits
+# (tests/unit/test_tensor_parallel.py:196-232, tests/unit/test_parallel.py)
+# on each step's losses and on the parameters after the steps; the gradient
+# at the init per tensor (|run - single| / |single|); each step's global
+# gradient norm (a missing data-group sum reads about 0.5); what the steps
+# moved each tensor.  The gradient per tensor is the check of the update: a
+# sum missed or taken twice leaves a tensor 0.5-1 off (the control, no
+# model-group sum of the q/k/v norm scales' gradients, read 0.86 on the
+# H100).  Sound runs read 2.8e-3 to 5.9e-3 there; the limit sits 8x above
+# them and 17x below the control.  The single process against itself is
+# printed beside them: with its parameters moved by one ulp it reads what
+# (2,) reads (5.9e-3), with its rows reversed 1.9e-6.  So the gap comes from
+# rounding in the forward, through the gradient's kinks (a ReLU input that
+# crosses zero), not from the parallel layer (PERF.md has the readings)
+PARALLEL_LIMIT = {"loss_rel": 1e-5, "param_rtol": 2e-4, "param_atol": 2e-5,
+                  "grad_leaf_rel": 5e-2, "grad_norm_rel": 1e-3, "moved_leaf_rel": 0.5}
+# the reference's learning rate (warmup 2 steps, its tests' smoke config)
+REFERENCE_LR = 5e-5
+# the held runs' rate, a tenth of it.  Adam moves a parameter by about lr
+# times the sign of its gradient whatever the gradient's size, so an
+# element whose small gradient has opposite signs in the two runs (25 k of
+# 48 M at (2,)) moves apart by up to twice the step.  Here the three steps
+# move a parameter by at most 7.6e-6 (the largest group's warmup 5e-8,
+# 2.5e-6, 5e-6), so the parameter limit (atol 2e-5) cannot fail on the
+# update itself; the gradient at the init and the moved gap carry that
+# comparison.  The (2,) run at REFERENCE_LR is printed beside it as a
+# reading, not held: it breaks the loss and parameter limits by step 3
+PARALLEL_LR = 5e-6
+PARALLEL_TIMEOUT_S = 300  # a world that has not ended by then is killed and fails
+LOCAL_HEADS = (4, 2)      # 8 heads over 2 and 4 model ranks
+
+
+class HeadRecorder:
+    """A kernel wrapper that records the head count of every call, then
+    calls the wrapper (whose launch count goes on as before)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.heads = kernel, set()
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+    def __call__(self, *args, **kwargs):
+        self.heads.add(int(kwargs.get("num_heads") or args[0].shape[1]))
+        return self.kernel(*args, **kwargs)
+
+
+def record_heads():
+    """Put a ``HeadRecorder`` in front of the packed and flash wrappers that
+    the autograd Functions look up when called; returns them by name."""
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    recorders = {}
+    for module, attrs in ((fa, ("packed_attention_causal", "packed_attention_kvlen",
+                                "packed_attention_bwd_causal", "packed_attention_bwd_kvlen")),
+                          (fl, ("flash_attention_fwd", "flash_attention_bwd"))):
+        for attr in attrs:
+            rec = HeadRecorder(getattr(module, attr))
+            setattr(module, attr, rec)
+            recorders[rec.name] = rec
+    return recorders
+
+
+def parallel_kernels():
+    """(a) The kernels at the head counts tensor parallelism gives them and
+    at the shapes a rank's main path gives them: K1, K2 and the packed
+    backward at B=32, T=512, H = 4 and 2 (Dh 64); K2 and the kv-length
+    backward at the (2, 2) trainer's cross-attention shape, B=6 rows a rank,
+    T=1408, H=4, with the long batch's kv lengths (every frame valid) and a
+    mixed set holding a row of length 0; each in both dtypes at rates 0 and
+    0.1 (the packed layout's row stride is H*Dh, which the tensor-core
+    templates derive from H).  K4 forward and backward at B=12 and 6,
+    T=1408, H=4; the dropout semantics at H = 4 and 2."""
+    import torch
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    worst, checks, Dh = {}, 0, 64
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    # (B, T, H, kernel pairs, kv-length sets): the preset step's rows at
+    # tp = 2 and 4, then the (2, 2) trainer's cross-attention rows
+    cases = [(32, 512, H, list(zip(fa.FWD_KERNELS, fa.BWD_KERNELS)),
+              {"512-8b": [512 - 8 * i for i in range(32)]}) for H in LOCAL_HEADS]
+    cases.append((6, 1408, 4, [(fa.packed_attention_kvlen, fa.packed_attention_bwd_kvlen)],
+                  {"long_batch": [1408] * 6, "mixed": [1408, 1371, 704, 0, 1408, 1000]}))
+    for B, T, H, pairs, lens_sets in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            for fwd, bwd in pairs:
+                for set_name, lens in ({"causal": None} if fwd.causal else lens_sets).items():
+                    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                                  device=dev)
+                    for rate in (0.0, RATE):
+                        kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens,
+                                  dropout_rate=rate, seed=4000 + H if rate else None)
+                        o, lse = fwd(q, k, v, return_lse=True, **kw)
+                        grads = bwd(q, k, v, o, do, lse, **kw)
+                        torch.cuda.synchronize()
+                        where = f"{fwd.name} B={B} T={T} H={H} {dname} {set_name} rate={rate}"
+                        note(f"{fwd.name}/T={T}/H={H}/{dname}", close_or_raise(
+                            where, o, fa.packed_attention_reference(
+                                q, k, v, causal=fwd.causal, **kw), TOL[dname]))
+                        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=fwd.causal,
+                                                                **kw)
+                        note(f"{bwd.name}/T={T}/H={H}/{dname}", max(
+                            close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                            for n, a, b in zip("qkv", grads, ref)))
+                        checks += 1
+                        del o, lse, grads, ref
+            del q, k, v, do
+    T, H = 1408, 4  # the long path's decoder self-attention at tp = 2
+    for B in (12, 6):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            kw = dict(causal=True, scale=Dh ** -0.5)
+            o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            grads = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            where = f"flash B={B} H={H} {dname}"
+            note(f"flash_attention_fwd/B={B}/H={H}/{dname}", close_or_raise(
+                f"{where} o", o, fl.flash_attention_reference(q, k, v, **kw), TOL[dname]))
+            ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+            note(f"flash_attention_bwd/B={B}/H={H}/{dname}", max(
+                close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                for n, a, b in zip("qkv", grads, ref)))
+            checks += 1
+            del q, k, v, do, o, lse, grads, ref
+    torch.cuda.empty_cache()
+    dropout = {H: dropout_semantics(H) for H in LOCAL_HEADS}
+    return {"checks": checks, "tolerance": {"forward": TOL, "grad": GRAD_TOL},
+            "shapes": "packed B=32 T=512 Dh=64 H{4,2} rates {0, 0.1} kv lengths 512-8b; "
+                      "K2 + kv-length bwd B=6 T=1408 H=4 Dh=64 rates {0, 0.1} kv lengths "
+                      "1408 and [1408, 1371, 704, 0, 1408, 1000]; "
+                      "flash B{12,6} T=1408 H=4 Dh=64 causal",
+            "max_abs_err": worst,
+            "dropout_semantics": {H: {k: r[k] for k in (
+                "keep_rate_abs_err", "surviving_weight_scale_max_rel_err",
+                "mask_fwd_bwd_disagreements", "grad_fd_rel_err")} for H, r in dropout.items()}}
+
+
+def start_world(job: str, world: int, out: Path, backend: str = "gloo"):
+    """Start ``job`` in ``world`` spawned ranks, every one on cuda:0 over
+    ``backend`` (a file store under ``out``); :func:`join_world` waits."""
+    import torch.multiprocessing as mp
+
+    store = out / f"store_{job}"
+    ctx = mp.start_processes(parallel_rank, args=(world, str(store), job, str(out), backend),
+                             nprocs=world, join=False, start_method="spawn")
+    return job, ctx, time.monotonic() + PARALLEL_TIMEOUT_S
+
+
+def join_world(started) -> None:
+    """Wait for a started world: a rank that raises or dies fails the
+    phase, and a world not ended within ``PARALLEL_TIMEOUT_S`` of its start
+    is killed and fails it."""
+    job, ctx, deadline = started
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            raise AssertionError(f"parallel job {job}: its ranks did not end within "
+                                 f"{PARALLEL_TIMEOUT_S} s")
+
+
+def parallel_rank(rank: int, world: int, store: str, job: str, out: str, backend: str) -> None:
+    """One rank of a spawned world: the process group on cuda:0, the job,
+    the barrier, the group's end."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kokoro_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(device="cuda:0", backend=backend, init_method=f"file://{store}",
+                     rank=rank, world_size=world, timeout_s=PARALLEL_TIMEOUT_S)
+    try:
+        PARALLEL_JOBS[job](rank, Path(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_batch(dev):
+    """B=8, L=96, T=512 of ``training_batch`` with rows of 512 to 256 valid
+    frames, so the data ranks hold different numbers of them."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import training_batch
+    from kokoro_tpu_torch.config import KokoroConfig
+
+    batch = training_batch(KokoroConfig(), 8, 512, 96, dev)
+    batch["mel_lengths"] = torch.tensor([512, 480, 400, 512, 300, 512, 256, 500],
+                                        dtype=torch.int32, device=dev)
+    return batch
+
+
+def f32_steps(mesh=None, skip_partial_sum: bool = False, lr: float = PARALLEL_LR,
+              steps: int = 3, perturb: str = "") -> dict:
+    """(c) ``steps`` f32 steps at full width, every dropout rate 0, at ``lr``
+    with a 2-step warmup, on the rank's rows of ``parallel_batch``: the
+    gradient at the init (the step's, summed over the ranks as the step sums
+    it), the metrics, the whole parameters and gradients (on the CPU), each
+    step's launches, host ms and collectives.  ``perturb`` (one process)
+    changes what f32 rounding alone changes: ``rows_reversed`` takes the
+    batch's rows in reverse order (the gradient's sums over rows run the
+    other way), ``params_ulp`` moves every parameter of the init by about
+    one ulp (relative 2**-23 times a seeded normal draw)."""
+    import torch
+
+    from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.parallel.mesh import shard_batch
+    from kokoro_tpu_torch.parallel.tp import gather_tree
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import (
+        create_train_state, make_train_step, step_gradients,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = TrainingConfig(compute_dtype="float32", gradient_checkpointing=False,
+                         use_spec_augment=False, warmup_steps=2, learning_rate=lr)
+    model = KokoroModel(KokoroConfig(**NO_DROPOUT, use_flash_attention=True)).init_weights(
+        torch.Generator().manual_seed(0))
+    if perturb == "params_ulp":
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + 2.0 ** -23 * torch.randn(p.shape, generator=gen))
+    state = create_train_state(model.to(dev), cfg, total_steps=20000, mesh=mesh)
+    if skip_partial_sum:  # the control: the norm scales keep each rank's part
+        state.layout.partial = ()
+    step = make_train_step(cfg, build_preclip_norms(state.names, cfg), spec_augment=False)
+    batch = parallel_batch(dev)
+    if perturb == "rows_reversed":
+        batch = {k: v.flip(0) for k, v in batch.items()}
+    local = batch if mesh is None else shard_batch(batch, mesh)
+    grads = step_gradients(state, local, torch.Generator().manual_seed(0), cfg,
+                           spec_augment=False)[0]
+    grads = gather_tree(dict(zip(state.names, grads)), state.layout)
+    grads = {n: g.cpu() for n, g in grads.items()}
+    metrics, launches, ms, collectives = [], [], [], []
+    for i in range(steps):
+        before = dict(mesh.stats) if mesh is not None else {}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics.append(step(state, local, torch.Generator().manual_seed(i)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: v for k, v in read_counts().items() if v})
+        if mesh is not None:
+            collectives.append({k: mesh.stats[k] - before[k] for k in before})
+    params = gather_tree({n: p.detach().clone() for n, p in state.params.items()},
+                         state.layout)
+    return {"metrics": metrics, "params": {n: p.cpu() for n, p in params.items()},
+            "grads": grads, "launches": launches, "step_ms": ms, "collectives": collectives}
+
+
+def job_nccl_step(rank: int, out: Path) -> None:
+    """(b) World size 1 on NCCL: the preset step three times unwrapped, then
+    through the parallel layer on a (1, 1) ('data', 'model') mesh; every
+    all_reduce is the identity, so the two paths must agree bit for bit."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import preset_train_step
+    from kokoro_tpu_torch.config import TrainingConfig
+    from kokoro_tpu_torch.parallel.mesh import create_mesh
+
+    dev = torch.device("cuda", 0)
+    runs = {}
+    for name in ("unwrapped", "mesh_1x1"):
+        mesh = (create_mesh(TrainingConfig(mesh_shape=(1, 1), mesh_axis_names=("data", "model")))
+                if name == "mesh_1x1" else None)
+        state, step, batch = preset_train_step(dev, mesh=mesh)
+        gen = torch.Generator().manual_seed(0)
+        metrics, ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch, gen))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = {
+            "metrics": metrics, "step_ms": ms, "launches": {k: v for k, v in read_counts().items()
+                                                            if v},
+            "stats": None if mesh is None else dict(mesh.stats),
+            "tensors": [p.detach().clone() for p in state.model.parameters()]
+            + [state.ema[n].clone() for n in state.names] + list(state.optimizer.mu)
+            + list(state.optimizer.nu)}
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+    def same(a, b):
+        return a["metrics"] == b["metrics"] and all(
+            torch.equal(x, y) for x, y in zip(a["tensors"], b["tensors"]))
+
+    result = {
+        "bit_identical": same(runs["unwrapped"], runs["mesh_1x1"]),
+        **{name: {k: r[k] for k in ("step_ms", "launches", "stats")}
+           for name, r in runs.items()},
+        "losses": [m["total"] for m in runs["mesh_1x1"]["metrics"]]}
+    (out / "nccl_step.json").write_text(json.dumps(result))
+
+
+def job_gloo_2(rank: int, out: Path) -> None:
+    """(c) At (2,) and (1, 2): three f32 steps; the control at (1, 2)
+    without the model-group sum of the q/k/v norm scales' gradients; (2,)
+    again at the reference's learning rate, a reading."""
+    import torch
+
+    from kokoro_tpu_torch.config import TrainingConfig
+    from kokoro_tpu_torch.parallel.mesh import create_mesh
+
+    for tag, shape, control, lr in (("2", (2,), False, PARALLEL_LR),
+                                    ("1x2", (1, 2), False, PARALLEL_LR),
+                                    ("1x2_control", (1, 2), True, PARALLEL_LR),
+                                    ("2_reference_lr", (2,), False, REFERENCE_LR)):
+        mesh = create_mesh(TrainingConfig(mesh_shape=shape, mesh_axis_names=("data", "model")))
+        run = f32_steps(mesh, skip_partial_sum=control, lr=lr)
+        if rank == 0:
+            torch.save(run, out / f"steps_{tag}.pt")
+        del run
+        torch.cuda.empty_cache()
+
+
+def job_gloo_4(rank: int, out: Path) -> None:
+    """(c) At (2, 2): three f32 steps.  (d) The trainer at (2, 2) in bf16:
+    one epoch of the long regime on the corpus under ``out``; on rank 0 each
+    step's launches (counts from 0 just before the step) and the head count
+    of every kernel call; rank 0 writes the checkpoint."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME
+    from kokoro_tpu_torch.config import TrainingConfig, get_default_config
+    from kokoro_tpu_torch.parallel.mesh import create_mesh
+
+    recorders = record_heads()
+    mesh = create_mesh(TrainingConfig(mesh_shape=(2, 2), mesh_axis_names=("data", "model")))
+    run = f32_steps(mesh)
+    run["heads"] = {name: sorted(r.heads) for name, r in recorders.items()}
+    if rank == 0:
+        torch.save(run, out / "steps_2x2.pt")
+    del run
+    torch.cuda.empty_cache()
+    for r in recorders.values():
+        r.heads.clear()
+    CountingTrainer = counting_trainer()
+
+    class MeshCountingTrainer(CountingTrainer):
+        collectives = []
+
+        def _train_step(self, spec_augment):
+            step = super()._train_step(spec_augment)
+
+            def counted(state, batch, generator):
+                before = dict(self.mesh.stats)
+                metrics = step(state, batch, generator)
+                self.collectives.append({k: self.mesh.stats[k] - before[k] for k in before})
+                return metrics
+
+            return counted
+
+    trainer = MeshCountingTrainer(*get_default_config(**{
+        **LONG_REGIME, "data_dir": str(out / "corpus"), "output_dir": str(out / "run_2x2"),
+        "num_epochs": 1, "save_every": 1, "warmup_steps": 20, "resume_checkpoint": "",
+        "mesh_shape": (2, 2), "mesh_axis_names": ("data", "model")}), device="cuda:0")
+    trainer.train()
+    if rank == 0:
+        (out / "trainer_2x2.json").write_text(json.dumps({
+            "dp_size": trainer.dp_size, "tp_size": trainer.tp_size,
+            "steps": [{"metrics": m, "launches": c, "microbatches": micro}
+                      for m, c, micro in CountingTrainer.steps],
+            "validations": CountingTrainer.validations, "step_ms": CountingTrainer.step_ms,
+            "collectives": MeshCountingTrainer.collectives,
+            "heads": {name: sorted(r.heads) for name, r in recorders.items()},
+            "opt_step": trainer.state.opt_step}))
+
+
+PARALLEL_JOBS = {"nccl_step": job_nccl_step, "gloo_2": job_gloo_2, "gloo_4": job_gloo_4}
+
+
+def sign_flips(ref: dict, other: dict):
+    """The elements whose gradient has opposite signs in ``ref`` and
+    ``other``: their count, and the largest such |ref| over the RMS of its
+    tensor in ``ref``."""
+    count, worst = 0, 0.0
+    for name, g in ref.items():
+        flipped = (g * other[name]) < 0
+        if flipped.any():
+            count += int(flipped.sum())
+            rms = g.pow(2).mean().sqrt().item()
+            worst = max(worst, g[flipped].abs().max().item() / max(rms, 1e-30))
+    return count, worst
+
+
+def held_to_single(run: dict, single: dict, init: dict) -> dict:
+    """N ranks against the single process: each step's loss and gradient
+    norm rel; the gradient at the init per tensor and over all; the worst
+    parameter |diff| - (atol + rtol |single|), which the limits want <= 0,
+    with that element's gradient at the init in both runs and its tensor's
+    gradient RMS; the elements whose gradient at the init has opposite
+    signs in the two runs (the largest such |gradient| over its tensor's
+    RMS); what the steps moved the parameters from ``init`` (per tensor
+    and over all, as phase train)."""
+    import torch
+
+    lim = PARALLEL_LIMIT
+
+    def rel(a, b, keys):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys)
+
+    pairs = list(zip(run["metrics"], single["metrics"]))
+    loss_rel = [rel(a, b, ("total", "mel", "duration", "stop", "pitch", "energy"))
+                for a, b in pairs]
+    grad_rel = [rel(a, b, ("grad_norm",)) for a, b in pairs]
+    grad_leaf, grad_name, grad_all = relative_gap(single["grads"], run["grads"])
+    excess, worst = -math.inf, None
+    for name, ref in single["params"].items():
+        over = ((run["params"][name] - ref).abs()
+                - (lim["param_atol"] + lim["param_rtol"] * ref.abs()))
+        if over.max().item() > excess:
+            excess, worst = over.max().item(), (name, int(over.argmax()))
+    flips, flip_max = sign_flips(single["grads"], run["grads"])
+    name, i = worst
+    g = single["grads"][name]
+    worst_element = {
+        "name": name, "index": i, "param_single": single["params"][name].flatten()[i].item(),
+        "param_run": run["params"][name].flatten()[i].item(),
+        "init": init[name].flatten()[i].item(), "grad_single": g.flatten()[i].item(),
+        "grad_run": run["grads"][name].flatten()[i].item(),
+        "tensor_grad_rms": g.pow(2).mean().sqrt().item()}
+    moved_leaf, moved_name, moved_all = relative_gap(
+        {n: p - init[n] for n, p in single["params"].items()},
+        {n: p - init[n] for n, p in run["params"].items()})
+    return {"loss_rel": loss_rel, "grad_norm_rel": grad_rel, "grad_leaf_rel": grad_leaf,
+            "worst_grad": grad_name, "grad_all_rel": grad_all, "param_excess": excess,
+            "worst_param": worst_element, "grad_sign_flips": flips,
+            "grad_sign_flip_max_over_rms": flip_max, "moved_leaf_rel": moved_leaf,
+            "worst_moved": moved_name, "moved_all_rel": moved_all,
+            "held": (max(loss_rel) <= lim["loss_rel"] and max(grad_rel) <= lim["grad_norm_rel"]
+                     and grad_leaf <= lim["grad_leaf_rel"] and excess <= 0.0 and moved_leaf <= lim["moved_leaf_rel"]),
+            "stepped": [m["stepped"] for m in run["metrics"]],
+            "totals": [m["total"] for m in run["metrics"]]}
+
+
+def phase_parallel():
+    """Data and tensor parallelism on the one card (module docstring, phase
+    13).  Returns, per kernel, its launches per step on rank 0 of the
+    (2, 2) runs and the head counts it ran at."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME
+    from kokoro_tpu_torch.config import KokoroConfig, get_default_config
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    t0 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        build_long_corpus(out / "corpus", 26)
+        # (b), (c) and (d)'s worlds start together and run beside (a) and the
+        # single-process reference: about 50 GB of the card's 80 together;
+        # the card and the host's cores are shared, so no host time here is
+        # a clean one
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "kokoro_tpu_torch.cli.train", "--distributed",
+               "--data-dir", str(out / "corpus"), "--output-dir", str(out / "run_cli"),
+               "--epochs", "1", "--resume", "", "--no-mfa", "--no-speed-perturbation",
+               "--flash-attention", "--no-attention-weight-dropout",
+               "--no-gradient-checkpointing", "--save-every", "1"]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        try:
+            started = [start_world("gloo_4", 4, out), start_world("gloo_2", 2, out),
+                       start_world("nccl_step", 1, out, backend="nccl")]
+            kernels = parallel_kernels()
+            walls["a_kernels"] = time.perf_counter() - t0
+            single = f32_steps()
+            single_reference_lr = f32_steps(lr=REFERENCE_LR)
+            twins = {p: f32_steps(steps=0, perturb=p)["grads"]
+                     for p in ("rows_reversed", "params_ulp")}
+            torch.cuda.empty_cache()
+            for world in started:
+                join_world(world)
+            _, cli_err = proc.communicate(timeout=max(1.0, PARALLEL_TIMEOUT_S - (
+                time.perf_counter() - t0)))
+        except BaseException:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+            raise
+        cli_meta = out / "run_cli" / "checkpoint_epoch_1" / "metadata.json"
+        if proc.returncode != 0 or not cli_meta.exists():
+            raise AssertionError(f"kokoro-train --distributed exited {proc.returncode}: "
+                                 f"{cli_err[-3000:]}")
+        cli = json.loads(cli_meta.read_text())
+        nccl = json.loads((out / "nccl_step.json").read_text())
+        walls["a_b_c_d_together"] = time.perf_counter() - t0
+        init = KokoroModel(KokoroConfig(**NO_DROPOUT)).init_weights(
+            torch.Generator().manual_seed(0)).state_dict()
+        held = {tag: held_to_single(torch.load(out / f"steps_{tag}.pt"), single, init)
+                for tag in ("2", "1x2", "2x2", "1x2_control")}
+        held["2_reference_lr"] = held_to_single(torch.load(out / "steps_2_reference_lr.pt"),
+                                                single_reference_lr, init)
+        rounding = {}  # the single process against itself, f32 rounding changed
+        for p, grads in twins.items():
+            rounding[p] = dict(zip(
+                ("grad_leaf_rel", "worst_grad", "grad_all_rel", "grad_sign_flips",
+                 "grad_sign_flip_max_over_rms"),
+                relative_gap(single["grads"], grads) + sign_flips(single["grads"], grads)))
+        runs = {tag: torch.load(out / f"steps_{tag}.pt") for tag in ("2", "1x2", "2x2")}
+        mesh_trainer = json.loads((out / "trainer_2x2.json").read_text())
+
+        # (d) one process resumes the (2, 2) checkpoint for one more epoch
+        t = time.perf_counter()
+        CountingTrainer = counting_trainer()
+        single_run = CountingTrainer(*get_default_config(**{
+            **LONG_REGIME, "data_dir": str(out / "corpus"), "output_dir": str(out / "run_2x2"),
+            "num_epochs": 2, "save_every": 1, "warmup_steps": 20, "resume_checkpoint": "auto"}),
+            device="cuda")
+        single_run.train()
+        resumed = {"start_epoch": single_run.start_epoch, "opt_step": single_run.state.opt_step,
+                   "metrics": [m for m, _, _ in CountingTrainer.steps]}
+        del single_run
+        torch.cuda.empty_cache()
+        walls["d_resume"] = time.perf_counter() - t
+
+    n_layers = 6
+    flash = {kern.name for kern in fl.KERNELS}
+    cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
+    causal = {fa.packed_attention_causal.name, fa.packed_attention_bwd_causal.name}
+    failures = []
+    if not nccl["bit_identical"]:
+        failures.append(f"world size 1 on NCCL differs from the unwrapped step: {nccl}")
+    if not (cli["config"]["distributed_init"] and cli["counters"]["optimizer_step"] > 0):
+        failures.append(f"kokoro-train --distributed: {cli['counters']}")
+    for tag in ("2", "1x2", "2x2"):
+        if not held[tag]["held"] or held[tag]["stepped"] != [1.0] * 3:
+            failures.append(f"{tag} against the single process: {held[tag]}")
+    if held["1x2_control"]["held"]:
+        failures.append(f"the control (no norm-scale gradient sum) held: {held['1x2_control']}")
+    for counts in runs["2x2"]["launches"]:  # K1 and K2 per decoder layer at T=512
+        want = {n: n_layers for n in causal | cross}
+        if counts != want:
+            failures.append(f"(2, 2) f32 step launches {counts}, expected {want}")
+    if any(runs["2x2"]["heads"][n] != [4] for n in causal | cross):
+        failures.append(f"(2, 2) f32 step kernels ran at heads {runs['2x2']['heads']}")
+    steps = mesh_trainer["steps"]
+    for s_ in steps:
+        m, counts, micro = s_["metrics"], s_["launches"], s_["microbatches"]
+        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
+        if not (m["stepped"] == 1.0 and math.isfinite(m["total"])) or counts != want:
+            failures.append(f"(2, 2) trainer step {m} launches {counts}, expected {want}")
+    heads = mesh_trainer["heads"]
+    if not steps or any(heads[n] != [4] for n in flash | cross):
+        failures.append(f"(2, 2) trainer kernels ran at heads {heads}, expected 4")
+    if not (resumed["start_epoch"] == 1 and resumed["metrics"]
+            and resumed["opt_step"] == mesh_trainer["opt_step"] + len(resumed["metrics"])
+            and all(m["stepped"] == 1.0 and math.isfinite(m["total"])
+                    for m in resumed["metrics"])):
+        failures.append(f"one process resuming the (2, 2) checkpoint: {resumed}")
+
+    def per_step(collectives):
+        return {k: float(np.mean([c[k] for c in collectives])) for k in collectives[0]}
+
+    result = {
+        "phase": "parallel", "kernels_at_local_heads": kernels,
+        "world_1_nccl": {"bit_identical": nccl["bit_identical"],
+                         "step_ms": {k: nccl[k]["step_ms"] for k in ("unwrapped", "mesh_1x1")},
+                         "mesh_1x1_stats_3_steps": nccl["mesh_1x1"]["stats"],
+                         "cli_opt_steps": cli["counters"]["optimizer_step"]},
+        "gloo_f32_vs_single": {"limits": PARALLEL_LIMIT, "learning_rate": PARALLEL_LR,
+                               "reference_lr_not_held": REFERENCE_LR, **held,
+                               "single_against_itself": rounding,
+                               "single_totals": [m["total"] for m in single["metrics"]],
+                               "single_step_ms": single["step_ms"],
+                               "step_ms_rank0": {t: runs[t]["step_ms"] for t in runs},
+                               "collectives_per_step_rank0": {
+                                   t: per_step(runs[t]["collectives"]) for t in runs}},
+        "trainer_2x2_bf16": {"steps": [{"total": s_["metrics"]["total"],
+                                        "grad_norm": s_["metrics"]["grad_norm"],
+                                        "microbatches": s_["microbatches"],
+                                        "launches": {k: v for k, v in s_["launches"].items()
+                                                     if v}} for s_ in steps],
+                             "step_ms_rank0": mesh_trainer["step_ms"],
+                             "collectives_per_step_rank0": per_step(
+                                 mesh_trainer["collectives"]),
+                             "heads": heads, "resumed_by_one_process": resumed},
+        "note": "ranks share one card over gloo: not a scaling measurement",
+        "wall_s": walls}
+    emit(result)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    # per kernel: launches per step per rank on its parallel path, and the heads
+    launches = dict(runs["2x2"]["launches"][-1])
+    launches.update({n: steps[-1]["launches"][n] for n in flash | cross})
+    where = {n: "(2, 2) f32 preset-shape step, B=8 T=512 (2 rows a rank)" for n in causal}
+    where.update({n: "(2, 2) bf16 long-regime trainer step, 2 microbatches of 6 rows a rank, "
+                     "T=1408" for n in flash | cross})
+    return {n: {"launches": launches[n], "heads": 4, "launches_are": where[n]}
+            for n in causal | cross | flash}
+
+
 def parse_phases(argv) -> list:
     """Every phase with no arguments (the contract run); ``--phases a,b`` runs
     a subset, for a short call after a change, and prints no contract lines."""
@@ -2038,6 +2703,9 @@ def main() -> int:
     tools_counts = {}
     if "tools" in phases:  # launches in the last long training step with diagnostics on
         tools_counts = {name: c for name, c in timed("tools", phase_tools).items() if c}
+    parallel_path = {}
+    if "parallel" in phases:  # launches per step on rank 0 of the (2, 2) runs
+        parallel_path = timed("parallel", phase_parallel)
     torch.cuda.synchronize()
     emit({"wall_s": time.perf_counter() - t_start, "phases": phases, "phase_wall_s": phase_s})
     if phases != PHASES:
@@ -2072,7 +2740,9 @@ def main() -> int:
                 "launches": mfa_counts[kern.name],
                 "launches_are": "per long training step on MFA durations (phase mfa: "
                                 "2 microbatches of B=12 L=256 T=1408)"}
-        if kern.name in tools_counts:  # this slice's path: the trainer with its diagnostics
+        if kern.name in parallel_path:  # this slice's path: a rank of the (2, 2) mesh
+            row["parallel_path"] = parallel_path[kern.name]
+        if kern.name in tools_counts:  # the trainer with its diagnostics
             row["tools_path"] = {
                 "launches": tools_counts[kern.name],
                 "launches_are": "per long training step with the trainer's diagnostics on "

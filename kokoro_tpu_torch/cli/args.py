@@ -3,18 +3,18 @@
 Port of ``kokoro_tpu/cli/args.py``: every argument of the reference parses.
 ``--no-ema`` (a field no code of the reference reads) and
 ``--compile-cache-dir`` (XLA's compile cache) have no effect here and log a
-warning; ``--profile-dtypes`` is ``cli/train.py``'s bf16/f32 A/B.  One GPU
-is a mesh of one device: ``--mesh-shape`` of product 1 and ``--mesh-axes``
-parse and change nothing, while a larger mesh and ``--distributed`` exit
-with an error, since data, tensor, sequence and pipeline parallelism are the
-port's parallel slice (ROADMAP.md §1).
+warning; ``--profile-dtypes`` is ``cli/train.py``'s bf16/f32 A/B.
+``--mesh-shape``, ``--mesh-axes`` and ``--distributed`` set ``mesh_shape``,
+``mesh_axis_names`` and ``distributed_init`` as the reference's do; the
+command line for N GPUs is ``python -m torch.distributed.run
+--nproc-per-node N -m kokoro_tpu_torch.cli.train --distributed --mesh-shape
+...``.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import math
 from typing import Tuple
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig, get_default_config
@@ -42,27 +42,14 @@ FLAG_ARGS = {
     "flash_attention": ("use_flash_attention", True),
     "no_attention_weight_dropout": ("attention_weight_dropout", False),
     "verbose": ("verbose", True),
+    "distributed": ("distributed_init", True),
 }
-PARALLEL_SLICE = "the port's parallel slice (ROADMAP.md §1)"
 
 logger = logging.getLogger(__name__)
 
 
-def _mesh_shape(text: str) -> Tuple[int, ...]:
-    shape = tuple(int(x) for x in text.split(",") if x.strip())
-    if math.prod(shape) != 1:
-        raise argparse.ArgumentTypeError(
-            f"a mesh of {math.prod(shape)} devices needs {PARALLEL_SLICE}; one GPU is "
-            "--mesh-shape 1")
-    return shape
-
-
-class _Distributed(argparse.Action):
-    def __init__(self, option_strings, dest, **kwargs):
-        super().__init__(option_strings, dest, nargs=0, default=False, **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string}: multi-host training needs {PARALLEL_SLICE}")
+def _names(text: str) -> Tuple[str, ...]:
+    return tuple(x.strip() for x in text.split(",") if x.strip())
 
 
 def add_training_arguments(parser: argparse.ArgumentParser) -> None:
@@ -109,11 +96,19 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--compile-cache-dir", default=None, metavar="DIR",
                    help="XLA's compile cache: no effect in the port (warns)")
     d = parser.add_argument_group("parallelism")
-    d.add_argument("--mesh-shape", type=_mesh_shape, default=None,
-                   help="device-mesh shape; the port runs a mesh of one device ('1')")
-    d.add_argument("--mesh-axes", default=None, help="mesh axis names (no effect on one device)")
-    d.add_argument("--distributed", action=_Distributed,
-                   help=f"multi-host training: {PARALLEL_SLICE}")
+    d.add_argument("--mesh-shape", type=lambda text: tuple(int(x) for x in _names(text)),
+                   default=None,
+                   help="comma-separated device-mesh shape: '8' = 8-way data parallel, '4,2' "
+                        "= 4-way data x 2-way tensor parallel (Megatron-style sharding over "
+                        "the 'model' axis); one process per device. Default: every process, "
+                        "data-parallel")
+    d.add_argument("--mesh-axes", type=_names, default=None,
+                   help="comma-separated mesh axis names matching --mesh-shape: 'data' "
+                        "(batch), 'model' (tensor parallel). Default: 'data' (plus 'model' "
+                        "for a 2-axis shape)")
+    d.add_argument("--distributed", action="store_true",
+                   help="start the process group from torch.distributed.run's environment; "
+                        "each process takes its rows of the global batch")
 
 
 def create_config_from_args(args: argparse.Namespace) -> Tuple[KokoroConfig, TrainingConfig]:
@@ -127,6 +122,10 @@ def create_config_from_args(args: argparse.Namespace) -> Tuple[KokoroConfig, Tra
             overrides[field] = value
     if args.no_validation:
         overrides["validation_interval"] = 10**9
+    if args.mesh_shape:
+        overrides["mesh_shape"] = args.mesh_shape
+    if args.mesh_axes:
+        overrides["mesh_axis_names"] = args.mesh_axes
     if args.no_ema:
         logger.warning("--no-ema has no effect in the port: no code reads use_ema")
     if args.compile_cache_dir is not None:

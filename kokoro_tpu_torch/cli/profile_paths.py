@@ -93,9 +93,10 @@ LONG_REGIME = dict(
 LONG_SHAPE = dict(B=12, L=256, T=1408)
 
 
-def long_train_step(device, seed: int = 0, **overrides):
+def long_train_step(device, seed: int = 0, mesh=None, **overrides):
     """(state, step, batch) of the long regime at full width on seeded random
-    weights, B=12, L=256, T=1408 (one batch per step, no microbatch axis)."""
+    weights, B=12, L=256, T=1408 (one batch per step, no microbatch axis);
+    with ``mesh`` the state is this rank's shards (``parallel/``)."""
     from kokoro_tpu_torch.config import get_default_config
     from kokoro_tpu_torch.models.kokoro import KokoroModel
     from kokoro_tpu_torch.training.optimizer import build_preclip_norms
@@ -103,16 +104,17 @@ def long_train_step(device, seed: int = 0, **overrides):
 
     model_cfg, train_cfg = get_default_config(**{**LONG_REGIME, **overrides})
     model = KokoroModel(model_cfg).init_weights(torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device), train_cfg, total_steps=20000)
+    state = create_train_state(model.to(device), train_cfg, total_steps=20000, mesh=mesh)
     step = make_train_step(train_cfg, build_preclip_norms(state.names, train_cfg),
                            spec_augment=train_cfg.use_spec_augment)
     B, L, T = LONG_SHAPE["B"], LONG_SHAPE["L"], LONG_SHAPE["T"]
     return state, step, training_batch(model_cfg, B, T, L, device)
 
 
-def preset_train_step(device, seed: int = 0):
+def preset_train_step(device, seed: int = 0, mesh=None):
     """(state, step, batch) of the throughput preset at full width on seeded
-    random weights, B=32, L=96, T=512."""
+    random weights, B=32, L=96, T=512; with ``mesh`` the state is this
+    rank's shards (``parallel/``)."""
     from kokoro_tpu_torch.config import get_high_performance_config
     from kokoro_tpu_torch.models.kokoro import KokoroModel
     from kokoro_tpu_torch.training.optimizer import build_preclip_norms
@@ -120,7 +122,7 @@ def preset_train_step(device, seed: int = 0):
 
     model_cfg, train_cfg = get_high_performance_config()
     model = KokoroModel(model_cfg).init_weights(torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device), train_cfg, total_steps=20000)
+    state = create_train_state(model.to(device), train_cfg, total_steps=20000, mesh=mesh)
     step = make_train_step(train_cfg, build_preclip_norms(state.names, train_cfg))
     return state, step, training_batch(model_cfg, train_cfg.batch_size, 512, 96, device)
 

@@ -1,6 +1,11 @@
-"""kokoro-train of the PyTorch port: train the acoustic model on one GPU.
+"""kokoro-train of the PyTorch port: train the acoustic model.
 
     python -m kokoro_tpu_torch.cli.train --data-dir <corpus> --output-dir <run> --device cuda
+    python -m torch.distributed.run --nproc-per-node N -m kokoro_tpu_torch.cli.train \
+        --distributed --mesh-shape 2,2 --mesh-axes data,model --data-dir <corpus> ...
+
+(the second on N GPUs, one process each: ``--mesh-shape`` names the data x
+tensor-parallel layout, its product N).
 
 ``<corpus>`` holds ``metadata.csv`` (``stem|text`` lines) and ``wavs/``;
 ``<run>`` receives the checkpoints, the logs and the final model, which
@@ -18,7 +23,7 @@ from pathlib import Path
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="kokoro-train-torch",
-        description="Train the Kokoro Russian TTS acoustic model on one GPU")
+        description="Train the Kokoro Russian TTS acoustic model")
     from kokoro_tpu_torch.cli.args import add_training_arguments, create_config_from_args
 
     add_training_arguments(parser)
@@ -32,6 +37,9 @@ def main(argv=None) -> int:
         from kokoro_tpu_torch.cli.precompute import precompute_features
 
         precompute_features(model_config, config, device=args.device)
+    if args.profile_dtypes and config.distributed_init:
+        parser.error("--profile-dtypes times one process; run it without --distributed and "
+                     "pass its choice as --compute-dtype")
     if args.profile_dtypes:
         # the reference's pre-train bf16/f32 A/B (kokoro_tpu/cli/train.py)
         from kokoro_tpu_torch.utils.profiling import profile_dtype_for_config
@@ -39,9 +47,15 @@ def main(argv=None) -> int:
         config.compute_dtype = profile_dtype_for_config(model_config, config, device=args.device)
         logging.getLogger(__name__).info("dtype profile selected compute_dtype=%s",
                                          config.compute_dtype)
+    import torch.distributed as dist
+
     from kokoro_tpu_torch.training.trainer import train_model
 
-    result = train_model(model_config, config, device=args.device)
+    try:
+        result = train_model(model_config, config, device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     logging.getLogger(__name__).info("Training done: best val mel %.4f @ epoch %d",
                                      result["best_val_loss"], result["best_val_epoch"] + 1)
     return 0

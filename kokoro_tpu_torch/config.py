@@ -3,9 +3,12 @@
 :class:`KokoroConfig` holds the model and audio fields of
 ``kokoro_tpu/config.py::TrainingConfig``, :class:`TrainingConfig` the fields
 the training step, the data pipeline and the trainer read, both with the
-reference's names and defaults.  The mesh and TPU dispatch fields have no
-counterpart (ROADMAP.md lists them).  The four presets (default,
-low-memory, high-performance, smoke) set the reference's values.
+reference's names and defaults.  The mesh fields (``mesh_shape``,
+``mesh_axis_names``, ``distributed_init``) have the reference's names,
+defaults and validation; ``parallel/mesh.py`` lays the mesh over processes.
+The TPU dispatch fields have no counterpart (ROADMAP.md lists them).  The
+four presets (default, low-memory, high-performance, smoke) set the
+reference's values.
 """
 
 from __future__ import annotations
@@ -230,6 +233,14 @@ class TrainingConfig:
     log_every_steps: int = 10
     histogram_every_steps: int = 200
 
+    # the device mesh (parallel/mesh.py): None -> one axis over every process
+    # of the process group; 'data' shards the batch, 'model' the attention
+    # heads and the FFN width.  distributed_init starts the process group
+    # from torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK)
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+    distributed_init: bool = False
+
     def __post_init__(self) -> None:
         if not self.feature_cache_dir:
             self.feature_cache_dir = str(Path(self.data_dir) / ".feature_cache_torch")
@@ -244,6 +255,43 @@ class TrainingConfig:
         self.phoneme_bucket_sizes = tuple(sorted(self.phoneme_bucket_sizes))
         if self.mel_bucket_sizes and self.mel_bucket_sizes[-1] < self.max_seq_length:
             self.mel_bucket_sizes = self.mel_bucket_sizes + (self.max_seq_length,)
+        self._validate_mesh()
+
+    def _validate_mesh(self) -> None:
+        """The reference's mesh checks (``kokoro_tpu/config.py:375-435``)."""
+        self.mesh_axis_names = tuple(self.mesh_axis_names)
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(self.mesh_shape)
+            if len(self.mesh_shape) > 3:
+                raise ValueError("mesh_shape supports at most 3 axes (data, seq, model) or "
+                                 f"(data, stage); got {self.mesh_shape}")
+            if len(self.mesh_shape) == 3 and len(self.mesh_axis_names) < 3:
+                raise ValueError("a 3-axis mesh_shape needs explicit mesh_axis_names (e.g. "
+                                 "('data', 'seq', 'model')); only a 2-axis shape defaults its "
+                                 "second axis to 'model'")
+        bad_axes = set(self.mesh_axis_names) - {"data", "seq", "model", "stage"}
+        if bad_axes:
+            raise ValueError(f"unknown mesh axis names {sorted(bad_axes)}; supported: 'data' "
+                             "(batch), 'seq' (sequence parallel over mel frames), 'model' "
+                             "(tensor parallel), 'stage' (pipeline parallel over decoder layers)")
+        if "stage" in self.mesh_axis_names:
+            others = set(self.mesh_axis_names) - {"data", "stage"}
+            if others:
+                raise ValueError("pipeline parallelism composes with 'data' only; cannot "
+                                 f"combine 'stage' with {sorted(others)}")
+        sp = self.mesh_axis_size("seq")
+        bad = [t for t in (self.mel_bucket_sizes or (self.max_seq_length,)) if t % sp]
+        if sp > 1 and bad:
+            raise ValueError(f"sequence parallelism ({sp}-way 'seq' axis) needs every mel "
+                             f"bucket size divisible by {sp}; offending buckets: {bad}")
+
+    def mesh_axis_size(self, axis: str) -> int:
+        """The size ``mesh_shape`` gives the named axis (1 when absent)."""
+        names = self.mesh_axis_names
+        if self.mesh_shape is None or axis not in names or names.index(axis) >= len(
+                self.mesh_shape):
+            return 1
+        return int(self.mesh_shape[names.index(axis)])
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -268,7 +316,24 @@ def _split(model: Dict[str, Any], train: Dict[str, Any], overrides: Dict[str, An
             train[key] = value
         else:
             raise TypeError(f"no config field named {key!r}")
-    return KokoroConfig(**model), TrainingConfig(**train)
+    model_config, config = KokoroConfig(**model), TrainingConfig(**train)
+    validate_stage_axis(model_config, config)
+    return model_config, config
+
+
+def validate_stage_axis(model_config: KokoroConfig, config: TrainingConfig) -> None:
+    """The reference's checks of a 'stage' (pipeline) axis against the
+    model's fields, which the port keeps in :class:`KokoroConfig`."""
+    if "stage" not in config.mesh_axis_names:
+        return
+    if model_config.use_stochastic_depth and model_config.stochastic_depth_rate > 0:
+        raise ValueError("pipeline parallelism ('stage' axis) requires "
+                         "use_stochastic_depth=False: all stages share one DecoderBlock module "
+                         "(parallel/pp_step.py)")
+    pp = config.mesh_axis_size("stage")
+    if pp > 1 and model_config.n_decoder_layers % pp:
+        raise ValueError(f"n_decoder_layers={model_config.n_decoder_layers} must be divisible "
+                         f"by the {pp}-way 'stage' axis")
 
 
 def get_default_config(**overrides) -> Tuple[KokoroConfig, TrainingConfig]:

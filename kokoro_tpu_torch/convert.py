@@ -15,10 +15,12 @@ tree; the port itself reads only the ``.npz``).  The mapping:
   its name.
 
 :func:`train_state_from_flax` carries a whole training state across (params,
-AdamW moments and count, EMA, the step counters).  :func:`flax_names` and
+AdamW moments and count, EMA, the step counters), onto a mesh when it is
+given one (each rank keeps its shards).  :func:`flax_names` and
 :func:`flax_params_from_module` go the other way: the flax path of each
 parameter (the trainer's histogram tags) and the parameters in flax layout
-(``inference/vocoder.py::export_hifigan_npz``).
+(``inference/vocoder.py::export_hifigan_npz``); given a tensor-parallel
+layout it gathers the shards into whole tensors first.
 
 A model directory holds ``model.pt`` (the state dict), ``metadata.json``
 (``{"model_metadata": {...}}`` with the keys of
@@ -108,13 +110,18 @@ def flax_names(module: torch.nn.Module) -> Dict[str, str]:
     return {name: path for name, path, _, _ in _flax_leaves(module)}
 
 
-def flax_params_from_module(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+def flax_params_from_module(module: torch.nn.Module, layout=None) -> Dict[str, np.ndarray]:
     """The module's parameters as float32 numpy arrays keyed by flax path,
     in flax layout (Dense ``(in, out)``, Conv ``(k, in, out)``; transposed
-    convs keep the torch layout, as the flax tree stores them)."""
+    convs keep the torch layout, as the flax tree stores them).  With a
+    tensor-parallel ``layout`` (``parallel/tp.py``) the shards are gathered
+    first, a collective call."""
+    from kokoro_tpu_torch.parallel.tp import gather_tree
+
+    whole = gather_tree({n: p.detach() for n, p in module.named_parameters()}, layout)
     out = {}
-    for _, path, mod, param in _flax_leaves(module):
-        value = param.detach().cpu().float().numpy()
+    for name, path, mod, _ in _flax_leaves(module):
+        value = whole[name].cpu().float().numpy()
         if path.endswith("/kernel") and not isinstance(mod, torch.nn.ConvTranspose1d):
             value = value.T if value.ndim == 2 else value.transpose(2, 1, 0)
         out[path] = np.ascontiguousarray(value)
@@ -196,18 +203,21 @@ def train_state_from_flax(
     params: Mapping[str, np.ndarray], mu: Mapping[str, np.ndarray],
     nu: Mapping[str, np.ndarray], ema: Mapping[str, np.ndarray], count: int,
     opt_step: int, ema_updates: int, grad_ema: float, grad_ema_steps: int,
-    skipped_steps: int,
+    skipped_steps: int, mesh=None,
 ):
     """The port's ``TrainState`` from the JAX package's ``TrainState``: its
     params, ``FusedAdamWState`` (count, mu, nu), EMA params (each flattened
     to ``/``-joined flax paths, as numpy) and its counters.  ``model`` takes
     the params; ``config`` is the port's ``TrainingConfig``.  A state taken
-    mid-training (past warmup, explosion detector live) resumes exactly."""
+    mid-training (past warmup, explosion detector live) resumes exactly.
+    With ``mesh`` (``parallel/mesh.py``) the state is this rank's shards."""
+    from kokoro_tpu_torch.parallel.tp import shard_tree
     from kokoro_tpu_torch.training.train_step import create_train_state
 
     model.load_state_dict(kokoro_state_dict_from_flax(params), strict=True)
-    state = create_train_state(model, config, total_steps)
-    mu_t, nu_t, ema_t = (kokoro_state_dict_from_flax(x) for x in (mu, nu, ema))
+    state = create_train_state(model, config, total_steps, mesh)
+    mu_t, nu_t, ema_t = (shard_tree(kokoro_state_dict_from_flax(x), state.layout)
+                         for x in (mu, nu, ema))
     opt = state.optimizer
     with torch.no_grad():
         for i, name in enumerate(opt.names):

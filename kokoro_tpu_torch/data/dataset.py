@@ -20,13 +20,16 @@ Port of ``kokoro_tpu/data/dataset.py``:
   TextGrid or no alignment path;
 * a two-tier cache: per-utterance ``.npz`` files plus a bounded in-RAM LRU.
   As in the reference, an entry is keyed on the stem alone: a cache filled
-  before the alignments existed keeps its fallback durations.
+  before the alignments existed keeps its fallback durations.  Files are
+  written to a temporary name and renamed, so the ranks of a data-parallel
+  run that fill one cache never read a half-written file.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import random
 import time
 from collections import OrderedDict
@@ -205,7 +208,9 @@ class RuslanDataset:
         if updated:
             try:
                 cache_file.parent.mkdir(parents=True, exist_ok=True)
-                cache_file.write_text(json.dumps(cached))
+                tmp = cache_file.with_name(f"{cache_file.name}.{os.getpid()}.tmp")
+                tmp.write_text(json.dumps(cached))
+                os.replace(tmp, cache_file)
             except OSError as err:
                 logger.warning("Could not persist the audio length cache: %s", err)
         return cached
@@ -275,8 +280,9 @@ class RuslanDataset:
     def _save_cached(self, stem: str, payload: Dict) -> None:
         if self.config.use_feature_cache:
             try:
-                np.savez(self.feature_cache_dir / f"{stem}.npz",
-                         cache_version=FEATURE_CACHE_VERSION, **payload)
+                tmp = self.feature_cache_dir / f"{stem}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, cache_version=FEATURE_CACHE_VERSION, **payload)
+                os.replace(tmp, self.feature_cache_dir / f"{stem}.npz")
             except OSError as err:
                 logger.warning("Could not write feature cache for %s: %s", stem, err)
         self._memory_put(stem, payload)

@@ -36,6 +36,16 @@ named child per site; the global RNG is never read.  :class:`Linear` and
 :class:`Embedding` compute in their ``compute_dtype`` when it is set (flax's
 ``dtype`` over ``param_dtype``: input and weight are cast, the f32 parameters
 keep the gradient); the norms keep f32 statistics and f32 scales.
+
+Tensor parallelism (``parallel/tp.py::shard_model``): a sharded attention
+block holds ``num_heads / tp`` heads (``local_heads``, the global heads from
+``head_offset``) and a sharded GLU ``ff / tp`` of its width; each takes its
+input through ``copy_to_region`` and sums its output projection over the
+``model`` group before adding the bias.  Sites on the sharded activations
+(the attention dropout, the GLU's ``dropout_0``) fold the model rank into
+their stream; every other site draws the same mask on every rank of a
+``model`` group.  A sharded block runs the training and evaluation forwards,
+not the cached decode step.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from kokoro_tpu_torch.ops.flash_attention import flash_attention, flash_supporte
 from kokoro_tpu_torch.ops.fused_attention import (
     SUPPORTED_HEAD_DIMS, fused_attention, packed_attention,
 )
+from kokoro_tpu_torch.parallel.tp import copy_to_region, reduce_from_region
 
 NEG_INF = -1e9
 
@@ -67,6 +78,19 @@ class Linear(nn.Linear):
         dt = self.compute_dtype or self.weight.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+    def row_parallel(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """The row-parallel projection of a sharded input: the local
+        product summed over ``mesh``'s ``model`` group, then the bias."""
+        dt = self.compute_dtype or self.weight.dtype
+        y = reduce_from_region(F.linear(x.to(dt), self.weight.to(dt)), mesh)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def _model_rank_stream(rng: Optional[Rng], mesh) -> Optional[Rng]:
+    """The stream of a site on a sharded activation: the model rank folded
+    in, so each rank drops its own heads' or features' weights."""
+    return rng if mesh is None or rng is None else rng.fold(f"model_rank_{mesh.index('model')}")
 
 
 class Embedding(nn.Embedding):
@@ -146,10 +170,28 @@ class MultiHeadAttention(nn.Module):
             self.q_norm = RMSNorm(self.head_dim)
             self.k_norm = RMSNorm(self.head_dim)
             self.v_norm = RMSNorm(self.head_dim)
+        # this rank's heads: all of them unless sharded (shard_heads)
+        self.local_heads, self.head_offset, self.tp_mesh = num_heads, 0, None
+
+    def shard_heads(self, mesh) -> None:
+        """Run on this rank's ``num_heads / tp`` heads of ``mesh``'s
+        ``model`` axis (``parallel/tp.py::shard_model`` slices the weights)."""
+        self.local_heads = self.num_heads // mesh.tp
+        self.head_offset = mesh.index("model") * self.local_heads
+        self.tp_mesh = mesh
+
+    @property
+    def local_width(self) -> int:
+        return self.local_heads * self.head_dim
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mesh is None:
+            return self.w_o(x)
+        return self.w_o.row_parallel(x, self.tp_mesh)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
-        return x.reshape(B, T, self.num_heads, -1).transpose(1, 2)
+        return x.reshape(B, T, self.local_heads, -1).transpose(1, 2)
 
     def _norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, name)(x) if self.qk_norm else x
@@ -164,14 +206,14 @@ class MultiHeadAttention(nn.Module):
         """Heads-last packed projections -> the packed dispatcher -> w_o; no
         head transpose is ever materialised."""
         B, T, _ = query.shape
-        H, Dh = self.num_heads, self.head_dim
+        H, Dh = self.local_heads, self.head_dim
 
         def heads_last(lin, norm, x, rope_pos):
             h = self._norm(norm, lin(x).reshape(B, T, H, Dh))
             if self.use_rope and rope_pos is not None:
                 h = apply_rope_heads_last(h, rope_pos)
             # the projections' compute dtype, as the reference's astype(dtype)
-            return h.reshape(B, T, self.d_model).to(lin.compute_dtype or h.dtype).contiguous()
+            return h.reshape(B, T, H * Dh).to(lin.compute_dtype or h.dtype).contiguous()
 
         if causal:
             pos = torch.arange(T, device=query.device)
@@ -191,7 +233,7 @@ class MultiHeadAttention(nn.Module):
             q, k, v, num_heads=H, scale=1.0 / math.sqrt(Dh), causal=causal,
             kv_lengths=kv_lens, dropout_rate=rate, seed=attention_seed(rng, rate),
         )
-        return self.w_o(out)
+        return self._out(out)
 
     def _head_split_kernel(self, q, k, v, flash, rate, rng):
         """Head-first q, k, v -> K4 (``flash``) or K3 -> w_o.  Causal under
@@ -204,7 +246,7 @@ class MultiHeadAttention(nn.Module):
         else:
             out = fused_attention(q, k, v, scale=1.0 / math.sqrt(Dh), dropout_rate=rate,
                                   seed=attention_seed(rng, rate))
-        return self.w_o(out.transpose(1, 2).reshape(B, Tq, self.d_model))
+        return self._out(out.transpose(1, 2).reshape(B, Tq, H * Dh))
 
     def forward(
         self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
@@ -216,6 +258,18 @@ class MultiHeadAttention(nn.Module):
     ):
         B, Tq, _ = query.shape
         rate = self.dropout if self.training else 0.0
+        if self.tp_mesh is not None:
+            if kv_cache is not None or precomputed_kv is not None:
+                raise NotImplementedError("a sharded attention block runs full sequences only")
+            rng = _model_rank_stream(rng, self.tp_mesh)
+            shared_value = value is key
+            query = copy_to_region(query, self.tp_mesh)
+            if key is not None:
+                key = copy_to_region(key, self.tp_mesh)
+            if shared_value:
+                value = key
+            elif value is not None:
+                value = copy_to_region(value, self.tp_mesh)
         full_seq = (
             self.use_flash and kv_cache is None and precomputed_kv is None
             and not self.use_alibi and self.head_dim in SUPPORTED_HEAD_DIMS
@@ -275,8 +329,9 @@ class MultiHeadAttention(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
             1.0 / math.sqrt(self.head_dim)
         )
-        if self.use_alibi:
-            slopes = alibi_slopes(self.num_heads).to(query.device)
+        if self.use_alibi:  # the slopes of this rank's global heads
+            slopes = alibi_slopes(self.num_heads)[
+                self.head_offset:self.head_offset + self.local_heads].to(query.device)
             if kv_cache is not None:
                 q_pos = (kv_cache["index"] + torch.arange(Tq, device=query.device)).float()
             else:
@@ -292,8 +347,8 @@ class MultiHeadAttention(nn.Module):
         weights = dropout(torch.softmax(logits, dim=-1).to(query.dtype), self.dropout, rng,
                           self.training)
         out = torch.matmul(weights, v.to(weights.dtype))
-        out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
-        return self.w_o(out), new_cache
+        out = out.transpose(1, 2).reshape(B, Tq, self.local_width)
+        return self._out(out), new_cache
 
 
 class GLUFeedForward(nn.Module):
@@ -307,12 +362,19 @@ class GLUFeedForward(nn.Module):
         self.linear2 = Linear(dim_feedforward, d_model)
         self.output_norm = RMSNorm(d_model) if use_output_norm else None
         self.dropout = dropout
+        # set by parallel/tp.py::shard_model: linear1 holds this rank's rows of
+        # the gate half and the same rows of the linear half, linear2 the
+        # matching columns
+        self.tp_mesh = None
 
     def forward(self, x: torch.Tensor, rng: Optional[Rng] = None) -> torch.Tensor:
+        mesh = self.tp_mesh
+        if mesh is not None:
+            x = copy_to_region(x, mesh)
         gate, linear = self.linear1(x).chunk(2, dim=-1)
         h = dropout(F.gelu(gate, approximate="tanh") * linear, self.dropout,
-                    fold(rng, "dropout_0"), self.training)
-        h = self.linear2(h)
+                    _model_rank_stream(fold(rng, "dropout_0"), mesh), self.training)
+        h = self.linear2(h) if mesh is None else self.linear2.row_parallel(h, mesh)
         if self.output_norm is not None:
             h = self.output_norm(h)
         return dropout(h, self.dropout, fold(rng, "dropout_1"), self.training)

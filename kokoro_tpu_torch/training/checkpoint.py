@@ -14,7 +14,12 @@ Port of ``kokoro_tpu/training/checkpoint.py``:
 * ``checkpoint_epoch_{N}`` with keep-N pruning, ``best_model``,
   ``kokoro_russian_final``, ``resume_checkpoint="auto"`` (the highest epoch)
   or an explicit path;
-* the phoneme processor as its ``to_dict()`` JSON beside the checkpoints.
+* the phoneme processor as its ``to_dict()`` JSON beside the checkpoints;
+* a checkpoint holds FULL tensors in the single-device layout, as the
+  reference's holds global arrays: on a mesh every rank gathers the shards
+  (``parallel/tp.py::gather_tree``, a collective call) and only the main
+  process writes; every rank loads the full tensors and keeps its shards.
+  A checkpoint saved on one mesh resumes on any other.
 
 Orbax and the cross-topology restore have no counterpart; the port reads no
 JAX checkpoint.  :func:`load_inference_weights` gives the serving loader the
@@ -36,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
+from kokoro_tpu_torch.parallel.tp import gather_tree, shard_tree
 
 logger = logging.getLogger(__name__)
 
@@ -83,13 +89,16 @@ def build_model_metadata(model_config: KokoroConfig, config: TrainingConfig,
 
 def training_state_dict(state, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """Everything of a ``TrainState`` (and the trainer's generator) that
-    ``torch.save`` writes."""
+    ``torch.save`` writes, every tensor whole (a collective call on a
+    tensor-parallel mesh)."""
     opt = state.optimizer
     names = opt.names
+    layout = state.layout
     return {
-        "model": state.model.state_dict(),
-        "mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)), "count": opt.count,
-        "ema": dict(state.ema),
+        "model": gather_tree(state.model.state_dict(), layout),
+        "mu": gather_tree(dict(zip(names, opt.mu)), layout),
+        "nu": gather_tree(dict(zip(names, opt.nu)), layout), "count": opt.count,
+        "ema": gather_tree(state.ema, layout),
         "counters": {"opt_step": state.opt_step, "ema_updates": state.ema_updates,
                      "grad_ema": state.grad_ema, "grad_ema_steps": state.grad_ema_steps,
                      "skipped_steps": state.skipped_steps},
@@ -100,14 +109,16 @@ def training_state_dict(state, generator: Optional[torch.Generator] = None) -> D
 @torch.no_grad()
 def restore_training_state(state, saved: Dict[str, Any],
                            generator: Optional[torch.Generator] = None) -> None:
-    """Copy a saved training state into ``state`` (and ``generator``) in
-    place."""
-    state.model.load_state_dict(saved["model"], strict=True)
+    """Copy a saved training state (whole tensors) into ``state`` (and
+    ``generator``) in place; a sharded state takes its slices."""
+    layout = state.layout
+    state.model.load_state_dict(shard_tree(saved["model"], layout), strict=True)
     opt = state.optimizer
+    mu, nu, ema = (shard_tree(saved[k], layout) for k in ("mu", "nu", "ema"))
     for i, name in enumerate(opt.names):
-        opt.mu[i].copy_(saved["mu"][name])
-        opt.nu[i].copy_(saved["nu"][name])
-        state.ema[name].copy_(saved["ema"][name])
+        opt.mu[i].copy_(mu[name])
+        opt.nu[i].copy_(nu[name])
+        state.ema[name].copy_(ema[name])
     opt.count = int(saved["count"])
     c = saved["counters"]
     state.opt_step, state.ema_updates = int(c["opt_step"]), int(c["ema_updates"])
@@ -119,10 +130,14 @@ def restore_training_state(state, saved: Dict[str, Any],
 
 
 class CheckpointManager:
-    def __init__(self, output_dir: str | Path, keep: int = 5):
+    """Saves and restores a run's checkpoints.  On a mesh every rank calls
+    the save (it gathers the shards) and only the ``main`` one writes."""
+
+    def __init__(self, output_dir: str | Path, keep: int = 5, main: bool = True):
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.main = main
 
     def save_checkpoint(
         self, name: str, state, model_config: KokoroConfig, config: TrainingConfig,
@@ -131,10 +146,13 @@ class CheckpointManager:
     ) -> Path:
         """Write ``output_dir/name``: ``state.pt``, then ``metadata.json``."""
         path = self.output_dir / name
+        saved = training_state_dict(state, generator)
+        if not self.main:
+            return path
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
-        torch.save(training_state_dict(state, generator), path / STATE_FILE)
+        torch.save(saved, path / STATE_FILE)
         doc = {"model_metadata": metadata, "model_config": dataclasses.asdict(model_config),
                "config": config.to_dict(), "counters": counters or {}}
         (path / METADATA_FILE).write_text(json.dumps(doc, indent=2))
@@ -152,6 +170,8 @@ class CheckpointManager:
         return self.save_checkpoint(FINAL_NAME, *args, **kwargs)
 
     def _prune_old(self) -> None:
+        if not self.main:
+            return
         cks = sorted(self.output_dir.glob(f"{CHECKPOINT_PREFIX}*"),
                      key=lambda p: int(p.name[len(CHECKPOINT_PREFIX):]))
         for old in cks[: -self.keep]:
@@ -216,6 +236,8 @@ class CheckpointManager:
 
     def save_phoneme_processor(self, processor) -> Path:
         path = self.output_dir / PROCESSOR_NAME
+        if not self.main:
+            return path
         path.write_text(json.dumps(processor.to_dict(), ensure_ascii=False, indent=1),
                         encoding="utf-8")
         return path

@@ -14,22 +14,50 @@ compute dtype:
   weighted total.
 
 A masked mean skips non-finite values and is 0 when nothing is valid.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) every masked mean is over the
+GLOBAL batch, as the reference's loss under data parallelism: each rank's
+masked sums and counts are summed over the ``data`` group (one collective of
+float64 sums and counts, through ``reduce_from_region``, whose backward is
+the identity), so the clamps and the weighted total see the global values,
+equal on every rank, and each rank's gradient is its rows' share of the
+global loss's.  The validation metrics sum the same way.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from kokoro_tpu_torch.parallel.tp import reduce_from_region
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum, count) of the valid finite elements."""
     valid = mask & torch.isfinite(values)
     total = torch.where(valid, values, torch.zeros((), dtype=values.dtype,
                                                     device=values.device)).sum()
-    count = valid.sum()
+    return total, valid.sum()
+
+
+def _mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     return torch.where(count > 0, total / torch.clamp(count, min=1), torch.zeros_like(total))
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return _mean(*masked_sum(values, mask))
+
+
+def data_sums(values: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Scalars summed over the ``data`` group in one float64 collective, each
+    back in its dtype; a gradient flows through unchanged (identity
+    backward)."""
+    if mesh is None:
+        return values
+    packed = reduce_from_region(torch.stack([v.double() for v in values]), mesh, "data")
+    return [p.to(v.dtype) for p, v in zip(packed.unbind(), values)]
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -72,8 +100,10 @@ def calculate_training_losses(
     duration_huber_delta: float = 1.0,
     pitch_huber_delta: float = 0.05,
     energy_huber_delta: float = 0.05,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
-    """Returns total, mel, duration, stop, pitch, energy (f32 scalars)."""
+    """Returns total, mel, duration, stop, pitch, energy (f32 scalars);
+    with ``mesh``, masked means over the global batch."""
     def f32(x):
         return None if x is None else x.float()
 
@@ -87,23 +117,27 @@ def calculate_training_losses(
     mel_mask = torch.arange(T, device=device)[None, :] < mel_lengths[:, None]
     phoneme_mask = torch.arange(L, device=device)[None, :] < phoneme_lengths[:, None]
 
-    loss_mel = masked_mean(l1_loss(predicted_mel, mel_specs), mel_mask[:, :, None])
     target_log_durations = torch.log(phoneme_durations.float() + 1.0)
-    loss_duration = masked_mean(
-        huber_loss(predicted_log_durations, target_log_durations, duration_huber_delta),
-        phoneme_mask & (phoneme_durations > 0))
-    loss_stop = masked_mean(
-        bce_with_logits(predicted_stop_logits, stop_token_targets, stop_token_pos_weight),
-        mel_mask)
-    zero = torch.zeros((), device=device)
-    loss_pitch = zero
+    parts = {
+        "mel": masked_sum(l1_loss(predicted_mel, mel_specs), mel_mask[:, :, None]),
+        "duration": masked_sum(
+            huber_loss(predicted_log_durations, target_log_durations, duration_huber_delta),
+            phoneme_mask & (phoneme_durations > 0)),
+        "stop": masked_sum(
+            bce_with_logits(predicted_stop_logits, stop_token_targets, stop_token_pos_weight),
+            mel_mask),
+    }
     if predicted_pitch is not None and pitch_targets is not None:
-        loss_pitch = masked_mean(huber_loss(predicted_pitch[:, :T], pitch_targets[:, :T],
-                                            pitch_huber_delta), mel_mask)
-    loss_energy = zero
+        parts["pitch"] = masked_sum(huber_loss(predicted_pitch[:, :T], pitch_targets[:, :T],
+                                               pitch_huber_delta), mel_mask)
     if predicted_energy is not None and energy_targets is not None:
-        loss_energy = masked_mean(huber_loss(predicted_energy[:, :T], energy_targets[:, :T],
-                                             energy_huber_delta), mel_mask)
+        parts["energy"] = masked_sum(huber_loss(predicted_energy[:, :T], energy_targets[:, :T],
+                                                energy_huber_delta), mel_mask)
+    sums = data_sums([x for pair in parts.values() for x in pair], mesh)
+    means = {k: _mean(sums[2 * i], sums[2 * i + 1]) for i, k in enumerate(parts)}
+    zero = torch.zeros((), device=device)
+    loss_mel, loss_duration, loss_stop = means["mel"], means["duration"], means["stop"]
+    loss_pitch, loss_energy = means.get("pitch", zero), means.get("energy", zero)
 
     loss_mel = torch.clamp(loss_mel, max=100.0)
     loss_duration = torch.clamp(loss_duration, max=100.0)
@@ -129,26 +163,30 @@ def build_stop_token_targets(T: int, lengths: torch.Tensor, tail: int = 6,
 
 
 def spectral_convergence(pred_mel: torch.Tensor, target_mel: torch.Tensor,
-                         mel_mask: torch.Tensor) -> torch.Tensor:
-    """||pred - target||_F / ||target||_F over valid frames."""
+                         mel_mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """||pred - target||_F / ||target||_F over valid frames (of the global
+    batch with ``mesh``)."""
     m = mel_mask[:, :, None]
     zero = torch.zeros((), dtype=pred_mel.dtype, device=pred_mel.device)
     diff = torch.where(m, pred_mel - target_mel, zero)
     tgt = torch.where(m, target_mel, zero)
-    return torch.sqrt((diff ** 2).sum()) / torch.clamp(torch.sqrt((tgt ** 2).sum()), min=1e-8)
+    diff2, tgt2 = data_sums([(diff ** 2).sum(), (tgt ** 2).sum()], mesh)
+    return torch.sqrt(diff2) / torch.clamp(torch.sqrt(tgt2), min=1e-8)
 
 
 def f0_rmse(pred_pitch: torch.Tensor, target_pitch: torch.Tensor,
-            mel_mask: torch.Tensor) -> torch.Tensor:
+            mel_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Frame-level F0 RMSE over voiced and valid frames."""
     valid = mel_mask & (target_pitch > 0)
     se = torch.where(valid, (pred_pitch - target_pitch) ** 2,
                      torch.zeros((), dtype=pred_pitch.dtype, device=pred_pitch.device))
-    return torch.sqrt(se.sum() / torch.clamp(valid.sum(), min=1))
+    se, count = data_sums([se.sum(), valid.sum()], mesh)
+    return torch.sqrt(se / torch.clamp(count, min=1))
 
 
 def mel_cepstral_distortion(pred_log_mel: torch.Tensor, target_log_mel: torch.Tensor,
-                            mel_mask: torch.Tensor, n_coeffs: int = 13) -> torch.Tensor:
+                            mel_mask: torch.Tensor, n_coeffs: int = 13,
+                            mesh=None) -> torch.Tensor:
     """Mel-cepstral distortion in dB: orthonormal DCT-II of the natural-log
     mel per frame, coefficients 1..n_coeffs, ``(10 / ln 10) sqrt(2 sum dc^2)``
     averaged over valid frames."""
@@ -163,4 +201,5 @@ def mel_cepstral_distortion(pred_log_mel: torch.Tensor, target_log_mel: torch.Te
     dc = (c_pred - c_tgt)[..., 1:n_coeffs + 1]
     per_frame = (10.0 / math.log(10.0)) * torch.sqrt(2.0 * (dc ** 2).sum(-1) + 1e-12)
     valid = mel_mask.float()
-    return (per_frame * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    total, count = data_sums([(per_frame * valid).sum(), valid.sum()], mesh)
+    return total / torch.clamp(count, min=1.0)

@@ -12,17 +12,21 @@ and norm ``scale`` are ``weight``; ``encoder_layer_i`` is
 optimizer step.  :class:`FusedAdamW` runs one ``torch._foreach_*`` pass per
 group over the f32 parameters: optax ``scale_by_adam`` bias correction,
 decoupled weight decay, the LR evaluated at the pre-increment count.  The
-parameters, moments and EMA are updated in place.
+parameters, moments and EMA are updated in place.  Under tensor parallelism
+(a ``layout``, ``parallel/tp.py``) the pre-clips and the weight-norm
+projection compare the norm of the WHOLE tensor with their ceiling: a
+sharded tensor's squares summed over the ``model`` group.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
 from kokoro_tpu_torch.config import TrainingConfig
+from kokoro_tpu_torch.parallel.tp import norms
 
 GROUP_LABELS = (
     "encoder", "encoder_ffn", "decoder_no_decay", "decoder_other", "decoder_attn",
@@ -122,29 +126,32 @@ def is_weight_norm_target(name: str) -> bool:
             and name.endswith(".weight"))
 
 
-def apply_preclips(grads: List[torch.Tensor], ceilings: List[float]) -> None:
-    """Scale in place each gradient whose L2 norm exceeds its ceiling."""
+def apply_preclips(grads: List[torch.Tensor], ceilings: List[float],
+                   names: Optional[List[str]] = None, layout=None) -> None:
+    """Scale in place each gradient whose L2 norm exceeds its ceiling
+    (``names`` and ``layout``: the norms of sharded tensors are whole)."""
     sel = [i for i, c in enumerate(ceilings) if c > 0]
     if not sel:
         return
-    norms = torch._foreach_norm([grads[i].float() for i in sel])
+    whole = norms([grads[i] for i in sel], names and [names[i] for i in sel], layout)
     scales = [torch.where(n > c, c / (n + 1e-12), torch.ones_like(n))
-              for n, c in zip(norms, (ceilings[i] for i in sel))]
+              for n, c in zip(whole, (ceilings[i] for i in sel))]
     torch._foreach_mul_([grads[i] for i in sel], scales)
 
 
 @torch.no_grad()
 def apply_weight_norm_constraints(params: Mapping[str, torch.Tensor],
-                                  config: TrainingConfig) -> None:
+                                  config: TrainingConfig, layout=None) -> None:
     """Project FFN linear weights back onto the L2 ball of radius
-    ``dec_ffn_max_weight_norm`` (in place)."""
+    ``dec_ffn_max_weight_norm`` (in place; whole-tensor norms under a
+    ``layout``)."""
     max_norm = config.dec_ffn_max_weight_norm
     if max_norm <= 0:
         return
-    targets = [p for name, p in params.items() if is_weight_norm_target(name)]
-    norms = torch._foreach_norm(targets)
+    names = [name for name in params if is_weight_norm_target(name)]
+    targets = [params[name] for name in names]
     scales = [torch.where(n > max_norm, max_norm / (n + 1e-12), torch.ones_like(n))
-              for n in norms]
+              for n in norms(targets, names, layout)]
     torch._foreach_mul_(targets, scales)
 
 

@@ -1,4 +1,5 @@
-"""The training runtime: the host loop around the training step, on one GPU.
+"""The training runtime: the host loop around the training step, on one GPU
+or on a mesh of processes.
 
 Port of ``kokoro_tpu/training/trainer.py`` (``KokoroTrainer`` /
 ``train_model``):
@@ -50,11 +51,22 @@ Every random draw of a step comes from one ``torch.Generator`` seeded
 counter into ``PRNGKey(seed + 1)``); the batch plan and the data RNG are pure
 functions of ``seed`` and the epoch, as in the reference.
 
-No counterpart (TPU or XLA machinery, or the parallel slice; ROADMAP.md):
-the compile cache and ``prng_impl``, mesh / data / tensor / pipeline /
-sequence parallelism, AOT warm-up and the program-ladder prediction, scan
-chunks and ``pad_tail_steps``, ``cross_epoch_prefetch`` and the device_put
-worker pools.
+Data and tensor parallelism (``parallel/``, the reference's ``_setup_mesh``):
+with ``distributed_init`` the process group starts from torchrun's
+environment; a ``mesh_shape`` (or, under a process group, one ``data`` axis
+over every rank) gives ``dp_size`` / ``tp_size``.  The batch plan is the
+same on every rank; each rank collates only its row block of each batch,
+with T and L forced from the length metadata so that every rank pads alike;
+validation is sharded over ``data`` with metrics from global sums; the
+model, moments and EMA are the rank's shards.  Logs, histograms, images, the
+profiler window and checkpoint writes happen on global rank 0 only, while
+every rank runs the collectives behind them.  The ``seq`` and ``stage`` axes
+raise: they are the next slice (ROADMAP.md §1).
+
+No counterpart (TPU or XLA machinery, or the next slice; ROADMAP.md): the
+compile cache and ``prng_impl``, pipeline and sequence parallelism, AOT
+warm-up and the program-ladder prediction, scan chunks and
+``pad_tail_steps``, ``cross_epoch_prefetch`` and the device_put worker pools.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
 from kokoro_tpu_torch.convert import flax_names
@@ -81,6 +94,10 @@ from kokoro_tpu_torch.data.mfa import MFAIntegration
 from kokoro_tpu_torch.data.phonemes import RussianPhonemeProcessor
 from kokoro_tpu_torch.device import resolve_device
 from kokoro_tpu_torch.models.kokoro import KokoroModel
+from kokoro_tpu_torch.parallel.mesh import (
+    create_mesh, init_distributed, process_local_rows, round_up_to_multiple,
+)
+from kokoro_tpu_torch.parallel.tp import gather_tree
 from kokoro_tpu_torch.training.checkpoint import CheckpointManager, build_model_metadata
 from kokoro_tpu_torch.training.optimizer import build_preclip_norms, recommended_ema_decay
 from kokoro_tpu_torch.training.train_step import (
@@ -136,6 +153,13 @@ class _JsonlWriter:
         self._f.close()
 
 
+class _NullWriter:
+    """The metric writer of every rank but the main one: writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 def _make_writer(logdir: Path):
     try:
         from torch.utils.tensorboard import SummaryWriter
@@ -173,20 +197,17 @@ CUSTOM_SCALARS = {
 }
 
 
-def _round_up(value: int, multiple: int) -> int:
-    return -(-value // multiple) * multiple
-
-
 class KokoroTrainer:
     def __init__(self, model_config: KokoroConfig, config: TrainingConfig,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.config = config
+        self._setup_mesh()
         self.output_dir = Path(config.output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.writer = _make_writer(self.output_dir / "logs")
-        self._add_custom_scalars_layout()
-        self.ckpt = CheckpointManager(self.output_dir, keep=config.keep_checkpoints)
+        self.writer = self._new_writer()
+        self.ckpt = CheckpointManager(self.output_dir, keep=config.keep_checkpoints,
+                                      main=self.is_main)
         self.phoneme_processor = RussianPhonemeProcessor()
         self.model_config = dataclasses.replace(
             model_config, vocab_size=self.phoneme_processor.get_vocab_size())
@@ -207,6 +228,42 @@ class KokoroTrainer:
         self.host_step = 0  # steps dispatched, skipped ones included (log x-axis)
 
     # -- set-up ---------------------------------------------------------------
+    def _setup_mesh(self) -> None:
+        """The mesh (reference ``_setup_mesh``): with ``distributed_init``
+        the process group starts here (the device becomes the rank's card);
+        without a process group and ``mesh_shape`` there is no mesh."""
+        cfg = self.config
+        self.sp_size, self.pp_size = cfg.mesh_axis_size("seq"), cfg.mesh_axis_size("stage")
+        if self.sp_size > 1 or self.pp_size > 1:
+            raise NotImplementedError(
+                f"a {self.sp_size}-way 'seq' x {self.pp_size}-way 'stage' mesh: sequence and "
+                "pipeline parallelism are the port's next slice (ROADMAP.md §1)")
+        if cfg.distributed_init and not dist.is_initialized():
+            self.device = init_distributed(device=self.device)
+        self.mesh = (create_mesh(cfg) if cfg.mesh_shape is not None or dist.is_initialized()
+                     else None)
+        size = (lambda axis: 1) if self.mesh is None else self.mesh.size
+        self.dp_size, self.tp_size = size("data"), size("model")
+        self.process_count = dist.get_world_size() if dist.is_initialized() else 1
+        self.process_index = dist.get_rank() if dist.is_initialized() else 0
+        self.is_main = self.process_index == 0
+        if self.dp_size > 1 or self.tp_size > 1:
+            logger.info("Parallelism: %d-way data x %d-way seq x %d-way tensor x %d-way "
+                        "pipeline mesh over %s devices (%d process%s)", self.dp_size,
+                        self.sp_size, self.tp_size, self.pp_size, self.device.type,
+                        self.process_count, "es" if self.process_count > 1 else "")
+
+    def _new_writer(self):
+        if not self.is_main:
+            return _NullWriter()
+        writer = _make_writer(self.output_dir / "logs")
+        if hasattr(writer, "add_custom_scalars"):
+            try:
+                writer.add_custom_scalars(CUSTOM_SCALARS)
+            except Exception as err:
+                logger.warning("custom scalars layout failed: %s", err)
+        return writer
+
     def _setup_datasets(self) -> None:
         cfg, mcfg = self.config, self.model_config
         mfa = None
@@ -241,13 +298,6 @@ class KokoroTrainer:
         logger.info("Datasets: %d train / %d val utterances", len(self.train_dataset),
                     len(self.val_dataset))
 
-    def _add_custom_scalars_layout(self) -> None:
-        if hasattr(self.writer, "add_custom_scalars"):
-            try:
-                self.writer.add_custom_scalars(CUSTOM_SCALARS)
-            except Exception as err:
-                logger.warning("custom scalars layout failed: %s", err)
-
     def _preflight_memory_check(self) -> None:
         """The planner's estimate of the largest step the batcher can give
         (the batch rows, rounded to the quantum, at the largest buckets)
@@ -261,8 +311,9 @@ class KokoroTrainer:
         try:
             mels, phons = _bucket_lists(cfg)
             rows = cfg.max_batch_size if cfg.use_dynamic_batching else cfg.batch_size
+            local_rows = round_up_to_multiple(rows, self._batch_quantum()) // self.dp_size
             est = estimate_train_step_hbm(
-                self.model_config, cfg, _round_up(rows, self._batch_quantum()), mels[-1],
+                self.model_config, cfg, local_rows, mels[-1],
                 phons[-1], n_params=sum(p.numel() for p in self.state.model.parameters()))
             hbm = live_hbm_bytes() or DEFAULT_HBM_BYTES
             if not est.fits(hbm, margin=0.95):
@@ -278,7 +329,7 @@ class KokoroTrainer:
 
     def _batch_quantum(self) -> int:
         return effective_batch_quantum(self.config.batch_size_multiple,
-                                       self.config.max_batch_size)
+                                       self.config.max_batch_size, self.dp_size)
 
     def _setup_state(self) -> None:
         cfg = self.config
@@ -291,9 +342,9 @@ class KokoroTrainer:
                     steps_per_epoch, self.total_steps, self.ema_decay)
         model = KokoroModel(self.model_config).init_weights(
             torch.Generator().manual_seed(cfg.seed)).to(self.device)
-        self.state = create_train_state(model, cfg, self.total_steps)
+        self.state = create_train_state(model, cfg, self.total_steps, self.mesh)
         self.preclips = build_preclip_norms(self.state.names, cfg)
-        self.eval_step = make_eval_step(model, cfg)
+        self.eval_step = make_eval_step(model, cfg, self.mesh)
         self._train_steps: Dict[bool, object] = {}
         self.metadata = build_model_metadata(self.model_config, cfg,
                                              self.phoneme_processor.get_vocab_size())
@@ -311,7 +362,7 @@ class KokoroTrainer:
         self._maybe_resume()
         for epoch in range(self.start_epoch, cfg.num_epochs):
             t0 = time.time()
-            if cfg.enable_profiling and epoch == cfg.profile_epoch_start:
+            if cfg.enable_profiling and epoch == cfg.profile_epoch_start and self.is_main:
                 self._start_trace()
                 try:
                     train_metrics = self.train_epoch(epoch)
@@ -344,6 +395,8 @@ class KokoroTrainer:
             self._report_cache_stats()
         self._save(self.ckpt.save_final_model, cfg.num_epochs - 1)
         self.writer.close()
+        if self.mesh is not None:
+            self.mesh.barrier()  # the run directory is whole on every rank's return
         return {"best_val_loss": self.best_val_loss, "best_val_epoch": self.best_val_epoch}
 
     def _save(self, save, epoch: int, *name) -> None:
@@ -419,7 +472,11 @@ class KokoroTrainer:
 
     def _log_histograms(self, prefix: str, tensors: Dict[str, torch.Tensor], step: int) -> None:
         """One histogram per tensor under ``<prefix>/params/<flax path>``;
-        every tensor reaches the host in one copy."""
+        every tensor reaches the host in one copy.  Sharded tensors are
+        gathered whole first (every rank calls this; the main one logs)."""
+        tensors = gather_tree(tensors, self.state.layout)
+        if not self.is_main:
+            return
         names = list(tensors)
         flat = torch.cat([tensors[n].detach().reshape(-1).float() for n in names]).cpu().numpy()
         sizes = np.cumsum([tensors[n].numel() for n in names])[:-1]
@@ -440,17 +497,20 @@ class KokoroTrainer:
         and, under ``verbose``, the duration diagnostics."""
         try:
             if self._diag_step is None:
-                self._diag_step = make_diagnostic_step(self.state.model, self.config)
+                self._diag_step = make_diagnostic_step(self.state.model, self.config,
+                                                       self.state.layout)
             if device_batch["mel_specs"].dim() == 4:
                 device_batch = {k: v[0] for k, v in device_batch.items()}
                 host_batch = {k: v[0] for k, v in host_batch.items()}
             out, losses, grads = self._diag_step(device_batch)
+            self._log_histograms("gradients", grads, step)
+            if not self.is_main:
+                return
             self.writer.add_scalar("metrics/train_spectral_convergence",
                                    float(losses["spectral_convergence"]), step)
             if self.config.verbose:
                 self._log_duration_diagnostics(
                     out["predicted_log_durations"].float().cpu().numpy(), host_batch, step)
-            self._log_histograms("gradients", grads, step)
             t = int(host_batch["mel_lengths"][0])
             self.writer.add_image("spectrogram/train_predicted", _mel_image(
                 out["predicted_mel"][0, :t].float().cpu().numpy()), step)
@@ -477,7 +537,10 @@ class KokoroTrainer:
                     int(valid.sum()), int((valid & (micro["phoneme_durations"] > 0)).sum()))
 
     def _dump_debug_batch(self, batch: Dict[str, np.ndarray], step: int) -> None:
-        """The host batch of a step skipped for non-finite gradients."""
+        """The host batch (the main rank's rows) of a step skipped for
+        non-finite gradients."""
+        if not self.is_main:
+            return
         try:
             path = self.output_dir / f"debug_batch_step_{step}.npz"
             np.savez_compressed(path, **batch)
@@ -532,15 +595,42 @@ class KokoroTrainer:
         for label, tag in LR_TAGS:
             self.writer.add_scalar(tag, self.state.optimizer.lr(label), step)
 
+    def _forced_dims(self, dataset, indices: List[int]) -> Dict[str, int]:
+        """Under data parallelism, the padded T and L of a global batch from
+        its length metadata (the reference's forced dims), so that every rank
+        pads alike without seeing the others' features; {} otherwise."""
+        if self.dp_size <= 1:
+            return {}
+        cfg = self.config
+        est = [dataset.lengths(i) for i in indices]
+        T = max((t for t, _ in est), default=1)
+        if cfg.use_speed_perturbation and dataset.is_training:
+            # perturbation can lengthen audio by up to 1/(1-range)
+            T = int(T / max(1.0 - cfg.speed_perturb_range, 0.5)) + 2
+        return {"pad_mel_to": min(T, cfg.max_seq_length),
+                "pad_phoneme_to": max((n for _, n in est), default=1)}
+
+    def _local_rows(self, indices: List[int], rows: int) -> List[int]:
+        """This rank's contiguous block of a batch padded to ``rows`` rows;
+        the ranks of one ``model`` group take the same block."""
+        if self.dp_size <= 1:
+            return indices
+        return indices[process_local_rows(rows, self.dp_size, self.mesh.index("data"))]
+
     def _assemble(self, group: List[List[int]], rng: np.random.Generator
                   ) -> Dict[str, np.ndarray]:
         """Collate index-batches to one ``(B, ...)`` batch, or ``(A, B, ...)``
         for A > 1 accumulated batches padded to common buckets; the batch
-        dimension rounds up to the batch quantum (padding rows are masked)."""
+        dimension rounds up to the batch quantum (padding rows are masked).
+        Under data parallelism only this rank's rows (``B / dp_size`` of
+        them)."""
         cfg, n_mels = self.config, self.model_config.n_mels
-        out_B = _round_up(max(len(g) for g in group), self._batch_quantum())
+        out_B = round_up_to_multiple(max(len(g) for g in group), self._batch_quantum())
+        forced = self._forced_dims(self.train_dataset, [i for g in group for i in g])
+        group = [self._local_rows(g, out_B) for g in group]
         collated = [collate([self.train_dataset.get_features(i, rng) for i in indices], cfg,
-                            n_mels, pad_batch_to=out_B) for indices in group]
+                            n_mels, pad_batch_to=out_B // self.dp_size, **forced)
+                    for indices in group]
         if len(collated) == 1:
             return collated[0]
         T = max(c["mel_specs"].shape[1] for c in collated)
@@ -567,15 +657,21 @@ class KokoroTrainer:
     # -- validation ---------------------------------------------------------------
     def validate_epoch(self, epoch: int) -> Dict[str, float]:
         """Validation on the EMA parameters (reference trainer.py:1771-1910):
-        fixed-size batches padded to ``batch_size`` rows."""
+        fixed-size batches padded to ``batch_size`` rows (a multiple of the
+        data-parallel degree), each rank its row block, the metrics the
+        global batch's."""
         cfg = self.config
         rng = np.random.default_rng(0)
         sums: Dict[str, float] = {}
         n = 0
         shown = []  # (host batch, device batch, outputs) of the first 4 batches
+        val_B = round_up_to_multiple(cfg.batch_size, self.dp_size)
         for indices in self.val_batcher.build_batches(0):
-            feats = [self.val_dataset.get_features(i, rng) for i in indices]
-            batch = collate(feats, cfg, self.model_config.n_mels, pad_batch_to=cfg.batch_size)
+            forced = self._forced_dims(self.val_dataset, indices)
+            feats = [self.val_dataset.get_features(i, rng)
+                     for i in self._local_rows(indices, val_B)]
+            batch = collate(feats, cfg, self.model_config.n_mels,
+                            pad_batch_to=val_B // self.dp_size, **forced)
             device_batch = self._to_device(batch)
             metrics, out = self.eval_step(device_batch, params=self.state.ema,
                                           with_outputs=True)
@@ -584,7 +680,7 @@ class KokoroTrainer:
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
             n += 1
-        if shown:
+        if shown and self.is_main:
             self._log_val_spectrograms(shown)
         avg = {k: v / max(n, 1) for k, v in sums.items()}
         step = self.state.opt_step
@@ -628,6 +724,8 @@ class KokoroTrainer:
         writer is closed around the rewrite."""
         from kokoro_tpu_torch.training.tb_events import purge_events_after
 
+        if not self.is_main:
+            return
         try:
             self.writer.flush()
             self.writer.close()
@@ -635,8 +733,7 @@ class KokoroTrainer:
         except Exception as err:  # never fail a resume over log hygiene
             logger.warning("Log event purge failed: %s", err)
         finally:
-            self.writer = _make_writer(self.output_dir / "logs")
-            self._add_custom_scalars_layout()
+            self.writer = self._new_writer()
 
 
 def train_model(model_config: KokoroConfig, config: TrainingConfig,

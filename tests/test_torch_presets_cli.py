@@ -5,8 +5,9 @@ port's two dataclasses is equal for the four presets
 ``get_high_performance_config``, ``get_smoke_test_config``) and for each of
 the reference's arguments the port lacked (``--no-ema``,
 ``--profile-dtypes``, ``--compile-cache-dir``, ``--mesh-shape``,
-``--mesh-axes``, ``--distributed``).  ``feature_cache_dir`` is the one
-deliberate difference: each package keeps its own cache directory.
+``--mesh-axes``, ``--distributed``), the parallel ones with the mesh
+fields they set.  ``feature_cache_dir`` is the one deliberate difference:
+each package keeps its own cache directory.
 """
 
 import argparse
@@ -95,14 +96,17 @@ def test_flags_without_effect_warn(argv, option, tmp_path, caplog):
 
 @pytest.mark.parametrize("argv", [["--mesh-shape", "2"], ["--mesh-shape", "4,2"],
                                   ["--distributed"]])
-def test_parallel_flags_exit_naming_the_parallel_slice(argv, tmp_path, capsys):
-    parser = argparse.ArgumentParser()
-    port_args.add_training_arguments(parser)
-    with pytest.raises(SystemExit) as err:
-        parser.parse_args(["--data-dir", str(tmp_path), *argv])
-    assert err.value.code == 2
-    message = capsys.readouterr().err
-    assert "parallel slice" in message and "unrecognized arguments" not in message
+def test_parallel_flags_exit_naming_the_parallel_slice(argv, tmp_path):
+    """The flags the parallel slice took over (they used to exit naming it):
+    each now parses to the reference's fields, a 2-axis shape naming its
+    second axis 'model' at mesh construction."""
+    ours, theirs = _parse(argv, tmp_path)
+    _assert_shared_equal(ours, theirs)
+    _, cfg = ours
+    if argv[0] == "--distributed":
+        assert cfg.distributed_init is True
+    else:
+        assert cfg.mesh_shape == tuple(int(x) for x in argv[1].split(","))
 
 
 def test_profile_dtypes_runs_the_ab_before_training(tmp_path, monkeypatch):
