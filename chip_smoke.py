@@ -132,6 +132,26 @@ Phases, each printing one JSON line:
    checkpoint, which one process resumes for one more step.  Per-rank step
    ms and all_reduce calls and bytes a step are printed; ranks sharing one
    card over gloo are not a scaling measurement.
+14. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
+   ``parallel/mesh.py``, ``parallel/pp.py``, ``parallel/pp_step.py``) on the
+   one card, every rank on cuda:0 over gloo, the plain attention route (the
+   reference's trainer turns its kernels off under both axes).  (a) 3 f32
+   steps at full width, B=8 (rows of 512 to 256 valid frames), L=96, T=512,
+   at (1, 2) and (2, 2) ('data', 'seq'), (1, 2, 2) ('data', 'seq', 'model'),
+   and (1, 2) and (2, 2) ('data', 'stage') with the rows in 2 microbatches
+   (3 decoder layers a stage), against the single process on the same route
+   (the whole batch, or the same 2 microbatches through the accumulation
+   step) with phase parallel's limits and its gradient at the init
+   (``PARALLEL_LIMIT``, ``PARALLEL_LR``); no kernel launched.  (b)
+   ``KokoroTrainer`` in bf16 on the long corpus of (10), one epoch at (2, 2)
+   ('data', 'seq'), 704 frames a rank, then one at (2, 2) ('data',
+   'stage'): the reference's "use_flash_attention disabled" line, every step
+   finite and taken with 0 attention-kernel launches, validation too.  (c)
+   ``kokoro-train --distributed --dist-backend gloo --device cuda:0
+   --mesh-shape 1,2 --mesh-axes data,seq`` under ``torch.distributed.run``
+   (2 processes), one epoch on the long corpus.  Per-rank step ms, the
+   all_reduce and broadcast calls and bytes a step (``Mesh.stats``) and
+   each rank's peak allocated bytes are printed.
 
 Then the script's wall time and each phase's, the kernels' JSON line (eight wrappers, each
 with the launches of its main-path run: a preset step, a long step or a
@@ -139,8 +159,9 @@ kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
 and its backward also carry ``long_shape``, their times at T=1408 and
 launches per long step; the kernels of phases mfa and tools carry
 ``mfa_path`` and ``tools_path``, their launches per training step there,
-and those of phase parallel ``parallel_path``, their launches per step on a
-rank of the (2, 2) mesh and the head count),
+those of phase parallel ``parallel_path``, their launches per step on a
+rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
+its launches per trainer step on the ``seq`` and ``stage`` paths, 0),
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
@@ -189,7 +210,7 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long", "mfa", "tools", "parallel"]
+          "serve", "train", "long", "mfa", "tools", "parallel", "parallel_sp_pp"]
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
@@ -2213,7 +2234,8 @@ def parallel_batch(dev):
 
 
 def f32_steps(mesh=None, skip_partial_sum: bool = False, lr: float = PARALLEL_LR,
-              steps: int = 3, perturb: str = "") -> dict:
+              steps: int = 3, perturb: str = "", plain: bool = False,
+              microbatches: int = 0) -> dict:
     """(c) ``steps`` f32 steps at full width, every dropout rate 0, at ``lr``
     with a 2-step warmup, on the rank's rows of ``parallel_batch``: the
     gradient at the init (the step's, summed over the ranks as the step sums
@@ -2222,7 +2244,11 @@ def f32_steps(mesh=None, skip_partial_sum: bool = False, lr: float = PARALLEL_LR
     changes what f32 rounding alone changes: ``rows_reversed`` takes the
     batch's rows in reverse order (the gradient's sums over rows run the
     other way), ``params_ulp`` moves every parameter of the init by about
-    one ulp (relative 2**-23 times a seeded normal draw)."""
+    one ulp (relative 2**-23 times a seeded normal draw).  ``plain`` builds
+    the model with ``use_flash_attention=False`` (the route the trainer takes
+    under ``seq`` and ``stage``); ``microbatches`` splits the batch's rows
+    into that many accumulation microbatches, the pipelined step's under a
+    ``stage`` axis."""
     import torch
 
     from kokoro_tpu_torch.config import KokoroConfig, TrainingConfig
@@ -2237,7 +2263,7 @@ def f32_steps(mesh=None, skip_partial_sum: bool = False, lr: float = PARALLEL_LR
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = TrainingConfig(compute_dtype="float32", gradient_checkpointing=False,
                          use_spec_augment=False, warmup_steps=2, learning_rate=lr)
-    model = KokoroModel(KokoroConfig(**NO_DROPOUT, use_flash_attention=True)).init_weights(
+    model = KokoroModel(KokoroConfig(**NO_DROPOUT, use_flash_attention=not plain)).init_weights(
         torch.Generator().manual_seed(0))
     if perturb == "params_ulp":
         gen = torch.Generator().manual_seed(1)
@@ -2247,10 +2273,17 @@ def f32_steps(mesh=None, skip_partial_sum: bool = False, lr: float = PARALLEL_LR
     state = create_train_state(model.to(dev), cfg, total_steps=20000, mesh=mesh)
     if skip_partial_sum:  # the control: the norm scales keep each rank's part
         state.layout.partial = ()
+    pipelined = mesh is not None and mesh.pp > 1
+    if pipelined:
+        from kokoro_tpu_torch.parallel.pp_step import make_pp_train_step as make_train_step
+        from kokoro_tpu_torch.parallel.pp_step import pp_step_gradients as step_gradients
     step = make_train_step(cfg, build_preclip_norms(state.names, cfg), spec_augment=False)
     batch = parallel_batch(dev)
     if perturb == "rows_reversed":
         batch = {k: v.flip(0) for k, v in batch.items()}
+    if microbatches:
+        batch = {k: v.reshape((microbatches, v.shape[0] // microbatches) + v.shape[1:])
+                 for k, v in batch.items()}
     local = batch if mesh is None else shard_batch(batch, mesh)
     grads = step_gradients(state, local, torch.Generator().manual_seed(0), cfg,
                            spec_augment=False)[0]
@@ -2625,6 +2658,254 @@ def phase_parallel():
             for n in causal | cross | flash}
 
 
+# ---------------------------------------------------------------------------
+# phase parallel_sp_pp: sequence and pipeline parallelism (parallel/mesh.py's
+# seq axis, parallel/pp.py, parallel/pp_step.py)
+# (tag, mesh shape, axis names, accumulation microbatches) of the f32 runs,
+# per spawned world
+SP_PP_RUNS = {
+    "sp_pp_2": [("seq_1x2", (1, 2), ("data", "seq"), 0),
+                ("stage_1x2", (1, 2), ("data", "stage"), 2)],
+    "sp_pp_4": [("seq_2x2", (2, 2), ("data", "seq"), 0),
+                ("seq_model_1x2x2", (1, 2, 2), ("data", "seq", "model"), 0),
+                ("stage_2x2", (2, 2), ("data", "stage"), 2)],
+}
+# the bf16 trainer's meshes on the long corpus (4 ranks)
+SP_PP_TRAINERS = [("seq_2x2", ("data", "seq"), {}),
+                  ("stage_2x2", ("data", "stage"), {"use_stochastic_depth": False})]
+DISABLED_LINE = "use_flash_attention disabled"
+
+
+def write_peak(out: Path, tag: str) -> None:
+    """This rank's peak allocated bytes since the last reset, to a file."""
+    import torch
+    import torch.distributed as dist
+
+    (out / f"peak_{tag}_{dist.get_rank()}.json").write_text(
+        json.dumps(torch.cuda.max_memory_allocated()))
+    torch.cuda.reset_peak_memory_stats()
+
+
+def job_sp_pp_steps(rank: int, out: Path, job: str) -> None:
+    """(a) Three f32 steps on each mesh of ``SP_PP_RUNS[job]``: the plain
+    attention route (the trainer's under ``seq`` and ``stage``), each rank
+    its rows and, under ``seq``, its frames; under ``stage`` 2 microbatches
+    through the pipeline (3 of the 6 decoder layers a stage)."""
+    import torch
+
+    from kokoro_tpu_torch.config import TrainingConfig
+    from kokoro_tpu_torch.parallel.mesh import create_mesh
+
+    for tag, shape, names, micro in SP_PP_RUNS[job]:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = create_mesh(TrainingConfig(mesh_shape=shape, mesh_axis_names=names))
+        run = f32_steps(mesh, plain=True, microbatches=micro)
+        write_peak(out, tag)
+        if rank == 0:
+            torch.save(run, out / f"steps_{tag}.pt")
+        del run
+        torch.cuda.empty_cache()
+
+
+def job_sp_pp_2(rank: int, out: Path) -> None:
+    job_sp_pp_steps(rank, out, "sp_pp_2")
+
+
+def job_sp_pp_4(rank: int, out: Path) -> None:
+    job_sp_pp_steps(rank, out, "sp_pp_4")
+
+
+def job_sp_pp_trainer(rank: int, out: Path) -> None:
+    """(b) ``KokoroTrainer`` in bf16 on the long corpus under ``out``, one
+    epoch at (2, 2) ('data', 'seq'), then one at (2, 2) ('data', 'stage');
+    on rank 0 each step's launches (counts from 0 just before the step),
+    collectives and ms, and the trainer's log lines; every rank its peak
+    allocated bytes."""
+    import logging
+
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME
+    from kokoro_tpu_torch.config import get_default_config
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    trainer_log = logging.getLogger("kokoro_tpu_torch.training.trainer")
+    trainer_log.addHandler(handler)
+    trainer_log.setLevel(logging.INFO)
+    for tag, names, extra in SP_PP_TRAINERS:
+        CountingTrainer = counting_trainer()
+
+        class MeshCountingTrainer(CountingTrainer):
+            collectives = []
+
+            def _train_step(self, spec_augment):
+                step = super()._train_step(spec_augment)
+
+                def counted(state, batch, generator):
+                    before = dict(self.mesh.stats)
+                    metrics = step(state, batch, generator)
+                    self.collectives.append({k: self.mesh.stats[k] - before[k] for k in before})
+                    return metrics
+
+                return counted
+
+        lines.clear()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = MeshCountingTrainer(*get_default_config(**{
+            **LONG_REGIME, **extra, "data_dir": str(out / "corpus"),
+            "output_dir": str(out / f"run_{tag}"), "num_epochs": 1, "save_every": 1,
+            "warmup_steps": 20, "resume_checkpoint": "", "mesh_shape": (2, 2),
+            "mesh_axis_names": names}), device="cuda:0")
+        trainer.train()
+        write_peak(out, f"trainer_{tag}")
+        if rank == 0:
+            (out / f"trainer_{tag}.json").write_text(json.dumps({
+                "sizes": [trainer.dp_size, trainer.sp_size, trainer.tp_size, trainer.pp_size],
+                "use_flash": trainer.state.model.config.use_flash_attention,
+                "disabled_line": [x for x in lines if x.startswith(DISABLED_LINE)],
+                "steps": [{"metrics": m, "launches": c, "microbatches": micro}
+                          for m, c, micro in CountingTrainer.steps],
+                "validations": CountingTrainer.validations,
+                "step_ms": CountingTrainer.step_ms,
+                "collectives": MeshCountingTrainer.collectives,
+                "opt_step": trainer.state.opt_step}))
+        del trainer
+        torch.cuda.empty_cache()
+
+
+PARALLEL_JOBS.update(sp_pp_2=job_sp_pp_2, sp_pp_4=job_sp_pp_4, sp_pp_trainer=job_sp_pp_trainer)
+
+
+def phase_parallel_sp_pp():
+    """Sequence and pipeline parallelism on the one card (module docstring,
+    phase 14).  Returns, per kernel, its launches on these paths (0: the
+    reference's routing turns the kernels off under ``seq`` and ``stage``)."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.config import KokoroConfig
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+
+    t0 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        build_long_corpus(out / "corpus", 26)
+        # (c) kokoro-train on 2 processes sharing cuda:0 over gloo
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "kokoro_tpu_torch.cli.train", "--distributed",
+               "--dist-backend", "gloo", "--device", "cuda:0", "--mesh-shape", "1,2",
+               "--mesh-axes", "data,seq", "--data-dir", str(out / "corpus"),
+               "--output-dir", str(out / "run_cli"), "--epochs", "1", "--resume", "",
+               "--no-mfa", "--no-speed-perturbation", "--flash-attention",
+               "--no-attention-weight-dropout", "--no-gradient-checkpointing", "--save-every",
+               "1"]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        try:
+            started = [start_world("sp_pp_4", 4, out), start_world("sp_pp_2", 2, out)]
+            # the single process on the plain route, the batch whole and in 2
+            # microbatches, beside the worlds
+            single = f32_steps(plain=True)
+            single_micro = f32_steps(plain=True, microbatches=2)
+            torch.cuda.empty_cache()
+            for world in started:
+                join_world(world)
+            walls["a_steps"] = time.perf_counter() - t0
+            t = time.perf_counter()
+            join_world(start_world("sp_pp_trainer", 4, out))
+            walls["b_trainers"] = time.perf_counter() - t
+            _, cli_err = proc.communicate(timeout=max(1.0, PARALLEL_TIMEOUT_S - (
+                time.perf_counter() - t0)))
+        except BaseException:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+            raise
+        cli_meta = out / "run_cli" / "checkpoint_epoch_1" / "metadata.json"
+        if proc.returncode != 0 or not cli_meta.exists():
+            raise AssertionError(f"kokoro-train --distributed on data,seq exited "
+                                 f"{proc.returncode}: {cli_err[-3000:]}")
+        cli = json.loads(cli_meta.read_text())
+        tags = [tag for runs in SP_PP_RUNS.values() for tag, *_ in runs]
+        runs = {tag: torch.load(out / f"steps_{tag}.pt") for tag in tags}
+        trainers = {tag: json.loads((out / f"trainer_{tag}.json").read_text())
+                    for tag, *_ in SP_PP_TRAINERS}
+        peaks = {}
+        for path in sorted(out.glob("peak_*.json")):
+            tag, rank = path.stem[len("peak_"):].rsplit("_", 1)
+            peaks.setdefault(tag, {})[int(rank)] = json.loads(path.read_text())
+    init = KokoroModel(KokoroConfig(**NO_DROPOUT)).init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    held = {tag: held_to_single(run, single_micro if tag.startswith("stage") else single, init)
+            for tag, run in runs.items()}
+    failures = []
+    for tag, h in held.items():
+        if not h["held"] or h["stepped"] != [1.0] * 3:
+            failures.append(f"{tag} against the single process: {h}")
+        if any(any(c.values()) for c in runs[tag]["launches"]):
+            failures.append(f"{tag} launched a kernel: {runs[tag]['launches']}")
+    for tag, tr in trainers.items():
+        steps = tr["steps"]
+        if tr["use_flash"] or not tr["disabled_line"] or not steps:
+            failures.append(f"trainer {tag}: flash {tr['use_flash']}, log "
+                            f"{tr['disabled_line']}, {len(steps)} steps")
+        for s_ in steps:
+            if not (s_["metrics"]["stepped"] == 1.0 and math.isfinite(s_["metrics"]["total"])
+                    and not any(s_["launches"].values())):
+                failures.append(f"trainer {tag} step {s_}")
+        if any(any(counts.values()) for counts, _ in tr["validations"]):
+            failures.append(f"trainer {tag} validation launched {tr['validations']}")
+    if not (cli["config"]["distributed_init"] and cli["counters"]["optimizer_step"] > 0
+            and cli["config"]["mesh_axis_names"] == ["data", "seq"]):
+        failures.append(f"kokoro-train --distributed data,seq: {cli['counters']}")
+
+    def per_step(collectives):
+        return {k: float(np.mean([c[k] for c in collectives])) for k in collectives[0]}
+
+    result = {
+        "phase": "parallel_sp_pp",
+        "f32_vs_single": {"limits": PARALLEL_LIMIT, "learning_rate": PARALLEL_LR,
+                          "route": "plain attention (use_flash_attention=False), both sides",
+                          **held, "single_step_ms": single["step_ms"],
+                          "single_micro_step_ms": single_micro["step_ms"],
+                          "step_ms_rank0": {t: r["step_ms"] for t, r in runs.items()},
+                          "collectives_per_step_rank0": {
+                              t: per_step(r["collectives"]) for t, r in runs.items()},
+                          "launches": {t: r["launches"] for t, r in runs.items()}},
+        "trainers_bf16_long": {tag: {
+            "sizes_dp_sp_tp_pp": tr["sizes"], "disabled_line": tr["disabled_line"],
+            "steps": [{"total": s_["metrics"]["total"], "grad_norm": s_["metrics"]["grad_norm"],
+                       "microbatches": s_["microbatches"],
+                       "attention_launches": sum(s_["launches"].values())}
+                      for s_ in tr["steps"]],
+            "step_ms_rank0": tr["step_ms"], "collectives_per_step_rank0": per_step(
+                tr["collectives"]), "opt_step": tr["opt_step"]} for tag, tr in trainers.items()},
+        "peak_allocated_gb_per_rank": {tag: {r: b / 1e9 for r, b in sorted(v.items())}
+                                       for tag, v in peaks.items()},
+        "cli_data_seq": {"opt_steps": cli["counters"]["optimizer_step"],
+                         "mesh": cli["config"]["mesh_shape"]},
+        "note": "ranks share one card over gloo: not a scaling measurement",
+        "wall_s": walls}
+    emit(result)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {}
+    for tr in trainers.values():
+        for s_ in tr["steps"]:
+            for name, c in s_["launches"].items():
+                launches[name] = max(launches.get(name, 0), c)
+    return {kern.name: {"launches": launches.get(kern.name, 0),
+                        "launches_are": "per bf16 long-regime trainer step on rank 0 of (2, 2) "
+                                        "('data', 'seq') and ('data', 'stage'): the kernels "
+                                        "are off there, as the reference routes"}
+            for kern in all_kernels()}
+
+
 def parse_phases(argv) -> list:
     """Every phase with no arguments (the contract run); ``--phases a,b`` runs
     a subset, for a short call after a change, and prints no contract lines."""
@@ -2706,6 +2987,9 @@ def main() -> int:
     parallel_path = {}
     if "parallel" in phases:  # launches per step on rank 0 of the (2, 2) runs
         parallel_path = timed("parallel", phase_parallel)
+    sp_pp_path = {}
+    if "parallel_sp_pp" in phases:  # launches per step on the seq and stage paths
+        sp_pp_path = timed("parallel_sp_pp", phase_parallel_sp_pp)
     torch.cuda.synchronize()
     emit({"wall_s": time.perf_counter() - t_start, "phases": phases, "phase_wall_s": phase_s})
     if phases != PHASES:
@@ -2740,8 +3024,10 @@ def main() -> int:
                 "launches": mfa_counts[kern.name],
                 "launches_are": "per long training step on MFA durations (phase mfa: "
                                 "2 microbatches of B=12 L=256 T=1408)"}
-        if kern.name in parallel_path:  # this slice's path: a rank of the (2, 2) mesh
+        if kern.name in parallel_path:  # a rank of the (2, 2) ('data', 'model') mesh
             row["parallel_path"] = parallel_path[kern.name]
+        if kern.name in sp_pp_path:  # this slice's paths: the seq and stage axes
+            row["sp_pp_path"] = sp_pp_path[kern.name]
         if kern.name in tools_counts:  # the trainer with its diagnostics
             row["tools_path"] = {
                 "launches": tools_counts[kern.name],

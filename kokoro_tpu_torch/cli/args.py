@@ -5,7 +5,10 @@ Port of ``kokoro_tpu/cli/args.py``: every argument of the reference parses.
 ``--compile-cache-dir`` (XLA's compile cache) have no effect here and log a
 warning; ``--profile-dtypes`` is ``cli/train.py``'s bf16/f32 A/B.
 ``--mesh-shape``, ``--mesh-axes`` and ``--distributed`` set ``mesh_shape``,
-``mesh_axis_names`` and ``distributed_init`` as the reference's do; the
+``mesh_axis_names`` and ``distributed_init`` as the reference's do
+(``--dist-backend``, the port's own, picks the process group's backend, and
+``--no-stochastic-depth``, also its own, lets a ``stage`` axis through the
+config's check); the
 command line for N GPUs is ``python -m torch.distributed.run
 --nproc-per-node N -m kokoro_tpu_torch.cli.train --distributed --mesh-shape
 ...``.
@@ -41,6 +44,7 @@ FLAG_ARGS = {
     "no_gradient_checkpointing": ("gradient_checkpointing", False),
     "flash_attention": ("use_flash_attention", True),
     "no_attention_weight_dropout": ("attention_weight_dropout", False),
+    "no_stochastic_depth": ("use_stochastic_depth", False),
     "verbose": ("verbose", True),
     "distributed": ("distributed_init", True),
 }
@@ -85,6 +89,9 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--flash-attention", action="store_true",
                    help="decoder attention through the hand-written kernels")
     g.add_argument("--no-attention-weight-dropout", action="store_true")
+    g.add_argument("--no-stochastic-depth", action="store_true",
+                   help="no stochastic depth in the blocks (the port's own flag; a 'stage' "
+                        "axis requires it, as the reference's config does)")
     g.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default=None)
     g.add_argument("--save-every", type=int, default=None)
     g.add_argument("--early-stopping-patience", type=int, default=None)
@@ -104,11 +111,16 @@ def add_training_arguments(parser: argparse.ArgumentParser) -> None:
                         "data-parallel")
     d.add_argument("--mesh-axes", type=_names, default=None,
                    help="comma-separated mesh axis names matching --mesh-shape: 'data' "
-                        "(batch), 'model' (tensor parallel). Default: 'data' (plus 'model' "
-                        "for a 2-axis shape)")
+                        "(batch), 'seq' (sequence parallel over mel frames), 'model' (tensor "
+                        "parallel), 'stage' (pipeline parallel over decoder layers, with "
+                        "'data' only). Default: 'data' (plus 'model' for a 2-axis shape)")
     d.add_argument("--distributed", action="store_true",
                    help="start the process group from torch.distributed.run's environment; "
                         "each process takes its rows of the global batch")
+    d.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the process group's backend under --distributed (no reference "
+                        "counterpart). Default: nccl on cuda, one process per card; gloo "
+                        "lets several processes share one card (--device cuda:0)")
 
 
 def create_config_from_args(args: argparse.Namespace) -> Tuple[KokoroConfig, TrainingConfig]:

@@ -4,8 +4,10 @@
     python -m torch.distributed.run --nproc-per-node N -m kokoro_tpu_torch.cli.train \
         --distributed --mesh-shape 2,2 --mesh-axes data,model --data-dir <corpus> ...
 
-(the second on N GPUs, one process each: ``--mesh-shape`` names the data x
-tensor-parallel layout, its product N).
+(the second on N GPUs, one process each: ``--mesh-shape`` names the layout,
+its product N, over the axes ``--mesh-axes`` names: ``data,model``,
+``data,seq``, ``data,seq,model`` or ``data,stage``; ``--dist-backend gloo
+--device cuda:0`` puts every process on one card).
 
 ``<corpus>`` holds ``metadata.csv`` (``stem|text`` lines) and ``wavs/``;
 ``<run>`` receives the checkpoints, the logs and the final model, which
@@ -51,8 +53,13 @@ def main(argv=None) -> int:
 
     from kokoro_tpu_torch.training.trainer import train_model
 
+    device = args.device
+    if args.dist_backend and config.distributed_init:
+        from kokoro_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(device=device, backend=args.dist_backend)
     try:
-        result = train_model(model_config, config, device=args.device)
+        result = train_model(model_config, config, device=device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

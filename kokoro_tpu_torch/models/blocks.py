@@ -46,6 +46,18 @@ input through ``copy_to_region`` and sums its output projection over the
 their stream; every other site draws the same mask on every rank of a
 ``model`` group.  A sharded block runs the training and evaluation forwards,
 not the cached decode step.
+
+Sequence parallelism (``KokoroModel.shard_sequence``): a decoder block with
+``sp_mesh`` runs on the seq rank's window of frames, which starts at global
+frame ``offset = s * T_local``.  Its causal self-attention gathers the
+whole K and V over the ``seq`` group (``parallel/mesh.py::seq_gather``,
+after RoPE at the global positions) and its local queries attend to them
+under the causal mask and ALiBi at ``offset``; cross-attention takes the
+whole memory with local queries and needs no gather.  The sites on local
+frames (every dropout of the block and its attention) fold the seq rank
+into their stream; stochastic depth, a draw per batch row, does not.  Such
+a block runs the plain attention route, as the reference's trainer turns
+its kernels off under ``seq``.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from kokoro_tpu_torch.ops.flash_attention import flash_attention, flash_supporte
 from kokoro_tpu_torch.ops.fused_attention import (
     SUPPORTED_HEAD_DIMS, fused_attention, packed_attention,
 )
+from kokoro_tpu_torch.parallel.mesh import seq_gather
 from kokoro_tpu_torch.parallel.tp import copy_to_region, reduce_from_region
 
 NEG_INF = -1e9
@@ -91,6 +104,12 @@ def _model_rank_stream(rng: Optional[Rng], mesh) -> Optional[Rng]:
     """The stream of a site on a sharded activation: the model rank folded
     in, so each rank drops its own heads' or features' weights."""
     return rng if mesh is None or rng is None else rng.fold(f"model_rank_{mesh.index('model')}")
+
+
+def _seq_rank_stream(rng: Optional[Rng], mesh) -> Optional[Rng]:
+    """The stream of a site on the seq rank's window of frames: the seq rank
+    folded in, so each rank draws its own frames' masks."""
+    return rng if mesh is None or rng is None else rng.fold(f"seq_rank_{mesh.index('seq')}")
 
 
 class Embedding(nn.Embedding):
@@ -172,6 +191,8 @@ class MultiHeadAttention(nn.Module):
             self.v_norm = RMSNorm(self.head_dim)
         # this rank's heads: all of them unless sharded (shard_heads)
         self.local_heads, self.head_offset, self.tp_mesh = num_heads, 0, None
+        # set on a decoder's causal self-attention under a 'seq' axis
+        self.sp_mesh = None
 
     def shard_heads(self, mesh) -> None:
         """Run on this rank's ``num_heads / tp`` heads of ``mesh``'s
@@ -270,6 +291,8 @@ class MultiHeadAttention(nn.Module):
                 value = key
             elif value is not None:
                 value = copy_to_region(value, self.tp_mesh)
+        if self.sp_mesh is not None and kv_cache is None and precomputed_kv is None:
+            return self._seq_parallel(query, key_padding_mask, rng), None
         full_seq = (
             self.use_flash and kv_cache is None and precomputed_kv is None
             and not self.use_alibi and self.head_dim in SUPPORTED_HEAD_DIMS
@@ -326,29 +349,56 @@ class MultiHeadAttention(nn.Module):
                 return self._head_split_kernel(q, k, v, flash, rate, rng), None
 
         Tk = k.shape[2]
+        if kv_cache is not None:
+            q_start = kv_cache["index"]
+        else:
+            q_start = Tk - Tq
+        return self._attend(q, k, v, q_start, causal and kv_cache is None, key_padding_mask,
+                            rng, query.dtype), new_cache
+
+    def _attend(self, q, k, v, q_start: int, causal: bool, key_padding_mask, rng, dtype):
+        """The plain route from head-split q, k, v to the output projection:
+        float32 logits, ALiBi and the causal mask with query i at key
+        position ``q_start + i``, the key mask, softmax, weight dropout."""
+        B, _, Tq, _ = q.shape
+        Tk = k.shape[2]
+        device = q.device
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
             1.0 / math.sqrt(self.head_dim)
         )
         if self.use_alibi:  # the slopes of this rank's global heads
             slopes = alibi_slopes(self.num_heads)[
-                self.head_offset:self.head_offset + self.local_heads].to(query.device)
-            if kv_cache is not None:
-                q_pos = (kv_cache["index"] + torch.arange(Tq, device=query.device)).float()
-            else:
-                q_pos = (torch.arange(Tq, device=query.device) + (Tk - Tq)).float()
-            dist = torch.arange(Tk, device=query.device, dtype=torch.float32)[None, :] - q_pos[:, None]
+                self.head_offset:self.head_offset + self.local_heads].to(device)
+            q_pos = (q_start + torch.arange(Tq, device=device)).float()
+            dist = torch.arange(Tk, device=device, dtype=torch.float32)[None, :] - q_pos[:, None]
             logits = logits + slopes[None, :, None, None] * dist[None, None]
-        neg = torch.full((), NEG_INF, device=query.device)
-        if causal and kv_cache is None:
-            mask = torch.ones(Tq, Tk, dtype=torch.bool, device=query.device).tril(Tk - Tq)
+        neg = torch.full((), NEG_INF, device=device)
+        if causal:
+            mask = torch.ones(Tq, Tk, dtype=torch.bool, device=device).tril(q_start)
             logits = torch.where(mask[None, None], logits, neg)
         if key_padding_mask is not None:
             logits = torch.where(key_padding_mask[:, None, None, :].to(torch.bool), neg, logits)
-        weights = dropout(torch.softmax(logits, dim=-1).to(query.dtype), self.dropout, rng,
+        weights = dropout(torch.softmax(logits, dim=-1).to(dtype), self.dropout, rng,
                           self.training)
         out = torch.matmul(weights, v.to(weights.dtype))
         out = out.transpose(1, 2).reshape(B, Tq, self.local_width)
-        return self._out(out), new_cache
+        return self._out(out)
+
+    def _seq_parallel(self, query, key_padding_mask, rng):
+        """Causal self-attention of the seq rank's frames: RoPE at the
+        global positions ``offset + i``, the whole K and V gathered over the
+        ``seq`` group in one collective (``key_padding_mask`` is the whole
+        frame axis's), local queries at ``offset``."""
+        Tl = query.shape[1]
+        offset = self.sp_mesh.index("seq") * Tl
+        q = self._norm("q_norm", self._heads(self.w_q(query)))
+        k = self._norm("k_norm", self._heads(self.w_k(query)))
+        v = self._norm("v_norm", self._heads(self.w_v(query)))
+        if self.use_rope:
+            pos = offset + torch.arange(Tl, device=query.device)
+            q, k = apply_rope(q, pos), apply_rope(k, pos)
+        k, v = seq_gather(torch.stack([k, v.to(k.dtype)]), 3, self.sp_mesh).unbind(0)
+        return self._attend(q, k, v, offset, True, key_padding_mask, rng, query.dtype)
 
 
 class GLUFeedForward(nn.Module):
@@ -400,9 +450,12 @@ class EncoderBlock(nn.Module):
                                  use_output_norm=ffn_output_norm)
         self.dropout = dropout
 
-    def _residual(self, out, i, rng):
+    def _residual(self, out, i, rng, frame_rng=None):
+        # stochastic depth draws per batch row from ``rng``; the dropout
+        # draws per element from ``frame_rng`` (the seq rank folded in)
         out = drop_path(out, self.drop_path_rate, fold(rng, f"drop_path_{i}"), self.training)
-        return dropout(out, self.dropout, fold(rng, f"dropout_{i}"), self.training)
+        return dropout(out, self.dropout, fold(frame_rng or rng, f"dropout_{i}"),
+                       self.training)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 rng: Optional[Rng] = None):
@@ -438,8 +491,14 @@ class DecoderBlock(nn.Module):
         self.ff = GLUFeedForward(d_model, dim_feedforward, dropout,
                                  use_output_norm=ffn_output_norm)
         self.dropout = dropout
+        self.sp_mesh = None  # set by KokoroModel.shard_sequence
 
     _residual = EncoderBlock._residual
+
+    def shard_sequence(self, mesh) -> None:
+        """Run on the seq rank's window of frames of ``mesh`` (module
+        docstring)."""
+        self.sp_mesh = self.self_attn.sp_mesh = mesh
 
     def forward(
         self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
@@ -449,19 +508,22 @@ class DecoderBlock(nn.Module):
         rng: Optional[Rng] = None,
     ):
         """Full-sequence or cached single-step forward; returns
-        ``(y, new_self_kv_cache)``."""
+        ``(y, new_self_kv_cache)``.  Under ``sp_mesh`` ``x`` is the seq
+        rank's window of frames, ``tgt_padding_mask`` (keys) the whole frame
+        axis's and ``memory`` whole."""
+        frame_rng = _seq_rank_stream(rng, self.sp_mesh)
         attn_out, new_cache = self.self_attn(
             self.norm1(x), causal=True, key_padding_mask=tgt_padding_mask,
-            kv_cache=self_kv_cache, rng=fold(rng, "self_attn"),
+            kv_cache=self_kv_cache, rng=fold(frame_rng, "self_attn"),
         )
-        x = x + self._residual(attn_out, 0, rng)
+        x = x + self._residual(attn_out, 0, rng, frame_rng)
         cross_out, _ = self.cross_attn(
             self.norm2(x), memory, memory, key_padding_mask=memory_padding_mask,
-            precomputed_kv=cross_kv, rng=fold(rng, "cross_attn"),
+            precomputed_kv=cross_kv, rng=fold(frame_rng, "cross_attn"),
         )
-        x = x + self._residual(cross_out, 1, rng)
-        ff_out = self.ff(self.norm3(x), rng=fold(rng, "ff"))
-        return x + self._residual(ff_out, 2, rng), new_cache
+        x = x + self._residual(cross_out, 1, rng, frame_rng)
+        ff_out = self.ff(self.norm3(x), rng=fold(frame_rng, "ff"))
+        return x + self._residual(ff_out, 2, rng, frame_rng), new_cache
 
     def project_cross_kv(self, memory: torch.Tensor):
         return self.cross_attn.project_kv(memory)

@@ -17,6 +17,17 @@ fixed before the forward, so a recompute applies the same masks.
 :meth:`KokoroModel.set_compute_dtype` sets the dtype every Dense/Conv/Embed
 computes in while the parameters stay f32 (flax ``dtype`` / ``param_dtype``).
 
+Sequence parallelism (:meth:`KokoroModel.shard_sequence`, a ``seq`` axis):
+the teacher-forced forward takes the whole batch on every rank of the
+``seq`` group and runs the encoder, the variance adaptor and SpecAugment on
+it alike on each (their frame-level convolutions and GroupNorm would need
+halos and cross-rank statistics; the encoder is cheap).  The decoder input
+is shifted right and given its positions on the whole frame axis, then cut
+to the seq rank's window, so the window's first frame is the frame before
+it, not zero; the decoder blocks, ``finish_decoding`` and the stop head run
+on the window (``models/blocks.py``), and every frame-level output (mel,
+stop logits, pitch, energy) is the window's.
+
 Parameter names follow the flax tree (``convert.kokoro_state_dict_from_flax``
 maps one onto the other): ``encoder_layer_i`` is ``encoder_layers.i``, the
 adaptor is ``variance_adaptor`` or, with ``use_variance_predictor=False``,
@@ -40,6 +51,7 @@ from kokoro_tpu_torch.models.blocks import (
 from kokoro_tpu_torch.models.positional import add_positional_encoding
 from kokoro_tpu_torch.models.rng import Rng, dropout, fold
 from kokoro_tpu_torch.models.variance import SimpleDurationAdaptor, VarianceAdaptor
+from kokoro_tpu_torch.parallel.mesh import frame_window
 from kokoro_tpu_torch.ops.specaugment import apply_spec_augment
 
 
@@ -93,6 +105,19 @@ class KokoroModel(nn.Module):
         self.decoder_norm = LayerNorm(d)
         self.mel_projection_out = Linear(d, c.n_mels)
         self.stop_token_predictor = Linear(d, 1)
+        self.sp_mesh = None
+
+    def shard_sequence(self, mesh) -> "KokoroModel":
+        """Run the decoder on the seq rank's window of frames of ``mesh``
+        (module docstring).  The attention kernels stay off: the reference's
+        trainer turns ``use_flash_attention`` off under ``seq``."""
+        if self.config.use_flash_attention:
+            raise ValueError("a frame-sharded decoder runs the plain attention route: build "
+                             "the model with use_flash_attention=False")
+        self.sp_mesh = mesh
+        for layer in self.decoder_layers:
+            layer.shard_sequence(mesh)
+        return self
 
     @property
     def adaptor(self) -> nn.Module:
@@ -209,6 +234,8 @@ class KokoroModel(nn.Module):
     def decode_training(self, memory, memory_padding_mask, mel_specs, mel_padding_mask=None,
                         rng: Optional[Rng] = None, remat: bool = False):
         x = self.prepare_decoder_input(mel_specs, rng)
+        offset, n = frame_window(self.sp_mesh, x.shape[1])
+        x = x[:, offset:offset + n]
         for i, layer in enumerate(self.decoder_layers):
             args = (x, memory, memory_padding_mask, mel_padding_mask, None, None,
                     fold(rng, f"decoder_layer_{i}"))
@@ -248,7 +275,9 @@ class KokoroModel(nn.Module):
         validation forward; ``model.train()`` with ``rng`` for the training
         forward).  Returns predicted_mel (B,T,M), predicted_log_durations
         (B,L), predicted_stop_logits (B,T), predicted_pitch (B,T),
-        predicted_energy (B,T), frame_padding_mask."""
+        predicted_energy (B,T), frame_padding_mask (B,T).  Under
+        :meth:`shard_sequence` the inputs are whole and the frame-level
+        outputs but the mask are the rank's window of T."""
         T = mel_specs.shape[1]
         memory, dur_pred, pitch_pred, energy_pred, frame_mask = self.forward_memory(
             phoneme_indices, stress_indices, text_padding_mask, T,
@@ -260,6 +289,10 @@ class KokoroModel(nn.Module):
             memory, frame_mask, mel_specs, mel_padding_mask, rng,
             remat=checkpoint_segments > 0,
         )
+        offset, n = frame_window(self.sp_mesh, T)
+        if pitch_pred is not None:  # the window's frames, as every frame-level output
+            pitch_pred = pitch_pred[:, offset:offset + n]
+            energy_pred = energy_pred[:, offset:offset + n]
         return {
             "predicted_mel": predicted_mel,
             "predicted_log_durations": dur_pred,

@@ -22,6 +22,14 @@ float64 sums and counts, through ``reduce_from_region``, whose backward is
 the identity), so the clamps and the weighted total see the global values,
 equal on every rank, and each rank's gradient is its rows' share of the
 global loss's.  The validation metrics sum the same way.
+
+Under a ``seq`` axis each rank holds a window of frames starting at
+``frame_offset``: the frame-level terms (mel, stop, pitch, energy, and the
+metrics) are its window's sums, and the sums run over ``('data', 'seq')``;
+the phoneme-level duration term, whole on every rank of a ``seq`` group,
+is counted by seq rank 0 alone.  So no term is counted on two ranks, and a
+parameter's gradient is the sum over the mesh of what each rank's own
+backward gives it.
 """
 
 from __future__ import annotations
@@ -46,17 +54,27 @@ def _mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     return torch.where(count > 0, total / torch.clamp(count, min=1), torch.zeros_like(total))
 
 
+def frame_mask(lengths: torch.Tensor, frames: int, frame_offset: int = 0) -> torch.Tensor:
+    """(B, frames) validity of the frames ``[frame_offset, frame_offset +
+    frames)`` under per-row ``lengths``."""
+    pos = frame_offset + torch.arange(frames, device=lengths.device)
+    return pos[None, :] < lengths[:, None]
+
+
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return _mean(*masked_sum(values, mask))
 
 
+SUM_AXES = ("data", "seq")
+
+
 def data_sums(values: List[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """Scalars summed over the ``data`` group in one float64 collective, each
-    back in its dtype; a gradient flows through unchanged (identity
-    backward)."""
+    """Scalars summed over the ``data`` and ``seq`` groups (those of the
+    mesh's axes) in one float64 collective, each back in its dtype; a
+    gradient flows through unchanged (identity backward)."""
     if mesh is None:
         return values
-    packed = reduce_from_region(torch.stack([v.double() for v in values]), mesh, "data")
+    packed = reduce_from_region(torch.stack([v.double() for v in values]), mesh, SUM_AXES)
     return [p.to(v.dtype) for p, v in zip(packed.unbind(), values)]
 
 
@@ -101,9 +119,11 @@ def calculate_training_losses(
     pitch_huber_delta: float = 0.05,
     energy_huber_delta: float = 0.05,
     mesh=None,
+    frame_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Returns total, mel, duration, stop, pitch, energy (f32 scalars);
-    with ``mesh``, masked means over the global batch."""
+    with ``mesh``, masked means over the global batch.  The frame-level
+    inputs are the frames from ``frame_offset`` on (a seq rank's window)."""
     def f32(x):
         return None if x is None else x.float()
 
@@ -114,7 +134,7 @@ def calculate_training_losses(
     predicted_energy, energy_targets = f32(predicted_energy), f32(energy_targets)
     device = mel_specs.device
     T, L = mel_specs.shape[1], phoneme_durations.shape[1]
-    mel_mask = torch.arange(T, device=device)[None, :] < mel_lengths[:, None]
+    mel_mask = frame_mask(mel_lengths, T, frame_offset)
     phoneme_mask = torch.arange(L, device=device)[None, :] < phoneme_lengths[:, None]
 
     target_log_durations = torch.log(phoneme_durations.float() + 1.0)
@@ -127,6 +147,8 @@ def calculate_training_losses(
             bce_with_logits(predicted_stop_logits, stop_token_targets, stop_token_pos_weight),
             mel_mask),
     }
+    if mesh is not None and mesh.index("seq") > 0:  # counted by seq rank 0
+        parts["duration"] = tuple(torch.zeros_like(x) for x in parts["duration"])
     if predicted_pitch is not None and pitch_targets is not None:
         parts["pitch"] = masked_sum(huber_loss(predicted_pitch[:, :T], pitch_targets[:, :T],
                                                pitch_huber_delta), mel_mask)

@@ -25,7 +25,8 @@ no update at all instead of computing one and discarding it.  The state is
 updated in place.  Every random draw of a step comes from the
 ``torch.Generator`` it is given: one :class:`~kokoro_tpu_torch.models.rng.Rng`
 per microbatch, drawn before its forward.  No ``make_multi_step`` (a TPU
-dispatch device), no null-step tail padding, no pipeline parallelism.
+dispatch device), no null-step tail padding; pipeline parallelism has its
+own step (``parallel/pp_step.py``) around the same update.
 
 Data and tensor parallelism (a state made with a ``mesh``, whose
 ``layout`` says where each parameter lives, ``parallel/tp.py``): every rank
@@ -40,6 +41,17 @@ are those of the global parameters.  The step's host read is broadcast from
 rank 0, so every rank takes the same decisions.  The step seed folds in the
 ``data`` rank (ranks draw their own rows' masks; nothing is folded for an
 axis of size 1).
+
+Sequence parallelism (a ``seq`` axis; the model runs
+``KokoroModel.shard_sequence``): each rank holds the seq rank's window of
+the frame-level keys of its rows.  The step gathers their whole frame axis
+over the ``seq`` group (``parallel/mesh.py::gather_frames``), runs the
+encoder side on it and the decoder on the window, and evaluates the
+frame-level losses on the window (``training/losses.py``).  The rule that
+makes this exact: **each parameter's gradient is the sum, over the mesh, of
+what each rank's own backward gives it, and no loss term is counted on two
+ranks.**  So the gradients are summed over ``('data', 'seq')`` in the same
+buckets, and the q/k/v norm scales' partial gradients over the whole mesh.
 """
 
 from __future__ import annotations
@@ -54,10 +66,11 @@ from torch.func import functional_call
 from kokoro_tpu_torch.config import TrainingConfig
 from kokoro_tpu_torch.models.kokoro import KokoroModel
 from kokoro_tpu_torch.models.rng import Rng
-from kokoro_tpu_torch.parallel.mesh import Mesh, reduce_max
+from kokoro_tpu_torch.parallel.mesh import Mesh, frame_window, gather_frames, reduce_max
 from kokoro_tpu_torch.parallel.tp import Layout, norms, shard_model
 from kokoro_tpu_torch.training.losses import (
-    calculate_training_losses, f0_rmse, mel_cepstral_distortion, spectral_convergence,
+    calculate_training_losses, f0_rmse, frame_mask, mel_cepstral_distortion,
+    spectral_convergence,
 )
 from kokoro_tpu_torch.training.optimizer import (
     FusedAdamW, apply_preclips, apply_weight_norm_constraints, ema_update,
@@ -67,6 +80,7 @@ from kokoro_tpu_torch.training.optimizer import (
 LOSS_KEYS = ("total", "mel", "duration", "stop", "pitch", "energy")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GRAD_BUCKET_BYTES = 32 << 20  # gradient all_reduce buckets
+GRAD_SUM_AXES = ("data", "seq")  # the axes a step's gradients are summed over
 
 
 @dataclass
@@ -99,9 +113,12 @@ def create_train_state(model: KokoroModel, config: TrainingConfig,
     """A fresh state; the model computes in ``config.compute_dtype`` from now
     on (its parameters keep ``config.param_dtype``).  With ``mesh`` the
     model is sharded over its ``model`` axis first (``tp.shard_model``), so
-    moments and EMA are the rank's shards too."""
+    moments and EMA are the rank's shards too, and its decoder runs on the
+    seq rank's frames under a ``seq`` axis (``shard_sequence``)."""
     model.to(DTYPES[config.param_dtype]).set_compute_dtype(DTYPES[config.compute_dtype])
     layout = None if mesh is None else shard_model(model, mesh)
+    if mesh is not None and mesh.sp > 1:
+        model.shard_sequence(mesh)
     params = dict(model.named_parameters())
     return TrainState(
         model=model, optimizer=FusedAdamW(params, config, total_steps),
@@ -154,16 +171,18 @@ def _buckets(tensors: List[torch.Tensor]) -> List[List[torch.Tensor]]:
 
 
 def sync_gradients(grads: List[torch.Tensor], names: List[str],
-                   layout: Optional[Layout]) -> None:
-    """In place: gradients summed over the ``data`` group, those of
-    ``layout.partial`` (replicated scales acting on sharded heads) over the
-    whole mesh; each bucket of up to ``GRAD_BUCKET_BYTES`` is one
+                   layout: Optional[Layout], axes: Tuple[str, ...] = GRAD_SUM_AXES) -> None:
+    """In place: gradients summed over ``axes`` (those of the mesh's axes:
+    ``data`` and ``seq``, or ``data`` and ``stage`` for the pipelined step),
+    those of ``layout.partial`` (replicated scales acting on sharded heads)
+    over the whole mesh; each bucket of up to ``GRAD_BUCKET_BYTES`` is one
     ``all_reduce``.  No-op without a process group."""
     if layout is None or layout.mesh.world is None:
         return
     partial = set(layout.partial)
-    for axes, members in ((("data",), [g for g, n in zip(grads, names) if n not in partial]),
-                          (("data", "model"), [g for g, n in zip(grads, names) if n in partial])):
+    every = tuple(layout.mesh.shape)
+    for axes, members in ((axes, [g for g, n in zip(grads, names) if n not in partial]),
+                          (every, [g for g, n in zip(grads, names) if n in partial])):
         for bucket in _buckets(members):
             flat = layout.mesh.all_reduce(torch.cat([g.reshape(-1) for g in bucket]), axes)
             for g, piece in zip(bucket, flat.split([g.numel() for g in bucket])):
@@ -181,20 +200,26 @@ def step_rng(generator: torch.Generator, mesh: Optional[Mesh] = None) -> Rng:
 
 
 def _model_outputs(model: KokoroModel, batch, rng, spec_augment, segments, params=None):
-    text_pad, mel_pad = batch_masks(batch)
+    """The forward on this rank's part of the batch: ``(outputs, mel mask
+    of its frames, offset of its first frame)``.  Under a ``seq`` axis the
+    whole frame axis is gathered first (a collective call)."""
+    whole = gather_frames(batch, model.sp_mesh)
+    text_pad, mel_pad = batch_masks(whole)
     kwargs = dict(
-        phoneme_indices=batch["phoneme_indices"], mel_specs=batch["mel_specs"],
-        phoneme_durations=batch["phoneme_durations"],
-        stress_indices=batch.get("stress_indices"), text_padding_mask=text_pad,
-        mel_padding_mask=mel_pad, pitch_targets=batch.get("pitch_targets"),
-        energy_targets=batch.get("energy_targets"), rng=rng,
+        phoneme_indices=whole["phoneme_indices"], mel_specs=whole["mel_specs"],
+        phoneme_durations=whole["phoneme_durations"],
+        stress_indices=whole.get("stress_indices"), text_padding_mask=text_pad,
+        mel_padding_mask=mel_pad, pitch_targets=whole.get("pitch_targets"),
+        energy_targets=whole.get("energy_targets"), rng=rng,
         spec_augment=spec_augment, checkpoint_segments=segments,
     )
     out = model(**kwargs) if params is None else functional_call(model, params, (), kwargs)
-    return out, mel_pad
+    offset, n = frame_window(model.sp_mesh, mel_pad.shape[1])
+    return out, frame_mask(batch["mel_lengths"], n, offset), offset
 
 
-def _losses(out, batch, config: TrainingConfig, mesh: Optional[Mesh] = None):
+def _losses(out, batch, config: TrainingConfig, mesh: Optional[Mesh] = None,
+            frame_offset: int = 0):
     return calculate_training_losses(
         predicted_mel=out["predicted_mel"],
         predicted_log_durations=out["predicted_log_durations"],
@@ -211,7 +236,7 @@ def _losses(out, batch, config: TrainingConfig, mesh: Optional[Mesh] = None):
         stop_token_pos_weight=config.stop_token_pos_weight,
         duration_huber_delta=config.duration_huber_delta,
         pitch_huber_delta=config.pitch_huber_delta,
-        energy_huber_delta=config.energy_huber_delta, mesh=mesh,
+        energy_huber_delta=config.energy_huber_delta, mesh=mesh, frame_offset=frame_offset,
     )
 
 
@@ -227,10 +252,10 @@ def make_loss_fn(model: KokoroModel, config: TrainingConfig, spec_augment: bool 
 
     def loss_fn(batch, rng: Optional[Rng] = None, deterministic: bool = False):
         model.train(not deterministic)
-        out, _ = _model_outputs(model, batch, None if deterministic else rng,
-                                None if deterministic else sa_args,
-                                0 if deterministic else segments)
-        losses = _losses(out, batch, config, mesh)
+        out, _, offset = _model_outputs(model, batch, None if deterministic else rng,
+                                        None if deterministic else sa_args,
+                                        0 if deterministic else segments)
+        losses = _losses(out, batch, config, mesh, offset)
         return losses["total"], losses
 
     return loss_fn
@@ -366,8 +391,8 @@ def make_diagnostic_step(model: KokoroModel, config: TrainingConfig,
         was_training = model.training
         model.eval()
         try:
-            out, mel_pad = _model_outputs(model, batch, None, None, 0)
-            losses = _losses(out, batch, config, mesh)
+            out, mel_mask, offset = _model_outputs(model, batch, None, None, 0)
+            losses = _losses(out, batch, config, mesh, offset)
             grads = torch.autograd.grad(losses["total"], params, allow_unused=True)
         finally:
             model.train(was_training)
@@ -375,7 +400,7 @@ def make_diagnostic_step(model: KokoroModel, config: TrainingConfig,
         sync_gradients(grads, names, layout)
         losses = {k: v.detach() for k, v in losses.items()}
         losses["spectral_convergence"] = spectral_convergence(
-            out["predicted_mel"].detach().float(), batch["mel_specs"].float(), ~mel_pad, mesh)
+            out["predicted_mel"].detach().float(), batch["mel_specs"].float(), mel_mask, mesh)
         outputs = {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in out.items()}
         return outputs, losses, dict(zip(names, grads))
 
@@ -394,9 +419,8 @@ def make_eval_step(model: KokoroModel, config: TrainingConfig, mesh: Optional[Me
     def eval_step(batch, params: Optional[Dict[str, torch.Tensor]] = None,
                   with_outputs: bool = False):
         model.eval()
-        out, mel_pad = _model_outputs(model, batch, None, None, 0, params)
-        metrics = _losses(out, batch, config, mesh)
-        mel_mask = ~mel_pad
+        out, mel_mask, offset = _model_outputs(model, batch, None, None, 0, params)
+        metrics = _losses(out, batch, config, mesh, offset)
         pred = out["predicted_mel"].float()
         target = batch["mel_specs"].float()
         metrics["spectral_convergence"] = spectral_convergence(pred, target, mel_mask, mesh)

@@ -60,13 +60,24 @@ with T and L forced from the length metadata so that every rank pads alike;
 validation is sharded over ``data`` with metrics from global sums; the
 model, moments and EMA are the rank's shards.  Logs, histograms, images, the
 profiler window and checkpoint writes happen on global rank 0 only, while
-every rank runs the collectives behind them.  The ``seq`` and ``stage`` axes
-raise: they are the next slice (ROADMAP.md §1).
+every rank runs the collectives behind them.
 
-No counterpart (TPU or XLA machinery, or the next slice; ROADMAP.md): the
-compile cache and ``prng_impl``, pipeline and sequence parallelism, AOT
-warm-up and the program-ladder prediction, scan chunks and
-``pad_tail_steps``, ``cross_epoch_prefetch`` and the device_put worker pools.
+Sequence and pipeline parallelism (the ``seq`` and ``stage`` axes, the
+reference's routing): under either, ``use_flash_attention`` is turned off
+with the reference's log line, so the attention kernels stay off.  Under
+``seq`` each rank collates its data rank's rows with T forced to a multiple
+of ``sp`` and keeps its seq rank's window of the frame-level keys
+(``parallel/mesh.py::seq_window``); the step, the validation and the
+diagnostics run the frame-sharded decoder.  Under ``stage`` the step is
+``parallel/pp_step.py``'s, the accumulation microbatches being the
+pipeline's; the state stays whole on every rank, so validation runs the
+whole model on each.  Checkpoints are full tensors written by rank 0 and
+resume on any mesh.
+
+No counterpart (TPU or XLA machinery; ROADMAP.md): the compile cache and
+``prng_impl``, AOT warm-up and the program-ladder prediction, scan chunks
+(``scan_steps``) and ``pad_tail_steps``, ``cross_epoch_prefetch`` and the
+device_put worker pools.
 """
 
 from __future__ import annotations
@@ -95,7 +106,7 @@ from kokoro_tpu_torch.data.phonemes import RussianPhonemeProcessor
 from kokoro_tpu_torch.device import resolve_device
 from kokoro_tpu_torch.models.kokoro import KokoroModel
 from kokoro_tpu_torch.parallel.mesh import (
-    create_mesh, init_distributed, process_local_rows, round_up_to_multiple,
+    create_mesh, init_distributed, process_local_rows, round_up_to_multiple, seq_window,
 )
 from kokoro_tpu_torch.parallel.tp import gather_tree
 from kokoro_tpu_torch.training.checkpoint import CheckpointManager, build_model_metadata
@@ -233,21 +244,17 @@ class KokoroTrainer:
         the process group starts here (the device becomes the rank's card);
         without a process group and ``mesh_shape`` there is no mesh."""
         cfg = self.config
-        self.sp_size, self.pp_size = cfg.mesh_axis_size("seq"), cfg.mesh_axis_size("stage")
-        if self.sp_size > 1 or self.pp_size > 1:
-            raise NotImplementedError(
-                f"a {self.sp_size}-way 'seq' x {self.pp_size}-way 'stage' mesh: sequence and "
-                "pipeline parallelism are the port's next slice (ROADMAP.md §1)")
         if cfg.distributed_init and not dist.is_initialized():
             self.device = init_distributed(device=self.device)
         self.mesh = (create_mesh(cfg) if cfg.mesh_shape is not None or dist.is_initialized()
                      else None)
         size = (lambda axis: 1) if self.mesh is None else self.mesh.size
         self.dp_size, self.tp_size = size("data"), size("model")
+        self.sp_size, self.pp_size = size("seq"), size("stage")
         self.process_count = dist.get_world_size() if dist.is_initialized() else 1
         self.process_index = dist.get_rank() if dist.is_initialized() else 0
         self.is_main = self.process_index == 0
-        if self.dp_size > 1 or self.tp_size > 1:
+        if max(self.dp_size, self.tp_size, self.sp_size, self.pp_size) > 1:
             logger.info("Parallelism: %d-way data x %d-way seq x %d-way tensor x %d-way "
                         "pipeline mesh over %s devices (%d process%s)", self.dp_size,
                         self.sp_size, self.tp_size, self.pp_size, self.device.type,
@@ -340,7 +347,14 @@ class KokoroTrainer:
                           else recommended_ema_decay(steps_per_epoch, cfg.ema_half_life_epochs))
         logger.info("Schedule: %d opt-steps/epoch, %d total; EMA decay %.6f",
                     steps_per_epoch, self.total_steps, self.ema_decay)
-        model = KokoroModel(self.model_config).init_weights(
+        model_config = self.model_config
+        if model_config.use_flash_attention and (self.sp_size > 1 or self.pp_size > 1):
+            # the reference's routing (kokoro_tpu/training/trainer.py:409-425)
+            logger.info("use_flash_attention disabled: %d-way seq x %d-way pipeline "
+                        "parallelism partitions attention via SPMD einsum instead",
+                        self.sp_size, self.pp_size)
+            model_config = dataclasses.replace(model_config, use_flash_attention=False)
+        model = KokoroModel(model_config).init_weights(
             torch.Generator().manual_seed(cfg.seed)).to(self.device)
         self.state = create_train_state(model, cfg, self.total_steps, self.mesh)
         self.preclips = build_preclip_norms(self.state.names, cfg)
@@ -351,7 +365,10 @@ class KokoroTrainer:
 
     def _train_step(self, spec_augment: bool):
         if spec_augment not in self._train_steps:
-            self._train_steps[spec_augment] = make_train_step(
+            make = make_train_step
+            if self.pp_size > 1:  # the accumulation microbatches are the pipeline's
+                from kokoro_tpu_torch.parallel.pp_step import make_pp_train_step as make
+            self._train_steps[spec_augment] = make(
                 self.config, self.preclips, self.ema_decay, spec_augment=spec_augment)
         return self._train_steps[spec_augment]
 
@@ -596,10 +613,12 @@ class KokoroTrainer:
             self.writer.add_scalar(tag, self.state.optimizer.lr(label), step)
 
     def _forced_dims(self, dataset, indices: List[int]) -> Dict[str, int]:
-        """Under data parallelism, the padded T and L of a global batch from
-        its length metadata (the reference's forced dims), so that every rank
-        pads alike without seeing the others' features; {} otherwise."""
-        if self.dp_size <= 1:
+        """Under data or sequence parallelism, the padded T and L of a global
+        batch from its length metadata (the reference's forced dims), so that
+        every rank pads alike without seeing the others' features, T a
+        multiple of the ``seq`` axis (``max_seq_length`` is one, as the
+        config checks the bucket ladder); {} otherwise."""
+        if self.dp_size <= 1 and self.sp_size <= 1:
             return {}
         cfg = self.config
         est = [dataset.lengths(i) for i in indices]
@@ -607,6 +626,7 @@ class KokoroTrainer:
         if cfg.use_speed_perturbation and dataset.is_training:
             # perturbation can lengthen audio by up to 1/(1-range)
             T = int(T / max(1.0 - cfg.speed_perturb_range, 0.5)) + 2
+        T = round_up_to_multiple(T, self.sp_size)
         return {"pad_mel_to": min(T, cfg.max_seq_length),
                 "pad_phoneme_to": max((n for _, n in est), default=1)}
 
@@ -623,7 +643,8 @@ class KokoroTrainer:
         for A > 1 accumulated batches padded to common buckets; the batch
         dimension rounds up to the batch quantum (padding rows are masked).
         Under data parallelism only this rank's rows (``B / dp_size`` of
-        them)."""
+        them), under sequence parallelism the seq rank's window of their
+        frames."""
         cfg, n_mels = self.config, self.model_config.n_mels
         out_B = round_up_to_multiple(max(len(g) for g in group), self._batch_quantum())
         forced = self._forced_dims(self.train_dataset, [i for g in group for i in g])
@@ -632,7 +653,7 @@ class KokoroTrainer:
                             n_mels, pad_batch_to=out_B // self.dp_size, **forced)
                     for indices in group]
         if len(collated) == 1:
-            return collated[0]
+            return seq_window(collated[0], self.mesh)
         T = max(c["mel_specs"].shape[1] for c in collated)
         L = max(c["phoneme_indices"].shape[1] for c in collated)
 
@@ -647,7 +668,7 @@ class KokoroTrainer:
                     out[k] = v
             return out
 
-        collated = [grow(c) for c in collated]
+        collated = [seq_window(grow(c), self.mesh) for c in collated]
         return {k: np.stack([c[k] for c in collated]) for k in collated[0]}
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -670,8 +691,9 @@ class KokoroTrainer:
             forced = self._forced_dims(self.val_dataset, indices)
             feats = [self.val_dataset.get_features(i, rng)
                      for i in self._local_rows(indices, val_B)]
-            batch = collate(feats, cfg, self.model_config.n_mels,
-                            pad_batch_to=val_B // self.dp_size, **forced)
+            batch = seq_window(collate(feats, cfg, self.model_config.n_mels,
+                                       pad_batch_to=val_B // self.dp_size, **forced),
+                               self.mesh)
             device_batch = self._to_device(batch)
             metrics, out = self.eval_step(device_batch, params=self.state.ema,
                                           with_outputs=True)

@@ -55,7 +55,9 @@ def test_port_files_exist():
                      # the trainer's tooling
                      "kokoro_tpu_torch/version.py", "kokoro_tpu_torch/utils/misc.py",
                      "kokoro_tpu_torch/utils/cache_manager.py",
-                     "kokoro_tpu_torch/utils/memory_planner.py", "kokoro_tpu_torch/cli/plan.py"):
+                     "kokoro_tpu_torch/utils/memory_planner.py", "kokoro_tpu_torch/cli/plan.py",
+                     # sequence and pipeline parallelism
+                     "kokoro_tpu_torch/parallel/pp.py", "kokoro_tpu_torch/parallel/pp_step.py"):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
@@ -98,3 +100,51 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         precompute_features(*get_default_config(data_dir=str(tmp_path)))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# the JAX package's parallel/ names whose port has another name (the XLA
+# sharding objects become the process-level operations that do their work)
+PARALLEL_COUNTERPARTS = {
+    "mesh.batch_sharding": "mesh.shard_batch",
+    "mesh.replicated": "tp.Layout",  # a parameter outside Layout.splits is replicated
+    "mesh.global_batch_from_local": "mesh.shard_batch",
+    "mesh.put_batch": "mesh.shard_batch",
+    "mesh.make_sharded_train_step": "training.train_step.make_train_step",
+    "mesh.make_sharded_eval_step": "training.train_step.make_eval_step",
+    "tp.leaf_pspec": "tp.param_split",
+    "tp.tree_shardings": "tp.shard_tree",
+    "tp.dp_size": "mesh.dp_size",
+    "tp.tp_size": "mesh.tp_size",
+    "pp.stage_params_sharding": "pp.stage_layers",
+}
+
+
+def _public_names(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        yield from (n for n in names if not n.startswith("_"))
+
+
+def test_every_public_name_of_the_parallel_package_has_a_counterpart():
+    """The AST comparison of ROADMAP.md §1 over ``kokoro_tpu/parallel/``:
+    each public name of each module exists in the port's module of the same
+    name, or its counterpart in ``PARALLEL_COUNTERPARTS`` exists."""
+    import importlib
+
+    missing = []
+    for path in sorted((ROOT / "kokoro_tpu" / "parallel").glob("*.py")):
+        module = path.stem
+        for name in _public_names(path):
+            target = PARALLEL_COUNTERPARTS.get(f"{module}.{name}", f"{module}.{name}")
+            where, attr = target.rsplit(".", 1)
+            port = importlib.import_module(
+                f"kokoro_tpu_torch.{'' if where.startswith('training') else 'parallel.'}{where}")
+            if not hasattr(port, attr):
+                missing.append(f"{module}.{name} -> {target}")
+    assert not missing, missing

@@ -292,13 +292,17 @@ def test_config_accepts_and_rejects_what_the_reference_does(case):
 
 
 def test_trainer_refuses_seq_and_stage_naming_the_next_slice(tmp_path):
+    """The slice that was next is here: the trainer takes a 'seq' or 'stage'
+    axis, and one process refuses a mesh of two devices only for want of
+    the second process, naming the command that starts both."""
     from kokoro_tpu_torch.training.trainer import KokoroTrainer
 
     for names in (("data", "seq"), ("data", "stage")):
         model_cfg, cfg = port_config.get_smoke_test_config(
             data_dir=str(tmp_path), output_dir=str(tmp_path / "run"), mesh_shape=(1, 2),
             mesh_axis_names=names, use_stochastic_depth=False)
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(ValueError, match="needs 2 processes: start them with python -m "
+                                             "torch.distributed.run"):
             KokoroTrainer(model_cfg, cfg, device="cpu")
 
 
