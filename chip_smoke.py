@@ -103,7 +103,26 @@ Phases, each printing one JSON line:
    the long step), one line per shape, and the planner's estimate held
    within 15 % of every measured allocated peak and of the peaks phases
    ``train`` and ``long`` measured.
-13. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
+13. quality: ``python -m kokoro_tpu_torch.scripts.quality_run
+   --flash-attention --epochs 4 --utts 96`` at full width: the default
+   regime (bucket 384, batches of up to 12, 2 microbatches a step, remat,
+   attention dropout drawn in the kernel) on 96 synthetic utterances, the
+   resume break after epoch 2, a checkpoint every 2 epochs.  Every step
+   taken and finite, K1 and K2 forward launched twice per decoder layer per
+   microbatch (remat recomputes the forward) and their backward once, K3
+   and K4 never, validation the forwards only; the resume continues from
+   the saved step, whose next step is the first of phase 2; the last
+   epoch's train and val mel below the first's.  Then
+   ``analyze_training_regression`` over the run directory (every
+   checkpoint with finite norms, 0 non-finite values, nonzero deltas, the
+   finite-weights check not failed) and ``e2e_audio_artifact`` on it (one
+   Russian text through the committed HiFi-GAN, not Griffin-Lim: a WAV of
+   frames x 256 samples, finite health metrics).  Last, K1, K2 and both
+   packed backwards against their plain versions at every (B, T=384, H=8)
+   the run called them at, in both dtypes, at rate 0 and the run's rates,
+   K2 at the kv lengths the run gave it and at a mixed set with rows of
+   length 1 and 0.
+14. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
    on the one card.  (a) K1, K2 and the packed backward at B=32, T=512 with
    H = 4 and 2 (the heads a rank holds at tp = 2 and 4; Dh 64); K2 and the
    kv-length backward at the (2, 2) trainer's rows, B=6, T=1408, H=4, kv
@@ -132,7 +151,7 @@ Phases, each printing one JSON line:
    checkpoint, which one process resumes for one more step.  Per-rank step
    ms and all_reduce calls and bytes a step are printed; ranks sharing one
    card over gloo are not a scaling measurement.
-14. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
+15. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
    ``parallel/mesh.py``, ``parallel/pp.py``, ``parallel/pp_step.py``) on the
    one card, every rank on cuda:0 over gloo, the plain attention route (the
    reference's trainer turns its kernels off under both axes).  (a) 3 f32
@@ -158,7 +177,9 @@ with the launches of its main-path run: a preset step, a long step or a
 kernels_folded call, and its bf16 time, TFLOP/s and share of the bound; K2
 and its backward also carry ``long_shape``, their times at T=1408 and
 launches per long step; the kernels of phases mfa and tools carry
-``mfa_path`` and ``tools_path``, their launches per training step there,
+``mfa_path``, ``tools_path`` and ``quality_path``, their launches per
+training step there (``quality_path`` also the worst error per dtype at
+the quality run's shapes),
 those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
 its launches per trainer step on the ``seq`` and ``stage`` paths, 0),
@@ -210,7 +231,7 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long", "mfa", "tools", "parallel", "parallel_sp_pp"]
+          "serve", "train", "long", "mfa", "tools", "quality", "parallel", "parallel_sp_pp"]
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
@@ -1278,91 +1299,25 @@ def phase_train():
     return per_step[-1]
 
 
-LONG_WORDS = [
-    "привет", "мир", "как", "дела", "всё", "хорошо", "говорит", "москва", "сегодня",
-    "завтра", "погода", "ясная", "ветер", "слабый", "дождь", "вечером", "утром", "новости",
-    "слушайте", "внимательно", "спасибо", "пожалуйста", "конечно", "возможно", "правда",
-    "работа", "время",
-]
-
-
 def build_long_corpus(root, n_utts: int, seed: int = 11) -> None:
-    """The long-mode synthetic corpus of ``scripts/quality_run.py``
-    (``build_corpus(long_mode=True)``): 18-30 Russian words per utterance, a
-    harmonic source with per-word pitch moves and onset noise bursts, padded
-    to 16.34 s, so every utterance lands in the 1408-frame bucket."""
-    import numpy as np
+    """The long-mode synthetic corpus of the quality run
+    (``kokoro_tpu_torch.scripts.quality_run.build_corpus(long_mode=True)``,
+    the reference's bytes): 18-30 Russian words per utterance, padded to
+    16.34 s, so every utterance lands in the 1408-frame bucket."""
+    from kokoro_tpu_torch.scripts.quality_run import build_corpus
 
-    from kokoro_tpu_torch.data.audio_io import save_wav
-
-    rng = np.random.default_rng(seed)
-    sr, lines = 22050, []
-    for i in range(n_utts):
-        words = list(rng.choice(LONG_WORDS, size=int(rng.integers(18, 31))))
-        base_f0 = float(rng.uniform(100, 200))
-        pieces = []
-        for w in words:
-            dur = 0.12 + 0.05 * len(w) + float(rng.uniform(0, 0.08))
-            n = int(sr * dur)
-            tt = np.arange(n) / sr
-            f0 = base_f0 * (1.0 + 0.2 * rng.standard_normal()) * (1.0 - 0.1 * tt / max(dur, 1e-6))
-            phase = 2 * np.pi * np.cumsum(f0) / sr
-            voiced = 0.5 * np.sin(phase) + 0.25 * np.sin(2 * phase) + 0.12 * np.sin(3 * phase)
-            noise = np.zeros(n)
-            burst = int(0.25 * n)
-            noise[:burst] = 0.2 * rng.standard_normal(burst)
-            env = np.minimum(1.0, np.arange(n) / (0.02 * sr))
-            env *= env[::-1]
-            pieces.append((voiced + noise) * env)
-            pieces.append(np.zeros(int(sr * rng.uniform(0.02, 0.08))))
-        audio = np.concatenate(pieces)
-        target = int(16.34 * sr)
-        audio = np.pad(audio, (0, max(0, target - audio.shape[0])))[:target]
-        audio += 0.01 * rng.standard_normal(audio.shape[0])
-        save_wav(root / "wavs" / f"q{i:04d}.wav",
-                 (0.8 * audio / np.abs(audio).max()).astype(np.float32), sr)
-        lines.append(f"q{i:04d}|{' '.join(words)}")
-    (root / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
+    build_corpus(Path(root), n_utts, seed=seed, long_mode=True)
 
 
-def counting_trainer():
-    """A ``KokoroTrainer`` subclass (a fresh class, with fresh records, per
-    call) that records each step's metrics, its kernel launches (counts set
-    to 0 just before the step and read just after), its microbatches, its
-    wall time (host clock, synchronised) and the step number it logs at, and
-    the launches of each validation."""
-    import torch
+def recording_trainer():
+    """The quality run's recorder (``quality_run.recording_trainer``) with
+    fresh records: returns the ``KokoroTrainer`` subclass, its step records
+    (metrics, kernel launches, microbatches, synchronised ms, logged step)
+    and its validation records (launches, batches)."""
+    from kokoro_tpu_torch.scripts import quality_run
 
-    from kokoro_tpu_torch.training.trainer import KokoroTrainer
-
-    class CountingTrainer(KokoroTrainer):
-        steps, validations, logged_steps, step_ms = [], [], [], []
-
-        def _train_step(self, spec_augment):
-            step = super()._train_step(spec_augment)
-
-            def counted(state, batch, generator):
-                torch.cuda.synchronize()
-                zero_counts()
-                t0 = time.perf_counter()
-                metrics = step(state, batch, generator)
-                torch.cuda.synchronize()
-                self.step_ms.append((time.perf_counter() - t0) * 1e3)
-                micro = batch["mel_specs"].shape[0] if batch["mel_specs"].dim() == 4 else 1
-                self.steps.append((metrics, read_counts(), micro))
-                self.logged_steps.append(self.host_step + 1)
-                return metrics
-
-            return counted
-
-        def validate_epoch(self, epoch):
-            zero_counts()
-            out = super().validate_epoch(epoch)
-            torch.cuda.synchronize()
-            self.validations.append((read_counts(), len(self.val_batcher.build_batches(0))))
-            return out
-
-    return CountingTrainer
+    steps, validations = [], []
+    return quality_run.recording_trainer([], steps, validations), steps, validations
 
 
 def check_long_run(steps, validations, n_layers: int) -> None:
@@ -1375,21 +1330,21 @@ def check_long_run(steps, validations, n_layers: int) -> None:
 
     flash = {kern.name for kern in fl.KERNELS}
     cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
-    for metrics, counts, micro in steps:
+    for s in steps:
+        metrics, counts = s["metrics"], s["launches"]
         if not (metrics["stepped"] == 1.0 and all(
                 math.isfinite(metrics[k]) for k in ("total", "grad_norm"))):
             raise AssertionError(f"long trainer step not finite or skipped: {metrics}")
         if not metrics["loss_scale"] < 1.0:
             raise AssertionError(f"stabilization not live at 1408 frames: {metrics}")
-        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
+        want = {name: n_layers * s["microbatches"] for name in flash | cross}
         if counts != want:
             raise AssertionError(f"long step launches {counts}, expected {want}")
-    for counts, n_batches in validations:
-        want = {name: (n_layers * n_batches if name in (fl.flash_attention_fwd.name,
-                                                        fa.packed_attention_kvlen.name) else 0)
-                for name in counts}
-        if counts != want:
-            raise AssertionError(f"validation launches {counts}, expected {want}")
+    for v in validations:
+        want = {name: n_layers * v["batches"] for name in (fl.flash_attention_fwd.name,
+                                                           fa.packed_attention_kvlen.name)}
+        if v["launches"] != want:
+            raise AssertionError(f"validation launches {v['launches']}, expected {want}")
 
 
 def phase_long():
@@ -1411,7 +1366,7 @@ def phase_long():
     n_layers = 6
     flash = {kern.name for kern in fl.KERNELS}
     cross = {fa.packed_attention_kvlen.name, fa.packed_attention_bwd_kvlen.name}
-    CountingTrainer = counting_trainer()
+    Recording, steps, validations = recording_trainer()
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1425,12 +1380,12 @@ def phase_long():
                 "num_epochs": num_epochs, "save_every": 1, "keep_checkpoints": 50,
                 "warmup_steps": min(200, epochs * 10), "resume_checkpoint": "auto"})
 
-        first = CountingTrainer(*config(1), device="cuda")
+        first = Recording(*config(1), device="cuda")
         first.train()
         step_at_break = first.state.opt_step
         del first
         torch.cuda.empty_cache()
-        second = CountingTrainer(*config(epochs), device="cuda")
+        second = Recording(*config(epochs), device="cuda")
         second.train()
         resumed_from = second.start_epoch
         final_step, skipped = second.state.opt_step, second.state.skipped_steps
@@ -1442,7 +1397,6 @@ def phase_long():
                         vocoder_path=str(ROOT / "docs" / "hifigan_v1_int8.npz"))
         audio = tts.text_to_speech("Привет, мир! Сегодня хорошая погода.")
         del tts
-    steps, validations = CountingTrainer.steps, CountingTrainer.validations
     check_long_run(steps, validations, n_layers)
     if not (final_step > step_at_break > 0 and resumed_from == 1 and skipped == 0):
         raise AssertionError(f"resume did not continue: {step_at_break} -> {final_step}, "
@@ -1452,11 +1406,10 @@ def phase_long():
     emit({"phase": "long_trainer", "utterances": {"train": n_train, "val": n_val},
           "epochs": epochs, "resume_after_epoch": 1, "opt_step_at_break": step_at_break,
           "opt_step_final": final_step, "skipped_steps": skipped,
-          "steps": [{"total": m["total"], "grad_norm": m["grad_norm"],
-                     "loss_scale": m["loss_scale"], "microbatches": micro, "ms": ms,
-                     "launches": {k: v for k, v in c.items() if v}}
-                    for (m, c, micro), ms in zip(steps, CountingTrainer.step_ms)],
-          "validation_launches": [{k: v for k, v in c.items() if v} for c, _ in validations],
+          "steps": [{"total": s["metrics"]["total"], "grad_norm": s["metrics"]["grad_norm"],
+                     "loss_scale": s["metrics"]["loss_scale"], "microbatches": s["microbatches"],
+                     "ms": s["ms"], "launches": s["launches"]} for s in steps],
+          "validation_launches": [v["launches"] for v in validations],
           "tts_audio_s": audio.size / 22050, "wall_s": trainer_s})
 
     # (b) kernel path against plain path of the long step, f32
@@ -1650,10 +1603,10 @@ def phase_mfa():
         if stats["computed"] != 26 or stats["failed"] != 0:
             raise AssertionError(f"precompute on the card: {stats}")
 
-        CountingTrainer = counting_trainer()
+        Recording, steps, validations = recording_trainer()
         seen = []
 
-        class AlignedTrainer(CountingTrainer):
+        class AlignedTrainer(Recording):
             """Checks every item a training batch takes: its durations are
             the aligned ones of its utterance, not the fallback, and sum to
             its mel frames."""
@@ -1688,14 +1641,14 @@ def phase_mfa():
         with open(logs, "a") as f:
             f.write(json.dumps({"tag": "loss/total", "value": 1e9,
                                 "step": step_at_break + 1}) + "\n")
-        steps_before = len(CountingTrainer.steps)
+        steps_before = len(steps)
         second = AlignedTrainer(*config(2), device="cuda")
         second.train()
         final_step, resumed_from = second.state.opt_step, second.start_epoch
         del second
         torch.cuda.empty_cache()
-        check_long_run(CountingTrainer.steps, CountingTrainer.validations, n_layers)
-        resumed = CountingTrainer.logged_steps[steps_before:]
+        check_long_run(steps, validations, n_layers)
+        resumed = [s["logged_step"] for s in steps[steps_before:]]
         records = [json.loads(x) for x in logs.read_text().splitlines() if x.strip()]
         if any(r.get("value") == 1e9 for r in records) or not (
                 resumed_from == 1 and resumed and resumed[0] == step_at_break + 1
@@ -1770,21 +1723,19 @@ def phase_mfa():
         if not trace["device_events"]:
             raise AssertionError(f"--profile traced no device work: {trace}")
         infer_s = time.perf_counter() - t
-    steps = CountingTrainer.steps
     emit({"phase": "mfa", "alignment_report": report, "aligner": aligner,
           "precompute": stats, "precompute_s": precompute_s,
           "train_utterances": len(train_stems), "opt_step_at_break": step_at_break,
           "opt_step_final": final_step, "resumed_logged_steps": resumed,
-          "steps": [{"total": m["total"], "grad_norm": m["grad_norm"],
-                     "loss_scale": m["loss_scale"], "microbatches": micro, "ms": ms,
-                     "launches": {k: v for k, v in c.items() if v}}
-                    for (m, c, micro), ms in zip(steps, CountingTrainer.step_ms)],
+          "steps": [{"total": s["metrics"]["total"], "grad_norm": s["metrics"]["grad_norm"],
+                     "loss_scale": s["metrics"]["loss_scale"], "microbatches": s["microbatches"],
+                     "ms": s["ms"], "launches": s["launches"]} for s in steps],
           "trainer_s": trainer_s,
           "infer": {"wavs": names, "pth_vs_npz_max_abs": {"wav": pth_err, "vocoder": vocoder_err},
                     "ema_vs_model_samples": [len(audio["ema"]), len(audio["model"])],
                     "trace": trace, "run_s": run_s, "wall_s": infer_s},
           "wall_s": time.perf_counter() - t0})
-    return steps[-1][1]
+    return steps[-1]["launches"]
 
 
 # the reference's scalar families (tests/unit/test_observability_tags.py)
@@ -1877,11 +1828,11 @@ def phase_tools():
         root = Path(tmp)
         corpus, run = root / "corpus", root / "run"
         build_long_corpus(corpus, 26)
-        CountingTrainer = counting_trainer()
+        Recording, steps, validations = recording_trainer()
         trainer_log.addHandler(handler)
         trainer_log.setLevel(logging.INFO)
         try:
-            trainer = CountingTrainer(*get_default_config(**{
+            trainer = Recording(*get_default_config(**{
                 **LONG_REGIME, "data_dir": str(corpus), "output_dir": str(run),
                 "num_epochs": 1, "warmup_steps": 20, "log_every_steps": 1,
                 "histogram_every_steps": 1, "enable_profiling": True, "profile_epoch_start": 0,
@@ -1892,7 +1843,7 @@ def phase_tools():
             trainer_log.removeHandler(handler)
             trainer_log.setLevel(level)
         trainer_s = time.perf_counter() - t0
-        check_long_run(CountingTrainer.steps, CountingTrainer.validations, n_layers)
+        check_long_run(steps, validations, n_layers)
         weights = {f"weights/params/{p}" for p in flax_names(trainer.state.model).values()}
         phases = sorted(trainer._interbatch.phases)
         del trainer
@@ -1940,9 +1891,8 @@ def phase_tools():
             raise AssertionError(f"CLIs: plan {rc_table}/{rc_json} {plan_doc.get('hbm_bytes')}, "
                                  f"cache {cache}")
     observability = {
-        "trainer_s": trainer_s, "steps": len(CountingTrainer.steps),
-        "step_ms": CountingTrainer.step_ms,
-        "launches_per_step": {k: v for k, v in CountingTrainer.steps[-1][1].items() if v},
+        "trainer_s": trainer_s, "steps": len(steps), "step_ms": [s["ms"] for s in steps],
+        "launches_per_step": steps[-1]["launches"],
         "tags": {k: len(v) for k, v in tags.items()}, "log_lines": lines,
         "interbatch_phases": phases, "trace": trace,
         "trace_attention_kernels": {k: sorted(v) for k, v in kernels.items()}}
@@ -2017,7 +1967,182 @@ def phase_tools():
     worst = max(held, key=lambda x: abs(x[1]))
     if abs(worst[1]) > PLANNER_LIMIT:
         raise AssertionError(f"memory planner off by {worst[1]:+.3f} at {worst[0]}")
-    return CountingTrainer.steps[-1][1]
+    return steps[-1]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase quality: the quality run, the analyzer and the audio tool
+QUALITY_RUN = ["--epochs", "4", "--utts", "96", "--flash-attention"]
+QUALITY_TEXT = "Привет, мир! Сегодня хорошая погода."
+QUALITY_SHAPE = (12, 384, 8)  # (B, T, H) of a full microbatch: max_batch_size, the bucket
+
+
+def mixed_lengths(B: int, T: int) -> list:
+    """kv lengths of B rows mixing full, short, one-frame and empty rows."""
+    pattern = [T, T - 4, (3 * T) // 4, T // 2, 1, 0]
+    return [pattern[i % len(pattern)] for i in range(B)]
+
+
+def quality_kernels(recorders) -> dict:
+    """K1, K2 forward and both packed backwards against their plain versions
+    at every (B, T, H) the quality run called the forwards at, in both
+    dtypes, at rate 0 and every dropout rate the run used; K2 at the kv
+    lengths the run gave it at that shape and at a mixed set (``ShapeRecorder``
+    records).  Returns the checks, shapes, rates, kv lengths and the worst
+    error of each wrapper at each shape and dtype."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    causal, kvlen = (recorders[kern.name] for kern in fa.FWD_KERNELS)
+    shapes = sorted({key[:3] for rec in (causal, kvlen) for key in rec.calls})
+    rates = sorted({0.0} | {key[3] for rec in (causal, kvlen) for key in rec.calls})
+    if QUALITY_SHAPE not in shapes:
+        raise AssertionError(f"the quality run called the packed kernels at {shapes}, "
+                             f"not at its full microbatch {QUALITY_SHAPE}")
+    cases, lens_seen = [], {}
+    for B, T, H in shapes:
+        runs = []
+        for key, lens in kvlen.calls.items():
+            if key[:3] == (B, T, H) and lens not in runs:  # None: no padding mask
+                runs.append(lens)
+        lens_seen[f"B={B} T={T} H={H}"] = runs
+        lens_sets = {**{f"run{i}": lens for i, lens in enumerate(runs)},
+                     "mixed": mixed_lengths(B, T)}
+        cases.append((B, T, H, list(zip(fa.FWD_KERNELS, fa.BWD_KERNELS)), lens_sets))
+    worst = {}
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    checks = hold_packed(cases, tuple(rates), torch.Generator(device="cpu").manual_seed(9),
+                         note)
+    torch.cuda.empty_cache()
+    return {"checks": checks, "shapes": [list(x) for x in shapes], "Dh": 64, "rates": rates,
+            "kv_lengths_seen": lens_seen, "tolerance": {"forward": TOL, "grad": GRAD_TOL},
+            "max_abs_err": worst}
+
+
+def phase_quality():
+    """The quality run (``kokoro_tpu_torch.scripts.quality_run``) at full
+    width in the default regime, the decoder's attention through the packed
+    kernels, on 96 synthetic utterances: 4 epochs, the resume break after 2,
+    a checkpoint every 2 epochs: every step taken and finite, K1 and K2
+    forward launched twice per decoder layer per microbatch (remat), their
+    backward once, K3 and K4 never, validation the forwards only; the resume
+    continues from the saved step; the mel losses fall.  Then the regression
+    analyzer (finite norms, nonzero deltas, no failed finite-weights check)
+    and the audio tool (HiFi-GAN, frames x 256 samples) on its run
+    directory.  Then K1, K2 and the packed backward against their plain
+    versions at the run's shapes and kv lengths (:func:`quality_kernels`).
+    Returns the launches of each wrapper in the run's last step of 2
+    microbatches, and each wrapper's worst error per dtype in those checks."""
+    import torch
+
+    from kokoro_tpu_torch.data.audio_io import read_wav
+    from kokoro_tpu_torch.ops import fused_attention as fa
+    from kokoro_tpu_torch.scripts import analyze_training_regression as analyzer
+    from kokoro_tpu_torch.scripts import e2e_audio_artifact as audio_tool
+    from kokoro_tpu_torch.scripts import quality_run
+
+    n_layers = 6
+    forwards = {fa.packed_attention_causal.name, fa.packed_attention_kvlen.name}
+    backwards = {fa.packed_attention_bwd_causal.name, fa.packed_attention_bwd_kvlen.name}
+    # remat (gradient_checkpointing, on in the default regime) runs each
+    # decoder layer's forward again in the backward
+    passes = {**{name: 2 for name in forwards}, **{name: 1 for name in backwards}}
+    # the forwards as the autograd Function looks them up, behind recorders
+    # of their shapes, rates and kv lengths
+    attrs = {getattr(fa, attr).name: attr
+             for attr in ("packed_attention_causal", "packed_attention_kvlen")}
+    recorders = {name: ShapeRecorder(getattr(fa, attr)) for name, attr in attrs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, attr in attrs.items():
+            setattr(fa, attr, recorders[name])
+        try:
+            zero_counts()  # the main path's run: counts from 0
+            run = quality_run.run(quality_run.parse_args([*QUALITY_RUN, "--out", tmp]))
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            for name, attr in attrs.items():
+                setattr(fa, attr, recorders[name].kernel)
+        run_s = time.perf_counter() - t0
+        payload, steps, validations = run["payload"], run["steps"], run["validations"]
+        run_dir = run["run_dir"]
+
+        t0 = time.perf_counter()
+        report = analyzer.analyze_checkpoints(run_dir)
+        metrics = analyzer.analyze_metrics(analyzer.load_scalars(run_dir / "logs"))
+        checks = analyzer.build_checklist(report, metrics)
+        analyzer_s = time.perf_counter() - t0
+        audio = audio_tool.run(audio_tool.parse_args(["--model", str(run_dir),
+                                                      "--text", QUALITY_TEXT]))
+        sr, wav = read_wav(audio["wav"])
+
+    for s in steps:
+        want = {name: n * n_layers * s["microbatches"] for name, n in passes.items()}
+        if not (s["metrics"]["stepped"] and math.isfinite(s["metrics"]["total"])
+                and s["launches"] == want):
+            raise AssertionError(f"quality step not taken, not finite or launches "
+                                 f"{s['launches']} (expected {want}): {s}")
+    for v in validations:
+        want = {name: n_layers * v["batches"] for name in forwards}
+        if v["launches"] != want:
+            raise AssertionError(f"validation launches {v['launches']}, expected {want}")
+    total = {name: sum(s["launches"].get(name, 0) for s in steps)
+             + sum(v["launches"].get(name, 0) for v in validations) for name in counts}
+    if counts != total:
+        raise AssertionError(f"the run launched {counts}, its steps and validations {total}")
+    half = payload["resume_break_after_epoch"]
+    resumed = [s for s in steps if s["epoch"] == half + 1]
+    if not (payload["skipped_steps"] == 0 and payload["resumed_at_step"]
+            == payload["resume_continued_from_step"] > 0
+            and resumed and resumed[0]["opt_step"] == payload["resumed_at_step"]):
+        raise AssertionError(f"the resume did not continue from the saved step: {payload}")
+    history = payload["history"]
+    if not (history[-1]["train_mel"] < history[0]["train_mel"]
+            and history[-1]["val_mel"] < history[0]["val_mel"]):
+        raise AssertionError(f"mel loss did not fall: {history}")
+    cks = report["checkpoints"]
+    if not (len(cks) == 2 and all("error" not in c and math.isfinite(c["total_norm"])
+                                  and c["nonfinite_params"] == 0 for c in cks)
+            and all(c["total_delta_norm"] and c["total_delta_norm"] > 0 for c in cks[1:])):
+        raise AssertionError(f"analyzer report: {cks}")
+    finite = [c for c in checks if c["check"] == "finite weights"]
+    if not finite or any(c["status"] == "FAIL" for c in finite):
+        raise AssertionError(f"analyzer checklist: {checks}")
+    health = audio["hifigan"]
+    if not (sr == 22050 and wav.size == audio["mel_frames"] * 256 == audio["samples"] > 0
+            and health["nonfinite"] == 0
+            and all(math.isfinite(v) for v in health.values())):
+        raise AssertionError(f"audio tool: {audio}")
+    t0 = time.perf_counter()
+    held = quality_kernels(recorders)
+    held["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "quality", "command": "quality_run " + " ".join(QUALITY_RUN),
+          **{k: payload[k] for k in ("corpus", "epochs", "resume_break_after_epoch",
+                                     "resume_continued_from_step", "resumed_at_step",
+                                     "optimizer_steps", "skipped_steps", "best_val_mel",
+                                     "best_val_epoch", "peak_memory_gb", "checkpoint_bytes",
+                                     "launches_per_step")},
+          "history": [{k: h[k] for k in ("epoch", "step", "train_mel", "val_mel")}
+                      for h in history],
+          "validation_launches": [v["launches"] for v in validations],
+          "run_s": run_s, "analyzer_s": analyzer_s,
+          "analyzer": [{k: c.get(k) for k in ("name", "optimizer_step", "total_norm",
+                                              "total_delta_norm", "nonfinite_params")}
+                       for c in cks],
+          "checklist": {c["check"]: c["status"] for c in checks},
+          "audio": {k: audio[k] for k in ("mel_frames", "samples", "hifigan",
+                                          "warm_latency_s")},
+          "kernels_at_quality_shapes": held})
+    errors = {}
+    for key, err in held["max_abs_err"].items():
+        name, dname = key.split("/")[0], key.split("/")[-1]
+        errors.setdefault(name, {})[dname] = max(errors.get(name, {}).get(dname, 0.0), err)
+    return next(s["launches"] for s in reversed(steps) if s["microbatches"] == 2), errors
 
 
 # ---------------------------------------------------------------------------
@@ -2031,11 +2156,15 @@ NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, decoder_input_dropou
 # gradient norm (a missing data-group sum reads about 0.5); what the steps
 # moved each tensor.  The gradient per tensor is the check of the update: a
 # sum missed or taken twice leaves a tensor 0.5-1 off (the control, no
-# model-group sum of the q/k/v norm scales' gradients, read 0.86 on the
-# H100).  Sound runs read 2.8e-3 to 5.9e-3 there; the limit sits 8x above
-# them and 17x below the control.  The single process against itself is
+# model-group sum of the q/k/v norm scales' gradients, reads 0.93 on the
+# H100).  Sound runs that split rows or heads read 1.5e-4 to 6.2e-4 there,
+# the others 4.3e-7 to 1.7e-6; the limit sits 80x above them and 19x below
+# the control.  (It was set when the model drew the pitch and energy
+# embeddings N(0, 1), not flax's N(0, 1/sqrt(d)): sound runs read 2.8e-3 to
+# 5.9e-3 then, the control 0.86.)  The single process against itself is
 # printed beside them: with its parameters moved by one ulp it reads what
-# (2,) reads (5.9e-3), with its rows reversed 1.9e-6.  So the gap comes from
+# the (1, 2) and (2, 2) runs read (1.5e-4; 5.9e-3, what (2,) read, at the
+# N(0, 1) embeddings), with its rows reversed 1.9e-6.  So the gap comes from
 # rounding in the forward, through the gradient's kinks (a ReLU input that
 # crosses zero), not from the parallel layer (PERF.md has the readings)
 PARALLEL_LIMIT = {"loss_rel": 1e-5, "param_rtol": 2e-4, "param_atol": 2e-5,
@@ -2044,13 +2173,15 @@ PARALLEL_LIMIT = {"loss_rel": 1e-5, "param_rtol": 2e-4, "param_atol": 2e-5,
 REFERENCE_LR = 5e-5
 # the held runs' rate, a tenth of it.  Adam moves a parameter by about lr
 # times the sign of its gradient whatever the gradient's size, so an
-# element whose small gradient has opposite signs in the two runs (25 k of
-# 48 M at (2,)) moves apart by up to twice the step.  Here the three steps
+# element whose small gradient has opposite signs in the two runs (about 20
+# of 48 M at (2,); 25 k at the N(0, 1) embeddings) moves apart by up to
+# twice the step.  Here the three steps
 # move a parameter by at most 7.6e-6 (the largest group's warmup 5e-8,
 # 2.5e-6, 5e-6), so the parameter limit (atol 2e-5) cannot fail on the
 # update itself; the gradient at the init and the moved gap carry that
 # comparison.  The (2,) run at REFERENCE_LR is printed beside it as a
-# reading, not held: it breaks the loss and parameter limits by step 3
+# reading, not held: it meets both limits at the flax init on the H100, and
+# broke the loss and parameter limits by step 3 at the N(0, 1) embeddings
 PARALLEL_LR = 5e-6
 PARALLEL_TIMEOUT_S = 300  # a world that has not ended by then is killed and fails
 LOCAL_HEADS = (4, 2)      # 8 heads over 2 and 4 model ranks
@@ -2071,6 +2202,24 @@ class HeadRecorder:
         return self.kernel(*args, **kwargs)
 
 
+class ShapeRecorder(HeadRecorder):
+    """A ``HeadRecorder`` of a packed forward wrapper that also keeps, for
+    each (B, T, H, dropout rate) it is called at, the kv lengths of the
+    first such call (None for the causal wrapper)."""
+
+    def __init__(self, kernel):
+        super().__init__(kernel)
+        self.calls = {}
+
+    def __call__(self, q, *args, **kwargs):
+        key = (q.shape[0], q.shape[1], kwargs["num_heads"],
+               float(kwargs.get("dropout_rate") or 0.0))
+        if key not in self.calls:
+            lens = kwargs.get("kv_lengths")
+            self.calls[key] = None if lens is None else lens.tolist()
+        return super().__call__(q, *args, **kwargs)
+
+
 def record_heads():
     """Put a ``HeadRecorder`` in front of the packed and flash wrappers that
     the autograd Functions look up when called; returns them by name."""
@@ -2086,6 +2235,49 @@ def record_heads():
             setattr(module, attr, rec)
             recorders[rec.name] = rec
     return recorders
+
+
+def hold_packed(cases, rates, gen, note) -> int:
+    """Hold the packed forward and backward wrappers against their plain
+    versions: for each ``(B, T, H, [(fwd, bwd), ...], {name: kv lengths})``
+    of ``cases`` (Dh 64), both dtypes and every rate of ``rates``, the
+    causal pair once and the kv-length pair at each set of kv lengths, the
+    forward to ``TOL`` and dQ, dK, dV to ``GRAD_TOL``; ``note(key, err)``
+    gets each error, keyed ``"<wrapper>/T=<T>/H=<H>/<dtype>"``.  Returns
+    the number of checks."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev, Dh, checks = torch.device("cuda"), 64, 0
+    for B, T, H, pairs, lens_sets in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            for fwd, bwd in pairs:
+                for set_name, lens in ({"causal": None} if fwd.causal else lens_sets).items():
+                    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                                  device=dev)
+                    for rate in rates:
+                        kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens,
+                                  dropout_rate=rate, seed=4000 + H if rate else None)
+                        o, lse = fwd(q, k, v, return_lse=True, **kw)
+                        grads = bwd(q, k, v, o, do, lse, **kw)
+                        torch.cuda.synchronize()
+                        where = f"{fwd.name} B={B} T={T} H={H} {dname} {set_name} rate={rate}"
+                        note(f"{fwd.name}/T={T}/H={H}/{dname}", close_or_raise(
+                            where, o, fa.packed_attention_reference(
+                                q, k, v, causal=fwd.causal, **kw), TOL[dname]))
+                        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=fwd.causal,
+                                                                **kw)
+                        note(f"{bwd.name}/T={T}/H={H}/{dname}", max(
+                            close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                            for n, a, b in zip("qkv", grads, ref)))
+                        checks += 1
+                        del o, lse, grads, ref
+            del q, k, v, do
+    return checks
 
 
 def parallel_kernels():
@@ -2116,33 +2308,7 @@ def parallel_kernels():
               {"512-8b": [512 - 8 * i for i in range(32)]}) for H in LOCAL_HEADS]
     cases.append((6, 1408, 4, [(fa.packed_attention_kvlen, fa.packed_attention_bwd_kvlen)],
                   {"long_batch": [1408] * 6, "mixed": [1408, 1371, 704, 0, 1408, 1000]}))
-    for B, T, H, pairs, lens_sets in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[1]
-            q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype)
-                           for _ in range(4))
-            for fwd, bwd in pairs:
-                for set_name, lens in ({"causal": None} if fwd.causal else lens_sets).items():
-                    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
-                                                                  device=dev)
-                    for rate in (0.0, RATE):
-                        kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens,
-                                  dropout_rate=rate, seed=4000 + H if rate else None)
-                        o, lse = fwd(q, k, v, return_lse=True, **kw)
-                        grads = bwd(q, k, v, o, do, lse, **kw)
-                        torch.cuda.synchronize()
-                        where = f"{fwd.name} B={B} T={T} H={H} {dname} {set_name} rate={rate}"
-                        note(f"{fwd.name}/T={T}/H={H}/{dname}", close_or_raise(
-                            where, o, fa.packed_attention_reference(
-                                q, k, v, causal=fwd.causal, **kw), TOL[dname]))
-                        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=fwd.causal,
-                                                                **kw)
-                        note(f"{bwd.name}/T={T}/H={H}/{dname}", max(
-                            close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
-                            for n, a, b in zip("qkv", grads, ref)))
-                        checks += 1
-                        del o, lse, grads, ref
-            del q, k, v, do
+    checks += hold_packed(cases, (0.0, RATE), gen, note)
     T, H = 1408, 4  # the long path's decoder self-attention at tp = 2
     for B in (12, 6):
         for dtype in (torch.float32, torch.bfloat16):
@@ -2396,9 +2562,9 @@ def job_gloo_4(rank: int, out: Path) -> None:
     torch.cuda.empty_cache()
     for r in recorders.values():
         r.heads.clear()
-    CountingTrainer = counting_trainer()
+    Recording, steps, validations = recording_trainer()
 
-    class MeshCountingTrainer(CountingTrainer):
+    class MeshRecordingTrainer(Recording):
         collectives = []
 
         def _train_step(self, spec_augment):
@@ -2412,7 +2578,7 @@ def job_gloo_4(rank: int, out: Path) -> None:
 
             return counted
 
-    trainer = MeshCountingTrainer(*get_default_config(**{
+    trainer = MeshRecordingTrainer(*get_default_config(**{
         **LONG_REGIME, "data_dir": str(out / "corpus"), "output_dir": str(out / "run_2x2"),
         "num_epochs": 1, "save_every": 1, "warmup_steps": 20, "resume_checkpoint": "",
         "mesh_shape": (2, 2), "mesh_axis_names": ("data", "model")}), device="cuda:0")
@@ -2420,10 +2586,8 @@ def job_gloo_4(rank: int, out: Path) -> None:
     if rank == 0:
         (out / "trainer_2x2.json").write_text(json.dumps({
             "dp_size": trainer.dp_size, "tp_size": trainer.tp_size,
-            "steps": [{"metrics": m, "launches": c, "microbatches": micro}
-                      for m, c, micro in CountingTrainer.steps],
-            "validations": CountingTrainer.validations, "step_ms": CountingTrainer.step_ms,
-            "collectives": MeshCountingTrainer.collectives,
+            "steps": steps, "validations": validations, "step_ms": [s["ms"] for s in steps],
+            "collectives": MeshRecordingTrainer.collectives,
             "heads": {name: sorted(r.heads) for name, r in recorders.items()},
             "opt_step": trainer.state.opt_step}))
 
@@ -2570,14 +2734,14 @@ def phase_parallel():
 
         # (d) one process resumes the (2, 2) checkpoint for one more epoch
         t = time.perf_counter()
-        CountingTrainer = counting_trainer()
-        single_run = CountingTrainer(*get_default_config(**{
+        Recording, single_steps, _ = recording_trainer()
+        single_run = Recording(*get_default_config(**{
             **LONG_REGIME, "data_dir": str(out / "corpus"), "output_dir": str(out / "run_2x2"),
             "num_epochs": 2, "save_every": 1, "warmup_steps": 20, "resume_checkpoint": "auto"}),
             device="cuda")
         single_run.train()
         resumed = {"start_epoch": single_run.start_epoch, "opt_step": single_run.state.opt_step,
-                   "metrics": [m for m, _, _ in CountingTrainer.steps]}
+                   "metrics": [s["metrics"] for s in single_steps]}
         del single_run
         torch.cuda.empty_cache()
         walls["d_resume"] = time.perf_counter() - t
@@ -2604,8 +2768,8 @@ def phase_parallel():
         failures.append(f"(2, 2) f32 step kernels ran at heads {runs['2x2']['heads']}")
     steps = mesh_trainer["steps"]
     for s_ in steps:
-        m, counts, micro = s_["metrics"], s_["launches"], s_["microbatches"]
-        want = {name: (n_layers * micro if name in flash | cross else 0) for name in counts}
+        m, counts = s_["metrics"], s_["launches"]
+        want = {name: n_layers * s_["microbatches"] for name in flash | cross}
         if not (m["stepped"] == 1.0 and math.isfinite(m["total"])) or counts != want:
             failures.append(f"(2, 2) trainer step {m} launches {counts}, expected {want}")
     heads = mesh_trainer["heads"]
@@ -2735,9 +2899,9 @@ def job_sp_pp_trainer(rank: int, out: Path) -> None:
     trainer_log.addHandler(handler)
     trainer_log.setLevel(logging.INFO)
     for tag, names, extra in SP_PP_TRAINERS:
-        CountingTrainer = counting_trainer()
+        Recording, steps, validations = recording_trainer()
 
-        class MeshCountingTrainer(CountingTrainer):
+        class MeshRecordingTrainer(Recording):
             collectives = []
 
             def _train_step(self, spec_augment):
@@ -2753,7 +2917,7 @@ def job_sp_pp_trainer(rank: int, out: Path) -> None:
 
         lines.clear()
         torch.cuda.reset_peak_memory_stats()
-        trainer = MeshCountingTrainer(*get_default_config(**{
+        trainer = MeshRecordingTrainer(*get_default_config(**{
             **LONG_REGIME, **extra, "data_dir": str(out / "corpus"),
             "output_dir": str(out / f"run_{tag}"), "num_epochs": 1, "save_every": 1,
             "warmup_steps": 20, "resume_checkpoint": "", "mesh_shape": (2, 2),
@@ -2765,11 +2929,9 @@ def job_sp_pp_trainer(rank: int, out: Path) -> None:
                 "sizes": [trainer.dp_size, trainer.sp_size, trainer.tp_size, trainer.pp_size],
                 "use_flash": trainer.state.model.config.use_flash_attention,
                 "disabled_line": [x for x in lines if x.startswith(DISABLED_LINE)],
-                "steps": [{"metrics": m, "launches": c, "microbatches": micro}
-                          for m, c, micro in CountingTrainer.steps],
-                "validations": CountingTrainer.validations,
-                "step_ms": CountingTrainer.step_ms,
-                "collectives": MeshCountingTrainer.collectives,
+                "steps": steps, "validations": validations,
+                "step_ms": [s["ms"] for s in steps],
+                "collectives": MeshRecordingTrainer.collectives,
                 "opt_step": trainer.state.opt_step}))
         del trainer
         torch.cuda.empty_cache()
@@ -2858,7 +3020,7 @@ def phase_parallel_sp_pp():
             if not (s_["metrics"]["stepped"] == 1.0 and math.isfinite(s_["metrics"]["total"])
                     and not any(s_["launches"].values())):
                 failures.append(f"trainer {tag} step {s_}")
-        if any(any(counts.values()) for counts, _ in tr["validations"]):
+        if any(v["launches"] for v in tr["validations"]):
             failures.append(f"trainer {tag} validation launched {tr['validations']}")
     if not (cli["config"]["distributed_init"] and cli["counters"]["optimizer_step"] > 0
             and cli["config"]["mesh_axis_names"] == ["data", "seq"]):
@@ -2984,6 +3146,9 @@ def main() -> int:
     tools_counts = {}
     if "tools" in phases:  # launches in the last long training step with diagnostics on
         tools_counts = {name: c for name, c in timed("tools", phase_tools).items() if c}
+    quality_counts, quality_errors = {}, {}
+    if "quality" in phases:  # launches in the quality run's last step, errors at its shapes
+        quality_counts, quality_errors = timed("quality", phase_quality)
     parallel_path = {}
     if "parallel" in phases:  # launches per step on rank 0 of the (2, 2) runs
         parallel_path = timed("parallel", phase_parallel)
@@ -3024,6 +3189,16 @@ def main() -> int:
                 "launches": mfa_counts[kern.name],
                 "launches_are": "per long training step on MFA durations (phase mfa: "
                                 "2 microbatches of B=12 L=256 T=1408)"}
+        if kern.name in quality_counts:  # this slice's path: the quality run
+            row["quality_path"] = {
+                "launches": quality_counts[kern.name],
+                "launches_are": "per training step of the quality run's default regime with "
+                                "the packed kernels (phase quality: 2 microbatches of B=12 "
+                                "T=384, attention dropout in the kernel; remat runs each "
+                                "forward twice)",
+                "max_abs_err": quality_errors[kern.name],
+                "max_abs_err_at": "every (B, T=384, H=8, Dh=64) of the run, rate 0 and the "
+                                  "run's rates, K2 at the run's kv lengths and a mixed set"}
         if kern.name in parallel_path:  # a rank of the (2, 2) ('data', 'model') mesh
             row["parallel_path"] = parallel_path[kern.name]
         if kern.name in sp_pp_path:  # this slice's paths: the seq and stage axes

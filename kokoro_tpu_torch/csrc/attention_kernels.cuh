@@ -560,18 +560,22 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
   return cudaErrorInvalidValue;
 }
 
+// `delta`: the tensor-core kernels' (B, H, Tq) f32 workspace; the scalar
+// kernels take each row's rowsum(dO * O) from the f32 O and need none
 template <bool FLASH, bool DROPOUT>
 cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const float* lse, void* dq,
-                         void* dk, void* dv, int B, const AttnArgs& a, cudaStream_t s) {
+                         const void* o, const void* dout, const float* lse, float* delta,
+                         void* dq, void* dk, void* dv, int B, const AttnArgs& a,
+                         cudaStream_t s) {
   if (dtype == 0 && Dh == 64)
     return launch_bwd<float, 64, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 0 && Dh == 128)
     return launch_bwd<float, 128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 1 && Dh == 64)
-    return tc::launch_bwd<64, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
+    return tc::launch_bwd<64, FLASH, DROPOUT>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
   if (dtype == 1 && Dh == 128)
-    return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
+    return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a,
+                                               s);
   return cudaErrorInvalidValue;
 }
 

@@ -20,11 +20,16 @@
 // (128-byte rows, 128-byte swizzle; Dh = 128 is two boxes), completing on an
 // mbarrier.  The CTA's own tile is loaded once; the tiles it loops over stream
 // through a ring of two stages, the next tile's load in flight while the
-// current one computes (dK/dV streams O beside Q and dO, and takes each query
-// tile's rowsum(dO * O) from shared memory; dQ takes its one tile's from
-// device memory).  The tensor maps are 4-D so that a box never crosses
-// into the next head or batch: packed (Dh, H, T, B), flash (Dh, T, H, B);
-// rows past T are zero-filled by the TMA unit and masked by bounds.
+// current one computes.  Each query row's delta (the row term of dS = P (dP -
+// delta)) is the dQ kernel's, which writes it to device memory for the dK/dV
+// kernel: the packed policy's is the reference's sum of P * dP over the row in
+// f32, from a first pass over the key tiles (rowsum(dO * O) on the bf16 O
+// would round 1.25 v, a kept weight of a one-key row at rate 0.2, and put that
+// rounding, summed over every query, into the key's dK); the flash policy's
+// is the library's rowsum(dO * O).  The tensor maps are 4-D so that a box
+// never crosses into the next head or batch: packed (Dh, H, T, B), flash
+// (Dh, T, H, B); rows past T are zero-filled by the TMA unit and masked by
+// bounds.
 //
 // Products: a score tile (S = Q K^T, dPd = dO V^T, and in dK/dV the
 // transposes S^T = K Q^T, dPd^T = V dO^T) is m64n64k16 with both operands in
@@ -427,6 +432,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   store_rows<DH>(o + q_base, acc, q0, r0, c0, a.Tq, D, inv);
 }
 
+// the softmax weight of one element from its logit s and the row's lse: 1 / Tk
+// on a packed row with no key, 0 where not visible
+__device__ __forceinline__ float softmax_p(float s, bool in_bounds, bool uniform, bool visible,
+                                           float lse, const AttnArgs& a, float inv_t) {
+  if (!in_bounds) return 0.f;
+  return uniform ? inv_t : (visible ? exp2f((s * a.scale - lse) * kLog2e) : 0.f);
+}
+
 // p, Pd and dS * scale of one element from its logit s and dPd, the row's
 // lse and delta; `visible` before segment ids, `kept` its dropout flag
 template <bool DROPOUT>
@@ -434,8 +447,7 @@ __device__ __forceinline__ void grad_element(float s, float dpd, bool in_bounds,
                                              bool visible, float lse, float delta, bool kept,
                                              const AttnArgs& a, float inv_t, float& pd,
                                              float& ds) {
-  float p = 0.f;
-  if (in_bounds) p = uniform ? inv_t : (visible ? exp2f((s * a.scale - lse) * kLog2e) : 0.f);
+  const float p = softmax_p(s, in_bounds, uniform, visible, lse, a, inv_t);
   pd = p;
   if (DROPOUT) {
     pd = kept ? p * a.inv_keep : 0.f;
@@ -449,7 +461,8 @@ __global__ void __launch_bounds__(kWG)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
               const bf16* __restrict__ o, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, bf16* __restrict__ dq, AttnArgs a) {
+              const float* __restrict__ lse, float* __restrict__ delta_out,
+              bf16* __restrict__ dq, AttnArgs a) {
   constexpr uint32_t TILE = DH / 64 * kBox;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
@@ -465,15 +478,19 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const bool seg = FLASH && a.q_seg != nullptr;
   const KeyRange keys = key_range<FLASH>(a, b, q0);
   const int n_tiles = (keys.kv_end + kBK - 1) / kBK;
+  // the packed policy streams the key tiles twice: delta, then dQ
+  const int n_iter = FLASH ? n_tiles : 2 * n_tiles;
   const float inv_t = 1.f / (float)a.Tk;
   const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = 16 * (tid >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
 
+  // ring position j holds key tile j, or j - n_tiles in the second pass
   auto load_kv = [&](int j) {
     uint64_t* bar = sh.bar + 1 + (j & 1);
+    const int k0 = (j < n_tiles ? j : j - n_tiles) * kBK;
     mbar_expect_tx(bar, 2 * TILE);
-    tma_tile<FLASH, DH>(Ks + (j & 1) * TILE, &tk, j * kBK, h, b, bar);
-    tma_tile<FLASH, DH>(Vs + (j & 1) * TILE, &tv, j * kBK, h, b, bar);
+    tma_tile<FLASH, DH>(Ks + (j & 1) * TILE, &tk, k0, h, b, bar);
+    tma_tile<FLASH, DH>(Vs + (j & 1) * TILE, &tv, k0, h, b, bar);
   };
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(sh.bar + i, 1);
@@ -484,29 +501,48 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     mbar_expect_tx(sh.bar, 2 * TILE);
     tma_tile<FLASH, DH>(Qs, &tq, q0, h, b, sh.bar);
     tma_tile<FLASH, DH>(dOs, &tdo, q0, h, b, sh.bar);
-    for (int j = 0; j < 2 && j < n_tiles; ++j) load_kv(j);
+    for (int j = 0; j < 2 && j < n_iter; ++j) load_kv(j);
   }
-  row_stats<bf16, DH, kWG>(o, dout, lse, q_base, (size_t)bh * a.Tq, q0, a.Tq, D, sh.delta,
-                           sh.lse);
+  if (FLASH) {
+    row_stats<bf16, DH, kWG>(o, dout, lse, q_base, (size_t)bh * a.Tq, q0, a.Tq, D, sh.delta,
+                             sh.lse);
+  } else if (tid < kBQ) {
+    sh.lse[tid] = q0 + tid < a.Tq ? lse[(size_t)bh * a.Tq + q0 + tid] : 0.f;
+  }
   if (seg) load_segments(sh.qseg, a.q_seg, b, q0, a.Tq);
   __syncthreads();
+  if (FLASH && tid < kBQ && q0 + tid < a.Tq)
+    delta_out[(size_t)bh * a.Tq + q0 + tid] = sh.delta[tid];
   float delta[2], lse_r[2];
   int qseg[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    delta[i] = sh.delta[r0 + 8 * i];
+    delta[i] = FLASH ? sh.delta[r0 + 8 * i] : 0.f;
     lse_r[i] = sh.lse[r0 + 8 * i];
     qseg[i] = seg ? sh.qseg[r0 + 8 * i] : 1;
   }
+  // the packed policy's delta: the thread's partial sums of P * dP over its
+  // columns, summed over the quad, written once a row for the dK/dV kernel
+  auto publish_delta = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+      const int row = q0 + r0 + 8 * i;
+      if ((lane & 3) == 0 && row < a.Tq) delta_out[(size_t)bh * a.Tq + row] = delta[i];
+    }
+  };
+  if (!FLASH && n_tiles == 0) publish_delta();
   float acc[DH / 2];
   zero(acc);
   mbar_wait(sh.bar, 0);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK, slot = j & 1;
+  for (int j = 0; j < n_iter; ++j) {
+    const bool first_pass = !FLASH && j < n_tiles;
+    const int k0 = (j < n_tiles ? j : j - n_tiles) * kBK, slot = j & 1;
     if (j > 0) {
-      __syncthreads();  // tile j - 1 is done: its stage, the flags and kvseg are free
-      if (tid == 0 && j + 1 < n_tiles) load_kv(j + 1);
+      __syncthreads();  // ring position j - 1 is done: its stage, the flags and kvseg are free
+      if (tid == 0 && j + 1 < n_iter) load_kv(j + 1);
     }
     if (DROPOUT) dropout_tile<kWG>(sh.keep, bh, q0, k0, a.threshold, a.seed_lo, a.seed_hi);
     if (seg) load_segments(sh.kvseg, a.kv_seg, b, k0, a.Tk);
@@ -523,6 +559,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(dp);
+    if (!FLASH && j == n_tiles) publish_delta();  // the first pass is complete
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -536,6 +573,12 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
           const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, col) &&
                                (!seg || qseg[i] == sh.kvseg[c]);
           const bool kept = !DROPOUT || sh.keep[(r0 + 8 * i) * 64 + c] != 0;
+          if (first_pass) {  // delta += p * dP, dP through the dropout flag
+            const float dpk = DROPOUT ? (kept ? dp[idx] * a.inv_keep : 0.f) : dp[idx];
+            delta[i] = fmaf(softmax_p(s[idx], in_bounds, keys.uniform, visible, lse_r[i], a,
+                                      inv_t), dpk, delta[i]);
+            continue;
+          }
           float pd, ds;
           grad_element<DROPOUT>(s[idx], dp[idx], in_bounds, keys.uniform, visible, lse_r[i],
                                 delta[i], kept, a, inv_t, pd, ds);
@@ -543,6 +586,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         }
       }
     }
+    if (first_pass) continue;
     uint32_t dsa[4][4];
     to_a_operand(s, dsa);  // bf16(dS * scale)
     wgmma_fence();
@@ -555,34 +599,11 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   store_rows<DH>(dq + q_base, acc, q0, r0, c0, a.Tq, D, one);
 }
 
-// rowsum(dO * O) of the 64 rows of a stage's dO and O tiles -> delta[64]:
-// two threads a row.  The swizzle permutes the 16-byte chunks inside a row
-// alike in both tiles, so a row's sum needs no unswizzling.
-template <int DH>
-__device__ __forceinline__ void tile_delta(const uint8_t* dOs, const uint8_t* Os, float* delta) {
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float sum = 0.f;
-#pragma unroll
-  for (int g = 0; g < DH / 64; ++g) {
-    const size_t off = g * kBox + r * 128 + half * 64;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float a[8], d[8];
-      load16(reinterpret_cast<const bf16*>(Os + off) + 8 * c, a);
-      load16(reinterpret_cast<const bf16*>(dOs + off) + 8 * c, d);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum = fmaf(a[e], d[e], sum);
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  if (half == 0) delta[r] = sum;  // rows past T were zero-filled: 0
-}
-
 template <int DH, bool FLASH, bool DROPOUT>
 __global__ void __launch_bounds__(kWG)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                const __grid_constant__ CUtensorMap to, const float* __restrict__ lse,
+                const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, AttnArgs a) {
   constexpr uint32_t TILE = DH / 64 * kBox;
   extern __shared__ uint8_t smem_raw[];
@@ -590,8 +611,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   uint8_t* Vs = Ks + TILE;
   uint8_t* Qs = Vs + TILE;       // two stages
   uint8_t* dOs = Qs + 2 * TILE;  // two stages
-  uint8_t* Os = dOs + 2 * TILE;  // two stages
-  const Tail sh = carve_tail(Os + 2 * TILE);
+  const Tail sh = carve_tail(dOs + 2 * TILE);
 
   const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
   const int D = row_stride<FLASH, DH>(a.H);
@@ -611,10 +631,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   auto load_q = [&](int i) {
     uint64_t* bar = sh.bar + 1 + (i & 1);
-    mbar_expect_tx(bar, 3 * TILE);
+    mbar_expect_tx(bar, 2 * TILE);
     tma_tile<FLASH, DH>(Qs + (i & 1) * TILE, &tq, q_begin + i * kBQ, h, b, bar);
     tma_tile<FLASH, DH>(dOs + (i & 1) * TILE, &tdo, q_begin + i * kBQ, h, b, bar);
-    tma_tile<FLASH, DH>(Os + (i & 1) * TILE, &to, q_begin + i * kBQ, h, b, bar);
   };
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(sh.bar + i, 1);
@@ -640,11 +659,14 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       __syncthreads();  // query tile i - 1 is done: its stage and row data are free
       if (tid == 0 && i + 1 < n_tiles) load_q(i + 1);
     }
-    if (tid < kBQ) sh.lse[tid] = q0 + tid < a.Tq ? lse[(size_t)bh * a.Tq + q0 + tid] : 0.f;
+    if (tid < kBQ) {  // the query rows' lse and delta (the dQ kernel's)
+      const bool in_rows = q0 + tid < a.Tq;
+      sh.lse[tid] = in_rows ? lse[(size_t)bh * a.Tq + q0 + tid] : 0.f;
+      sh.delta[tid] = in_rows ? delta[(size_t)bh * a.Tq + q0 + tid] : 0.f;
+    }
     if (seg) load_segments(sh.qseg, a.q_seg, b, q0, a.Tq);
     if (DROPOUT) dropout_tile<kWG>(sh.keep, bh, q0, k0, a.threshold, a.seed_lo, a.seed_hi);
     mbar_wait(sh.bar + 1 + slot, (i >> 1) & 1);
-    tile_delta<DH>(dOs + slot * TILE, Os + slot * TILE, sh.delta);
     __syncthreads();
 
     // transposed tiles: rows are this CTA's keys, columns the query tile
@@ -772,33 +794,34 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-// the dQ kernel, then the dK/dV kernel
+// the dQ kernel, then the dK/dV kernel; `delta` (B, H, Tq) f32 carries each
+// row's delta from the first to the second
 template <int DH, bool FLASH, bool DROPOUT>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, void* dq, void* dk, void* dv, int B,
-                       const AttnArgs& a, cudaStream_t stream) {
-  constexpr size_t smem_dq = smem_bytes<DH>(6), smem_dkdv = smem_bytes<DH>(8);
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, const AttnArgs& a, cudaStream_t stream) {
+  if (delta == nullptr) return cudaErrorInvalidValue;
+  constexpr size_t smem_dq = smem_bytes<DH>(6), smem_dkdv = smem_bytes<DH>(6);
   static bool configured_dq = false, configured_dkdv = false;
   cudaError_t err = allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem_dq, configured_dq);
   if (err == cudaSuccess)
     err = allow_smem(bwd_dkdv_kernel<DH, FLASH, DROPOUT>, smem_dkdv, configured_dkdv);
-  CUtensorMap mq, mk, mv, mdo, mo;
+  CUtensorMap mq, mk, mv, mdo;
   if (err == cudaSuccess) err = make_map<FLASH>(&mq, q, B, a.H, a.Tq, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mk, k, B, a.H, a.Tk, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mv, v, B, a.H, a.Tk, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mdo, dout, B, a.H, a.Tq, DH);
-  if (err == cudaSuccess) err = make_map<FLASH>(&mo, o, B, a.H, a.Tq, DH);
   if (err != cudaSuccess) return err;
   const bf16* o_ = static_cast<const bf16*>(o);
   const bf16* do_ = static_cast<const bf16*>(dout);
   const dim3 grid_dq((a.Tq + kBQ - 1) / kBQ, a.H, B);
   bwd_dq_kernel<DH, FLASH, DROPOUT><<<grid_dq, kWG, smem_dq, stream>>>(
-      mq, mk, mv, mdo, o_, do_, lse, static_cast<bf16*>(dq), a);
+      mq, mk, mv, mdo, o_, do_, lse, delta, static_cast<bf16*>(dq), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_dkdv((a.Tk + kBK - 1) / kBK, a.H, B);
   bwd_dkdv_kernel<DH, FLASH, DROPOUT><<<grid_dkdv, kWG, smem_dkdv, stream>>>(
-      mq, mk, mv, mdo, mo, lse, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
   return cudaGetLastError();
 }
 

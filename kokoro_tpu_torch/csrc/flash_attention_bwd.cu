@@ -28,12 +28,15 @@
 using namespace kokoro_attn;
 
 // Gradients of kokoro_flash_attention_fwd.  o and lse are the forward's
-// outputs for the same q, k, v, segment ids, scale and causal flag.  dtype:
-// 0 = float32, 1 = bfloat16.  Launches the dQ kernel, then the dK/dV kernel,
-// on `stream`; does not synchronise.  Returns a cudaError_t (0 on success).
+// outputs for the same q, k, v, segment ids, scale and causal flag.  delta: a
+// (B, H, Tq) f32 workspace the bf16 kernels pass each row's di through (NULL
+// for float32).  dtype: 0 = float32, 1 = bfloat16.  Launches the dQ kernel,
+// then the dK/dV kernel, on `stream`; does not synchronise.  Returns a
+// cudaError_t (0 on success).
 extern "C" int kokoro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* lse,
-                                          void* dq, void* dk, void* dv, const int* q_seg,
+                                          float* delta, void* dq, void* dk, void* dv,
+                                          const int* q_seg,
                                           const int* kv_seg, int B, int H, int Tq, int Tk,
                                           int Dh, float scale, int causal, int dtype,
                                           void* stream) {
@@ -41,6 +44,6 @@ extern "C" int kokoro_flash_attention_bwd(const void* q, const void* k, const vo
       (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnArgs a{nullptr, q_seg, kv_seg, Tq, Tk, H, scale, causal, 0u, 1.f, 0u, 0u};
-  return (int)dispatch_bwd<true, false>(dtype, Dh, q, k, v, o, dout, lse, dq, dk, dv, B, a,
-                                        static_cast<cudaStream_t>(stream));
+  return (int)dispatch_bwd<true, false>(dtype, Dh, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                        B, a, static_cast<cudaStream_t>(stream));
 }

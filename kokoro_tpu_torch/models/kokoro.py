@@ -135,9 +135,10 @@ class KokoroModel(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "KokoroModel":
         """Seeded weights drawn like the flax initializers: xavier-uniform
         attention/FFN/predictor kernels (gain 0.5 for the FFN output),
-        lecun-normal projections, N(0, 1/sqrt(d)) text and N(0, 0.02) stress
-        embeddings, N(0, 1) pitch/energy embeddings, zero biases except the
-        duration head's log1p(5)."""
+        lecun-normal projections, embeddings N(0, 1/sqrt(d)) (flax's
+        ``nn.Embed`` default: the text, pitch and energy embeddings) but the
+        stress embedding's N(0, 0.02), zero biases except the duration
+        head's log1p(5)."""
         def xavier(w, gain=1.0):
             fan_out, fan_in = w.shape[0], w[0].numel()
             rf = w[0, 0].numel() if w.dim() > 2 else 1
@@ -157,7 +158,7 @@ class KokoroModel(nn.Module):
             if isinstance(m, nn.Conv1d):
                 xavier(m.weight)
             elif isinstance(m, nn.Embedding):
-                m.weight.normal_(0.0, 1.0, generator=generator)
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight.shape[1]), generator=generator)
         for name, m in self.named_modules():
             if not isinstance(m, nn.Linear):
                 continue
@@ -167,8 +168,6 @@ class KokoroModel(nn.Module):
                 xavier(m.weight)
             else:
                 lecun(m.weight)
-        d = self.config.hidden_dim
-        self.text_embedding.weight.normal_(0.0, 1.0 / math.sqrt(d), generator=generator)
         if self.config.use_stress_embedding:
             self.stress_embedding.weight.normal_(0.0, 0.02, generator=generator)
         if self.config.use_variance_predictor:

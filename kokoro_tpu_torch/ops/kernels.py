@@ -115,14 +115,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [p] * 6 + [i] * 4 + [f, i, i] + dropout + [p]
     elif name == "packed_attention_bwd":
         fn = lib.kokoro_packed_attention_bwd
-        # q k v o do lse dq dk dv lens, B T H Dh, scale, causal dtype, dropout..., stream
-        fn.argtypes = [p] * 10 + [i] * 4 + [f, i, i] + dropout + [p]
+        # q k v o do lse delta dq dk dv lens, B T H Dh, scale, causal dtype, dropout..., stream
+        fn.argtypes = [p] * 11 + [i] * 4 + [f, i, i] + dropout + [p]
     elif name == "flash_attention":
         fn = lib.kokoro_flash_attention_fwd
         # q k v o lse q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream
         fn.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
     elif name == "flash_attention_bwd":
         fn = lib.kokoro_flash_attention_bwd
-        # q k v o do lse dq dk dv q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream
-        fn.argtypes = [p] * 11 + [i] * 5 + [f, i, i, p]
+        # q k v o do lse delta dq dk dv q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype,
+        # stream
+        fn.argtypes = [p] * 12 + [i] * 5 + [f, i, i, p]
     fn.restype = i

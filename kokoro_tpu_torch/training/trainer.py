@@ -209,10 +209,17 @@ CUSTOM_SCALARS = {
 
 
 class KokoroTrainer:
+    """``init_params`` (optional): a model state dict (whole tensors, e.g.
+    ``convert.kokoro_state_dict_from_flax`` of another run's parameters)
+    that replaces the seeded initialisation before the training state, and
+    so the EMA, is built; a resumed checkpoint still overrides it."""
+
     def __init__(self, model_config: KokoroConfig, config: TrainingConfig,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 init_params: Dict[str, torch.Tensor] | None = None):
         self.device = resolve_device(device)
         self.config = config
+        self._init_params = init_params
         self._setup_mesh()
         self.output_dir = Path(config.output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -354,8 +361,10 @@ class KokoroTrainer:
                         "parallelism partitions attention via SPMD einsum instead",
                         self.sp_size, self.pp_size)
             model_config = dataclasses.replace(model_config, use_flash_attention=False)
-        model = KokoroModel(model_config).init_weights(
-            torch.Generator().manual_seed(cfg.seed)).to(self.device)
+        model = KokoroModel(model_config).init_weights(torch.Generator().manual_seed(cfg.seed))
+        if self._init_params is not None:
+            model.load_state_dict(self._init_params, strict=True)
+        model = model.to(self.device)
         self.state = create_train_state(model, cfg, self.total_steps, self.mesh)
         self.preclips = build_preclip_norms(self.state.names, cfg)
         self.eval_step = make_eval_step(model, cfg, self.mesh)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``kokoro_tpu_torch`` nor
-``chip_smoke.py`` imports JAX, flax, optax, orbax or anything of
-``kokoro_tpu``, and the entry points refuse to run without CUDA unless the
-caller asks for the CPU."""
+``chip_smoke.py`` imports JAX, flax, optax, orbax, anything of
+``kokoro_tpu`` or the repository's ``scripts/``, and the entry points refuse
+to run without CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kokoro_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kokoro_tpu", "scripts")
 PORT_FILES = sorted((ROOT / "kokoro_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -57,7 +57,12 @@ def test_port_files_exist():
                      "kokoro_tpu_torch/utils/cache_manager.py",
                      "kokoro_tpu_torch/utils/memory_planner.py", "kokoro_tpu_torch/cli/plan.py",
                      # sequence and pipeline parallelism
-                     "kokoro_tpu_torch/parallel/pp.py", "kokoro_tpu_torch/parallel/pp_step.py"):
+                     "kokoro_tpu_torch/parallel/pp.py", "kokoro_tpu_torch/parallel/pp_step.py",
+                     # the quality run, the regression analyzer and the audio tool
+                     "kokoro_tpu_torch/scripts/__init__.py",
+                     "kokoro_tpu_torch/scripts/quality_run.py",
+                     "kokoro_tpu_torch/scripts/analyze_training_regression.py",
+                     "kokoro_tpu_torch/scripts/e2e_audio_artifact.py"):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
@@ -119,7 +124,9 @@ PARALLEL_COUNTERPARTS = {
 }
 
 
-def _public_names(path: Path):
+def _public_names(path: Path, private: bool = False):
+    """The top-level function, class and variable names of a module (with
+    ``private``, those starting with an underscore too)."""
     tree = ast.parse(path.read_text(encoding="utf-8"))
     for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -128,7 +135,7 @@ def _public_names(path: Path):
             names = [t.id for t in node.targets if isinstance(t, ast.Name)]
         else:
             continue
-        yield from (n for n in names if not n.startswith("_"))
+        yield from (n for n in names if private or not n.startswith("_"))
 
 
 def test_every_public_name_of_the_parallel_package_has_a_counterpart():
@@ -148,3 +155,33 @@ def test_every_public_name_of_the_parallel_package_has_a_counterpart():
             if not hasattr(port, attr):
                 missing.append(f"{module}.{name} -> {target}")
     assert not missing, missing
+
+
+# the ported scripts' top-level names whose port has another name, or none
+# (None): the reference's own repository path and the JAX platform switch
+SCRIPT_COUNTERPARTS = {
+    "quality_run.REPO": None,  # outputs go under --out, never into docs/
+    "analyze_training_regression._force_cpu_jax": None,  # torch.load(map_location="cpu")
+    "e2e_audio_artifact.REPO": "DEFAULT_VOCODER",  # the committed docs/hifigan_v1_int8.npz
+}
+PORTED_SCRIPTS = ("quality_run", "analyze_training_regression", "e2e_audio_artifact")
+
+
+@pytest.mark.parametrize("script", PORTED_SCRIPTS)
+def test_every_name_of_a_ported_script_has_a_counterpart(script):
+    """Each top-level name of ``scripts/<script>.py`` (public and private)
+    exists in ``kokoro_tpu_torch/scripts/<script>.py`` under its own name
+    or its ``SCRIPT_COUNTERPARTS`` name, or is listed there as dropped; the
+    functions that keep their name come in the reference's order."""
+    ref = list(_public_names(ROOT / "scripts" / f"{script}.py", private=True))
+    port = list(_public_names(ROOT / "kokoro_tpu_torch" / "scripts" / f"{script}.py",
+                                 private=True))
+    missing = []
+    for name in ref:
+        target = SCRIPT_COUNTERPARTS.get(f"{script}.{name}", name)
+        if target is not None and target not in port:
+            missing.append(f"{script}.{name} -> {target}")
+    assert not missing, missing
+    kept = [n for n in ref if n in port]
+    assert kept == [n for n in port if n in kept], "functions out of the reference's order"
+    assert len(kept) >= 2

@@ -215,6 +215,26 @@ def test_bf16_kv_length_zero_row_averages_uniformly(cuda):
                                    atol=GRAD_TOL[BF16], msg=f"d{name}")
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_bf16_one_key_rows_backward_matches_plain(cuda, rate):
+    """Rows of kv length 1 at the quality run's T and heads: every query's
+    dS at the one key sums into its dK, so each row's delta must be the
+    plain version's sum of p * dp (at rate 0.2 a kept weight is 1.25 v,
+    whose bf16 rounding in O put 0.12 into dK through rowsum(dO * O))."""
+    B, T, H, Dh = 4, 384, 8, 64
+    q, k, v = _qkv(B, T, H, Dh, BF16, cuda, seed=21)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(21)).to(cuda, BF16)
+    lens = torch.tensor([1, T, 1, T // 2], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens, dropout_rate=rate,
+              seed=91 if rate else None)
+    o, lse = port.packed_attention_kvlen(q, k, v, return_lse=True, **kw)
+    grads = port.packed_attention_bwd_kvlen(q, k, v, o, do, lse, **kw)
+    for name, a, b in zip("qkv", port.packed_attention_bwd_reference(q, k, v, do, causal=False,
+                                                                      **kw), grads):
+        err = (b.float() - a.float()).abs().max().item()
+        assert err <= GRAD_TOL[BF16], (name, err)
+
+
 def test_bf16_flash_row_without_visible_key(cuda):
     """Causal flash attention where the first queries of batch 1 see only
     keys of another segment: O = 0 and lse = +inf on those rows, and no
