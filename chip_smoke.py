@@ -122,7 +122,26 @@ Phases, each printing one JSON line:
    the run called them at, in both dtypes, at rate 0 and the run's rates,
    K2 at the kv lengths the run gave it and at a mixed set with rows of
    length 1 and 0.
-14. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
+14. vocoder_train: ``python -m kokoro_tpu_torch.scripts.train_hifigan`` at
+   full width (HiFi-GAN V1, 512 channels, 13.93 M parameters, batches of 8
+   crops of 16384 samples, cuDNN TF32 on for the run) for 300 steps on the
+   48-utterance quality corpus: every logged loss finite, the last logged
+   mel L1 at most two thirds of the first; the export loads through
+   ``VocoderManager`` and vocodes an utterance's T-frame mel to T x 256
+   finite samples; ``quantize_hifigan`` on it: int8 round-trip mel L1 within
+   0.01 of f32, weights within 0.005 relative.  ms a step and peak memory
+   are printed; no attention kernel launches.
+15. scripts: the other ported tools at reduced size: ``bench_serving`` (4
+   clients, 12 requests, Griffin-Lim) on phase quality's run directory,
+   ``bench_batched_decode`` (streams 1 and 8, 128 frames, bf16),
+   ``bench_step_shapes`` (the first two ``CONFIGS_SHORT`` rows: each packed
+   wrapper 6 launches a step), ``examples_validation``, the host tools
+   (phoneme coverage, split lengths, warm-up table, drop-path card) on the
+   quality corpus and ``verify_setup``, which must print PASS.  Any error
+   row or non-zero exit fails the phase.  Then K1, K2 and the packed
+   backwards against their plain versions at the step-shape rows' shapes
+   (B=16 and 48, T=288, H=8), as phase quality holds them at its own.
+16. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
    on the one card.  (a) K1, K2 and the packed backward at B=32, T=512 with
    H = 4 and 2 (the heads a rank holds at tp = 2 and 4; Dh 64); K2 and the
    kv-length backward at the (2, 2) trainer's rows, B=6, T=1408, H=4, kv
@@ -151,7 +170,7 @@ Phases, each printing one JSON line:
    checkpoint, which one process resumes for one more step.  Per-rank step
    ms and all_reduce calls and bytes a step are printed; ranks sharing one
    card over gloo are not a scaling measurement.
-15. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
+17. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
    ``parallel/mesh.py``, ``parallel/pp.py``, ``parallel/pp_step.py``) on the
    one card, every rank on cuda:0 over gloo, the plain attention route (the
    reference's trainer turns its kernels off under both axes).  (a) 3 f32
@@ -179,7 +198,10 @@ and its backward also carry ``long_shape``, their times at T=1408 and
 launches per long step; the kernels of phases mfa and tools carry
 ``mfa_path``, ``tools_path`` and ``quality_path``, their launches per
 training step there (``quality_path`` also the worst error per dtype at
-the quality run's shapes),
+the quality run's shapes), every kernel ``vocoder_train_path`` (its
+launches over phase vocoder_train's run, 0) and ``scripts_path`` (its
+launches per ``bench_step_shapes`` step and, for the packed kernels, the
+worst error per dtype at those steps' shapes),
 those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
 its launches per trainer step on the ``seq`` and ``stage`` paths, 0),
@@ -191,7 +213,9 @@ without the repository around it.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
+import io
 import json
 import math
 import os
@@ -231,7 +255,8 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
-          "serve", "train", "long", "mfa", "tools", "quality", "parallel", "parallel_sp_pp"]
+          "serve", "train", "long", "mfa", "tools", "quality", "vocoder_train", "scripts",
+          "parallel", "parallel_sp_pp"]
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
@@ -1983,13 +2008,14 @@ def mixed_lengths(B: int, T: int) -> list:
     return [pattern[i % len(pattern)] for i in range(B)]
 
 
-def quality_kernels(recorders) -> dict:
+def hold_recorded(recorders, required) -> dict:
     """K1, K2 forward and both packed backwards against their plain versions
-    at every (B, T, H) the quality run called the forwards at, in both
-    dtypes, at rate 0 and every dropout rate the run used; K2 at the kv
-    lengths the run gave it at that shape and at a mixed set (``ShapeRecorder``
-    records).  Returns the checks, shapes, rates, kv lengths and the worst
-    error of each wrapper at each shape and dtype."""
+    at every (B, T, H) a run called the forwards at, in both dtypes, at rate
+    0 and every dropout rate the run used; K2 at the kv lengths the run gave
+    it at that shape and at a mixed set (``recording_shapes``).  Fails unless
+    every (B, T, H) of ``required`` was called.  Returns the checks, shapes,
+    rates, kv lengths and the worst error of each wrapper at each shape and
+    dtype."""
     import torch
 
     from kokoro_tpu_torch.ops import fused_attention as fa
@@ -1997,9 +2023,9 @@ def quality_kernels(recorders) -> dict:
     causal, kvlen = (recorders[kern.name] for kern in fa.FWD_KERNELS)
     shapes = sorted({key[:3] for rec in (causal, kvlen) for key in rec.calls})
     rates = sorted({0.0} | {key[3] for rec in (causal, kvlen) for key in rec.calls})
-    if QUALITY_SHAPE not in shapes:
-        raise AssertionError(f"the quality run called the packed kernels at {shapes}, "
-                             f"not at its full microbatch {QUALITY_SHAPE}")
+    if not set(required) <= set(shapes):
+        raise AssertionError(f"the run called the packed kernels at {shapes}, "
+                             f"not at every shape of {sorted(required)}")
     cases, lens_seen = [], {}
     for B, T, H in shapes:
         runs = []
@@ -2023,7 +2049,16 @@ def quality_kernels(recorders) -> dict:
             "max_abs_err": worst}
 
 
-def phase_quality():
+def worst_by_wrapper(held: dict) -> dict:
+    """``hold_recorded``'s worst errors folded to ``{wrapper: {dtype: err}}``."""
+    errors = {}
+    for key, err in held["max_abs_err"].items():
+        name, dname = key.split("/")[0], key.split("/")[-1]
+        errors.setdefault(name, {})[dname] = max(errors.get(name, {}).get(dname, 0.0), err)
+    return errors
+
+
+def phase_quality(out: Path):
     """The quality run (``kokoro_tpu_torch.scripts.quality_run``) at full
     width in the default regime, the decoder's attention through the packed
     kernels, on 96 synthetic utterances: 4 epochs, the resume break after 2,
@@ -2034,7 +2069,8 @@ def phase_quality():
     analyzer (finite norms, nonzero deltas, no failed finite-weights check)
     and the audio tool (HiFi-GAN, frames x 256 samples) on its run
     directory.  Then K1, K2 and the packed backward against their plain
-    versions at the run's shapes and kv lengths (:func:`quality_kernels`).
+    versions at the run's shapes and kv lengths (:func:`hold_recorded`).
+    The corpus and run directory stay under ``out`` for phase scripts.
     Returns the launches of each wrapper in the run's last step of 2
     microbatches, and each wrapper's worst error per dtype in those checks."""
     import torch
@@ -2051,35 +2087,24 @@ def phase_quality():
     # remat (gradient_checkpointing, on in the default regime) runs each
     # decoder layer's forward again in the backward
     passes = {**{name: 2 for name in forwards}, **{name: 1 for name in backwards}}
-    # the forwards as the autograd Function looks them up, behind recorders
-    # of their shapes, rates and kv lengths
-    attrs = {getattr(fa, attr).name: attr
-             for attr in ("packed_attention_causal", "packed_attention_kvlen")}
-    recorders = {name: ShapeRecorder(getattr(fa, attr)) for name, attr in attrs.items()}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        for name, attr in attrs.items():
-            setattr(fa, attr, recorders[name])
-        try:
-            zero_counts()  # the main path's run: counts from 0
-            run = quality_run.run(quality_run.parse_args([*QUALITY_RUN, "--out", tmp]))
-            torch.cuda.synchronize()
-            counts = read_counts()
-        finally:
-            for name, attr in attrs.items():
-                setattr(fa, attr, recorders[name].kernel)
-        run_s = time.perf_counter() - t0
-        payload, steps, validations = run["payload"], run["steps"], run["validations"]
-        run_dir = run["run_dir"]
+    t0 = time.perf_counter()
+    with recording_shapes() as recorders:
+        zero_counts()  # the main path's run: counts from 0
+        run = quality_run.run(quality_run.parse_args([*QUALITY_RUN, "--out", str(out)]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+    run_s = time.perf_counter() - t0
+    payload, steps, validations = run["payload"], run["steps"], run["validations"]
+    run_dir = run["run_dir"]
 
-        t0 = time.perf_counter()
-        report = analyzer.analyze_checkpoints(run_dir)
-        metrics = analyzer.analyze_metrics(analyzer.load_scalars(run_dir / "logs"))
-        checks = analyzer.build_checklist(report, metrics)
-        analyzer_s = time.perf_counter() - t0
-        audio = audio_tool.run(audio_tool.parse_args(["--model", str(run_dir),
-                                                      "--text", QUALITY_TEXT]))
-        sr, wav = read_wav(audio["wav"])
+    t0 = time.perf_counter()
+    report = analyzer.analyze_checkpoints(run_dir)
+    metrics = analyzer.analyze_metrics(analyzer.load_scalars(run_dir / "logs"))
+    checks = analyzer.build_checklist(report, metrics)
+    analyzer_s = time.perf_counter() - t0
+    audio = audio_tool.run(audio_tool.parse_args(["--model", str(run_dir),
+                                                  "--text", QUALITY_TEXT]))
+    sr, wav = read_wav(audio["wav"])
 
     for s in steps:
         want = {name: n * n_layers * s["microbatches"] for name, n in passes.items()}
@@ -2119,7 +2144,7 @@ def phase_quality():
             and all(math.isfinite(v) for v in health.values())):
         raise AssertionError(f"audio tool: {audio}")
     t0 = time.perf_counter()
-    held = quality_kernels(recorders)
+    held = hold_recorded(recorders, [QUALITY_SHAPE])
     held["wall_s"] = time.perf_counter() - t0
     emit({"phase": "quality", "command": "quality_run " + " ".join(QUALITY_RUN),
           **{k: payload[k] for k in ("corpus", "epochs", "resume_break_after_epoch",
@@ -2138,11 +2163,176 @@ def phase_quality():
           "audio": {k: audio[k] for k in ("mel_frames", "samples", "hifigan",
                                           "warm_latency_s")},
           "kernels_at_quality_shapes": held})
-    errors = {}
-    for key, err in held["max_abs_err"].items():
-        name, dname = key.split("/")[0], key.split("/")[-1]
-        errors.setdefault(name, {})[dname] = max(errors.get(name, {}).get(dname, 0.0), err)
-    return next(s["launches"] for s in reversed(steps) if s["microbatches"] == 2), errors
+    return (next(s["launches"] for s in reversed(steps) if s["microbatches"] == 2),
+            worst_by_wrapper(held))
+
+
+# ---------------------------------------------------------------------------
+# phase vocoder_train: the vocoder's training path (train_hifigan, quantize_hifigan)
+VOCODER_STEPS = 300
+VOCODER_LIMITS = {"mel_l1_fall": 2 / 3, "mel_l1_delta": 0.01, "max_rel_weight_err": 0.005}
+
+
+def phase_vocoder_train():
+    """``train_hifigan`` at full width (512 channels, batch 8) for
+    ``VOCODER_STEPS`` steps on the 48-utterance quality corpus: every logged
+    loss finite, the last logged mel L1 at most two thirds of the first;
+    the export loads through ``VocoderManager``, and a T-frame mel vocodes to
+    T x 256 finite samples; ``quantize_hifigan`` on it within
+    ``VOCODER_LIMITS``.  Returns each attention wrapper's launches over the
+    run (none: the path has no attention kernel)."""
+    import numpy as np
+    import torch
+
+    from kokoro_tpu_torch.inference.vocoder import VocoderManager
+    from kokoro_tpu_torch.ops.stft import log_mel_spectrogram
+    from kokoro_tpu_torch.scripts import quantize_hifigan, train_hifigan
+    from kokoro_tpu_torch.data.audio_io import read_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        corpus = out / "corpus"
+        zero_counts()  # the vocoder path's run: counts from 0
+        train = train_hifigan.run(train_hifigan.parse_args([
+            "--steps", str(VOCODER_STEPS), "--channels", "512", "--batch", "8",
+            "--corpus", str(corpus), "--out", str(out / "v1.npz"),
+            "--metrics", str(out / "train.json")]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        quant = quantize_hifigan.run(quantize_hifigan.parse_args([
+            "--src", str(out / "v1.npz"), "--out", str(out / "v1_int8.npz"),
+            "--metrics", str(out / "int8.json"), "--corpus", str(corpus)]))
+        voc = VocoderManager(vocoder_type="hifigan", vocoder_path=str(out / "v1.npz"))
+        _, audio = read_wav(sorted((corpus / "wavs").glob("*.wav"))[0])
+        mel = log_mel_spectrogram(torch.from_numpy(audio), *train_hifigan.MEL_ARGS).numpy()
+        wave_out = voc.mel_to_audio(mel)
+    history = train["history"]
+    losses = [r[k] for r in history for k in ("loss", "mel_l1", "stft_l1")]
+    if not (voc.vocoder_type == "hifigan"
+            and voc.hifigan.config.upsample_initial_channel == train["channels"]
+            and wave_out.shape == (mel.shape[0] * 256,) and np.isfinite(wave_out).all()):
+        raise AssertionError(f"the export vocoded {wave_out.shape} from {mel.shape} "
+                             f"through {voc.vocoder_type}")
+    if not (all(math.isfinite(v) for v in losses) and train["nonfinite_history_rows"] == 0
+            and history[-1]["mel_l1"] <= VOCODER_LIMITS["mel_l1_fall"] * history[0]["mel_l1"]):
+        raise AssertionError(f"vocoder training did not converge or is not finite: {history}")
+    if not (abs(quant["mel_l1_delta"]) <= VOCODER_LIMITS["mel_l1_delta"]
+            and quant["max_rel_weight_err"] <= VOCODER_LIMITS["max_rel_weight_err"]):
+        raise AssertionError(f"int8 quantization out of its limits {VOCODER_LIMITS}: {quant}")
+    if any(counts.values()):
+        raise AssertionError(f"the vocoder path launched attention kernels: {counts}")
+    emit({"phase": "vocoder_train", "limits": VOCODER_LIMITS,
+          **{k: train[k] for k in ("steps", "batch", "segments", "params_m", "train_seconds",
+                                   "ms_per_step", "steady_ms_per_step", "step_tflop",
+                                   "tf32_bound_ms",
+                                   "peak_memory_bytes", "roundtrip_mel_l1", "tf32")},
+          "history": [{k: round(r[k], 4) if k != "step" else r[k] for k in r} for r in history],
+          "quantize": {k: quant[k] for k in ("segments", "mel_l1_f32", "mel_l1_int8",
+                                             "mel_l1_delta", "max_rel_weight_err", "src_mb",
+                                             "out_mb")},
+          "vocoded": {"frames": int(mel.shape[0]), "samples": int(wave_out.shape[0])}})
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase scripts: the repository's remaining tools on the port, at reduced size
+SCRIPTS_SERVING = ["--clients", "4", "--requests", "12"]
+SCRIPTS_DECODE = {"streams": (1, 8), "frames": 128}
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: ``(result, text)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def phase_scripts(quality: Path):
+    """Every other ported tool at a reduced size, each failing the phase on
+    an error row or a non-zero exit: ``bench_serving`` (4 clients, 12
+    requests) on phase quality's run directory under ``quality``,
+    ``bench_batched_decode`` (streams 1 and 8, 128 frames),
+    ``bench_step_shapes`` (the first two ``CONFIGS_SHORT`` rows),
+    ``examples_validation``, the host tools on the quality corpus and
+    ``verify_setup``, which must PASS.  K1, K2 and the packed backwards are
+    then held to their plain versions at the shapes, rates and kv lengths
+    the step-shape rows gave them (:func:`hold_recorded`).  Returns each
+    attention wrapper's launches per step of the step-shape rows and each
+    wrapper's worst error per dtype in those checks."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+    from kokoro_tpu_torch.scripts import (
+        bench_batched_decode, bench_serving, bench_step_shapes, check_phoneme_coverage,
+        check_split_lengths, examples_validation, stochastic_depth_summary, verify_setup,
+        warmup_summary,
+    )
+
+    dev = torch.device("cuda")
+    wall = {}
+
+    def timed_tool(name, fn, *args):
+        t0 = time.perf_counter()
+        out = quiet(fn, *args)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    serving, _ = timed_tool("bench_serving", bench_serving.run, bench_serving.parse_args(
+        ["--model", str(quality / "run"), *SCRIPTS_SERVING]))
+    conc = serving["concurrent"]
+    if not (conc["requests"] == 12 and 1 <= conc["dispatches"] <= conc["requests"]
+            and serving["single_stream_s"] > 0 and conc["p95_s"] >= conc["p50_s"] > 0):
+        raise AssertionError(f"bench_serving: {serving}")
+    decode, _ = timed_tool("bench_batched_decode", bench_batched_decode.sweep, dev,
+                           SCRIPTS_DECODE["streams"], SCRIPTS_DECODE["frames"])
+    if [r.get("streams") for r in decode] != list(SCRIPTS_DECODE["streams"]) or any(
+            "error" in r for r in decode):
+        raise AssertionError(f"bench_batched_decode: {decode}")
+    configs = bench_step_shapes.CONFIGS_SHORT[:2]
+    with recording_shapes() as recorders:
+        zero_counts()  # the step-shape rows: a main-path run, counts from 0
+        shapes, _ = timed_tool("bench_step_shapes", bench_step_shapes.sweep, dev, configs)
+        counts = read_counts()
+    if len(shapes) != len(configs) or any("error" in r for r in shapes):
+        raise AssertionError(f"bench_step_shapes: {shapes}")
+    packed = {kern.name for kern in fa.FWD_KERNELS + fa.BWD_KERNELS}
+    steps = sum(row["steps_taken"] for row in shapes)
+    for row in shapes:
+        if row["launches_per_step"] != {name: 6 for name in packed}:
+            raise AssertionError(f"step-shape row launches {row['launches_per_step']}, "
+                                 f"expected 6 of each packed wrapper")
+    if counts != {name: 6 * steps * (name in packed) for name in counts}:
+        raise AssertionError(f"the sweep launched {counts} over {steps} steps")
+    t0 = time.perf_counter()
+    held = hold_recorded(recorders, [(B, T, 8) for B, L, T in configs])
+    wall["kernels_at_step_shapes"] = time.perf_counter() - t0
+    rcs = {}
+    rcs["examples_validation"], text = timed_tool("examples_validation",
+                                                  examples_validation.main, ["--device", "cuda"])
+    if not text.rstrip().endswith("EXAMPLES: PASS"):
+        raise AssertionError(f"examples_validation: {text[-500:]}")
+    corpus = str(quality / "corpus")
+    for name, module, argv in (
+            ("check_phoneme_coverage", check_phoneme_coverage, ["--corpus", corpus]),
+            ("check_split_lengths", check_split_lengths, ["--corpus", corpus]),
+            ("warmup_summary", warmup_summary, []),
+            ("stochastic_depth_summary", stochastic_depth_summary, ["--quick-ref"])):
+        rcs[name], text = timed_tool(name, module.main, argv)
+    rcs["verify_setup"], setup = timed_tool("verify_setup", verify_setup.main,
+                                            ["--corpus", corpus])
+    if any(rcs.values()) or not setup.rstrip().endswith("RESULT: PASS"):
+        raise AssertionError(f"tool exits {rcs}; verify_setup said {setup}")
+    emit({"phase": "scripts", "run_dir": "phase quality's (quality_run " + " ".join(QUALITY_RUN)
+          + ")", "bench_serving": {"args": " ".join(SCRIPTS_SERVING),
+                                   "vocoder": "griffin_lim", **serving},
+          "bench_batched_decode": decode, "bench_step_shapes": shapes,
+          "kernels_at_step_shapes": held, "exits": rcs,
+          "verify_setup": setup.strip().splitlines(), "wall_s": wall})
+    torch.cuda.empty_cache()
+    return {name: c // steps for name, c in counts.items()}, worst_by_wrapper(held)
 
 
 # ---------------------------------------------------------------------------
@@ -2235,6 +2425,24 @@ def record_heads():
             setattr(module, attr, rec)
             recorders[rec.name] = rec
     return recorders
+
+
+@contextlib.contextmanager
+def recording_shapes():
+    """A ``ShapeRecorder`` in front of each packed forward wrapper, as the
+    autograd Function looks them up, for the body of the ``with``; yields
+    them by wrapper name."""
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    attrs = ("packed_attention_causal", "packed_attention_kvlen")
+    recorders = {attr: ShapeRecorder(getattr(fa, attr)) for attr in attrs}
+    for attr, rec in recorders.items():
+        setattr(fa, attr, rec)
+    try:
+        yield {rec.name: rec for rec in recorders.values()}
+    finally:
+        for attr, rec in recorders.items():
+            setattr(fa, attr, rec.kernel)
 
 
 def hold_packed(cases, rates, gen, note) -> int:
@@ -3070,13 +3278,16 @@ def phase_parallel_sp_pp():
 
 def parse_phases(argv) -> list:
     """Every phase with no arguments (the contract run); ``--phases a,b`` runs
-    a subset, for a short call after a change, and prints no contract lines."""
+    a subset, for a short call after a change, and prints no contract lines.
+    Phase scripts brings phase quality, whose run directory it serves."""
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {','.join(PHASES)}")
     names = parser.parse_args(argv).phases.split(",")
+    if "scripts" in names:
+        names.append("quality")
     unknown = set(names) - set(PHASES)
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
@@ -3102,6 +3313,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phases = parse_phases(sys.argv[1:])
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        return run_phases(phases, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(phases, work: Path) -> int:
+    """Run ``phases`` in order, a later phase reading what an earlier one
+    left under ``work``; the contract lines when they are all of
+    ``PHASES``."""
+    import torch
+
     t_start = time.perf_counter()
     phase_s = {}  # wall seconds of each phase, host clock
 
@@ -3148,7 +3372,14 @@ def main() -> int:
         tools_counts = {name: c for name, c in timed("tools", phase_tools).items() if c}
     quality_counts, quality_errors = {}, {}
     if "quality" in phases:  # launches in the quality run's last step, errors at its shapes
-        quality_counts, quality_errors = timed("quality", phase_quality)
+        quality_counts, quality_errors = timed("quality",
+                                               lambda: phase_quality(work / "quality"))
+    vocoder_counts, scripts_counts, scripts_errors = {}, {}, {}
+    if "vocoder_train" in phases:  # launches over the vocoder's training run (none)
+        vocoder_counts = timed("vocoder_train", phase_vocoder_train)
+    if "scripts" in phases:  # launches per bench_step_shapes step, errors at its shapes
+        scripts_counts, scripts_errors = timed("scripts",
+                                               lambda: phase_scripts(work / "quality"))
     parallel_path = {}
     if "parallel" in phases:  # launches per step on rank 0 of the (2, 2) runs
         parallel_path = timed("parallel", phase_parallel)
@@ -3203,6 +3434,22 @@ def main() -> int:
             row["parallel_path"] = parallel_path[kern.name]
         if kern.name in sp_pp_path:  # this slice's paths: the seq and stage axes
             row["sp_pp_path"] = sp_pp_path[kern.name]
+        if kern.name in vocoder_counts:  # this slice's paths: the vocoder's training
+            row["vocoder_train_path"] = {
+                "launches": vocoder_counts[kern.name],
+                "launches_are": "over train_hifigan's run (phase vocoder_train, "
+                                f"{VOCODER_STEPS} steps): HiFi-GAN has no attention"}
+        if kern.name in scripts_counts:  # and the tools: bench_step_shapes
+            row["scripts_path"] = {
+                "launches": scripts_counts[kern.name],
+                "launches_are": "per bf16 preset step of bench_step_shapes (phase scripts: "
+                                "B=16 and 48, L=64, T=288)"}
+            if kern.name in scripts_errors:
+                row["scripts_path"].update(
+                    max_abs_err=scripts_errors[kern.name],
+                    max_abs_err_at="every (B, T=288, H=8, Dh=64) of the step-shape rows, "
+                                   "rate 0 and the rows' rates, K2 at the rows' kv lengths "
+                                   "and a mixed set")
         if kern.name in tools_counts:  # the trainer with its diagnostics
             row["tools_path"] = {
                 "launches": tools_counts[kern.name],

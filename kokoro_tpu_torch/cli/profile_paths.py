@@ -25,10 +25,18 @@ device busy ms per call (sum of kernel self times in the profiled window),
 the device's idle share in that window, kernels launched per call, the
 device ms per call of the port's attention kernels, and the top kernels by
 device time.  Needs CUDA.
+
+    python -m kokoro_tpu_torch.cli.profile_paths --tools
+
+profiles the paths of the benchmark tools instead: training steps of
+``scripts/bench_step_shapes.py`` rows (``TOOL_STEP_SHAPES``) and
+``scripts/bench_batched_decode.py``'s forced decode at ``TOOL_STREAMS``
+streams over ``TOOL_FRAMES`` frames, the decode's numbers also per frame.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -91,6 +99,9 @@ LONG_REGIME = dict(
     use_flash_attention=True, attention_weight_dropout=False, gradient_checkpointing=False,
 )
 LONG_SHAPE = dict(B=12, L=256, T=1408)
+# (B, L, T) rows of bench_step_shapes: both short rows and a long one of each T
+TOOL_STEP_SHAPES = ((16, 64, 288), (48, 64, 288), (16, 128, 896), (32, 192, 1280))
+TOOL_STREAMS, TOOL_FRAMES = (1, 8, 64), 128
 
 
 def long_train_step(device, seed: int = 0, mesh=None, **overrides):
@@ -127,7 +138,24 @@ def preset_train_step(device, seed: int = 0, mesh=None):
     return state, step, training_batch(model_cfg, train_cfg.batch_size, 512, 96, device)
 
 
-def _profile(name: str, fn, calls: int, **meta) -> None:
+def step_shape_step(device, B: int, L: int, T: int):
+    """(state, step, batch) of one ``bench_step_shapes`` row: the throughput
+    preset at its vocabulary on seeded random weights, its synthetic batch."""
+    from kokoro_tpu_torch.config import get_high_performance_config
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.scripts.bench_step_shapes import VOCAB, synthetic_batch
+    from kokoro_tpu_torch.training.optimizer import build_preclip_norms
+    from kokoro_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    model_cfg, train_cfg = get_high_performance_config(vocab_size=VOCAB)
+    model = KokoroModel(model_cfg).init_weights(torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(device), train_cfg, total_steps=20000)
+    step = make_train_step(train_cfg, build_preclip_norms(state.names, train_cfg),
+                           spec_augment=train_cfg.use_spec_augment)
+    return state, step, synthetic_batch(B, L, T, model_cfg.n_mels, VOCAB, device)
+
+
+def _profile(name: str, fn, calls: int, units: int = 1, unit: str = "call", **meta) -> None:
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -146,12 +174,17 @@ def _profile(name: str, fn, calls: int, **meta) -> None:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    kernels = sum(e.count for e in events) / calls
+    per_unit = {} if units == 1 else {
+        f"wall_ms_unprofiled_per_{unit}": plain_wall_ms / units,
+        f"device_busy_ms_per_{unit}": busy_ms / units if events else "not measured",
+        f"kernels_per_{unit}": kernels / units}
     print(json.dumps({
         "path": name, **meta, "calls": calls, "wall_ms_unprofiled": plain_wall_ms,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if events else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if events else "not measured",
-        "kernels_per_call": sum(e.count for e in events) / calls,
+        "kernels_per_call": kernels, **per_unit,
         # the port's attention kernels (csrc/attention_kernels.cuh, attention_tc.cuh)
         "attention_ms": sum(e.self_device_time_total for e in events
                             if "kokoro_attn" in e.key) / 1e3 / calls,
@@ -160,10 +193,44 @@ def _profile(name: str, fn, calls: int, **meta) -> None:
     }), flush=True)
 
 
-def main() -> int:
+def profile_tools(dev) -> None:
+    """The benchmark tools' paths (see the module docstring)."""
+    from kokoro_tpu_torch.models.generator import generate
+    from kokoro_tpu_torch.scripts import bench_batched_decode as decode
+
+    gen = torch.Generator().manual_seed(0)
+    for B, L, T in TOOL_STEP_SHAPES:
+        state, step, batch = step_shape_step(dev, B, L, T)
+        _profile("bench_step_shapes", lambda: step(state, batch, gen), 5,
+                 dtype="bf16 compute, f32 params", preset="get_high_performance_config",
+                 B=B, L=L, T=T)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    model = decode.build_model(dev)
+    forced = dict(stop_threshold=1.1, min_len_ratio=0.0, min_len_floor=TOOL_FRAMES - 1,
+                  max_len_cap=TOOL_FRAMES)
+    rng = torch.Generator().manual_seed(0)
+    for B in TOOL_STREAMS:
+        ph = torch.randint(1, decode.VOCAB, (B, decode.L), generator=rng).to(dev)
+        st = torch.randint(0, 3, (B, decode.L), generator=rng).to(dev)
+        pad = torch.zeros(B, decode.L, dtype=torch.bool, device=dev)
+        _profile("bench_batched_decode", lambda: generate(model, ph, st, pad, TOOL_FRAMES,
+                                                          **forced),
+                 2, units=TOOL_FRAMES, unit="frame", dtype="bf16 compute, f32 params",
+                 streams=B, frames=TOOL_FRAMES, L=decode.L)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Profile the port's paths on the card.")
+    parser.add_argument("--tools", action="store_true",
+                        help="profile bench_step_shapes rows and bench_batched_decode")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
         return 2
+    if args.tools:
+        profile_tools(torch.device("cuda"))
+        return 0
     from kokoro_tpu_torch.config import KokoroConfig
     from kokoro_tpu_torch.inference.vocoder import VocoderManager
     from kokoro_tpu_torch.models.kokoro import KokoroModel

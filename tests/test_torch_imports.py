@@ -62,7 +62,9 @@ def test_port_files_exist():
                      "kokoro_tpu_torch/scripts/__init__.py",
                      "kokoro_tpu_torch/scripts/quality_run.py",
                      "kokoro_tpu_torch/scripts/analyze_training_regression.py",
-                     "kokoro_tpu_torch/scripts/e2e_audio_artifact.py"):
+                     "kokoro_tpu_torch/scripts/e2e_audio_artifact.py",
+                     # the vocoder's training path and the remaining tools
+                     *(f"kokoro_tpu_torch/scripts/{name}.py" for name in PORTED_SCRIPTS)):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
@@ -157,31 +159,70 @@ def test_every_public_name_of_the_parallel_package_has_a_counterpart():
     assert not missing, missing
 
 
-# the ported scripts' top-level names whose port has another name, or none
-# (None): the reference's own repository path and the JAX platform switch
+# the ported scripts' top-level names, command-line options and JAX
+# configuration keys whose port has another name, or none (None): the
+# reference's own repository path, the JAX platform switch and the JAX
+# compile cache (XLA machinery).  ``verify_setup.check_devices`` keeps its
+# name; its JAX body (``jax.devices()``) became ``torch.cuda``'s view.
 SCRIPT_COUNTERPARTS = {
     "quality_run.REPO": None,  # outputs go under --out, never into docs/
     "analyze_training_regression._force_cpu_jax": None,  # torch.load(map_location="cpu")
+    "analyze_training_regression.jax_platforms": None,
     "e2e_audio_artifact.REPO": "DEFAULT_VOCODER",  # the committed docs/hifigan_v1_int8.npz
+    "train_hifigan.REPO": None,  # --out and --metrics default outside docs/
+    "train_hifigan.--platform": "--device",
+    "train_hifigan.jax_platforms": None,
+    "quantize_hifigan.REPO": None,
+    "quantize_hifigan.--platform": "--device",
+    "quantize_hifigan.jax_platforms": None,
+    "bench_serving.REPO": None,
+    "bench_batched_decode.jax_compilation_cache_dir": None,
+    "bench_batched_decode.jax_persistent_cache_min_compile_time_secs": None,
+    "bench_step_shapes.jax_compilation_cache_dir": None,
+    "bench_step_shapes.jax_persistent_cache_min_compile_time_secs": None,
+    "warmup_summary.jax_platforms": None,  # its schedules are plain Python: no device
 }
-PORTED_SCRIPTS = ("quality_run", "analyze_training_regression", "e2e_audio_artifact")
+PORTED_SCRIPTS = ("quality_run", "analyze_training_regression", "e2e_audio_artifact",
+                  "train_hifigan", "quantize_hifigan", "bench_serving", "bench_batched_decode",
+                  "bench_step_shapes", "examples_validation", "check_phoneme_coverage",
+                  "check_split_lengths", "warmup_summary", "stochastic_depth_summary",
+                  "verify_setup")
+
+
+def _options(path: Path):
+    """The ``--option`` strings of ``add_argument`` calls and the keys of
+    ``jax.config.update`` calls in a script."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        attr = getattr(node.func, "attr", None)
+        if attr == "add_argument":
+            yield from (a.value for a in node.args
+                        if isinstance(a, ast.Constant) and str(a.value).startswith("--"))
+        elif attr == "update" and node.args and isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
 
 
 @pytest.mark.parametrize("script", PORTED_SCRIPTS)
 def test_every_name_of_a_ported_script_has_a_counterpart(script):
     """Each top-level name of ``scripts/<script>.py`` (public and private)
-    exists in ``kokoro_tpu_torch/scripts/<script>.py`` under its own name
-    or its ``SCRIPT_COUNTERPARTS`` name, or is listed there as dropped; the
-    functions that keep their name come in the reference's order."""
-    ref = list(_public_names(ROOT / "scripts" / f"{script}.py", private=True))
-    port = list(_public_names(ROOT / "kokoro_tpu_torch" / "scripts" / f"{script}.py",
-                                 private=True))
+    and each of its command-line options and JAX configuration keys exists
+    in ``kokoro_tpu_torch/scripts/<script>.py`` under its own name or its
+    ``SCRIPT_COUNTERPARTS`` name, or is listed there as dropped; the
+    top-level names that the port keeps come in the reference's order."""
+    ref_path = ROOT / "scripts" / f"{script}.py"
+    port_path = ROOT / "kokoro_tpu_torch" / "scripts" / f"{script}.py"
+    ref = list(_public_names(ref_path, private=True))
+    port = list(_public_names(port_path, private=True))
+    port_all = port + list(_options(port_path))
     missing = []
-    for name in ref:
+    for name in ref + list(_options(ref_path)):
         target = SCRIPT_COUNTERPARTS.get(f"{script}.{name}", name)
-        if target is not None and target not in port:
+        if target is not None and target not in port_all:
             missing.append(f"{script}.{name} -> {target}")
     assert not missing, missing
     kept = [n for n in ref if n in port]
     assert kept == [n for n in port if n in kept], "functions out of the reference's order"
-    assert len(kept) >= 2
+    ported = [n for n in ref if SCRIPT_COUNTERPARTS.get(f"{script}.{n}", n) is not None]
+    assert len(kept) >= min(2, len(ported))
