@@ -141,7 +141,21 @@ Phases, each printing one JSON line:
    row or non-zero exit fails the phase.  Then K1, K2 and the packed
    backwards against their plain versions at the step-shape rows' shapes
    (B=16 and 48, T=288, H=8), as phase quality holds them at its own.
-16. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
+16. bench: the repository's two headline benchmarks on the port, through
+   their functions at the flagship widths.  ``kokoro_tpu_torch.bench``'s
+   compute-only phase as the reference runs it (B=32, L=96, T=512, K=16
+   steps a call, 2 warm and 4 timed calls; each packed wrapper 6 launches a
+   step) and its end-to-end phase on the full 480-utterance, nine-bucket
+   corpus (``BENCH_E2E_EPOCHS`` measured epochs after the warm one; every
+   step taken and finite with 6 launches of each packed wrapper,
+   ``end_to_end`` > 0); then K1, K2 and both packed backwards against their
+   plain versions at every (B, T, H) those epochs called them at (T up to
+   896, at least one T not a multiple of 128), as phase quality holds them
+   at its own; then ``kokoro_tpu_torch.bench_inference`` at
+   ``BENCH_INFERENCE_FRAMES`` frames, streams 1, 8 and 32: every decode at
+   the forced length, HiFi-GAN from the committed npz, finite positive
+   rates.
+17. parallel: data and tensor parallelism (``kokoro_tpu_torch/parallel/``)
    on the one card.  (a) K1, K2 and the packed backward at B=32, T=512 with
    H = 4 and 2 (the heads a rank holds at tp = 2 and 4; Dh 64); K2 and the
    kv-length backward at the (2, 2) trainer's rows, B=6, T=1408, H=4, kv
@@ -159,9 +173,10 @@ Phases, each printing one JSON line:
    against the single process at the reference's limits (loss rtol 1e-5,
    parameters rtol 2e-4 / atol 2e-5) and limits on the gradient at the init
    per tensor, on each step's gradient norm and on what the steps moved each
-   tensor (``PARALLEL_LIMIT``), at a tenth of the reference's learning rate
-   (``PARALLEL_LR``, at which the parameter limit cannot fail on the update
-   itself); (2,) at the reference's rate as a reading; a control without
+   tensor (``PARALLEL_LIMIT``), each run at its rate of ``HELD_LR``: the
+   reference's learning rate, or a tenth of it (``PARALLEL_LR``) for a run
+   that misses the limits at the reference's, whose reading there is
+   printed beside it; a control without
    the model-group sum of the q/k/v norm scales' gradients must break a
    limit; K1 and K2 launched once per decoder layer a step at H = 4.  (d) ``KokoroTrainer``
    at (2, 2) in bf16, one epoch of the long regime on (10)'s corpus, 4
@@ -170,7 +185,7 @@ Phases, each printing one JSON line:
    checkpoint, which one process resumes for one more step.  Per-rank step
    ms and all_reduce calls and bytes a step are printed; ranks sharing one
    card over gloo are not a scaling measurement.
-17. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
+18. parallel_sp_pp: sequence and pipeline parallelism (the ``seq`` axis of
    ``parallel/mesh.py``, ``parallel/pp.py``, ``parallel/pp_step.py``) on the
    one card, every rank on cuda:0 over gloo, the plain attention route (the
    reference's trainer turns its kernels off under both axes).  (a) 3 f32
@@ -180,7 +195,8 @@ Phases, each printing one JSON line:
    (3 decoder layers a stage), against the single process on the same route
    (the whole batch, or the same 2 microbatches through the accumulation
    step) with phase parallel's limits and its gradient at the init
-   (``PARALLEL_LIMIT``, ``PARALLEL_LR``); no kernel launched.  (b)
+   (``PARALLEL_LIMIT``, each run at its rate of ``HELD_LR``); no kernel
+   launched.  (b)
    ``KokoroTrainer`` in bf16 on the long corpus of (10), one epoch at (2, 2)
    ('data', 'seq'), 704 frames a rank, then one at (2, 2) ('data',
    'stage'): the reference's "use_flash_attention disabled" line, every step
@@ -201,7 +217,9 @@ training step there (``quality_path`` also the worst error per dtype at
 the quality run's shapes), every kernel ``vocoder_train_path`` (its
 launches over phase vocoder_train's run, 0) and ``scripts_path`` (its
 launches per ``bench_step_shapes`` step and, for the packed kernels, the
-worst error per dtype at those steps' shapes),
+worst error per dtype at those steps' shapes), every kernel ``bench_path``
+(its launches per compute-only and per end-to-end step of phase bench and,
+for the packed kernels, the worst error per dtype at the end-to-end shapes),
 those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
 its launches per trainer step on the ``seq`` and ``stage`` paths, 0),
@@ -256,7 +274,7 @@ SERVE_TEXTS = [  # four in the 32-phoneme bucket, one in the 64 bucket
 
 PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded", "forward",
           "serve", "train", "long", "mfa", "tools", "quality", "vocoder_train", "scripts",
-          "parallel", "parallel_sp_pp"]
+          "bench", "parallel", "parallel_sp_pp"]
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
@@ -2336,6 +2354,113 @@ def phase_scripts(quality: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase bench: the repository's two headline benchmarks on the port
+BENCH_E2E_EPOCHS = 2          # measured end-to-end epochs (the full bench: 6)
+BENCH_INFERENCE_FRAMES = 128  # forced decode length (the full bench: 1024)
+
+
+def phase_bench(out: Path):
+    """``kokoro_tpu_torch.bench`` and ``kokoro_tpu_torch.bench_inference``
+    through their functions at the flagship widths.  The compute-only phase
+    as the reference runs it (B=32, T=512, K=16 steps a call, 2 warm and 4
+    timed calls): each packed wrapper 6 launches a step, no other kernel.
+    The end-to-end phase on the full 480-utterance corpus under ``out``,
+    ``BENCH_E2E_EPOCHS`` measured epochs after the warm one, every step
+    recorded (``quality_run.recording_trainer``): taken, finite, each packed
+    wrapper 6 launches; ``end_to_end`` > 0.  Then K1, K2 and both packed
+    backwards against their plain versions at every (B, T, H) the epochs
+    called them at (:func:`hold_recorded`), every shape of the measured
+    epochs' census required, at least one of them at a T that is not a
+    multiple of 128.  Then ``bench_inference`` at
+    ``BENCH_INFERENCE_FRAMES`` frames, streams 1, 8 and 32: every decode at
+    the forced length (the bench raises otherwise), the committed HiFi-GAN,
+    finite positive rates.  Returns each wrapper's launches per
+    compute-only and per end-to-end step, and each packed wrapper's worst
+    error per dtype at the end-to-end shapes."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    import kokoro_tpu_torch.training.trainer as trainer_module
+    from kokoro_tpu_torch import bench, bench_inference
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    packed = {kern.name for kern in fa.FWD_KERNELS + fa.BWD_KERNELS}
+    n_layers = 6
+    wall = {}
+    failures = []
+
+    t0 = time.perf_counter()
+    zero_counts()  # the compute-only run: a main-path run, counts from 0
+    value = bench.bench_compute_only(dev)
+    counts = read_counts()
+    wall["compute_only"] = time.perf_counter() - t0
+    steps = (bench.WARM_CALLS + bench.TIMED_CALLS) * bench.K
+    compute_per_step = {name: c / steps for name, c in counts.items()}
+    if counts != {name: n_layers * steps * (name in packed) for name in counts}:
+        failures.append(f"compute-only launched {counts} over {steps} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    Recording, e2e_steps, _ = recording_trainer()
+    with recording_shapes() as recorders, mock.patch.object(trainer_module, "KokoroTrainer",
+                                                            Recording):
+        zero_counts()  # the end-to-end epochs: a main-path run, counts from 0
+        e2e = bench.bench_end_to_end(out, dev, measured_epochs=BENCH_E2E_EPOCHS)
+        counts = read_counts()
+    wall["end_to_end"] = time.perf_counter() - t0
+    for s_ in e2e_steps:
+        m = s_["metrics"]
+        if not (m["stepped"] == 1.0 and math.isfinite(m["total"]) and s_["microbatches"] == 1
+                and s_["launches"] == {name: n_layers for name in packed}):
+            failures.append(f"end-to-end step {s_}")
+    if counts != {name: n_layers * len(e2e_steps) * (name in packed) for name in counts}:
+        failures.append(f"end-to-end launched {counts} over {len(e2e_steps)} steps")
+    if not (e2e["frames_per_sec"] > 0 and e2e["shape_steps"] and e2e["buckets"] == 9):
+        failures.append(f"end-to-end result {e2e}")
+    required = sorted({(int(b), int(t), 8) for b, t in (
+        key[1:].split("xk")[0].split("xT") for key in e2e["shape_steps"])})
+    if not any(t % 128 for _, t, _ in required):
+        failures.append(f"no end-to-end shape at a T that is not a multiple of 128: {required}")
+    t0 = time.perf_counter()
+    held = hold_recorded(recorders, required)
+    wall["kernels_at_e2e_shapes"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    synthesis = bench_inference.run(dev, max_frames=BENCH_INFERENCE_FRAMES)
+    wall["bench_inference"] = time.perf_counter() - t0
+    detail = synthesis["detail"]
+    if detail["hifigan_weights"] != "trained (hifigan_v1_int8.npz)":
+        failures.append(f"bench_inference vocoded with {detail['hifigan_weights']}")
+    blocks = {"batched": 8, "batched_32": 32}
+    if not (detail["frames"] == BENCH_INFERENCE_FRAMES and all(
+            synthesis[k]["frames_total"] == BENCH_INFERENCE_FRAMES * n for k, n in blocks.items())):
+        failures.append(f"bench_inference decode lengths {synthesis}")
+    rates = [synthesis["value"], detail["frames_per_s"]] + [
+        synthesis[k]["x_realtime_aggregate"] for k in blocks]
+    if not all(math.isfinite(r) and r > 0 for r in rates):
+        failures.append(f"bench_inference rates {rates}")
+    e2e_per_step = {name: c / max(len(e2e_steps), 1) for name, c in counts.items()}
+    emit({"phase": "bench",
+          "compute_only": {"value": round(value, 1), "unit": "mel-frames/s",
+                           "B": bench.B, "L": bench.L, "T": bench.T, "K": bench.K,
+                           "launches_per_step": compute_per_step},
+          "end_to_end": {**e2e, "measured_epochs": BENCH_E2E_EPOCHS,
+                         "steps": len(e2e_steps),
+                         "step_ms": [round(s_["ms"], 1) for s_ in e2e_steps],
+                         "launches_per_step": e2e_per_step},
+          "kernels_at_e2e_shapes": held, "bench_inference": synthesis, "wall_s": wall})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return compute_per_step, e2e_per_step, worst_by_wrapper(held)
+
+
+# ---------------------------------------------------------------------------
 # phase parallel: data and tensor parallelism (kokoro_tpu_torch/parallel/)
 NO_DROPOUT = dict(encoder_dropout=0.0, decoder_dropout=0.0, decoder_input_dropout=0.0,
                   variance_dropout=0.0, use_stochastic_depth=False)
@@ -2361,19 +2486,50 @@ PARALLEL_LIMIT = {"loss_rel": 1e-5, "param_rtol": 2e-4, "param_atol": 2e-5,
                   "grad_leaf_rel": 5e-2, "grad_norm_rel": 1e-3, "moved_leaf_rel": 0.5}
 # the reference's learning rate (warmup 2 steps, its tests' smoke config)
 REFERENCE_LR = 5e-5
-# the held runs' rate, a tenth of it.  Adam moves a parameter by about lr
-# times the sign of its gradient whatever the gradient's size, so an
-# element whose small gradient has opposite signs in the two runs (about 20
-# of 48 M at (2,); 25 k at the N(0, 1) embeddings) moves apart by up to
-# twice the step.  Here the three steps
-# move a parameter by at most 7.6e-6 (the largest group's warmup 5e-8,
-# 2.5e-6, 5e-6), so the parameter limit (atol 2e-5) cannot fail on the
-# update itself; the gradient at the init and the moved gap carry that
-# comparison.  The (2,) run at REFERENCE_LR is printed beside it as a
-# reading, not held: it meets both limits at the flax init on the H100, and
-# broke the loss and parameter limits by step 3 at the N(0, 1) embeddings
+# a tenth of it.  Adam moves a parameter by about lr times the sign of its
+# gradient whatever the gradient's size, so an element whose small gradient
+# has opposite signs in the two runs (about 20 of 48 M at (2,); 25 k at the
+# N(0, 1) pitch and energy embeddings) moves apart by up to twice the step.
+# At this rate the three steps move a parameter by at most 7.6e-6 (the
+# largest group's warmup 5e-8, 2.5e-6, 5e-6), so the parameter limit (atol
+# 2e-5) cannot fail on the update itself, and the gradient at the init and
+# the moved gap carry the comparison.  The runs were held here while the
+# model drew those embeddings N(0, 1): (2,) broke the loss and parameter
+# limits at REFERENCE_LR by step 3 then
 PARALLEL_LR = 5e-6
+# the rate each f32 run of phases parallel and parallel_sp_pp is held at.
+# At the flax init, each run that splits rows, heads or frames met every
+# limit at REFERENCE_LR in five calls on the H100 (parameter excess -1.0e-6
+# to -1.7e-5), and is held there.  The two ('data', 'stage') runs are not:
+# (2, 2) broke the parameter limit in all five, by 7.4e-6 to 8.1e-6 at
+# variance_adaptor.energy_predictor.conv0.weight[8436], whose gradient at
+# the init is -2.33e-6 in the single process and +5.80e-6 in the run
+# (tensor RMS 6.0e-4), so Adam moves the two copies apart by about twice
+# the step; (1, 2) broke it in three of five (up to 5.6e-6, at elements
+# with the same gradient at the init in both runs but a gradient near 1e-7,
+# decoder_layers.3.ff.linear1.weight[1284031], which later steps move
+# apart), and the stage runs' step-3 losses read either about 2e-7 or about
+# 6.3e-6 off the single process's, call by call.  They stay held at
+# PARALLEL_LR, an open fault
+# (ROADMAP.md).  A run held below REFERENCE_LR is also run there, and that
+# reading is printed beside it (its per-tensor gradient gap and the
+# parameter element that failed), not held
+HELD_LR = {**{tag: REFERENCE_LR for tag in ("2", "1x2", "2x2", "seq_1x2", "seq_2x2",
+                                            "seq_model_1x2x2")},
+           "stage_1x2": PARALLEL_LR, "stage_2x2": PARALLEL_LR}
 PARALLEL_TIMEOUT_S = 300  # a world that has not ended by then is killed and fails
+
+
+def run_rates(tag: str) -> list:
+    """``(suffix, lr)`` of each f32 run of ``tag``: ``("", HELD_LR[tag])``,
+    and ``("_reference_lr", REFERENCE_LR)`` when that is another rate."""
+    held = HELD_LR[tag]
+    return [("", held)] + ([("_reference_lr", REFERENCE_LR)] if held != REFERENCE_LR else [])
+
+
+def run_lrs(tags) -> set:
+    """Every rate the f32 runs of ``tags`` take."""
+    return {lr for tag in tags for _, lr in run_rates(tag)}
 LOCAL_HEADS = (4, 2)      # 8 heads over 2 and 4 model ranks
 
 
@@ -2729,18 +2885,17 @@ def job_nccl_step(rank: int, out: Path) -> None:
 
 
 def job_gloo_2(rank: int, out: Path) -> None:
-    """(c) At (2,) and (1, 2): three f32 steps; the control at (1, 2)
-    without the model-group sum of the q/k/v norm scales' gradients; (2,)
-    again at the reference's learning rate, a reading."""
+    """(c) At (2,) and (1, 2): three f32 steps at each rate of
+    :func:`run_rates`; the control at (1, 2), at (1, 2)'s held rate, without
+    the model-group sum of the q/k/v norm scales' gradients."""
     import torch
 
     from kokoro_tpu_torch.config import TrainingConfig
     from kokoro_tpu_torch.parallel.mesh import create_mesh
 
-    for tag, shape, control, lr in (("2", (2,), False, PARALLEL_LR),
-                                    ("1x2", (1, 2), False, PARALLEL_LR),
-                                    ("1x2_control", (1, 2), True, PARALLEL_LR),
-                                    ("2_reference_lr", (2,), False, REFERENCE_LR)):
+    runs = [(tag + suffix, shape, False, lr) for tag, shape in (("2", (2,)), ("1x2", (1, 2)))
+            for suffix, lr in run_rates(tag)]
+    for tag, shape, control, lr in runs + [("1x2_control", (1, 2), True, HELD_LR["1x2"])]:
         mesh = create_mesh(TrainingConfig(mesh_shape=shape, mesh_axis_names=("data", "model")))
         run = f32_steps(mesh, skip_partial_sum=control, lr=lr)
         if rank == 0:
@@ -2762,12 +2917,13 @@ def job_gloo_4(rank: int, out: Path) -> None:
 
     recorders = record_heads()
     mesh = create_mesh(TrainingConfig(mesh_shape=(2, 2), mesh_axis_names=("data", "model")))
-    run = f32_steps(mesh)
-    run["heads"] = {name: sorted(r.heads) for name, r in recorders.items()}
-    if rank == 0:
-        torch.save(run, out / "steps_2x2.pt")
-    del run
-    torch.cuda.empty_cache()
+    for suffix, lr in run_rates("2x2"):
+        run = f32_steps(mesh, lr=lr)
+        run["heads"] = {name: sorted(r.heads) for name, r in recorders.items()}
+        if rank == 0:
+            torch.save(run, out / f"steps_2x2{suffix}.pt")
+        del run
+        torch.cuda.empty_cache()
     for r in recorders.values():
         r.heads.clear()
     Recording, steps, validations = recording_trainer()
@@ -2869,7 +3025,7 @@ def held_to_single(run: dict, single: dict, init: dict) -> dict:
 
 def phase_parallel():
     """Data and tensor parallelism on the one card (module docstring, phase
-    13).  Returns, per kernel, its launches per step on rank 0 of the
+    17).  Returns, per kernel, its launches per step on rank 0 of the
     (2, 2) runs and the head counts it ran at."""
     import subprocess
 
@@ -2904,8 +3060,7 @@ def phase_parallel():
                        start_world("nccl_step", 1, out, backend="nccl")]
             kernels = parallel_kernels()
             walls["a_kernels"] = time.perf_counter() - t0
-            single = f32_steps()
-            single_reference_lr = f32_steps(lr=REFERENCE_LR)
+            singles = {lr: f32_steps(lr=lr) for lr in run_lrs(("2", "1x2", "2x2"))}
             twins = {p: f32_steps(steps=0, perturb=p)["grads"]
                      for p in ("rows_reversed", "params_ulp")}
             torch.cuda.empty_cache()
@@ -2927,10 +3082,12 @@ def phase_parallel():
         walls["a_b_c_d_together"] = time.perf_counter() - t0
         init = KokoroModel(KokoroConfig(**NO_DROPOUT)).init_weights(
             torch.Generator().manual_seed(0)).state_dict()
-        held = {tag: held_to_single(torch.load(out / f"steps_{tag}.pt"), single, init)
-                for tag in ("2", "1x2", "2x2", "1x2_control")}
-        held["2_reference_lr"] = held_to_single(torch.load(out / "steps_2_reference_lr.pt"),
-                                                single_reference_lr, init)
+        held = {tag + suffix: held_to_single(torch.load(out / f"steps_{tag}{suffix}.pt"),
+                                             singles[lr], init)
+                for tag in ("2", "1x2", "2x2") for suffix, lr in run_rates(tag)}
+        held["1x2_control"] = held_to_single(torch.load(out / "steps_1x2_control.pt"),
+                                             singles[HELD_LR["1x2"]], init)
+        single = singles[HELD_LR["2"]]  # the gradient at the init is the same at every rate
         rounding = {}  # the single process against itself, f32 rounding changed
         for p, grads in twins.items():
             rounding[p] = dict(zip(
@@ -2998,11 +3155,15 @@ def phase_parallel():
                          "step_ms": {k: nccl[k]["step_ms"] for k in ("unwrapped", "mesh_1x1")},
                          "mesh_1x1_stats_3_steps": nccl["mesh_1x1"]["stats"],
                          "cli_opt_steps": cli["counters"]["optimizer_step"]},
-        "gloo_f32_vs_single": {"limits": PARALLEL_LIMIT, "learning_rate": PARALLEL_LR,
-                               "reference_lr_not_held": REFERENCE_LR, **held,
+        "gloo_f32_vs_single": {"limits": PARALLEL_LIMIT,
+                               "held_at_lr": {t: HELD_LR[t] for t in ("2", "1x2", "2x2")},
+                               "not_held": "runs tagged _reference_lr: readings at "
+                                           f"{REFERENCE_LR}", **held,
                                "single_against_itself": rounding,
-                               "single_totals": [m["total"] for m in single["metrics"]],
-                               "single_step_ms": single["step_ms"],
+                               "single_totals": {lr: [m["total"] for m in s_["metrics"]]
+                                                 for lr, s_ in singles.items()},
+                               "single_step_ms": {lr: s_["step_ms"]
+                                                  for lr, s_ in singles.items()},
                                "step_ms_rank0": {t: runs[t]["step_ms"] for t in runs},
                                "collectives_per_step_rank0": {
                                    t: per_step(runs[t]["collectives"]) for t in runs}},
@@ -3069,14 +3230,15 @@ def job_sp_pp_steps(rank: int, out: Path, job: str) -> None:
     from kokoro_tpu_torch.parallel.mesh import create_mesh
 
     for tag, shape, names, micro in SP_PP_RUNS[job]:
-        torch.cuda.reset_peak_memory_stats()
         mesh = create_mesh(TrainingConfig(mesh_shape=shape, mesh_axis_names=names))
-        run = f32_steps(mesh, plain=True, microbatches=micro)
-        write_peak(out, tag)
-        if rank == 0:
-            torch.save(run, out / f"steps_{tag}.pt")
-        del run
-        torch.cuda.empty_cache()
+        for suffix, lr in run_rates(tag):
+            torch.cuda.reset_peak_memory_stats()
+            run = f32_steps(mesh, plain=True, microbatches=micro, lr=lr)
+            write_peak(out, tag + suffix)
+            if rank == 0:
+                torch.save(run, out / f"steps_{tag}{suffix}.pt")
+            del run
+            torch.cuda.empty_cache()
 
 
 def job_sp_pp_2(rank: int, out: Path) -> None:
@@ -3150,7 +3312,7 @@ PARALLEL_JOBS.update(sp_pp_2=job_sp_pp_2, sp_pp_4=job_sp_pp_4, sp_pp_trainer=job
 
 def phase_parallel_sp_pp():
     """Sequence and pipeline parallelism on the one card (module docstring,
-    phase 14).  Returns, per kernel, its launches on these paths (0: the
+    phase 18).  Returns, per kernel, its launches on these paths (0: the
     reference's routing turns the kernels off under ``seq`` and ``stage``)."""
     import subprocess
 
@@ -3179,9 +3341,10 @@ def phase_parallel_sp_pp():
         try:
             started = [start_world("sp_pp_4", 4, out), start_world("sp_pp_2", 2, out)]
             # the single process on the plain route, the batch whole and in 2
-            # microbatches, beside the worlds
-            single = f32_steps(plain=True)
-            single_micro = f32_steps(plain=True, microbatches=2)
+            # microbatches, at each rate, beside the worlds
+            lrs = run_lrs(tag for runs in SP_PP_RUNS.values() for tag, *_ in runs)
+            singles = {(lr, micro): f32_steps(plain=True, lr=lr, microbatches=micro)
+                       for lr in lrs for micro in (0, 2)}
             torch.cuda.empty_cache()
             for world in started:
                 join_world(world)
@@ -3202,7 +3365,8 @@ def phase_parallel_sp_pp():
                                  f"{proc.returncode}: {cli_err[-3000:]}")
         cli = json.loads(cli_meta.read_text())
         tags = [tag for runs in SP_PP_RUNS.values() for tag, *_ in runs]
-        runs = {tag: torch.load(out / f"steps_{tag}.pt") for tag in tags}
+        runs = {tag + suffix: (torch.load(out / f"steps_{tag}{suffix}.pt"), lr)
+                for tag in tags for suffix, lr in run_rates(tag)}
         trainers = {tag: json.loads((out / f"trainer_{tag}.json").read_text())
                     for tag, *_ in SP_PP_TRAINERS}
         peaks = {}
@@ -3211,11 +3375,12 @@ def phase_parallel_sp_pp():
             peaks.setdefault(tag, {})[int(rank)] = json.loads(path.read_text())
     init = KokoroModel(KokoroConfig(**NO_DROPOUT)).init_weights(
         torch.Generator().manual_seed(0)).state_dict()
-    held = {tag: held_to_single(run, single_micro if tag.startswith("stage") else single, init)
-            for tag, run in runs.items()}
+    held = {tag: held_to_single(run, singles[lr, 2 if tag.startswith("stage") else 0], init)
+            for tag, (run, lr) in runs.items()}
+    runs = {tag: run for tag, (run, _) in runs.items()}
     failures = []
     for tag, h in held.items():
-        if not h["held"] or h["stepped"] != [1.0] * 3:
+        if tag in tags and (not h["held"] or h["stepped"] != [1.0] * 3):
             failures.append(f"{tag} against the single process: {h}")
         if any(any(c.values()) for c in runs[tag]["launches"]):
             failures.append(f"{tag} launched a kernel: {runs[tag]['launches']}")
@@ -3239,10 +3404,12 @@ def phase_parallel_sp_pp():
 
     result = {
         "phase": "parallel_sp_pp",
-        "f32_vs_single": {"limits": PARALLEL_LIMIT, "learning_rate": PARALLEL_LR,
+        "f32_vs_single": {"limits": PARALLEL_LIMIT,
+                          "held_at_lr": {t: HELD_LR[t] for t in tags},
+                          "not_held": f"runs tagged _reference_lr: readings at {REFERENCE_LR}",
                           "route": "plain attention (use_flash_attention=False), both sides",
-                          **held, "single_step_ms": single["step_ms"],
-                          "single_micro_step_ms": single_micro["step_ms"],
+                          **held, "single_step_ms": {f"lr={lr} microbatches={m}": s_["step_ms"]
+                                                     for (lr, m), s_ in singles.items()},
                           "step_ms_rank0": {t: r["step_ms"] for t, r in runs.items()},
                           "collectives_per_step_rank0": {
                               t: per_step(r["collectives"]) for t, r in runs.items()},
@@ -3380,6 +3547,9 @@ def run_phases(phases, work: Path) -> int:
     if "scripts" in phases:  # launches per bench_step_shapes step, errors at its shapes
         scripts_counts, scripts_errors = timed("scripts",
                                                lambda: phase_scripts(work / "quality"))
+    bench_path = None
+    if "bench" in phases:  # launches per compute-only and end-to-end step, errors
+        bench_path = timed("bench", lambda: phase_bench(work / "bench"))
     parallel_path = {}
     if "parallel" in phases:  # launches per step on rank 0 of the (2, 2) runs
         parallel_path = timed("parallel", phase_parallel)
@@ -3450,6 +3620,21 @@ def run_phases(phases, work: Path) -> int:
                     max_abs_err_at="every (B, T=288, H=8, Dh=64) of the step-shape rows, "
                                    "rate 0 and the rows' rates, K2 at the rows' kv lengths "
                                    "and a mixed set")
+        if bench_path is not None:  # this slice's path: the two headline benchmarks
+            compute_per_step, e2e_per_step, bench_errors = bench_path
+            row["bench_path"] = {
+                "launches_per_compute_only_step": compute_per_step[kern.name],
+                "launches_per_end_to_end_step": e2e_per_step[kern.name],
+                "launches_are": "kokoro_tpu_torch.bench: per step of the compute-only phase "
+                                "(B=32 L=96 T=512, bf16 preset) and per step of the end-to-end "
+                                f"epochs ({BENCH_E2E_EPOCHS} measured, 480 utterances, nine "
+                                "buckets T 256-896)"}
+            if kern.name in bench_errors:
+                row["bench_path"].update(
+                    max_abs_err=bench_errors[kern.name],
+                    max_abs_err_at="every (B, T, H=8, Dh=64) of the end-to-end epochs, rate 0 "
+                                   "and the epochs' rates, K2 at their kv lengths and a mixed "
+                                   "set")
         if kern.name in tools_counts:  # the trainer with its diagnostics
             row["tools_path"] = {
                 "launches": tools_counts[kern.name],

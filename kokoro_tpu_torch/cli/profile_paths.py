@@ -32,6 +32,14 @@ profiles the paths of the benchmark tools instead: training steps of
 ``scripts/bench_step_shapes.py`` rows (``TOOL_STEP_SHAPES``) and
 ``scripts/bench_batched_decode.py``'s forced decode at ``TOOL_STREAMS``
 streams over ``TOOL_FRAMES`` frames, the decode's numbers also per frame.
+
+    python -m kokoro_tpu_torch.cli.profile_paths --bench
+
+profiles the paths of the headline training benchmark
+(``kokoro_tpu_torch/bench.py``): one compute-only call (K=16 steps of the
+throughput preset at B=32, T=512) and one end-to-end epoch of the trainer
+over the 480-utterance, nine-bucket corpus (built in a temporary directory,
+the feature cache filled by a first epoch), their numbers also per step.
 """
 
 from __future__ import annotations
@@ -220,16 +228,56 @@ def profile_tools(dev) -> None:
                  streams=B, frames=TOOL_FRAMES, L=decode.L)
 
 
+def profile_bench(dev) -> None:
+    """The headline training benchmark's paths (see the module docstring)."""
+    import tempfile
+
+    from kokoro_tpu_torch import bench
+
+    state, step, batch = bench.compute_only_step(dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def call():
+        for _ in range(bench.K):
+            step(state, batch, gen)
+
+    _profile("bench_compute_only", call, 1, units=bench.K, unit="step",
+             dtype="bf16 compute, f32 params", preset="get_high_performance_config",
+             B=bench.B, L=bench.L, T=bench.T, K=bench.K)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = bench.e2e_trainer(Path(tmp), dev)
+        trainer.train_epoch(0)  # fills the feature cache
+        epoch = [0]
+
+        def one_epoch():
+            epoch[0] += 1
+            trainer.train_epoch(epoch[0])
+
+        # _profile runs the epoch once to warm up, once unprofiled, once profiled
+        steps = len(trainer.batcher.build_batches(3))
+        _profile("bench_end_to_end_epoch", one_epoch, 1, units=steps, unit="step",
+                 dtype="bf16 compute, f32 params", preset="get_high_performance_config",
+                 corpus="bench._build_bench_corpus (480 utterances, 9 mel buckets)",
+                 steps_per_epoch=steps)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Profile the port's paths on the card.")
     parser.add_argument("--tools", action="store_true",
                         help="profile bench_step_shapes rows and bench_batched_decode")
+    parser.add_argument("--bench", action="store_true",
+                        help="profile the training benchmark's compute-only call and epoch")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_paths: CUDA is not available", file=sys.stderr)
         return 2
     if args.tools:
         profile_tools(torch.device("cuda"))
+        return 0
+    if args.bench:
+        profile_bench(torch.device("cuda"))
         return 0
     from kokoro_tpu_torch.config import KokoroConfig
     from kokoro_tpu_torch.inference.vocoder import VocoderManager

@@ -244,6 +244,10 @@ class KokoroTrainer:
         self.epochs_without_improvement = 0
         self.start_epoch = 0
         self.host_step = 0  # steps dispatched, skipped ones included (log x-axis)
+        # the dispatched-shape census (the reference's ``_shape_counts``):
+        # (mel_specs shape of an assembled batch, 1) -> optimizer calls
+        # through it; k is always 1, the port has no scan chunks
+        self._shape_counts: Dict[tuple, int] = {}
 
     # -- set-up ---------------------------------------------------------------
     def _setup_mesh(self) -> None:
@@ -447,6 +451,8 @@ class KokoroTrainer:
             if ib is not None:
                 ib.start("data")
             batch = self._assemble(batches[start:start + accum], rng)
+            shape_key = (tuple(batch["mel_specs"].shape), 1)
+            self._shape_counts[shape_key] = self._shape_counts.get(shape_key, 0) + 1
             device_batch = self._to_device(batch)
             if ib is not None:
                 ib.end("data")

@@ -64,7 +64,9 @@ def test_port_files_exist():
                      "kokoro_tpu_torch/scripts/analyze_training_regression.py",
                      "kokoro_tpu_torch/scripts/e2e_audio_artifact.py",
                      # the vocoder's training path and the remaining tools
-                     *(f"kokoro_tpu_torch/scripts/{name}.py" for name in PORTED_SCRIPTS)):
+                     *(f"kokoro_tpu_torch/scripts/{name}.py" for name in PORTED_SCRIPTS),
+                     # the repository's two headline benchmarks
+                     "kokoro_tpu_torch/bench.py", "kokoro_tpu_torch/bench_inference.py"):
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
@@ -106,6 +108,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         infer.main(["--model", str(tmp_path), "--text", "привет"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         precompute_features(*get_default_config(data_dir=str(tmp_path)))
+    from kokoro_tpu_torch import bench, bench_inference
+
+    for bench_main in (bench.main, bench_inference.main):  # no fallback to the CPU
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench_main([])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -202,6 +209,34 @@ def _options(path: Path):
                         if isinstance(a, ast.Constant) and str(a.value).startswith("--"))
         elif attr == "update" and node.args and isinstance(node.args[0], ast.Constant):
             yield node.args[0].value
+
+
+# the root benchmarks' top-level names and JAX configuration keys whose port
+# has another name, or none (None): the JAX compile cache and the hardware
+# PRNG switch are XLA machinery (the port builds CUDA kernels at first use
+# and draws dropout from Philox in the kernels)
+BENCH_COUNTERPARTS = {
+    "bench.jax_compilation_cache_dir": None,
+    "bench.jax_persistent_cache_min_compile_time_secs": None,
+    "bench.jax_default_prng_impl": None,
+}
+
+
+@pytest.mark.parametrize("bench", ["bench", "bench_inference"])
+def test_every_name_of_a_root_bench_has_a_counterpart(bench):
+    """Each top-level name of the repository's ``<bench>.py`` (public and
+    private) and each of its JAX configuration keys exists in
+    ``kokoro_tpu_torch/<bench>.py``, or is listed in ``BENCH_COUNTERPARTS``
+    as dropped; the kept names come in the reference's order."""
+    ref_path, port_path = ROOT / f"{bench}.py", ROOT / "kokoro_tpu_torch" / f"{bench}.py"
+    ref = list(_public_names(ref_path, private=True))
+    port = list(_public_names(port_path, private=True))
+    port_all = port + list(_options(port_path))
+    missing = [f"{bench}.{name}" for name in ref + list(_options(ref_path))
+               if BENCH_COUNTERPARTS.get(f"{bench}.{name}", name) not in port_all + [None]]
+    assert not missing, missing
+    kept = [n for n in ref if n in port]
+    assert kept == [n for n in port if n in kept] and "main" in kept
 
 
 @pytest.mark.parametrize("script", PORTED_SCRIPTS)

@@ -5,7 +5,6 @@ cache directory, clear, the CLI), ``profiling`` (``DeviceProfiler``,
 A/B's synthetic batch and model fields) and ``memory_planner.count_params``
 equal to the reference's at the smoke and the flagship widths."""
 
-import time
 
 import numpy as np
 import pytest
@@ -131,16 +130,29 @@ def test_interbatch_profiler_matches_reference(monkeypatch):
     assert reports[0][2] == ["data", "step"]
 
 
-def test_compare_dtype_policies_with_a_stub_step():
+def test_compare_dtype_policies_with_a_stub_step(monkeypatch):
+    # a fake clock: each stub step advances it by 2 ms (bf16) or 4 ms (f32),
+    # so the A/B reads exactly 2.0 whatever the host's scheduler does
+    now = [0.0]
+
     def make_step(dtype):
         delay = 0.002 if dtype == "bfloat16" else 0.004
-        return (lambda: time.sleep(delay)), ()
 
+        def step():
+            now[0] += delay
+
+        return step, ()
+
+    for mod in (profiling, ref_profiling):
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: now[0])
     ours = profiling.compare_dtype_policies(make_step, n_steps=3)
     theirs = ref_profiling.compare_dtype_policies(make_step, n_steps=3)
+    monkeypatch.undo()
     assert ours.keys() == theirs.keys() == {"bfloat16", "float32", "speedup_bf16"}
     assert ours["bfloat16"].keys() == theirs["bfloat16"].keys()
-    assert ours["speedup_bf16"]["value"] > 1.0
+    for result in (ours, theirs):
+        assert result["speedup_bf16"]["value"] == pytest.approx(2.0, abs=1e-9)
+        assert result["speedup_bf16"]["value"] > 1.0
     step = profiling.profile_step_fn(lambda x: x + 1, (1,), n_steps=2, warmup=1)
     assert step["min_s"] <= step["median_s"] <= step["max_s"]
 
