@@ -114,14 +114,13 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty
 
 // rowsum(dO * O) and the saved lse of query rows [q0, q0 + 64) -> shared
 // memory (0 for rows at or past T_len); rows are D elements apart from
-// `base`.  NT / 64 threads per row (NT the CTA's threads).  The backward
-// kernels' di.
-template <typename T, int DH, int NT = kThreads>
+// `base`.  kThreads / 64 threads per row.  The f32 backward kernels' di.
+template <typename T, int DH>
 __device__ __forceinline__ void row_stats(const T* o, const T* dout, const float* lse,
                                           size_t base, size_t lse_base, int q0, int T_len,
                                           int D, float* delta_s, float* lse_s) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = NT / 64;
+  constexpr int PER_ROW = kThreads / 64;
   const int r = threadIdx.x / PER_ROW, part = threadIdx.x % PER_ROW;
   const int row = q0 + r;
   float sum = 0.f;

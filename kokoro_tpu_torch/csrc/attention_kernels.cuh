@@ -48,9 +48,10 @@
 //     per (b, h, 64-key tile), keeps K, V and the dK, dV accumulators and loops
 //     over 64-row query tiles (S and dPd tiles, then dV += Pd^T dO and
 //     dK += dS^T Q); a dQ kernel, one CTA per (b, h, 64-query tile), keeps Q,
-//     dO and the dQ accumulators and loops over key tiles.  Each CTA
-//     recomputes rowsum(dO * O) of its query tiles, so the kernels share no
-//     scratch and each gradient element is written by one thread: bitwise
+//     dO and the dQ accumulators and loops over key tiles.  Each f32 CTA
+//     recomputes rowsum(dO * O) of its query tiles (the bf16 dQ kernel hands
+//     each row's delta to the dK/dV kernel; at Dh 64 a bf16 CTA owns 128
+//     rows), and each gradient element is written by one thread: bitwise
 //     deterministic.
 // Causal CTAs stop at (forward, dQ) or start from (dK/dV) the diagonal tile;
 // with kv_lengths they stop at ceil(kv_lengths[b] / 64) tiles and a key tile
@@ -60,9 +61,11 @@
 // memory as the CTA reaches the tile; rate 0 compiles without them (template
 // parameter DROPOUT).
 //
-// bf16 runs on the tensor cores (attention_tc.cuh: one warpgroup per CTA,
-// wgmma products, TMA loads through a two-stage ring, P, Pd and dS kept in
-// registers as wgmma's A operand).  f32 runs the scalar templates below: a
+// bf16 runs on the tensor cores (attention_tc.cuh: wgmma products, TMA loads,
+// P, Pd and dS kept in registers as wgmma's A operand; the forward one
+// warpgroup a CTA through a two-stage ring, the backward warp-specialised,
+// two consumer warpgroups sharing each tile a three-stage ring streams, the
+// bf16 row tiles 128 rows a CTA).  f32 runs the scalar templates below: a
 // 256-thread CTA as a 16 x 16 grid, each thread 4 rows x 4 columns of a tile,
 // tiles widened to f32 in shared memory, P and dS through shared memory, f32
 // FMA on the CUDA cores.  f32's contract (2e-5 forward, 1e-4 gradients,
@@ -78,11 +81,10 @@
 // bounded by their bytes (about 0.02 / 0.04 ms at B=32); at the long path's
 // T=1408 by their operations (0.025 ms for K4's forward, 0.123 ms for the
 // kv-length backward).  The f32 kernels are bounded by the CUDA cores' FMA
-// rate.  The tensor-core kernels reach 11-37 % of their bound: each tile's
-// products and its softmax run one after the other inside one warpgroup, the
-// overlap comes only from the other CTAs on the SM (2-4, limited by the
-// accumulators' registers: the Dh=64 dK/dV kernel holds two 64 x 64 f32
-// accumulators and the S and dPd tiles, about 190 registers a thread).
+// rate.  The tensor-core forwards reach 19-36 % of their bound (each tile's
+// products and its softmax run one after the other inside one warpgroup);
+// the warp-specialised backwards 20-29 % (PERF.md §6, NVIDIA H100 80GB
+// HBM3 at 700 W).
 
 #pragma once
 
@@ -549,33 +551,38 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }
 
 // dtype: 0 = float32 (the scalar kernels above), 1 = bfloat16 (the
-// tensor-core kernels of attention_tc.cuh); Dh 64 or 128
+// tensor-core kernels of attention_tc.cuh); Dh 64 or 128.  `res`: NULL, or
+// (bf16 only) where the forward writes O's rounding residual for the backward
 template <bool FLASH, bool DROPOUT>
 cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, const AttnArgs& a, cudaStream_t s) {
+                         void* o, void* res, float* lse, int B, const AttnArgs& a,
+                         cudaStream_t s) {
+  if (dtype == 0 && res != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0 && Dh == 64) return launch_fwd<float, 64, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
   if (dtype == 0 && Dh == 128) return launch_fwd<float, 128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
-  if (dtype == 1 && Dh == 64) return tc::launch_fwd<64, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
-  if (dtype == 1 && Dh == 128) return tc::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
+  if (dtype == 1 && Dh == 64) return tc::launch_fwd<64, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
+  if (dtype == 1 && Dh == 128) return tc::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
   return cudaErrorInvalidValue;
 }
 
 // `delta`: the tensor-core kernels' (B, H, Tq) f32 workspace; the scalar
-// kernels take each row's rowsum(dO * O) from the f32 O and need none
+// kernels take each row's rowsum(dO * O) from the f32 O and need none.
+// `res`: the packed bf16 forward's residual of O (NULL otherwise)
 template <bool FLASH, bool DROPOUT>
 cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const float* lse, float* delta,
-                         void* dq, void* dk, void* dv, int B, const AttnArgs& a,
+                         const void* o, const void* res, const void* dout, const float* lse,
+                         float* delta, void* dq, void* dk, void* dv, int B, const AttnArgs& a,
                          cudaStream_t s) {
   if (dtype == 0 && Dh == 64)
     return launch_bwd<float, 64, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 0 && Dh == 128)
     return launch_bwd<float, 128, FLASH, DROPOUT>(q, k, v, o, dout, lse, dq, dk, dv, B, a, s);
   if (dtype == 1 && Dh == 64)
-    return tc::launch_bwd<64, FLASH, DROPOUT>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+    return tc::launch_bwd<64, FLASH, DROPOUT>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B,
+                                              a, s);
   if (dtype == 1 && Dh == 128)
-    return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a,
-                                               s);
+    return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B,
+                                               a, s);
   return cudaErrorInvalidValue;
 }
 

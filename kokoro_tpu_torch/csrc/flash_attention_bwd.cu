@@ -44,6 +44,6 @@ extern "C" int kokoro_flash_attention_bwd(const void* q, const void* k, const vo
       (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnArgs a{nullptr, q_seg, kv_seg, Tq, Tk, H, scale, causal, 0u, 1.f, 0u, 0u};
-  return (int)dispatch_bwd<true, false>(dtype, Dh, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                        B, a, static_cast<cudaStream_t>(stream));
+  return (int)dispatch_bwd<true, false>(dtype, Dh, q, k, v, o, nullptr, dout, lse, delta, dq,
+                                        dk, dv, B, a, static_cast<cudaStream_t>(stream));
 }

@@ -25,12 +25,14 @@
 using namespace kokoro_attn;
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_lengths: NULL or B int32 on the
-// device.  lse: NULL or B*H*T float32 on the device.  dropout: 0 or 1; a
+// device.  lse: NULL or B*H*T float32 on the device.  res: NULL or (bf16
+// only, under grad) a tensor like o that receives O's rounding residual
+// bf16(O32 - bf16(O32)), the backward's delta.  dropout: 0 or 1; a
 // weight is kept iff its Philox word is below `threshold`, and kept weights
 // are scaled by inv_keep.  Returns a cudaError_t (0 on success); launches on
 // `stream` and does not synchronise.
 extern "C" int kokoro_packed_attention_fwd(const void* q, const void* k,
-                                           const void* v, void* o, float* lse,
+                                           const void* v, void* o, void* res, float* lse,
                                            const int* kv_lengths, int B,
                                            int T_len, int H, int Dh,
                                            float scale, int causal, int dtype,
@@ -43,6 +45,6 @@ extern "C" int kokoro_packed_attention_fwd(const void* q, const void* k,
                    threshold, inv_keep, (uint32_t)(seed & 0xffffffffull),
                    (uint32_t)(seed >> 32)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dropout) return (int)dispatch_fwd<false, true>(dtype, Dh, q, k, v, o, lse, B, a, s);
-  return (int)dispatch_fwd<false, false>(dtype, Dh, q, k, v, o, lse, B, a, s);
+  if (dropout) return (int)dispatch_fwd<false, true>(dtype, Dh, q, k, v, o, res, lse, B, a, s);
+  return (int)dispatch_fwd<false, false>(dtype, Dh, q, k, v, o, res, lse, B, a, s);
 }

@@ -34,16 +34,45 @@ from kokoro_tpu_torch.models.rng import Rng, dropout, fold
 from kokoro_tpu_torch.ops.lengths import expand_tokens, length_regulate, token_to_frame_map
 
 
+class _DeterministicConv1d(torch.autograd.Function):
+    """A stride-1 ``F.conv1d`` whose backward runs cuDNN's deterministic
+    algorithms: the default ones may sum the input and weight gradients with
+    atomics, so that two runs of one training step on the card differed in
+    every tensor upstream of the variance predictors (phase
+    ``parallel_sp_pp`` of ``chip_smoke.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (padding, dilation, bias is not None)
+        return F.conv1d(x, weight, bias, padding=padding, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        padding, dilation, has_bias = ctx.conv
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], has_bias]
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=torch.backends.cudnn.allow_tf32):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad.contiguous(), x, weight, [weight.shape[0]] if has_bias else None,
+                [1], [padding], [dilation], False, [0], 1, mask)
+        return gx, gw, gb, None, None
+
+
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` that computes in ``compute_dtype`` (None: the weight's
-    dtype), as a flax ``Conv(dtype=..., param_dtype=...)`` does."""
+    dtype), as a flax ``Conv(dtype=..., param_dtype=...)`` does, with stride 1
+    and one group; its backward is bitwise the same run to run
+    (:class:`_DeterministicConv1d`)."""
 
     compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return _DeterministicConv1d.apply(x.to(dt), self.weight.to(dt), bias,
+                                          self.padding[0], self.dilation[0])
 
 
 def masked_group_norm(x, scale, bias, valid, eps: float = 1e-5):

@@ -13,7 +13,14 @@ attention-weight dropout.
   are the plain PyTorch versions of the forward and of the reference's
   recompute backward: f32 logits, the -1e9 masked constant, f32 softmax,
   dropout ``where(keep, p / keep_rate, 0)``, the weights (and dS * scale)
-  cast to the input dtype before their products, f32 sums.
+  cast to the input dtype before their products, f32 sums.  Each row's
+  delta (``rowsum(p * dp)``) is the reference's sum, or, given the
+  forward's output and its rounding residual, ``rowsum(dO * (O + residual))``
+  as the kernels take it.
+* Under grad the forward also returns what the backward needs: the f32 row
+  log-sum-exp and, for bf16, O's rounding residual ``bf16(O32 - bf16(O32))``
+  (one more bf16 tensor of O's shape), from which the backward takes each
+  row's delta without a second pass over the keys.
 * Dropout is Philox4x32-10 keyed on a 64-bit ``seed`` (``ops/philox.py``); the
   kernels draw the same mask in-kernel, so the TPU's bits are not
   reproduced, only its distribution and its fwd/bwd agreement.
@@ -94,9 +101,9 @@ def _packed(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).transpose(1, 2).reshape(B, T, H * Dh)
 
 
-def _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, seed):
-    """f32 softmax weights (B, H, T, T) and the keep flags (None at rate 0)."""
-    B, T, _ = q.shape
+def _logits(q, k, num_heads, scale, causal, kv_lengths):
+    """Masked f32 logits (B, H, T, T), the masked ones at ``NEG_INF``."""
+    T = q.shape[1]
     s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * scale
     cols = torch.arange(T, device=q.device)
     if causal:
@@ -107,7 +114,13 @@ def _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, se
         visible = None
     if visible is not None:
         s = torch.where(visible, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, seed):
+    """f32 softmax weights (B, H, T, T) and the keep flags (None at rate 0)."""
+    B, T, _ = q.shape
+    p = torch.softmax(_logits(q, k, num_heads, scale, causal, kv_lengths), dim=-1)
     keep = None
     if dropout_rate > 0.0:
         keep = attention_keep_mask(seed, B, num_heads, T, dropout_rate, device=q.device)
@@ -117,25 +130,35 @@ def _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, se
 def packed_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
     scale: float, causal: bool = True, kv_lengths: Optional[torch.Tensor] = None,
-    dropout_rate: float = 0.0, seed: Optional[int] = None,
-) -> torch.Tensor:
+    dropout_rate: float = 0.0, seed: Optional[int] = None, for_backward: bool = False,
+):
     """Plain PyTorch packed attention, the forward kernel's contract (any
-    head_dim)."""
+    head_dim).  ``for_backward``: ``(o, lse, residual)`` with the f32 row
+    log-sum-exp (B, H, T) and, for bf16, ``bf16(O32 - o)`` (None for f32)."""
     p, keep = _probs_and_keep(q, k, num_heads, scale, causal, kv_lengths, dropout_rate, seed)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), torch.zeros((), device=q.device))
-    o = torch.matmul(p.to(q.dtype).float(), _heads(v, num_heads))
-    return _packed(o, q.dtype)
+    o32 = _packed(torch.matmul(p.to(q.dtype).float(), _heads(v, num_heads)), torch.float32)
+    o = o32.to(q.dtype)
+    if not for_backward:
+        return o
+    lse = torch.logsumexp(_logits(q, k, num_heads, scale, causal, kv_lengths), dim=-1)
+    residual = None if q.dtype == torch.float32 else (o32 - o.float()).to(q.dtype)
+    return o, lse, residual
 
 
 def packed_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
     num_heads: int, scale: float, causal: bool = True,
     kv_lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, o: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward ``(dq, dk, dv)``: the reference's recompute
-    (``_bwd_kernel_packed``) step by step, the backward kernels' contract."""
+    (``_bwd_kernel_packed``) step by step, the backward kernels' contract.
+    Each row's delta is the reference's f32 ``rowsum(dp * p)``, or, given
+    the forward's ``o`` (and for bf16 its ``residual``), the kernels'
+    ``rowsum(dO * (o + residual))`` in f32."""
     dtype, H = q.dtype, num_heads
     p, keep = _probs_and_keep(q, k, H, scale, causal, kv_lengths, dropout_rate, seed)
     zero = torch.zeros((), device=q.device)
@@ -145,7 +168,12 @@ def packed_attention_bwd_reference(
     dv = torch.matmul(pd.to(dtype).float().transpose(-1, -2), do_h)
     dpd = torch.matmul(do_h, v_h.transpose(-1, -2))
     dp = dpd if keep is None else torch.where(keep, dpd * inv_keep, zero)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if o is None:
+        delta = (dp * p).sum(-1, keepdim=True)
+    else:
+        o32 = o.float() if residual is None else o.float() + residual.float()
+        delta = (do_h * _heads(o32, H)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
     ds16 = (ds * scale).to(dtype).float()
     dq = torch.matmul(ds16, _heads(k, H))
     dk = torch.matmul(ds16.transpose(-1, -2), _heads(q, H))
@@ -194,10 +222,11 @@ class PackedAttentionKernel:
     def __call__(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         num_heads: int, scale: float, kv_lengths: Optional[torch.Tensor] = None,
-        dropout_rate: float = 0.0, seed: Optional[int] = None, return_lse: bool = False,
+        dropout_rate: float = 0.0, seed: Optional[int] = None, for_backward: bool = False,
     ):
-        """``o``, or ``(o, lse)`` with the f32 row log-sum-exp ``(B, H, T)``
-        the backward kernel needs."""
+        """``o``, or with ``for_backward`` what the backward kernel needs:
+        ``(o, lse, residual)``, the f32 row log-sum-exp ``(B, H, T)`` and,
+        for bf16, O's rounding residual (None for f32)."""
         _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
         kv_lengths, lens_ptr = _kernel_inputs({"q": q, "k": k, "v": v}, kv_lengths,
                                               self.causal)
@@ -206,11 +235,14 @@ class PackedAttentionKernel:
         lib = kernels.load("packed_attention")
         B, T, D = q.shape
         o = torch.empty_like(q)
-        lse = torch.empty(B, num_heads, T, device=q.device) if return_lse else None
+        lse = torch.empty(B, num_heads, T, device=q.device) if for_backward else None
+        residual = (torch.empty_like(q) if for_backward and q.dtype == torch.bfloat16
+                    else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = lib.kokoro_packed_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if residual is None else residual.data_ptr(),
                 None if lse is None else lse.data_ptr(), lens_ptr,
                 B, T, num_heads, D // num_heads, ctypes.c_float(float(scale)),
                 int(self.causal), 0 if q.dtype == torch.float32 else 1,
@@ -219,7 +251,7 @@ class PackedAttentionKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t {err}")
         self.launches += 1
-        return (o, lse) if return_lse else o
+        return (o, lse, residual) if for_backward else o
 
 
 class PackedAttentionBwdKernel:
@@ -239,20 +271,28 @@ class PackedAttentionBwdKernel:
 
     def __call__(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        do: torch.Tensor, lse: torch.Tensor, *, num_heads: int, scale: float,
-        kv_lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-        seed: Optional[int] = None,
+        do: torch.Tensor, lse: torch.Tensor, residual: Optional[torch.Tensor] = None, *,
+        num_heads: int, scale: float, kv_lengths: Optional[torch.Tensor] = None,
+        dropout_rate: float = 0.0, seed: Optional[int] = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(dq, dk, dv)`` from the forward's ``o``, ``lse`` and (bf16)
+        ``residual``, as the forward returns them with ``for_backward``."""
         _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
         B, T, D = q.shape
-        for label, x in (("o", o), ("do", do)):
-            if x.shape != q.shape or x.dtype != q.dtype:
+        tensors = {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}
+        if q.dtype == torch.bfloat16:
+            if residual is None:
+                raise ValueError("the bf16 backward needs the forward's residual")
+            tensors["residual"] = residual
+        elif residual is not None:
+            raise ValueError("a float32 forward has no residual")
+        for label in ("o", "do", "residual"):
+            x = tensors.get(label)
+            if x is not None and (x.shape != q.shape or x.dtype != q.dtype):
                 raise ValueError(f"{label} must match q's shape and dtype")
         if lse.shape != (B, num_heads, T) or lse.dtype != torch.float32:
             raise ValueError("lse must be float32 (B, H, T)")
-        kv_lengths, lens_ptr = _kernel_inputs(
-            {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse},
-            kv_lengths, self.causal)
+        kv_lengths, lens_ptr = _kernel_inputs(tensors, kv_lengths, self.causal)
         from kokoro_tpu_torch.ops import kernels
 
         lib = kernels.load("packed_attention_bwd")
@@ -262,7 +302,8 @@ class PackedAttentionBwdKernel:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = lib.kokoro_packed_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if residual is None else residual.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), None if delta is None else delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lens_ptr,
                 B, T, num_heads, D // num_heads, ctypes.c_float(float(scale)),
@@ -308,42 +349,44 @@ def _kernel_pair(variant: str):
 class PackedAttentionFunction(torch.autograd.Function):
     """Packed attention with its backward: plain forward and plain backward
     on CPU tensors, the forward and backward kernels of ``variant``
-    ("causal", "kvlen" or "folded") on CUDA tensors.  Saved for the backward:
-    q, k, v, o, the kernel's lse (CUDA, and only when a gradient is wanted)
-    and kv_lengths; the seed and the other arguments are plain Python
-    values."""
+    ("causal", "kvlen" or "folded") on CUDA tensors.  When a gradient is
+    wanted both save the same tensors for the backward (:data:`SAVED`): q,
+    k, v, o, the f32 row lse, O's bf16 rounding residual (None for f32) and
+    kv_lengths; the seed and the other arguments are plain Python values.
+    Without grad the forward writes and saves neither lse nor residual."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, num_heads, scale, variant, dropout_rate, seed):
         causal = variant != "kvlen"
         kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
                   dropout_rate=dropout_rate, seed=seed)
-        lse = None
+        grad = any(ctx.needs_input_grad[:3])
         if q.device.type == "cpu":
-            o = packed_attention_reference(q, k, v, causal=causal, **kw)
+            out = packed_attention_reference(q, k, v, causal=causal, for_backward=grad, **kw)
         else:
-            kernel = _kernel_pair(variant)[0]
-            if any(ctx.needs_input_grad[:3]):
-                o, lse = kernel(q, k, v, return_lse=True, **kw)
-            else:
-                o = kernel(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
+            out = _kernel_pair(variant)[0](q, k, v, for_backward=grad, **kw)
+        o, lse, residual = out if grad else (out, None, None)
+        ctx.save_for_backward(q, k, v, o, lse, residual, kv_lengths)
         ctx.args = (num_heads, scale, variant, dropout_rate, seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        q, k, v, o, lse, residual, kv_lengths = ctx.saved_tensors
         num_heads, scale, variant, dropout_rate, seed = ctx.args
         kw = dict(num_heads=num_heads, scale=scale, kv_lengths=kv_lengths,
                   dropout_rate=dropout_rate, seed=seed)
         do = do.contiguous()
         if q.device.type == "cpu":
-            dq, dk, dv = packed_attention_bwd_reference(q, k, v, do,
-                                                        causal=variant != "kvlen", **kw)
+            dq, dk, dv = packed_attention_bwd_reference(
+                q, k, v, do, causal=variant != "kvlen", o=o, residual=residual, **kw)
         else:
-            dq, dk, dv = _kernel_pair(variant)[1](q, k, v, o, do, lse, **kw)
+            dq, dk, dv = _kernel_pair(variant)[1](q, k, v, o, do, lse, residual, **kw)
         return dq, dk, dv, None, None, None, None, None, None
+
+
+# the names of what PackedAttentionFunction saves, in order
+SAVED = ("q", "k", "v", "o", "lse", "residual", "kv_lengths")
 
 
 def packed_attention(

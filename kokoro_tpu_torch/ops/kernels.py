@@ -111,12 +111,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     dropout = [i, ctypes.c_uint32, f, ctypes.c_uint64]
     if name == "packed_attention":
         fn = lib.kokoro_packed_attention_fwd
-        # q k v o lse lens, B T H Dh, scale, causal dtype, dropout..., stream
-        fn.argtypes = [p] * 6 + [i] * 4 + [f, i, i] + dropout + [p]
+        # q k v o res lse lens, B T H Dh, scale, causal dtype, dropout..., stream
+        fn.argtypes = [p] * 7 + [i] * 4 + [f, i, i] + dropout + [p]
     elif name == "packed_attention_bwd":
         fn = lib.kokoro_packed_attention_bwd
-        # q k v o do lse delta dq dk dv lens, B T H Dh, scale, causal dtype, dropout..., stream
-        fn.argtypes = [p] * 11 + [i] * 4 + [f, i, i] + dropout + [p]
+        # q k v o res do lse delta dq dk dv lens, B T H Dh, scale, causal dtype, dropout...,
+        # stream
+        fn.argtypes = [p] * 12 + [i] * 4 + [f, i, i] + dropout + [p]
     elif name == "flash_attention":
         fn = lib.kokoro_flash_attention_fwd
         # q k v o lse q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream

@@ -2,7 +2,12 @@
 
 Port of ``kokoro_tpu/ops/lengths.py``: frame ``t`` belongs to the first token
 whose cumulative end exceeds ``t`` (``searchsorted(side="right")`` on the
-cumulative ends), and expansion is a gather.
+cumulative ends), and expansion is a gather.  The gather's backward (each
+token's gradient, the sum of its frames') goes through
+``index_put_(accumulate=True)``, which sorts the indices and sums in their
+order: the scatter-add behind ``torch.gather``'s own backward adds with
+atomics in no fixed order, which made two runs of one training step differ
+in the encoder's gradients (phase ``parallel_sp_pp`` of ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,28 @@ def token_to_frame_map(
     return frame_to_token, frame_valid, total.to(torch.int32)
 
 
+class _ExpandFrames(torch.autograd.Function):
+    """``tokens`` (B, L, D) gathered to frames by ``frame_to_token`` (B, T),
+    with a backward that is the same bit for bit call to call."""
+
+    @staticmethod
+    def forward(ctx, tokens, frame_to_token):
+        ctx.save_for_backward(frame_to_token)
+        ctx.tokens = tokens.shape[1]
+        idx = frame_to_token[:, :, None].expand(-1, -1, tokens.shape[2])
+        return torch.gather(tokens, 1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (frame_to_token,) = ctx.saved_tensors
+        B, T, D = grad.shape
+        rows = torch.arange(B, device=grad.device)[:, None] * ctx.tokens
+        flat = (frame_to_token + rows).reshape(-1)
+        out = grad.new_zeros(B * ctx.tokens, D).index_put_(
+            (flat,), grad.reshape(B * T, D), accumulate=True)
+        return out.view(B, ctx.tokens, D), None
+
+
 def expand_tokens(
     tokens: torch.Tensor, durations: torch.Tensor, max_len: int,
     stop_gradient: bool = True,
@@ -39,8 +66,7 @@ def expand_tokens(
         tokens = tokens.detach()
     frame_to_token, frame_valid, _ = token_to_frame_map(durations, max_len)
     if tokens.dim() == 3:
-        idx = frame_to_token[:, :, None].expand(-1, -1, tokens.shape[2])
-        gathered = torch.gather(tokens, 1, idx)
+        gathered = _ExpandFrames.apply(tokens, frame_to_token)
         return torch.where(frame_valid[:, :, None], gathered, torch.zeros((), dtype=tokens.dtype, device=tokens.device))
     gathered = torch.gather(tokens, 1, frame_to_token)
     return torch.where(frame_valid, gathered, torch.zeros((), dtype=tokens.dtype, device=tokens.device))

@@ -27,7 +27,11 @@ step.  Its terms:
   attention site.  The encoder's self-attention over phonemes always takes
   it; the decoder's self- and cross-attention (over the expanded memory, T
   keys) take it when ``use_flash_attention`` is off.  The attention kernels
-  save only the output and the row log-sum-exp, in the per-frame term;
+  save the output and the row log-sum-exp, in the per-frame term, and under
+  bf16 each packed site (K2's cross-attention, and K1's self-attention
+  wherever K4 does not take it) also O's rounding residual for the
+  backward's delta: one compute-dtype value per frame and model width, a
+  closed-form term of each decoder layer's inventory (not fitted);
 * ``transient_bytes`` — the f32 gradient buffers of one plain attention
   site's backward (the largest one);
 * ``batch_bytes`` — the step's batch on the device (every microbatch);
@@ -167,6 +171,20 @@ def _site_bytes(config, rate: float) -> int:
     return 4 + (ab if ab != 4 else 0)
 
 
+def _residual_sites(model_config, config, T: int) -> int:
+    """Packed-kernel sites of one decoder layer that save O's bf16 rounding
+    residual under grad: the cross-attention (K2) and, unless K4 takes the
+    causal self-attention (T >= 1024 in multiples of 128, no attention
+    dropout), the self-attention (K1); none in f32 or on the plain route."""
+    from kokoro_tpu_torch.ops.flash_attention import flash_supported
+
+    m = model_config
+    if not m.use_flash_attention or config.compute_dtype != "bfloat16":
+        return 0
+    rate = m.decoder_dropout if m.attention_weight_dropout else 0.0
+    return 1 if rate == 0.0 and flash_supported(T, T, m.hidden_dim // m.n_heads) else 2
+
+
 def estimate_train_step_hbm(model_config, config, batch_size: int, mel_frames: int,
                             phoneme_len: int, n_params: Optional[int] = None,
                             coefficients: Optional[Tuple[float, float, float]] = None
@@ -188,6 +206,7 @@ def estimate_train_step_hbm(model_config, config, batch_size: int, mel_frames: i
     f32_saves, act_saves, remat_live = coefficients or (_F32_SAVES, _ACT_SAVES, _REMAT_LIVE)
     per_elem = 4 * f32_saves + _act_bytes(c) * act_saves
     dec, enc, head = _token_terms(m, B, T, L)
+    residual = _residual_sites(m, c, T) * B * T * D * _act_bytes(c)
     enc_rate = m.encoder_dropout if m.attention_weight_dropout else 0.0
     dec_rate = m.decoder_dropout if m.attention_weight_dropout else 0.0
     enc_site = B * H * L * L * _site_bytes(c, enc_rate)
@@ -196,10 +215,11 @@ def estimate_train_step_hbm(model_config, config, batch_size: int, mel_frames: i
         enc_live = math.ceil(Ne / max(1, min(int(c.checkpoint_segments), Ne)))
         ab = _act_bytes(c)
         boundaries = (Nd * B * T + Ne * B * L) * D * ab
-        token_acts = boundaries + ab * remat_live * (dec + enc_live * enc) + per_elem * head
+        token_acts = (boundaries + ab * remat_live * (dec + enc_live * enc) + per_elem * head
+                      + residual)
         attn = dec_site + enc_live * enc_site
     else:
-        token_acts = per_elem * (Nd * dec + Ne * enc + head)
+        token_acts = per_elem * (Nd * dec + Ne * enc + head) + Nd * residual
         attn = Nd * dec_site + Ne * enc_site
     largest = (B * H * T * T) if not flash_active else (B * H * L * L)
     transient = _TRANSIENT_SCORE_BUFFERS * largest * 4

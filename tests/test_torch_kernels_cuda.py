@@ -227,8 +227,8 @@ def test_bf16_one_key_rows_backward_matches_plain(cuda, rate):
     lens = torch.tensor([1, T, 1, T // 2], dtype=torch.int32, device=cuda)
     kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens, dropout_rate=rate,
               seed=91 if rate else None)
-    o, lse = port.packed_attention_kvlen(q, k, v, return_lse=True, **kw)
-    grads = port.packed_attention_bwd_kvlen(q, k, v, o, do, lse, **kw)
+    o, lse, res = port.packed_attention_kvlen(q, k, v, for_backward=True, **kw)
+    grads = port.packed_attention_bwd_kvlen(q, k, v, o, do, lse, res, **kw)
     for name, a, b in zip("qkv", port.packed_attention_bwd_reference(q, k, v, do, causal=False,
                                                                       **kw), grads):
         err = (b.float() - a.float()).abs().max().item()
@@ -263,3 +263,120 @@ def test_bf16_dropout_mask_is_the_plain_mask(cuda):
     """At rate 0.1 the bf16 tensor-core forward drops exactly the weights of
     the plain Philox mask."""
     _assert_dropout_mask_is_the_plain_mask(cuda, BF16, data_seed=14, seed=2 ** 33 + 7)
+
+
+# -- the warp-specialised backward (the residual delta, determinism) --------
+def _packed_grads(q, k, v, do, kern_fwd, kern_bwd, **kw):
+    o, lse, res = kern_fwd(q, k, v, for_backward=True, **kw)
+    return kern_bwd(q, k, v, o, do, lse, res, **kw)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
+def test_bf16_packed_backward_is_bitwise_deterministic(cuda, causal, rate):
+    """Two calls on the same inputs and seed give the same dQ, dK and dV bit
+    for bit: every gradient element is summed by one thread in one order."""
+    B, T, H, Dh = 4, 433, 4, 64
+    q, k, v = _qkv(B, T, H, Dh, BF16, cuda, seed=31)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(31)).to(cuda, BF16)
+    lens = torch.tensor([T, 1, 0, T // 2], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if causal else lens,
+              dropout_rate=rate, seed=17 if rate else None)
+    fwd, bwd = ((port.packed_attention_causal, port.packed_attention_bwd_causal) if causal
+                else (port.packed_attention_kvlen, port.packed_attention_bwd_kvlen))
+    first = _packed_grads(q, k, v, do, fwd, bwd, **kw)
+    second = _packed_grads(q, k, v, do, fwd, bwd, **kw)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name}"
+
+
+@pytest.mark.parametrize("segments", [False, True], ids=["plain", "segments"])
+def test_bf16_flash_backward_is_bitwise_deterministic(cuda, segments):
+    """K4's backward, with and without segment ids, twice: bit for bit equal."""
+    B, H, T, Dh = 2, 4, 1433, 64
+    g = torch.Generator().manual_seed(12)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, BF16) for _ in range(4))
+    q_seg = kv_seg = None
+    if segments:
+        q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+        q_seg[:, T // 2:] = 2
+        kv_seg = q_seg.clone()
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    first = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    second = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name}"
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", [433, 1433])
+def test_bf16_dh128_backward_with_empty_and_one_key_rows(cuda, T, rate):
+    """Dh = 128 at ragged T, kv lengths 0 and 1 beside full and half rows:
+    the packed forward and backward against their plain versions."""
+    B, H, Dh = 4, 2, 128
+    q, k, v = _qkv(B, T, H, Dh, BF16, cuda, seed=T)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(T)).to(cuda, BF16)
+    lens = torch.tensor([0, 1, T, T // 2], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens, dropout_rate=rate,
+              seed=5 if rate else None)
+    o, lse, res = port.packed_attention_kvlen(q, k, v, for_backward=True, **kw)
+    torch.testing.assert_close(o.float(), port.packed_attention_reference(
+        q, k, v, causal=False, **kw).float(), rtol=TOL[BF16], atol=TOL[BF16])
+    grads = port.packed_attention_bwd_kvlen(q, k, v, o, do, lse, res, **kw)
+    ref = port.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
+def test_bf16_forward_residual_is_the_rounding_of_o(cuda):
+    """Under grad the packed forward writes bf16(O32 - bf16(O32)): O plus
+    the residual is the plain version's f32 O to well within one bf16 ulp,
+    and the forward without grad gives the same O."""
+    B, T, H, Dh = 2, 200, 2, 64
+    q, k, v = _qkv(B, T, H, Dh, BF16, cuda, seed=3)
+    kw = dict(num_heads=H, scale=Dh ** -0.5)
+    o, lse, res = port.packed_attention_causal(q, k, v, for_backward=True, **kw)
+    assert res.dtype == BF16 and res.shape == o.shape and lse.dtype == torch.float32
+    assert torch.equal(o, port.packed_attention_causal(q, k, v, **kw))
+    # the residual is below half an ulp of O
+    assert (res.float().abs() <= o.float().abs() * 2.0 ** -8 + 1e-30).all()
+    o_plain, _, res_plain = port.packed_attention_reference(q, k, v, causal=True,
+                                                            for_backward=True, **kw)
+    torch.testing.assert_close((o.float() + res.float()),
+                               (o_plain.float() + res_plain.float()), rtol=TOL[BF16],
+                               atol=TOL[BF16])
+
+
+def test_length_regulator_backward_is_bitwise_deterministic(cuda):
+    """The variance adaptor's frame expansion on the card: two backward
+    passes give the same token gradient bit for bit (``torch.gather``'s own
+    backward adds with atomics in no fixed order)."""
+    from kokoro_tpu_torch.ops.lengths import expand_tokens
+
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randn(8, 96, 512, generator=g).to(cuda).requires_grad_(True)
+    durations = torch.randint(0, 12, (8, 96), generator=g).to(cuda)
+    grad = torch.randn(8, 512, 512, generator=g).to(cuda)
+    first, second = (torch.autograd.grad(expand_tokens(tokens, durations, 512,
+                                                       stop_gradient=False), tokens, grad)[0]
+                     for _ in range(2))
+    assert torch.equal(first, second)
+
+
+def test_variance_predictor_backward_is_bitwise_deterministic(cuda):
+    """A variance predictor's convolutions on the card (cuDNN's
+    deterministic backward): two backward passes give the same input and
+    weight gradients bit for bit."""
+    from kokoro_tpu_torch.models.variance import VariancePredictor
+
+    torch.manual_seed(3)
+    predictor = VariancePredictor(hidden_dim=512, filter_size=256, dropout=0.0).to(cuda)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 512, 512, generator=g).to(cuda).requires_grad_(True)
+    leaves = [x] + list(predictor.parameters())
+    first, second = (torch.autograd.grad(predictor(x).square().sum(), leaves)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -86,7 +86,10 @@ def test_plain_route_adds_the_decoder_quadratic_terms(preset):
     # the encoder's self-attention over phonemes is plain either way
     assert 0 < kernels.attention_weight_bytes < plain.attention_weight_bytes
     assert plain.transient_bytes > kernels.transient_bytes
-    assert kernels.token_activation_bytes == plain.token_activation_bytes
+    # the kernel route adds O's bf16 rounding residual of both packed sites a
+    # decoder layer (K1 self-, K2 cross-attention) to the per-frame term
+    residual = m.n_decoder_layers * 2 * 16 * 896 * m.hidden_dim * 2
+    assert kernels.token_activation_bytes == plain.token_activation_bytes + residual
     no_dropout = mp.estimate_train_step_hbm(
         dataclasses.replace(m, use_flash_attention=False, attention_weight_dropout=False), c,
         16, 896, 160, n)
@@ -180,3 +183,15 @@ def test_cli_without_a_card_needs_hbm_gib(monkeypatch, capsys):
     with pytest.raises(SystemExit) as err:
         plan.main(["--data-dir", "/nonexistent"])
     assert err.value.code == 2 and "--hbm-gib" in capsys.readouterr().err
+
+
+def test_residual_sites_follow_the_attention_routes(preset):
+    """O's bf16 rounding residual is counted once per packed site a decoder
+    layer: two at the preset's T (K1 and K2), one in the long regime (K4
+    takes the causal self-attention), none in f32 or on the plain route."""
+    m, c, _ = preset
+    assert mp._residual_sites(m, c, 512) == 2
+    long_m, long_c = get_default_config(**LONG_REGIME)
+    assert mp._residual_sites(long_m, long_c, 1408) == 1
+    assert mp._residual_sites(m, dataclasses.replace(c, compute_dtype="float32"), 512) == 0
+    assert mp._residual_sites(dataclasses.replace(m, use_flash_attention=False), c, 512) == 0

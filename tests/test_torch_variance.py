@@ -119,3 +119,43 @@ def test_simple_duration_adaptor(targets):
     close(out[1], ref[1])
     assert out[2] is None and out[3] is None
     np.testing.assert_array_equal(n(out[4]), np.asarray(ref[4]))
+
+
+def test_expand_frames_is_gather_forward_and_backward():
+    """The length regulator's gather (``ops/lengths.py::_ExpandFrames``,
+    whose backward sums each token's frames in a fixed order) against
+    ``torch.gather`` and its autograd, exactly, in float64 on the CPU:
+    tokens of zero duration and frames past the total included."""
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randn(3, 7, 5, generator=g, dtype=torch.float64, requires_grad=True)
+    durations = torch.tensor([[1, 2, 0, 3, 1, 0, 0], [2] * 7, [0, 0, 1, 0, 0, 0, 9]])
+    frame_to_token, _, _ = port_len.token_to_frame_map(durations, 12)
+    out = port_len._ExpandFrames.apply(tokens, frame_to_token)
+    ref = torch.gather(tokens, 1, frame_to_token[:, :, None].expand(-1, -1, 5))
+    assert torch.equal(out, ref)
+    grad = torch.randn(3, 12, 5, generator=g, dtype=torch.float64)
+    (a,) = torch.autograd.grad(out, tokens, grad)
+    (b,) = torch.autograd.grad(ref, tokens, grad)
+    assert torch.equal(a, b)
+
+
+def test_deterministic_conv1d_is_conv1d_forward_and_backward():
+    """The variance predictors' convolution
+    (``models/variance.py::_DeterministicConv1d``, cuDNN's deterministic
+    backward algorithms) against ``F.conv1d`` and its autograd, exactly, in
+    float64 on the CPU, with and without a bias and at dilation 2."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 8, 20, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(5, 8, 3, generator=g, dtype=torch.float64, requires_grad=True)
+    b = torch.randn(5, generator=g, dtype=torch.float64, requires_grad=True)
+    for bias, padding, dilation in ((b, 1, 1), (None, 2, 2)):
+        out = port_var._DeterministicConv1d.apply(x, w, bias, padding, dilation)
+        ref = F.conv1d(x, w, bias, padding=padding, dilation=dilation)
+        assert torch.equal(out, ref)
+        grad = torch.randn(ref.shape, generator=g, dtype=torch.float64)
+        leaves = (x, w) if bias is None else (x, w, bias)
+        for a, r in zip(torch.autograd.grad(out, leaves, grad),
+                        torch.autograd.grad(ref, leaves, grad)):
+            assert torch.equal(a, r)
