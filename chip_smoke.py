@@ -11,7 +11,7 @@ Phases, each printing one JSON line:
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
    all started together; ptxas's registers and spills per kernel and the
    kernels whose ``wgmma`` it serialises, and a failure if a tensor-core
-   kernel (``csrc/attention_tc.cuh``) spills; and
+   kernel (``csrc/attention_tc.cuh``) spills or has its ``wgmma`` serialised; and
    the host-side C++ duration aligner (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
    and 0.1), its plain version, one PyTorch library call (SDPA forward; for a
    backward, SDPA forward+backward through autograd minus its forward; timed
    as a yardstick only, the port never calls it), the bound, the achieved
-   TFLOP/s and the share of the bound.  Kernels and library calls are timed
+   TFLOP/s and the share of the bound; a forward row also at rate 0.1 without
+   and under grad (what the training step runs) beside SDPA's forward at
+   ``dropout_p=0.1`` (its own mask: a yardstick only).  Kernels and library calls are timed
    on the device (20 calls in a CUDA graph, the median of 5 replays), the
    plain versions by CUDA events around the calls.
 3. kernels_bwd: the packed forward with in-kernel dropout and the backward
@@ -37,7 +39,9 @@ Phases, each printing one JSON line:
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
-   gives them and a mixed set with a row of length 0), and their times there.
+   gives them and a mixed set with a row of length 0), and their times there;
+   then what a work item of the bf16 forward costs beside its key tiles
+   (``forward_item_cost``: K2 at T 128-1408, a line through ms per item).
 6. kernels_folded: K3 (the packed kernels on the folded (B*H, T, Dh) view)
    against the plain version, T 128/432/512/848, Dh 64/128, rates 0 and 0.1,
    and bit for bit equal to the packed kernels at rate 0.1; its times at
@@ -459,6 +463,24 @@ def library_bwd_ms(fwd, fwd_bwd) -> float:
     return graph_time_ms(fwd_bwd) - graph_time_ms(fwd)
 
 
+def dropout_readings(fwd, sdpa) -> dict:
+    """A forward row's readings at ``RATE``, what the training step runs:
+    the kernel without and under grad (``fwd(for_backward)``), and SDPA's
+    forward at ``dropout_p=RATE`` (``sdpa()``), a yardstick only since it
+    draws its own mask. SDPA is timed by graph replay, or by CUDA events
+    where capture refuses its generator (``library_rate_timing``)."""
+    import torch
+
+    row = {"ms_rate_0.1": graph_time_ms(lambda: fwd(False)),
+           "ms_for_backward_rate_0.1": graph_time_ms(lambda: fwd(True))}
+    try:
+        row["library_ms_rate_0.1"], row["library_rate_timing"] = graph_time_ms(sdpa), "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        row["library_ms_rate_0.1"], row["library_rate_timing"] = cuda_time_ms(sdpa), "events"
+    return row
+
+
 def close_or_raise(what, out, ref, tol):
     import torch
 
@@ -497,6 +519,8 @@ def phase_device():
     tensor_core = {fn: sp for fn, sp in spills.items() if "kokoro_attn2tc" in fn}
     if tensor_core:
         raise AssertionError(f"the tensor-core kernels spill registers: {tensor_core}")
+    if any(serialized.values()):  # every wgmma is a tensor-core kernel's
+        raise AssertionError(f"ptxas serialises wgmma: {serialized}")
     return smi
 
 
@@ -574,10 +598,9 @@ def phase_kernels():
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.allclose(out.float(), ref.float(), rtol=TOL[dname], atol=TOL[dname]):
                 raise AssertionError(f"{kern.name} {dname} disagrees at the decoder shape: {err}")
-            if kern.causal:
-                lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=Dh ** -0.5)
-            else:
-                lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep, scale=Dh ** -0.5)
+            sdpa_kw = dict(is_causal=True) if kern.causal else dict(attn_mask=keep)
+            lib = lambda p=0.0: F.scaled_dot_product_attention(qh, kh, vh, scale=Dh ** -0.5,
+                                                               dropout_p=p, **sdpa_kw)
             bound = attention_bound(B, T, H, Dh, dname, kern.causal,
                                     None if kern.causal else lens_list)
             drop = dict(kw, dropout_rate=RATE, seed=11)
@@ -589,7 +612,8 @@ def phase_kernels():
                 # under grad: the lse and (bf16) O's rounding residual written too
                 ms_for_backward=graph_time_ms(lambda: kern(q, k, v, for_backward=True, **kw)),
                 **profiled_kernels(lambda: kern(q, k, v, **kw), 1),
-                **{"ms_rate_0.1": graph_time_ms(lambda: kern(q, k, v, **drop))})
+                **dropout_readings(lambda grad: kern(q, k, v, for_backward=grad, **drop),
+                                   lambda: lib(RATE)))
         timings.update(backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv))
     emit({"phase": "kernel_times", "shape": "B=32 T=512 H=8 Dh=64",
           "kv_lengths": "512 - 8*b", "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
@@ -875,6 +899,9 @@ def phase_kernels_flash():
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
             **profiled_kernels(lambda: fl.flash_attention_fwd(q, k, v, **kw), 1),
+            # under grad: the lse written too (the flash forward has no dropout)
+            ms_for_backward=graph_time_ms(
+                lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
             library_ms=graph_time_ms(sdpa_fwd))
         timings[("flash_attention_bwd", dname)] = timed_row(
@@ -890,7 +917,48 @@ def phase_kernels_flash():
     emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 H=8 Dh=64 causal",
           "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
     timings.update(long_cross_attention(gen))
+    forward_item_cost(gen)
     return timings
+
+
+# (B, T) of K2 at every kv length T with about 8 work items (query tiles of
+# 128 rows x heads, H=8) a CTA on 132 SMs: an item visits T / 128 key tiles
+ITEM_COST_SHAPES = [(132, 128), (66, 256), (33, 512), (16, 1024), (12, 1408)]
+
+
+def forward_item_cost(gen) -> dict:
+    """What a work item of the persistent bf16 forward costs beside its key
+    tiles: K2 at ``ITEM_COST_SHAPES`` (Dh=64, so 128-key tiles), device ms a
+    call by graph replay, over the items of the busiest CTA; a least-squares
+    line through (key tiles an item, ms an item) gives the cost of a key tile
+    (slope) and of an item's start and end (intercept)."""
+    import torch
+
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    H, Dh = 8, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    points = []
+    for B, T in ITEM_COST_SHAPES:
+        q, k, v = (torch.randn(B, T, H * Dh, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        ms = graph_time_ms(lambda: fa.packed_attention_kvlen(q, k, v, num_heads=H,
+                                                             scale=Dh ** -0.5, kv_lengths=lens))
+        tiles = -(-T // 128)
+        items = B * H * tiles
+        points.append({"B": B, "T": T, "items": items, "key_tiles_per_item": tiles, "ms": ms,
+                       "ms_per_item": ms / -(-items // sms)})
+    x = [p["key_tiles_per_item"] for p in points]
+    y = [p["ms_per_item"] for p in points]
+    mx, my = sum(x) / len(x), sum(y) / len(y)
+    slope = sum((a - mx) * (b - my) for a, b in zip(x, y)) / sum((a - mx) ** 2 for a in x)
+    out = {"phase": "forward_item_cost", "kernel": "packed_attention_fwd_kvlen bf16 H=8 Dh=64, "
+           "kv length T", "sms": sms, "points": points, "us_per_key_tile": slope * 1e3,
+           "us_per_item": (my - slope * mx) * 1e3}
+    emit(out)
+    return out
 
 
 def long_cross_attention(gen):
@@ -943,16 +1011,21 @@ def long_cross_attention(gen):
         do_h = do.view(B, T, H, Dh).transpose(1, 2).contiguous()
         mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
 
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(*heads, attn_mask=mask, scale=Dh ** -0.5)
+        def sdpa_fwd(p=0.0):
+            return F.scaled_dot_product_attention(*heads, attn_mask=mask, scale=Dh ** -0.5,
+                                                  dropout_p=p)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), heads, do_h)
 
+        drop = dict(kw, dropout_rate=RATE, seed=3001)
         timings[(fwd.name, dname, "long")] = timed_row(
             attention_bound(B, T, H, Dh, dname, False, lens_list),
             graph_time_ms(lambda: fwd(q, k, v, **kw)),
             ms_for_backward=graph_time_ms(lambda: fwd(q, k, v, for_backward=True, **kw)),
+            **profiled_kernels(lambda: fwd(q, k, v, **kw), 1),
+            **dropout_readings(lambda grad: fwd(q, k, v, for_backward=grad, **drop),
+                               lambda: sdpa_fwd(RATE)),
             max_abs_err=worst[f"{fwd.name}/{dname}/rate=0.0"],
             plain_ms=cuda_time_ms(lambda: fa.packed_attention_reference(
                 q, k, v, causal=False, **kw), iters=3),
@@ -1046,11 +1119,14 @@ def phase_kernels_folded():
                     for n, a, b in zip("qkv", grads, ref))
         heads = [x.view(B, H, T, Dh).clone().requires_grad_(True) for x in (q, k, v)]
 
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(*heads, is_causal=True, scale=Dh ** -0.5)
+        def sdpa_fwd(p=0.0):
+            return F.scaled_dot_product_attention(*heads, is_causal=True, scale=Dh ** -0.5,
+                                                  dropout_p=p)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), heads, do.view(B, H, T, Dh))
+
+        drop = dict(kw, dropout_rate=RATE, seed=2001)
 
         timings[("folded_attention_fwd", dname)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
@@ -1058,6 +1134,9 @@ def phase_kernels_folded():
             **profiled_kernels(lambda: fa.folded_attention_fwd(q, k, v, **kw), 1),
             ms_for_backward=graph_time_ms(
                 lambda: fa.folded_attention_fwd(q, k, v, for_backward=True, **kw)),
+            **dropout_readings(
+                lambda grad: fa.folded_attention_fwd(q, k, v, for_backward=grad, **drop),
+                lambda: sdpa_fwd(RATE)),
             plain_ms=cuda_time_ms(lambda: fa.packed_attention_reference(
                 q, k, v, causal=True, **kw), iters=5),
             library_ms=graph_time_ms(sdpa_fwd))
@@ -3705,7 +3784,8 @@ def run_phases(phases, work: Path) -> int:
             "bound_share": r["bound_share"], "dtype": "bfloat16",
             "shape": shapes[kern.name.split("_")[0]], "launches_are": launches_are,
         }
-        for extra in ("ms_rate_0.1", "ms_for_backward"):
+        for extra in ("ms_for_backward", "ms_rate_0.1", "ms_for_backward_rate_0.1",
+                      "library_ms_rate_0.1", "library_rate_timing"):
             if extra in r:
                 row[extra] = r[extra]
         row["device_kernels_per_call"] = r["device_kernels_per_call"]

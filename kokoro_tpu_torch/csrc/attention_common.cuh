@@ -163,12 +163,12 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
 
 // Keep flags of the 64 x 64 tile (rows row0.., columns col0..; col0 a
 // multiple of 4) into shared bytes keep[r * 64 + c]: 1024 Philox calls shared
-// by the CTA's NT threads.
-template <int NT = kThreads>
+// by the f32 kernels' kThreads threads (the bf16 kernels draw the same flags
+// in registers: attention_tc.cuh, keep_bits_q and keep_bits_kv).
 __device__ __forceinline__ void dropout_tile(uint8_t* keep, uint32_t bh, int row0,
                                              int col0, uint32_t threshold,
                                              uint32_t k0, uint32_t k1) {
-  for (int idx = threadIdx.x; idx < 64 * 16; idx += NT) {
+  for (int idx = threadIdx.x; idx < 64 * 16; idx += kThreads) {
     const int r = idx / 16, g = idx % 16;
     const uint4 bits = philox4x32_10(
         make_uint4(bh, (uint32_t)(row0 + r), (uint32_t)(col0 / 4 + g), 0u), k0, k1);

@@ -27,12 +27,26 @@
 // dV += Pd^T dO, dK += dS^T Q) is m64n{Dh}k16 with A from registers and B in
 // shared memory MN-major (the transpose flag).
 //
-// The forward: one warpgroup a CTA, its query tile loaded once, the key and
-// value tiles through a ring of two stages; the dropout flags of each 64 x 64
-// tile come from dropout_tile (Philox, the plain version's mask bit for bit)
-// into shared bytes [query][key] that each fragment element reads.  Under
-// grad the packed forward also writes O's bf16 rounding residual,
-// bf16(O32 - bf16(O32)), for the backward's delta.
+// The forward is warp-specialised like the backward: a CTA is a producer
+// warpgroup and two consumer warpgroups of 64 query rows each (384 threads,
+// setmaxnreg 24/240, at Dh 64 and 128 alike), so every key and value tile
+// streamed through the ring (fwd_stages) serves 128 query rows; a streamed
+// tile is 128 keys at Dh 64 (a 64 x 128 score tile a consumer: twice the
+// work between two waits), 64 at Dh 128.  The kernel is persistent, one CTA
+// an SM: a work item is (query tile of 128 rows, head), the causal mask's
+// heaviest items first, dealt to the CTAs in a snake order, and the producer
+// loads an item's query tiles while the previous item's last tiles and
+// epilogue run.  Per key tile a consumer issues S = Q K^T together with the
+// previous tile's O += P V, draws the tile's dropout flags in registers
+// (keep_bits_q) while both run, waits for S alone, takes the online softmax
+// (exp2 in one MUFU instruction; a tile wholly in bounds and visible skips
+// the mask and folds the scale into the exponent's fma), then waits for P V,
+// releases its stage, rescales O and rounds the new weights to bf16 for the
+// next P V: one tile's softmax runs under the product of the one before.
+// The two consumers issue their products in turns (named barriers), so one's
+// softmax also runs under the other's products.  O leaves through shared
+// memory and TMA stores; under grad the packed forward also writes O's bf16
+// rounding residual, bf16(O32 - bf16(O32)), for the backward's delta.
 //
 // The backward (two launches, FlashAttention-2's split, no atomics: every
 // gradient element is written by one thread in a fixed order, so dQ, dK and
@@ -71,13 +85,15 @@
 
 #include "attention_common.cuh"
 
+
 namespace kokoro_attn {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kWG = 128;                // threads of a warpgroup (the forward's CTA)
+constexpr int kWG = 128;                // threads of a warpgroup
 constexpr uint32_t kBox = 64 * 64 * 2;  // one TMA box: 64 rows of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -103,6 +119,13 @@ __device__ __forceinline__ void mbar_fence_init() {
 // one arrival that also expects `bytes` of TMA traffic
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// expect `bytes` more of TMA traffic in the current phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
 }
@@ -151,6 +174,47 @@ __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, i
   for (int g = 0; g < DH / 64; ++g) tma_box<FLASH>(dst + g * kBox, map, 64 * g, row0, h, b, bar);
 }
 
+// a 64 x 64 box of shared memory (128-byte swizzle) -> columns [d0, d0 + 64)
+// of rows [row0, row0 + 64) of head h of batch b; rows past T are not written
+template <bool FLASH>
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map, const uint8_t* src, int d0,
+                                              int row0, int h, int b) {
+  const int c1 = FLASH ? row0 : h, c2 = FLASH ? h : row0;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(d0), "r"(c1), "r"(c2), "r"(b), "r"(smem_u32(src))
+      : "memory");
+}
+
+// this thread's generic-proxy writes to shared memory, ordered before the
+// TMA unit's reads of them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// a barrier of the 128 threads of one warpgroup (ids 1.. : 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// named barrier `id` of two warpgroups: wait for it, or arrive without waiting
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
 // -- wgmma ------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -183,10 +247,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// a value computed before the next asm statement (a wgmma wait): the
+// compiler may otherwise sink register arithmetic below the wait
+__device__ __forceinline__ void fence_value(uint64_t& x) { asm volatile("" : "+l"(x)::"memory"); }
+
 // the same for an A operand, before its registers are written again
-__device__ __forceinline__ void fence_operand(uint32_t (&a)[4][4]) {
+template <int KS>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
@@ -222,6 +291,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 128, f32) = A (64 x 16, shared memory, K-major) * B^T (B: 128 x
+// 16, shared memory, K-major), plus D when `accumulate`
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, shared memory,
 // MN-major: the transpose flag)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -246,22 +327,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// s (64 x 64) = A B^T over DH columns, A and B 64-row tiles in shared memory
-// (K-major), the first step overwriting s; the caller fences, commits and
-// waits
-template <int DH>
-__device__ __forceinline__ void score_tile(float (&s)[32], const uint8_t* a, const uint8_t* b) {
+// s (64 x N) = A B^T over DH columns, A a 64-row tile and B an N-row tile
+// (N / 64 64-row tiles back to back; N = 128 only at DH = 64) in shared
+// memory (K-major), the first step overwriting s; the caller fences, commits
+// and waits
+template <int DH, int N>
+__device__ __forceinline__ void score_tile(float (&s)[N / 2], const uint8_t* a, const uint8_t* b) {
+  static_assert(N == 64 || DH == 64, "a 128-key score tile needs one box a row");
 #pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-    wgmma_ss_n64(s, desc_k_major(a, ks), desc_k_major(b, ks), ks > 0);
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    if constexpr (N == 64) {
+      wgmma_ss_n64(s, desc_k_major(a, ks), desc_k_major(b, ks), ks > 0);
+    } else {
+      wgmma_ss_n128(s, desc_k_major(a, ks), desc_k_major(b, ks), ks > 0);
+    }
+  }
 }
 
-// acc (64 x DH) += A (64 x 64, bf16 registers) B (64 x DH tile, MN-major)
-template <int DH>
-__device__ __forceinline__ void accumulate(float (&acc)[DH / 2], const uint32_t (&a)[4][4],
+// acc (64 x DH) += A (64 x 16 KS, bf16 registers) B (16 KS x DH rows, MN-major)
+template <int DH, int KS>
+__device__ __forceinline__ void accumulate(float (&acc)[DH / 2], const uint32_t (&a)[KS][4],
                                            const uint8_t* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     if constexpr (DH == 64) {
       wgmma_rs_n64(acc, a[kk], desc_mn_major(b, kk));
     } else {
@@ -275,10 +363,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a 64 x 64 f32 accumulator rounded to bf16 as four 64 x 16 A operands
-__device__ __forceinline__ void to_a_operand(const float (&s)[32], uint32_t (&a)[4][4]) {
+// a 64 x N f32 accumulator rounded to bf16 as N / 16 64 x 16 A operands
+template <int N2>
+__device__ __forceinline__ void to_a_operand(const float (&s)[N2], uint32_t (&a)[N2 / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N2 / 8; ++kk) {
     a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -293,12 +382,11 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 }
 
 // rows r0 and r0 + 8 of a 64 x DH accumulator -> bf16 rows of `dst` (D
-// elements apart) scaled by inv[i]; rows at or past row_end are not stored.
-// With `res`, also the rounding residual bf16(x - bf16(x)) of each value x.
+// elements apart) scaled by inv[i]; rows at or past row_end are not stored
 template <int DH>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 2], int row0,
                                            int r0, int c0, int row_end, int D,
-                                           const float (&inv)[2], bf16* res = nullptr) {
+                                           const float (&inv)[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r0 + 8 * i;
@@ -306,193 +394,47 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 2]
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       const float x0 = acc[4 * j + 2 * i] * inv[i], x1 = acc[4 * j + 2 * i + 1] * inv[i];
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * j + c0) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// rows r0 and r0 + 8 of a 64 x DH accumulator scaled by inv[i] -> bf16 in a
+// 64-row tile of shared memory in TMA's 128-byte swizzle (DH / 64 boxes; the
+// 16-byte chunk j of row r at chunk j ^ (r % 8), so a warp's writes hit 32
+// banks); with `res`, O's rounding residual bf16(x - bf16(x)) into a second
+// tile the same way
+template <int DH>
+__device__ __forceinline__ void stage_rows(uint8_t* dst, uint8_t* res, const float (&acc)[DH / 2],
+                                           int r0, int c0, const float (&inv)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * i] * inv[i], x1 = acc[4 * j + 2 * i + 1] * inv[i];
       const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-      const size_t at = (size_t)row * D + 8 * j + c0;
+      const uint32_t at = (j >> 3) * kBox + r * 128 + ((((uint32_t)j & 7u) ^ (r & 7)) << 4) + 2 * c0;
       *reinterpret_cast<__nv_bfloat162*>(dst + at) = v;
       if (res != nullptr) {
-        const float2 r = __bfloat1622float2(v);
-        *reinterpret_cast<__nv_bfloat162*>(res + at) = __floats2bfloat162_rn(x0 - r.x, x1 - r.y);
+        const float2 f = __bfloat1622float2(v);
+        *reinterpret_cast<__nv_bfloat162*>(res + at) = __floats2bfloat162_rn(x0 - f.x, x1 - f.y);
       }
     }
   }
 }
 
-// -- shared memory ----------------------------------------------------------
+// -- warp specialisation (the forward and the backward) -----------------------
 
-// after the forward's bf16 tiles: three mbarriers (the CTA's own tile; ring
-// stages 0 and 1), then the key segment ids (64), then the dropout flags
-// (64 x 64 bytes)
-struct Tail {
-  uint64_t* bar;
-  int* kvseg;
-  uint8_t* keep;
-};
-
-constexpr size_t kTailBytes = 32 + 64 * 4 + 64 * 64;
-
-__device__ __forceinline__ Tail carve_tail(uint8_t* p) {
-  Tail t;
-  t.bar = reinterpret_cast<uint64_t*>(p);
-  t.kvseg = reinterpret_cast<int*>(p + 32);
-  t.keep = reinterpret_cast<uint8_t*>(t.kvseg + 64);
-  return t;
-}
-
-// bytes of dynamic shared memory of the forward: `tiles` 64-row tiles of DH
-// columns
+constexpr int kStages = 3;  // ring depth of the backward's streamed tiles
+constexpr int kMaxStages = 5;  // the most a ring has (the forward's, fwd_stages)
+// consumer warpgroups of a forward CTA: two at both head sizes, sharing each
+// streamed key/value tile (its one accumulator fits 240 registers at Dh 128)
 template <int DH>
-constexpr size_t smem_bytes(int tiles) {
-  return 1024 + (size_t)tiles * (DH / 64) * kBox + kTailBytes;
+__host__ __device__ constexpr int fwd_consumers() {
+  return 2;
 }
-
-// -- kernels ----------------------------------------------------------------
-
-// RES: also write O's rounding residual (the packed forward under grad)
-template <int DH, bool FLASH, bool DROPOUT, bool RES>
-__global__ void __launch_bounds__(kWG)
-fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, bf16* __restrict__ res,
-           float* __restrict__ lse, AttnArgs a) {
-  constexpr uint32_t TILE = DH / 64 * kBox;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);
-  uint8_t* Ks = Qs + TILE;      // two stages
-  uint8_t* Vs = Ks + 2 * TILE;  // two stages
-  const Tail sh = carve_tail(Vs + 2 * TILE);
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = row_stride<FLASH, DH>(a.H);
-  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
-  const uint32_t bh = (uint32_t)(b * a.H + h);
-  const bool seg = FLASH && a.q_seg != nullptr;
-  const KeyRange keys = key_range<FLASH>(a, b, q0);
-  const int n_tiles = (keys.kv_end + kBK - 1) / kBK;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int r0 = 16 * (tid >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
-
-  auto load_kv = [&](int j) {
-    uint64_t* bar = sh.bar + 1 + (j & 1);
-    mbar_expect_tx(bar, 2 * TILE);
-    tma_tile<FLASH, DH>(Ks + (j & 1) * TILE, &tk, j * kBK, h, b, bar);
-    tma_tile<FLASH, DH>(Vs + (j & 1) * TILE, &tv, j * kBK, h, b, bar);
-  };
-  if (tid == 0) {
-    for (int i = 0; i < 3; ++i) mbar_init(sh.bar + i, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(sh.bar, TILE);
-    tma_tile<FLASH, DH>(Qs, &tq, q0, h, b, sh.bar);
-    for (int j = 0; j < 2 && j < n_tiles; ++j) load_kv(j);
-  }
-
-  int qseg[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + 8 * i;
-    qseg[i] = (seg && row < a.Tq) ? a.q_seg[(size_t)b * a.Tq + row] : 1;
-  }
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[DH / 2];
-  zero(acc);
-  mbar_wait(sh.bar, 0);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK, slot = j & 1;
-    if (j > 0) {
-      __syncthreads();  // tile j - 1 is done: its stage, the flags and kvseg are free
-      if (tid == 0 && j + 1 < n_tiles) load_kv(j + 1);
-    }
-    if (DROPOUT) dropout_tile<kWG>(sh.keep, bh, q0, k0, a.threshold, a.seed_lo, a.seed_hi);
-    if (seg) load_segments(sh.kvseg, a.kv_seg, b, k0, a.Tk);
-    if (DROPOUT || seg) __syncthreads();
-    mbar_wait(sh.bar + 1 + slot, (j >> 1) & 1);
-
-    float s[32];
-    wgmma_fence();
-    score_tile<DH>(s, Qs, Ks + slot * TILE);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + 8 * i;
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * jj + c0 + e, col = k0 + c, idx = 4 * jj + 2 * i + e;
-          float val;
-          if (col >= a.Tk) {
-            val = -INFINITY;  // not a key at all: excluded from the softmax
-          } else {
-            const bool visible =
-                is_visible<FLASH>(a, keys, row, col) && (!seg || qseg[i] == sh.kvseg[c]);
-            val = s[idx] * a.scale;
-            if (!visible) val = FLASH ? val + kFlashMask : kMasked;
-          }
-          s[idx] = val;
-          tile_max = fmaxf(tile_max, val);
-        }
-      }
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      // every visited tile holds column k0 < Tk, so m_new is finite
-      const float m_new = fmaxf(m[i], tile_max);
-      const float alpha = exp2f((m[i] - m_new) * kLog2e);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int idx = 4 * jj + 2 * i + e;
-          float p = exp2f((s[idx] - m_new) * kLog2e);
-          row_sum += p;
-          if (DROPOUT && !sh.keep[(r0 + 8 * i) * 64 + 8 * jj + c0 + e]) p = 0.f;
-          s[idx] = p;
-        }
-      }
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
-      l[i] = l[i] * alpha + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DH / 8; ++jj) {
-        acc[4 * jj + 2 * i] *= alpha;
-        acc[4 * jj + 2 * i + 1] *= alpha;
-      }
-    }
-
-    uint32_t pa[4][4];
-    to_a_operand(s, pa);  // the unnormalised weights rounded to bf16
-    wgmma_fence();
-    accumulate<DH>(acc, pa, Vs + slot * TILE);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    // flash: a visible logit is far above half the mask value, and a row that
-    // saw only masked keys has m at the mask value; a packed masked logit is
-    // -1e9, so every packed row counts as visible
-    const bool any_visible = !FLASH || m[i] > 0.5f * kFlashMask;
-    inv[i] = any_visible ? (DROPOUT ? a.inv_keep : 1.f) / l[i] : 0.f;
-    const int row = q0 + r0 + 8 * i;
-    if (lse != nullptr && (lane & 3) == 0 && row < a.Tq)
-      lse[(size_t)bh * a.Tq + row] = any_visible ? m[i] + logf(l[i]) : INFINITY;
-  }
-  store_rows<DH>(o + q_base, acc, q0, r0, c0, a.Tq, D, inv, RES ? res + q_base : nullptr);
-}
-
-// -- the backward -------------------------------------------------------------
-
-constexpr int kStages = 3;  // ring depth of the streamed tiles
 // consumer warpgroups of a backward CTA: two at Dh 64, sharing each streamed
 // tile; one at Dh 128, whose dK and dV accumulators alone take 128
 // registers a thread (a CTA of three warpgroups may give each thread 168)
@@ -508,14 +450,15 @@ __host__ __device__ constexpr int bwd_threads() {
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// after the bf16 tiles of a backward CTA: the mbarriers (the CTA's own tiles,
-// then `full` and `empty` of each ring stage), then each stage's row data:
-// the query rows' lse * log2(e) and delta (dK/dV) and the streamed rows'
-// segment ids (flash), 64 words each
+// after the bf16 tiles of a CTA: the mbarriers (the CTA's own tiles, then
+// `full` and `empty` of each ring stage), then each stage's row data: the
+// query rows' lse * log2(e) and delta (dK/dV) and the streamed rows' segment
+// ids (flash), 64 words each
 struct Ring {
   uint64_t* own;
   uint64_t* full;
   uint64_t* empty;
+  uint64_t* own_free;  // the forward: the consumers are done with their own tiles
   uint8_t* rows;
   __device__ __forceinline__ float* lse2(int stage) const {
     return reinterpret_cast<float*>(rows) + stage * 192;
@@ -524,24 +467,30 @@ struct Ring {
   __device__ __forceinline__ int* seg(int stage) const {
     return reinterpret_cast<int*>(lse2(stage) + 128);
   }
+  // the forward's streamed keys' segment ids: up to 192 a stage
+  __device__ __forceinline__ int* kv_seg(int stage) const {
+    return reinterpret_cast<int*>(lse2(stage));
+  }
 };
 
-constexpr size_t kRingBytes = 64 + (size_t)kStages * 192 * 4;
+constexpr size_t kRingBytes = 128 + (size_t)kMaxStages * 192 * 4;
 
 __device__ __forceinline__ Ring carve_ring(uint8_t* p) {
   Ring r;
   r.own = reinterpret_cast<uint64_t*>(p);
   r.full = r.own + 1;
-  r.empty = r.full + kStages;
-  r.rows = p + 64;
+  r.empty = r.full + kMaxStages;
+  r.own_free = r.empty + kMaxStages;
+  r.rows = p + 128;
   return r;
 }
 
 // thread 0: the barriers' arrival counts (the producer warp's 32 lanes fill
 // a stage, each of the consumers' warps empties it)
-__device__ __forceinline__ void ring_init(const Ring& r, int consumers) {
+__device__ __forceinline__ void ring_init(const Ring& r, int consumers, int stages) {
   mbar_init(r.own, 1);
-  for (int s = 0; s < kStages; ++s) {
+  mbar_init(r.own_free, 4 * consumers);
+  for (int s = 0; s < stages; ++s) {
     mbar_init(r.full + s, 32);
     mbar_init(r.empty + s, 4 * consumers);
   }
@@ -565,11 +514,11 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// bytes of dynamic shared memory of a backward CTA: two own 64-row tiles a
-// consumer and 2 kStages streamed ones
+// bytes of dynamic shared memory of a CTA: `own` 64-row tiles (the forward's
+// Q, the backward's two a consumer) and 2 `stages` streamed ones
 template <int DH>
-__host__ __device__ constexpr size_t bwd_smem_bytes() {
-  return 1024 + (size_t)(2 * bwd_consumers<DH>() + 2 * kStages) * (DH / 64) * kBox + kRingBytes;
+__host__ __device__ constexpr size_t ring_smem_bytes(int own, int stages) {
+  return 1024 + (size_t)(own + 2 * stages) * (DH / 64) * kBox + kRingBytes;
 }
 
 // the four flags of one Philox call (its words below the threshold) as bits 0-3
@@ -676,11 +625,379 @@ __device__ __forceinline__ float softmax_p(float s, bool in_bounds, bool uniform
 // keys): then its weights need no mask
 template <bool FLASH>
 __device__ __forceinline__ bool tile_unmasked(const AttnArgs& a, const KeyRange& keys, bool seg,
-                                              int q0, int k0) {
-  if (seg || keys.uniform || q0 + kBQ > a.Tq || k0 + kBK > a.Tk) return false;
-  if (a.causal) return k0 + kBK - 1 <= q0;  // the tile's last key against its first query
-  return FLASH || k0 + kBK <= keys.len;
+                                              int q0, int k0, int bk = kBK) {
+  if (seg || keys.uniform || q0 + kBQ > a.Tq || k0 + bk > a.Tk) return false;
+  if (a.causal) return k0 + bk - 1 <= q0;  // the tile's last key against its first query
+  return FLASH || k0 + bk <= keys.len;
 }
+
+// -- the forward ----------------------------------------------------------------
+
+// keys a streamed tile of the forward: 128 at Dh 64 (a 64 x 128 score tile a
+// consumer), 64 at Dh 128, whose O accumulator takes the registers
+template <int DH>
+__host__ __device__ constexpr int fwd_bn() {
+  return DH == 64 ? 128 : 64;
+}
+// ring stages: a consumer holds two (the tile of its S and the one of its
+// P V), the rest are in flight; as many as shared memory holds beside the
+// query and output tiles
+template <int DH>
+__host__ __device__ constexpr int fwd_stages() {
+  return fwd_bn<DH>() == 128 ? 4 : (DH == 64 ? 5 : 3);
+}
+
+// 2^x in one MUFU.EX2 instruction (subnormal results flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the dropout flags of a thread's fragment of a 64 x BN tile: bit idx for
+// element idx (keep_bits_q of each 64-key half)
+template <int BN>
+__device__ __forceinline__ uint64_t fwd_keep_bits(uint32_t bh, int row, int k0, int lane,
+                                                  const AttnArgs& a) {
+  uint64_t bits = keep_bits_q(bh, row, k0, lane, a);
+  if constexpr (BN == 128) bits |= (uint64_t)keep_bits_q(bh, row, k0 + 64, lane, a) << 32;
+  return bits;
+}
+
+// One step of the online softmax over a consumer's 64 x BN score tile s
+// (query rows qrow + 8 i, keys k0..; element 4 j + 2 i + e at key k0 + 8 j +
+// c0 + e): the logits in log2 units, x = S * scale * log2(e), through the
+// mask unless the whole tile is visible (packed: a masked logit is -1e9 in
+// natural units; flash: the mask value is added; a key past Tk is no key at
+// all); the rows' running max m and sum l updated, alpha[i] the factor that
+// rescales row i's accumulator; s left holding the unnormalised weights
+// exp2(x - m), zero where dropout drops them (the sum counts them: the kept
+// weights are scaled by inv_keep / l at the end).  An unmasked tile keeps
+// the raw scores when scale > 0: their max times scale * log2(e) is the
+// logits' max (rounding is monotone) and each exponent one fma.
+template <bool FLASH, bool DROPOUT, int BN>
+__device__ __forceinline__ void softmax_step(float (&s)[BN / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool unmasked, uint64_t keep,
+                                             const AttnArgs& a, const KeyRange& keys, bool seg,
+                                             const int (&qseg)[2], const int* kvseg, int qrow,
+                                             int k0, int c0) {
+  constexpr int NJ = BN / 8;  // the thread's column pairs a row
+  const float scale2 = a.scale * kLog2e;
+  const bool fold = unmasked & (scale2 > 0.f);
+  const float k = fold ? scale2 : 1.f;
+  if (!fold) {
+    if (unmasked) {
+#pragma unroll
+      for (int idx = 0; idx < BN / 2; ++idx) s[idx] *= scale2;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qrow + 8 * i;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * jj + c0 + e, col = k0 + c, idx = 4 * jj + 2 * i + e;
+            const bool visible =
+                is_visible<FLASH>(a, keys, row, col) & ((!seg) | (qseg[i] == kvseg[c]));
+            const float x = s[idx] * scale2;
+            const float masked = FLASH ? x + kFlashMask : kMasked * kLog2e;
+            s[idx] = col >= a.Tk ? -INFINITY : (visible ? x : masked);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains, not one
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+      mx[jj & 3] = fmaxf(mx[jj & 3], fmaxf(s[4 * jj + 2 * i], s[4 * jj + 2 * i + 1]));
+    float tile_max = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])) * k;
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    // every visited tile holds key k0 < Tk, so m_new is finite
+    const float m_new = fmaxf(m[i], tile_max);
+    alpha[i] = ex2(m[i] - m_new);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};  // four partial sums, not a chain
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * jj + 2 * i + e;
+        const float p = ex2(fmaf(s[idx], k, -m_new));
+        part[(2 * jj + e) & 3] += p;
+        s[idx] = (DROPOUT && !((keep >> idx) & 1u)) ? 0.f : p;
+      }
+    }
+    float row_sum = (part[0] + part[1]) + (part[2] + part[3]);
+    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
+    l[i] = l[i] * alpha[i] + row_sum;
+    m[i] = m_new;
+  }
+}
+
+// one work item of the forward: the query tile (C * 64 rows from q0) of one
+// head.  Causal: the query tile is the slowest index and the last query
+// tiles, which visit the most keys, come first.  Otherwise every query tile
+// of a head has the same work, and a head's items run together, sharing its
+// keys and values in L2.
+struct FwdItem {
+  int q0, b, h;
+  uint32_t bh;  // b * H + h
+};
+
+// the k-th work item of this CTA: CTA i takes items i, 2 G - 1 - i, 2 G + i,
+// ... (G CTAs), so that over the heaviest-first order every CTA's items add
+// up to about the same work; -1 past the last item
+__device__ __forceinline__ int fwd_work(int k, int items) {
+  const int w = k * (int)gridDim.x +
+                ((k & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return w < items ? w : -1;
+}
+
+template <int C>
+__device__ __forceinline__ FwdItem fwd_item(int w, int n_q, int heads, const AttnArgs& a) {
+  int rank, bh;
+  if (a.causal) {
+    rank = w / heads;
+    bh = w - rank * heads;
+  } else {
+    bh = w / n_q;
+    rank = w - bh * n_q;
+  }
+  FwdItem it;
+  it.q0 = (a.causal ? n_q - 1 - rank : rank) * C * kBQ;
+  it.b = bh / a.H;
+  it.h = bh - it.b * a.H;
+  it.bh = (uint32_t)bh;
+  return it;
+}
+
+// RES: also write O's rounding residual (the packed forward under grad).
+// Persistent, one CTA an SM taking its items in turn (fwd_work): the
+// producer loads the next item's query tiles as soon as the consumers' last
+// S products have read this item's, and keeps the ring going across items,
+// so an item's first loads and its epilogue overlap its neighbours' work.
+template <int DH, bool FLASH, bool DROPOUT, bool RES>
+__global__ void __launch_bounds__((1 + fwd_consumers<DH>()) * kWG, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+           const __grid_constant__ CUtensorMap tres, float* __restrict__ lse, AttnArgs a,
+           int B) {
+  constexpr uint32_t TILE = DH / 64 * kBox;  // 64 rows
+  constexpr int C = fwd_consumers<DH>();
+  constexpr int BN = fwd_bn<DH>();
+  constexpr uint32_t KVT = BN / 64 * TILE;   // a streamed key (or value) tile
+  constexpr int STAGES = fwd_stages<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);  // the item's query rows: one tile a consumer
+  uint8_t* Os = Qs + C * TILE;        // O on its way out: one tile a consumer
+  uint8_t* Rs = Os + C * TILE;        // O's residual on its way out
+  uint8_t* Ks = Rs + C * TILE;        // STAGES stages
+  uint8_t* Vs = Ks + STAGES * KVT;
+  const Ring ring = carve_ring(Vs + STAGES * KVT);
+
+  const int n_q = (a.Tq + C * kBQ - 1) / (C * kBQ), heads = B * a.H, items = n_q * heads;
+  const bool seg = FLASH && a.q_seg != nullptr;
+  const int group = warpgroup_index(), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
+  __syncthreads();
+
+  if (group == 0) {  // the producer warpgroup; its first warp issues every load
+    regs_dec<kProducerRegs>();
+    if (warp_in_group() == 0) {
+      int stage = 0, phase = 0;
+      for (int n = 0, w; (w = fwd_work(n, items)) >= 0; ++n) {
+        const FwdItem it = fwd_item<C>(w, n_q, heads, a);
+        const int own = min(C, (a.Tq - it.q0 + kBQ - 1) / kBQ);  // query tiles within T
+        // every key tile a row of the item visits (its last query tile's rows see the most)
+        const int n_tiles =
+            (key_range<FLASH>(a, it.b, it.q0 + (own - 1) * kBQ).kv_end + BN - 1) / BN;
+        if (n > 0) mbar_wait(ring.own_free, (n - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(ring.own, own * TILE);
+          for (int q = 0; q < own; ++q)
+            tma_tile<FLASH, DH>(Qs + q * TILE, &tq, it.q0 + q * kBQ, it.h, it.b, ring.own);
+        }
+        for (int j = 0; j < n_tiles; ++j) {
+          mbar_wait(ring.empty + stage, phase ^ 1);
+          if (lane == 0) {  // the loads first: they start before the segment ids' reads
+            mbar_expect_tx_only(ring.full + stage, 2 * KVT);
+#pragma unroll
+            for (int r = 0; r < BN / 64; ++r) {
+              tma_tile<FLASH, DH>(Ks + stage * KVT + r * TILE, &tk, j * BN + 64 * r, it.h, it.b,
+                                  ring.full + stage);
+              tma_tile<FLASH, DH>(Vs + stage * KVT + r * TILE, &tv, j * BN + 64 * r, it.h, it.b,
+                                  ring.full + stage);
+            }
+          }
+          if (seg) {
+            for (int c = lane; c < BN; c += 32) {
+              const int pos = j * BN + c;
+              ring.kv_seg(stage)[c] = pos < a.Tk ? a.kv_seg[(size_t)it.b * a.Tk + pos] : 1;
+            }
+          }
+          mbar_arrive(ring.full + stage);  // each lane, after its segment ids
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: 64 query rows of each item
+    regs_inc<kConsumerRegs>();
+    const int wg = group - 1, t = threadIdx.x & (kWG - 1);
+    const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+    const uint8_t* Qw = Qs + wg * TILE;
+    // the consumers issue their products in turns (named barrier 3 + wg), so
+    // that one's softmax runs under the other's products; each takes n_tiles
+    // + 1 turns an item, consumer 0 first
+    const auto my_turn = [&] { pair_sync(3 + wg); };
+    const auto your_turn = [&] { pair_arrive(3 + (wg ^ 1)); };
+    if (wg == 1) your_turn();
+    int base = 0;  // the item's first tile in the ring's sequence
+    for (int n = 0, w; (w = fwd_work(n, items)) >= 0; ++n) {
+      const FwdItem it = fwd_item<C>(w, n_q, heads, a);
+      const int own = min(C, (a.Tq - it.q0 + kBQ - 1) / kBQ);
+      const int n_tiles =
+          (key_range<FLASH>(a, it.b, it.q0 + (own - 1) * kBQ).kv_end + BN - 1) / BN;
+      const int qw = it.q0 + wg * kBQ, qrow = qw + r0;
+      const KeyRange keys = key_range<FLASH>(a, it.b, qw);
+      const int my_tiles = wg < own ? (keys.kv_end + BN - 1) / BN : 0;
+      int qseg[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qrow + 8 * i;
+        qseg[i] = (seg && row < a.Tq) ? a.q_seg[(size_t)it.b * a.Tq + row] : 1;
+      }
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+      float acc[DH / 2], s[BN / 2];
+      uint32_t pa[BN / 16][4];  // the previous tile's weights, bf16: P V's A operand
+      zero(acc);
+      int j = 0;
+      // every consumer sees each item's query tiles arrive, so that its wait
+      // for the next item's cannot pass on this one's phase
+      mbar_wait(ring.own, n & 1);
+      if (my_tiles > 0) {
+        const int stage0 = base % STAGES;
+        mbar_wait(ring.full + stage0, (base / STAGES) & 1);  // tile 0: S and its softmax
+        my_turn();
+        wgmma_fence();
+        score_tile<DH, BN>(s, Qw, Ks + stage0 * KVT);
+        wgmma_commit();
+        your_turn();
+        uint64_t keep = DROPOUT ? fwd_keep_bits<BN>(it.bh, qrow, 0, lane, a) : 0u;
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (my_tiles == 1) release(ring.own_free, lane);  // Q is read
+        softmax_step<FLASH, DROPOUT, BN>(s, m, l, alpha,
+                                         tile_unmasked<FLASH>(a, keys, seg, qw, 0, BN), keep,
+                                         a, keys, seg, qseg, ring.kv_seg(stage0), qrow, 0, c0);
+        to_a_operand(s, pa);  // the unnormalised weights rounded to bf16
+        // every later tile: its S and the previous tile's P V issued
+        // together, its flags and softmax while P V runs
+        for (j = 1; j < my_tiles; ++j) {
+          const int stage = (base + j) % STAGES, prev = (base + j - 1) % STAGES, k0 = j * BN;
+          mbar_wait(ring.full + stage, ((base + j) / STAGES) & 1);
+          my_turn();
+          wgmma_fence();
+          score_tile<DH, BN>(s, Qw, Ks + stage * KVT);
+          wgmma_commit();
+          accumulate<DH>(acc, pa, Vs + prev * KVT);
+          wgmma_commit();
+          your_turn();
+          keep = DROPOUT ? fwd_keep_bits<BN>(it.bh, qrow, k0, lane, a) : 0u;
+          fence_value(keep);  // the flags drawn while S runs
+          wgmma_wait<1>();  // S is done, P V may still run
+          fence_regs(s);
+          if (j == my_tiles - 1) release(ring.own_free, lane);  // Q is read
+          softmax_step<FLASH, DROPOUT, BN>(s, m, l, alpha,
+                                           tile_unmasked<FLASH>(a, keys, seg, qw, k0, BN), keep,
+                                           a, keys, seg, qseg, ring.kv_seg(stage), qrow, k0, c0);
+          // the softmax runs while P V does: the compiler may not sink it below the wait
+          fence_regs(s);
+          fence_regs(m);
+          fence_regs(l);
+          fence_regs(alpha);
+          wgmma_wait<0>();  // P V is done: the previous tile's stage is free
+          fence_regs(acc);
+          fence_operand(pa);
+          release(ring.empty + prev, lane);
+#pragma unroll
+          for (int jj = 0; jj < DH / 8; ++jj) {
+            acc[4 * jj] *= alpha[0];
+            acc[4 * jj + 1] *= alpha[0];
+            acc[4 * jj + 2] *= alpha[1];
+            acc[4 * jj + 3] *= alpha[1];
+          }
+          to_a_operand(s, pa);
+        }
+        const int last = (base + my_tiles - 1) % STAGES;
+        my_turn();
+        wgmma_fence();
+        accumulate<DH>(acc, pa, Vs + last * KVT);
+        wgmma_commit();
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_operand(pa);
+        release(ring.empty + last, lane);
+      } else {
+        release(ring.own_free, lane);
+        my_turn();
+        your_turn();
+      }
+      for (; j < n_tiles; ++j) {  // key tiles no row of this warpgroup visits
+        const int stage = (base + j) % STAGES;
+        mbar_wait(ring.full + stage, ((base + j) / STAGES) & 1);
+        my_turn();
+        your_turn();
+        release(ring.empty + stage, lane);
+      }
+      base += n_tiles;
+      if (my_tiles > 0) {
+        float inv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // flash: a visible logit is far above half the mask value, and a
+          // row that saw only masked keys has m near the mask value; a packed
+          // masked logit is -1e9, so every packed row counts as visible
+          const bool any_visible = !FLASH || m[i] > 0.5f * kFlashMask;
+          inv[i] = any_visible ? (DROPOUT ? a.inv_keep : 1.f) / l[i] : 0.f;
+          const int row = qrow + 8 * i;
+          if (lse != nullptr && (lane & 3) == 0 && row < a.Tq)
+            lse[(size_t)it.bh * a.Tq + row] = any_visible ? m[i] * kLn2 + logf(l[i]) : INFINITY;
+        }
+        // O (and its residual) through shared memory and TMA stores, which
+        // write no row past T; the previous item's stores must have read
+        // the staging tiles first
+        uint8_t* Ow = Os + wg * TILE;
+        uint8_t* Rw = Rs + wg * TILE;
+        if (t == 0) bulk_wait_read();
+        warpgroup_sync(1 + wg);
+        stage_rows<DH>(Ow, RES ? Rw : nullptr, acc, r0, c0, inv);
+        fence_async_smem();
+        warpgroup_sync(1 + wg);
+        if (t == 0) {
+#pragma unroll
+          for (int g = 0; g < DH / 64; ++g) {
+            tma_store_box<FLASH>(&to, Ow + g * kBox, 64 * g, qw, it.h, it.b);
+            if (RES) tma_store_box<FLASH>(&tres, Rw + g * kBox, 64 * g, qw, it.h, it.b);
+          }
+          bulk_commit();
+        }
+      }
+    }
+    if (wg == 0) my_turn();  // consumer 1's first hand-over
+    if (t == 0) bulk_wait_read();  // the staging tiles live until the stores have read them
+  }
+}
+
+// -- the backward -------------------------------------------------------------
 
 // dS * scale of one element from its weight p, its dPd, the row's delta and
 // its dropout flag
@@ -726,7 +1043,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const int n_tiles = (key_range<FLASH>(a, b, q0 + (C - 1) * kBQ).kv_end + kBK - 1) / kBK;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C);
+  if (threadIdx.x == 0) ring_init(ring, C, kStages);
   __syncthreads();
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
@@ -798,7 +1115,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       if (j < my_tiles) {
         const uint8_t* Kt = Ks + stage * TILE;
         wgmma_fence();
-        score_tile<DH>(s, Qs + wg * TILE, Kt);
+        score_tile<DH, 64>(s, Qs + wg * TILE, Kt);
         wgmma_commit();
         if (pending) {  // the previous dQ product is done: its stage is free
           wgmma_wait<1>();
@@ -806,7 +1123,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
           fence_regs(acc);
           release(ring.empty + prev, lane);
         }
-        score_tile<DH>(dp, dOs + wg * TILE, Vs + stage * TILE);
+        score_tile<DH, 64>(dp, dOs + wg * TILE, Vs + stage * TILE);
         wgmma_commit();
         const uint32_t keep = DROPOUT ? keep_bits_q(bh, qw + r0, k0, lane, a) : 0u;
         wgmma_wait<1>();  // S is done, dPd may still run
@@ -895,7 +1212,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int n_tiles = (any_key && q_begin < a.Tq) ? (a.Tq - q_begin + kBQ - 1) / kBQ : 0;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C);
+  if (threadIdx.x == 0) ring_init(ring, C, kStages);
   __syncthreads();
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
@@ -965,7 +1282,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const uint8_t* dOt = dOs + stage * TILE;
         // transposed tiles: rows are this warpgroup's keys, columns the query tile
         wgmma_fence();
-        score_tile<DH>(s, Ks + wg * TILE, Qt);
+        score_tile<DH, 64>(s, Ks + wg * TILE, Qt);
         wgmma_commit();
         if (pending) {  // the previous products are done: their stage is free
           wgmma_wait<1>();
@@ -975,7 +1292,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           fence_regs(acc_dk);
           release(ring.empty + prev, lane);
         }
-        score_tile<DH>(dp, Vs + wg * TILE, dOt);
+        score_tile<DH, 64>(dp, Vs + wg * TILE, dOt);
         wgmma_commit();
         const uint32_t keep = DROPOUT ? keep_bits_kv(bh, q0, kw + (r0 & ~3), lane, a) : 0u;
         wgmma_wait<1>();  // S^T is done, dPd^T may still run
@@ -1123,23 +1440,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
 template <int DH, bool FLASH, bool DROPOUT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* res,
                        float* lse, int B, const AttnArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>(5);
+  constexpr int C = fwd_consumers<DH>();
+  // the query, output and residual tiles, then the stages' key and value tiles
+  constexpr size_t smem = ring_smem_bytes<DH>(3 * C, fwd_stages<DH>() * fwd_bn<DH>() / 64);
   static bool configured = false, configured_res = false;
   cudaError_t err = res == nullptr
                         ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
                         : allow_smem(fwd_kernel<DH, FLASH, DROPOUT, true>, smem, configured_res);
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv, mo, mres;
   if (err == cudaSuccess) err = make_map<FLASH>(&mq, q, B, a.H, a.Tq, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mk, k, B, a.H, a.Tk, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mv, v, B, a.H, a.Tk, DH);
+  if (err == cudaSuccess) err = make_map<FLASH>(&mo, o, B, a.H, a.Tq, DH);
+  if (err == cudaSuccess) err = make_map<FLASH>(&mres, res == nullptr ? o : res, B, a.H, a.Tq, DH);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.H, B);
-  bf16* o_ = static_cast<bf16*>(o);
-  bf16* res_ = static_cast<bf16*>(res);
+  // a work item a (query tile of C * 64 rows, head, batch row); one CTA an
+  // SM, each taking items in turn
+  const long long items = (long long)((a.Tq + C * kBQ - 1) / (C * kBQ)) * a.H * B;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const unsigned ctas = (unsigned)(items < sms ? items : sms);
+  constexpr int threads = (1 + C) * kWG;
   if (res == nullptr) {
-    fwd_kernel<DH, FLASH, DROPOUT, false><<<grid, kWG, smem, stream>>>(mq, mk, mv, o_, res_, lse, a);
+    fwd_kernel<DH, FLASH, DROPOUT, false><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
+                                                                          lse, a, B);
   } else {
-    fwd_kernel<DH, FLASH, DROPOUT, true><<<grid, kWG, smem, stream>>>(mq, mk, mv, o_, res_, lse, a);
+    fwd_kernel<DH, FLASH, DROPOUT, true><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
+                                                                         lse, a, B);
   }
   return cudaGetLastError();
 }
@@ -1153,7 +1483,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        void* dq, void* dk, void* dv, int B, const AttnArgs& a,
                        cudaStream_t stream) {
   if (delta == nullptr || (!FLASH && res == nullptr)) return cudaErrorInvalidValue;
-  constexpr size_t smem = bwd_smem_bytes<DH>();
+  constexpr size_t smem = ring_smem_bytes<DH>(2 * bwd_consumers<DH>(), kStages);
   static bool configured_dq = false, configured_dkdv = false;
   cudaError_t err = allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem, configured_dq);
   if (err == cudaSuccess)

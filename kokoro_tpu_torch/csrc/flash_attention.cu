@@ -21,9 +21,15 @@
 // Dh=64, causal) the call moves 4 * B*H*T*Dh elements (69 MB in bf16, about
 // 21 us at 3.35 TB/s) and does 4 * Dh operations per visible (query, key)
 // pair (95 M causal pairs: 24.4 GFLOP, about 25 us at the bf16 tensor-core
-// peak).  bf16 runs on the tensor cores (attention_tc.cuh: wgmma, TMA), f32
-// on the CUDA cores in f32 FMA, whose 67 TFLOP/s rate is its ceiling (0.36 ms
-// here).
+// peak).  bf16 runs on the tensor cores (attention_tc.cuh: wgmma, TMA) in the
+// packed forward's persistent, warp-specialised template with the flash mask
+// policy: two consumer warpgroups of 64 query rows share each streamed tile
+// of 128 keys, the softmax runs under the previous tile's P V and the other
+// consumer's products, tiles below the diagonal skip the mask (with segment
+// ids every tile takes it), and the last query tiles, which see the most
+// keys, start first.  The bf16 kernel adds the mask value to the logit in
+// log2 units.  f32 runs on the CUDA cores in f32 FMA, whose 67 TFLOP/s rate
+// is its ceiling (0.36 ms here).
 
 #include "attention_kernels.cuh"
 

@@ -16,9 +16,17 @@
 // What bounds it on an H100: at the decoder's shapes (B=32, T=512, H=8, Dh=64)
 // the call moves 4 * B*T*H*Dh elements (67 MB in bf16, about 20 us at
 // 3.35 TB/s) and does 4 * B*H*T*T*Dh operations (17.2 GFLOP non-causal, about
-// half causal; about 17 us at the bf16 tensor-core peak).  bf16 runs on the
-// tensor cores (attention_tc.cuh: wgmma, TMA); f32 on the CUDA cores in full
-// f32 FMA (no TF32), whose ceiling is the 67 TFLOP/s f32 rate.
+// half causal; about 17 us at the bf16 tensor-core peak), but a 64 x 64 tile
+// takes as long in the exp unit (16 a clock an SM) as in the tensor cores at
+// Dh 64.  bf16 runs on the tensor cores (attention_tc.cuh: wgmma, TMA),
+// persistent and warp-specialised: one CTA an SM, a producer warp streaming
+// 128-key tiles of K and V (64 at Dh 128) through a ring to two consumer
+// warpgroups of 64 query rows each, which take one tile's softmax (and its
+// dropout flags, drawn in registers) under the previous tile's P V product
+// and the other consumer's products, and skip the mask on interior tiles;
+// the causal mask's heaviest query tiles start first, and O leaves by TMA
+// stores.  f32 runs on the CUDA cores in full f32 FMA (no TF32), whose
+// ceiling is the 67 TFLOP/s f32 rate.
 
 #include "attention_kernels.cuh"
 

@@ -380,3 +380,88 @@ def test_variance_predictor_backward_is_bitwise_deterministic(cuda):
                      for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# -- the warp-specialised forward (packed K1/K2/K3 and flash K4) -------------
+def _forward_case(policy, B, T, H, Dh, device, seed, rate=0.0):
+    """The forward kernel's wrapper and its plain version for one mask
+    policy: packed causal (K1), packed kv lengths (K2: a full row, one that
+    ends inside a tile, one that ends on a tile edge, and a row of length 1
+    beside one of length 0 when B allows), flash causal (K4) with two
+    segments a row."""
+    g = torch.Generator().manual_seed(seed)
+    if policy == "flash":
+        q, k, v = (torch.randn(B, H, T, Dh, generator=g).to(device, BF16) for _ in range(3))
+        seg = torch.ones(B, T, dtype=torch.int32, device=device)
+        seg[:, (2 * T) // 3:] = 2
+        kw = dict(causal=True, scale=Dh ** -0.5, q_seg=seg, kv_seg=seg.clone())
+        return (lambda: flash.flash_attention_fwd(q, k, v, return_lse=True, **kw),
+                lambda: flash.flash_attention_reference(q, k, v, **kw))
+    q, k, v = _qkv(B, T, H, Dh, BF16, device, seed=seed)
+    edge = max(1, (T // 64) * 64)
+    lens = torch.tensor([T, max(1, T - 37), edge, 1, 0][:B], dtype=torch.int32, device=device)
+    causal = policy == "causal"
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if causal else lens,
+              dropout_rate=rate, seed=seed if rate else None)
+    kern = port.packed_attention_causal if causal else port.packed_attention_kvlen
+    return (lambda: kern(q, k, v, for_backward=True, **kw),
+            lambda: port.packed_attention_reference(q, k, v, causal=causal, **kw))
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [64, 65, 433, 1433])
+def test_bf16_forward_matches_plain_across_tile_edges(cuda, policy, Dh, T):
+    """Interior tiles (below the diagonal, below the kv length) take the
+    unmasked path beside the masked edge tiles, at T on and just past a tile
+    edge and ragged T; both consumers of a CTA, one of them past T."""
+    kern, plain = _forward_case(policy, 5, T, 2, Dh, cuda, seed=T + Dh)
+    out = kern()[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), rtol=TOL[BF16], atol=TOL[BF16])
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+@pytest.mark.parametrize("T", [65, 1433])
+def test_bf16_forward_heaviest_first_order_one_head(cuda, policy, T):
+    """B = 1 and H = 1: the 1-D grid's query tiles, the heaviest first,
+    still cover every row once."""
+    kern, plain = _forward_case(policy, 1, T, 1, 64, cuda, seed=7 * T)
+    out = kern()[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), rtol=TOL[BF16], atol=TOL[BF16])
+
+
+@pytest.mark.parametrize("policy, rate", [("causal", 0.0), ("causal", 0.1), ("kvlen", 0.0),
+                                          ("kvlen", 0.1), ("flash", 0.0)])
+def test_bf16_forward_is_bitwise_deterministic(cuda, policy, rate):
+    """Two forward calls on the same inputs and seed: O, lse and (packed)
+    the residual bit for bit equal (the flash forward has no dropout)."""
+    kern, _ = _forward_case(policy, 4, 1433, 2, 64, cuda, seed=19, rate=rate)
+    first, second = kern(), kern()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [433, 1433])
+def test_bf16_forward_at_rate_matches_plain(cuda, policy, Dh, T):
+    """At rate 0.1 the forward (its flags drawn in registers) against the
+    plain version under the same seed."""
+    kern, plain = _forward_case(policy, 4, T, 2, Dh, cuda, seed=T + 2 * Dh, rate=0.1)
+    out = kern()[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), rtol=TOL[BF16], atol=TOL[BF16])
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+def test_bf16_forward_persistent_ctas_take_many_items(cuda, policy):
+    """More work items than the card has SMs (B=5, H=8, T=1100: 9 query
+    tiles of 128 rows a head, 360 items), so each persistent CTA takes
+    several items in turn, heavy and light, through one ring."""
+    kern, plain = _forward_case(policy, 5, 1100, 8, 64, cuda, seed=23,
+                                rate=0.0 if policy == "flash" else 0.1)
+    out = kern()[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain().float(), rtol=TOL[BF16], atol=TOL[BF16])
