@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
    all started together; ptxas's registers and spills per kernel and the
    kernels whose ``wgmma`` it serialises, and a failure if a tensor-core
-   kernel (``csrc/attention_tc.cuh``) spills or has its ``wgmma`` serialised; and
-   the host-side C++ duration aligner (``csrc/aligner.cpp``, ``g++``).
+   kernel (the bf16 ``csrc/attention_tc.cuh``, the f32 backward's 3xTF32
+   ``csrc/attention_tf32.cuh``, whose registers it prints by kernel) spills
+   or has its ``wgmma`` serialised; and the host-side C++ duration aligner
+   (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; then kernel_times at the decoder's
@@ -261,8 +263,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
-            "float32": 67e12}      # f32 outside the tensor cores (no TF32)
+# dense bf16 tensor-core rate; f32-accurate work on the TF32 tensor cores
+# (495e12) in three products (3xTF32, csrc/attention_tf32.cuh), the least
+# any f32 kernel could take.  The CUDA cores' f32 FMA rate, 67e12, is the
+# ceiling of a kernel that stays off the tensor cores (the scalar f32
+# forward): its time against this bound reads at most 67/165 = 0.41.
+PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # docs/attention_numerics_tpu.json
 DROPOUT_LIMITS = {"keep_rate_abs": 0.01, "scale_rel": 1e-3, "fd_rel": 2e-3}  # the same file
@@ -457,6 +463,15 @@ def profiled_kernels(fn, expect: int, calls: int = 10) -> dict:
     return {"kernel_split_ms": split, "device_kernels_per_call": per_call}
 
 
+def backward_rate_readings(fwd, bwd) -> dict:
+    """A backward row's readings at ``RATE``: ``bwd(*fwd())`` (the forward's
+    outputs at that rate, then the backward) timed by graph replay, and its
+    dQ and dK/dV kernels' split."""
+    saved = fwd()
+    return {"ms_rate_0.1": graph_time_ms(lambda: bwd(*saved)),
+            "kernel_split_ms_rate_0.1": profiled_kernels(lambda: bwd(*saved), 2)["kernel_split_ms"]}
+
+
 def library_bwd_ms(fwd, fwd_bwd) -> float:
     """The library's backward alone: its forward and backward through
     autograd minus its forward, each timed by graph replay (the median of 5)."""
@@ -503,25 +518,48 @@ def phase_device():
 
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
-    regs, spills, serialized = {}, {}, {}
+    regs, spills, serialized, tf32_regs = {}, {}, {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         regs[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
         spills.update(ptxas_spills(lines))
+        tf32_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                          if TF32_NAMESPACE in fn})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
-          "tf32_matmul": False, "tf32_cudnn": False})
-    tensor_core = {fn: sp for fn, sp in spills.items() if "kokoro_attn2tc" in fn}
+          "tf32_backward_registers": tf32_regs, "tf32_matmul": False, "tf32_cudnn": False})
+    tensor_core = {fn: sp for fn, sp in spills.items()
+                   if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
         raise AssertionError(f"the tensor-core kernels spill registers: {tensor_core}")
     if any(serialized.values()):  # every wgmma is a tensor-core kernel's
         raise AssertionError(f"ptxas serialises wgmma: {serialized}")
     return smi
+
+
+# the mangled namespaces of the tensor-core kernels: the bf16 templates
+# (csrc/attention_tc.cuh) and the f32 backward in 3xTF32 (csrc/attention_tf32.cuh)
+TF32_NAMESPACE = "kokoro_attn4tf32"
+TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE)
+
+
+def ptxas_registers(lines) -> dict:
+    """``{mangled kernel name: ptxas's "Used N registers" line}`` of an
+    ``-Xptxas -v`` log (ptxas names the kernel in a "Compiling entry
+    function" line, then its properties and registers)."""
+    out, current = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            current = ln.split("'")[1] if "'" in ln else None
+        elif "Used" in ln and "registers" in ln and current is not None:
+            out[current] = ln.split(":", 1)[-1].strip()
+            current = None
+    return out
 
 
 def ptxas_spills(lines) -> dict:
@@ -662,19 +700,55 @@ def backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv):
             library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd),
             **profiled_kernels(lambda: kern(q, k, v, o, do, lse, res, **kw), 2))
         drop = dict(kw, dropout_rate=RATE, seed=11)
-        o, lse, res = fwd(q, k, v, for_backward=True, **drop)
-        row["ms_rate_0.1"] = graph_time_ms(lambda: kern(q, k, v, o, do, lse, res, **drop))
+        row.update(backward_rate_readings(
+            lambda: fwd(q, k, v, for_backward=True, **drop),
+            lambda o, lse, res: kern(q, k, v, o, do, lse, res, **drop)))
         row["plain_ms_rate_0.1"] = cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
             q, k, v, do, causal=kern.causal, **drop), iters=3)
         out[(kern.name, dname)] = row
     return out
 
 
+def packed_bwd_float64(q, k, v, do, *, num_heads, scale, causal=True, kv_lengths=None,
+                       dropout_rate=0.0, seed=None):
+    """The packed plain backward's recompute (``packed_attention_bwd_reference``
+    without ``o``) in float64 on the same inputs and dropout mask: what the f32
+    kernel and the f32 plain version are each held against in ``kernels_bwd``."""
+    import torch
+
+    from kokoro_tpu_torch.ops.philox import attention_keep_mask
+
+    B, T, D = q.shape
+    H, f64 = num_heads, torch.float64
+    heads = lambda x: x.reshape(B, T, H, D // H).transpose(1, 2).to(f64)
+    packed = lambda x: x.transpose(1, 2).reshape(B, T, D)
+    qh, kh, vh, doh = (heads(x) for x in (q, k, v, do))
+    s = qh @ kh.transpose(-1, -2) * scale
+    cols = torch.arange(T, device=q.device)
+    visible = ((cols[None, :] <= cols[:, None])[None, None] if causal
+               else (cols[None, :] < kv_lengths[:, None])[:, None, None, :])
+    p = torch.softmax(torch.where(visible, s, torch.full((), -1e9, dtype=f64, device=q.device)),
+                      dim=-1)
+    keep = (attention_keep_mask(seed, B, H, T, dropout_rate, device=q.device)
+            if dropout_rate > 0.0 else None)
+    inv_keep = 1.0 / (1.0 - dropout_rate)
+    pd = p if keep is None else torch.where(keep, p * inv_keep, 0.0)
+    dpd = doh @ vh.transpose(-1, -2)
+    dp = dpd if keep is None else torch.where(keep, dpd * inv_keep, 0.0)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    return packed(ds @ kh), packed(ds.transpose(-1, -2) @ qh), packed(pd.transpose(-1, -2) @ doh)
+
+
+def max_abs_diff(a, b) -> float:
+    return max((x.double() - y.double()).abs().max().item() for x, y in zip(a, b))
+
+
 def phase_kernels_bwd():
     """Forward at rate 0.1 and backward at rates 0 and 0.1, kernel against
     plain version with the same seed, over the bucket ladder; each backward
-    called twice, bit for bit equal; then rows of kv length 1 at rate 0.2
-    (the quality run's T and heads)."""
+    called twice, bit for bit equal; the f32 kernel and the f32 plain
+    version each against the plain recompute in float64; then rows of kv
+    length 1 at rate 0.2 (the quality run's T and heads)."""
     import torch
 
     from kokoro_tpu_torch.ops import fused_attention as fa
@@ -684,7 +758,7 @@ def phase_kernels_bwd():
     H = 8
     shapes = [(4, T, Dh) for Dh in (64, 128) for T in (128, 432, 512, 848, 896, 1433)]
     shapes.append((32, 512, 64))
-    worst, checks = {}, 0
+    worst, checks, f64_errs = {}, 0, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for B, T, Dh in shapes:
@@ -710,26 +784,36 @@ def phase_kernels_bwd():
                              for n, a, b in zip("qkv", grads, ref)]
                     key = f"{bwd.name}/{dname}/rate={rate}"
                     worst[key] = max(worst.get(key, 0.0), *errs[1:])
+                    if dtype == torch.float32:  # the kernel beside f32's own error
+                        exact = packed_bwd_float64(q, k, v, do, causal=fwd.causal, **kw)
+                        row = f64_errs.setdefault(key, {"kernel": 0.0, "plain_f32": 0.0})
+                        row["kernel"] = max(row["kernel"], max_abs_diff(grads, exact))
+                        row["plain_f32"] = max(row["plain_f32"], max_abs_diff(ref, exact))
+                        del exact
                     worst[f"{fwd.name}/{dname}/rate={rate}"] = max(
                         worst.get(f"{fwd.name}/{dname}/rate={rate}", 0.0), errs[0])
                     checks += 1
-    # one-key rows: every query's dS at the one key sums into its dK
+    # one-key rows: every query's dS at the one key sums into its dK (the
+    # plain version's dS there is exactly 0)
     B, T, Dh, rate = 4, 384, 64, 0.2
-    q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, torch.bfloat16)
-                   for _ in range(4))
-    kw = dict(num_heads=H, scale=Dh ** -0.5, dropout_rate=rate, seed=91,
-              kv_lengths=torch.tensor([1, T, 1, T // 2], dtype=torch.int32, device=dev))
-    o, lse, res = fa.packed_attention_kvlen(q, k, v, for_backward=True, **kw)
-    grads = fa.packed_attention_bwd_kvlen(q, k, v, o, do, lse, res, **kw)
-    ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
-    one_key = max(close_or_raise(f"one-key rows rate {rate} d{n}", a, b, GRAD_TOL["bfloat16"])
-                  for n, a, b in zip("qkv", grads, ref))
+    one_key = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(B, T, H * Dh, generator=gen).to(dev, dtype) for _ in range(4))
+        kw = dict(num_heads=H, scale=Dh ** -0.5, dropout_rate=rate, seed=91,
+                  kv_lengths=torch.tensor([1, T, 1, T // 2], dtype=torch.int32, device=dev))
+        o, lse, res = fa.packed_attention_kvlen(q, k, v, for_backward=True, **kw)
+        grads = fa.packed_attention_bwd_kvlen(q, k, v, o, do, lse, res, **kw)
+        ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
+        one_key[dname] = max(close_or_raise(f"one-key rows {dname} rate {rate} d{n}", a, b,
+                                            GRAD_TOL[dname]) for n, a, b in zip("qkv", grads, ref))
     emit({"phase": "kernels_bwd", "checks": checks,
           "shapes": "H=8; B=4 Dh{64,128} T{128,432,512,848,896,1433}; B=32 T=512 Dh=64; "
                     "kv_lengths [T, T-37, T/2, 0]", "rates": [0.0, RATE],
           "two_calls_bitwise_equal": True,
-          "one_key_rows": {"shape": "B=4 T=384 H=8 Dh=64 bf16, kv lengths [1, T, 1, T/2]",
+          "one_key_rows": {"shape": "B=4 T=384 H=8 Dh=64, kv lengths [1, T, 1, T/2]",
                            "rate": rate, "max_abs_err": one_key},
+          "f32_max_abs_err_vs_float64": f64_errs,
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
 
 
@@ -1034,6 +1118,9 @@ def long_cross_attention(gen):
             attention_bound(B, T, H, Dh, dname, False, lens_list, backward=True),
             graph_time_ms(lambda: bwd(q, k, v, o, do, lse, res, **kw)),
             **profiled_kernels(lambda: bwd(q, k, v, o, do, lse, res, **kw), 2),
+            **backward_rate_readings(
+                lambda: fwd(q, k, v, for_backward=True, **drop),
+                lambda o, lse, res: bwd(q, k, v, o, do, lse, res, **drop)),
             max_abs_err=worst[f"{bwd.name}/{dname}/rate=0.0"],
             plain_ms=cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
                 q, k, v, do, causal=False, **kw), iters=3),
@@ -1077,8 +1164,12 @@ def phase_kernels_folded():
                                                           for_backward=True, **kw)
                     grads = fa.folded_attention_bwd(fold(q), fold(k), fold(v), o, fold(do),
                                                     lse, res, **kw)
+                    again = fa.folded_attention_bwd(fold(q), fold(k), fold(v), o, fold(do),
+                                                    lse, res, **kw)
                     torch.cuda.synchronize()
                     where = f"folded {dname} T={T} Dh={Dh} rate={rate}"
+                    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                        raise AssertionError(f"{where}: two backward calls differ")
                     err_o = close_or_raise(where + " o", o, fa.packed_attention_reference(
                         fold(q), fold(k), fold(v), causal=True, **kw), TOL[dname])
                     ref = fa.packed_attention_bwd_reference(fold(q), fold(k), fold(v), fold(do),
@@ -1101,7 +1192,7 @@ def phase_kernels_folded():
                     checks += 1
     emit({"phase": "kernels_folded", "checks": checks,
           "shapes": "B=4 H=8; Dh{64,128} x T{128,432,512,848}", "rates": [0.0, RATE],
-          "folded_equals_packed_bitwise_at_rate": RATE,
+          "folded_equals_packed_bitwise_at_rate": RATE, "bwd_two_calls_bitwise_equal": True,
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
 
     B, T, H, Dh = 32, 512, 8, 64
@@ -1145,6 +1236,9 @@ def phase_kernels_folded():
             graph_time_ms(lambda: fa.folded_attention_bwd(q, k, v, o, do, lse, res, **kw)),
             **profiled_kernels(lambda: fa.folded_attention_bwd(q, k, v, o, do, lse, res, **kw),
                                2),
+            **backward_rate_readings(
+                lambda: fa.folded_attention_fwd(q, k, v, for_backward=True, **drop),
+                lambda o, lse, res: fa.folded_attention_bwd(q, k, v, o, do, lse, res, **drop)),
             max_abs_err=err_g,
             plain_ms=cuda_time_ms(lambda: fa.packed_attention_bwd_reference(
                 q, k, v, do, causal=True, **kw), iters=5),

@@ -1,9 +1,9 @@
-// Helpers of the attention kernels (attention_kernels.cuh, attention_tc.cuh):
-// 64 x 64 tiles; for the f32 kernels 256 threads as a 16 x 16 grid and loads
-// of rows D elements apart (the packed (B, T, H*Dh) layout, or head-first
-// (B, H, T, Dh) with D = Dh) into f32 shared memory; the backward's row
-// statistics; the counter-based dropout mask of the packed kernels; the
-// arguments, layouts and mask tests both kernel families share.
+// Helpers of the attention kernels (attention_kernels.cuh, attention_tc.cuh,
+// attention_tf32.cuh): 64 x 64 tiles; for the scalar f32 forward 256 threads
+// as a 16 x 16 grid and loads of rows D elements apart (the packed
+// (B, T, H*Dh) layout, or head-first (B, H, T, Dh) with D = Dh) into f32
+// shared memory; the counter-based dropout mask of the packed kernels; the
+// arguments, layouts and mask tests the kernel families share.
 //
 // Dropout: the TPU kernels draw attention-weight dropout from the TPU core's
 // hardware PRNG (kokoro_tpu/ops/fused_attention.py::_dropout_mask), whose
@@ -112,38 +112,6 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty
   }
 }
 
-// rowsum(dO * O) and the saved lse of query rows [q0, q0 + 64) -> shared
-// memory (0 for rows at or past T_len); rows are D elements apart from
-// `base`.  kThreads / 64 threads per row.  The f32 backward kernels' di.
-template <typename T, int DH>
-__device__ __forceinline__ void row_stats(const T* o, const T* dout, const float* lse,
-                                          size_t base, size_t lse_base, int q0, int T_len,
-                                          int D, float* delta_s, float* lse_s) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = kThreads / 64;
-  const int r = threadIdx.x / PER_ROW, part = threadIdx.x % PER_ROW;
-  const int row = q0 + r;
-  float sum = 0.f;
-  if (row < T_len) {
-    const T* orow = o + base + (size_t)row * D;
-    const T* drow = dout + base + (size_t)row * D;
-#pragma unroll
-    for (int c = part * V; c < DH; c += PER_ROW * V) {
-      float a[V], d[V];
-      load16(orow + c, a);
-      load16(drow + c, d);
-#pragma unroll
-      for (int e = 0; e < V; ++e) sum = fmaf(a[e], d[e], sum);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < PER_ROW; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (part == 0) {
-    delta_s[r] = sum;
-    lse_s[r] = row < T_len ? lse[lse_base + row] : 0.f;
-  }
-}
-
 // Philox4x32-10 (Random123's constants and round function).
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t k1) {
   constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -163,8 +131,8 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
 
 // Keep flags of the 64 x 64 tile (rows row0.., columns col0..; col0 a
 // multiple of 4) into shared bytes keep[r * 64 + c]: 1024 Philox calls shared
-// by the f32 kernels' kThreads threads (the bf16 kernels draw the same flags
-// in registers: attention_tc.cuh, keep_bits_q and keep_bits_kv).
+// by the f32 forward's kThreads threads (the tensor-core kernels draw the
+// same flags in registers: attention_tc.cuh, keep_bits_q and keep_bits_kv).
 __device__ __forceinline__ void dropout_tile(uint8_t* keep, uint32_t bh, int row0,
                                              int col0, uint32_t threshold,
                                              uint32_t k0, uint32_t k1) {

@@ -1,0 +1,816 @@
+// The f32 attention backward on Hopper's tensor cores in 3xTF32 (sm_90a):
+// the dQ and dK/dV kernels of both mask policies (packed K1/K2/K3, flash
+// K4), dropout on or off, Dh 64 or 128, with the numerics contract of
+// attention_kernels.cuh.  Replaces no TPU kernel of its own: it is the f32
+// instantiation of the backward kernels that packed_attention_bwd.cu and
+// flash_attention_bwd.cu launch (their notes name the TPU kernels).
+//
+// Arithmetic.  f32's contract (gradients within 1e-4,
+// docs/attention_numerics_tpu.json) is beyond one TF32 product (10-bit
+// mantissa: 7e-4 to 1e-3 off, tests/test_torch_tf32_split.py).  Each
+// operand x of the five products (S = Q K^T, dPd = dO V^T, dV += Pd^T dO,
+// dK += dS^T Q, dQ += dS K) is split into big = tf32(x) and
+// small = tf32(x - big), both rounded to nearest with ties away (cvt.rna's
+// rounding), and each product is big.big' + big.small' + small.big' (the
+// dropped small.small' is below f32's rounding).  The tensor cores' own
+// accumulation truncates: one accumulator over the 1433 queries of a
+// one-key row's dV drifted from float64 several times as far as f32 adds
+// do, and a score product so taken moved a one-key row's weight from 1,
+// against the forward's lse, far enough to show in that dV.  So every two
+// groups of 8 products go through the tensor cores into a fresh
+// accumulator, which joins its sum by an f32 add.  The softmax recompute
+// (full-precision expf) and the dropout stay on the CUDA cores.  Nothing
+// reads torch.backends.cuda.matmul.allow_tf32: the result does not depend
+// on it.
+//
+// Each row's delta, rowsum(dO * O), is taken by the same products as the
+// kernel's dPd, with the row of O in the place of a row of V (and
+// O / (1/keep), times 1/keep again, under dropout): on a row with one
+// visible key dS = p (dp - delta) is then exactly 0, as in the plain
+// version, where an f32 FMA chain for delta left the products' rounding,
+// summed over every query, in the key's dK (past 1e-4 at T = 1433, the rows
+// tests/test_torch_kernels_cuda.py holds).  The dQ kernel takes both orders
+// of the product (dO V^T there, V dO^T in the dK/dV kernel) and hands the
+// second to the dK/dV kernel through the (B, H, Tq) workspace.
+//
+// Route: mma.sync.m16n8k8 (row.col, tf32 in, f32 accumulate) for all five
+// products.  wgmma takes tf32 operands from shared memory K-major only (its
+// transpose bits exist for 16-bit types), and three of the products
+// contract over the sequence, whose operand (dO, Q, K) is stored [seq][Dh].
+// mma.sync takes its fragments from registers, so each operand is read in
+// the pattern its product needs, with the contraction index permuted inside
+// each group of 8 (logical k = t and t + 4 are columns 2t and 2t + 1):
+//   * a streamed tile (the key/value tiles of the dQ kernel, the query/dO
+//     tiles of the dK/dV kernel) is split once by the CTA into pairs, each
+//     16-byte chunk big(c) small(c) big(c + 1) small(c + 1), so a score
+//     product's B fragment is one 16-byte read and a sequence product's
+//     (rows 2t and 2t + 1) two 8-byte reads, none split again by a warp;
+//   * an owned tile (the rows a CTA keeps: Q and dO, or K and V) stays f32;
+//     a warp reads its rows' A fragments as 8-byte pairs and splits them;
+//   * P and dS leave the score accumulators through a warp's staging tile
+//     in shared memory and come back as the sequence products' A fragments,
+//     so the loops over k stay loops (unrolled, their fragment loads took
+//     every register and spilled).
+// Each layout swizzles its 16-byte chunks by row, so every one of these
+// reads hits 32 distinct banks.
+//
+// Structure (FlashAttention-2's split, no atomics: each gradient element is
+// summed by one thread in a fixed order, so two calls are bitwise equal): a
+// CTA is 8 warps and owns 128 rows at Dh 64 (16 a warp), 64 at Dh 128 (two
+// warps share each 16 rows, each with half of the output columns): the dQ
+// kernel query rows, the dK/dV kernel keys.  A streamed tile (64 rows at Dh
+// 64, 32 at Dh 128) arrives by cp.async through a ring of two stages, the
+// next tile's load under this tile's products.  Shared memory: 226.5 KB
+// (dQ) and 210.5 KB (dK/dV) a CTA at Dh 64, 209.75 KB at Dh 128; one CTA an
+// SM.  The dK/dV kernel takes a streamed tile in passes of 32 queries.
+// Causal grids start with their heaviest tiles, and a warp skips a
+// streamed tile none of its rows sees; the other grids keep a head's tiles
+// together.
+//
+// What bounds it on an H100: operations.  10 * Dh per visible pair (the
+// split recomputes S and dPd in both kernels: 14 * Dh done), each product
+// three tensor-core products: 495 / 3 = 165 TFLOP/s of f32-accurate work at
+// the TF32 peak (67 at the CUDA cores' f32 FMA rate).  mma.sync reaches
+// about 311 TFLOP/s of TF32 on an H100 (python -m
+// kokoro_tpu_torch.scripts.probe_tf32: one product per 6.9 cycles on each
+// of an SM's four schedulers, 34 cycles of latency), so about 104 TFLOP/s
+// of f32-accurate work.  Beside the products the kernels issue fragment loads,
+// splits, register moves and f32 adds (the same script counts them in each
+// loop's SASS), and a CTA's warps wait at its barriers while a streamed
+// tile is split: PERF.md section 6 has the times.
+
+#pragma once
+
+#include "attention_common.cuh"
+#include "attention_tc.cuh"
+
+namespace kokoro_attn {
+namespace tf32 {
+
+constexpr int kWarps = 8;
+constexpr int kCtaThreads = 32 * kWarps;
+constexpr int kStages = 2;
+// the dK/dV kernel takes a streamed tile in passes of 32 queries
+constexpr int kPassQ = 32;
+constexpr int kPassJ = kPassQ / 8;
+
+// warps sharing each 16 owned rows, each taking DH / split output columns
+template <int DH>
+__host__ __device__ constexpr int col_split() {
+  return DH == 128 ? 2 : 1;
+}
+// rows a CTA owns (16 a group of warps) and rows a streamed tile holds
+template <int DH>
+__host__ __device__ constexpr int owned_rows() {
+  return 16 * kWarps / col_split<DH>();
+}
+template <int DH>
+__host__ __device__ constexpr int stream_rows() {
+  return 4096 / DH;
+}
+
+// -- shared memory ----------------------------------------------------------
+
+// An owned tile: float (r, c) of DH-float rows, the 8-float block c / 8 at
+// block (c / 8) ^ (r % 4): the fragment reads (rows g of a quad group,
+// columns 2t, 2t + 1) hit 32 distinct banks.
+template <int DH>
+__device__ __forceinline__ int own_at(int r, int c) {
+  return r * DH + (c ^ ((r & 3) << 3));
+}
+
+// A split streamed tile: rows of 2 DH floats, each 16-byte chunk the pair
+// (big, small) of two neighbouring columns, big(c) small(c) big(c+1)
+// small(c+1); chunk c / 2 of row n at chunk (c / 2) ^ sigma(n), sigma(n) =
+// 2 ((n / 2) % 4) ^ 4 (n % 2).  The score product's B fragment (row g,
+// columns 2t, 2t + 1) is one 16-byte read and the sequence products' (rows
+// 2t and 2t + 1, column g) two 8-byte reads, each free of bank conflicts.
+template <int DH>
+__device__ __forceinline__ int pair_at(int n, int c) {
+  const int chunk = (c >> 1) ^ (((n >> 1) & 3) << 1) ^ ((n & 1) << 2);
+  return n * 2 * DH + 4 * chunk + 2 * (c & 1);
+}
+
+// A warp's staging tile of P or dS (16 rows of NQ floats), swizzled as an
+// owned tile: the accumulator's pairs in, the A fragments' pairs out.
+template <int NQ>
+__device__ __forceinline__ int w_at(int r, int c) {
+  return r * NQ + (c ^ ((r & 3) << 3));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every committed group but the newest (N = 1), or every one (N = 0), has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows from row0 of one head (rows D floats apart) -> an owned tile
+// (OWNED) or plain rows of DH floats; rows at or past row_end are zero-filled
+template <int DH, bool OWNED>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* head, int row0,
+                                                int rows, int row_end, int D) {
+  constexpr int CH = DH / 4;  // 16-byte chunks a row
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < rows * CH; idx += kCtaThreads) {
+    const int r = idx / CH, c = 4 * (idx % CH);
+    const bool in = row0 + r < row_end;
+    cp_async16(dst + (OWNED ? own_at<DH>(r, c) : r * DH + c),
+               head + (in ? (size_t)(row0 + r) * D + c : 0), in ? 16 : 0);
+  }
+}
+
+// values [row0, row0 + n) of a row vector -> shared memory; 0 at or past
+// row_end
+template <typename V>
+__device__ __forceinline__ void load_vec_async(V* dst, const V* src, int row0, int n,
+                                               int row_end) {
+  if ((int)threadIdx.x < n) {
+    const bool in = row0 + (int)threadIdx.x < row_end;
+    cp_async4(dst + threadIdx.x, src + (in ? row0 + threadIdx.x : 0), in ? 4 : 0);
+  }
+}
+
+// -- 3xTF32 products ------------------------------------------------------------
+
+// x = big + small, both rounded to TF32 to nearest, ties away from zero
+// (cvt.rna.tf32.f32's rounding, here in integer instructions: cvt.rna also
+// tests for infinities, four instructions where these take two).  The
+// tensor cores read only the top 19 bits of a TF32 operand, so small needs
+// no mask; big does, since x - big is taken in f32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// The two streamed tiles of a ring stage (each 2 S DH floats, its f32 rows
+// landed in its second half) split by the CTA into pairs over the whole
+// tile: every thread reads its raw values, the CTA waits, then writes.
+template <int DH>
+__device__ __forceinline__ void split_stage(float* stage) {
+  constexpr int S = 4096 / DH, N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
+  float4 x[2][N4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < N4; ++i)
+      x[m][i] = reinterpret_cast<const float4*>(stage + (2 * m + 1) * S * DH)[threadIdx.x +
+                                                                                i * kCtaThreads];
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < N4; ++i) {
+      const int idx = threadIdx.x + i * kCtaThreads, n = idx / (DH / 4), c = 4 * (idx % (DH / 4));
+      uint4 lo, hi;
+      split(x[m][i].x, lo.x, lo.y);
+      split(x[m][i].y, lo.z, lo.w);
+      split(x[m][i].z, hi.x, hi.y);
+      split(x[m][i].w, hi.z, hi.w);
+      float* tile = stage + 2 * m * S * DH;
+      *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c)) = lo;
+      *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c + 2)) = hi;
+    }
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in 3xTF32: the two small terms, then big.big'
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                     uint32_t bs0, uint32_t bs1) {
+  mma(d, ab, bs0, bs1);
+  mma(d, as, bb0, bb1);
+  mma(d, ab, bb0, bb1);
+}
+
+// an A fragment from two f32 pairs (rows g and g + 8, columns 2t, 2t + 1 of
+// a group of 8: logical k = t and t + 4), split
+__device__ __forceinline__ void a_fragment(float2 top, float2 bottom, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) {
+  split(top.x, ab[0], as[0]);
+  split(bottom.x, ab[1], as[1]);
+  split(top.y, ab[2], as[2]);
+  split(bottom.y, ab[3], as[3]);
+}
+
+// s (16 x 8J: J tiles of 8 columns, C fragments) = A B^T over DH columns:
+// A rows a_row0.. of an owned tile (split here), B rows b_row0.. of a split
+// streamed tile or, with SPLIT_B false, of an owned tile split here alike.
+// The contraction index is permuted in each group of 8 (logical t, t + 4 =
+// columns 2t, 2t + 1).  Each element is the same sequence of products and
+// adds whichever tile it sits in and however B was split.
+template <int DH, int J, bool SPLIT_B = true>
+__device__ __forceinline__ void score(float (&s)[J][4], const float* A, int a_row0,
+                                      const float* B, int b_row0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < J; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < DH / 8; ks += 2) {
+    float part[J][4] = {};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 8 * (ks + u) + 2 * t;
+      uint32_t ab[4], as[4];
+      a_fragment(*reinterpret_cast<const float2*>(A + own_at<DH>(a_row0 + g, c)),
+                 *reinterpret_cast<const float2*>(A + own_at<DH>(a_row0 + g + 8, c)), ab, as);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int n = b_row0 + 8 * j + g;
+        uint32_t bb0, bs0, bb1, bs1;
+        if constexpr (SPLIT_B) {
+          const uint4 v = *reinterpret_cast<const uint4*>(B + pair_at<DH>(n, c));
+          bb0 = v.x, bs0 = v.y, bb1 = v.z, bs1 = v.w;
+        } else {
+          const float2 v = *reinterpret_cast<const float2*>(B + own_at<DH>(n, c));
+          split(v.x, bb0, bs0);
+          split(v.y, bb1, bs1);
+        }
+        mma3(part[j], ab, as, bb0, bb1, bs0, bs1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
+  }
+}
+
+// a warp's 16 x 8J score tile (its C fragments) -> its staging tile W
+template <int NQ, int J>
+__device__ __forceinline__ void stage_tile(float* W, const float (&x)[J][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    *reinterpret_cast<float2*>(W + w_at<NQ>(g, 8 * j + 2 * t)) = make_float2(x[j][0], x[j][1]);
+    *reinterpret_cast<float2*>(W + w_at<NQ>(g + 8, 8 * j + 2 * t)) = make_float2(x[j][2], x[j][3]);
+  }
+}
+
+// acc (16 x NC, C fragments of NC / 8 tiles: columns c0.. of the output)
+// += X B, X the 16 x 8J tile staged in W, B rows b_row0 .. b_row0 + 8J,
+// columns c0 .. c0 + NC of a split streamed tile.  The contraction index is
+// permuted in each group of 8 (logical t, t + 4 = columns 2t, 2t + 1), so
+// the A fragment is two pairs of W and B is read at rows 2t and 2t + 1.
+template <int DH, int NC, int J, int NQ>
+__device__ __forceinline__ void accumulate(float (&acc)[NC / 8][4], const float* W,
+                                           const float* B, int b_row0, int c0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  // pair_at<DH>(r, c0 + 8 nt + g) for the rows r = b_row0 + 8 kk + 2t (+1):
+  // r % 8 is 2t (2t + 1) whatever kk, so the address is a row's pointer, a
+  // per-thread column offset that depends on nt's parity, and 16 nt
+  const int hi = (g >> 1) ^ ((t & 1) << 1), flip = t >> 1;  // sigma(2t) = 2t
+  const int col = 2 * c0 + 4 * hi + 2 * (g & 1);
+  const float* row0 = B + (b_row0 + 2 * t) * 2 * DH;
+  // sigma(2t) bit 2 is t / 2; sigma(2t + 1) flips it
+  const float* even0 = row0 + col + 16 * flip;
+  const float* odd0 = row0 + col - 16 * flip;
+  const float* even1 = row0 + 2 * DH + col + 16 * (1 - flip);
+  const float* odd1 = row0 + 2 * DH + col - 16 * (1 - flip);
+#pragma unroll 1
+  for (int kk = 0; kk < J; kk += 2) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      a_fragment(*reinterpret_cast<const float2*>(W + w_at<NQ>(g, 8 * (kk + u) + 2 * t)),
+                 *reinterpret_cast<const float2*>(W + w_at<NQ>(g + 8, 8 * (kk + u) + 2 * t)),
+                 ab[u], as[u]);
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int step = 16 * DH * (kk + u) + 16 * nt;  // 8 rows of 2 DH floats a group
+        const uint2 p0 = *reinterpret_cast<const uint2*>((nt & 1 ? odd0 : even0) + step);
+        const uint2 p1 = *reinterpret_cast<const uint2*>((nt & 1 ? odd1 : even1) + step);
+        mma3(part, ab[u], as[u], p0.x, p1.x, p0.y, p1.y);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += part[e];
+    }
+  }
+}
+
+// rows row0 + g and row0 + g + 8, columns c0 .. c0 + NC, of a 16-row
+// accumulator -> rows D floats apart from dst; rows at or past row_end are
+// not stored
+template <int NC>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[NC / 8][4], int row0,
+                                           int c0, int row_end, int D, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= row_end) continue;
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt)
+      *reinterpret_cast<float2*>(dst + (size_t)row * D + c0 + 8 * nt + 2 * t) =
+          make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+}
+
+// the diagonal of a 16 x 16 score tile (rows g and g + 8 of the warp) to
+// every lane of each quad: the lane t = g / 2 holds both
+__device__ __forceinline__ void diagonal(const float (&x)[2][4], int lane, float (&d)[2]) {
+  const int g = lane >> 2, e = g & 1;
+  const float lo = e ? x[0][1] : x[0][0], hi = e ? x[1][3] : x[1][2];
+  d[0] = __shfl_sync(0xffffffffu, lo, (lane & ~3) | (g >> 1));
+  d[1] = __shfl_sync(0xffffffffu, hi, (lane & ~3) | (g >> 1));
+}
+
+// the softmax weight of one element from its logit s and the row's lse:
+// 1 / Tk on a packed row with no key, 0 where not visible or out of bounds
+__device__ __forceinline__ float weight(float s, bool in_bounds, bool uniform, bool visible,
+                                        float lse, float scale, float inv_t) {
+  if (uniform) return in_bounds ? inv_t : 0.f;
+  return visible ? expf(s * scale - lse) : 0.f;
+}
+
+// whether every (query, key) of queries [q0, q0 + nq) and keys [k0, k0 + nk)
+// is in bounds and visible (no segment ids, no packed row without keys)
+template <bool FLASH>
+__device__ __forceinline__ bool block_unmasked(const AttnArgs& a, const KeyRange& keys, bool seg,
+                                               int q0, int nq, int k0, int nk) {
+  if (seg || keys.uniform || q0 + nq > a.Tq || k0 + nk > a.Tk) return false;
+  if (a.causal) return k0 + nk - 1 <= q0;  // the last key against the first query
+  return FLASH || k0 + nk <= keys.len;
+}
+
+// The dropout flags of a thread's fragment of a (query, key) tile of J
+// 8-key tiles, bit 4 j + 2 i + e for (query row + 8 i, key col0 + 8 j +
+// 2 (lane % 4) + e): tc::keep_bits_q for any even J (there J = 8).
+template <int J>
+__device__ __forceinline__ uint32_t keep_bits_q(uint32_t bh, int row, int col0, int lane,
+                                                const AttnArgs& a) {
+  const int half = lane & 1, g_off = (lane & 3) >> 1;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int jp = 0; jp < J / 2; ++jp) {
+      const int j_mine = 2 * jp + half, j_other = 2 * jp + 1 - half;
+      const uint32_t b4 = tc::keep4(bh, row + 8 * i, col0 / 4 + 2 * j_mine + g_off, a);
+      const uint32_t recv = __shfl_xor_sync(0xffffffffu, (b4 >> (2 - 2 * half)) & 3u, 1);
+      bits |= ((b4 >> (2 * half)) & 3u) << (4 * j_mine + 2 * i);
+      bits |= recv << (4 * j_other + 2 * i);
+    }
+  }
+  return bits;
+}
+
+// The same for the transposed (key, query) tile of J 8-query tiles, bit
+// 4 j + 2 i + e for (key key4 + (lane / 4) % 4 + 8 i, query q0 + 8 j +
+// 2 (lane % 4) + e): tc::keep_bits_kv for any J (there J = 8).
+template <int J>
+__device__ __forceinline__ uint32_t keep_bits_kv(uint32_t bh, int q0, int key4, int lane,
+                                                 const AttnArgs& a) {
+  const int av = (lane >> 2) & 3, bv = lane & 3;
+  uint32_t mine = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    mine |= tc::keep4(bh, q0 + 8 * j + 2 * bv + (av & 1), key4 / 4 + 2 * (av >> 1), a) << (4 * j);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t v = __shfl_sync(0xffffffffu, mine, (lane & 16) | (4 * s) | bv);
+    bits |= ((v >> av) & 0x11111111u) << s;
+  }
+  return bits;
+}
+
+// a CTA's (tile, batch * H + head): causal grids take the heaviest tiles
+// first (the dQ kernel's last query tiles, the dK/dV kernel's first key
+// tiles), the others a head's tiles together
+__device__ __forceinline__ void cta_tile(int n_tiles, int heads, bool causal, bool last_heaviest,
+                                         int& tile, int& bh) {
+  const int idx = blockIdx.x;
+  if (causal) {
+    tile = idx / heads;
+    bh = idx % heads;
+    if (last_heaviest) tile = n_tiles - 1 - tile;
+  } else {
+    tile = idx % n_tiles;
+    bh = idx / n_tiles;
+  }
+}
+
+// floats of a CTA's owned tile, of a ring stage (two streamed tiles in
+// pairs, 2 S DH floats each) and of a warp's staging tile (the dQ kernel's
+// 16 x S, the dK/dV kernel's 16 x kPassQ)
+template <int DH>
+__host__ __device__ constexpr int own_floats() {
+  return owned_rows<DH>() * DH;
+}
+template <int DH>
+__host__ __device__ constexpr int stage_floats() {
+  return 4 * stream_rows<DH>() * DH;
+}
+// the two owned tiles, the ring, its row data (three words a streamed row),
+// a word a thread (its dropout flags of the tile, drawn before the barrier
+// and read back after it, so that the Philox rounds are not scheduled among
+// the products), then the warps' staging tiles
+template <int DH>
+__host__ __device__ constexpr size_t smem_bytes(int stage_cols) {
+  return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH>()) +
+         sizeof(float) * 3 * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads +
+         sizeof(float) * kWarps * 16 * stage_cols;
+}
+static_assert(smem_bytes<64>(stream_rows<64>()) <= 232448 &&
+                  smem_bytes<128>(stream_rows<128>()) <= 232448,
+              "a CTA's shared memory");
+
+// -- the dQ kernel ------------------------------------------------------------
+
+template <int DH, bool FLASH, bool DROPOUT>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ o,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              float* __restrict__ delta_out, float* __restrict__ dq, AttnArgs a, int B) {
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>(), J = S / 8;
+  constexpr int NC = DH / col_split<DH>();  // output columns a warp
+  constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // the CTA's query rows
+  float* dOs = Qs + own_floats<DH>();
+  float* ring = dOs + own_floats<DH>();  // per stage: K, then V, each in pairs
+  int* kvseg_s = reinterpret_cast<int*>(ring + kStages * stage_floats<DH>());  // kStages x S
+  uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + 3 * kStages * S);
+  volatile uint32_t* keep_s = keep_words;
+  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x S a warp
+  float* Os = ring + stage_floats<DH>();  // O in the second stage, until the loop loads it
+
+  int qt, bhi;
+  cta_tile((a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
+  const int h = bhi % a.H, b = bhi / a.H;
+  const int q0 = qt * R;
+  const uint32_t bh = (uint32_t)bhi;
+  const int D = row_stride<FLASH, DH>(a.H);
+  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  const bool seg = FLASH && a.q_seg != nullptr;
+  // every key tile a row of the CTA visits (its last rows see the most)
+  const KeyRange keys = key_range<FLASH>(a, b, q0 + R - kBQ);
+  const int n_tiles = (keys.kv_end + S - 1) / S;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
+  const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int qw = q0 + wr;                 // its first query
+  float* W = Ws + warp * 16 * S;
+  const float inv_t = 1.f / (float)a.Tk;
+
+  auto issue = [&](int j) {  // f32 rows into each tile's second half
+    float* st = ring + (j % kStages) * stage_floats<DH>();
+    load_tile_async<DH, false>(st + S * DH, k + kv_base, j * S, S, a.Tk, D);
+    load_tile_async<DH, false>(st + TS + S * DH, v + kv_base, j * S, S, a.Tk, D);
+    if (seg)
+      load_vec_async(kvseg_s + (j % kStages) * S, a.kv_seg + (size_t)b * a.Tk, j * S, S, a.Tk);
+  };
+  load_tile_async<DH, true>(Qs, q + q_base, q0, R, a.Tq, D);
+  load_tile_async<DH, true>(dOs, dout + q_base, q0, R, a.Tq, D);
+  load_tile_async<DH, true>(Os, o + q_base, q0, R, a.Tq, D);
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (DROPOUT) {  // O / (1/keep): the kept weights' sum before the forward's 1/keep
+    for (int idx = threadIdx.x; idx < own_floats<DH>(); idx += kCtaThreads) Os[idx] /= a.inv_keep;
+    __syncthreads();
+  }
+  // each row's delta as the products take dPd: dO O^T here (dO V^T), and
+  // O dO^T for the dK/dV kernel (V dO^T), each the diagonal of a 16 x 16
+  // tile of the warp's rows
+  float delta[2];
+  {
+    float x[2][4], d_kv[2];
+    score<DH, 2, false>(x, dOs, wr, Os, wr, lane);
+    diagonal(x, lane, delta);
+    score<DH, 2, false>(x, Os, wr, dOs, wr, lane);
+    diagonal(x, lane, d_kv);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = qw + g + 8 * i;
+      delta[i] *= a.inv_keep;
+      if (c0 == 0 && t == 0 && row < a.Tq) delta_out[(size_t)bh * a.Tq + row] = d_kv[i] * a.inv_keep;
+    }
+  }
+  // the warp's rows g and g + 8: lse and segment ids
+  float lse_r[2];
+  int qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + g + 8 * i;
+    lse_r[i] = row < a.Tq ? lse[(size_t)bh * a.Tq + row] : 0.f;
+    qseg[i] = (seg && row < a.Tq) ? a.q_seg[(size_t)b * a.Tq + row] : 1;
+  }
+  __syncthreads();  // every warp is done with O before the loop loads the second stage
+
+  float acc[NC / 8][4];
+  zero(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * S;
+    float* st = ring + (j % kStages) * stage_floats<DH>();
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    if (DROPOUT) keep_s[threadIdx.x] = keep_bits_q<J>(bh, qw + g, k0, lane, a);
+    cp_async_wait<1>();
+    __syncthreads();
+    split_stage<DH>(st);
+    __syncthreads();
+    const float *Kp = st, *Vp = st + TS;
+    const int* kvseg = kvseg_s + (j % kStages) * S;
+    // a warp whose rows are all before the tile's first key (causal), or past
+    // the end, has nothing in it
+    if (qw < a.Tq && !(a.causal && k0 > qw + 15)) {
+      float s[J][4], dp[J][4];
+      score<DH, J>(s, Qs, wr, Kp, 0, lane);
+      const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
+      if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S)) {
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jj][e] = expf(s[jj][e] * a.scale - lse_r[e >> 1]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = 8 * jj + 2 * t + (e & 1);
+            const int row = qw + g + 8 * i, col = k0 + c;
+            const bool in_bounds = row < a.Tq && col < a.Tk;
+            const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, col) &&
+                                 (!seg || qseg[i] == kvseg[c]);
+            s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_r[i], a.scale,
+                              inv_t);
+          }
+      }
+      score<DH, J>(dp, dOs, wr, Vp, 0, lane);
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[jj][e] = tc::grad_ds<DROPOUT>(s[jj][e], dp[jj][e], delta[e >> 1],
+                                           (keep >> (4 * jj + e)) & 1u, a);
+      stage_tile<S>(W, dp, lane);  // dS * scale
+      __syncwarp();
+      accumulate<DH, NC, J, S>(acc, W, Kp, 0, c0, lane);
+      __syncwarp();
+    }
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+  }
+  store_rows<NC>(dq + q_base, acc, qw, c0, a.Tq, D, lane);
+}
+
+// -- the dK/dV kernel ---------------------------------------------------------
+
+template <int DH, bool FLASH, bool DROPOUT>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, AttnArgs a, int B) {
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>();
+  constexpr int NC = DH / col_split<DH>();  // output columns a warp
+  constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // the CTA's keys
+  float* Vs = Ks + own_floats<DH>();
+  float* ring = Vs + own_floats<DH>();  // per stage: Q, then dO, each in pairs
+  float* lse_s = ring + kStages * stage_floats<DH>();  // kStages x S each
+  float* delta_s = lse_s + kStages * S;
+  int* qseg_s = reinterpret_cast<int*>(delta_s + kStages * S);
+  uint32_t* keep_words = reinterpret_cast<uint32_t*>(qseg_s + kStages * S);
+  volatile uint32_t* keep_s = keep_words;
+  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x kPassQ a warp
+
+  int kt, bhi;
+  cta_tile((a.Tk + R - 1) / R, a.H * B, a.causal, false, kt, bhi);
+  const int h = bhi % a.H, b = bhi / a.H;
+  const int k0 = kt * R;
+  const uint32_t bh = (uint32_t)bhi;
+  const int D = row_stride<FLASH, DH>(a.H);
+  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  const bool seg = FLASH && a.q_seg != nullptr;
+  // the key lengths do not depend on the query tile; the causal start does
+  const KeyRange keys = key_range<FLASH>(a, b, 0);
+  // a key at or past kv_lengths[b] > 0 gets zero gradient
+  const bool any_key = keys.uniform || k0 < keys.len;
+  const int q_begin = a.causal ? k0 : 0;  // earlier queries see none of these keys
+  const int n_tiles = (any_key && q_begin < a.Tq) ? (a.Tq - q_begin + S - 1) / S : 0;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % (R / 16));  // the warp's first key in the tile
+  const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int kw = k0 + wr;                 // its first key
+  const bool my_keys = kw < a.Tk && (keys.uniform || kw < keys.len);
+  float* W = Ws + warp * 16 * kPassQ;
+  const float inv_t = 1.f / (float)a.Tk;
+  int kvseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + g + 8 * i;
+    kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
+  }
+
+  auto issue = [&](int i) {  // f32 rows into each tile's second half
+    const int stage = i % kStages, q0 = q_begin + i * S;
+    float* st = ring + stage * stage_floats<DH>();
+    load_tile_async<DH, false>(st + S * DH, q + q_base, q0, S, a.Tq, D);
+    load_tile_async<DH, false>(st + TS + S * DH, dout + q_base, q0, S, a.Tq, D);
+    load_vec_async(lse_s + stage * S, lse + (size_t)bh * a.Tq, q0, S, a.Tq);
+    load_vec_async(delta_s + stage * S, delta + (size_t)bh * a.Tq, q0, S, a.Tq);
+    if (seg) load_vec_async(qseg_s + stage * S, a.q_seg + (size_t)b * a.Tq, q0, S, a.Tq);
+  };
+
+  float acc_dk[NC / 8][4], acc_dv[NC / 8][4];
+  zero(acc_dk);
+  zero(acc_dv);
+  if (n_tiles > 0) {
+    load_tile_async<DH, true>(Ks, k + kv_base, k0, R, a.Tk, D);
+    load_tile_async<DH, true>(Vs, v + kv_base, k0, R, a.Tk, D);
+    issue(0);
+  }
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int q0 = q_begin + i * S, stage = i % kStages;
+    float* st = ring + stage * stage_floats<DH>();
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+    if (DROPOUT) keep_s[threadIdx.x] = keep_bits_kv<S / 8>(bh, q0, kw + (g & ~3), lane, a);
+    cp_async_wait<1>();
+    __syncthreads();
+    split_stage<DH>(st);
+    __syncthreads();
+    const float *Qp = st, *dOp = st + TS;
+    const float* lse_t = lse_s + stage * S;
+    const float* delta_t = delta_s + stage * S;
+    const int* qseg = qseg_s + stage * S;
+    const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;  // bit 4 j + 2 i + e
+
+#pragma unroll 1
+    for (int pass = 0; pass < S / kPassQ; ++pass) {
+      const int qs = pass * kPassQ;  // the pass's first query in the tile
+      // a pass whose queries all come before the warp's first key (causal)
+      // sees none of its keys
+      if (!my_keys || (a.causal && q0 + qs + kPassQ - 1 < kw)) continue;
+      const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
+      // transposed tiles: rows the warp's keys, columns the pass's queries
+      float s[kPassJ][4], dp[kPassJ][4];
+      score<DH, kPassJ>(s, Ks, wr, Qp, qs, lane);
+      if (block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16)) {
+#pragma unroll
+        for (int jj = 0; jj < kPassJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[jj][e] = expf(s[jj][e] * a.scale - lse_t[qs + 8 * jj + 2 * t + (e & 1)]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < kPassJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i2 = e >> 1, qc = qs + 8 * jj + 2 * t + (e & 1);
+            const int row = q0 + qc, key = kw + g + 8 * i2;
+            const bool in_bounds = row < a.Tq && key < a.Tk;
+            const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, key) &&
+                                 (!seg || qseg[qc] == kvseg[i2]);
+            s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_t[qc], a.scale,
+                              inv_t);
+          }
+      }
+      // dV += Pd^T dO, Pd the weights through the dropout flags
+      if (DROPOUT) {
+        float pd[kPassJ][4];
+#pragma unroll
+        for (int jj = 0; jj < kPassJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            pd[jj][e] = ((kp >> (4 * jj + e)) & 1u) ? s[jj][e] * a.inv_keep : 0.f;
+        stage_tile<kPassQ>(W, pd, lane);
+      } else {
+        stage_tile<kPassQ>(W, s, lane);
+      }
+      __syncwarp();
+      accumulate<DH, NC, kPassJ, kPassQ>(acc_dv, W, dOp, qs, c0, lane);
+      score<DH, kPassJ>(dp, Vs, wr, dOp, qs, lane);
+#pragma unroll
+      for (int jj = 0; jj < kPassJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[jj][e] = tc::grad_ds<DROPOUT>(s[jj][e], dp[jj][e],
+                                           delta_t[qs + 8 * jj + 2 * t + (e & 1)],
+                                           (kp >> (4 * jj + e)) & 1u, a);
+      __syncwarp();  // every lane is done with Pd before dS takes its place
+      stage_tile<kPassQ>(W, dp, lane);  // dS * scale
+      __syncwarp();
+      // dK += (dS * scale)^T Q
+      accumulate<DH, NC, kPassJ, kPassQ>(acc_dk, W, Qp, qs, c0, lane);
+      __syncwarp();
+    }
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+  }
+  store_rows<NC>(dk + kv_base, acc_dk, kw, c0, a.Tk, D, lane);
+  store_rows<NC>(dv + kv_base, acc_dv, kw, c0, a.Tk, D, lane);
+}
+
+// -- launch -------------------------------------------------------------------
+
+// the dQ kernel, then the dK/dV kernel; `delta` (B, H, Tq) f32 carries each
+// row's delta from the first to the second
+template <int DH, bool FLASH, bool DROPOUT>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, const AttnArgs& a, cudaStream_t stream) {
+  if (delta == nullptr) return cudaErrorInvalidValue;
+  constexpr size_t smem_dq = smem_bytes<DH>(stream_rows<DH>()), smem_dkdv = smem_bytes<DH>(kPassQ);
+  constexpr int R = owned_rows<DH>();
+  static bool configured_dq = false, configured_dkdv = false;
+  cudaError_t err = tc::allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem_dq, configured_dq);
+  if (err == cudaSuccess)
+    err = tc::allow_smem(bwd_dkdv_kernel<DH, FLASH, DROPOUT>, smem_dkdv, configured_dkdv);
+  if (err != cudaSuccess) return err;
+  const long long heads = (long long)a.H * B;
+  const long long ctas_dq = (long long)((a.Tq + R - 1) / R) * heads;
+  const long long ctas_dkdv = (long long)((a.Tk + R - 1) / R) * heads;
+  if (ctas_dq > 0x7fffffffLL || ctas_dkdv > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(dout);
+  bwd_dq_kernel<DH, FLASH, DROPOUT><<<(unsigned)ctas_dq, kCtaThreads, smem_dq, stream>>>(
+      fq, fk, fv, static_cast<const float*>(o), fdo, lse, delta, static_cast<float*>(dq), a, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_kernel<DH, FLASH, DROPOUT><<<(unsigned)ctas_dkdv, kCtaThreads, smem_dkdv, stream>>>(
+      fq, fk, fv, fdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), a, B);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+}  // namespace kokoro_attn

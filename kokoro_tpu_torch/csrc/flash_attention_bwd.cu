@@ -8,7 +8,8 @@
 // contiguous, f32 or bf16, Dh in {64, 128}, the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
-// kernels are attention_kernels.cuh's dQ and dK/dV kernels with the flash
+// kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
+// of attention_tc.cuh (bf16) and attention_tf32.cuh (f32) with the flash
 // mask policy: the library's recompute, p = exp(s - lse) from the saved
 // statistics and di = rowsum(dO * O).  A row with no visible key has
 // lse = +inf, so its p, and everything it contributes, is 0.  The library
@@ -20,8 +21,11 @@
 // dQ, dK, dV (8 * B*H*T*Dh elements: 138 MB in bf16 at B=12, T=1408, H=8,
 // Dh=64, about 41 us at 3.35 TB/s) and does 10 * Dh operations per visible
 // (query, key) pair (61 GFLOP causal at that shape: 62 us at the bf16
-// tensor-core peak the bf16 kernels run on, 0.91 ms at the 67 TFLOP/s f32 FMA
-// rate of the f32 kernels on the CUDA cores).
+// tensor-core peak the bf16 kernels run on; 0.370 ms at the 165 TFLOP/s of
+// f32-accurate work the f32 kernels get from the TF32 tensor cores in three
+// products, where the CUDA cores' 67 TFLOP/s f32 FMA rate would give 0.91
+// ms).  Shared memory: bf16 82 / 164 KB a CTA (Dh 64 / 128), f32 226.5 (dQ)
+// and 210.5 (dK/dV) / 209.75 KB (attention_tf32.cuh).
 
 #include "attention_kernels.cuh"
 
@@ -29,8 +33,8 @@ using namespace kokoro_attn;
 
 // Gradients of kokoro_flash_attention_fwd.  o and lse are the forward's
 // outputs for the same q, k, v, segment ids, scale and causal flag.  delta: a
-// (B, H, Tq) f32 workspace the bf16 kernels pass each row's di through (NULL
-// for float32).  dtype: 0 = float32, 1 = bfloat16.  Launches the dQ kernel,
+// (B, H, Tq) f32 workspace the dQ kernel passes each row's di through to the
+// dK/dV kernel.  dtype: 0 = float32, 1 = bfloat16.  Launches the dQ kernel,
 // then the dK/dV kernel, on `stream`; does not synchronise.  Returns a
 // cudaError_t (0 on success).
 extern "C" int kokoro_flash_attention_bwd(const void* q, const void* k, const void* v,

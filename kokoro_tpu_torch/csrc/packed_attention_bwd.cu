@@ -6,8 +6,9 @@
 // view, with the same attention-weight dropout mask as the forward.  Inputs
 // q, k, v, o, dO of shape (B, T, H*Dh), f32 or bf16, Dh in {64, 128}, any
 // T >= 1, and the forward's f32 row log-sum-exp (B, H, T); outputs dQ, dK, dV
-// of the inputs' shape and type.  The kernels are attention_kernels.cuh's dQ
-// and dK/dV kernels with the packed mask policy: exactly the reference's
+// of the inputs' shape and type.  The kernels (dispatched by
+// attention_kernels.cuh) are the dQ and dK/dV kernels of attention_tc.cuh
+// (bf16) and attention_tf32.cuh (f32) with the packed mask policy: exactly the reference's
 // recompute (p from the -1e9-masked logits, pd and dp through the dropout
 // mask), each row's delta the f32 sum of p * dp taken as rowsum(dO * O) on
 // the f32 O: the f32 kernels' O, and for bf16 the bf16 O plus the forward's
@@ -15,13 +16,19 @@
 //
 // What bounds it on an H100: it reads q, k, v, o, dO and writes dQ, dK, dV
 // (8 * B*T*H*Dh elements: 134 MB in bf16 at B=32, T=512, H=8, Dh=64, about
-// 40 us at 3.35 TB/s) and does 10 * Dh operations per visible (query, key)
-// pair (21.5 GFLOP causal at that shape: 22 us at the bf16 tensor-core peak
-// the bf16 kernels run on, 0.32 ms at the 67 TFLOP/s f32 FMA rate of the f32
-// kernels on the CUDA cores).  The bf16 kernels are warp-specialised
+// 40 us at 3.35 TB/s; 268 MB in f32, 80 us) and does 10 * Dh operations per
+// visible (query, key) pair (21.5 GFLOP causal at that shape: 22 us at the
+// bf16 tensor-core peak the bf16 kernels run on; 0.130 ms at the 165
+// TFLOP/s of f32-accurate work the f32 kernels get from the TF32 tensor
+// cores in three products, where the CUDA cores' 67 TFLOP/s f32 FMA rate
+// would give 0.32 ms).  The bf16 kernels are warp-specialised
 // (attention_tc.cuh): 128 owned rows a CTA, the streamed tiles through a
-// three-stage ring, each key tile streamed once.  Shared memory: bf16 82 KB
-// (Dh 64) / 164 KB (Dh 128) a CTA, f32 dK/dV 109 / 175 KB.
+// three-stage ring, each key tile streamed once.  The f32 kernels
+// (attention_tf32.cuh) are 3xTF32 mma.sync products, 128 owned rows a CTA
+// of eight warps at Dh 64 (64 at Dh 128), the streamed tiles through a
+// two-stage cp.async ring, split once into TF32 pairs.  Shared memory: bf16
+// 82 KB (Dh 64) / 164 KB (Dh 128) a CTA, f32 226.5 (dQ) and 210.5 (dK/dV)
+// KB / 209.75 KB.
 
 #include "attention_kernels.cuh"
 
@@ -30,8 +37,8 @@ using namespace kokoro_attn;
 // Gradients of kokoro_packed_attention_fwd.  o, res and lse are the forward's
 // outputs for the same q, k, v, kv_lengths, scale, causal, dropout, threshold,
 // inv_keep and seed (res: bf16 only, NULL for float32).  delta: a (B, H, T)
-// f32 workspace the bf16 kernels pass each row's delta through (NULL for
-// float32).  dtype: 0 = float32, 1 = bfloat16.  Launches the dQ kernel, then the dK/dV kernel, on `stream`; does
+// f32 workspace the dQ kernel passes each row's delta through to the dK/dV
+// kernel.  dtype: 0 = float32, 1 = bfloat16.  Launches the dQ kernel, then the dK/dV kernel, on `stream`; does
 // not synchronise.  Returns a cudaError_t (0 on success).
 extern "C" int kokoro_packed_attention_bwd(const void* q, const void* k, const void* v,
                                            const void* o, const void* res, const void* dout,

@@ -248,13 +248,13 @@ class FlashAttentionBwdKernel:
 
         lib = kernels.load("flash_attention_bwd")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # the bf16 kernels' workspace: each row's di, from dQ to dK/dV
-        delta = None if q.dtype == torch.float32 else torch.empty_like(lse)
+        # the kernels' workspace: each row's di, from dQ to dK/dV
+        delta = torch.empty_like(lse)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = lib.kokoro_flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), _ptr(delta), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _ptr(q_seg), _ptr(kv_seg), B, H, Tq, k.shape[2], Dh,
                 ctypes.c_float(float(scale)), int(causal),
                 0 if q.dtype == torch.float32 else 1, stream,

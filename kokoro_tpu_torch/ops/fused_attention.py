@@ -297,14 +297,14 @@ class PackedAttentionBwdKernel:
 
         lib = kernels.load("packed_attention_bwd")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # the bf16 kernels' workspace: each row's delta, from dQ to dK/dV
-        delta = None if q.dtype == torch.float32 else torch.empty_like(lse)
+        # the kernels' workspace: each row's delta, from dQ to dK/dV
+        delta = torch.empty_like(lse)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = lib.kokoro_packed_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 None if residual is None else residual.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), None if delta is None else delta.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lens_ptr,
                 B, T, num_heads, D // num_heads, ctypes.c_float(float(scale)),
                 int(self.causal), 0 if q.dtype == torch.float32 else 1,

@@ -70,7 +70,7 @@ def test_port_files_exist():
         assert required in names
     for source in ("packed_attention.cu", "packed_attention_bwd.cu", "flash_attention.cu",
                    "flash_attention_bwd.cu", "attention_common.cuh", "attention_kernels.cuh",
-                   "aligner.cpp"):
+                   "attention_tc.cuh", "attention_tf32.cuh", "aligner.cpp"):
         assert (ROOT / "kokoro_tpu_torch" / "csrc" / source).is_file(), source
 
 

@@ -465,3 +465,88 @@ def test_bf16_forward_persistent_ctas_take_many_items(cuda, policy):
     out = kern()[0]
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), plain().float(), rtol=TOL[BF16], atol=TOL[BF16])
+
+
+# -- the f32 backward on the tensor cores in 3xTF32 (csrc/attention_tf32.cuh)
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "kvlen"])
+def test_f32_dh128_backward_at_ragged_t(cuda, causal, rate):
+    """Dh = 128 at T = 1433, kv lengths [T, 1, 0, T - 37] (or causal), at
+    rates 0 and 0.2: the packed backward against its plain version under the
+    same mask, to the f32 gradient tolerance."""
+    B, T, H, Dh = 4, 1433, 2, 128
+    q, k, v = _qkv(B, T, H, Dh, F32, cuda, seed=41)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(41)).to(cuda, F32)
+    lens = torch.tensor([T, 1, 0, T - 37], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if causal else lens,
+              dropout_rate=rate, seed=29 if rate else None)
+    fwd, bwd = ((port.packed_attention_causal, port.packed_attention_bwd_causal) if causal
+                else (port.packed_attention_kvlen, port.packed_attention_bwd_kvlen))
+    grads = _packed_grads(q, k, v, do, fwd, bwd, **kw)
+    torch.cuda.synchronize()
+    ref = port.packed_attention_bwd_reference(q, k, v, do, causal=causal, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
+
+
+def test_f32_flash_row_without_visible_key(cuda):
+    """K4 in f32 with segment ids where the first queries of batch 1 see
+    only keys of another segment: those rows get zero dQ, and every gradient
+    matches the plain version."""
+    B, H, T, Dh = 2, 2, 200, 64
+    g = torch.Generator().manual_seed(9)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, F32) for _ in range(4))
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    kv_seg = q_seg.clone()
+    kv_seg[1, :70] = 0  # queries 0..69 of batch 1 (segment 1) see no key
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq[1, :, :70], torch.zeros_like(dq[1, :, :70]))
+    for name, a, b in zip("qkv", flash.flash_attention_bwd_reference(q, k, v, o, do, **kw),
+                          (dq, dk, dv)):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
+
+
+def _f32_backward_case(policy, device):
+    """A backward call of ``policy`` (causal, kvlen at rate 0.2, flash with
+    segment ids) on fixed f32 inputs, as a function of no arguments."""
+    B, H, T, Dh = 4, 2, 433, 64
+    g = torch.Generator().manual_seed(43)
+    if policy == "flash":
+        q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(device, F32) for _ in range(4))
+        q_seg = torch.ones(B, T, dtype=torch.int32, device=device)
+        q_seg[:, T // 3:] = 2
+        kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=q_seg.clone())
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        return lambda: flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    q, k, v, do = (torch.randn(B, T, H * Dh, generator=g).to(device, F32) for _ in range(4))
+    causal = policy == "causal"
+    lens = torch.tensor([T, 1, 0, T - 37], dtype=torch.int32, device=device)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if causal else lens,
+              dropout_rate=0.0 if causal else 0.2, seed=None if causal else 3)
+    fwd, bwd = ((port.packed_attention_causal, port.packed_attention_bwd_causal) if causal
+                else (port.packed_attention_kvlen, port.packed_attention_bwd_kvlen))
+    o, lse, res = fwd(q, k, v, for_backward=True, **kw)
+    return lambda: bwd(q, k, v, o, do, lse, res, **kw)
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+def test_f32_backward_is_bitwise_deterministic_whatever_allow_tf32(cuda, policy):
+    """Two calls give the same dQ, dK and dV bit for bit, and so does a call
+    with ``torch.backends.cuda.matmul.allow_tf32`` on: the 3xTF32 kernels do
+    not read the flag."""
+    call = _f32_backward_case(policy, cuda)
+    first, second = call(), call()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        third = call()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    for name, a, b, c in zip("qkv", first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c), f"d{name}"
