@@ -11,17 +11,21 @@ Phases, each printing one JSON line:
    every CUDA kernel from ``kokoro_tpu_torch/csrc/``, one ``nvcc`` per source,
    all started together; ptxas's registers and spills per kernel and the
    kernels whose ``wgmma`` it serialises, and a failure if a tensor-core
-   kernel (the bf16 ``csrc/attention_tc.cuh``, the f32 backward's 3xTF32
-   ``csrc/attention_tf32.cuh``, whose registers it prints by kernel) spills
-   or has its ``wgmma`` serialised; and the host-side C++ duration aligner
-   (``csrc/aligner.cpp``, ``g++``).
+   kernel (the bf16 ``csrc/attention_tc.cuh``, the f32 forward's and
+   backward's 3xTF32 ``csrc/attention_tf32.cuh``, whose registers it prints
+   by kernel) spills or has its ``wgmma`` serialised; and the host-side C++
+   duration aligner (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
-   reference's own forward tolerances; then kernel_times at the decoder's
-   shape B=32, T=512, H=8, Dh=64: each kernel (forward and backward, rates 0
-   and 0.1), its plain version, one PyTorch library call (SDPA forward; for a
-   backward, SDPA forward+backward through autograd minus its forward; timed
-   as a yardstick only, the port never calls it), the bound, the achieved
+   reference's own forward tolerances; each f32 forward (K1 and K2 at rates 0
+   and 0.1, K3, K4 with and without segment ids; Dh 64 and 128, ragged T)
+   called twice, and once more with ``torch.backends.cuda.matmul.allow_tf32``
+   on: O and lse bit for bit equal, or the phase fails; then kernel_times at
+   the decoder's shape B=32, T=512, H=8, Dh=64: each kernel (forward and
+   backward, rates 0 and 0.1), its plain version, one PyTorch library call
+   (SDPA forward; for a backward, SDPA forward+backward through autograd
+   minus its forward; timed as a yardstick only, the port never calls it),
+   the bound, the achieved
    TFLOP/s and the share of the bound; a forward row also at rate 0.1 without
    and under grad (what the training step runs) beside SDPA's forward at
    ``dropout_p=0.1`` (its own mask: a yardstick only).  Kernels and library calls are timed
@@ -264,10 +268,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # dense bf16 tensor-core rate; f32-accurate work on the TF32 tensor cores
-# (495e12) in three products (3xTF32, csrc/attention_tf32.cuh), the least
-# any f32 kernel could take.  The CUDA cores' f32 FMA rate, 67e12, is the
-# ceiling of a kernel that stays off the tensor cores (the scalar f32
-# forward): its time against this bound reads at most 67/165 = 0.41.
+# (495e12) in three products (3xTF32, csrc/attention_tf32.cuh, both
+# directions), the least any f32 kernel could take.  The CUDA cores' f32 FMA
+# rate, 67e12, would be the ceiling of a kernel that stayed off the tensor
+# cores: its time against this bound could read at most 67/165 = 0.41.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # docs/attention_numerics_tpu.json
@@ -532,7 +536,7 @@ def phase_device():
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
-          "tf32_backward_registers": tf32_regs, "tf32_matmul": False, "tf32_cudnn": False})
+          "tf32_registers": tf32_regs, "tf32_matmul": False, "tf32_cudnn": False})
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -543,7 +547,8 @@ def phase_device():
 
 
 # the mangled namespaces of the tensor-core kernels: the bf16 templates
-# (csrc/attention_tc.cuh) and the f32 backward in 3xTF32 (csrc/attention_tf32.cuh)
+# (csrc/attention_tc.cuh) and the f32 forward and backward in 3xTF32
+# (csrc/attention_tf32.cuh)
 TF32_NAMESPACE = "kokoro_attn4tf32"
 TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE)
 
@@ -614,6 +619,7 @@ def phase_kernels():
                     raise AssertionError(f"kernel disagrees with plain version: {sweep[-1]}")
     emit({"phase": "kernels", "checks": len(sweep),
           "shapes": "H=8; B=4 Dh{64,128} T{128,432,512,848,896}; B=16 T=512 Dh=64",
+          "f32_forward_repeats": f32_forward_repeats(gen),
           "tolerance": TOL, "max_abs_err": {
               f"{r['kernel']}/{r['dtype']}": max(s["max_abs_err"] for s in sweep
                                                  if s["kernel"] == r["kernel"] and s["dtype"] == r["dtype"])
@@ -656,6 +662,59 @@ def phase_kernels():
     emit({"phase": "kernel_times", "shape": "B=32 T=512 H=8 Dh=64",
           "kv_lengths": "512 - 8*b", "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
     return timings
+
+
+def f32_forward_repeats(gen) -> dict:
+    """Each f32 forward (K1 and K2 at rates 0 and ``RATE``, K3, K4 with and
+    without segment ids; Dh 64 and 128, ragged T) called twice with
+    ``torch.backends.cuda.matmul.allow_tf32`` off and once with it on: O and
+    lse bit for bit equal across the three, since the 3xTF32 kernels do not
+    read the flag.  Raises at the first call that differs."""
+    import torch
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    B, T, H = 4, 433, 8
+    calls = {}
+    for Dh in (64, 128):
+        q, k, v = (torch.randn(B, T, H * Dh, generator=gen).to(dev) for _ in range(3))
+        lens = torch.tensor([T, T - 37, T // 2, 1], dtype=torch.int32, device=dev)
+        for kern in fa.FWD_KERNELS:
+            for rate in (0.0, RATE):
+                kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if kern.causal else lens,
+                          dropout_rate=rate, seed=77 if rate else None)
+                calls[f"{kern.name}/Dh={Dh}/rate={rate}"] = (
+                    lambda kern=kern, kw=kw, x=(q, k, v): kern(*x, for_backward=True, **kw)[:2])
+        folded = tuple(x.view(B, T, H, Dh).transpose(1, 2).reshape(B * H, T, Dh).contiguous()
+                       for x in (q, k, v))
+        calls[f"folded_attention_fwd/Dh={Dh}/rate={RATE}"] = (
+            lambda x=folded, Dh=Dh: fa.folded_attention_fwd(
+                *x, num_heads=1, scale=Dh ** -0.5, dropout_rate=RATE, seed=78,
+                for_backward=True)[:2])
+        qh, kh, vh = (torch.randn(2, H, 1433, Dh, generator=gen).to(dev) for _ in range(3))
+        seg = torch.ones(2, 1433, dtype=torch.int32, device=dev)
+        seg[:, 900:] = 2
+        for segs in ((None, None), (seg, seg.clone())):
+            name = f"flash_attention_fwd/Dh={Dh}/segments={segs[0] is not None}"
+            calls[name] = (lambda x=(qh, kh, vh), segs=segs, Dh=Dh: fl.flash_attention_fwd(
+                *x, causal=True, scale=Dh ** -0.5, q_seg=segs[0], kv_seg=segs[1],
+                return_lse=True))
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            third = call()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("o", "lse"), first, second, third):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"f32 forward {name}: {what} differs between calls "
+                                     "(two with allow_tf32 off, one with it on)")
+    return {"cases": sorted(calls), "two_calls_bitwise_equal": True,
+            "independent_of_allow_tf32": True}
 
 
 def backward_times(B, T, H, Dh, dtype, lens, lens_list, qkv):

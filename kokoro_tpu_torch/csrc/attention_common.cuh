@@ -1,9 +1,9 @@
 // Helpers of the attention kernels (attention_kernels.cuh, attention_tc.cuh,
-// attention_tf32.cuh): 64 x 64 tiles; for the scalar f32 forward 256 threads
-// as a 16 x 16 grid and loads of rows D elements apart (the packed
-// (B, T, H*Dh) layout, or head-first (B, H, T, Dh) with D = Dh) into f32
-// shared memory; the counter-based dropout mask of the packed kernels; the
-// arguments, layouts and mask tests the kernel families share.
+// attention_tf32.cuh): 64 x 64 tiles, bf16 loads widened to f32, the
+// counter-based dropout mask of the packed kernels, and the arguments,
+// layouts (rows D elements apart: the packed (B, T, H*Dh) layout, or
+// head-first (B, H, T, Dh) with D = Dh) and mask tests the kernel families
+// share.
 //
 // Dropout: the TPU kernels draw attention-weight dropout from the TPU core's
 // hardware PRNG (kokoro_tpu/ops/fused_attention.py::_dropout_mask), whose
@@ -28,17 +28,12 @@ namespace kokoro_attn {
 
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // key columns per tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each 4 rows x 4 columns of a tile
 constexpr float kMasked = -1e9f;  // the packed kernels' masked logit (reference: -1e9)
 // the flash kernels' mask value, ADDED to a masked logit (the library's
 // DEFAULT_MASK_VALUE)
 constexpr float kFlashMask = -0.7f * FLT_MAX;
 
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-
+// 8 bf16 values (16 bytes) widened to f32
 __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
   const uint4 raw = *reinterpret_cast<const uint4*>(src);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -47,68 +42,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
     const float2 f = __bfloat1622float2(h[i]);
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// a value rounded to the input type (the reference's casts of P and dS): the
-// identity for the f32 kernels; the bf16 kernels round where the values
-// become tensor-core operands (attention_tc.cuh, to_a_operand)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-
-// rows [row0, row0 + 64) of one head -> shared memory as f32, row stride
-// STRIDE; rows at or past row_end are zero.
-template <typename T, int DH, int STRIDE>
-__device__ __forceinline__ void load_tile(float* dst, const T* head, int row0,
-                                          int row_end, int D) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = DH / V;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * V;
-    float vals[V];
-    if (row0 + r < row_end) {
-      load16(head + (size_t)(row0 + r) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; i += 4) store4(dst + r * STRIDE + c + i, vals + i);
-  }
-}
-
-// s[i][j] = sum_d A[ty*4 + i][d] * B[tx + 16 j][d] over two 64-row tiles in
-// shared memory (row strides AS, BS; padded so the float4 reads are
-// conflict-free).
-template <int DH, int AS, int BS>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty,
-                                         int tx, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * AS + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * BS + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
   }
 }
 
@@ -129,25 +62,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
   return ctr;
 }
 
-// Keep flags of the 64 x 64 tile (rows row0.., columns col0..; col0 a
-// multiple of 4) into shared bytes keep[r * 64 + c]: 1024 Philox calls shared
-// by the f32 forward's kThreads threads (the tensor-core kernels draw the
-// same flags in registers: attention_tc.cuh, keep_bits_q and keep_bits_kv).
-__device__ __forceinline__ void dropout_tile(uint8_t* keep, uint32_t bh, int row0,
-                                             int col0, uint32_t threshold,
-                                             uint32_t k0, uint32_t k1) {
-  for (int idx = threadIdx.x; idx < 64 * 16; idx += kThreads) {
-    const int r = idx / 16, g = idx % 16;
-    const uint4 bits = philox4x32_10(
-        make_uint4(bh, (uint32_t)(row0 + r), (uint32_t)(col0 / 4 + g), 0u), k0, k1);
-    const uchar4 flags = make_uchar4(bits.x < threshold, bits.y < threshold,
-                                     bits.z < threshold, bits.w < threshold);
-    *reinterpret_cast<uchar4*>(keep + r * 64 + 4 * g) = flags;
-  }
-}
-
-
-// -- what both kernel families share (attention_kernels.cuh, attention_tc.cuh)
+// -- what the kernel families share (attention_tc.cuh, attention_tf32.cuh)
 
 // what a kernel needs besides the tensors
 struct AttnArgs {
@@ -171,16 +86,6 @@ __device__ __forceinline__ size_t head_offset(int b, int h, int H, int T) {
 template <bool FLASH, int DH>
 __device__ __forceinline__ int row_stride(int H) {
   return FLASH ? DH : H * DH;
-}
-
-// segment ids of positions [p0, p0 + 64) of row b -> shared memory (1 past
-// the end, as for a missing side)
-__device__ __forceinline__ void load_segments(int* dst, const int* seg, int b, int p0,
-                                              int len) {
-  if (threadIdx.x < 64) {
-    const int pos = p0 + threadIdx.x;
-    dst[threadIdx.x] = pos < len ? seg[(size_t)b * len + pos] : 1;
-  }
 }
 
 // The keys a CTA of query tile q0 visits end at kv_end; keys at col >= len

@@ -68,7 +68,7 @@
 // before dS is formed, and issues the last output product without waiting on
 // it.  The dropout flags come from Philox in registers (keep_bits_q,
 // keep_bits_kv: one call per four flags, shared between the lanes whose
-// fragments hold them by shuffles), the same counter as dropout_tile.  Each
+// fragments hold them by shuffles; attention_common.cuh's counter).  Each
 // query row's delta (the row term of dS = P (dP - delta)) is the dQ
 // kernel's, which writes it for the dK/dV kernel: the packed policy's is
 // rowsum(dO * (O + residual)) in f32, which is O32 to f32 rounding

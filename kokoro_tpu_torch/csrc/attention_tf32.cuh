@@ -1,15 +1,16 @@
-// The f32 attention backward on Hopper's tensor cores in 3xTF32 (sm_90a):
-// the dQ and dK/dV kernels of both mask policies (packed K1/K2/K3, flash
-// K4), dropout on or off, Dh 64 or 128, with the numerics contract of
-// attention_kernels.cuh.  Replaces no TPU kernel of its own: it is the f32
-// instantiation of the backward kernels that packed_attention_bwd.cu and
+// The f32 attention on Hopper's tensor cores in 3xTF32 (sm_90a): the
+// forward kernel and the backward's dQ and dK/dV kernels of both mask
+// policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128,
+// with the numerics contract of attention_kernels.cuh.  Replaces no TPU
+// kernel of its own: it is the f32 instantiation of the kernels that
+// packed_attention.cu, flash_attention.cu, packed_attention_bwd.cu and
 // flash_attention_bwd.cu launch (their notes name the TPU kernels).
 //
-// Arithmetic.  f32's contract (gradients within 1e-4,
+// Arithmetic.  f32's contract (forward within 2e-5, gradients within 1e-4,
 // docs/attention_numerics_tpu.json) is beyond one TF32 product (10-bit
-// mantissa: 7e-4 to 1e-3 off, tests/test_torch_tf32_split.py).  Each
-// operand x of the five products (S = Q K^T, dPd = dO V^T, dV += Pd^T dO,
-// dK += dS^T Q, dQ += dS K) is split into big = tf32(x) and
+// mantissa: about 1e-3 off, tests/test_torch_tf32_split.py).  Each operand
+// x of the products (forward: S = Q K^T, O += P V; backward: S, dPd = dO V^T,
+// dV += Pd^T dO, dK += dS^T Q, dQ += dS K) is split into big = tf32(x) and
 // small = tf32(x - big), both rounded to nearest with ties away (cvt.rna's
 // rounding), and each product is big.big' + big.small' + small.big' (the
 // dropped small.small' is below f32's rounding).  The tensor cores' own
@@ -18,11 +19,15 @@
 // do, and a score product so taken moved a one-key row's weight from 1,
 // against the forward's lse, far enough to show in that dV.  So every two
 // groups of 8 products go through the tensor cores into a fresh
-// accumulator, which joins its sum by an f32 add.  The softmax recompute
-// (full-precision expf) and the dropout stay on the CUDA cores.  Nothing
-// reads torch.backends.cuda.matmul.allow_tf32: the result does not depend
-// on it.
+// accumulator, which joins its sum by an f32 add.  The softmax (running max
+// and sum, full-precision expf, the rescale of O; the backward's recompute)
+// and the dropout stay on the CUDA cores.  Nothing reads
+// torch.backends.cuda.matmul.allow_tf32: the result does not depend on it.
 //
+// The forward takes S by the backward's own score, in the same fragment
+// order and grouping as the dQ kernel's recompute, so the lse it writes,
+// m + log(l) of those very bits, gives back p = exp(s * scale - lse)
+// exactly: a row's one visible key gets weight 1, as in the plain version.
 // Each row's delta, rowsum(dO * O), is taken by the same products as the
 // kernel's dPd, with the row of O in the place of a row of V (and
 // O / (1/keep), times 1/keep again, under dropout): on a row with one
@@ -33,51 +38,63 @@
 // of the product (dO V^T there, V dO^T in the dK/dV kernel) and hands the
 // second to the dK/dV kernel through the (B, H, Tq) workspace.
 //
-// Route: mma.sync.m16n8k8 (row.col, tf32 in, f32 accumulate) for all five
-// products.  wgmma takes tf32 operands from shared memory K-major only (its
-// transpose bits exist for 16-bit types), and three of the products
-// contract over the sequence, whose operand (dO, Q, K) is stored [seq][Dh].
+// Route: mma.sync.m16n8k8 (row.col, tf32 in, f32 accumulate) for every
+// product.  wgmma takes tf32 operands from shared memory K-major only (its
+// transpose bits exist for 16-bit types), and the products that contract
+// over the sequence have an operand (V, dO, Q, K) stored [seq][Dh].
 // mma.sync takes its fragments from registers, so each operand is read in
 // the pattern its product needs, with the contraction index permuted inside
 // each group of 8 (logical k = t and t + 4 are columns 2t and 2t + 1):
-//   * a streamed tile (the key/value tiles of the dQ kernel, the query/dO
-//     tiles of the dK/dV kernel) is split once by the CTA into pairs, each
-//     16-byte chunk big(c) small(c) big(c + 1) small(c + 1), so a score
-//     product's B fragment is one 16-byte read and a sequence product's
-//     (rows 2t and 2t + 1) two 8-byte reads, none split again by a warp;
-//   * an owned tile (the rows a CTA keeps: Q and dO, or K and V) stays f32;
-//     a warp reads its rows' A fragments as 8-byte pairs and splits them;
-//   * P and dS leave the score accumulators through a warp's staging tile
-//     in shared memory and come back as the sequence products' A fragments,
-//     so the loops over k stay loops (unrolled, their fragment loads took
-//     every register and spilled).
+//   * a streamed tile (the key/value tiles of the forward and the dQ
+//     kernel, the query/dO tiles of the dK/dV kernel) is split once by the
+//     CTA into pairs, each 16-byte chunk big(c) small(c) big(c + 1)
+//     small(c + 1), so a score product's B fragment is one 16-byte read and
+//     a sequence product's (rows 2t and 2t + 1) two 8-byte reads, none split
+//     again by a warp; the forward's Q is split once into pairs alike;
+//   * the backward's owned tiles (Q and dO, or K and V) stay f32; a warp
+//     reads its rows' A fragments as 8-byte pairs and splits them;
+//   * the forward's P goes from the score accumulators straight into P V:
+//     under the permuted index a C fragment's pairs are the A fragment's,
+//     so the loop over k is unrolled and nothing is staged (at Dh 64 under
+//     dropout, whose flags take registers, a tile in two steps of 32 keys:
+//     one step spilled); the backward's P and dS go through a warp's
+//     staging tile in shared memory, so its loops over k stay loops
+//     (unrolled, their fragment loads took every register and spilled).
 // Each layout swizzles its 16-byte chunks by row, so every one of these
 // reads hits 32 distinct banks.
 //
-// Structure (FlashAttention-2's split, no atomics: each gradient element is
-// summed by one thread in a fixed order, so two calls are bitwise equal): a
-// CTA is 8 warps and owns 128 rows at Dh 64 (16 a warp), 64 at Dh 128 (two
-// warps share each 16 rows, each with half of the output columns): the dQ
-// kernel query rows, the dK/dV kernel keys.  A streamed tile (64 rows at Dh
-// 64, 32 at Dh 128) arrives by cp.async through a ring of two stages, the
-// next tile's load under this tile's products.  Shared memory: 226.5 KB
-// (dQ) and 210.5 KB (dK/dV) a CTA at Dh 64, 209.75 KB at Dh 128; one CTA an
-// SM.  The dK/dV kernel takes a streamed tile in passes of 32 queries.
-// Causal grids start with their heaviest tiles, and a warp skips a
-// streamed tile none of its rows sees; the other grids keep a head's tiles
-// together.
+// Structure: a CTA is 8 warps and owns 128 rows at Dh 64 (16 a warp), 64 at
+// Dh 128 (two warps share each 16 rows, each with half of the output
+// columns): the forward's and the dQ kernel's query rows, the dK/dV
+// kernel's keys.  A streamed tile (64 rows at Dh 64, 32 at Dh 128) arrives
+// by cp.async through a ring of two stages, the next tile's load under this
+// tile's products.  The backward (FlashAttention-2's split, no atomics:
+// each gradient element is summed by one thread in a fixed order, so two
+// calls are bitwise equal) splits a stage in place, four barriers a tile;
+// its shared memory is 226.5 KB (dQ) and 210.5 KB (dK/dV) a CTA at Dh 64,
+// 209.75 KB at Dh 128.  The dK/dV kernel takes a streamed tile in passes of
+// 32 queries.  The forward lands the f32 rows in a ring apart from the
+// pairs, two barriers a tile; a row's 8J scores of a tile sit in one quad,
+// so its max and sum take two shuffles and alpha rescales the warp's O
+// accumulators in registers; 193.5 KB a CTA (Q's pairs 64 KB, the tile's K
+// and V pairs 64 KB, the ring 64 KB).  One CTA an SM.  Causal grids start
+// with their heaviest tiles, a warp skips a streamed tile none of its rows
+// sees, and a tile every pair of whose warp's rows sees skips the mask; the
+// other grids keep a head's tiles together.
 //
-// What bounds it on an H100: operations.  10 * Dh per visible pair (the
-// split recomputes S and dPd in both kernels: 14 * Dh done), each product
-// three tensor-core products: 495 / 3 = 165 TFLOP/s of f32-accurate work at
-// the TF32 peak (67 at the CUDA cores' f32 FMA rate).  mma.sync reaches
-// about 311 TFLOP/s of TF32 on an H100 (python -m
+// What bounds it on an H100: operations.  4 * Dh per visible pair forward,
+// 10 * Dh backward (the split recomputes S and dPd in both kernels: 14 * Dh
+// done), each product three tensor-core products: 495 / 3 = 165 TFLOP/s of
+// f32-accurate work at the TF32 peak (67 at the CUDA cores' f32 FMA rate).
+// mma.sync reaches about 311 TFLOP/s of TF32 on an H100 (python -m
 // kokoro_tpu_torch.scripts.probe_tf32: one product per 6.9 cycles on each
 // of an SM's four schedulers, 34 cycles of latency), so about 104 TFLOP/s
-// of f32-accurate work.  Beside the products the kernels issue fragment loads,
-// splits, register moves and f32 adds (the same script counts them in each
-// loop's SASS), and a CTA's warps wait at its barriers while a streamed
-// tile is split: PERF.md section 6 has the times.
+// of f32-accurate work.  Beside the products the kernels issue fragment
+// loads, splits, register moves and f32 adds (the same script counts them
+// in each loop's SASS); every warp reads the whole streamed tile in pairs,
+// twice f32's bytes, so shared memory's 128 bytes a clock bound a tile
+// about as tightly as the products do; and a CTA's warps wait at its
+// barriers while a streamed tile is split: PERF.md section 6 has the times.
 
 #pragma once
 
@@ -195,6 +212,20 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
 }
 
+// float4 idx of a streamed tile's f32 rows (row idx / (DH / 4), columns
+// 4 (idx % (DH / 4)) .. + 3) -> its pairs in `tile`
+template <int DH>
+__device__ __forceinline__ void store_pairs(float* tile, int idx, float4 x) {
+  const int n = idx / (DH / 4), c = 4 * (idx % (DH / 4));
+  uint4 lo, hi;
+  split(x.x, lo.x, lo.y);
+  split(x.y, lo.z, lo.w);
+  split(x.z, hi.x, hi.y);
+  split(x.w, hi.z, hi.w);
+  *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c)) = lo;
+  *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c + 2)) = hi;
+}
+
 // The two streamed tiles of a ring stage (each 2 S DH floats, its f32 rows
 // landed in its second half) split by the CTA into pairs over the whole
 // tile: every thread reads its raw values, the CTA waits, then writes.
@@ -212,17 +243,28 @@ __device__ __forceinline__ void split_stage(float* stage) {
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int i = 0; i < N4; ++i) {
-      const int idx = threadIdx.x + i * kCtaThreads, n = idx / (DH / 4), c = 4 * (idx % (DH / 4));
-      uint4 lo, hi;
-      split(x[m][i].x, lo.x, lo.y);
-      split(x[m][i].y, lo.z, lo.w);
-      split(x[m][i].z, hi.x, hi.y);
-      split(x[m][i].w, hi.z, hi.w);
-      float* tile = stage + 2 * m * S * DH;
-      *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c)) = lo;
-      *reinterpret_cast<uint4*>(tile + pair_at<DH>(n, c + 2)) = hi;
-    }
+    for (int i = 0; i < N4; ++i)
+      store_pairs<DH>(stage + 2 * m * S * DH, threadIdx.x + i * kCtaThreads, x[m][i]);
+}
+
+// N tiles of ROWS f32 rows (ROWS DH floats each, back to back from raw)
+// split by the CTA into pairs from `pairs` (2 ROWS DH floats each): the
+// forward's K and V tiles, and its query rows.  Source and destination
+// differ, so no thread waits for another between its reads and its writes.
+template <int DH, int ROWS, int N>
+__device__ __forceinline__ void split_rows(const float* raw, float* pairs) {
+  constexpr int N4 = ROWS * DH / 4 / kCtaThreads;  // float4 a thread a tile
+  float4 x[N][N4];
+#pragma unroll
+  for (int m = 0; m < N; ++m)
+#pragma unroll
+    for (int i = 0; i < N4; ++i)
+      x[m][i] = reinterpret_cast<const float4*>(raw + m * ROWS * DH)[threadIdx.x + i * kCtaThreads];
+#pragma unroll
+  for (int m = 0; m < N; ++m)
+#pragma unroll
+    for (int i = 0; i < N4; ++i)
+      store_pairs<DH>(pairs + 2 * m * ROWS * DH, threadIdx.x + i * kCtaThreads, x[m][i]);
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -252,15 +294,48 @@ __device__ __forceinline__ void a_fragment(float2 top, float2 bottom, uint32_t (
   split(bottom.y, ab[3], as[3]);
 }
 
+// The A operand of score: 16 rows of an owned tile (rows row0 + g and
+// row0 + g + 8 a thread), split at every use, as the backward takes them.
+template <int DH>
+struct OwnedRows {
+  const float* A;
+  int row0;
+  // columns 8 kg .. 8 kg + 7 (logical t, t + 4 = columns 2t, 2t + 1), split
+  __device__ __forceinline__ void fragment(int kg, int lane, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) const {
+    const int g = lane >> 2, c = 8 * kg + 2 * (lane & 3);
+    a_fragment(*reinterpret_cast<const float2*>(A + own_at<DH>(row0 + g, c)),
+               *reinterpret_cast<const float2*>(A + own_at<DH>(row0 + g + 8, c)), ab, as);
+  }
+};
+
+// The same rows split once into a pair tile (laid out as a split streamed
+// tile: the forward's Q): the A fragment is two 16-byte reads of the values
+// OwnedRows would split, so score takes the same products and gives the
+// same bits.
+template <int DH>
+struct PairRows {
+  const float* P;
+  int row0;
+  __device__ __forceinline__ void fragment(int kg, int lane, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) const {
+    const int g = lane >> 2, c = 8 * kg + 2 * (lane & 3);
+    const uint4 top = *reinterpret_cast<const uint4*>(P + pair_at<DH>(row0 + g, c));
+    const uint4 bottom = *reinterpret_cast<const uint4*>(P + pair_at<DH>(row0 + g + 8, c));
+    ab[0] = top.x, as[0] = top.y, ab[2] = top.z, as[2] = top.w;
+    ab[1] = bottom.x, as[1] = bottom.y, ab[3] = bottom.z, as[3] = bottom.w;
+  }
+};
+
 // s (16 x 8J: J tiles of 8 columns, C fragments) = A B^T over DH columns:
-// A rows a_row0.. of an owned tile (split here), B rows b_row0.. of a split
+// A a warp's 16 rows (OwnedRows or PairRows), B rows b_row0.. of a split
 // streamed tile or, with SPLIT_B false, of an owned tile split here alike.
 // The contraction index is permuted in each group of 8 (logical t, t + 4 =
 // columns 2t, 2t + 1).  Each element is the same sequence of products and
-// adds whichever tile it sits in and however B was split.
-template <int DH, int J, bool SPLIT_B = true>
-__device__ __forceinline__ void score(float (&s)[J][4], const float* A, int a_row0,
-                                      const float* B, int b_row0, int lane) {
+// adds whichever tile it sits in and however A and B were split.
+template <int DH, int J, bool SPLIT_B = true, typename Rows>
+__device__ __forceinline__ void score(float (&s)[J][4], const Rows& A, const float* B, int b_row0,
+                                      int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < J; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -271,8 +346,7 @@ __device__ __forceinline__ void score(float (&s)[J][4], const float* A, int a_ro
     for (int u = 0; u < 2; ++u) {
       const int c = 8 * (ks + u) + 2 * t;
       uint32_t ab[4], as[4];
-      a_fragment(*reinterpret_cast<const float2*>(A + own_at<DH>(a_row0 + g, c)),
-                 *reinterpret_cast<const float2*>(A + own_at<DH>(a_row0 + g + 8, c)), ab, as);
+      A.fragment(ks + u, lane, ab, as);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int n = b_row0 + 8 * j + g;
@@ -306,14 +380,41 @@ __device__ __forceinline__ void stage_tile(float* W, const float (&x)[J][4], int
   }
 }
 
+// The A operand of accumulate: a warp's 16 x 8J tile staged in W (16 rows
+// of NQ floats), split at every use.
+template <int NQ>
+struct StagedRows {
+  static constexpr int kUnroll = 1;  // accumulate's loop over k stays a loop
+  const float* W;
+  __device__ __forceinline__ void fragment(int kg, int lane, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) const {
+    const int g = lane >> 2, c = 8 * kg + 2 * (lane & 3);
+    a_fragment(*reinterpret_cast<const float2*>(W + w_at<NQ>(g, c)),
+               *reinterpret_cast<const float2*>(W + w_at<NQ>(g + 8, c)), ab, as);
+  }
+};
+
+// The same tile straight from a warp's C fragments (x[j]: rows g and
+// g + 8, columns 8j + 2t and 8j + 2t + 1): with the permuted contraction
+// index a C fragment's pairs are the A fragment's, so nothing is staged.
+template <int J>
+struct FragmentRows {
+  static constexpr int kUnroll = J / 2;  // unrolled: the fragments are registers
+  const float (&x)[J][4];
+  __device__ __forceinline__ void fragment(int kg, int, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) const {
+    a_fragment(make_float2(x[kg][0], x[kg][1]), make_float2(x[kg][2], x[kg][3]), ab, as);
+  }
+};
+
 // acc (16 x NC, C fragments of NC / 8 tiles: columns c0.. of the output)
-// += X B, X the 16 x 8J tile staged in W, B rows b_row0 .. b_row0 + 8J,
-// columns c0 .. c0 + NC of a split streamed tile.  The contraction index is
-// permuted in each group of 8 (logical t, t + 4 = columns 2t, 2t + 1), so
-// the A fragment is two pairs of W and B is read at rows 2t and 2t + 1.
-template <int DH, int NC, int J, int NQ>
-__device__ __forceinline__ void accumulate(float (&acc)[NC / 8][4], const float* W,
-                                           const float* B, int b_row0, int c0, int lane) {
+// += X B, X a warp's 16 x 8J tile (StagedRows or FragmentRows), B rows
+// b_row0 .. b_row0 + 8J, columns c0 .. c0 + NC of a split streamed tile.
+// The contraction index is permuted in each group of 8 (logical t, t + 4 =
+// columns 2t, 2t + 1), so B is read at rows 2t and 2t + 1.
+template <int DH, int NC, int J, typename Rows>
+__device__ __forceinline__ void accumulate(float (&acc)[NC / 8][4], const Rows& X, const float* B,
+                                           int b_row0, int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   // pair_at<DH>(r, c0 + 8 nt + g) for the rows r = b_row0 + 8 kk + 2t (+1):
   // r % 8 is 2t (2t + 1) whatever kk, so the address is a row's pointer, a
@@ -326,14 +427,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[NC / 8][4], const float*
   const float* odd0 = row0 + col - 16 * flip;
   const float* even1 = row0 + 2 * DH + col + 16 * (1 - flip);
   const float* odd1 = row0 + 2 * DH + col - 16 * (1 - flip);
-#pragma unroll 1
+#pragma unroll (Rows::kUnroll)
   for (int kk = 0; kk < J; kk += 2) {
     uint32_t ab[2][4], as[2][4];
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
-      a_fragment(*reinterpret_cast<const float2*>(W + w_at<NQ>(g, 8 * (kk + u) + 2 * t)),
-                 *reinterpret_cast<const float2*>(W + w_at<NQ>(g + 8, 8 * (kk + u) + 2 * t)),
-                 ab[u], as[u]);
+    for (int u = 0; u < 2; ++u) X.fragment(kk + u, lane, ab[u], as[u]);
 #pragma unroll
     for (int nt = 0; nt < NC / 8; ++nt) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
@@ -549,9 +647,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float delta[2];
   {
     float x[2][4], d_kv[2];
-    score<DH, 2, false>(x, dOs, wr, Os, wr, lane);
+    score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane);
     diagonal(x, lane, delta);
-    score<DH, 2, false>(x, Os, wr, dOs, wr, lane);
+    score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane);
     diagonal(x, lane, d_kv);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -589,7 +687,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the end, has nothing in it
     if (qw < a.Tq && !(a.causal && k0 > qw + 15)) {
       float s[J][4], dp[J][4];
-      score<DH, J>(s, Qs, wr, Kp, 0, lane);
+      score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane);
       const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
       if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S)) {
 #pragma unroll
@@ -610,7 +708,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               inv_t);
           }
       }
-      score<DH, J>(dp, dOs, wr, Vp, 0, lane);
+      score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane);
 #pragma unroll
       for (int jj = 0; jj < J; ++jj)
 #pragma unroll
@@ -619,7 +717,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                            (keep >> (4 * jj + e)) & 1u, a);
       stage_tile<S>(W, dp, lane);  // dS * scale
       __syncwarp();
-      accumulate<DH, NC, J, S>(acc, W, Kp, 0, c0, lane);
+      accumulate<DH, NC, J>(acc, StagedRows<S>{W}, Kp, 0, c0, lane);
       __syncwarp();
     }
     __syncthreads();  // every warp is done with this stage before it is loaded again
@@ -723,7 +821,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
       // transposed tiles: rows the warp's keys, columns the pass's queries
       float s[kPassJ][4], dp[kPassJ][4];
-      score<DH, kPassJ>(s, Ks, wr, Qp, qs, lane);
+      score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane);
       if (block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16)) {
 #pragma unroll
         for (int jj = 0; jj < kPassJ; ++jj)
@@ -757,8 +855,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         stage_tile<kPassQ>(W, s, lane);
       }
       __syncwarp();
-      accumulate<DH, NC, kPassJ, kPassQ>(acc_dv, W, dOp, qs, c0, lane);
-      score<DH, kPassJ>(dp, Vs, wr, dOp, qs, lane);
+      accumulate<DH, NC, kPassJ>(acc_dv, StagedRows<kPassQ>{W}, dOp, qs, c0, lane);
+      score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane);
 #pragma unroll
       for (int jj = 0; jj < kPassJ; ++jj)
 #pragma unroll
@@ -770,7 +868,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       stage_tile<kPassQ>(W, dp, lane);  // dS * scale
       __syncwarp();
       // dK += (dS * scale)^T Q
-      accumulate<DH, NC, kPassJ, kPassQ>(acc_dk, W, Qp, qs, c0, lane);
+      accumulate<DH, NC, kPassJ>(acc_dk, StagedRows<kPassQ>{W}, Qp, qs, c0, lane);
       __syncwarp();
     }
     __syncthreads();  // every warp is done with this stage before it is loaded again
@@ -779,7 +877,204 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<NC>(dv + kv_base, acc_dv, kw, c0, a.Tk, D, lane);
 }
 
+// -- the forward ----------------------------------------------------------------
+
+// the forward's shared memory: the CTA's query rows in pairs, the split K
+// and V tiles (one set), the ring of their f32 rows (K's, then V's, a
+// stage), the ring's segment ids and a word a thread (its dropout flags)
+template <int DH>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH>() +
+                          kStages * 2 * stream_rows<DH>() * DH) +
+         sizeof(int) * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads;
+}
+static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448,
+              "a CTA's shared memory");
+
+// A CTA owns R query rows (owned_rows) and streams the key/value tiles its
+// last row sees: each tile's f32 rows land by cp.async in the ring, the CTA
+// splits them once into pairs, then each warp takes S for its 16 rows by
+// score (so the bits of S, and of the lse, are the dQ kernel's), the online
+// softmax in registers (a row's values sit in one quad: its max and sum take
+// two shuffles), and O += P V.  Q is split once, into pairs read as a
+// streamed tile's.
+template <int DH, bool FLASH, bool DROPOUT>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+           AttnArgs a, int B) {
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>(), J = S / 8;
+  constexpr int NC = DH / col_split<DH>();  // output columns a warp
+  constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
+  // a key tile in steps of JS 8-key tiles: two at Dh 64 under dropout, whose
+  // flags would otherwise take the registers the unrolled P V needs
+  constexpr int STEPS = DH == 64 && DROPOUT ? 2 : 1, JS = J / STEPS;
+  extern __shared__ float4 smem4[];
+  float* Qp = reinterpret_cast<float*>(smem4);  // the CTA's query rows in pairs
+  float* Kp = Qp + 2 * own_floats<DH>();        // this tile's keys, then values, in pairs
+  float* Vp = Kp + TS;
+  float* raw = Vp + TS;  // kStages x (S rows of K, S rows of V), f32
+  int* kvseg_s = reinterpret_cast<int*>(raw + kStages * 2 * S * DH);  // kStages x S
+  volatile uint32_t* keep_s = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
+
+  int qt, bhi;
+  cta_tile((a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
+  const int h = bhi % a.H, b = bhi / a.H;
+  const int q0 = qt * R;
+  const uint32_t bh = (uint32_t)bhi;
+  const int D = row_stride<FLASH, DH>(a.H);
+  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  const bool seg = FLASH && a.q_seg != nullptr;
+  // every key tile a row of the CTA visits (its last rows see the most)
+  const KeyRange keys = key_range<FLASH>(a, b, q0 + R - kBQ);
+  const int n_tiles = (keys.kv_end + S - 1) / S;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
+  const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int qw = q0 + wr;                 // its first query
+
+  auto issue = [&](int j) {  // K's and V's f32 rows into the ring
+    float* st = raw + (j % kStages) * 2 * S * DH;
+    load_tile_async<DH, false>(st, k + kv_base, j * S, S, a.Tk, D);
+    load_tile_async<DH, false>(st + S * DH, v + kv_base, j * S, S, a.Tk, D);
+    if (seg)
+      load_vec_async(kvseg_s + (j % kStages) * S, a.kv_seg + (size_t)b * a.Tk, j * S, S, a.Tk);
+  };
+  load_tile_async<DH, false>(Kp, q + q_base, q0, R, a.Tq, D);  // Q's f32 rows, split here
+  issue(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<DH, R, 1>(Kp, Qp);  // the loop's first barriers guard Kp and publish Qp
+  const PairRows<DH> qa{Qp, wr};
+
+  // the warp's rows g and g + 8: segment ids, running max and sum
+  int qseg[2];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + g + 8 * i;
+    qseg[i] = (seg && row < a.Tq) ? a.q_seg[(size_t)b * a.Tq + row] : 1;
+  }
+
+  float acc[NC / 8][4];
+  zero(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * S;
+    if (DROPOUT) keep_s[threadIdx.x] = keep_bits_q<J>(bh, qw + g, k0, lane, a);
+    cp_async_wait<0>();
+    // tile j has landed, and every warp is done with the previous tile's pairs
+    __syncthreads();
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    split_rows<DH, S, 2>(raw + (j % kStages) * 2 * S * DH, Kp);
+    __syncthreads();
+    const int* kvseg = kvseg_s + (j % kStages) * S;
+    // a warp whose rows are all before the tile's first key (causal), or past
+    // the end, has nothing in it
+    if (qw >= a.Tq || (a.causal && k0 > qw + 15)) continue;
+    const uint32_t keep_tile = DROPOUT ? keep_s[threadIdx.x] : 0u;  // bit 4 jj + e
+#pragma unroll
+    for (int step = 0; step < STEPS; ++step) {
+      const int kb = step * JS * 8;  // the step's first key in the tile
+      const uint32_t keep = keep_tile >> (4 * JS * step);
+      float s[JS][4];
+      score<DH, JS>(s, qa, Kp, kb, lane);
+      // the logits s * scale, through the mask unless every pair is visible:
+      // packed, a masked logit is -1e9; flash, the mask value is added; a key
+      // past Tk is no key at all
+      if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0 + kb, 8 * JS)) {
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale;
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = kb + 8 * jj + 2 * t + (e & 1);
+            const int row = qw + g + 8 * i, col = k0 + c;
+            const bool visible =
+                is_visible<FLASH>(a, keys, row, col) && (!seg || qseg[i] == kvseg[c]);
+            const float x = s[jj][e] * a.scale;
+            const float masked = FLASH ? x + kFlashMask : kMasked;
+            s[jj][e] = col >= a.Tk ? -INFINITY : (visible ? x : masked);
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float tile_max = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+          tile_max = fmaxf(tile_max, fmaxf(s[jj][2 * i], s[jj][2 * i + 1]));
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+        // a visited tile's first step holds key k0 < Tk, so m_new is finite
+        const float m_new = fmaxf(m[i], tile_max);
+        alpha[i] = expf(m[i] - m_new);
+        float row_sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            const float p = expf(s[jj][e] - m_new);
+            row_sum += p;
+            // a dropped weight leaves P; the sum counts it (1/keep joins 1/l)
+            s[jj][e] = (DROPOUT && !((keep >> (4 * jj + e)) & 1u)) ? 0.f : p;
+          }
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
+        l[i] = l[i] * alpha[i] + row_sum;
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+      accumulate<DH, NC, JS>(acc, FragmentRows<JS>{s}, Vp, kb, c0, lane);
+    }
+  }
+
+  // flash: a visible logit is far above half the mask value, and a row that
+  // saw only masked keys has m at the mask value; a packed masked logit is
+  // -1e9, so every packed row counts as visible
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool any_visible = !FLASH || m[i] > 0.5f * kFlashMask;
+    inv[i] = any_visible ? (DROPOUT ? a.inv_keep : 1.f) / l[i] : 0.f;
+    const int row = qw + g + 8 * i;
+    if (lse != nullptr && c0 == 0 && t == 0 && row < a.Tq)
+      lse[(size_t)bh * a.Tq + row] = any_visible ? m[i] + logf(l[i]) : INFINITY;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] *= inv[e >> 1];
+  store_rows<NC>(o + q_base, acc, qw, c0, a.Tq, D, lane);
+}
+
 // -- launch -------------------------------------------------------------------
+
+template <int DH, bool FLASH, bool DROPOUT>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       const AttnArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<DH>();
+  constexpr int R = owned_rows<DH>();
+  static bool configured = false;
+  const cudaError_t err = tc::allow_smem(fwd_kernel<DH, FLASH, DROPOUT>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Tq + R - 1) / R) * a.H * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fwd_kernel<DH, FLASH, DROPOUT><<<(unsigned)ctas, kCtaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, a, B);
+  return cudaGetLastError();
+}
 
 // the dQ kernel, then the dK/dV kernel; `delta` (B, H, Tq) f32 carries each
 // row's delta from the first to the second

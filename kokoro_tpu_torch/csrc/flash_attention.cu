@@ -28,8 +28,10 @@
 // consumer's products, tiles below the diagonal skip the mask (with segment
 // ids every tile takes it), and the last query tiles, which see the most
 // keys, start first.  The bf16 kernel adds the mask value to the logit in
-// log2 units.  f32 runs on the CUDA cores in f32 FMA, whose 67 TFLOP/s rate
-// is its ceiling (0.36 ms here).
+// log2 units.  f32 runs on the tensor cores in 3xTF32, in the packed
+// forward's f32 template with the flash mask policy (attention_tf32.cuh):
+// its bound is 165 TFLOP/s of f32-accurate work (0.148 ms here; the CUDA
+// cores' 67 TFLOP/s f32 FMA rate would allow no less than 0.36 ms).
 
 #include "attention_kernels.cuh"
 

@@ -25,8 +25,14 @@
 // dropout flags, drawn in registers) under the previous tile's P V product
 // and the other consumer's products, and skip the mask on interior tiles;
 // the causal mask's heaviest query tiles start first, and O leaves by TMA
-// stores.  f32 runs on the CUDA cores in full f32 FMA (no TF32), whose
-// ceiling is the 67 TFLOP/s f32 rate.
+// stores.  f32 runs on the tensor cores in 3xTF32 (attention_tf32.cuh:
+// mma.sync, each operand split into two TF32 parts, three products for each
+// product, as accurate as f32 FMA; 165 TFLOP/s of f32-accurate work at the
+// TF32 peak, beyond the CUDA cores' 67 TFLOP/s f32 FMA rate): 8 warps and
+// 128 query rows a CTA at Dh 64, 64-key tiles of K and V landed by cp.async
+// and split once into TF32 pairs, S by the backward's own products, the
+// online softmax in registers, P from the score accumulators straight into
+// P V.
 
 #include "attention_kernels.cuh"
 

@@ -383,29 +383,41 @@ def test_variance_predictor_backward_is_bitwise_deterministic(cuda):
 
 
 # -- the warp-specialised forward (packed K1/K2/K3 and flash K4) -------------
-def _forward_case(policy, B, T, H, Dh, device, seed, rate=0.0):
+def _forward_case(policy, B, T, H, Dh, device, seed, rate=0.0, dtype=BF16, with_lse=False):
     """The forward kernel's wrapper and its plain version for one mask
     policy: packed causal (K1), packed kv lengths (K2: a full row, one that
     ends inside a tile, one that ends on a tile edge, and a row of length 1
     beside one of length 0 when B allows), flash causal (K4) with two
-    segments a row."""
+    segments a row.  The wrapper returns O and the lse first; the plain
+    version O, or with ``with_lse`` O and the plain row log-sum-exp."""
     g = torch.Generator().manual_seed(seed)
     if policy == "flash":
-        q, k, v = (torch.randn(B, H, T, Dh, generator=g).to(device, BF16) for _ in range(3))
+        q, k, v = (torch.randn(B, H, T, Dh, generator=g).to(device, dtype) for _ in range(3))
         seg = torch.ones(B, T, dtype=torch.int32, device=device)
         seg[:, (2 * T) // 3:] = 2
         kw = dict(causal=True, scale=Dh ** -0.5, q_seg=seg, kv_seg=seg.clone())
-        return (lambda: flash.flash_attention_fwd(q, k, v, return_lse=True, **kw),
-                lambda: flash.flash_attention_reference(q, k, v, **kw))
-    q, k, v = _qkv(B, T, H, Dh, BF16, device, seed=seed)
+
+        def plain_flash():
+            o = flash.flash_attention_reference(q, k, v, **kw)
+            if not with_lse:
+                return o
+            s, _ = flash._logits(q, k, kw["scale"], True, kw["q_seg"], kw["kv_seg"])
+            return o, torch.logsumexp(s, dim=-1)
+
+        return lambda: flash.flash_attention_fwd(q, k, v, return_lse=True, **kw), plain_flash
+    q, k, v = _qkv(B, T, H, Dh, dtype, device, seed=seed)
     edge = max(1, (T // 64) * 64)
     lens = torch.tensor([T, max(1, T - 37), edge, 1, 0][:B], dtype=torch.int32, device=device)
     causal = policy == "causal"
     kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=None if causal else lens,
               dropout_rate=rate, seed=seed if rate else None)
     kern = port.packed_attention_causal if causal else port.packed_attention_kvlen
-    return (lambda: kern(q, k, v, for_backward=True, **kw),
-            lambda: port.packed_attention_reference(q, k, v, causal=causal, **kw))
+
+    def plain_packed():
+        out = port.packed_attention_reference(q, k, v, causal=causal, for_backward=with_lse, **kw)
+        return out[:2] if with_lse else out
+
+    return lambda: kern(q, k, v, for_backward=True, **kw), plain_packed
 
 
 @pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
@@ -550,3 +562,124 @@ def test_f32_backward_is_bitwise_deterministic_whatever_allow_tf32(cuda, policy)
     torch.cuda.synchronize()
     for name, a, b, c in zip("qkv", first, second, third):
         assert torch.equal(a, b) and torch.equal(a, c), f"d{name}"
+
+
+# -- the f32 forward on the tensor cores in 3xTF32 (csrc/attention_tf32.cuh)
+def _assert_forward_close(kern, plain):
+    """The kernel's O and lse against the plain version's, to the f32
+    forward tolerance."""
+    out, lse = kern()[:2]
+    torch.cuda.synchronize()
+    ref, ref_lse = plain()
+    torch.testing.assert_close(out, ref, rtol=TOL[F32], atol=TOL[F32])
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL[F32], atol=TOL[F32])
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 63, 65, 127, 129, 433, 1433])
+def test_f32_forward_matches_plain_across_tile_edges(cuda, policy, Dh, T):
+    """O and lse at T on and just past the edges of the forward's key tiles
+    (64 keys at Dh 64, 32 at Dh 128) and query tiles (128 and 64 rows), its
+    interior tiles unmasked beside the masked edge tiles."""
+    _assert_forward_close(*_forward_case(policy, 5, T, 2, Dh, cuda, seed=T + Dh, dtype=F32,
+                                         with_lse=True))
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+@pytest.mark.parametrize("T", [65, 1433])
+def test_f32_forward_heaviest_first_order_one_head(cuda, policy, T):
+    """B = 1 and H = 1: the causal grid's query tiles, the heaviest first,
+    still cover every row once."""
+    _assert_forward_close(*_forward_case(policy, 1, T, 1, 64, cuda, seed=7 * T, dtype=F32,
+                                         with_lse=True))
+
+
+@pytest.mark.parametrize("policy", ["causal", "kvlen"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [433, 1433])
+def test_f32_forward_at_rate_matches_plain(cuda, policy, Dh, T):
+    """At rate 0.2 the forward (its flags drawn in registers at the score
+    accumulators' positions) against the plain version under the same mask."""
+    _assert_forward_close(*_forward_case(policy, 4, T, 2, Dh, cuda, seed=T + 3 * Dh, rate=0.2,
+                                         dtype=F32, with_lse=True))
+
+
+@pytest.mark.parametrize("policy, rate", [("causal", 0.0), ("causal", 0.2), ("kvlen", 0.0),
+                                          ("kvlen", 0.2), ("flash", 0.0)])
+def test_f32_forward_is_bitwise_deterministic_whatever_allow_tf32(cuda, policy, rate):
+    """Two calls give the same O and lse bit for bit, and so does a call with
+    ``torch.backends.cuda.matmul.allow_tf32`` on: the 3xTF32 forward does
+    not read the flag."""
+    kern, _ = _forward_case(policy, 4, 1433, 2, 64, cuda, seed=31, rate=rate, dtype=F32)
+    first, second = kern()[:2], kern()[:2]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        third = kern()[:2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("o", "lse"), first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+
+
+def test_f32_kv_length_zero_row_averages_uniformly(cuda):
+    """A packed row of kv length 0 averages V uniformly in the 3xTF32
+    forward, and its backward matches the plain version."""
+    q, k, v = _qkv(2, 100, 2, 64, F32, cuda, seed=16)
+    do = torch.randn(2, 100, 128, generator=torch.Generator().manual_seed(16)).to(cuda, F32)
+    lens = torch.tensor([0, 100], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=2, scale=0.125, causal=False, kv_lengths=lens)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = port.packed_attention(*leaves, **kw)
+    out.backward(do)
+    mean_v = v[0].mean(0, keepdim=True).expand(100, -1)
+    torch.testing.assert_close(out[0].detach(), mean_v, rtol=TOL[F32], atol=TOL[F32])
+    torch.testing.assert_close(out.detach(), port.packed_attention_reference(q, k, v, **kw),
+                               rtol=TOL[F32], atol=TOL[F32])
+    for name, a, b in zip("qkv", port.packed_attention_bwd_reference(q, k, v, do, **kw), leaves):
+        torch.testing.assert_close(b.grad, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32],
+                                   msg=f"d{name}")
+
+
+def test_f32_flash_forward_row_without_visible_key(cuda):
+    """K4's f32 forward where the first queries of batch 1 see only keys of
+    another segment: O = 0 and lse = +inf on those rows, the plain version's
+    O elsewhere."""
+    B, H, T, Dh = 2, 2, 200, 128
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(B, H, T, Dh, generator=g).to(cuda, F32) for _ in range(3))
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    kv_seg = q_seg.clone()
+    kv_seg[1, :70] = 0  # queries 0..69 of batch 1 (segment 1) see no key
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o[1, :, :70], torch.zeros_like(o[1, :, :70]))
+    assert torch.isinf(lse[1, :, :70]).all() and (lse[1, :, :70] > 0).all()
+    assert torch.isfinite(lse[:, :, 70:]).all() and torch.isfinite(lse[0]).all()
+    torch.testing.assert_close(o, flash.flash_attention_reference(q, k, v, **kw),
+                               rtol=TOL[F32], atol=TOL[F32])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_f32_forward_then_backward_with_empty_and_one_key_rows(cuda, rate):
+    """Dh = 64 at T = 1433, kv lengths [T, 1, 0, T - 37]: the forward to the
+    f32 forward tolerance, and the f32 backward on its O and lse within the
+    f32 gradient tolerance of the plain version (a one-key row's weight is
+    exactly 1 when the forward's lse and the backward's recompute take S by
+    the same products)."""
+    B, T, H, Dh = 4, 1433, 2, 64
+    q, k, v = _qkv(B, T, H, Dh, F32, cuda, seed=47)
+    do = torch.randn(B, T, H * Dh, generator=torch.Generator().manual_seed(47)).to(cuda, F32)
+    lens = torch.tensor([T, 1, 0, T - 37], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=lens, dropout_rate=rate,
+              seed=37 if rate else None)
+    o, lse, res = port.packed_attention_kvlen(q, k, v, for_backward=True, **kw)
+    grads = port.packed_attention_bwd_kvlen(q, k, v, o, do, lse, res, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, port.packed_attention_reference(q, k, v, causal=False, **kw),
+                               rtol=TOL[F32], atol=TOL[F32])
+    ref = port.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
