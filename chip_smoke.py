@@ -13,8 +13,10 @@ Phases, each printing one JSON line:
    kernels whose ``wgmma`` it serialises, and a failure if a tensor-core
    kernel (the bf16 ``csrc/attention_tc.cuh``, the f32 forward's and
    backward's 3xTF32 ``csrc/attention_tf32.cuh``, whose registers it prints
-   by kernel) spills or has its ``wgmma`` serialised; and the host-side C++
-   duration aligner (``csrc/aligner.cpp``, ``g++``).
+   by kernel) spills or has its ``wgmma`` serialised; the registers of the 12
+   K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV), and a
+   failure unless all 12 were built; and the host-side C++ duration aligner
+   (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; each f32 forward (K1 and K2 at rates 0
@@ -39,9 +41,12 @@ Phases, each printing one JSON line:
 4. dropout: the packed kernels' dropout semantics, as
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
-   against their plain versions, Dh 64/128 x T 1024/1408/1433/1536/1920 x causal
-   and not x segment ids none/suffix/interior, f32 and bf16; then its times at
-   the long path's shape B=12, T=1408, H=8, Dh=64.  Then the long path's other
+   against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920
+   x causal and not x segment ids none/suffix/interior, f32 and bf16, each
+   case called twice (f32 a third time with ``allow_tf32`` on) and bit for
+   bit equal; then its times at the long path's shape B=12, T=1408 at H=8
+   Dh=64, H=2 Dh=256 (the flagship's hidden 512 over 2 heads) and H=4
+   Dh=192, each with its bound, plain version and SDPA in both dtypes.  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -77,7 +82,13 @@ Phases, each printing one JSON line:
    forward only; the run directory synthesises through ``KokoroTTS``.  (b)
    kernel path against plain path of the long step in f32 (B=4, L=256,
    T=1408) with the limits of (9a), the planted fault on K4's dK.  (c) the
-   bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.
+   bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.  (d)
+   the same model at ``n_heads=2`` (head dim 256, ``long_head_dim_256``): (b)
+   in f32, a bf16 step kernel path against plain path within
+   ``BF16_STEP_LIMIT`` beside the same at 8 heads, and 5 timed bf16 steps;
+   K4 forward and backward once per decoder layer a step and no other
+   wrapper (the cross-attention at Dh 256 stays on einsum, as in the
+   reference).
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -133,7 +144,9 @@ Phases, each printing one JSON line:
    packed backwards against their plain versions at every (B, T=384, H=8)
    the run called them at, in both dtypes, at rate 0 and the run's rates,
    K2 at the kv lengths the run gave it and at a mixed set with rows of
-   length 1 and 0.
+   length 1 and 0 (``hold_recorded``: each check's worst ratio to the
+   allclose bound, and the f32 kv-length backward, kernel and plain version
+   each against a float64 recompute, as phases scripts and bench too).
 14. vocoder_train: ``python -m kokoro_tpu_torch.scripts.train_hifigan`` at
    full width (HiFi-GAN V1, 512 channels, 13.93 M parameters, batches of 8
    crops of 16384 samples, cuDNN TF32 on for the run) for 300 steps on the
@@ -239,8 +252,10 @@ worst error per dtype at those steps' shapes), every kernel ``bench_path``
 for the packed kernels, the worst error per dtype at the end-to-end shapes),
 those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
-its launches per trainer step on the ``seq`` and ``stage`` paths, 0),
-the ``nvidia-smi`` line and, last,
+its launches per trainer step on the ``seq`` and ``stage`` paths, 0,
+and K4's ``head_dims_192_256``, its times at Dh 256 and 192 in both dtypes
+and its launches per long step at ``n_heads=2``), the ``nvidia-smi`` line
+and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
 without the repository around it.
@@ -522,7 +537,7 @@ def phase_device():
 
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
-    regs, spills, serialized, tf32_regs = {}, {}, {}, {}
+    regs, spills, serialized, tf32_regs, wide_regs = {}, {}, {}, {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -530,13 +545,21 @@ def phase_device():
         spills.update(ptxas_spills(lines))
         tf32_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                           if TF32_NAMESPACE in fn})
+        # K4 at Dh 192 and 256 (template argument 192 or 256)
+        wide_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                          if "Li192E" in fn or "Li256E" in fn})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
-          "tf32_registers": tf32_regs, "tf32_matmul": False, "tf32_cudnn": False})
+          "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
+          "tf32_matmul": False, "tf32_cudnn": False})
+    # each head dim: the bf16 and f32 forward, dQ and dK/dV kernels
+    if len(wide_regs) != 12:
+        raise AssertionError(f"expected 12 K4 kernels at Dh 192 and 256, ptxas built "
+                             f"{sorted(wide_regs)}")
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -974,11 +997,20 @@ def _flash_masks(kind, B, T, dev, gen):
     return torch.ones(B, T, dtype=torch.bool, device=dev), valid
 
 
+# K4's head dims: 64 and 128 (the packed kernels' too), 192 and 256 (K4's own)
+FLASH_HEAD_DIMS = (64, 128, 192, 256)
+# (H, Dh) of K4's timed rows at the long shape B=12, T=1408: the flagship's 8
+# heads of 64, and its hidden 512 over 2 heads (Dh 256, phase long's model)
+# and hidden 768 over 4 (Dh 192)
+FLASH_TIMED = ((8, 64), (2, 256), (4, 192))
+
+
 def phase_kernels_flash():
-    """K4 forward and backward against their plain versions, then the times
-    at the long training shape B=12, T=1408, H=8, Dh=64."""
+    """K4 forward and backward against their plain versions at every head
+    dim of ``FLASH_HEAD_DIMS``, each call twice (f32 a third time with
+    ``allow_tf32`` on) and bit for bit equal; then the times at the long
+    training shape B=12, T=1408 at each (H, Dh) of ``FLASH_TIMED``."""
     import torch
-    import torch.nn.functional as F
 
     from kokoro_tpu_torch.ops import flash_attention as fl
 
@@ -988,7 +1020,7 @@ def phase_kernels_flash():
     worst, checks = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for Dh in (64, 128):
+        for Dh in FLASH_HEAD_DIMS:
             for T in (1024, 1408, 1433, 1536, 1920):
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
@@ -997,38 +1029,80 @@ def phase_kernels_flash():
                         q_valid, kv_valid = _flash_masks(kind, B, T, dev, gen)
                         q_seg, kv_seg = fl.segment_ids(q, k, q_valid, kv_valid)
                         kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
-                        o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-                        grads = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-                        again = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+
+                        def call():
+                            o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+                            return (o, lse), fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+
+                        (o, lse), grads = call()
+                        again = [call()]
+                        if dtype == torch.float32:  # the 3xTF32 kernels do not read the flag
+                            torch.backends.cuda.matmul.allow_tf32 = True
+                            try:
+                                again.append(call())
+                            finally:
+                                torch.backends.cuda.matmul.allow_tf32 = False
                         torch.cuda.synchronize()
                         where = f"{dname} T={T} Dh={Dh} causal={causal} masks={kind}"
-                        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                            raise AssertionError(f"flash bwd {where}: two calls differ")
+                        for fwd2, grads2 in again:
+                            if not all(torch.equal(a, b) for a, b in zip((o, lse), fwd2)):
+                                raise AssertionError(f"flash fwd {where}: two calls differ")
+                            if not all(torch.equal(a, b) for a, b in zip(grads, grads2)):
+                                raise AssertionError(f"flash bwd {where}: two calls differ")
                         ref_o = fl.flash_attention_reference(q, k, v, **kw)
                         err_o = close_or_raise(where + " o", o, ref_o, TOL[dname])
                         ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
                         err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
                                     for n, a, b in zip("qkv", grads, ref))
-                        for key, err in ((f"fwd/{dname}", err_o), (f"bwd/{dname}", err_g)):
+                        for key, err in ((f"fwd/{dname}/Dh={Dh}", err_o),
+                                         (f"bwd/{dname}/Dh={Dh}", err_g)):
                             worst[key] = max(worst.get(key, 0.0), err)
                         checks += 1
-    emit({"phase": "kernels_flash", "checks": checks, "bwd_two_calls_bitwise_equal": True,
-          "shapes": "B=2 H=8; Dh{64,128} x T{1024,1408,1433,1536,1920} x causal/non-causal "
-                    "x segment ids none/suffix/interior",
+                        del again, ref_o, ref
+                del q, k, v, do
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_flash", "checks": checks, "two_calls_bitwise_equal": True,
+          "f32_independent_of_allow_tf32": True,
+          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920} x "
+                    "causal/non-causal x segment ids none/suffix/interior",
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
 
-    B, T, H, Dh = 12, 1408, 8, 64  # the long path's decoder self-attention
+    timings = {}
+    for H, Dh in FLASH_TIMED:
+        timings.update(flash_times(12, 1408, H, Dh, gen))
+    emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 causal",
+          "times": {f"{n}/{d}/H={H}/Dh={Dh}": r for (n, d, H, Dh), r in timings.items()}})
+    # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
+    timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
+               for (n, d, H, Dh), r in timings.items()}
+    timings.update(long_cross_attention(gen))
+    forward_item_cost(gen)
+    return timings
+
+
+def flash_times(B, T, H, Dh, gen) -> dict:
+    """K4 forward and backward, causal, at (B, H, T, Dh), both dtypes: each
+    against its plain version, then its device time, its bound, its plain
+    version's time and SDPA's (forward; forward and backward minus forward),
+    keyed ``(wrapper, dtype, H, Dh)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    dev = torch.device("cuda")
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
         kw = dict(causal=True, scale=Dh ** -0.5)
+        where = f"{dname} B={B} T={T} H={H} Dh={Dh}"
         o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        err_o = close_or_raise(f"flash fwd {dname} long shape", o,
+        err_o = close_or_raise(f"flash fwd {where}", o,
                                fl.flash_attention_reference(q, k, v, **kw), TOL[dname])
         grads = fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
-        err_g = max(close_or_raise(f"flash bwd {dname} long shape d{n}", a, b, GRAD_TOL[dname])
+        err_g = max(close_or_raise(f"flash bwd {where} d{n}", a, b, GRAD_TOL[dname])
                     for n, a, b in zip("qkv", grads, ref))
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
 
@@ -1038,7 +1112,7 @@ def phase_kernels_flash():
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), leaves, do)
 
-        timings[("flash_attention_fwd", dname)] = timed_row(
+        timings[("flash_attention_fwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
             **profiled_kernels(lambda: fl.flash_attention_fwd(q, k, v, **kw), 1),
@@ -1047,7 +1121,7 @@ def phase_kernels_flash():
                 lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
             library_ms=graph_time_ms(sdpa_fwd))
-        timings[("flash_attention_bwd", dname)] = timed_row(
+        timings[("flash_attention_bwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True, backward=True),
             graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
             max_abs_err=err_g,
@@ -1057,10 +1131,6 @@ def phase_kernels_flash():
             library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
         del q, k, v, do, o, lse, grads, ref, leaves
         torch.cuda.empty_cache()
-    emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 H=8 Dh=64 causal",
-          "times": {f"{n}/{d}": r for (n, d), r in timings.items()}})
-    timings.update(long_cross_attention(gen))
-    forward_item_cost(gen)
     return timings
 
 
@@ -1492,6 +1562,12 @@ def phase_serve():
 # limits catch an update that is missed (reads 1) or wrong-signed (reads 2)
 TRAIN_LIMIT = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_leaf_rel": 2e-3,
                "grad_all_rel": 3e-4, "moved_leaf_rel": 3e-2, "moved_all_rel": 5e-3}
+# the bf16 long step at Dh 256, kernel path against plain path, one step from
+# one init (phase long (d)): about 2.5x the readings on the H100, which the
+# Dh 64 kernels of the same step read alike (Dh 256 / Dh 64: loss 3.6e-6 /
+# 2.8e-6, gradient over all tensors 3.9e-3 / 4.0e-3, worst tensor 4.1e-2 /
+# 4.2e-2, mel_projection_in.weight; PERF.md)
+BF16_STEP_LIMIT = {"loss_rel": 1e-5, "grad_all_rel": 1e-2, "grad_leaf_rel": 1e-1}
 # the control: the causal backward's dK plus Gaussian noise of this share of
 # its RMS, which the limits must catch
 PLANTED_DK_NOISE = 1e-2
@@ -1547,12 +1623,14 @@ def read_counts():
     return {kern.name: kern.launches for kern in all_kernels()}
 
 
-def train_parity(B, L, T, planted_module, planted_attr):
+def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
     """Kernel path against plain path at full width in f32 (TF32 off, every
     dropout rate 0, SpecAugment off), 3 steps from one init, and the control
-    with seeded noise planted on ``planted_module.planted_attr``'s dK.
-    Returns the readings; raises when the sound run breaks a limit or the
-    planted one breaks none."""
+    with seeded noise planted on ``planted_module.planted_attr``'s dK;
+    ``model_overrides`` go to ``KokoroConfig`` (phase long: ``n_heads=2``).
+    Returns the readings, with each wrapper's launches in the kernel path's
+    first forward and backward (one step's); raises when the sound run breaks
+    a limit or the planted one breaks none."""
     import torch
 
     from kokoro_tpu_torch.cli.profile_paths import training_batch
@@ -1570,12 +1648,13 @@ def train_parity(B, L, T, planted_module, planted_attr):
                       variance_dropout=0.0, use_stochastic_depth=False)
     cfg = TrainingConfig(compute_dtype="float32", gradient_checkpointing=False,
                          use_spec_augment=False, warmup_steps=2)
-    init = KokoroModel(KokoroConfig(**no_dropout)).init_weights(
+    init = KokoroModel(KokoroConfig(**no_dropout, **model_overrides)).init_weights(
         torch.Generator().manual_seed(0)).state_dict()
     batch = training_batch(KokoroConfig(), B, T, L, dev)
-    paths = {}
+    paths, step_launches = {}, None
     for name, flash in (("kernel", True), ("plain", False), ("planted_dk", True)):
-        model = KokoroModel(KokoroConfig(**no_dropout, use_flash_attention=flash))
+        model = KokoroModel(KokoroConfig(**no_dropout, **model_overrides,
+                                         use_flash_attention=flash))
         model.load_state_dict(init)
         state = create_train_state(model.to(dev), cfg, total_steps=20000)
         step = make_train_step(cfg, build_preclip_norms(state.names, cfg), spec_augment=False)
@@ -1585,10 +1664,13 @@ def train_parity(B, L, T, planted_module, planted_attr):
         if name == "planted_dk":
             setattr(planted_module, planted_attr, PlantedDk(real_bwd))
         try:
+            counts0 = read_counts()
             total, _ = make_loss_fn(model, cfg, spec_augment=False)(
                 batch, Rng.from_generator(torch.Generator().manual_seed(0)))
             grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
             grads = {n: g for n, g in zip(params, grads) if g is not None}
+            if name == "kernel":
+                step_launches = {k: c - counts0[k] for k, c in read_counts().items()}
             metrics = [step(state, batch, torch.Generator().manual_seed(i)) for i in range(3)]
         finally:
             setattr(planted_module, planted_attr, real_bwd)
@@ -1615,6 +1697,7 @@ def train_parity(B, L, T, planted_module, planted_attr):
             "moved_leaf_rel": moved_leaf, "worst_moved": moved_name,
             "moved_all_rel": moved_all, "stepped": [m["stepped"] for m in mk]}
     result = {"steps": 3, "B": B, "L": L, "T": T, "planted": planted_attr,
+              "model_overrides": model_overrides, "launches_per_step": step_launches,
               "limits": TRAIN_LIMIT, **parity,
               "plain_path": [{k: m[k] for k in ("total", "grad_norm", "stepped")} for m in mp]}
     del paths, gp, dp, gk, dk
@@ -1826,7 +1909,123 @@ def phase_long():
     MEASURED_PEAKS["long"] = torch.cuda.max_memory_allocated()
     del state, step, batch
     torch.cuda.empty_cache()
-    return per_step[-1]
+
+    # (d) K4 at head dim 256
+    dh256, dh256_counts = long_head_dim_256(n_layers)
+    emit({"phase": "long_dh256", **dh256})
+    return per_step[-1], dh256_counts
+
+
+# phase long at head dim 256: the flagship's hidden 512 over 2 heads (its
+# parameter count), where K4 takes the decoder self-attention and the packed
+# kernels' gate (Dh 64 and 128) leaves the cross-attention on einsum
+LONG_DH256 = dict(n_heads=2)
+
+
+def bf16_step_gap(dev, n_heads: int) -> dict:
+    """One bf16 forward and backward of the long regime (B=12, L=256,
+    T=1408; every dropout rate 0, SpecAugment off) from one init, kernel
+    path against plain path: the loss's relative gap, the gradient's over
+    all tensors and its worst tensor's, and each wrapper's launches on the
+    kernel path."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, training_batch
+    from kokoro_tpu_torch.config import get_default_config
+    from kokoro_tpu_torch.models.kokoro import KokoroModel
+    from kokoro_tpu_torch.models.rng import Rng
+    from kokoro_tpu_torch.training.train_step import DTYPES, make_loss_fn
+
+    B, L, T = LONG_SHAPE["B"], LONG_SHAPE["L"], LONG_SHAPE["T"]
+    init = None
+    readings, launches = {}, None
+    for name, flash in (("kernel", True), ("plain", False)):
+        model_cfg, train_cfg = get_default_config(**{
+            **LONG_REGIME, **NO_DROPOUT, "n_heads": n_heads, "use_flash_attention": flash})
+        model = KokoroModel(model_cfg)
+        if init is None:
+            init = model.init_weights(torch.Generator().manual_seed(0)).state_dict()
+        model.load_state_dict(init)
+        # f32 parameters computing in bf16, as create_train_state sets them
+        model.to(dev, DTYPES[train_cfg.param_dtype]).set_compute_dtype(
+            DTYPES[train_cfg.compute_dtype])
+        batch = training_batch(model_cfg, B, T, L, dev)
+        params = dict(model.named_parameters())
+        zero_counts()
+        total, _ = make_loss_fn(model, train_cfg, spec_augment=False)(
+            batch, Rng.from_generator(torch.Generator().manual_seed(0)))
+        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        if flash:
+            launches = read_counts()
+        readings[name] = (total.item(), {n: g.float() for n, g in zip(params, grads)
+                                         if g is not None})
+        del model, params, total, grads
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_p, grads_p) = readings["kernel"], readings["plain"]
+    leaf, leaf_name, all_rel = relative_gap(grads_p, grads_k)
+    if not (math.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k.values())):
+        raise AssertionError(f"bf16 long step at n_heads={n_heads}: not finite")
+    return {"n_heads": n_heads, "head_dim": 512 // n_heads, "compute_dtype": train_cfg.compute_dtype,
+            "loss_kernel": loss_k,
+            "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_all_rel": all_rel, "grad_leaf_rel": leaf, "worst_grad": leaf_name,
+            "launches": launches}
+
+
+def long_head_dim_256(n_layers: int):
+    """The long regime at ``LONG_DH256`` (Dh 256).  (a) f32: ``train_parity``
+    (kernel path against plain path, 3 steps, the planted dK control on K4),
+    K4 forward and backward once per decoder layer in the kernel path's step
+    and no other wrapper.  (b) bf16: one step from one init, kernel path
+    against plain path, beside the same at the flagship's 8 heads (Dh 64, the
+    kernels before this head dim); K4 as in (a).  (c) The bf16 long step's
+    time at Dh 256: 2 warm-up and 5 timed steps, K4 forward and backward 6 a
+    step.  Returns the readings and the launches of the last timed step."""
+    import torch
+
+    from kokoro_tpu_torch.cli.profile_paths import LONG_SHAPE, long_train_step
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    dev = torch.device("cuda")
+    flash = {kern.name for kern in fl.KERNELS}
+    want = lambda counts: {name: (n_layers if name in flash else 0) for name in counts}
+    f32 = train_parity(4, LONG_SHAPE["L"], LONG_SHAPE["T"], fl, "flash_attention_bwd",
+                       **LONG_DH256)
+    if f32["launches_per_step"] != want(f32["launches_per_step"]):
+        raise AssertionError(f"f32 long step at Dh 256 launches {f32['launches_per_step']}")
+    bf16 = {"Dh=256": bf16_step_gap(dev, LONG_DH256["n_heads"]), "Dh=64": bf16_step_gap(dev, 8)}
+    if bf16["Dh=256"]["launches"] != want(bf16["Dh=256"]["launches"]):
+        raise AssertionError(f"bf16 long step at Dh 256 launches {bf16['Dh=256']['launches']}")
+    over = {k: bf16["Dh=256"][k] for k in BF16_STEP_LIMIT if bf16["Dh=256"][k] > BF16_STEP_LIMIT[k]}
+    if over:
+        raise AssertionError(f"bf16 long step at Dh 256: kernel path against plain path {over} "
+                             f"past {BF16_STEP_LIMIT}: {bf16}")
+
+    state, step, batch = long_train_step(dev, **LONG_DH256)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        zero_counts()  # each step is a main-path run: counts from 0
+        metrics.append(step(state, batch, gen))
+        per_step.append(read_counts())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    for m, counts in zip(metrics, per_step):
+        if not (m["stepped"] == 1.0 and math.isfinite(m["total"])):
+            raise AssertionError(f"long step at Dh 256 not finite or skipped: {m}")
+        if counts != want(counts):
+            raise AssertionError(f"long step at Dh 256 launches {counts}, expected {want(counts)}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {"model": "hidden 512, 6+6 layers, ff 1536, n_heads 2 (head_dim 256)",
+            "f32_parity": f32, "bf16_step": bf16, "bf16_limits": BF16_STEP_LIMIT,
+            "bf16_step_ms": ms, "timed_steps": 5, "launches_per_step": per_step[-1],
+            "losses": [m["total"] for m in metrics]}, per_step[-1]
 
 
 GEMINATE_WORD = "суббота"  # its G2P gives b b: the TextGrids' geminate bː
@@ -2389,17 +2588,17 @@ def hold_recorded(recorders, required) -> dict:
         lens_sets = {**{f"run{i}": lens for i, lens in enumerate(runs)},
                      "mixed": mixed_lengths(B, T)}
         cases.append((B, T, H, list(zip(fa.FWD_KERNELS, fa.BWD_KERNELS)), lens_sets))
-    worst = {}
+    worst, readings = {}, {}
 
     def note(key, err):
         worst[key] = max(worst.get(key, 0.0), err)
 
     checks = hold_packed(cases, tuple(rates), torch.Generator(device="cpu").manual_seed(9),
-                         note)
+                         note, readings)
     torch.cuda.empty_cache()
     return {"checks": checks, "shapes": [list(x) for x in shapes], "Dh": 64, "rates": rates,
             "kv_lengths_seen": lens_seen, "tolerance": {"forward": TOL, "grad": GRAD_TOL},
-            "max_abs_err": worst}
+            "max_abs_err": worst, **readings}
 
 
 def worst_by_wrapper(held: dict) -> dict:
@@ -2939,19 +3138,65 @@ def recording_shapes():
             setattr(fa, attr, rec.kernel)
 
 
-def hold_packed(cases, rates, gen, note) -> int:
+def allclose_ratio(out, ref, tol) -> float:
+    """The worst ``|out - ref| / (tol + tol * |ref|)`` over the elements:
+    what ``close_or_raise``'s ``torch.allclose(rtol=tol, atol=tol)`` decides
+    on (it passes at most 1)."""
+    diff = (out.double() - ref.double()).abs()
+    return (diff / (tol + tol * ref.double().abs())).max().item()
+
+
+def float64_control(grads, ref, exact, kv_lengths) -> dict:
+    """The f32 kernel's and the f32 plain version's gradients (``grads``,
+    ``ref``: packed (B, T, H*Dh)) each against the float64 recompute
+    ``exact``: the max abs error per gradient, and where the larger one
+    sits (batch row, its kv length, the token)."""
+    out = {"kernel": {}, "plain_f32": {}}
+    worst = (-1.0, None)
+    for n, a, b, x in zip(("dq", "dk", "dv"), grads, ref, exact):
+        for who, y in (("kernel", a), ("plain_f32", b)):
+            diff = (y.double() - x).abs()
+            err = diff.max().item()
+            out[who][n] = err
+            if err > worst[0]:
+                flat = int(diff.argmax())
+                row, token = divmod(flat // diff.shape[2], diff.shape[1])
+                worst = (err, {"carrier": who, "grad": n, "batch_row": row, "token": token,
+                               "kv_length": int(kv_lengths[row]), "abs_err": err,
+                               "value": x.reshape(-1)[flat].item()})
+    out["worst"] = worst[1]
+    return out
+
+
+def hold_packed(cases, rates, gen, note, readings=None) -> int:
     """Hold the packed forward and backward wrappers against their plain
     versions: for each ``(B, T, H, [(fwd, bwd), ...], {name: kv lengths})``
     of ``cases`` (Dh 64), both dtypes and every rate of ``rates``, the
     causal pair once and the kv-length pair at each set of kv lengths, the
     forward to ``TOL`` and dQ, dK, dV to ``GRAD_TOL``; ``note(key, err)``
-    gets each error, keyed ``"<wrapper>/T=<T>/H=<H>/<dtype>"``.  Returns
-    the number of checks."""
+    gets each error, keyed ``"<wrapper>/T=<T>/H=<H>/<dtype>"``.  With
+    ``readings`` (a dict), also each key's worst ``allclose_ratio`` (under
+    ``"allclose_ratio"``) and, for the f32 kv-length backward, the kernel
+    and the f32 plain version each against the float64 recompute
+    (``float64_control``, under ``"f32_kvlen_bwd_vs_float64"`` by key and
+    set of kv lengths, the worst of the rates).  Returns the number of
+    checks."""
     import torch
 
     from kokoro_tpu_torch.ops import fused_attention as fa
 
     dev, Dh, checks = torch.device("cuda"), 64, 0
+    ratios = control = None
+    if readings is not None:
+        ratios = readings.setdefault("allclose_ratio", {})
+        control = readings.setdefault("f32_kvlen_bwd_vs_float64", {})
+
+    def hold(key, what, out, ref, tol):
+        err = close_or_raise(what, out, ref, tol)
+        if ratios is not None:
+            ratios[key] = max(ratios.get(key, 0.0), allclose_ratio(out, ref, tol))
+        return err
+
     for B, T, H, pairs, lens_sets in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
@@ -2968,14 +3213,22 @@ def hold_packed(cases, rates, gen, note) -> int:
                         grads = bwd(q, k, v, o, do, lse, res, **kw)
                         torch.cuda.synchronize()
                         where = f"{fwd.name} B={B} T={T} H={H} {dname} {set_name} rate={rate}"
-                        note(f"{fwd.name}/T={T}/H={H}/{dname}", close_or_raise(
-                            where, o, fa.packed_attention_reference(
-                                q, k, v, causal=fwd.causal, **kw), TOL[dname]))
+                        key = f"{fwd.name}/T={T}/H={H}/{dname}"
+                        note(key, hold(key, where, o, fa.packed_attention_reference(
+                            q, k, v, causal=fwd.causal, **kw), TOL[dname]))
                         ref = fa.packed_attention_bwd_reference(q, k, v, do, causal=fwd.causal,
                                                                 **kw)
-                        note(f"{bwd.name}/T={T}/H={H}/{dname}", max(
-                            close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
-                            for n, a, b in zip("qkv", grads, ref)))
+                        key = f"{bwd.name}/T={T}/H={H}/{dname}"
+                        note(key, max(hold(key, f"{where} d{n}", a, b, GRAD_TOL[dname])
+                                      for n, a, b in zip("qkv", grads, ref)))
+                        if control is not None and lens is not None and dtype == torch.float32:
+                            exact = packed_bwd_float64(q, k, v, do, causal=False, **kw)
+                            got = float64_control(grads, ref, exact, lens.tolist())
+                            slot = f"{key}/{set_name}"
+                            held = control.get(slot)
+                            if held is None or got["worst"]["abs_err"] > held["worst"]["abs_err"]:
+                                control[slot] = {**got, "rate": rate}
+                            del exact
                         checks += 1
                         del o, lse, grads, ref
             del q, k, v, do
@@ -3884,8 +4137,10 @@ def run_phases(phases, work: Path) -> int:
             if c:
                 counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
     long_step = "per bf16 long training step (B=12 L=256 T=1408)"
+    dh256_counts = {}
     if "long" in phases:  # launches in one bf16 long training step
-        for name, c in timed("long", phase_long).items():
+        long_path, dh256_counts = timed("long", phase_long)
+        for name, c in long_path.items():
             if name.startswith("flash"):
                 counts[name] = (c, long_step)
             elif c:
@@ -3947,6 +4202,17 @@ def run_phases(phases, work: Path) -> int:
                 **timings[(kern.name, "bfloat16", "long")],
                 "shape": "B=12 T=1408 H=8 Dh=64, kv lengths 1408",
                 "launches": long_counts[kern.name], "launches_are": long_step}
+        if kern.name.startswith("flash"):  # K4 at head dims 192 and 256
+            row["head_dims_192_256"] = {
+                "launches": dh256_counts[kern.name],
+                "launches_are": "per bf16 long training step at n_heads=2, head_dim 256 "
+                                "(B=12 L=256 T=1408)",
+                **{f"Dh={Dh}/{dname}": {
+                    **{k: timings[(kern.name, dname, f"Dh={Dh}")][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                        "tflops", "bound_share")},
+                    "shape": f"B=12 T=1408 H={H} Dh={Dh} causal"}
+                   for H, Dh in FLASH_TIMED[1:] for dname in ("bfloat16", "float32")}}
         if kern.name in mfa_counts:  # the slice's own path: the trainer on MFA durations
             row["mfa_path"] = {
                 "launches": mfa_counts[kern.name],

@@ -18,9 +18,9 @@
 //     flash attention's DEFAULT_MASK_VALUE); no dropout.  A query row with no
 //     visible key writes O = 0 and lse = +inf, so its P, and every gradient
 //     through it, is 0.
-// Both: f32 or bf16, Dh in {64, 128}, any lengths >= 1 (the ragged edge is
-// masked by bounds: rows and columns past the end are zero-filled on load,
-// excluded from the softmax and never stored).
+// Both: f32 or bf16, Dh in {64, 128} (flash also {192, 256}), any lengths
+// >= 1 (the ragged edge is masked by bounds: rows and columns past the end
+// are zero-filled on load, excluded from the softmax and never stored).
 //
 // Numerics of both: S = Q K^T in f32, S *= scale, then the mask; an online
 // softmax over key tiles with the unnormalised exp(S - m_running) rounded to
@@ -94,7 +94,8 @@
 namespace kokoro_attn {
 
 // dtype: 0 = float32 (the 3xTF32 forward of attention_tf32.cuh), 1 =
-// bfloat16 (the tensor-core forward of attention_tc.cuh); Dh 64 or 128.
+// bfloat16 (the tensor-core forward of attention_tc.cuh); Dh 64 or 128, and
+// for the flash policy (no dropout) also 192 or 256.
 // `res`: NULL, or (bf16 only) where the forward writes O's rounding residual
 // for the backward
 template <bool FLASH, bool DROPOUT>
@@ -108,14 +109,22 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
     return tf32::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, lse, B, a, s);
   if (dtype == 1 && Dh == 64) return tc::launch_fwd<64, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
   if (dtype == 1 && Dh == 128) return tc::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
+  if constexpr (FLASH && !DROPOUT) {  // K4 also at Dh 192 and 256
+    if (dtype == 0 && Dh == 192) return tf32::launch_fwd<192, true, false>(q, k, v, o, lse, B, a, s);
+    if (dtype == 0 && Dh == 256) return tf32::launch_fwd<256, true, false>(q, k, v, o, lse, B, a, s);
+    if (dtype == 1 && Dh == 192)
+      return tc::launch_fwd<192, true, false>(q, k, v, o, res, lse, B, a, s);
+    if (dtype == 1 && Dh == 256)
+      return tc::launch_fwd<256, true, false>(q, k, v, o, res, lse, B, a, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32 (the 3xTF32 kernels of attention_tf32.cuh), 1 =
-// bfloat16 (attention_tc.cuh); Dh 64 or 128.  `delta`: the (B, H, Tq) f32
-// workspace that carries each row's delta from the dQ kernel to the dK/dV
-// kernel (both dtypes).  `res`: the packed bf16 forward's residual of O
-// (NULL otherwise)
+// bfloat16 (attention_tc.cuh); Dh 64 or 128, and for the flash policy (no
+// dropout) also 192 or 256.  `delta`: the (B, H, Tq) f32 workspace that
+// carries each row's delta from the dQ kernel to the dK/dV kernel (both
+// dtypes).  `res`: the packed bf16 forward's residual of O (NULL otherwise)
 template <bool FLASH, bool DROPOUT>
 cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const void* v,
                          const void* o, const void* res, const void* dout, const float* lse,
@@ -133,6 +142,18 @@ cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const 
   if (dtype == 1 && Dh == 128)
     return tc::launch_bwd<128, FLASH, DROPOUT>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B,
                                                a, s);
+  if constexpr (FLASH && !DROPOUT) {  // K4 also at Dh 192 and 256
+    if (dtype == 0 && Dh == 192)
+      return tf32::launch_bwd<192, true, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+    if (dtype == 0 && Dh == 256)
+      return tf32::launch_bwd<256, true, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+    if (dtype == 1 && Dh == 192)
+      return tc::launch_bwd<192, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
+                                              s);
+    if (dtype == 1 && Dh == 256)
+      return tc::launch_bwd<256, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
+                                              s);
+  }
   return cudaErrorInvalidValue;
 }
 

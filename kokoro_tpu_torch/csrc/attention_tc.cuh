@@ -1,7 +1,8 @@
 // The bf16 attention kernels on Hopper's tensor cores (sm_90a): the forward,
 // dQ and dK/dV templates of attention_kernels.cuh redesigned around wgmma and
 // TMA, with the same two mask policies (packed K1/K2/K3, flash K4), dropout
-// on or off, Dh 64 or 128, and the same numerics contract (see
+// on or off, Dh 64 or 128 (the flash policy without dropout also 192 and
+// 256), and the same numerics contract (see
 // attention_kernels.cuh): S and dPd in f32; the unnormalised exp, Pd and
 // dS * scale rounded to bf16 exactly where they become tensor-core operands;
 // f32 sums, the f32 row lse.
@@ -16,8 +17,8 @@
 // product (to_a_operand), so P, Pd and dS never reach shared memory.
 //
 // Tiles arrive by TMA (cp.async.bulk.tensor) as 64-row boxes of 64 bf16
-// (128-byte rows, 128-byte swizzle; Dh = 128 is two boxes), completing on an
-// mbarrier.  The tensor maps are 4-D so that a box never crosses into the
+// (128-byte rows, 128-byte swizzle; a tile is Dh / 64 boxes), completing on
+// an mbarrier.  The tensor maps are 4-D so that a box never crosses into the
 // next head or batch: packed (Dh, H, T, B), flash (Dh, T, H, B); rows past T
 // are zero-filled by the TMA unit and masked by bounds.
 //
@@ -25,14 +26,19 @@
 // transposes S^T = K Q^T, dPd^T = V dO^T) is m64n64k16 with both operands in
 // shared memory, K-major; an output product (O += P V, dQ += dS K,
 // dV += Pd^T dO, dK += dS^T Q) is m64n{Dh}k16 with A from registers and B in
-// shared memory MN-major (the transpose flag).
+// shared memory MN-major (the transpose flag); from Dh 192, one m64n128k16
+// product a 128-column block of the output (and m64n64k16 for the last 64
+// columns of Dh 192).
 //
 // The forward is warp-specialised like the backward: a CTA is a producer
 // warpgroup and two consumer warpgroups of 64 query rows each (384 threads,
 // setmaxnreg 24/240, at Dh 64 and 128 alike), so every key and value tile
 // streamed through the ring (fwd_stages) serves 128 query rows; a streamed
 // tile is 128 keys at Dh 64 (a 64 x 128 score tile a consumer: twice the
-// work between two waits), 64 at Dh 128.  The kernel is persistent, one CTA
+// work between two waits), 64 from Dh 128.  From Dh 192 the two query tiles
+// and the ring take the shared memory (a stage of K and V is 48 KB at Dh
+// 192, 64 KB at Dh 256: three stages, two), and each consumer stores its O
+// from registers.  The kernel is persistent, one CTA
 // an SM: a work item is (query tile of 128 rows, head), the causal mask's
 // heaviest items first, dealt to the CTAs in a snake order, and the producer
 // loads an item's query tiles while the previous item's last tiles and
@@ -54,9 +60,13 @@
 // producer warpgroup and, at Dh 64, two consumer warpgroups (384 threads,
 // one CTA an SM; setmaxnreg gives the producer 24 registers a thread and
 // the consumers 240), at Dh 128 one (256 threads: its dK and dV accumulators
-// alone take 128 registers a thread).  One producer warp keeps TMA loads in
-// flight through a ring of kStages stages (full/empty mbarriers) and writes
-// each stage's row data (the dK/dV kernel's lse and delta, the flash segment
+// alone take 128 registers a thread).  From Dh 192 the dQ kernel has one
+// consumer (its accumulator alone takes 128 registers a thread at Dh 256)
+// and the dK/dV kernel two that share the CTA's 64 keys, one accumulating
+// dV, the other dK (each recomputes S^T; the dK one also dP^T); at Dh 256
+// the ring has two stages (a stage is 64 KB beside the CTA's own 64 KB).
+// One producer warp keeps TMA loads in flight through a ring of bwd_stages
+// stages (full/empty mbarriers) and writes each stage's row data (the dK/dV kernel's lse and delta, the flash segment
 // ids).  The consumers share each streamed tile: the dQ kernel's CTA owns 64
 // query rows a consumer and streams the key/value tiles, the dK/dV kernel's
 // CTA owns 64 keys a consumer and streams the query/dO tiles, so at Dh 64
@@ -83,8 +93,9 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 
-#include "attention_common.cuh"
+#include <type_traits>
 
+#include "attention_common.cuh"
 
 namespace kokoro_attn {
 namespace tc {
@@ -344,7 +355,16 @@ __device__ __forceinline__ void score_tile(float (&s)[N / 2], const uint8_t* a, 
   }
 }
 
-// acc (64 x DH) += A (64 x 16 KS, bf16 registers) B (16 KS x DH rows, MN-major)
+// columns [c, c + N) of a 64 x DH accumulator: the fragment of an N-column
+// product (its elements are the accumulator's 4 j + 2 i + e from j = c / 8)
+template <int N, int N2>
+__device__ __forceinline__ float (&columns(float (&acc)[N2], int c))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(acc + c / 2);
+}
+
+// acc (64 x DH) += A (64 x 16 KS, bf16 registers) B (16 KS x DH rows, MN-major);
+// past Dh 128, one product of 128 (or 64) columns a 128 (64) column block
+// of B, whose boxes are kBox bytes apart as the descriptor's stride says
 template <int DH, int KS>
 __device__ __forceinline__ void accumulate(float (&acc)[DH / 2], const uint32_t (&a)[KS][4],
                                            const uint8_t* b) {
@@ -352,8 +372,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[DH / 2], const uint32_t 
   for (int kk = 0; kk < KS; ++kk) {
     if constexpr (DH == 64) {
       wgmma_rs_n64(acc, a[kk], desc_mn_major(b, kk));
-    } else {
+    } else if constexpr (DH == 128) {
       wgmma_rs_n128(acc, a[kk], desc_mn_major(b, kk));
+    } else {
+#pragma unroll
+      for (int c = 0; c + 128 <= DH; c += 128)
+        wgmma_rs_n128(columns<128>(acc, c), a[kk], desc_mn_major(b + c / 64 * kBox, kk));
+      if constexpr (DH % 128 != 0)
+        wgmma_rs_n64(columns<64>(acc, DH - 64), a[kk], desc_mn_major(b + (DH / 64 - 1) * kBox, kk));
     }
   }
 }
@@ -427,24 +453,42 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, uint8_t* res, const flo
 
 // -- warp specialisation (the forward and the backward) -----------------------
 
-constexpr int kStages = 3;  // ring depth of the backward's streamed tiles
+// ring depth of the backward's streamed tiles: three, two at Dh 256 (a
+// stage of two 64-row tiles is 64 KB there, the CTA's own two tiles 64 KB)
+template <int DH>
+__host__ __device__ constexpr int bwd_stages() {
+  return DH == 256 ? 2 : 3;
+}
 constexpr int kMaxStages = 5;  // the most a ring has (the forward's, fwd_stages)
-// consumer warpgroups of a forward CTA: two at both head sizes, sharing each
-// streamed key/value tile (its one accumulator fits 240 registers at Dh 128)
+// consumer warpgroups of a forward CTA: two at every head size, sharing each
+// streamed key/value tile (its one accumulator fits 240 registers at Dh 256)
 template <int DH>
 __host__ __device__ constexpr int fwd_consumers() {
   return 2;
 }
-// consumer warpgroups of a backward CTA: two at Dh 64, sharing each streamed
-// tile; one at Dh 128, whose dK and dV accumulators alone take 128
-// registers a thread (a CTA of three warpgroups may give each thread 168)
+// consumer warpgroups of a dQ CTA: two at Dh 64, sharing each streamed tile;
+// one from Dh 128 (at Dh 256 its dQ accumulator alone takes 128 registers a
+// thread, and a CTA of three warpgroups may give each thread 168)
 template <int DH>
-__host__ __device__ constexpr int bwd_consumers() {
+__host__ __device__ constexpr int dq_consumers() {
   return DH == 64 ? 2 : 1;
 }
+// the dK/dV kernel: at Dh 64 two consumer warpgroups of 64 keys each share
+// each streamed tile; at Dh 128 one, whose dK and dV accumulators take 128
+// registers a thread; from Dh 192, where the two would take Dh, two
+// warpgroups share the CTA's 64 keys, one accumulating dV and one dK
+// (ROLE_DV, ROLE_DK)
 template <int DH>
-__host__ __device__ constexpr int bwd_threads() {
-  return (1 + bwd_consumers<DH>()) * kWG;
+__host__ __device__ constexpr bool dkdv_split() {
+  return DH > 128;
+}
+template <int DH>
+__host__ __device__ constexpr int dkdv_consumers() {
+  return DH == 128 ? 1 : 2;
+}
+template <int DH>
+__host__ __device__ constexpr int dkdv_keys() {  // keys a CTA owns
+  return dkdv_split<DH>() ? kBK : dkdv_consumers<DH>() * kBK;
 }
 // with two consumers: 128 x 24 + 256 x 240 = 384 x 168 registers
 constexpr int kProducerRegs = 24;
@@ -634,17 +678,25 @@ __device__ __forceinline__ bool tile_unmasked(const AttnArgs& a, const KeyRange&
 // -- the forward ----------------------------------------------------------------
 
 // keys a streamed tile of the forward: 128 at Dh 64 (a 64 x 128 score tile a
-// consumer), 64 at Dh 128, whose O accumulator takes the registers
+// consumer), 64 from Dh 128, whose O accumulator takes the registers
 template <int DH>
 __host__ __device__ constexpr int fwd_bn() {
   return DH == 64 ? 128 : 64;
 }
+// whether O leaves through shared memory and TMA stores (Dh 64 and 128); from
+// Dh 192 the two query tiles and the ring take the shared memory, and each
+// consumer stores its rows from registers
+template <int DH>
+__host__ __device__ constexpr bool fwd_staged_store() {
+  return DH <= 128;
+}
 // ring stages: a consumer holds two (the tile of its S and the one of its
 // P V), the rest are in flight; as many as shared memory holds beside the
-// query and output tiles
+// query and output tiles (Dh 256: a 64-key stage is 64 KB, and two, with
+// the 64 KB of query rows, are what fits)
 template <int DH>
 __host__ __device__ constexpr int fwd_stages() {
-  return fwd_bn<DH>() == 128 ? 4 : (DH == 64 ? 5 : 3);
+  return fwd_bn<DH>() == 128 ? 4 : (DH == 64 ? 5 : (DH == 256 ? 2 : 3));
 }
 
 // 2^x in one MUFU.EX2 instruction (subnormal results flushed to 0)
@@ -785,18 +837,20 @@ template <int DH, bool FLASH, bool DROPOUT, bool RES>
 __global__ void __launch_bounds__((1 + fwd_consumers<DH>()) * kWG, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-           const __grid_constant__ CUtensorMap tres, float* __restrict__ lse, AttnArgs a,
-           int B) {
+           const __grid_constant__ CUtensorMap tres, bf16* __restrict__ o,
+           float* __restrict__ lse, AttnArgs a, int B) {
   constexpr uint32_t TILE = DH / 64 * kBox;  // 64 rows
   constexpr int C = fwd_consumers<DH>();
   constexpr int BN = fwd_bn<DH>();
   constexpr uint32_t KVT = BN / 64 * TILE;   // a streamed key (or value) tile
   constexpr int STAGES = fwd_stages<DH>();
+  constexpr uint32_t STAGED = fwd_staged_store<DH>() ? C * TILE : 0;
+  static_assert(fwd_staged_store<DH>() || (FLASH && !RES), "Dh 192 and 256: the flash policy only");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);  // the item's query rows: one tile a consumer
   uint8_t* Os = Qs + C * TILE;        // O on its way out: one tile a consumer
-  uint8_t* Rs = Os + C * TILE;        // O's residual on its way out
-  uint8_t* Ks = Rs + C * TILE;        // STAGES stages
+  uint8_t* Rs = Os + STAGED;          // O's residual on its way out
+  uint8_t* Ks = Rs + STAGED;          // STAGES stages
   uint8_t* Vs = Ks + STAGES * KVT;
   const Ring ring = carve_ring(Vs + STAGES * KVT);
 
@@ -972,28 +1026,34 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
           if (lse != nullptr && (lane & 3) == 0 && row < a.Tq)
             lse[(size_t)it.bh * a.Tq + row] = any_visible ? m[i] * kLn2 + logf(l[i]) : INFINITY;
         }
-        // O (and its residual) through shared memory and TMA stores, which
-        // write no row past T; the previous item's stores must have read
-        // the staging tiles first
-        uint8_t* Ow = Os + wg * TILE;
-        uint8_t* Rw = Rs + wg * TILE;
-        if (t == 0) bulk_wait_read();
-        warpgroup_sync(1 + wg);
-        stage_rows<DH>(Ow, RES ? Rw : nullptr, acc, r0, c0, inv);
-        fence_async_smem();
-        warpgroup_sync(1 + wg);
-        if (t == 0) {
+        if constexpr (fwd_staged_store<DH>()) {
+          // O (and its residual) through shared memory and TMA stores, which
+          // write no row past T; the previous item's stores must have read
+          // the staging tiles first
+          uint8_t* Ow = Os + wg * TILE;
+          uint8_t* Rw = Rs + wg * TILE;
+          if (t == 0) bulk_wait_read();
+          warpgroup_sync(1 + wg);
+          stage_rows<DH>(Ow, RES ? Rw : nullptr, acc, r0, c0, inv);
+          fence_async_smem();
+          warpgroup_sync(1 + wg);
+          if (t == 0) {
 #pragma unroll
-          for (int g = 0; g < DH / 64; ++g) {
-            tma_store_box<FLASH>(&to, Ow + g * kBox, 64 * g, qw, it.h, it.b);
-            if (RES) tma_store_box<FLASH>(&tres, Rw + g * kBox, 64 * g, qw, it.h, it.b);
+            for (int g = 0; g < DH / 64; ++g) {
+              tma_store_box<FLASH>(&to, Ow + g * kBox, 64 * g, qw, it.h, it.b);
+              if (RES) tma_store_box<FLASH>(&tres, Rw + g * kBox, 64 * g, qw, it.h, it.b);
+            }
+            bulk_commit();
           }
-          bulk_commit();
+        } else {  // the flash layout: rows DH elements apart
+          store_rows<DH>(o + head_offset<FLASH, DH>(it.b, it.h, a.H, a.Tq), acc, qw, r0, c0,
+                         a.Tq, DH, inv);
         }
       }
     }
     if (wg == 0) my_turn();  // consumer 1's first hand-over
-    if (t == 0) bulk_wait_read();  // the staging tiles live until the stores have read them
+    // the staging tiles live until the stores have read them
+    if (fwd_staged_store<DH>() && t == 0) bulk_wait_read();
   }
 }
 
@@ -1021,20 +1081,21 @@ __device__ __forceinline__ void pd_operand(const float (&p)[32], uint32_t keep,
 }
 
 template <int DH, bool FLASH, bool DROPOUT>
-__global__ void __launch_bounds__(bwd_threads<DH>(), 1)
+__global__ void __launch_bounds__((1 + dq_consumers<DH>()) * kWG, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
               const bf16* __restrict__ o, const bf16* __restrict__ res,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ delta_out, bf16* __restrict__ dq, AttnArgs a) {
   constexpr uint32_t TILE = DH / 64 * kBox;
-  constexpr int C = bwd_consumers<DH>();
+  constexpr int C = dq_consumers<DH>();
+  constexpr int STAGES = bwd_stages<DH>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);  // the CTA's query rows: one tile a consumer
   uint8_t* dOs = Qs + C * TILE;
-  uint8_t* Ks = dOs + C * TILE;       // kStages stages
-  uint8_t* Vs = Ks + kStages * TILE;
-  const Ring ring = carve_ring(Vs + kStages * TILE);
+  uint8_t* Ks = dOs + C * TILE;       // STAGES stages
+  uint8_t* Vs = Ks + STAGES * TILE;
+  const Ring ring = carve_ring(Vs + STAGES * TILE);
 
   const int q0 = blockIdx.x * C * kBQ, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
@@ -1043,7 +1104,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const int n_tiles = (key_range<FLASH>(a, b, q0 + (C - 1) * kBQ).kv_end + kBK - 1) / kBK;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C, kStages);
+  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
   __syncthreads();
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
@@ -1059,7 +1120,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       }
       int stage = 0, phase = 0;
       for (int j = 0; j < n_tiles; ++j) {
-        if (j >= kStages) mbar_wait(ring.empty + stage, phase ^ 1);
+        if (j >= STAGES) mbar_wait(ring.empty + stage, phase ^ 1);
         if (seg) {
           for (int c = lane; c < kBK; c += 32) {
             const int pos = j * kBK + c;
@@ -1073,7 +1134,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         } else {
           mbar_arrive(ring.full + stage);
         }
-        if (++stage == kStages) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -1173,7 +1234,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         }
         release(ring.empty + stage, lane);
       }
-      if (++stage == kStages) {
+      if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
@@ -1186,22 +1247,64 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
 }
 
+// The weights of a transposed (key, query) tile in place: s from S^T to p,
+// rows the keys kw + r0 + 8 i, columns the queries q0 + 8 j + c0 + e; lse_t
+// the query rows' lse * log2(e), qseg their segment ids (flash), kvseg the
+// keys'
+template <bool FLASH>
+__device__ __forceinline__ void transposed_weights(float (&s)[32], const AttnArgs& a,
+                                                   const KeyRange& keys, bool seg, int q0, int kw,
+                                                   int r0, int c0, const float* lse_t,
+                                                   const int* qseg, const int (&kvseg)[2],
+                                                   float inv_t) {
+  const float scale2 = a.scale * kLog2e;
+  if (tile_unmasked<FLASH>(a, keys, seg, q0, kw)) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int idx = 4 * jj + v;
+        s[idx] = exp2f(fmaf(s[idx], scale2, -lse_t[8 * jj + c0 + (v & 1)]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int key = kw + r0 + 8 * ii;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * jj + c0 + e, row = q0 + qc, idx = 4 * jj + 2 * ii + e;
+          const bool in_bounds = (row < a.Tq) & (key < a.Tk);
+          const bool visible = in_bounds & is_visible<FLASH>(a, keys, row, key) &
+                               ((!seg) | (qseg[qc] == kvseg[ii]));
+          s[idx] = softmax_p(s[idx], in_bounds, keys.uniform, visible, lse_t[qc], scale2, inv_t);
+        }
+      }
+    }
+  }
+}
+
 template <int DH, bool FLASH, bool DROPOUT>
-__global__ void __launch_bounds__(bwd_threads<DH>(), 1)
+__global__ void __launch_bounds__((1 + dkdv_consumers<DH>()) * kWG, 1)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, AttnArgs a) {
   constexpr uint32_t TILE = DH / 64 * kBox;
-  constexpr int C = bwd_consumers<DH>();
+  constexpr int C = dkdv_consumers<DH>();
+  constexpr int NK = dkdv_keys<DH>() / kBK;  // the CTA's key tiles
+  constexpr int STAGES = bwd_stages<DH>();
+  static_assert(!dkdv_split<DH>() || (FLASH && !DROPOUT), "Dh 192 and 256: the flash policy only");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Ks = align1024(smem_raw);  // the CTA's keys: one tile a consumer
-  uint8_t* Vs = Ks + C * TILE;
-  uint8_t* Qs = Vs + C * TILE;        // kStages stages
-  uint8_t* dOs = Qs + kStages * TILE;
-  const Ring ring = carve_ring(dOs + kStages * TILE);
+  uint8_t* Ks = align1024(smem_raw);  // the CTA's keys: one tile a consumer (split: one)
+  uint8_t* Vs = Ks + NK * TILE;
+  uint8_t* Qs = Vs + NK * TILE;       // STAGES stages
+  uint8_t* dOs = Qs + STAGES * TILE;
+  const Ring ring = carve_ring(dOs + STAGES * TILE);
 
-  const int k0 = blockIdx.x * C * kBK, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * NK * kBK, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
   const bool seg = FLASH && a.q_seg != nullptr;
   // the key lengths do not depend on the query tile; the causal start does
@@ -1212,14 +1315,14 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int n_tiles = (any_key && q_begin < a.Tq) ? (a.Tq - q_begin + kBQ - 1) / kBQ : 0;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C, kStages);
+  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
   __syncthreads();
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
     regs_dec<kProducerRegs>();
     if (warp_in_group() == 0) {
       if (lane == 0 && n_tiles > 0) {
-        const int own = min(C, (a.Tk - k0 + kBK - 1) / kBK);
+        const int own = min(NK, (a.Tk - k0 + kBK - 1) / kBK);
         mbar_expect_tx(ring.own, own * 2 * TILE);
         for (int w = 0; w < own; ++w) {
           tma_tile<FLASH, DH>(Ks + w * TILE, &tk, k0 + w * kBK, h, b, ring.own);
@@ -1229,7 +1332,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       int stage = 0, phase = 0;
       for (int i = 0; i < n_tiles; ++i) {
         const int q0 = q_begin + i * kBQ;
-        if (i >= kStages) mbar_wait(ring.empty + stage, phase ^ 1);
+        if (i >= STAGES) mbar_wait(ring.empty + stage, phase ^ 1);
         for (int r = lane; r < kBQ; r += 32) {  // the query rows' lse and delta (the dQ kernel's)
           const int row = q0 + r;
           const bool in_rows = row < a.Tq;
@@ -1244,13 +1347,13 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         } else {
           mbar_arrive(ring.full + stage);
         }
-        if (++stage == kStages) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
       }
     }
-  } else {  // a consumer warpgroup: 64 keys
+  } else if constexpr (!dkdv_split<DH>()) {  // a consumer warpgroup: 64 keys
     if constexpr (C > 1) regs_inc<kConsumerRegs>();
     const int wg = group - 1, t = threadIdx.x & (kWG - 1);
     const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
@@ -1259,7 +1362,6 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int D = row_stride<FLASH, DH>(a.H);
     const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
     const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
-    const float scale2 = a.scale * kLog2e;
     int kvseg[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1299,34 +1401,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         fence_regs(s);
         const float* lse_t = ring.lse2(stage);
         const float* delta_t = ring.delta(stage);
-        if (tile_unmasked<FLASH>(a, keys, seg, q0, kw)) {
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              const int idx = 4 * jj + v;
-              s[idx] = exp2f(fmaf(s[idx], scale2, -lse_t[8 * jj + c0 + (v & 1)]));
-            }
-          }
-        } else {
-          const int* qseg = ring.seg(stage);
-#pragma unroll
-          for (int ii = 0; ii < 2; ++ii) {
-            const int key = kw + r0 + 8 * ii;
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int qc = 8 * jj + c0 + e, row = q0 + qc, idx = 4 * jj + 2 * ii + e;
-                const bool in_bounds = (row < a.Tq) & (key < a.Tk);
-                const bool visible = in_bounds & is_visible<FLASH>(a, keys, row, key) &
-                                     ((!seg) | (qseg[qc] == kvseg[ii]));
-                s[idx] = softmax_p(s[idx], in_bounds, keys.uniform, visible, lse_t[qc], scale2,
-                                   inv_t);
-              }
-            }
-          }
-        }
+        transposed_weights<FLASH>(s, a, keys, seg, q0, kw, r0, c0, lse_t, ring.seg(stage), kvseg,
+                                  inv_t);
         // Pd^T to bf16 and its dV product first, running beside dPd^T
         pd_operand<DROPOUT>(s, keep, a, pda);  // bf16(Pd)^T; s keeps p for dS
         wgmma_fence();
@@ -1360,7 +1436,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         }
         release(ring.empty + stage, lane);
       }
-      if (++stage == kStages) {
+      if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
@@ -1373,6 +1449,103 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float one[2] = {1.f, 1.f};
     store_rows<DH>(dk + kv_base, acc_dk, kw, r0, c0, a.Tk, D, one);
     store_rows<DH>(dv + kv_base, acc_dv, kw, r0, c0, a.Tk, D, one);
+  } else {  // split: the CTA's 64 keys, consumer 1 accumulating dV, consumer 2 dK
+    regs_inc<kConsumerRegs>();
+    const int t = threadIdx.x & (kWG - 1);
+    const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+    const int kw = k0;
+    const bool my_keys = kw < a.Tk;
+    const size_t kv_base = head_offset<FLASH, DH>(b, h, a.H, a.Tk);
+    int kvseg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kw + r0 + 8 * i;
+      kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
+    }
+    // one role: dV += bf16(P)^T dO, or dK += bf16(dS * scale)^T Q with dS from
+    // dP^T = V dO^T; each recomputes S^T = K Q^T
+    const auto role = [&](auto dk_role) {
+      constexpr bool DK = decltype(dk_role)::value;
+      float acc[DH / 2], s[32], dp[DK ? 32 : 1];
+      uint32_t op[4][4];  // the output product's A operand
+      zero(acc);
+      if (n_tiles > 0) mbar_wait(ring.own, 0);
+      int stage = 0, phase = 0, prev = 0;
+      bool pending = false;  // the previous tile's output product may still run
+      for (int i = 0; i < n_tiles; ++i) {
+        const int q0 = q_begin + i * kBQ;
+        mbar_wait(ring.full + stage, phase);
+        if (my_keys && (!a.causal || q0 + kBQ - 1 >= kw)) {
+          const uint8_t* Qt = Qs + stage * TILE;
+          const uint8_t* dOt = dOs + stage * TILE;
+          wgmma_fence();
+          score_tile<DH, 64>(s, Ks, Qt);
+          wgmma_commit();
+          if (pending) {  // the previous product is done: its stage is free
+            wgmma_wait<1>();
+            fence_operand(op);
+            fence_regs(acc);
+            release(ring.empty + prev, lane);
+          }
+          if constexpr (DK) {
+            score_tile<DH, 64>(dp, Vs, dOt);
+            wgmma_commit();
+            wgmma_wait<1>();  // S^T is done, dP^T may still run
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_regs(s);
+          transposed_weights<FLASH>(s, a, keys, seg, q0, kw, r0, c0, ring.lse2(stage),
+                                    ring.seg(stage), kvseg, inv_t);
+          if constexpr (DK) {
+            const float* delta_t = ring.delta(stage);
+            wgmma_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+              for (int v = 0; v < 4; ++v) {
+                const int idx = 4 * jj + v, qc = 8 * jj + c0 + (v & 1);
+                dp[idx] = grad_ds<false>(s[idx], dp[idx], delta_t[qc], true, a);
+              }
+            }
+            to_a_operand(dp, op);  // bf16(dS * scale)^T
+            wgmma_fence();
+            accumulate<DH>(acc, op, Qt);
+          } else {
+            to_a_operand(s, op);  // bf16(P)^T
+            wgmma_fence();
+            accumulate<DH>(acc, op, dOt);
+          }
+          wgmma_commit();
+          pending = true;
+          prev = stage;
+        } else {  // none of the CTA's keys is visible to the tile
+          if (pending) {
+            wgmma_wait<0>();
+            fence_operand(op);
+            fence_regs(acc);
+            release(ring.empty + prev, lane);
+            pending = false;
+          }
+          release(ring.empty + stage, lane);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(op);
+      fence_regs(acc);
+      const float one[2] = {1.f, 1.f};
+      store_rows<DH>((DK ? dk : dv) + kv_base, acc, kw, r0, c0, a.Tk, DH, one);
+    };
+    if (group == 1) {
+      role(std::false_type{});
+    } else {
+      role(std::true_type{});
+    }
   }
 }
 
@@ -1441,12 +1614,20 @@ template <int DH, bool FLASH, bool DROPOUT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* res,
                        float* lse, int B, const AttnArgs& a, cudaStream_t stream) {
   constexpr int C = fwd_consumers<DH>();
-  // the query, output and residual tiles, then the stages' key and value tiles
-  constexpr size_t smem = ring_smem_bytes<DH>(3 * C, fwd_stages<DH>() * fwd_bn<DH>() / 64);
+  // the query (and, staged, the output and residual) tiles, then the stages'
+  // key and value tiles
+  constexpr size_t smem = ring_smem_bytes<DH>((fwd_staged_store<DH>() ? 3 : 1) * C,
+                                              fwd_stages<DH>() * fwd_bn<DH>() / 64);
+  static_assert(smem <= 232448, "a CTA's shared memory");
   static bool configured = false, configured_res = false;
-  cudaError_t err = res == nullptr
-                        ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
-                        : allow_smem(fwd_kernel<DH, FLASH, DROPOUT, true>, smem, configured_res);
+  cudaError_t err;
+  if constexpr (fwd_staged_store<DH>()) {
+    err = res == nullptr ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
+                         : allow_smem(fwd_kernel<DH, FLASH, DROPOUT, true>, smem, configured_res);
+  } else {  // the residual is the packed forward's
+    err = res == nullptr ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
+                         : cudaErrorInvalidValue;
+  }
   CUtensorMap mq, mk, mv, mo, mres;
   if (err == cudaSuccess) err = make_map<FLASH>(&mq, q, B, a.H, a.Tq, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mk, k, B, a.H, a.Tk, DH);
@@ -1464,13 +1645,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   if (err != cudaSuccess) return err;
   const unsigned ctas = (unsigned)(items < sms ? items : sms);
   constexpr int threads = (1 + C) * kWG;
-  if (res == nullptr) {
-    fwd_kernel<DH, FLASH, DROPOUT, false><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
-                                                                          lse, a, B);
-  } else {
-    fwd_kernel<DH, FLASH, DROPOUT, true><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
-                                                                         lse, a, B);
+  bf16* out = static_cast<bf16*>(o);
+  if constexpr (fwd_staged_store<DH>()) {
+    if (res != nullptr) {
+      fwd_kernel<DH, FLASH, DROPOUT, true><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
+                                                                           out, lse, a, B);
+      return cudaGetLastError();
+    }
   }
+  fwd_kernel<DH, FLASH, DROPOUT, false><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
+                                                                        out, lse, a, B);
   return cudaGetLastError();
 }
 
@@ -1483,28 +1667,33 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        void* dq, void* dk, void* dv, int B, const AttnArgs& a,
                        cudaStream_t stream) {
   if (delta == nullptr || (!FLASH && res == nullptr)) return cudaErrorInvalidValue;
-  constexpr size_t smem = ring_smem_bytes<DH>(2 * bwd_consumers<DH>(), kStages);
+  // each CTA's own tiles (Q and dO of its query rows; K and V of its keys),
+  // then the ring's stages
+  constexpr size_t smem_dq = ring_smem_bytes<DH>(2 * dq_consumers<DH>(), bwd_stages<DH>());
+  constexpr size_t smem_dkdv = ring_smem_bytes<DH>(2 * dkdv_keys<DH>() / kBK, bwd_stages<DH>());
+  static_assert(smem_dq <= 232448 && smem_dkdv <= 232448, "a CTA's shared memory");
   static bool configured_dq = false, configured_dkdv = false;
-  cudaError_t err = allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem, configured_dq);
+  cudaError_t err = allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem_dq, configured_dq);
   if (err == cudaSuccess)
-    err = allow_smem(bwd_dkdv_kernel<DH, FLASH, DROPOUT>, smem, configured_dkdv);
+    err = allow_smem(bwd_dkdv_kernel<DH, FLASH, DROPOUT>, smem_dkdv, configured_dkdv);
   CUtensorMap mq, mk, mv, mdo;
   if (err == cudaSuccess) err = make_map<FLASH>(&mq, q, B, a.H, a.Tq, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mk, k, B, a.H, a.Tk, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mv, v, B, a.H, a.Tk, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mdo, dout, B, a.H, a.Tq, DH);
   if (err != cudaSuccess) return err;
-  constexpr int rows = bwd_consumers<DH>() * kBQ;  // owned rows a CTA
-  constexpr int threads = bwd_threads<DH>();
+  constexpr int rows = dq_consumers<DH>() * kBQ;  // owned query rows a CTA
   const dim3 grid_dq((a.Tq + rows - 1) / rows, a.H, B);
-  bwd_dq_kernel<DH, FLASH, DROPOUT><<<grid_dq, threads, smem, stream>>>(
+  bwd_dq_kernel<DH, FLASH, DROPOUT><<<grid_dq, (1 + dq_consumers<DH>()) * kWG, smem_dq, stream>>>(
       mq, mk, mv, mdo, static_cast<const bf16*>(o), static_cast<const bf16*>(res),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_dkdv((a.Tk + rows - 1) / rows, a.H, B);
-  bwd_dkdv_kernel<DH, FLASH, DROPOUT><<<grid_dkdv, threads, smem, stream>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
+  constexpr int keys = dkdv_keys<DH>();  // owned keys a CTA
+  const dim3 grid_dkdv((a.Tk + keys - 1) / keys, a.H, B);
+  bwd_dkdv_kernel<DH, FLASH, DROPOUT>
+      <<<grid_dkdv, (1 + dkdv_consumers<DH>()) * kWG, smem_dkdv, stream>>>(
+          mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
   return cudaGetLastError();
 }
 

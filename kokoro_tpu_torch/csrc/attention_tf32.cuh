@@ -1,7 +1,8 @@
 // The f32 attention on Hopper's tensor cores in 3xTF32 (sm_90a): the
 // forward kernel and the backward's dQ and dK/dV kernels of both mask
-// policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128,
-// with the numerics contract of attention_kernels.cuh.  Replaces no TPU
+// policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128
+// (the flash policy without dropout also 192 and 256), with the numerics
+// contract of attention_kernels.cuh.  Replaces no TPU
 // kernel of its own: it is the f32 instantiation of the kernels that
 // packed_attention.cu, flash_attention.cu, packed_attention_bwd.cu and
 // flash_attention_bwd.cu launch (their notes name the TPU kernels).
@@ -65,15 +66,22 @@
 //
 // Structure: a CTA is 8 warps and owns 128 rows at Dh 64 (16 a warp), 64 at
 // Dh 128 (two warps share each 16 rows, each with half of the output
-// columns): the forward's and the dQ kernel's query rows, the dK/dV
-// kernel's keys.  A streamed tile (64 rows at Dh 64, 32 at Dh 128) arrives
-// by cp.async through a ring of two stages, the next tile's load under this
-// tile's products.  The backward (FlashAttention-2's split, no atomics:
-// each gradient element is summed by one thread in a fixed order, so two
-// calls are bitwise equal) splits a stage in place, four barriers a tile;
-// its shared memory is 226.5 KB (dQ) and 210.5 KB (dK/dV) a CTA at Dh 64,
-// 209.75 KB at Dh 128.  The dK/dV kernel takes a streamed tile in passes of
-// 32 queries.  The forward lands the f32 rows in a ring apart from the
+// columns), 32 from Dh 192 (four warps share each 16 rows, each with a
+// quarter of the output columns): the forward's and the dQ kernel's query
+// rows, the dK/dV kernel's keys.  From Dh 192 the four warps also split
+// each score's contraction (S, dPd, the delta products) into quarters of
+// Dh, whose partials meet in shared memory and are summed in the warps'
+// order (shared_score), so no warp repeats another's products; every
+// kernel sums the same way, so the forward's lse still gives the dQ
+// kernel's weights back exactly.  A streamed tile (64 rows at Dh 64, 32 at
+// Dh 128, 16 from Dh 192) arrives by cp.async through a ring of two stages,
+// the next tile's load under this tile's products.  The backward
+// (FlashAttention-2's split, no atomics: each gradient element is summed by
+// one thread in a fixed order, so two calls are bitwise equal) splits a
+// stage in place, four barriers a tile; its shared memory is 226.5 KB (dQ)
+// and 210.5 KB (dK/dV) a CTA at Dh 64, 209.75 KB at Dh 128.  The dK/dV
+// kernel takes a streamed tile in passes of 32 queries (from Dh 192 the
+// whole tile of 16).  The forward lands the f32 rows in a ring apart from the
 // pairs, two barriers a tile; a row's 8J scores of a tile sit in one quad,
 // so its max and sum take two shuffles and alpha rescales the warp's O
 // accumulators in registers; 193.5 KB a CTA (Q's pairs 64 KB, the tile's K
@@ -107,23 +115,30 @@ namespace tf32 {
 constexpr int kWarps = 8;
 constexpr int kCtaThreads = 32 * kWarps;
 constexpr int kStages = 2;
-// the dK/dV kernel takes a streamed tile in passes of 32 queries
-constexpr int kPassQ = 32;
-constexpr int kPassJ = kPassQ / 8;
 
-// warps sharing each 16 owned rows, each taking DH / split output columns
+// warps sharing each 16 owned rows, each taking DH / split output columns:
+// 64 at Dh 64, 128 and 256, 48 at Dh 192 (96 spilled the dK/dV kernel's two
+// accumulators)
 template <int DH>
 __host__ __device__ constexpr int col_split() {
-  return DH == 128 ? 2 : 1;
+  return DH == 64 ? 1 : (DH == 128 ? 2 : 4);
 }
-// rows a CTA owns (16 a group of warps) and rows a streamed tile holds
+// rows a CTA owns (16 a group of warps) and rows a streamed tile holds: 128
+// and 64, 64 and 32, 32 and 16, 32 and 16 at Dh 64, 128, 192 and 256 (a
+// split stage of two tiles is 64 KB, 48 KB at Dh 192)
 template <int DH>
 __host__ __device__ constexpr int owned_rows() {
   return 16 * kWarps / col_split<DH>();
 }
 template <int DH>
 __host__ __device__ constexpr int stream_rows() {
-  return 4096 / DH;
+  return DH == 192 ? 16 : 4096 / DH;
+}
+// the dK/dV kernel takes a streamed tile in passes of 32 queries (16 from
+// Dh 192, a whole tile)
+template <int DH>
+__host__ __device__ constexpr int pass_rows() {
+  return stream_rows<DH>() < 32 ? stream_rows<DH>() : 32;
 }
 
 // -- shared memory ----------------------------------------------------------
@@ -149,10 +164,13 @@ __device__ __forceinline__ int pair_at(int n, int c) {
 }
 
 // A warp's staging tile of P or dS (16 rows of NQ floats), swizzled as an
-// owned tile: the accumulator's pairs in, the A fragments' pairs out.
+// owned tile: the accumulator's pairs in, the A fragments' pairs out.  At
+// NQ = 16 (Dh 192 and 256) two rows share a bank line, and the block c / 8
+// moves by bit 1 of the row: rows g = 0..7 land on four distinct 8-bank
+// groups, the fewest conflicts 64 floats can have.
 template <int NQ>
 __device__ __forceinline__ int w_at(int r, int c) {
-  return r * NQ + (c ^ ((r & 3) << 3));
+  return r * NQ + (c ^ (NQ >= 32 ? (r & 3) << 3 : ((r >> 1) & 1) << 3));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
@@ -231,7 +249,7 @@ __device__ __forceinline__ void store_pairs(float* tile, int idx, float4 x) {
 // tile: every thread reads its raw values, the CTA waits, then writes.
 template <int DH>
 __device__ __forceinline__ void split_stage(float* stage) {
-  constexpr int S = 4096 / DH, N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
+  constexpr int S = stream_rows<DH>(), N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
   float4 x[2][N4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -332,15 +350,16 @@ struct PairRows {
 // streamed tile or, with SPLIT_B false, of an owned tile split here alike.
 // The contraction index is permuted in each group of 8 (logical t, t + 4 =
 // columns 2t, 2t + 1).  Each element is the same sequence of products and
-// adds whichever tile it sits in and however A and B were split.
+// adds whichever tile it sits in and however A and B were split.  kg0 and
+// kg1 (even) bound the contraction to the groups of 8 [kg0, kg1).
 template <int DH, int J, bool SPLIT_B = true, typename Rows>
 __device__ __forceinline__ void score(float (&s)[J][4], const Rows& A, const float* B, int b_row0,
-                                      int lane) {
+                                      int lane, int kg0 = 0, int kg1 = DH / 8) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < J; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 1
-  for (int ks = 0; ks < DH / 8; ks += 2) {
+  for (int ks = kg0; ks < kg1; ks += 2) {
     float part[J][4] = {};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -366,6 +385,64 @@ __device__ __forceinline__ void score(float (&s)[J][4], const Rows& A, const flo
     for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
+  }
+}
+
+// From Dh 192 the col_split warps sharing 16 rows split each score's
+// contraction: each takes DH / split columns, and the partials meet in
+// shared memory, summed in the warps' order.
+template <int DH>
+__host__ __device__ constexpr int split_k() {
+  return DH > 128 ? col_split<DH>() : 1;
+}
+
+// floats of a CTA's exchange of partial scores: a slot of 16 x 16 (J = 2) a
+// warp from Dh 192, none before
+template <int DH>
+__host__ __device__ constexpr int xch_floats() {
+  return split_k<DH>() > 1 ? kWarps * 256 : 0;
+}
+
+// a barrier of the split_k warps sharing row group `group` (ids 1..: 0 is
+// __syncthreads)
+__device__ __forceinline__ void row_group_sync(int group, int warps) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(32 * warps) : "memory");
+}
+
+// s = score over all DH columns when the split_k warps of row group `group`
+// share the work: this warp (the part-th of them) takes columns [part,
+// part + 1) * DH / split_k, writes its partial to its slot of xch (the
+// group's split_k slots of 32 J floats a lane, lane-major), and after the
+// group's barrier sums the group's slots in order, so each element is
+// ((p0 + p1) + ...) whichever kernel and warp takes it; the second barrier
+// frees the slots.  Below Dh 192: score itself.
+template <int DH, int J, bool SPLIT_B = true, typename Rows>
+__device__ __forceinline__ void shared_score(float (&s)[J][4], const Rows& A, const float* B,
+                                             int b_row0, int lane, float* xch, int group,
+                                             int part) {
+  constexpr int SK = split_k<DH>();
+  if constexpr (SK == 1) {
+    score<DH, J, SPLIT_B>(s, A, B, b_row0, lane);
+  } else {
+    static_assert(4 * J * 32 == 256, "a slot holds a 16 x 16 tile");
+    constexpr int KG = DH / 8 / SK;  // groups of 8 a part (even)
+    score<DH, J, SPLIT_B>(s, A, B, b_row0, lane, part * KG, (part + 1) * KG);
+    float* slots = xch + group * SK * 256;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slots[part * 256 + (4 * j + e) * 32 + lane] = s[j][e];
+    row_group_sync(group, SK);
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sum = slots[(4 * j + e) * 32 + lane];
+#pragma unroll
+        for (int p = 1; p < SK; ++p) sum += slots[p * 256 + (4 * j + e) * 32 + lane];
+        s[j][e] = sum;
+      }
+    row_group_sync(group, SK);
   }
 }
 
@@ -576,10 +653,15 @@ template <int DH>
 __host__ __device__ constexpr size_t smem_bytes(int stage_cols) {
   return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH>()) +
          sizeof(float) * 3 * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * kWarps * 16 * stage_cols;
+         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH>());
 }
-static_assert(smem_bytes<64>(stream_rows<64>()) <= 232448 &&
-                  smem_bytes<128>(stream_rows<128>()) <= 232448,
+template <int DH>
+__host__ __device__ constexpr bool bwd_fits() {
+  // O lands in the second stage before the dQ kernel's loop; the forward's
+  // Q lands in its pair tiles before it is split
+  return smem_bytes<DH>(stream_rows<DH>()) <= 232448 && own_floats<DH>() <= stage_floats<DH>();
+}
+static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<192>() && bwd_fits<256>(),
               "a CTA's shared memory");
 
 // -- the dQ kernel ------------------------------------------------------------
@@ -601,6 +683,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + 3 * kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x S a warp
+  float* xch = Ws + kWarps * 16 * S;  // the partial scores (shared_score)
   float* Os = ring + stage_floats<DH>();  // O in the second stage, until the loop loads it
 
   int qt, bhi;
@@ -619,6 +702,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int qw = q0 + wr;                 // its first query
   float* W = Ws + warp * 16 * S;
   const float inv_t = 1.f / (float)a.Tk;
@@ -647,9 +731,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float delta[2];
   {
     float x[2][4], d_kv[2];
-    score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane);
+    shared_score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part);
     diagonal(x, lane, delta);
-    score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane);
+    shared_score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part);
     diagonal(x, lane, d_kv);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -687,7 +771,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the end, has nothing in it
     if (qw < a.Tq && !(a.causal && k0 > qw + 15)) {
       float s[J][4], dp[J][4];
-      score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane);
+      shared_score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part);
       const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
       if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S)) {
 #pragma unroll
@@ -708,7 +792,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               inv_t);
           }
       }
-      score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane);
+      shared_score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part);
 #pragma unroll
       for (int jj = 0; jj < J; ++jj)
 #pragma unroll
@@ -736,6 +820,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int R = owned_rows<DH>(), S = stream_rows<DH>();
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
+  constexpr int kPassQ = pass_rows<DH>(), kPassJ = kPassQ / 8;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // the CTA's keys
   float* Vs = Ks + own_floats<DH>();
@@ -746,6 +831,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(qseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x kPassQ a warp
+  float* xch = Ws + kWarps * 16 * kPassQ;  // the partial scores (shared_score)
 
   int kt, bhi;
   cta_tile((a.Tk + R - 1) / R, a.H * B, a.causal, false, kt, bhi);
@@ -766,6 +852,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first key in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int kw = k0 + wr;                 // its first key
   const bool my_keys = kw < a.Tk && (keys.uniform || kw < keys.len);
   float* W = Ws + warp * 16 * kPassQ;
@@ -821,7 +908,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
       // transposed tiles: rows the warp's keys, columns the pass's queries
       float s[kPassJ][4], dp[kPassJ][4];
-      score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane);
+      shared_score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part);
       if (block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16)) {
 #pragma unroll
         for (int jj = 0; jj < kPassJ; ++jj)
@@ -856,7 +943,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
       accumulate<DH, NC, kPassJ>(acc_dv, StagedRows<kPassQ>{W}, dOp, qs, c0, lane);
-      score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane);
+      shared_score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup, part);
 #pragma unroll
       for (int jj = 0; jj < kPassJ; ++jj)
 #pragma unroll
@@ -886,9 +973,11 @@ template <int DH>
 __host__ __device__ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH>() +
                           kStages * 2 * stream_rows<DH>() * DH) +
-         sizeof(int) * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads;
+         sizeof(int) * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads +
+         sizeof(float) * xch_floats<DH>();
 }
-static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448,
+static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 &&
+                  fwd_smem_bytes<192>() <= 232448 && fwd_smem_bytes<256>() <= 232448,
               "a CTA's shared memory");
 
 // A CTA owns R query rows (owned_rows) and streams the key/value tiles its
@@ -915,7 +1004,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vp = Kp + TS;
   float* raw = Vp + TS;  // kStages x (S rows of K, S rows of V), f32
   int* kvseg_s = reinterpret_cast<int*>(raw + kStages * 2 * S * DH);  // kStages x S
-  volatile uint32_t* keep_s = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
+  uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
+  volatile uint32_t* keep_s = keep_words;
+  float* xch = reinterpret_cast<float*>(keep_words + kCtaThreads);  // shared_score's partials
 
   int qt, bhi;
   cta_tile((a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
@@ -933,6 +1024,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int qw = q0 + wr;                 // its first query
 
   auto issue = [&](int j) {  // K's and V's f32 rows into the ring
@@ -981,7 +1073,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kb = step * JS * 8;  // the step's first key in the tile
       const uint32_t keep = keep_tile >> (4 * JS * step);
       float s[JS][4];
-      score<DH, JS>(s, qa, Kp, kb, lane);
+      shared_score<DH, JS>(s, qa, Kp, kb, lane, xch, rgroup, part);
       // the logits s * scale, through the mask unless every pair is visible:
       // packed, a masked logit is -1e9; flash, the mask value is added; a key
       // past Tk is no key at all
@@ -1083,7 +1175,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int B, const AttnArgs& a, cudaStream_t stream) {
   if (delta == nullptr) return cudaErrorInvalidValue;
-  constexpr size_t smem_dq = smem_bytes<DH>(stream_rows<DH>()), smem_dkdv = smem_bytes<DH>(kPassQ);
+  constexpr size_t smem_dq = smem_bytes<DH>(stream_rows<DH>());
+  constexpr size_t smem_dkdv = smem_bytes<DH>(pass_rows<DH>());
   constexpr int R = owned_rows<DH>();
   static bool configured_dq = false, configured_dkdv = false;
   cudaError_t err = tc::allow_smem(bwd_dq_kernel<DH, FLASH, DROPOUT>, smem_dq, configured_dq);

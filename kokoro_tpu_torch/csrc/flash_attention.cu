@@ -6,9 +6,11 @@
 // _flash_attention_impl), which the JAX package runs for causal decoder
 // self-attention at T >= 1024 with T a multiple of 128.  Here: q of shape
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
-// float32 or bfloat16, Dh in {64, 128}, any Tq, Tk >= 1; optional causal mask
-// (col <= row) and optional segment ids q_seg (B, Tq), kv_seg (B, Tk) int32
-// (the library's SegmentIds: valid = 1, padding = 0).  The kernel is
+// float32 or bfloat16, Dh in {64, 128, 192, 256}, any Tq, Tk >= 1; optional
+// causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
+// (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
+// library's kernel takes a head dim up to 128 or a multiple of 128 (it
+// raises at 192); the reference's gate admits any multiple of 64.  The kernel is
 // attention_kernels.cuh's forward with the flash mask policy, which keeps the
 // library's numerics: -0.7 * FLT_MAX added to a masked logit, the
 // unnormalised weights rounded to the input type before their product with V,
@@ -31,7 +33,11 @@
 // log2 units.  f32 runs on the tensor cores in 3xTF32, in the packed
 // forward's f32 template with the flash mask policy (attention_tf32.cuh):
 // its bound is 165 TFLOP/s of f32-accurate work (0.148 ms here; the CUDA
-// cores' 67 TFLOP/s f32 FMA rate would allow no less than 0.36 ms).
+// cores' 67 TFLOP/s f32 FMA rate would allow no less than 0.36 ms).  At Dh
+// 192 and 256 (the flagship's hidden 512 over 2 heads: H=2, the same bytes
+// and operations as H=8, Dh=64) the bf16 kernel streams 64-key tiles through
+// three or two stages and stores O from registers; the f32 kernel's four
+// warps of each 16 rows split S's contraction (attention_tf32.cuh).
 
 #include "attention_kernels.cuh"
 

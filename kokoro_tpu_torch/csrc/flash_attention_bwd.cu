@@ -5,7 +5,7 @@
 // (body _flash_attention_dkv_kernel) and _flash_attention_bwd_dq (body
 // _flash_attention_dq_kernel) of jax.experimental.pallas.ops.tpu.flash_attention.
 // Inputs q, o, dO (B, H, Tq, Dh), k, v (B, H, Tk, Dh), head-first and
-// contiguous, f32 or bf16, Dh in {64, 128}, the forward's f32 row
+// contiguous, f32 or bf16, Dh in {64, 128, 192, 256}, the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
 // kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
@@ -24,8 +24,12 @@
 // tensor-core peak the bf16 kernels run on; 0.370 ms at the 165 TFLOP/s of
 // f32-accurate work the f32 kernels get from the TF32 tensor cores in three
 // products, where the CUDA cores' 67 TFLOP/s f32 FMA rate would give 0.91
-// ms).  Shared memory: bf16 82 / 164 KB a CTA (Dh 64 / 128), f32 226.5 (dQ)
-// and 210.5 (dK/dV) / 209.75 KB (attention_tf32.cuh).
+// ms).  Shared memory: bf16 82 / 164 / 196.9 / 196.9 KB a CTA (Dh 64 / 128 /
+// 192 / 256), f32 226.5 (dQ) and 210.5 (dK/dV) / 209.75 / 161.4 / 209.4 KB
+// (attention_tf32.cuh).  From Dh 192 the bf16 dK/dV kernel's two consumer
+// warpgroups share 64 keys, one accumulating dV and one dK (both
+// accumulators of a 64-key tile would take Dh registers a thread), and the
+// f32 kernels' four warps of each 16 rows split S's and dPd's contraction.
 
 #include "attention_kernels.cuh"
 

@@ -17,13 +17,18 @@ Attention routes with ``use_flash``, in the reference's order
 (``MultiHeadAttention.__call__``), for full-sequence attention without ALiBi:
 
 1. K4 (``ops/flash_attention.py``): causal attention at T >= 1024 in multiples
-   of 128 with attention dropout inactive, on the head-split path;
+   of 128 with attention dropout inactive, on the head-split path, at head
+   dims 64, 128, 192 and 256;
 2. K1 (``ops/fused_attention.py``, packed): any other causal self-attention;
 3. K2 (packed, kv lengths): cross-attention with q_len == kv_len;
 4. K3 (``fused_attention``, folded): causal attention on the head-split path
    (a key given) with q_len == kv_len;
 5. everything else (the encoder, the cached decode step, precomputed cross
    K/V) is plain matmul/softmax, as the JAX package leaves it to XLA.
+
+K1, K2 and K3 take head dims 64 and 128, as the reference's packed gate
+does (``fused_attention.SUPPORTED_HEAD_DIMS``); K4 takes its own
+(``flash_attention.SUPPORTED_HEAD_DIMS``).
 
 The packed routes take any T: the reference's TPU-only gates (128 <= T <=
 896) do not carry over, so K1 and K2 also run outside K4's regime where the
@@ -73,7 +78,7 @@ from kokoro_tpu_torch.models.positional import apply_rope, apply_rope_heads_last
 from kokoro_tpu_torch.models.rng import Rng, attention_seed, drop_path, dropout, fold
 from kokoro_tpu_torch.ops.flash_attention import flash_attention, flash_supported
 from kokoro_tpu_torch.ops.fused_attention import (
-    SUPPORTED_HEAD_DIMS, fused_attention, packed_attention,
+    SUPPORTED_HEAD_DIMS as PACKED_HEAD_DIMS, fused_attention, packed_attention,
 )
 from kokoro_tpu_torch.parallel.mesh import seq_gather
 from kokoro_tpu_torch.parallel.tp import copy_to_region, reduce_from_region
@@ -293,13 +298,14 @@ class MultiHeadAttention(nn.Module):
                 value = copy_to_region(value, self.tp_mesh)
         if self.sp_mesh is not None and kv_cache is None and precomputed_kv is None:
             return self._seq_parallel(query, key_padding_mask, rng), None
-        full_seq = (
-            self.use_flash and kv_cache is None and precomputed_kv is None
-            and not self.use_alibi and self.head_dim in SUPPORTED_HEAD_DIMS
-        )
+        kernels = (self.use_flash and kv_cache is None and precomputed_kv is None
+                   and not self.use_alibi)
+        # the packed kernels' head dims (K1, K2, K3)
+        full_seq = kernels and self.head_dim in PACKED_HEAD_DIMS
         Tk = Tq if key is None else key.shape[1]
-        # K4 takes the long causal regime when no attention weight is dropped
-        flash = (full_seq and causal and rate == 0.0
+        # K4 takes the long causal regime when no attention weight is dropped,
+        # at its own head dims
+        flash = (kernels and causal and rate == 0.0
                  and flash_supported(Tq, Tk, self.head_dim, causal))
         # causal self-attention needs no key mask under suffix padding: a
         # padded key is visible only to padded queries, masked downstream
@@ -345,7 +351,7 @@ class MultiHeadAttention(nn.Module):
                 pos = torch.arange(k.shape[2], device=query.device)
                 q = apply_rope(q, pos[:Tq])
                 k = apply_rope(k, pos)
-            if full_seq and causal and (flash or Tq == Tk):
+            if flash or (full_seq and causal and Tq == Tk):
                 return self._head_split_kernel(q, k, v, flash, rate, rng), None
 
         Tk = k.shape[2]

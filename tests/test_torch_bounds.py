@@ -6,8 +6,13 @@ achieved TFLOP/s of every timed kernel rest on it.  Here it is held against
 the plain versions' own masks, counted by brute force: with q = k = 0 every
 visible weight is exactly 1 (or 1/T for a packed row of kv length 0, which
 averages every key) and every masked one exactly 0.
+
+Also the readings ``hold_recorded`` adds to each check: ``allclose_ratio``
+(what ``close_or_raise``'s allclose decides on) and ``float64_control``
+(where an f32 backward's error against the float64 recompute sits).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,3 +88,36 @@ def test_bound_counts_operations_per_pair():
     row = chip_smoke.timed_row(fwd, 2 * fwd["bound_ms"], plain_ms=1.0)
     assert row["bound_share"] == pytest.approx(0.5)
     assert row["tflops"] == pytest.approx(fwd["ops"] / (row["ms"] * 1e-3) / 1e12)
+
+
+def test_allclose_ratio_is_what_allclose_decides():
+    tol = 1e-4
+    ref = torch.tensor([1.0, -50.0, 0.0], dtype=torch.float64)
+    out = ref + torch.tensor([1.5e-4, 4e-3, 5e-5], dtype=torch.float64)
+    # the worst element is the large one: 4e-3 against 1e-4 + 5e-3
+    assert chip_smoke.allclose_ratio(out, ref, tol) == pytest.approx(4e-3 / 5.1e-3)
+    assert torch.allclose(out, ref, rtol=tol, atol=tol)
+    out[2] = 2e-4  # twice the bound at a zero reference
+    assert chip_smoke.allclose_ratio(out, ref, tol) == pytest.approx(2.0)
+    assert not torch.allclose(out, ref, rtol=tol, atol=tol)
+
+
+def test_float64_control_finds_the_one_key_rows_dv():
+    """The f32 plain kv-length backward against its float64 recompute on
+    ``mixed_lengths``: the largest error sits in dV of a row of kv length 1,
+    at its one key, which sums every query's dO (|dV| is tens); that is the
+    element ``hold_recorded``'s f32 readings at the bench shapes come from."""
+    B, T, H, Dh = 6, 384, 2, 32
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, T, H * Dh)).astype(np.float32))
+                   for _ in range(4))
+    lens = chip_smoke.mixed_lengths(B, T)
+    kw = dict(num_heads=H, scale=Dh ** -0.5, kv_lengths=torch.tensor(lens, dtype=torch.int32))
+    plain = port.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
+    exact = chip_smoke.packed_bwd_float64(q, k, v, do, causal=False, **kw)
+    control = chip_smoke.float64_control(plain, plain, exact, lens)
+    worst = control["worst"]
+    assert (worst["grad"], worst["kv_length"], worst["token"]) == ("dv", 1, 0)
+    assert abs(worst["value"]) > 10
+    assert control["plain_f32"]["dv"] == worst["abs_err"] < 1e-4
+    assert max(control["plain_f32"]["dq"], control["plain_f32"]["dk"]) < 1e-5

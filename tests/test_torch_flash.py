@@ -2,7 +2,9 @@
 package's ``_flash_attention`` (the library Pallas flash attention, forward
 and its two-kernel backward) run in the Pallas TPU interpreter on the CPU
 (``pltpu.force_tpu_interpret_mode()``), plus the dispatcher's refusals and
-``MultiHeadAttention``'s routing.
+``MultiHeadAttention``'s routing.  At Dh 192, which the library's kernel
+refuses (a head_dim above 128 must be a multiple of 128 there), the JAX side
+is the library's own plain reference, ``mha_reference_no_custom_vjp``.
 
 Tolerances (docs/attention_numerics_tpu.json ``tolerances``): forward f32
 2e-5 / bf16 2e-2, gradients f32 1e-4 / bf16 3e-2, abs and rel.  Rows without
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as library
 
 from kokoro_tpu.models.blocks import _flash_attention
 from kokoro_tpu_torch.models.blocks import MultiHeadAttention
@@ -53,7 +56,8 @@ def _visible_rows(q_valid, kv_valid, B, T, causal):
     return same.any(-1)
 
 
-# each value of T, Dh, dtype, causal and mask kind at least once
+# each value of T, Dh, dtype, causal and mask kind at least once; Dh 192
+# and 256 in both dtypes, with and without masks
 CASES = [
     (1024, 64, "float32", True, "none"),
     (1024, 64, "float32", True, "suffix"),
@@ -61,7 +65,33 @@ CASES = [
     (1024, 128, "bfloat16", True, "none"),
     (1152, 64, "bfloat16", True, "interior"),
     (1024, 64, "bfloat16", False, "suffix"),
+    (1024, 192, "float32", True, "none"),
+    (1152, 192, "bfloat16", False, "interior"),
+    (1024, 192, "bfloat16", True, "suffix"),
+    (1024, 256, "float32", True, "suffix"),
+    (1152, 256, "float32", False, "interior"),
+    (1024, 256, "bfloat16", True, "none"),
 ]
+
+
+def _library_reference(q, k, v, causal, scale, q_valid, kv_valid):
+    """The library's own plain reference (``mha_reference_no_custom_vjp``,
+    the jnp attention its kernel is tested against, differentiated by JAX) with ``_flash_attention``'s
+    segment ids, in f32 on the dtype-rounded inputs: the library's kernel
+    refuses a head_dim above 128 that is not a multiple of 128 (Dh 192: its
+    ``NotImplementedError``), so there the reference's flash branch has no
+    kernel to hold the port to."""
+    B, _, Tq, _ = q.shape
+    Tk = k.shape[2]
+    segment_ids = None
+    if q_valid is not None or kv_valid is not None:
+        q_seg = jnp.ones((B, Tq), jnp.int32) if q_valid is None else q_valid.astype(jnp.int32)
+        kv_seg = jnp.ones((B, Tk), jnp.int32) if kv_valid is None else kv_valid.astype(jnp.int32)
+        segment_ids = library.SegmentIds(q=q_seg, kv=kv_seg)
+    f32 = [x.astype(jnp.float32) for x in (q, k, v)]
+    out = library.mha_reference_no_custom_vjp(*f32, None, segment_ids, causal=causal,
+                                              sm_scale=scale)
+    return out.astype(q.dtype)
 
 
 @pytest.mark.parametrize("T,Dh,dname,causal,masks", CASES)
@@ -78,6 +108,8 @@ def test_plain_matches_library_kernel_in_interpret_mode(T, Dh, dname, causal, ma
     @jax.jit
     def ref_fn(q, k, v, do, q_valid, kv_valid):
         def f(q, k, v):
+            if Dh > 128 and Dh % 128:
+                return _library_reference(q, k, v, causal, scale, q_valid, kv_valid)
             return _flash_attention(q, k, v, causal=causal, scale=scale,
                                     q_valid=q_valid, kv_valid=kv_valid)
 
@@ -158,20 +190,23 @@ def test_flash_gate_is_the_references_without_its_backend_clause():
     assert not port.flash_supported(896, 896, 64)     # below 1024
     assert not port.flash_supported(1024, 1024, 32)   # Dh % 64
     assert not port.flash_supported(1024, 1024, 64, causal=False)
-    # narrower than the reference: the kernels take Dh 64 and 128 only
-    assert not port.flash_supported(1024, 1024, 192)
-    assert not port.flash_supported(1024, 1024, 256)
+    assert port.flash_supported(1024, 1024, 192)
+    assert port.flash_supported(1408, 1408, 256)
+    # narrower than the reference: the kernels take Dh up to 256
+    assert not port.flash_supported(1024, 1024, 320)
+    assert not port.flash_supported(1024, 1024, 512)
 
 
-def _route(T, training, rate, key_given=False):
+def _route(T, training, rate, key_given=False, d_model=128):
     """Launch counts each wrapper WOULD have made: the CPU runs the plain
-    versions, so the routes are read from spies on the dispatch functions."""
+    versions, so the routes are read from spies on the dispatch functions.
+    Two heads, so head_dim is d_model / 2."""
     calls = []
-    mha = MultiHeadAttention(128, 2, rate, use_rope=True, qk_norm=True, use_flash=True)
-    cross = MultiHeadAttention(128, 2, rate, qk_norm=True, use_flash=True)
+    mha = MultiHeadAttention(d_model, 2, rate, use_rope=True, qk_norm=True, use_flash=True)
+    cross = MultiHeadAttention(d_model, 2, rate, qk_norm=True, use_flash=True)
     mha.train(training)
     cross.train(training)
-    x = torch.randn(1, T, 128, generator=torch.Generator().manual_seed(T))
+    x = torch.randn(1, T, d_model, generator=torch.Generator().manual_seed(T))
     from kokoro_tpu_torch.models import blocks
     from kokoro_tpu_torch.models.rng import Rng
 
@@ -213,6 +248,21 @@ def test_routing_follows_the_reference(T, training, rate, expected):
 def test_routing_head_split_causal_takes_k3_and_k4():
     assert _route(512, True, 0.1, key_given=True) == ["K3", "K2"]
     assert _route(1024, False, 0.0, key_given=True) == ["K4", "K2"]
+
+
+@pytest.mark.parametrize("d_model,T,key_given,expected", [
+    (512, 1024, False, ["K4"]),   # Dh 256: K4, the cross-attention on einsum
+    (512, 1408, True, ["K4"]),    # a key given: K4 on the head-split path
+    (512, 896, False, []),        # below 1024: einsum, as K1 takes Dh 64 and 128
+    (384, 1024, False, ["K4"]),   # Dh 192
+    (384, 1000, False, []),       # not a multiple of 128
+    (640, 1024, False, []),       # Dh 320: beyond the kernels, the plain path
+])
+def test_routing_at_head_dims_192_and_256(d_model, T, key_given, expected):
+    """K4 takes its own head dims, the packed kernels (K1, K2, K3) theirs:
+    at Dh 192 and 256 the long causal self-attention takes K4 and every other
+    site stays on einsum, as in the reference."""
+    assert _route(T, False, 0.0, key_given=key_given, d_model=d_model) == expected
 
 
 def test_cpu_routes_launch_no_kernel():

@@ -159,6 +159,58 @@ def test_flash_kernels_match_plain(cuda, causal, T, Dh, dtype, masks):
                                    atol=GRAD_TOL[dtype], msg=f"d{name}")
 
 
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [192, 256])
+@pytest.mark.parametrize("T", [1024, 1408, 1433])
+def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, masks):
+    """K4 at the head dims past the packed kernels' (causal, the long path's
+    regime): one forward and one backward kernel launch through the autograd
+    Function, against the plain forward and backward; suffix padding on both
+    sides, or interior padding on the keys with every query valid."""
+    B, H = 2, 2
+    g = torch.Generator().manual_seed(5 * T + Dh)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, dtype) for _ in range(4))
+    if masks == "suffix":
+        q_valid = kv_valid = torch.arange(T, device=cuda)[None, :] < torch.tensor(
+            [[T], [T - 301]], device=cuda)
+    else:
+        kv_valid = torch.rand(B, T, generator=g) > 0.3
+        kv_valid[:, 0] = True
+        kv_valid = kv_valid.to(cuda)
+        q_valid = torch.ones(B, T, dtype=torch.bool, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [kern.launches for kern in flash.KERNELS]
+    out = flash.flash_attention(*leaves, causal=True, scale=Dh ** -0.5, q_valid=q_valid,
+                                kv_valid=kv_valid)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(flash.KERNELS, before)] == [1, 1]
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    ref = flash.flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    grads = flash.flash_attention_bwd_reference(q, k, v, out.detach(), do, **kw)
+    for name, a, b in zip("qkv", grads, leaves):
+        torch.testing.assert_close(b.grad.float(), a.float(), rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype], msg=f"d{name}")
+
+
+def test_flash_kernels_refuse_head_dim_320(cuda):
+    """Past Dh 256 the kernels take no head dim: the wrappers raise, and
+    nothing launches."""
+    x = torch.zeros(1, 2, 1024, 320, device=cuda)
+    before = [kern.launches for kern in flash.KERNELS]
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(x, x, x, causal=True, scale=320 ** -0.5)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention_fwd(x, x, x, causal=True, scale=320 ** -0.5)
+    lse = torch.zeros(1, 2, 1024, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention_bwd(x, x, x, x, x, lse, causal=True, scale=320 ** -0.5)
+    assert [kern.launches for kern in flash.KERNELS] == before
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("T", [1, 63, 200, 432])

@@ -10,6 +10,11 @@ on the CPU (its flash gate asks for a TPU); one more forward runs the
 reference's flash branch itself, with its gate's backend clause dropped and
 the Pallas kernel in the TPU interpreter (``FLASH_TRACE_COUNT`` must grow).
 
+The same at head_dim 256 (hidden 512 over 2 heads, 1+1 layers): K4 takes
+the decoder self-attention at Dh 192 and 256 too, where the packed kernels'
+gate (Dh 64 and 128, as the reference's) leaves the cross-attention and the
+encoder on einsum.
+
 Tolerances: forward outputs 1e-4 (the port's forward parity tolerance,
 tests/test_torch_model.py); one f32 train step, metrics 2e-5 relative and
 parameters and EMA 4e-6 absolute (tests/test_torch_training.py's).
@@ -24,7 +29,7 @@ import kokoro_tpu.models.blocks as ref_blocks
 from kokoro_tpu_torch.models import blocks
 from kokoro_tpu_torch.training.train_step import adaptive_stabilization
 from tests.test_torch_training import (
-    Pair, assert_metrics, assert_state, make_batch, torch_batch,
+    ARCH, Pair, assert_metrics, assert_state, make_batch, torch_batch,
 )
 from tests.torch_parity import apply_flax, n
 
@@ -40,9 +45,18 @@ def long_batch(seed):
     return batch
 
 
+# head_dim 256: hidden 512 over the 2 heads, one encoder and one decoder layer
+ARCH_DH256 = {**ARCH, "hidden_dim": 512, "n_encoder_layers": 1, "n_decoder_layers": 1}
+
+
 @pytest.fixture(scope="module")
 def pair():
     return Pair("float32")
+
+
+@pytest.fixture(scope="module")
+def pair_dh256():
+    return Pair("float32", arch=ARCH_DH256)
 
 
 def _forward_inputs(batch):
@@ -69,23 +83,31 @@ def _assert_outputs(port_out, ref_out, valid):
         np.testing.assert_allclose(a, b, rtol=FORWARD_TOL, atol=FORWARD_TOL, err_msg=key)
 
 
-def test_long_forward_takes_k4_and_matches_reference(pair, monkeypatch):
-    batch = long_batch(1)
+def _forward_takes_k4_and_matches_reference(pair, batch, monkeypatch):
+    """The port's forward (K4 once per decoder layer, no packed kernel on the
+    self-attention) against the reference's einsum path and its own flash
+    branch: its gate without the backend clause, its Pallas kernel in the
+    TPU interpreter."""
     calls, real = [], blocks.flash_attention
+    packed, real_packed = [], blocks.packed_attention
 
     def spy(*args, **kwargs):
         calls.append(1)
         return real(*args, **kwargs)
 
+    def packed_spy(*args, **kwargs):
+        packed.append(kwargs.get("causal"))
+        return real_packed(*args, **kwargs)
+
     monkeypatch.setattr(blocks, "flash_attention", spy)
+    monkeypatch.setattr(blocks, "packed_attention", packed_spy)
     port_out = _port_forward(pair, batch)
-    assert len(calls) == 2  # K4 once per decoder layer
+    assert len(calls) == pair.arch["n_decoder_layers"]  # K4 once per decoder layer
+    assert True not in packed  # no decoder self-attention on K1
     ref_out = apply_flax(pair.jm, pair.variables, **_forward_inputs(batch))
     valid = np.arange(T_LONG)[None, :] < batch["mel_lengths"][:, None]
     _assert_outputs(port_out, ref_out, valid)
 
-    # the reference's own flash branch: its gate without the backend clause,
-    # its Pallas kernel in the TPU interpreter
     def gate(q_len, kv_len, head_dim, causal=True):
         return (causal and q_len % ref_blocks._FLASH_BLOCK == 0
                 and kv_len % ref_blocks._FLASH_BLOCK == 0 and head_dim % 64 == 0
@@ -97,6 +119,17 @@ def test_long_forward_takes_k4_and_matches_reference(pair, monkeypatch):
         flash_out = apply_flax(pair.jm, pair.variables, **_forward_inputs(batch))
     assert ref_blocks.FLASH_TRACE_COUNT > before
     _assert_outputs(port_out, flash_out, valid)
+    return packed
+
+
+def test_long_forward_takes_k4_and_matches_reference(pair, monkeypatch):
+    _forward_takes_k4_and_matches_reference(pair, long_batch(1), monkeypatch)
+
+
+def test_long_forward_at_head_dim_256_takes_k4_and_matches_reference(pair_dh256, monkeypatch):
+    assert pair_dh256.arch["hidden_dim"] // pair_dh256.arch["n_heads"] == 256
+    packed = _forward_takes_k4_and_matches_reference(pair_dh256, long_batch(1), monkeypatch)
+    assert packed == []  # the cross-attention at Dh 256 stays on einsum too
 
 
 def test_long_train_step_matches_reference_with_stabilization_live(pair):
@@ -107,5 +140,15 @@ def test_long_train_step_matches_reference_with_stabilization_live(pair):
     ps = pair.port_state()
     pm = pair.run_port(ps, batch, 0)
     assert pm["stepped"] == 1.0 and pm["loss_scale"] == pytest.approx(float(scale))
+    assert_metrics(jm, pm)
+    assert_state(js, ps)
+
+
+def test_long_train_step_at_head_dim_256_matches_reference(pair_dh256):
+    batch = long_batch(3)
+    js, jm = pair_dh256.run_jax(pair_dh256.jax_state(), batch, 0)
+    ps = pair_dh256.port_state()
+    pm = pair_dh256.run_port(ps, batch, 0)
+    assert pm["stepped"] == 1.0 and pm["loss_scale"] < 1.0
     assert_metrics(jm, pm)
     assert_state(js, ps)

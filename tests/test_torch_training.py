@@ -108,10 +108,11 @@ class Pair:
     from one perturbed parameter set (``base``'s, when given: the parameter
     tree does not depend on the compute dtype)."""
 
-    def __init__(self, compute_dtype, base=None):
+    def __init__(self, compute_dtype, base=None, arch=ARCH):
         batch = make_batch(0)
         dtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[compute_dtype]
-        self.jm = RefModel(**ARCH, **NO_DROPOUT, gradient_checkpointing=False,
+        self.arch = arch
+        self.jm = RefModel(**arch, **NO_DROPOUT, gradient_checkpointing=False,
                            use_flash_attention=True, use_spec_augment=False, dtype=dtype)
         if base is None:
             init_batch = {k: jnp.asarray(batch[k]) for k in (
@@ -137,7 +138,7 @@ class Pair:
         return self.jax_state0
 
     def port_model(self):
-        model = KokoroModel(KokoroConfig(**ARCH, **NO_DROPOUT, use_flash_attention=True))
+        model = KokoroModel(KokoroConfig(**self.arch, **NO_DROPOUT, use_flash_attention=True))
         model.load_state_dict(kokoro_state_dict_from_flax(self.flat), strict=True)
         return model
 
