@@ -15,8 +15,11 @@ Phases, each printing one JSON line:
    backward's 3xTF32 ``csrc/attention_tf32.cuh``, whose registers it prints
    by kernel) spills or has its ``wgmma`` serialised; the registers of the 12
    K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV), and a
-   failure unless all 12 were built; and the host-side C++ duration aligner
-   (``csrc/aligner.cpp``, ``g++``).
+   failure unless all 12 were built; the registers of the 6 K4 cluster
+   kernels past Dh 256 (the same six, each CTA of a cluster of
+   ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
+   and a failure unless all 6 were built; and the host-side C++ duration
+   aligner (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; each f32 forward (K1 and K2 at rates 0
@@ -42,11 +45,15 @@ Phases, each printing one JSON line:
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
    against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920
+   and Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433/1920
    x causal and not x segment ids none/suffix/interior, f32 and bf16, each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
-   bit equal; then its times at the long path's shape B=12, T=1408 at H=8
-   Dh=64, H=2 Dh=256 (the flagship's hidden 512 over 2 heads) and H=4
-   Dh=192, each with its bound, plain version and SDPA in both dtypes.  Then the long path's other
+   bit equal, with each head dim's worst share of the allclose bound; then
+   its times at the long path's shape B=12, T=1408 at H=8 Dh=64, H=2 Dh=256
+   and H=1 Dh=512 (the flagship's hidden 512 over 2 heads and at one), H=4
+   Dh=192 and H=2 Dh=384 (hidden 768), each with its bound, plain version
+   and SDPA in both dtypes (past Dh 256 SDPA's first fused backend that takes
+   the call, pinned, and named).  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -83,12 +90,13 @@ Phases, each printing one JSON line:
    kernel path against plain path of the long step in f32 (B=4, L=256,
    T=1408) with the limits of (9a), the planted fault on K4's dK.  (c) the
    bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.  (d)
-   the same model at ``n_heads=2`` (head dim 256, ``long_head_dim_256``): (b)
+   the same model at ``n_heads=2`` (head dim 256, ``long_head_dim``): (b)
    in f32, a bf16 step kernel path against plain path within
    ``BF16_STEP_LIMIT`` beside the same at 8 heads, and 5 timed bf16 steps;
    K4 forward and backward once per decoder layer a step and no other
    wrapper (the cross-attention at Dh 256 stays on einsum, as in the
-   reference).
+   reference).  (e) The same at ``n_heads=1`` (head dim 512, K4's cluster
+   kernels), without the 8-head step, 3 timed bf16 steps.
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -254,7 +262,10 @@ those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
 its launches per trainer step on the ``seq`` and ``stage`` paths, 0,
 and K4's ``head_dims_192_256``, its times at Dh 256 and 192 in both dtypes
-and its launches per long step at ``n_heads=2``), the ``nvidia-smi`` line
+and its launches per long step at ``n_heads=2``, and ``head_dims_320_1024``,
+its cluster kernels' times at Dh 512 and 384 in both dtypes (with SDPA's
+backend there) and its launches per long step at ``n_heads=1``), the
+``nvidia-smi`` line
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
@@ -537,7 +548,7 @@ def phase_device():
 
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
-    regs, spills, serialized, tf32_regs, wide_regs = {}, {}, {}, {}, {}
+    regs, spills, serialized, tf32_regs, wide_regs, cluster_regs = {}, {}, {}, {}, {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -548,6 +559,10 @@ def phase_device():
         # K4 at Dh 192 and 256 (template argument 192 or 256)
         wide_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                           if "Li192E" in fn or "Li256E" in fn})
+        # K4 past Dh 256: the cluster instantiations (DH 128, flash, last
+        # template argument CL true)
+        cluster_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                             if is_cluster_kernel(fn)})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
@@ -555,11 +570,17 @@ def phase_device():
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
           "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
+          "cluster_registers": cluster_regs,
+          "cluster_ctas": {Dh: -(-Dh // 128) for Dh in range(320, 1025, 64)},
           "tf32_matmul": False, "tf32_cudnn": False})
     # each head dim: the bf16 and f32 forward, dQ and dK/dV kernels
     if len(wide_regs) != 12:
         raise AssertionError(f"expected 12 K4 kernels at Dh 192 and 256, ptxas built "
                              f"{sorted(wide_regs)}")
+    # past Dh 256: one set of the six for every head dim (the cluster size
+    # is an argument of the launch)
+    if len(cluster_regs) != 6:
+        raise AssertionError(f"expected 6 K4 cluster kernels, ptxas built {sorted(cluster_regs)}")
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -574,6 +595,12 @@ def phase_device():
 # (csrc/attention_tf32.cuh)
 TF32_NAMESPACE = "kokoro_attn4tf32"
 TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE)
+
+
+def is_cluster_kernel(mangled: str) -> bool:
+    """Whether a mangled kernel name is a K4 cluster instantiation: DH 128,
+    the flash policy, no dropout, and CL (its last template argument) true."""
+    return "ILi128ELb1ELb0E" in mangled and "Lb1EEEv" in mangled
 
 
 def ptxas_registers(lines) -> dict:
@@ -997,12 +1024,16 @@ def _flash_masks(kind, B, T, dev, gen):
     return torch.ones(B, T, dtype=torch.bool, device=dev), valid
 
 
-# K4's head dims: 64 and 128 (the packed kernels' too), 192 and 256 (K4's own)
-FLASH_HEAD_DIMS = (64, 128, 192, 256)
+# K4's head dims: 64 and 128 (the packed kernels' too), 192 and 256 (K4's
+# own), and from 320 the cluster kernels (320 and 448 ragged in their last
+# 128-column slice, 1024 the largest cluster)
+FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 1024)
+# the lengths swept up to Dh 256, and past it (fewer, to bound the phase)
+FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1536, 1920), "cluster": (1024, 1433, 1920)}
 # (H, Dh) of K4's timed rows at the long shape B=12, T=1408: the flagship's 8
-# heads of 64, and its hidden 512 over 2 heads (Dh 256, phase long's model)
-# and hidden 768 over 4 (Dh 192)
-FLASH_TIMED = ((8, 64), (2, 256), (4, 192))
+# heads of 64, and its hidden 512 over 2 heads (Dh 256) and one (Dh 512, phase
+# long's models), hidden 768 over 4 (Dh 192) and 2 (Dh 384)
+FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512))
 
 
 def phase_kernels_flash():
@@ -1017,11 +1048,11 @@ def phase_kernels_flash():
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4)
     B, H = 2, 8
-    worst, checks = {}, 0
+    worst, worst_ratio, checks = {}, {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for Dh in FLASH_HEAD_DIMS:
-            for T in (1024, 1408, 1433, 1536, 1920):
+            for T in FLASH_LENGTHS["cluster" if Dh > 256 else "narrow"]:
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
                 for causal in (True, False):
@@ -1057,15 +1088,24 @@ def phase_kernels_flash():
                         for key, err in ((f"fwd/{dname}/Dh={Dh}", err_o),
                                          (f"bwd/{dname}/Dh={Dh}", err_g)):
                             worst[key] = max(worst.get(key, 0.0), err)
+                        # the share of the allclose bound used (|S| grows with Dh)
+                        ratios = {f"fwd/{dname}/Dh={Dh}": allclose_ratio(o, ref_o, TOL[dname]),
+                                  f"bwd/{dname}/Dh={Dh}": max(
+                                      allclose_ratio(a, b, GRAD_TOL[dname])
+                                      for a, b in zip(grads, ref))}
+                        for key, r in ratios.items():
+                            worst_ratio[key] = max(worst_ratio.get(key, 0.0), r)
                         checks += 1
                         del again, ref_o, ref
                 del q, k, v, do
             torch.cuda.empty_cache()
     emit({"phase": "kernels_flash", "checks": checks, "two_calls_bitwise_equal": True,
           "f32_independent_of_allow_tf32": True,
-          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920} x "
-                    "causal/non-causal x segment ids none/suffix/interior",
-          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst})
+          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920} and "
+                    "Dh{320,384,448,512,1024} x T{1024,1433,1920} x causal/non-causal x "
+                    "segment ids none/suffix/interior",
+          "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst,
+          "worst_allclose_ratio": worst_ratio})
 
     timings = {}
     for H, Dh in FLASH_TIMED:
@@ -1105,13 +1145,18 @@ def flash_times(B, T, H, Dh, gen) -> dict:
         err_g = max(close_or_raise(f"flash bwd {where} d{n}", a, b, GRAD_TOL[dname])
                     for n, a, b in zip("qkv", grads, ref))
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        # past Dh 256 SDPA's flash backend refuses: the first fused backend
+        # that takes the call, pinned, else the math backend
+        backend = sdpa_backend(leaves, do) if Dh > 256 else None
 
         def sdpa_fwd():
-            return F.scaled_dot_product_attention(*leaves, is_causal=True, scale=Dh ** -0.5)
+            with sdpa_pinned(backend):
+                return F.scaled_dot_product_attention(*leaves, is_causal=True, scale=Dh ** -0.5)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), leaves, do)
 
+        library = {} if backend is None else {"library_backend": backend}
         timings[("flash_attention_fwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
@@ -1120,7 +1165,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             ms_for_backward=graph_time_ms(
                 lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
-            library_ms=graph_time_ms(sdpa_fwd))
+            library_ms=graph_time_ms(sdpa_fwd), **library)
         timings[("flash_attention_bwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True, backward=True),
             graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
@@ -1128,10 +1173,40 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             **profiled_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw), 2),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
                 q, k, v, o, do, **kw), iters=3),
-            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd))
+            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd), **library)
         del q, k, v, do, o, lse, grads, ref, leaves
         torch.cuda.empty_cache()
     return timings
+
+
+SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_pinned(backend):
+    """``torch.nn.attention.sdpa_kernel`` pinned to ``backend`` (a name of
+    ``SDPBackend``), or no pin."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    return contextlib.nullcontext() if backend is None else sdpa_kernel(
+        getattr(SDPBackend, backend))
+
+
+def sdpa_backend(leaves, do) -> str:
+    """The first of ``SDPA_FUSED`` that runs SDPA's causal forward and
+    backward on ``leaves``, else ``"MATH"`` (no fused backend)."""
+    import torch
+    import torch.nn.functional as F
+
+    for name in SDPA_FUSED:
+        try:
+            with sdpa_pinned(name):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            return name
+        except RuntimeError:
+            continue
+    return "MATH"
 
 
 # (B, T) of K2 at every kv length T with about 8 work items (query tiles of
@@ -1910,24 +1985,29 @@ def phase_long():
     del state, step, batch
     torch.cuda.empty_cache()
 
-    # (d) K4 at head dim 256
-    dh256, dh256_counts = long_head_dim_256(n_layers)
+    # (d) K4 at head dim 256, (e) at head dim 512 (the cluster kernels)
+    dh256, dh256_counts = long_head_dim(n_layers, LONG_DH256, timed_steps=5)
     emit({"phase": "long_dh256", **dh256})
-    return per_step[-1], dh256_counts
+    dh512, dh512_counts = long_head_dim(n_layers, LONG_DH512, timed_steps=3)
+    emit({"phase": "long_dh512", **dh512})
+    return per_step[-1], dh256_counts, dh512_counts
 
 
-# phase long at head dim 256: the flagship's hidden 512 over 2 heads (its
-# parameter count), where K4 takes the decoder self-attention and the packed
-# kernels' gate (Dh 64 and 128) leaves the cross-attention on einsum
+# phase long at head dims 256 and 512: the flagship's hidden 512 over 2 heads
+# and at one head (its parameter count), where K4 takes the decoder
+# self-attention and the packed kernels' gate (Dh 64 and 128) leaves the
+# cross-attention on einsum; at Dh 512 K4 runs its cluster kernels
 LONG_DH256 = dict(n_heads=2)
+LONG_DH512 = dict(n_heads=1)
 
 
-def bf16_step_gap(dev, n_heads: int) -> dict:
+def bf16_step_gap(dev, n_heads: int, f32_loss: bool = False) -> dict:
     """One bf16 forward and backward of the long regime (B=12, L=256,
     T=1408; every dropout rate 0, SpecAugment off) from one init, kernel
     path against plain path: the loss's relative gap, the gradient's over
     all tensors and its worst tensor's, and each wrapper's launches on the
-    kernel path."""
+    kernel path.  With ``f32_loss``, also the plain path's loss in f32 from
+    the same init and each bf16 path's relative distance to it."""
     import torch
 
     from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, training_batch
@@ -1939,7 +2019,10 @@ def bf16_step_gap(dev, n_heads: int) -> dict:
     B, L, T = LONG_SHAPE["B"], LONG_SHAPE["L"], LONG_SHAPE["T"]
     init = None
     readings, launches = {}, None
-    for name, flash in (("kernel", True), ("plain", False)):
+    paths = [("kernel", True, None), ("plain", False, None)]
+    if f32_loss:
+        paths.append(("plain_f32", False, "float32"))
+    for name, flash, dtype in paths:
         model_cfg, train_cfg = get_default_config(**{
             **LONG_REGIME, **NO_DROPOUT, "n_heads": n_heads, "use_flash_attention": flash})
         model = KokoroModel(model_cfg)
@@ -1948,13 +2031,15 @@ def bf16_step_gap(dev, n_heads: int) -> dict:
         model.load_state_dict(init)
         # f32 parameters computing in bf16, as create_train_state sets them
         model.to(dev, DTYPES[train_cfg.param_dtype]).set_compute_dtype(
-            DTYPES[train_cfg.compute_dtype])
+            DTYPES[dtype or train_cfg.compute_dtype])
         batch = training_batch(model_cfg, B, T, L, dev)
         params = dict(model.named_parameters())
         zero_counts()
-        total, _ = make_loss_fn(model, train_cfg, spec_augment=False)(
-            batch, Rng.from_generator(torch.Generator().manual_seed(0)))
-        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        with torch.set_grad_enabled(dtype is None):
+            total, _ = make_loss_fn(model, train_cfg, spec_augment=False)(
+                batch, Rng.from_generator(torch.Generator().manual_seed(0)))
+        grads = (torch.autograd.grad(total, list(params.values()), allow_unused=True)
+                 if dtype is None else ())
         torch.cuda.synchronize()
         if flash:
             launches = read_counts()
@@ -1966,65 +2051,88 @@ def bf16_step_gap(dev, n_heads: int) -> dict:
     leaf, leaf_name, all_rel = relative_gap(grads_p, grads_k)
     if not (math.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k.values())):
         raise AssertionError(f"bf16 long step at n_heads={n_heads}: not finite")
-    return {"n_heads": n_heads, "head_dim": 512 // n_heads, "compute_dtype": train_cfg.compute_dtype,
-            "loss_kernel": loss_k,
-            "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
-            "grad_all_rel": all_rel, "grad_leaf_rel": leaf, "worst_grad": leaf_name,
-            "launches": launches}
+    out = {"n_heads": n_heads, "head_dim": 512 // n_heads, "compute_dtype": train_cfg.compute_dtype,
+           "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_all_rel": all_rel, "grad_leaf_rel": leaf, "worst_grad": leaf_name,
+           "launches": launches}
+    if f32_loss:
+        loss_f = readings["plain_f32"][0]
+        out.update(loss_plain_f32=loss_f,
+                   kernel_to_f32_rel=abs(loss_k - loss_f) / abs(loss_f),
+                   plain_to_f32_rel=abs(loss_p - loss_f) / abs(loss_f))
+    return out
 
 
-def long_head_dim_256(n_layers: int):
-    """The long regime at ``LONG_DH256`` (Dh 256).  (a) f32: ``train_parity``
-    (kernel path against plain path, 3 steps, the planted dK control on K4),
-    K4 forward and backward once per decoder layer in the kernel path's step
-    and no other wrapper.  (b) bf16: one step from one init, kernel path
-    against plain path, beside the same at the flagship's 8 heads (Dh 64, the
-    kernels before this head dim); K4 as in (a).  (c) The bf16 long step's
-    time at Dh 256: 2 warm-up and 5 timed steps, K4 forward and backward 6 a
-    step.  Returns the readings and the launches of the last timed step."""
+def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
+    """The long regime at ``overrides`` (``LONG_DH256``: Dh 256;
+    ``LONG_DH512``: Dh 512).  (a) f32: ``train_parity`` (kernel path against
+    plain path, 3 steps, the planted dK control on K4), K4 forward and
+    backward once per decoder layer in the kernel path's step and no other
+    wrapper.  (b) bf16: one step from one init, kernel path against plain
+    path (at Dh 256 beside the same at the flagship's 8 heads, Dh 64, the
+    kernels before these head dims); K4 as in (a).  (c) The bf16 long step's
+    time: 2 warm-up and ``timed_steps`` timed steps, K4 forward and backward
+    6 a step.  Returns the readings and the launches of the last timed step."""
     import torch
 
     from kokoro_tpu_torch.cli.profile_paths import LONG_SHAPE, long_train_step
     from kokoro_tpu_torch.ops import flash_attention as fl
 
     dev = torch.device("cuda")
+    n_heads = overrides["n_heads"]
+    Dh = 512 // n_heads
     flash = {kern.name for kern in fl.KERNELS}
     want = lambda counts: {name: (n_layers if name in flash else 0) for name in counts}
     f32 = train_parity(4, LONG_SHAPE["L"], LONG_SHAPE["T"], fl, "flash_attention_bwd",
-                       **LONG_DH256)
+                       **overrides)
     if f32["launches_per_step"] != want(f32["launches_per_step"]):
-        raise AssertionError(f"f32 long step at Dh 256 launches {f32['launches_per_step']}")
-    bf16 = {"Dh=256": bf16_step_gap(dev, LONG_DH256["n_heads"]), "Dh=64": bf16_step_gap(dev, 8)}
-    if bf16["Dh=256"]["launches"] != want(bf16["Dh=256"]["launches"]):
-        raise AssertionError(f"bf16 long step at Dh 256 launches {bf16['Dh=256']['launches']}")
-    over = {k: bf16["Dh=256"][k] for k in BF16_STEP_LIMIT if bf16["Dh=256"][k] > BF16_STEP_LIMIT[k]}
+        raise AssertionError(f"f32 long step at Dh {Dh} launches {f32['launches_per_step']}")
+    key = f"Dh={Dh}"
+    one_head = n_heads == 1
+    bf16 = {key: bf16_step_gap(dev, n_heads, f32_loss=one_head)}
+    if Dh == 256:
+        bf16["Dh=64"] = bf16_step_gap(dev, 8)
+    if bf16[key]["launches"] != want(bf16[key]["launches"]):
+        raise AssertionError(f"bf16 long step at Dh {Dh} launches {bf16[key]['launches']}")
+    gap = bf16[key]
+    over = {k: gap[k] for k in BF16_STEP_LIMIT if gap[k] > BF16_STEP_LIMIT[k]}
+    if one_head:
+        # at one head the loss moves with the bf16 rounding of the attention
+        # output about 10x as much as at 2 or 8 heads (PERF.md section 6,
+        # scripts/probe_flash_cluster.py), so the loss is held to the f32
+        # path: the kernel path no farther from it than the plain path,
+        # within the same limit
+        over.pop("loss_rel", None)
+        if gap["kernel_to_f32_rel"] > gap["plain_to_f32_rel"] + BF16_STEP_LIMIT["loss_rel"]:
+            over["kernel_to_f32_rel"] = gap["kernel_to_f32_rel"]
     if over:
-        raise AssertionError(f"bf16 long step at Dh 256: kernel path against plain path {over} "
+        raise AssertionError(f"bf16 long step at Dh {Dh}: kernel path against plain path {over} "
                              f"past {BF16_STEP_LIMIT}: {bf16}")
 
-    state, step, batch = long_train_step(dev, **LONG_DH256)
+    state, step, batch = long_train_step(dev, **overrides)
     gen = torch.Generator().manual_seed(0)
     for _ in range(2):
         step(state, batch, gen)
     torch.cuda.synchronize()
     metrics, per_step = [], []
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(timed_steps):
         zero_counts()  # each step is a main-path run: counts from 0
         metrics.append(step(state, batch, gen))
         per_step.append(read_counts())
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 5
+    ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     for m, counts in zip(metrics, per_step):
         if not (m["stepped"] == 1.0 and math.isfinite(m["total"])):
-            raise AssertionError(f"long step at Dh 256 not finite or skipped: {m}")
+            raise AssertionError(f"long step at Dh {Dh} not finite or skipped: {m}")
         if counts != want(counts):
-            raise AssertionError(f"long step at Dh 256 launches {counts}, expected {want(counts)}")
+            raise AssertionError(f"long step at Dh {Dh} launches {counts}, expected {want(counts)}")
     del state, step, batch
     torch.cuda.empty_cache()
-    return {"model": "hidden 512, 6+6 layers, ff 1536, n_heads 2 (head_dim 256)",
+    return {"model": f"hidden 512, 6+6 layers, ff 1536, n_heads {n_heads} (head_dim {Dh})",
             "f32_parity": f32, "bf16_step": bf16, "bf16_limits": BF16_STEP_LIMIT,
-            "bf16_step_ms": ms, "timed_steps": 5, "launches_per_step": per_step[-1],
+            "bf16_step_ms": ms, "timed_steps": timed_steps, "launches_per_step": per_step[-1],
             "losses": [m["total"] for m in metrics]}, per_step[-1]
 
 
@@ -4137,9 +4245,9 @@ def run_phases(phases, work: Path) -> int:
             if c:
                 counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
     long_step = "per bf16 long training step (B=12 L=256 T=1408)"
-    dh256_counts = {}
+    dh256_counts, dh512_counts = {}, {}
     if "long" in phases:  # launches in one bf16 long training step
-        long_path, dh256_counts = timed("long", phase_long)
+        long_path, dh256_counts, dh512_counts = timed("long", phase_long)
         for name, c in long_path.items():
             if name.startswith("flash"):
                 counts[name] = (c, long_step)
@@ -4202,17 +4310,22 @@ def run_phases(phases, work: Path) -> int:
                 **timings[(kern.name, "bfloat16", "long")],
                 "shape": "B=12 T=1408 H=8 Dh=64, kv lengths 1408",
                 "launches": long_counts[kern.name], "launches_are": long_step}
-        if kern.name.startswith("flash"):  # K4 at head dims 192 and 256
-            row["head_dims_192_256"] = {
-                "launches": dh256_counts[kern.name],
-                "launches_are": "per bf16 long training step at n_heads=2, head_dim 256 "
-                                "(B=12 L=256 T=1408)",
-                **{f"Dh={Dh}/{dname}": {
-                    **{k: timings[(kern.name, dname, f"Dh={Dh}")][k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                        "tflops", "bound_share")},
-                    "shape": f"B=12 T=1408 H={H} Dh={Dh} causal"}
-                   for H, Dh in FLASH_TIMED[1:] for dname in ("bfloat16", "float32")}}
+        if kern.name.startswith("flash"):  # K4 at head dims 192 and 256, and past 256
+            for key, timed_dims, path_counts, path in (
+                    ("head_dims_192_256", FLASH_TIMED[1:3], dh256_counts, "n_heads=2, head_dim 256"),
+                    ("head_dims_320_1024", FLASH_TIMED[3:], dh512_counts,
+                     "n_heads=1, head_dim 512: the cluster kernels")):
+                row[key] = {
+                    "launches": path_counts[kern.name],
+                    "launches_are": f"per bf16 long training step at {path} (B=12 L=256 T=1408)",
+                    **{f"Dh={Dh}/{dname}": {
+                        **{k: timings[(kern.name, dname, f"Dh={Dh}")][k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "max_abs_err", "tflops", "bound_share")},
+                        **{k: v for k, v in timings[(kern.name, dname, f"Dh={Dh}")].items()
+                           if k == "library_backend"},
+                        "shape": f"B=12 T=1408 H={H} Dh={Dh} causal"}
+                       for H, Dh in timed_dims for dname in ("bfloat16", "float32")}}
         if kern.name in mfa_counts:  # the slice's own path: the trainer on MFA durations
             row["mfa_path"] = {
                 "launches": mfa_counts[kern.name],

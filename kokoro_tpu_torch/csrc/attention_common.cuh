@@ -75,6 +75,7 @@ struct AttnArgs {
   uint32_t threshold;  // dropout: a weight is kept iff its Philox word is below
   float inv_keep;
   uint32_t seed_lo, seed_hi;
+  int dh;  // a cluster launch (K4 past Dh 256): the whole head dim; 0 otherwise
 };
 
 // offset of row 0 of head h of batch b, and the distance between rows

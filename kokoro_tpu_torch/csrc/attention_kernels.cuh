@@ -18,9 +18,11 @@
 //     flash attention's DEFAULT_MASK_VALUE); no dropout.  A query row with no
 //     visible key writes O = 0 and lse = +inf, so its P, and every gradient
 //     through it, is 0.
-// Both: f32 or bf16, Dh in {64, 128} (flash also {192, 256}), any lengths
-// >= 1 (the ragged edge is masked by bounds: rows and columns past the end
-// are zero-filled on load, excluded from the softmax and never stored).
+// Both: f32 or bf16, Dh in {64, 128} (flash also {192, 256}, and every
+// multiple of 64 from 320 to 1024: a cluster of ceil(Dh / 128) CTAs splits
+// the head dim by columns, attention_tc.cuh), any lengths >= 1 (the ragged
+// edge is masked by bounds: rows and columns past the end are zero-filled
+// on load, excluded from the softmax and never stored).
 //
 // Numerics of both: S = Q K^T in f32, S *= scale, then the mask; an online
 // softmax over key tiles with the unnormalised exp(S - m_running) rounded to
@@ -93,9 +95,15 @@
 
 namespace kokoro_attn {
 
+// whether the flash policy's kernels take head dim Dh past 256: a multiple
+// of 64 up to 1024, the head dim split over a cluster of ceil(Dh / 128) CTAs
+inline bool cluster_head_dim(int Dh) {
+  return Dh > 256 && Dh <= tc::kMaxClusterDh && Dh % 64 == 0;
+}
+
 // dtype: 0 = float32 (the 3xTF32 forward of attention_tf32.cuh), 1 =
 // bfloat16 (the tensor-core forward of attention_tc.cuh); Dh 64 or 128, and
-// for the flash policy (no dropout) also 192 or 256.
+// for the flash policy (no dropout) also 192, 256 and cluster_head_dim's.
 // `res`: NULL, or (bf16 only) where the forward writes O's rounding residual
 // for the backward
 template <bool FLASH, bool DROPOUT>
@@ -116,13 +124,17 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
       return tc::launch_fwd<192, true, false>(q, k, v, o, res, lse, B, a, s);
     if (dtype == 1 && Dh == 256)
       return tc::launch_fwd<256, true, false>(q, k, v, o, res, lse, B, a, s);
+    if (cluster_head_dim(Dh) && res == nullptr) {
+      if (dtype == 0) return tf32::launch_fwd_split(q, k, v, o, lse, B, Dh, a, s);
+      if (dtype == 1) return tc::launch_fwd_split(q, k, v, o, lse, B, Dh, a, s);
+    }
   }
   return cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32 (the 3xTF32 kernels of attention_tf32.cuh), 1 =
 // bfloat16 (attention_tc.cuh); Dh 64 or 128, and for the flash policy (no
-// dropout) also 192 or 256.  `delta`: the (B, H, Tq) f32 workspace that
+// dropout) also 192, 256 and cluster_head_dim's.  `delta`: the (B, H, Tq) f32 workspace that
 // carries each row's delta from the dQ kernel to the dK/dV kernel (both
 // dtypes).  `res`: the packed bf16 forward's residual of O (NULL otherwise)
 template <bool FLASH, bool DROPOUT>
@@ -153,6 +165,12 @@ cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const 
     if (dtype == 1 && Dh == 256)
       return tc::launch_bwd<256, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
                                               s);
+    if (cluster_head_dim(Dh) && res == nullptr) {
+      if (dtype == 0)
+        return tf32::launch_bwd_split(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Dh, a, s);
+      if (dtype == 1)
+        return tc::launch_bwd_split(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Dh, a, s);
+    }
   }
   return cudaErrorInvalidValue;
 }

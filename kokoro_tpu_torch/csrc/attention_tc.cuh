@@ -2,10 +2,10 @@
 // dQ and dK/dV templates of attention_kernels.cuh redesigned around wgmma and
 // TMA, with the same two mask policies (packed K1/K2/K3, flash K4), dropout
 // on or off, Dh 64 or 128 (the flash policy without dropout also 192 and
-// 256), and the same numerics contract (see
-// attention_kernels.cuh): S and dPd in f32; the unnormalised exp, Pd and
-// dS * scale rounded to bf16 exactly where they become tensor-core operands;
-// f32 sums, the f32 row lse.
+// 256, and from 320 to 1024 as a cluster of Dh 128 CTAs: "clusters" below),
+// and the same numerics contract (see attention_kernels.cuh): S and dPd in
+// f32; the unnormalised exp, Pd and dS * scale rounded to bf16 exactly where
+// they become tensor-core operands; f32 sums, the f32 row lse.
 //
 // A warpgroup (128 threads) owns a 64-row tile: a query tile (forward, dQ) or
 // a key tile (dK/dV).  Thread t of the warpgroup holds, of every 64 x N f32
@@ -177,12 +177,14 @@ __device__ __forceinline__ void tma_box(uint8_t* dst, const CUtensorMap* map, in
       : "memory");
 }
 
-// rows [row0, row0 + 64), every column: DH / 64 boxes, kBox bytes apart
+// rows [row0, row0 + 64), columns [col0, col0 + DH): DH / 64 boxes, kBox
+// bytes apart (columns past the tensor's read as zero)
 template <bool FLASH, int DH>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, int row0, int h,
-                                         int b, uint64_t* bar) {
+                                         int b, uint64_t* bar, int col0 = 0) {
 #pragma unroll
-  for (int g = 0; g < DH / 64; ++g) tma_box<FLASH>(dst + g * kBox, map, 64 * g, row0, h, b, bar);
+  for (int g = 0; g < DH / 64; ++g)
+    tma_box<FLASH>(dst + g * kBox, map, col0 + 64 * g, row0, h, b, bar);
 }
 
 // a 64 x 64 box of shared memory (128-byte swizzle) -> columns [d0, d0 + 64)
@@ -225,6 +227,181 @@ __device__ __forceinline__ void pair_sync(int id) {
 __device__ __forceinline__ void pair_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
+
+// -- clusters: K4 past Dh 256, the head dim split by columns -----------------
+//
+// From Dh 320 a cluster of c = ceil(Dh / 128) CTAs takes each work item
+// together, CTA r owning columns [128 r, 128 r + 128) of every tile (the
+// Dh 128 instantiation's tiles, rings and accumulators).  The row-wise
+// contractions (S = Q K^T, dPd = dO V^T, the rows' delta) are partial sums
+// over a CTA's columns, and each CTA sums the cluster's partials itself, in
+// rank order, reading its peers' shared memory (DSMEM), so every CTA holds
+// the same bits and the softmax, P and dS agree across the cluster; each CTA
+// then takes the output products of its own columns.  Columns past Dh read
+// as zero (TMA's bounds, or a predicate) and are never stored.
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// the address of this CTA's shared `p` in CTA `rank`'s window of the
+// cluster's shared memory
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// this thread's earlier memory accesses ordered before its later ones for
+// every thread of the cluster (with a relaxed arrival after it: a release)
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// one arrival (relaxed, cluster scope) on an mbarrier of another CTA
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait (acquire at cluster scope) until the barrier's phase `parity` has
+// completed
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ float4 ld_peer(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// bytes of a CTA's exchange area: `warps` warps, each two slots of 32 N
+// floats and two mbarriers
+template <int N>
+__host__ __device__ constexpr size_t xch_bytes(int warps) {
+  return (size_t)warps * (2 * 32 * N * sizeof(float) + 2 * sizeof(uint64_t));
+}
+
+// thread 0: the exchange area's mbarriers, each expecting an arrival from
+// every lane of the same warp of each other CTA of the cluster
+template <int N>
+__device__ __forceinline__ void xch_init(uint8_t* area, int warps, int size) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(area + (size_t)warps * 2 * 32 * N * sizeof(float));
+  for (int i = 0; i < 2 * warps; ++i) mbar_init(bars + i, 32 * (size - 1));
+  mbar_fence_init();
+}
+
+// A warp's sums across the cluster, with the same warp of every other CTA:
+// each exchange writes the warp's partials to a slot (float i of lane l at
+// 128 (i / 4) + 4 l + i % 4), fences and arrives on that slot's mbarrier in
+// every peer CTA, waits on its own, and sums the slot of every CTA in rank
+// order.  The
+// slots alternate: a lane writes slot s again two exchanges on, after its
+// wait for the exchange between, whose arrivals every peer lane made after
+// reading slot s.  Each lane reads only its own positions of each slot, so
+// the per-lane arrivals order every read after the write it needs.  All the
+// CTAs' warps make the same exchanges in the same order (the work items,
+// rows and keys are the cluster's, only the columns differ), and the kernel
+// ends on cluster_sync, so that no CTA leaves while a peer reads its slots.
+template <int N>
+struct ClusterSum {
+  static_assert(N % 4 == 0, "float4 slots");
+  float* slots;     // this warp's two
+  uint64_t* ready;  // their mbarriers
+  int rank, size;
+  uint32_t n;  // exchanges so far: slot n % 2 in its phase n / 2
+
+  __device__ __forceinline__ ClusterSum(uint8_t* area, int warps, int warp) : n(0) {
+    slots = reinterpret_cast<float*>(area) + (size_t)warp * 2 * 32 * N;
+    ready = reinterpret_cast<uint64_t*>(area + (size_t)warps * 2 * 32 * N * sizeof(float)) + 2 * warp;
+    rank = cluster_rank();
+    size = cluster_size();
+  }
+
+  // v (M <= N floats) <- the sum over the cluster's CTAs, in rank order, of
+  // each one's v
+  template <int M>
+  __device__ __forceinline__ void operator()(float (&v)[M], int lane) {
+    static_assert(M <= N && M % 4 == 0, "a slot's first M floats a lane");
+#ifdef KOKORO_CLUSTER_SUM_OFF
+    return;  // timing only (scripts/probe_flash_cluster.py): no exchange, wrong sums
+#endif
+    const int slot = n & 1;
+    float* mine = slots + slot * 32 * N + 4 * lane;
+#pragma unroll
+    for (int i = 0; i < M / 4; ++i)
+      *reinterpret_cast<float4*>(mine + 128 * i) =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    // one cluster-scope fence, then relaxed arrivals: a release to each peer
+    // (a release arrival is a fence of its own, one for each peer)
+    fence_cluster();
+    for (int r = 0; r < size; ++r)
+      if (r != rank) mbar_arrive_peer(peer_addr(ready + slot, r));
+    mbar_wait_cluster(ready + slot, (n >> 1) & 1u);
+    // the slots in rank order, CH float4s at a time: a CTA's loads of a chunk
+    // are in flight together (a DSMEM load is a round trip)
+    constexpr int CH = M / 4 < 4 ? M / 4 : 4;
+#pragma unroll
+    for (int i0 = 0; i0 < M / 4; i0 += CH) {
+      float4 x[CH];
+      const uint32_t first = peer_addr(mine, 0) + 512 * i0;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) x[i] = ld_peer(first + 512 * i);
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        v[4 * (i0 + i)] = x[i].x;
+        v[4 * (i0 + i) + 1] = x[i].y;
+        v[4 * (i0 + i) + 2] = x[i].z;
+        v[4 * (i0 + i) + 3] = x[i].w;
+      }
+      for (int r = 1; r < size; ++r) {
+        const uint32_t at = peer_addr(mine, r) + 512 * i0;
+#pragma unroll
+        for (int i = 0; i < CH; ++i) x[i] = ld_peer(at + 512 * i);
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+          v[4 * (i0 + i)] += x[i].x;
+          v[4 * (i0 + i) + 1] += x[i].y;
+          v[4 * (i0 + i) + 2] += x[i].z;
+          v[4 * (i0 + i) + 3] += x[i].w;
+        }
+      }
+    }
+    ++n;
+  }
+};
+
+// the cluster of a K4 call past Dh 256: c = ceil(Dh / 128) CTAs of 128
+// columns each, at most 8 (the portable cluster size)
+constexpr int kSliceCols = 128;
+constexpr int kMaxClusterDh = 8 * kSliceCols;
+__host__ __device__ constexpr int slice_ctas(int dh) { return (dh + kSliceCols - 1) / kSliceCols; }
 
 // -- wgmma ------------------------------------------------------------------
 
@@ -408,17 +585,19 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 }
 
 // rows r0 and r0 + 8 of a 64 x DH accumulator -> bf16 rows of `dst` (D
-// elements apart) scaled by inv[i]; rows at or past row_end are not stored
+// elements apart) scaled by inv[i]; rows at or past row_end, and columns at
+// or past cols (a multiple of 8), are not stored
 template <int DH>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 2], int row0,
                                            int r0, int c0, int row_end, int D,
-                                           const float (&inv)[2]) {
+                                           const float (&inv)[2], int cols = DH) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r0 + 8 * i;
     if (row >= row_end) continue;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
+      if (8 * j >= cols) break;
       const float x0 = acc[4 * j + 2 * i] * inv[i], x1 = acc[4 * j + 2 * i + 1] * inv[i];
       *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * j + c0) =
           __floats2bfloat162_rn(x0, x1);
@@ -619,18 +798,19 @@ __device__ __forceinline__ uint32_t keep_bits_kv(uint32_t bh, int q0, int key4, 
 
 // delta of rows `row` and row + 8 (a quad's rows): each lane of the quad sums
 // a quarter of the columns of dO * (O + residual) (flash: dO * O) in f32,
-// then the quad sums the four; 0 for rows at or past T
+// then the quad sums the four; 0 for rows at or past T.  Columns at or past
+// cols (a multiple of 32) count as zero.
 template <bool FLASH, int DH>
 __device__ __forceinline__ void quad_row_deltas(const bf16* o, const bf16* res, const bf16* dout,
                                                 size_t base, int row, int T, int D, int lane,
-                                                float (&delta)[2]) {
+                                                float (&delta)[2], int cols = DH) {
   constexpr int Q = DH / 4;
   const int c_begin = (lane & 3) * Q;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float sum = 0.f;
     const int r = row + 8 * i;
-    if (r < T) {
+    if (r < T && c_begin < cols) {
       const size_t at = base + (size_t)r * D + c_begin;
 #pragma unroll
       for (int c = 0; c < Q; c += 8) {
@@ -803,10 +983,13 @@ struct FwdItem {
 
 // the k-th work item of this CTA: CTA i takes items i, 2 G - 1 - i, 2 G + i,
 // ... (G CTAs), so that over the heaviest-first order every CTA's items add
-// up to about the same work; -1 past the last item
+// up to about the same work; -1 past the last item.  In a cluster launch
+// (CL) i and G count clusters, so that a cluster's CTAs take the same items.
+template <bool CL = false>
 __device__ __forceinline__ int fwd_work(int k, int items) {
-  const int w = k * (int)gridDim.x +
-                ((k & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  const int size = CL ? cluster_size() : 1;
+  const int i = (int)blockIdx.x / size, G = (int)gridDim.x / size;
+  const int w = k * G + ((k & 1) ? G - 1 - i : i);
   return w < items ? w : -1;
 }
 
@@ -828,12 +1011,21 @@ __device__ __forceinline__ FwdItem fwd_item(int w, int n_q, int heads, const Att
   return it;
 }
 
+// whether O leaves through shared memory and TMA stores: not in a cluster
+// launch, whose exchange area takes that shared memory
+template <int DH, bool CL>
+__host__ __device__ constexpr bool fwd_stages_o() {
+  return fwd_staged_store<DH>() && !CL;
+}
+
 // RES: also write O's rounding residual (the packed forward under grad).
 // Persistent, one CTA an SM taking its items in turn (fwd_work): the
 // producer loads the next item's query tiles as soon as the consumers' last
 // S products have read this item's, and keeps the ring going across items,
 // so an item's first loads and its epilogue overlap its neighbours' work.
-template <int DH, bool FLASH, bool DROPOUT, bool RES>
+// CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
+// from 128 * its rank, each S tile summed across the cluster (ClusterSum).
+template <int DH, bool FLASH, bool DROPOUT, bool RES, bool CL = false>
 __global__ void __launch_bounds__((1 + fwd_consumers<DH>()) * kWG, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
@@ -844,27 +1036,37 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   constexpr int BN = fwd_bn<DH>();
   constexpr uint32_t KVT = BN / 64 * TILE;   // a streamed key (or value) tile
   constexpr int STAGES = fwd_stages<DH>();
-  constexpr uint32_t STAGED = fwd_staged_store<DH>() ? C * TILE : 0;
+  constexpr bool STAGE_O = fwd_stages_o<DH, CL>();
+  constexpr uint32_t STAGED = STAGE_O ? C * TILE : 0;
   static_assert(fwd_staged_store<DH>() || (FLASH && !RES), "Dh 192 and 256: the flash policy only");
+  static_assert(!CL || (DH == kSliceCols && BN == 64 && FLASH && !DROPOUT && !RES),
+                "a cluster launch: K4's 128-column slices");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);  // the item's query rows: one tile a consumer
   uint8_t* Os = Qs + C * TILE;        // O on its way out: one tile a consumer
   uint8_t* Rs = Os + STAGED;          // O's residual on its way out
   uint8_t* Ks = Rs + STAGED;          // STAGES stages
   uint8_t* Vs = Ks + STAGES * KVT;
-  const Ring ring = carve_ring(Vs + STAGES * KVT);
+  uint8_t* xch = Vs + STAGES * KVT;   // CL: the consumers' warps' exchange area
+  const Ring ring = carve_ring(xch + (CL ? xch_bytes<BN / 2>(4 * C) : 0));
 
   const int n_q = (a.Tq + C * kBQ - 1) / (C * kBQ), heads = B * a.H, items = n_q * heads;
   const bool seg = FLASH && a.q_seg != nullptr;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
+  // CL: the CTA's columns of Q, K, V and O (the others' are its peers')
+  const int col0 = CL ? kSliceCols * cluster_rank() : 0;
+  if (threadIdx.x == 0) {
+    ring_init(ring, C, STAGES);
+    if constexpr (CL) xch_init<BN / 2>(xch, 4 * C, cluster_size());
+  }
   __syncthreads();
+  if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
     regs_dec<kProducerRegs>();
     if (warp_in_group() == 0) {
       int stage = 0, phase = 0;
-      for (int n = 0, w; (w = fwd_work(n, items)) >= 0; ++n) {
+      for (int n = 0, w; (w = fwd_work<CL>(n, items)) >= 0; ++n) {
         const FwdItem it = fwd_item<C>(w, n_q, heads, a);
         const int own = min(C, (a.Tq - it.q0 + kBQ - 1) / kBQ);  // query tiles within T
         // every key tile a row of the item visits (its last query tile's rows see the most)
@@ -874,7 +1076,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         if (lane == 0) {
           mbar_expect_tx(ring.own, own * TILE);
           for (int q = 0; q < own; ++q)
-            tma_tile<FLASH, DH>(Qs + q * TILE, &tq, it.q0 + q * kBQ, it.h, it.b, ring.own);
+            tma_tile<FLASH, DH>(Qs + q * TILE, &tq, it.q0 + q * kBQ, it.h, it.b, ring.own, col0);
         }
         for (int j = 0; j < n_tiles; ++j) {
           mbar_wait(ring.empty + stage, phase ^ 1);
@@ -883,9 +1085,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
             for (int r = 0; r < BN / 64; ++r) {
               tma_tile<FLASH, DH>(Ks + stage * KVT + r * TILE, &tk, j * BN + 64 * r, it.h, it.b,
-                                  ring.full + stage);
+                                  ring.full + stage, col0);
               tma_tile<FLASH, DH>(Vs + stage * KVT + r * TILE, &tv, j * BN + 64 * r, it.h, it.b,
-                                  ring.full + stage);
+                                  ring.full + stage, col0);
             }
           }
           if (seg) {
@@ -907,6 +1109,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     const int wg = group - 1, t = threadIdx.x & (kWG - 1);
     const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
     const uint8_t* Qw = Qs + wg * TILE;
+    // CL: S summed across the cluster, warp by warp (unused otherwise)
+    ClusterSum<BN / 2> cluster_s(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
     // the consumers issue their products in turns (named barrier 3 + wg), so
     // that one's softmax runs under the other's products; each takes n_tiles
     // + 1 turns an item, consumer 0 first
@@ -914,7 +1118,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     const auto your_turn = [&] { pair_arrive(3 + (wg ^ 1)); };
     if (wg == 1) your_turn();
     int base = 0;  // the item's first tile in the ring's sequence
-    for (int n = 0, w; (w = fwd_work(n, items)) >= 0; ++n) {
+    for (int n = 0, w; (w = fwd_work<CL>(n, items)) >= 0; ++n) {
       const FwdItem it = fwd_item<C>(w, n_q, heads, a);
       const int own = min(C, (a.Tq - it.q0 + kBQ - 1) / kBQ);
       const int n_tiles =
@@ -948,6 +1152,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         wgmma_wait<0>();
         fence_regs(s);
         if (my_tiles == 1) release(ring.own_free, lane);  // Q is read
+        if constexpr (CL) cluster_s(s, lane);
         softmax_step<FLASH, DROPOUT, BN>(s, m, l, alpha,
                                          tile_unmasked<FLASH>(a, keys, seg, qw, 0, BN), keep,
                                          a, keys, seg, qseg, ring.kv_seg(stage0), qrow, 0, c0);
@@ -969,6 +1174,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
           wgmma_wait<1>();  // S is done, P V may still run
           fence_regs(s);
           if (j == my_tiles - 1) release(ring.own_free, lane);  // Q is read
+          if constexpr (CL) cluster_s(s, lane);  // the partials of the cluster's columns
           softmax_step<FLASH, DROPOUT, BN>(s, m, l, alpha,
                                            tile_unmasked<FLASH>(a, keys, seg, qw, k0, BN), keep,
                                            a, keys, seg, qseg, ring.kv_seg(stage), qrow, k0, c0);
@@ -1023,10 +1229,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
           const bool any_visible = !FLASH || m[i] > 0.5f * kFlashMask;
           inv[i] = any_visible ? (DROPOUT ? a.inv_keep : 1.f) / l[i] : 0.f;
           const int row = qrow + 8 * i;
-          if (lse != nullptr && (lane & 3) == 0 && row < a.Tq)
+          // (CL: every CTA holds the same m and l; the first writes them)
+          if (lse != nullptr && (lane & 3) == 0 && row < a.Tq && col0 == 0)
             lse[(size_t)it.bh * a.Tq + row] = any_visible ? m[i] * kLn2 + logf(l[i]) : INFINITY;
         }
-        if constexpr (fwd_staged_store<DH>()) {
+        if constexpr (STAGE_O) {
           // O (and its residual) through shared memory and TMA stores, which
           // write no row past T; the previous item's stores must have read
           // the staging tiles first
@@ -1045,6 +1252,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
             }
             bulk_commit();
           }
+        } else if constexpr (CL) {  // the CTA's columns of rows a.dh elements apart
+          store_rows<DH>(o + ((size_t)it.bh * a.Tq) * a.dh + col0, acc, qw, r0, c0, a.Tq, a.dh,
+                         inv, a.dh - col0);
         } else {  // the flash layout: rows DH elements apart
           store_rows<DH>(o + head_offset<FLASH, DH>(it.b, it.h, a.H, a.Tq), acc, qw, r0, c0,
                          a.Tq, DH, inv);
@@ -1053,8 +1263,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     }
     if (wg == 0) my_turn();  // consumer 1's first hand-over
     // the staging tiles live until the stores have read them
-    if (fwd_staged_store<DH>() && t == 0) bulk_wait_read();
+    if (STAGE_O && t == 0) bulk_wait_read();
   }
+  if constexpr (CL) cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // -- the backward -------------------------------------------------------------
@@ -1080,7 +1291,16 @@ __device__ __forceinline__ void pd_operand(const float (&p)[32], uint32_t keep,
   to_a_operand(v, pd);
 }
 
-template <int DH, bool FLASH, bool DROPOUT>
+// the shared memory of a backward CTA's exchange area (CL: its consumers'
+// warps' ClusterSum of 32 floats)
+template <int DH, bool CL>
+__host__ __device__ constexpr size_t bwd_xch_bytes(int consumers) {
+  return CL ? xch_bytes<32>(4 * consumers) : 0;
+}
+
+// CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
+// from 128 * its rank; S, dPd and the rows' delta summed across the cluster
+template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__((1 + dq_consumers<DH>()) * kWG, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -1090,22 +1310,31 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   constexpr uint32_t TILE = DH / 64 * kBox;
   constexpr int C = dq_consumers<DH>();
   constexpr int STAGES = bwd_stages<DH>();
+  static_assert(!CL || (DH == kSliceCols && C == 1 && FLASH && !DROPOUT),
+                "a cluster launch: K4's 128-column slices");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);  // the CTA's query rows: one tile a consumer
   uint8_t* dOs = Qs + C * TILE;
   uint8_t* Ks = dOs + C * TILE;       // STAGES stages
   uint8_t* Vs = Ks + STAGES * TILE;
-  const Ring ring = carve_ring(Vs + STAGES * TILE);
+  uint8_t* xch = Vs + STAGES * TILE;  // CL: the consumers' warps' exchange area
+  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C));
 
-  const int q0 = blockIdx.x * C * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int csize = CL ? cluster_size() : 1;
+  const int col0 = CL ? kSliceCols * cluster_rank() : 0;  // CL: the CTA's columns
+  const int q0 = (int)(blockIdx.x / csize) * C * kBQ, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
   const bool seg = FLASH && a.q_seg != nullptr;
   // every key tile a row of the CTA visits (the last tile's rows see the most)
   const int n_tiles = (key_range<FLASH>(a, b, q0 + (C - 1) * kBQ).kv_end + kBK - 1) / kBK;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
+  if (threadIdx.x == 0) {
+    ring_init(ring, C, STAGES);
+    if constexpr (CL) xch_init<32>(xch, 4 * C, csize);
+  }
   __syncthreads();
+  if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
     regs_dec<kProducerRegs>();
@@ -1114,8 +1343,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         const int own = min(C, (a.Tq - q0 + kBQ - 1) / kBQ);
         mbar_expect_tx(ring.own, own * 2 * TILE);
         for (int w = 0; w < own; ++w) {
-          tma_tile<FLASH, DH>(Qs + w * TILE, &tq, q0 + w * kBQ, h, b, ring.own);
-          tma_tile<FLASH, DH>(dOs + w * TILE, &tdo, q0 + w * kBQ, h, b, ring.own);
+          tma_tile<FLASH, DH>(Qs + w * TILE, &tq, q0 + w * kBQ, h, b, ring.own, col0);
+          tma_tile<FLASH, DH>(dOs + w * TILE, &tdo, q0 + w * kBQ, h, b, ring.own, col0);
         }
       }
       int stage = 0, phase = 0;
@@ -1129,8 +1358,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         }
         if (lane == 0) {
           mbar_expect_tx(ring.full + stage, 2 * TILE);
-          tma_tile<FLASH, DH>(Ks + stage * TILE, &tk, j * kBK, h, b, ring.full + stage);
-          tma_tile<FLASH, DH>(Vs + stage * TILE, &tv, j * kBK, h, b, ring.full + stage);
+          tma_tile<FLASH, DH>(Ks + stage * TILE, &tk, j * kBK, h, b, ring.full + stage, col0);
+          tma_tile<FLASH, DH>(Vs + stage * TILE, &tv, j * kBK, h, b, ring.full + stage, col0);
         } else {
           mbar_arrive(ring.full + stage);
         }
@@ -1147,19 +1376,30 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     const int qw = q0 + wg * kBQ;
     const KeyRange keys = key_range<FLASH>(a, b, qw);
     const int my_tiles = qw < a.Tq ? (keys.kv_end + kBK - 1) / kBK : 0;
-    const int D = row_stride<FLASH, DH>(a.H);
-    const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+    // CL: the CTA's columns of rows a.dh elements apart
+    const int D = CL ? a.dh : row_stride<FLASH, DH>(a.H);
+    const int cols = CL ? a.dh - col0 : DH;
+    const size_t q_base =
+        CL ? (size_t)bh * a.Tq * a.dh + col0 : head_offset<FLASH, DH>(b, h, a.H, a.Tq);
     const float scale2 = a.scale * kLog2e;
+    // CL: S, dPd and the deltas summed across the cluster, warp by warp
+    ClusterSum<32> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
 
     // the rows' delta (written once for the dK/dV kernel), lse and segment
     float delta[2], lse2[2];
     int qseg[2];
-    quad_row_deltas<FLASH, DH>(o, res, dout, q_base, qw + r0, a.Tq, D, lane, delta);
+    quad_row_deltas<FLASH, DH>(o, res, dout, q_base, qw + r0, a.Tq, D, lane, delta, cols);
+    if constexpr (CL) {
+      float both[4] = {delta[0], delta[1], 0.f, 0.f};
+      cluster(both, lane);
+      delta[0] = both[0];
+      delta[1] = both[1];
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = qw + r0 + 8 * i;
       const bool in_rows = row < a.Tq;
-      if (in_rows && (lane & 3) == 0) delta_out[(size_t)bh * a.Tq + row] = delta[i];
+      if (in_rows && (lane & 3) == 0 && col0 == 0) delta_out[(size_t)bh * a.Tq + row] = delta[i];
       lse2[i] = in_rows ? lse[(size_t)bh * a.Tq + row] * kLog2e : 0.f;
       qseg[i] = (seg && in_rows) ? a.q_seg[(size_t)b * a.Tq + row] : 1;
     }
@@ -1189,6 +1429,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         const uint32_t keep = DROPOUT ? keep_bits_q(bh, qw + r0, k0, lane, a) : 0u;
         wgmma_wait<1>();  // S is done, dPd may still run
         fence_regs(s);
+        if constexpr (CL) cluster(s, lane);  // the partials of the cluster's columns
         if (tile_unmasked<FLASH>(a, keys, seg, qw, k0)) {
 #pragma unroll
           for (int idx = 0; idx < 32; ++idx)
@@ -1214,6 +1455,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         }
         wgmma_wait<0>();
         fence_regs(dp);
+        if constexpr (CL) cluster(dp, lane);
 #pragma unroll
         for (int idx = 0; idx < 32; ++idx)
           s[idx] = grad_ds<DROPOUT>(s[idx], dp[idx], delta[(idx >> 1) & 1], (keep >> idx) & 1u,
@@ -1243,8 +1485,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     fence_operand(dsa);
     fence_regs(acc);
     const float one[2] = {1.f, 1.f};
-    store_rows<DH>(dq + q_base, acc, qw, r0, c0, a.Tq, D, one);
+    store_rows<DH>(dq + q_base, acc, qw, r0, c0, a.Tq, D, one, cols);
   }
+  if constexpr (CL) cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // The weights of a transposed (key, query) tile in place: s from S^T to p,
@@ -1286,7 +1529,9 @@ __device__ __forceinline__ void transposed_weights(float (&s)[32], const AttnArg
   }
 }
 
-template <int DH, bool FLASH, bool DROPOUT>
+// CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
+// from 128 * its rank; S^T and dPd^T summed across the cluster
+template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__((1 + dkdv_consumers<DH>()) * kWG, 1)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -1297,14 +1542,19 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   constexpr int NK = dkdv_keys<DH>() / kBK;  // the CTA's key tiles
   constexpr int STAGES = bwd_stages<DH>();
   static_assert(!dkdv_split<DH>() || (FLASH && !DROPOUT), "Dh 192 and 256: the flash policy only");
+  static_assert(!CL || (DH == kSliceCols && C == 1 && FLASH && !DROPOUT),
+                "a cluster launch: K4's 128-column slices");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);  // the CTA's keys: one tile a consumer (split: one)
   uint8_t* Vs = Ks + NK * TILE;
   uint8_t* Qs = Vs + NK * TILE;       // STAGES stages
   uint8_t* dOs = Qs + STAGES * TILE;
-  const Ring ring = carve_ring(dOs + STAGES * TILE);
+  uint8_t* xch = dOs + STAGES * TILE;  // CL: the consumer's warps' exchange area
+  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C));
 
-  const int k0 = blockIdx.x * NK * kBK, h = blockIdx.y, b = blockIdx.z;
+  const int csize = CL ? cluster_size() : 1;
+  const int col0 = CL ? kSliceCols * cluster_rank() : 0;  // CL: the CTA's columns
+  const int k0 = (int)(blockIdx.x / csize) * NK * kBK, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
   const bool seg = FLASH && a.q_seg != nullptr;
   // the key lengths do not depend on the query tile; the causal start does
@@ -1315,8 +1565,12 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int n_tiles = (any_key && q_begin < a.Tq) ? (a.Tq - q_begin + kBQ - 1) / kBQ : 0;
   const int group = warpgroup_index(), lane = threadIdx.x & 31;
   const float inv_t = 1.f / (float)a.Tk;
-  if (threadIdx.x == 0) ring_init(ring, C, STAGES);
+  if (threadIdx.x == 0) {
+    ring_init(ring, C, STAGES);
+    if constexpr (CL) xch_init<32>(xch, 4 * C, csize);
+  }
   __syncthreads();
+  if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
 
   if (group == 0) {  // the producer warpgroup; its first warp issues every load
     regs_dec<kProducerRegs>();
@@ -1325,8 +1579,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const int own = min(NK, (a.Tk - k0 + kBK - 1) / kBK);
         mbar_expect_tx(ring.own, own * 2 * TILE);
         for (int w = 0; w < own; ++w) {
-          tma_tile<FLASH, DH>(Ks + w * TILE, &tk, k0 + w * kBK, h, b, ring.own);
-          tma_tile<FLASH, DH>(Vs + w * TILE, &tv, k0 + w * kBK, h, b, ring.own);
+          tma_tile<FLASH, DH>(Ks + w * TILE, &tk, k0 + w * kBK, h, b, ring.own, col0);
+          tma_tile<FLASH, DH>(Vs + w * TILE, &tv, k0 + w * kBK, h, b, ring.own, col0);
         }
       }
       int stage = 0, phase = 0;
@@ -1342,8 +1596,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         }
         if (lane == 0) {
           mbar_expect_tx(ring.full + stage, 2 * TILE);
-          tma_tile<FLASH, DH>(Qs + stage * TILE, &tq, q0, h, b, ring.full + stage);
-          tma_tile<FLASH, DH>(dOs + stage * TILE, &tdo, q0, h, b, ring.full + stage);
+          tma_tile<FLASH, DH>(Qs + stage * TILE, &tq, q0, h, b, ring.full + stage, col0);
+          tma_tile<FLASH, DH>(dOs + stage * TILE, &tdo, q0, h, b, ring.full + stage, col0);
         } else {
           mbar_arrive(ring.full + stage);
         }
@@ -1359,9 +1613,14 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
     const int kw = k0 + wg * kBK;
     const bool my_keys = kw < a.Tk && (keys.uniform || kw < keys.len);
-    const int D = row_stride<FLASH, DH>(a.H);
+    // CL: the CTA's columns of rows a.dh elements apart
+    const int D = CL ? a.dh : row_stride<FLASH, DH>(a.H);
+    const int cols = CL ? a.dh - col0 : DH;
     const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
-    const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+    const size_t kv_base =
+        CL ? (size_t)bh * a.Tk * a.dh + col0 : kv_offset<FLASH, DH>(q_base, b, h, a);
+    // CL: S^T and dPd^T summed across the cluster, warp by warp
+    ClusterSum<32> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
     int kvseg[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1399,17 +1658,27 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const uint32_t keep = DROPOUT ? keep_bits_kv(bh, q0, kw + (r0 & ~3), lane, a) : 0u;
         wgmma_wait<1>();  // S^T is done, dPd^T may still run
         fence_regs(s);
+        if constexpr (CL) cluster(s, lane);  // the partials of the cluster's columns
         const float* lse_t = ring.lse2(stage);
         const float* delta_t = ring.delta(stage);
         transposed_weights<FLASH>(s, a, keys, seg, q0, kw, r0, c0, lse_t, ring.seg(stage), kvseg,
                                   inv_t);
         // Pd^T to bf16 and its dV product first, running beside dPd^T
         pd_operand<DROPOUT>(s, keep, a, pda);  // bf16(Pd)^T; s keeps p for dS
+        if constexpr (CL) {
+          // dPd^T summed across the cluster before the dV product is issued
+          // (summed under it, ptxas serialised the products: C7513)
+          wgmma_wait<0>();
+          fence_regs(dp);
+          cluster(dp, lane);
+        }
         wgmma_fence();
         accumulate<DH>(acc_dv, pda, dOt);
         wgmma_commit();
-        wgmma_wait<1>();  // dPd^T is done, the dV product may still run
-        fence_regs(dp);
+        if constexpr (!CL) {
+          wgmma_wait<1>();  // dPd^T is done, the dV product may still run
+          fence_regs(dp);
+        }
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -1447,8 +1716,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     fence_regs(acc_dv);
     fence_regs(acc_dk);
     const float one[2] = {1.f, 1.f};
-    store_rows<DH>(dk + kv_base, acc_dk, kw, r0, c0, a.Tk, D, one);
-    store_rows<DH>(dv + kv_base, acc_dv, kw, r0, c0, a.Tk, D, one);
+    store_rows<DH>(dk + kv_base, acc_dk, kw, r0, c0, a.Tk, D, one, cols);
+    store_rows<DH>(dv + kv_base, acc_dv, kw, r0, c0, a.Tk, D, one, cols);
   } else {  // split: the CTA's 64 keys, consumer 1 accumulating dV, consumer 2 dK
     regs_inc<kConsumerRegs>();
     const int t = threadIdx.x & (kWG - 1);
@@ -1547,6 +1816,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       role(std::true_type{});
     }
   }
+  if constexpr (CL) cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // -- launches ---------------------------------------------------------------
@@ -1695,6 +1965,103 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
       <<<grid_dkdv, (1 + dkdv_consumers<DH>()) * kWG, smem_dkdv, stream>>>(
           mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
   return cudaGetLastError();
+}
+
+// -- cluster launches (K4 past Dh 256) --------------------------------------
+
+// the launch configuration of `grid` in clusters of c CTAs along x
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int c, cudaStream_t stream) : cfg{} {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// K4's forward at a head dim dh past 256 (a multiple of 64 up to 1024): the
+// persistent forward over clusters of slice_ctas(dh) CTAs, as many clusters
+// as fit on the card at once (at most one a work item).  (A template, so
+// that only a source that launches it compiles its kernel.)
+template <int DH = kSliceCols>
+cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int dh, const AttnArgs& args, cudaStream_t stream) {
+  constexpr int C = fwd_consumers<DH>();
+  const auto kernel = fwd_kernel<DH, true, false, false, true>;
+  constexpr size_t smem = ring_smem_bytes<DH>(C, fwd_stages<DH>() * fwd_bn<DH>() / 64) +
+                          xch_bytes<fwd_bn<DH>() / 2>(4 * C);
+  static_assert(smem <= 232448, "a CTA's shared memory");
+  const int c = slice_ctas(dh);
+  AttnArgs a = args;
+  a.dh = dh;
+  static bool configured = false;
+  cudaError_t err = allow_smem(kernel, smem, configured);
+  CUtensorMap mq, mk, mv;
+  if (err == cudaSuccess) err = make_map<true>(&mq, q, B, a.H, a.Tq, dh);
+  if (err == cudaSuccess) err = make_map<true>(&mk, k, B, a.H, a.Tk, dh);
+  if (err == cudaSuccess) err = make_map<true>(&mv, v, B, a.H, a.Tk, dh);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)((a.Tq + C * kBQ - 1) / (C * kBQ)) * a.H * B;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int threads = (1 + C) * kWG;
+  static int fits[kMaxClusterDh / kSliceCols + 1] = {};  // clusters of c CTAs the card holds
+  if (fits[c] == 0) {
+    ClusterLaunch probe(dim3(c), threads, smem, c, stream);
+    err = cudaOccupancyMaxActiveClusters(&fits[c], kernel, &probe.cfg);
+    if (err != cudaSuccess) return err;
+    if (fits[c] < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int fit = fits[c];
+  const unsigned clusters = (unsigned)(items < fit ? items : fit);
+  ClusterLaunch launch(dim3(clusters * c), threads, smem, c, stream);
+  // O leaves from registers: the output and residual maps are never read
+  return cudaLaunchKernelEx(&launch.cfg, kernel, mq, mk, mv, mq, mq, static_cast<bf16*>(o), lse,
+                            a, B);
+}
+
+// K4's backward at a head dim dh past 256: the dQ kernel, then the dK/dV
+// kernel, each over clusters of slice_ctas(dh) CTAs, a cluster a 64-row tile
+// of a head
+template <int DH = kSliceCols>
+cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                             void* dv, int B, int dh, const AttnArgs& args, cudaStream_t stream) {
+  static_assert(dq_consumers<DH>() == 1 && dkdv_consumers<DH>() == 1, "one consumer a CTA");
+  const auto dq_kernel = bwd_dq_kernel<DH, true, false, true>;
+  const auto dkdv_kernel = bwd_dkdv_kernel<DH, true, false, true>;
+  constexpr size_t smem = ring_smem_bytes<DH>(2, bwd_stages<DH>()) + bwd_xch_bytes<DH, true>(1);
+  static_assert(smem <= 232448, "a CTA's shared memory");
+  if (delta == nullptr) return cudaErrorInvalidValue;
+  const int c = slice_ctas(dh);
+  AttnArgs a = args;
+  a.dh = dh;
+  static bool configured_dq = false, configured_dkdv = false;
+  cudaError_t err = allow_smem(dq_kernel, smem, configured_dq);
+  if (err == cudaSuccess) err = allow_smem(dkdv_kernel, smem, configured_dkdv);
+  CUtensorMap mq, mk, mv, mdo;
+  if (err == cudaSuccess) err = make_map<true>(&mq, q, B, a.H, a.Tq, dh);
+  if (err == cudaSuccess) err = make_map<true>(&mk, k, B, a.H, a.Tk, dh);
+  if (err == cudaSuccess) err = make_map<true>(&mv, v, B, a.H, a.Tk, dh);
+  if (err == cudaSuccess) err = make_map<true>(&mdo, dout, B, a.H, a.Tq, dh);
+  if (err != cudaSuccess) return err;
+  constexpr int threads = 2 * kWG;
+  ClusterLaunch launch_dq(dim3((a.Tq + kBQ - 1) / kBQ * c, a.H, B), threads, smem, c, stream);
+  err = cudaLaunchKernelEx(&launch_dq.cfg, dq_kernel, mq, mk, mv, mdo,
+                           static_cast<const bf16*>(o), static_cast<const bf16*>(nullptr),
+                           static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), a);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch launch_dkdv(dim3((a.Tk + kBK - 1) / kBK * c, a.H, B), threads, smem, c, stream);
+  return cudaLaunchKernelEx(&launch_dkdv.cfg, dkdv_kernel, mq, mk, mv, mdo, lse,
+                            static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                            static_cast<bf16*>(dv), a);
 }
 
 }  // namespace tc

@@ -1,7 +1,8 @@
 // The f32 attention on Hopper's tensor cores in 3xTF32 (sm_90a): the
 // forward kernel and the backward's dQ and dK/dV kernels of both mask
 // policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128
-// (the flash policy without dropout also 192 and 256), with the numerics
+// (the flash policy without dropout also 192 and 256, and from 320 to 1024
+// as a cluster of Dh 128 CTAs: template argument CL), with the numerics
 // contract of attention_kernels.cuh.  Replaces no TPU
 // kernel of its own: it is the f32 instantiation of the kernels that
 // packed_attention.cu, flash_attention.cu, packed_attention_bwd.cu and
@@ -103,6 +104,13 @@
 // twice f32's bytes, so shared memory's 128 bytes a clock bound a tile
 // about as tightly as the products do; and a CTA's warps wait at its
 // barriers while a streamed tile is split: PERF.md section 6 has the times.
+//
+// Past Dh 256 (CL): a cluster of ceil(Dh / 128) CTAs, each the Dh 128
+// kernel on its 128 columns (cp.async predicated to zero past Dh), each
+// score (S, dPd, the delta products) summed across the cluster in rank
+// order after score (cluster_score, tc::ClusterSum), so the forward and the
+// dQ kernel still sum alike and the lse stays exact.  Streamed tiles hold 16
+// rows there, so that the exchange area fits beside the Dh 128 tiles.
 
 #pragma once
 
@@ -130,16 +138,21 @@ template <int DH>
 __host__ __device__ constexpr int owned_rows() {
   return 16 * kWarps / col_split<DH>();
 }
-template <int DH>
+// A cluster launch (CL, K4 past Dh 256: DH = 128 columns a CTA, the score
+// partials summed across the cluster) streams tiles of 16 rows, so that the
+// exchange area fits beside the Dh 128 tiles.
+template <int DH, bool CL = false>
 __host__ __device__ constexpr int stream_rows() {
-  return DH == 192 ? 16 : 4096 / DH;
+  return CL ? 16 : (DH == 192 ? 16 : 4096 / DH);
 }
 // the dK/dV kernel takes a streamed tile in passes of 32 queries (16 from
 // Dh 192, a whole tile)
-template <int DH>
+template <int DH, bool CL = false>
 __host__ __device__ constexpr int pass_rows() {
-  return stream_rows<DH>() < 32 ? stream_rows<DH>() : 32;
+  return stream_rows<DH, CL>() < 32 ? stream_rows<DH, CL>() : 32;
 }
+// a cluster launch's score tiles: 16 x 16 a warp (J = 2), 8 floats a lane
+constexpr int kClusterFloats = 8;
 
 // -- shared memory ----------------------------------------------------------
 
@@ -193,15 +206,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // `rows` rows from row0 of one head (rows D floats apart) -> an owned tile
-// (OWNED) or plain rows of DH floats; rows at or past row_end are zero-filled
+// (OWNED) or plain rows of DH floats; rows at or past row_end, and columns
+// at or past cols, are zero-filled
 template <int DH, bool OWNED>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* head, int row0,
-                                                int rows, int row_end, int D) {
+                                                int rows, int row_end, int D, int cols = DH) {
   constexpr int CH = DH / 4;  // 16-byte chunks a row
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < rows * CH; idx += kCtaThreads) {
     const int r = idx / CH, c = 4 * (idx % CH);
-    const bool in = row0 + r < row_end;
+    const bool in = row0 + r < row_end && (cols >= DH || c < cols);
     cp_async16(dst + (OWNED ? own_at<DH>(r, c) : r * DH + c),
                head + (in ? (size_t)(row0 + r) * D + c : 0), in ? 16 : 0);
   }
@@ -247,9 +261,9 @@ __device__ __forceinline__ void store_pairs(float* tile, int idx, float4 x) {
 // The two streamed tiles of a ring stage (each 2 S DH floats, its f32 rows
 // landed in its second half) split by the CTA into pairs over the whole
 // tile: every thread reads its raw values, the CTA waits, then writes.
-template <int DH>
+template <int DH, bool CL = false>
 __device__ __forceinline__ void split_stage(float* stage) {
-  constexpr int S = stream_rows<DH>(), N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
+  constexpr int S = stream_rows<DH, CL>(), N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
   float4 x[2][N4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -446,6 +460,16 @@ __device__ __forceinline__ void shared_score(float (&s)[J][4], const Rows& A, co
   }
 }
 
+// shared_score, then in a cluster launch (CL) the sum over the cluster's
+// columns, in rank order
+template <int DH, int J, bool CL, bool SPLIT_B = true, typename Rows>
+__device__ __forceinline__ void cluster_score(float (&s)[J][4], const Rows& A, const float* B,
+                                              int b_row0, int lane, float* xch, int group,
+                                              int part, tc::ClusterSum<kClusterFloats>& cluster) {
+  shared_score<DH, J, SPLIT_B>(s, A, B, b_row0, lane, xch, group, part);
+  if constexpr (CL) cluster(*reinterpret_cast<float(*)[4 * J]>(&s[0][0]), lane);
+}
+
 // a warp's 16 x 8J score tile (its C fragments) -> its staging tile W
 template <int NQ, int J>
 __device__ __forceinline__ void stage_tile(float* W, const float (&x)[J][4], int lane) {
@@ -621,9 +645,8 @@ __device__ __forceinline__ uint32_t keep_bits_kv(uint32_t bh, int q0, int key4, 
 // a CTA's (tile, batch * H + head): causal grids take the heaviest tiles
 // first (the dQ kernel's last query tiles, the dK/dV kernel's first key
 // tiles), the others a head's tiles together
-__device__ __forceinline__ void cta_tile(int n_tiles, int heads, bool causal, bool last_heaviest,
-                                         int& tile, int& bh) {
-  const int idx = blockIdx.x;
+__device__ __forceinline__ void cta_tile(int idx, int n_tiles, int heads, bool causal,
+                                         bool last_heaviest, int& tile, int& bh) {
   if (causal) {
     tile = idx / heads;
     bh = idx % heads;
@@ -641,59 +664,77 @@ template <int DH>
 __host__ __device__ constexpr int own_floats() {
   return owned_rows<DH>() * DH;
 }
-template <int DH>
+template <int DH, bool CL = false>
 __host__ __device__ constexpr int stage_floats() {
-  return 4 * stream_rows<DH>() * DH;
+  return 4 * stream_rows<DH, CL>() * DH;
+}
+// bytes of a cluster launch's exchange area (its warps' ClusterSum)
+template <bool CL>
+__host__ __device__ constexpr size_t cluster_bytes() {
+  return CL ? tc::xch_bytes<kClusterFloats>(kWarps) : 0;
 }
 // the two owned tiles, the ring, its row data (three words a streamed row),
 // a word a thread (its dropout flags of the tile, drawn before the barrier
 // and read back after it, so that the Philox rounds are not scheduled among
-// the products), then the warps' staging tiles
-template <int DH>
+// the products), then the warps' staging tiles, then (CL) the exchange area
+template <int DH, bool CL = false>
 __host__ __device__ constexpr size_t smem_bytes(int stage_cols) {
-  return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH>()) +
-         sizeof(float) * 3 * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH>());
+  return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH, CL>()) +
+         sizeof(float) * 3 * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
+         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH>()) + cluster_bytes<CL>();
 }
-template <int DH>
+template <int DH, bool CL = false>
 __host__ __device__ constexpr bool bwd_fits() {
   // O lands in the second stage before the dQ kernel's loop; the forward's
   // Q lands in its pair tiles before it is split
-  return smem_bytes<DH>(stream_rows<DH>()) <= 232448 && own_floats<DH>() <= stage_floats<DH>();
+  return smem_bytes<DH, CL>(stream_rows<DH, CL>()) <= 232448 &&
+         own_floats<DH>() <= stage_floats<DH, CL>();
 }
-static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<192>() && bwd_fits<256>(),
+static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<192>() && bwd_fits<256>() &&
+                  bwd_fits<tc::kSliceCols, true>(),
               "a CTA's shared memory");
 
 // -- the dQ kernel ------------------------------------------------------------
 
-template <int DH, bool FLASH, bool DROPOUT>
+// CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
+// from 128 * its rank; S, dPd and the deltas summed across the cluster
+template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__(kCtaThreads, 1)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ o,
               const float* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ delta_out, float* __restrict__ dq, AttnArgs a, int B) {
-  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>(), J = S / 8;
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH, CL>(), J = S / 8;
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
+  static_assert(!CL || (DH == tc::kSliceCols && J == 2 && FLASH && !DROPOUT),
+                "a cluster launch: K4's 128-column slices");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // the CTA's query rows
   float* dOs = Qs + own_floats<DH>();
   float* ring = dOs + own_floats<DH>();  // per stage: K, then V, each in pairs
-  int* kvseg_s = reinterpret_cast<int*>(ring + kStages * stage_floats<DH>());  // kStages x S
+  int* kvseg_s = reinterpret_cast<int*>(ring + kStages * stage_floats<DH, CL>());  // kStages x S
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + 3 * kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x S a warp
   float* xch = Ws + kWarps * 16 * S;  // the partial scores (shared_score)
-  float* Os = ring + stage_floats<DH>();  // O in the second stage, until the loop loads it
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
+  float* Os = ring + stage_floats<DH, CL>();  // O in the second stage, until the loop loads it
 
+  const int csize = CL ? tc::cluster_size() : 1;
+  const int col0 = CL ? tc::kSliceCols * tc::cluster_rank() : 0;  // CL: the CTA's columns
   int qt, bhi;
-  cta_tile((a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
+  cta_tile((int)blockIdx.x / csize, (a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
   const int h = bhi % a.H, b = bhi / a.H;
   const int q0 = qt * R;
   const uint32_t bh = (uint32_t)bhi;
-  const int D = row_stride<FLASH, DH>(a.H);
-  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
-  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  // CL: the CTA's columns of rows a.dh floats apart
+  const int D = CL ? a.dh : row_stride<FLASH, DH>(a.H);
+  const int cols = CL ? a.dh - col0 : DH;
+  const size_t q_base =
+      CL ? (size_t)bhi * a.Tq * a.dh + col0 : head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base =
+      CL ? (size_t)bhi * a.Tk * a.dh + col0 : kv_offset<FLASH, DH>(q_base, b, h, a);
   const bool seg = FLASH && a.q_seg != nullptr;
   // every key tile a row of the CTA visits (its last rows see the most)
   const KeyRange keys = key_range<FLASH>(a, b, q0 + R - kBQ);
@@ -706,17 +747,22 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qw = q0 + wr;                 // its first query
   float* W = Ws + warp * 16 * S;
   const float inv_t = 1.f / (float)a.Tk;
+  if constexpr (CL) {
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
+  }
+  tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
 
   auto issue = [&](int j) {  // f32 rows into each tile's second half
-    float* st = ring + (j % kStages) * stage_floats<DH>();
-    load_tile_async<DH, false>(st + S * DH, k + kv_base, j * S, S, a.Tk, D);
-    load_tile_async<DH, false>(st + TS + S * DH, v + kv_base, j * S, S, a.Tk, D);
+    float* st = ring + (j % kStages) * stage_floats<DH, CL>();
+    load_tile_async<DH, false>(st + S * DH, k + kv_base, j * S, S, a.Tk, D, cols);
+    load_tile_async<DH, false>(st + TS + S * DH, v + kv_base, j * S, S, a.Tk, D, cols);
     if (seg)
       load_vec_async(kvseg_s + (j % kStages) * S, a.kv_seg + (size_t)b * a.Tk, j * S, S, a.Tk);
   };
-  load_tile_async<DH, true>(Qs, q + q_base, q0, R, a.Tq, D);
-  load_tile_async<DH, true>(dOs, dout + q_base, q0, R, a.Tq, D);
-  load_tile_async<DH, true>(Os, o + q_base, q0, R, a.Tq, D);
+  load_tile_async<DH, true>(Qs, q + q_base, q0, R, a.Tq, D, cols);
+  load_tile_async<DH, true>(dOs, dout + q_base, q0, R, a.Tq, D, cols);
+  load_tile_async<DH, true>(Os, o + q_base, q0, R, a.Tq, D, cols);
   if (n_tiles > 0) issue(0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -731,15 +777,18 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float delta[2];
   {
     float x[2][4], d_kv[2];
-    shared_score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part);
+    cluster_score<DH, 2, CL, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part,
+                                    cluster);
     diagonal(x, lane, delta);
-    shared_score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part);
+    cluster_score<DH, 2, CL, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part,
+                                    cluster);
     diagonal(x, lane, d_kv);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = qw + g + 8 * i;
       delta[i] *= a.inv_keep;
-      if (c0 == 0 && t == 0 && row < a.Tq) delta_out[(size_t)bh * a.Tq + row] = d_kv[i] * a.inv_keep;
+      if (c0 == 0 && col0 == 0 && t == 0 && row < a.Tq)
+        delta_out[(size_t)bh * a.Tq + row] = d_kv[i] * a.inv_keep;
     }
   }
   // the warp's rows g and g + 8: lse and segment ids
@@ -757,13 +806,13 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   zero(acc);
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * S;
-    float* st = ring + (j % kStages) * stage_floats<DH>();
+    float* st = ring + (j % kStages) * stage_floats<DH, CL>();
     if (j + 1 < n_tiles) issue(j + 1);
     cp_async_commit();
     if (DROPOUT) keep_s[threadIdx.x] = keep_bits_q<J>(bh, qw + g, k0, lane, a);
     cp_async_wait<1>();
     __syncthreads();
-    split_stage<DH>(st);
+    split_stage<DH, CL>(st);
     __syncthreads();
     const float *Kp = st, *Vp = st + TS;
     const int* kvseg = kvseg_s + (j % kStages) * S;
@@ -771,7 +820,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the end, has nothing in it
     if (qw < a.Tq && !(a.causal && k0 > qw + 15)) {
       float s[J][4], dp[J][4];
-      shared_score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part);
+      cluster_score<DH, J, CL>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part, cluster);
       const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
       if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S)) {
 #pragma unroll
@@ -792,7 +841,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               inv_t);
           }
       }
-      shared_score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part);
+      cluster_score<DH, J, CL>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part,
+                               cluster);
 #pragma unroll
       for (int jj = 0; jj < J; ++jj)
 #pragma unroll
@@ -806,41 +856,53 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this stage before it is loaded again
   }
-  store_rows<NC>(dq + q_base, acc, qw, c0, a.Tq, D, lane);
+  if (!CL || c0 < cols) store_rows<NC>(dq + q_base, acc, qw, c0, a.Tq, D, lane);
+  if constexpr (CL) tc::cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // -- the dK/dV kernel ---------------------------------------------------------
 
-template <int DH, bool FLASH, bool DROPOUT>
+// CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
+// from 128 * its rank; S^T and dPd^T summed across the cluster
+template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__(kCtaThreads, 1)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dk, float* __restrict__ dv, AttnArgs a, int B) {
-  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>();
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH, CL>();
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
-  constexpr int kPassQ = pass_rows<DH>(), kPassJ = kPassQ / 8;
+  constexpr int kPassQ = pass_rows<DH, CL>(), kPassJ = kPassQ / 8;
+  static_assert(!CL || (DH == tc::kSliceCols && kPassJ == 2 && FLASH && !DROPOUT),
+                "a cluster launch: K4's 128-column slices");
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // the CTA's keys
   float* Vs = Ks + own_floats<DH>();
   float* ring = Vs + own_floats<DH>();  // per stage: Q, then dO, each in pairs
-  float* lse_s = ring + kStages * stage_floats<DH>();  // kStages x S each
+  float* lse_s = ring + kStages * stage_floats<DH, CL>();  // kStages x S each
   float* delta_s = lse_s + kStages * S;
   int* qseg_s = reinterpret_cast<int*>(delta_s + kStages * S);
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(qseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x kPassQ a warp
   float* xch = Ws + kWarps * 16 * kPassQ;  // the partial scores (shared_score)
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
 
+  const int csize = CL ? tc::cluster_size() : 1;
+  const int col0 = CL ? tc::kSliceCols * tc::cluster_rank() : 0;  // CL: the CTA's columns
   int kt, bhi;
-  cta_tile((a.Tk + R - 1) / R, a.H * B, a.causal, false, kt, bhi);
+  cta_tile((int)blockIdx.x / csize, (a.Tk + R - 1) / R, a.H * B, a.causal, false, kt, bhi);
   const int h = bhi % a.H, b = bhi / a.H;
   const int k0 = kt * R;
   const uint32_t bh = (uint32_t)bhi;
-  const int D = row_stride<FLASH, DH>(a.H);
-  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
-  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  // CL: the CTA's columns of rows a.dh floats apart
+  const int D = CL ? a.dh : row_stride<FLASH, DH>(a.H);
+  const int cols = CL ? a.dh - col0 : DH;
+  const size_t q_base =
+      CL ? (size_t)bhi * a.Tq * a.dh + col0 : head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base =
+      CL ? (size_t)bhi * a.Tk * a.dh + col0 : kv_offset<FLASH, DH>(q_base, b, h, a);
   const bool seg = FLASH && a.q_seg != nullptr;
   // the key lengths do not depend on the query tile; the causal start does
   const KeyRange keys = key_range<FLASH>(a, b, 0);
@@ -863,12 +925,17 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int key = kw + g + 8 * i;
     kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
   }
+  if constexpr (CL) {
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
+  }
+  tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
 
   auto issue = [&](int i) {  // f32 rows into each tile's second half
     const int stage = i % kStages, q0 = q_begin + i * S;
-    float* st = ring + stage * stage_floats<DH>();
-    load_tile_async<DH, false>(st + S * DH, q + q_base, q0, S, a.Tq, D);
-    load_tile_async<DH, false>(st + TS + S * DH, dout + q_base, q0, S, a.Tq, D);
+    float* st = ring + stage * stage_floats<DH, CL>();
+    load_tile_async<DH, false>(st + S * DH, q + q_base, q0, S, a.Tq, D, cols);
+    load_tile_async<DH, false>(st + TS + S * DH, dout + q_base, q0, S, a.Tq, D, cols);
     load_vec_async(lse_s + stage * S, lse + (size_t)bh * a.Tq, q0, S, a.Tq);
     load_vec_async(delta_s + stage * S, delta + (size_t)bh * a.Tq, q0, S, a.Tq);
     if (seg) load_vec_async(qseg_s + stage * S, a.q_seg + (size_t)b * a.Tq, q0, S, a.Tq);
@@ -878,20 +945,20 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   zero(acc_dk);
   zero(acc_dv);
   if (n_tiles > 0) {
-    load_tile_async<DH, true>(Ks, k + kv_base, k0, R, a.Tk, D);
-    load_tile_async<DH, true>(Vs, v + kv_base, k0, R, a.Tk, D);
+    load_tile_async<DH, true>(Ks, k + kv_base, k0, R, a.Tk, D, cols);
+    load_tile_async<DH, true>(Vs, v + kv_base, k0, R, a.Tk, D, cols);
     issue(0);
   }
   cp_async_commit();
   for (int i = 0; i < n_tiles; ++i) {
     const int q0 = q_begin + i * S, stage = i % kStages;
-    float* st = ring + stage * stage_floats<DH>();
+    float* st = ring + stage * stage_floats<DH, CL>();
     if (i + 1 < n_tiles) issue(i + 1);
     cp_async_commit();
     if (DROPOUT) keep_s[threadIdx.x] = keep_bits_kv<S / 8>(bh, q0, kw + (g & ~3), lane, a);
     cp_async_wait<1>();
     __syncthreads();
-    split_stage<DH>(st);
+    split_stage<DH, CL>(st);
     __syncthreads();
     const float *Qp = st, *dOp = st + TS;
     const float* lse_t = lse_s + stage * S;
@@ -908,7 +975,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
       // transposed tiles: rows the warp's keys, columns the pass's queries
       float s[kPassJ][4], dp[kPassJ][4];
-      shared_score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part);
+      cluster_score<DH, kPassJ, CL>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part,
+                                    cluster);
       if (block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16)) {
 #pragma unroll
         for (int jj = 0; jj < kPassJ; ++jj)
@@ -943,7 +1011,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
       accumulate<DH, NC, kPassJ>(acc_dv, StagedRows<kPassQ>{W}, dOp, qs, c0, lane);
-      shared_score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup, part);
+      cluster_score<DH, kPassJ, CL>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup,
+                                    part, cluster);
 #pragma unroll
       for (int jj = 0; jj < kPassJ; ++jj)
 #pragma unroll
@@ -960,8 +1029,11 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this stage before it is loaded again
   }
-  store_rows<NC>(dk + kv_base, acc_dk, kw, c0, a.Tk, D, lane);
-  store_rows<NC>(dv + kv_base, acc_dv, kw, c0, a.Tk, D, lane);
+  if (!CL || c0 < cols) {
+    store_rows<NC>(dk + kv_base, acc_dk, kw, c0, a.Tk, D, lane);
+    store_rows<NC>(dv + kv_base, acc_dv, kw, c0, a.Tk, D, lane);
+  }
+  if constexpr (CL) tc::cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // -- the forward ----------------------------------------------------------------
@@ -969,15 +1041,16 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the forward's shared memory: the CTA's query rows in pairs, the split K
 // and V tiles (one set), the ring of their f32 rows (K's, then V's, a
 // stage), the ring's segment ids and a word a thread (its dropout flags)
-template <int DH>
+template <int DH, bool CL = false>
 __host__ __device__ constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH>() +
-                          kStages * 2 * stream_rows<DH>() * DH) +
-         sizeof(int) * kStages * stream_rows<DH>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * xch_floats<DH>();
+  return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH, CL>() +
+                          kStages * 2 * stream_rows<DH, CL>() * DH) +
+         sizeof(int) * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
+         sizeof(float) * xch_floats<DH>() + cluster_bytes<CL>();
 }
 static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 &&
-                  fwd_smem_bytes<192>() <= 232448 && fwd_smem_bytes<256>() <= 232448,
+                  fwd_smem_bytes<192>() <= 232448 && fwd_smem_bytes<256>() <= 232448 &&
+                  fwd_smem_bytes<tc::kSliceCols, true>() <= 232448,
               "a CTA's shared memory");
 
 // A CTA owns R query rows (owned_rows) and streams the key/value tiles its
@@ -986,13 +1059,15 @@ static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 
 // score (so the bits of S, and of the lse, are the dQ kernel's), the online
 // softmax in registers (a row's values sit in one quad: its max and sum take
 // two shuffles), and O += P V.  Q is split once, into pairs read as a
-// streamed tile's.
-template <int DH, bool FLASH, bool DROPOUT>
+// streamed tile's.  CL (K4 past Dh 256, DH = 128): a cluster launch, the
+// CTA's 128 columns from 128 * its rank, S summed across the cluster as the
+// dQ kernel sums it.
+template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__(kCtaThreads, 1)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
            AttnArgs a, int B) {
-  constexpr int R = owned_rows<DH>(), S = stream_rows<DH>(), J = S / 8;
+  constexpr int R = owned_rows<DH>(), S = stream_rows<DH, CL>(), J = S / 8;
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
   // a key tile in steps of JS 8-key tiles: two at Dh 64 under dropout, whose
@@ -1007,15 +1082,24 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* xch = reinterpret_cast<float*>(keep_words + kCtaThreads);  // shared_score's partials
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
+  static_assert(!CL || (DH == tc::kSliceCols && J == 2 && FLASH && !DROPOUT),
+                "a cluster launch: K4's 128-column slices");
 
+  const int csize = CL ? tc::cluster_size() : 1;
+  const int col0 = CL ? tc::kSliceCols * tc::cluster_rank() : 0;  // CL: the CTA's columns
   int qt, bhi;
-  cta_tile((a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
+  cta_tile((int)blockIdx.x / csize, (a.Tq + R - 1) / R, a.H * B, a.causal, true, qt, bhi);
   const int h = bhi % a.H, b = bhi / a.H;
   const int q0 = qt * R;
   const uint32_t bh = (uint32_t)bhi;
-  const int D = row_stride<FLASH, DH>(a.H);
-  const size_t q_base = head_offset<FLASH, DH>(b, h, a.H, a.Tq);
-  const size_t kv_base = kv_offset<FLASH, DH>(q_base, b, h, a);
+  // CL: the CTA's columns of rows a.dh floats apart
+  const int D = CL ? a.dh : row_stride<FLASH, DH>(a.H);
+  const int cols = CL ? a.dh - col0 : DH;
+  const size_t q_base =
+      CL ? (size_t)bhi * a.Tq * a.dh + col0 : head_offset<FLASH, DH>(b, h, a.H, a.Tq);
+  const size_t kv_base =
+      CL ? (size_t)bhi * a.Tk * a.dh + col0 : kv_offset<FLASH, DH>(q_base, b, h, a);
   const bool seg = FLASH && a.q_seg != nullptr;
   // every key tile a row of the CTA visits (its last rows see the most)
   const KeyRange keys = key_range<FLASH>(a, b, q0 + R - kBQ);
@@ -1026,15 +1110,20 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
   const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int qw = q0 + wr;                 // its first query
+  if constexpr (CL) {
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
+  }
+  tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
 
   auto issue = [&](int j) {  // K's and V's f32 rows into the ring
     float* st = raw + (j % kStages) * 2 * S * DH;
-    load_tile_async<DH, false>(st, k + kv_base, j * S, S, a.Tk, D);
-    load_tile_async<DH, false>(st + S * DH, v + kv_base, j * S, S, a.Tk, D);
+    load_tile_async<DH, false>(st, k + kv_base, j * S, S, a.Tk, D, cols);
+    load_tile_async<DH, false>(st + S * DH, v + kv_base, j * S, S, a.Tk, D, cols);
     if (seg)
       load_vec_async(kvseg_s + (j % kStages) * S, a.kv_seg + (size_t)b * a.Tk, j * S, S, a.Tk);
   };
-  load_tile_async<DH, false>(Kp, q + q_base, q0, R, a.Tq, D);  // Q's f32 rows, split here
+  load_tile_async<DH, false>(Kp, q + q_base, q0, R, a.Tq, D, cols);  // Q's f32 rows, split here
   issue(0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -1073,7 +1162,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kb = step * JS * 8;  // the step's first key in the tile
       const uint32_t keep = keep_tile >> (4 * JS * step);
       float s[JS][4];
-      shared_score<DH, JS>(s, qa, Kp, kb, lane, xch, rgroup, part);
+      cluster_score<DH, JS, CL>(s, qa, Kp, kb, lane, xch, rgroup, part, cluster);
       // the logits s * scale, through the mask unless every pair is visible:
       // packed, a masked logit is -1e9; flash, the mask value is added; a key
       // past Tk is no key at all
@@ -1140,14 +1229,15 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool any_visible = !FLASH || m[i] > 0.5f * kFlashMask;
     inv[i] = any_visible ? (DROPOUT ? a.inv_keep : 1.f) / l[i] : 0.f;
     const int row = qw + g + 8 * i;
-    if (lse != nullptr && c0 == 0 && t == 0 && row < a.Tq)
+    if (lse != nullptr && c0 == 0 && col0 == 0 && t == 0 && row < a.Tq)
       lse[(size_t)bh * a.Tq + row] = any_visible ? m[i] + logf(l[i]) : INFINITY;
   }
 #pragma unroll
   for (int nt = 0; nt < NC / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] *= inv[e >> 1];
-  store_rows<NC>(o + q_base, acc, qw, c0, a.Tq, D, lane);
+  if (!CL || c0 < cols) store_rows<NC>(o + q_base, acc, qw, c0, a.Tq, D, lane);
+  if constexpr (CL) tc::cluster_sync();  // no CTA leaves while a peer reads its slots
 }
 
 // -- launch -------------------------------------------------------------------
@@ -1166,6 +1256,65 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, a, B);
   return cudaGetLastError();
+}
+
+// K4's forward at a head dim dh past 256 (a multiple of 64 up to 1024): a
+// cluster of tc::slice_ctas(dh) CTAs a tile of 64 query rows
+template <int DH = tc::kSliceCols>
+cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int dh, const AttnArgs& args, cudaStream_t stream) {
+  constexpr int R = owned_rows<DH>();
+  constexpr size_t smem = fwd_smem_bytes<DH, true>();
+  const auto kernel = fwd_kernel<DH, true, false, true>;
+  const int c = tc::slice_ctas(dh);
+  AttnArgs a = args;
+  a.dh = dh;
+  static bool configured = false;
+  const cudaError_t err = tc::allow_smem(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Tq + R - 1) / R) * a.H * B * c;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tc::ClusterLaunch launch(dim3((unsigned)ctas), kCtaThreads, smem, c, stream);
+  return cudaLaunchKernelEx(&launch.cfg, kernel, static_cast<const float*>(q),
+                            static_cast<const float*>(k), static_cast<const float*>(v),
+                            static_cast<float*>(o), lse, a, B);
+}
+
+// K4's backward at a head dim dh past 256: the dQ kernel, then the dK/dV
+// kernel, each a cluster of tc::slice_ctas(dh) CTAs a tile of 64 rows
+template <int DH = tc::kSliceCols>
+cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                             void* dv, int B, int dh, const AttnArgs& args, cudaStream_t stream) {
+  constexpr int R = owned_rows<DH>();
+  constexpr size_t smem_dq = smem_bytes<DH, true>(stream_rows<DH, true>());
+  constexpr size_t smem_dkdv = smem_bytes<DH, true>(pass_rows<DH, true>());
+  const auto dq_kernel = bwd_dq_kernel<DH, true, false, true>;
+  const auto dkdv_kernel = bwd_dkdv_kernel<DH, true, false, true>;
+  if (delta == nullptr) return cudaErrorInvalidValue;
+  const int c = tc::slice_ctas(dh);
+  AttnArgs a = args;
+  a.dh = dh;
+  static bool configured_dq = false, configured_dkdv = false;
+  cudaError_t err = tc::allow_smem(dq_kernel, smem_dq, configured_dq);
+  if (err == cudaSuccess) err = tc::allow_smem(dkdv_kernel, smem_dkdv, configured_dkdv);
+  if (err != cudaSuccess) return err;
+  const long long heads = (long long)a.H * B;
+  const long long ctas_dq = (long long)((a.Tq + R - 1) / R) * heads * c;
+  const long long ctas_dkdv = (long long)((a.Tk + R - 1) / R) * heads * c;
+  if (ctas_dq > 0x7fffffffLL || ctas_dkdv > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(dout);
+  tc::ClusterLaunch launch_dq(dim3((unsigned)ctas_dq), kCtaThreads, smem_dq, c, stream);
+  err = cudaLaunchKernelEx(&launch_dq.cfg, dq_kernel, fq, fk, fv, static_cast<const float*>(o),
+                           fdo, lse, delta, static_cast<float*>(dq), a, B);
+  if (err != cudaSuccess) return err;
+  tc::ClusterLaunch launch_dkdv(dim3((unsigned)ctas_dkdv), kCtaThreads, smem_dkdv, c, stream);
+  return cudaLaunchKernelEx(&launch_dkdv.cfg, dkdv_kernel, fq, fk, fv, fdo, lse,
+                            static_cast<const float*>(delta), static_cast<float*>(dk),
+                            static_cast<float*>(dv), a, B);
 }
 
 // the dQ kernel, then the dK/dV kernel; `delta` (B, H, Tq) f32 carries each

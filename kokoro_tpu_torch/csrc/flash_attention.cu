@@ -6,7 +6,8 @@
 // _flash_attention_impl), which the JAX package runs for causal decoder
 // self-attention at T >= 1024 with T a multiple of 128.  Here: q of shape
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
-// float32 or bfloat16, Dh in {64, 128, 192, 256}, any Tq, Tk >= 1; optional
+// float32 or bfloat16, Dh in {64, 128, 192, 256} or a multiple of 64 from
+// 320 to 1024, any Tq, Tk >= 1; optional
 // causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
 // (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
 // library's kernel takes a head dim up to 128 or a multiple of 128 (it
@@ -37,7 +38,12 @@
 // 192 and 256 (the flagship's hidden 512 over 2 heads: H=2, the same bytes
 // and operations as H=8, Dh=64) the bf16 kernel streams 64-key tiles through
 // three or two stages and stores O from registers; the f32 kernel's four
-// warps of each 16 rows split S's contraction (attention_tf32.cuh).
+// warps of each 16 rows split S's contraction (attention_tf32.cuh).  From
+// Dh 320 (the flagship's hidden 512 at one head: Dh 512, H=1, again the same
+// bytes and operations) no CTA holds a tile's rows: a cluster of
+// ceil(Dh / 128) CTAs takes each work item, each CTA the Dh 128 kernel on its
+// 128 columns, and each sums the cluster's partial S tiles in rank order from
+// its peers' shared memory (attention_tc.cuh, "clusters").
 
 #include "attention_kernels.cuh"
 

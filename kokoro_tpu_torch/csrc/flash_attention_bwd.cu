@@ -5,7 +5,8 @@
 // (body _flash_attention_dkv_kernel) and _flash_attention_bwd_dq (body
 // _flash_attention_dq_kernel) of jax.experimental.pallas.ops.tpu.flash_attention.
 // Inputs q, o, dO (B, H, Tq, Dh), k, v (B, H, Tk, Dh), head-first and
-// contiguous, f32 or bf16, Dh in {64, 128, 192, 256}, the forward's f32 row
+// contiguous, f32 or bf16, Dh in {64, 128, 192, 256} or a multiple of 64
+// from 320 to 1024, the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
 // kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
@@ -30,6 +31,10 @@
 // warpgroups share 64 keys, one accumulating dV and one dK (both
 // accumulators of a 64-key tile would take Dh registers a thread), and the
 // f32 kernels' four warps of each 16 rows split S's and dPd's contraction.
+// From Dh 320 a cluster of ceil(Dh / 128) CTAs takes each 64-row tile, each
+// CTA the Dh 128 kernel on its 128 columns, summing the cluster's partial S,
+// dPd and row deltas in rank order from its peers' shared memory (f32: tiles
+// of 16 streamed rows, so that the exchange fits beside the Dh 128 tiles).
 
 #include "attention_kernels.cuh"
 

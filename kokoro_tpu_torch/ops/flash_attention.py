@@ -12,10 +12,12 @@ query's); no dropout.
 
 * :func:`flash_supported` is the reference's shape gate without its
   ``default_backend() == "tpu"`` clause: the port routes by shape on every
-  device, and the CPU runs the plain version.  It admits head_dim 64, 128,
-  192 and 256, the kernels' (the reference: any multiple of 64; from 320 the
-  port runs the plain path).  ``_pick_block_q`` (TPU block tuning) has no
-  counterpart: the kernels tile by 64 at any T.
+  device, and the CPU runs the plain version.  It admits every multiple of
+  64 up to 1024, the kernels' head dims (the reference: any multiple of 64;
+  past 1024 the port runs the plain path).  From 320 a cluster of
+  ceil(head_dim / 128) CTAs splits the head dim by columns.
+  ``_pick_block_q`` (TPU block tuning) has no counterpart: the kernels tile
+  by 64 at any T.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   are the plain PyTorch versions, after the library's
   ``mha_reference_no_custom_vjp`` and ``mha_reference_bwd``, with the
@@ -46,18 +48,19 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the library's DEFAULT_MAS
 FLASH_MIN_LEN = 1024
 FLASH_BLOCK = 128
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-# the kernels' head dims, K4's own: the packed kernels (ops/fused_attention.py)
-# take 64 and 128
-SUPPORTED_HEAD_DIMS = (64, 128, 192, 256)
+# the kernels' head dims, K4's own: every multiple of 64 up to 1024 (from
+# 320 over a cluster of CTAs, at most 8 of 128 columns each); the packed
+# kernels (ops/fused_attention.py) take 64 and 128
+SUPPORTED_HEAD_DIMS = tuple(range(64, 1025, 64))
 
 
 def flash_supported(q_len: int, kv_len: int, head_dim: int, causal: bool = True) -> bool:
     """The reference's K4 shape gate (``blocks.py::_flash_supported``): causal,
     both lengths multiples of 128 and at least 1024, head_dim a multiple of
     64; and, narrower than the reference, head_dim in
-    :data:`SUPPORTED_HEAD_DIMS` (64, 128, 192 or 256), the ones the kernels
-    take: at 320, 384, ... the reference's gate admits flash and the port's
-    does not."""
+    :data:`SUPPORTED_HEAD_DIMS` (a multiple of 64 up to 1024), the ones the
+    kernels take: past 1024 the reference's gate admits flash and the
+    port's does not."""
     return (
         causal
         and q_len % FLASH_BLOCK == 0
@@ -80,7 +83,7 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not in {SUPPORTED_HEAD_DIMS}")
+        raise ValueError(f"head_dim {q.shape[3]} is not a multiple of 64 from 64 to 1024")
 
 
 def segment_ids(q, k, q_valid: Optional[torch.Tensor], kv_valid: Optional[torch.Tensor]
@@ -317,8 +320,9 @@ def flash_attention(
     CPU tensors run the plain versions; CUDA tensors launch the kernels.
     ``q_valid`` / ``kv_valid`` ``(B, T)`` (True or 1 = valid) mask keys
     whose validity differs from the query's.  Refuses dtypes other than
-    float32/bfloat16 and head_dim outside {64, 128, 192, 256} on every
-    device; the caller gates shapes with :func:`flash_supported`."""
+    float32/bfloat16 and a head_dim that is not a multiple of 64 from 64 to
+    1024 on every device; the caller gates shapes with
+    :func:`flash_supported`."""
     _check(q, k, v)
     q_seg, kv_seg = segment_ids(q, k, q_valid, kv_valid)
     return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -2,9 +2,9 @@
 package's ``_flash_attention`` (the library Pallas flash attention, forward
 and its two-kernel backward) run in the Pallas TPU interpreter on the CPU
 (``pltpu.force_tpu_interpret_mode()``), plus the dispatcher's refusals and
-``MultiHeadAttention``'s routing.  At Dh 192, which the library's kernel
-refuses (a head_dim above 128 must be a multiple of 128 there), the JAX side
-is the library's own plain reference, ``mha_reference_no_custom_vjp``.
+``MultiHeadAttention``'s routing.  At Dh 192 and 320, which the library's
+kernel refuses (a head_dim above 128 must be a multiple of 128 there), the
+JAX side is the library's own plain reference, ``mha_reference_no_custom_vjp``.
 
 Tolerances (docs/attention_numerics_tpu.json ``tolerances``): forward f32
 2e-5 / bf16 2e-2, gradients f32 1e-4 / bf16 3e-2, abs and rel.  Rows without
@@ -56,8 +56,9 @@ def _visible_rows(q_valid, kv_valid, B, T, causal):
     return same.any(-1)
 
 
-# each value of T, Dh, dtype, causal and mask kind at least once; Dh 192
-# and 256 in both dtypes, with and without masks
+# each value of T, Dh, dtype, causal and mask kind at least once; Dh 192,
+# 256, 384 and 512 in both dtypes, with and without masks; Dh 320 (a ragged
+# last 128-column slice in the port's cluster kernels)
 CASES = [
     (1024, 64, "float32", True, "none"),
     (1024, 64, "float32", True, "suffix"),
@@ -71,6 +72,11 @@ CASES = [
     (1024, 256, "float32", True, "suffix"),
     (1152, 256, "float32", False, "interior"),
     (1024, 256, "bfloat16", True, "none"),
+    (1024, 384, "float32", True, "suffix"),
+    (1024, 384, "bfloat16", True, "none"),
+    (1024, 512, "float32", True, "none"),
+    (1024, 512, "bfloat16", True, "interior"),
+    (1024, 320, "float32", True, "interior"),
 ]
 
 
@@ -192,18 +198,24 @@ def test_flash_gate_is_the_references_without_its_backend_clause():
     assert not port.flash_supported(1024, 1024, 64, causal=False)
     assert port.flash_supported(1024, 1024, 192)
     assert port.flash_supported(1408, 1408, 256)
-    # narrower than the reference: the kernels take Dh up to 256
-    assert not port.flash_supported(1024, 1024, 320)
-    assert not port.flash_supported(1024, 1024, 512)
+    assert port.flash_supported(1024, 1024, 320)
+    assert port.flash_supported(1408, 1408, 384)
+    assert port.flash_supported(1408, 1408, 512)
+    assert port.flash_supported(1024, 1024, 1024)
+    assert not port.flash_supported(1024, 1024, 96)   # Dh % 64
+    assert not port.flash_supported(896, 896, 512)    # below 1024
+    # narrower than the reference: the kernels take Dh up to 1024 (a cluster
+    # of at most 8 CTAs of 128 columns)
+    assert not port.flash_supported(1024, 1024, 1088)
 
 
-def _route(T, training, rate, key_given=False, d_model=128):
+def _route(T, training, rate, key_given=False, d_model=128, n_heads=2):
     """Launch counts each wrapper WOULD have made: the CPU runs the plain
     versions, so the routes are read from spies on the dispatch functions.
-    Two heads, so head_dim is d_model / 2."""
+    head_dim is d_model / n_heads."""
     calls = []
-    mha = MultiHeadAttention(d_model, 2, rate, use_rope=True, qk_norm=True, use_flash=True)
-    cross = MultiHeadAttention(d_model, 2, rate, qk_norm=True, use_flash=True)
+    mha = MultiHeadAttention(d_model, n_heads, rate, use_rope=True, qk_norm=True, use_flash=True)
+    cross = MultiHeadAttention(d_model, n_heads, rate, qk_norm=True, use_flash=True)
     mha.train(training)
     cross.train(training)
     x = torch.randn(1, T, d_model, generator=torch.Generator().manual_seed(T))
@@ -256,13 +268,26 @@ def test_routing_head_split_causal_takes_k3_and_k4():
     (512, 896, False, []),        # below 1024: einsum, as K1 takes Dh 64 and 128
     (384, 1024, False, ["K4"]),   # Dh 192
     (384, 1000, False, []),       # not a multiple of 128
-    (640, 1024, False, []),       # Dh 320: beyond the kernels, the plain path
+    (640, 1024, False, ["K4"]),   # Dh 320: the cluster kernels
+    (2176, 1024, False, []),      # Dh 1088: beyond the kernels, the plain path
 ])
 def test_routing_at_head_dims_192_and_256(d_model, T, key_given, expected):
     """K4 takes its own head dims, the packed kernels (K1, K2, K3) theirs:
-    at Dh 192 and 256 the long causal self-attention takes K4 and every other
-    site stays on einsum, as in the reference."""
+    past Dh 128 (192, 256, and from 320 to 1024 over a cluster of CTAs) the
+    long causal self-attention takes K4 and every other site stays on einsum,
+    as in the reference."""
     assert _route(T, False, 0.0, key_given=key_given, d_model=d_model) == expected
+
+
+@pytest.mark.parametrize("T,key_given,expected", [
+    (1408, False, ["K4"]),   # Dh 512: the flagship's widths at one head
+    (1408, True, ["K4"]),    # a key given: K4 on the head-split path
+    (896, False, []),        # below 1024: einsum
+])
+def test_routing_at_one_head_of_512(T, key_given, expected):
+    """At hidden 512 and n_heads=1 (Dh 512) only the long causal
+    self-attention takes K4; the cross-attention stays on einsum."""
+    assert _route(T, False, 0.0, key_given=key_given, d_model=512, n_heads=1) == expected
 
 
 def test_cpu_routes_launch_no_kernel():

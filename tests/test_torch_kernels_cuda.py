@@ -159,17 +159,12 @@ def test_flash_kernels_match_plain(cuda, causal, T, Dh, dtype, masks):
                                    atol=GRAD_TOL[dtype], msg=f"d{name}")
 
 
-@pytest.mark.parametrize("masks", ["suffix", "interior"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Dh", [192, 256])
-@pytest.mark.parametrize("T", [1024, 1408, 1433])
-def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, masks):
-    """K4 at the head dims past the packed kernels' (causal, the long path's
-    regime): one forward and one backward kernel launch through the autograd
-    Function, against the plain forward and backward; suffix padding on both
-    sides, or interior padding on the keys with every query valid."""
+def _wide_flash_inputs(cuda, T, Dh, dtype, masks, seed):
+    """(q, k, v, do, q_valid, kv_valid) of a K4 case at B=2, H=2: suffix
+    padding on both sides, or interior padding on the keys with every query
+    valid."""
     B, H = 2, 2
-    g = torch.Generator().manual_seed(5 * T + Dh)
+    g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, dtype) for _ in range(4))
     if masks == "suffix":
         q_valid = kv_valid = torch.arange(T, device=cuda)[None, :] < torch.tensor(
@@ -179,15 +174,22 @@ def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, 
         kv_valid[:, 0] = True
         kv_valid = kv_valid.to(cuda)
         q_valid = torch.ones(B, T, dtype=torch.bool, device=cuda)
+    return q, k, v, do, q_valid, kv_valid
+
+
+def _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid, causal=True):
+    """One forward and one backward kernel launch through the autograd
+    Function, against the plain forward and backward."""
+    dtype, Dh = q.dtype, q.shape[-1]
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = [kern.launches for kern in flash.KERNELS]
-    out = flash.flash_attention(*leaves, causal=True, scale=Dh ** -0.5, q_valid=q_valid,
+    out = flash.flash_attention(*leaves, causal=causal, scale=Dh ** -0.5, q_valid=q_valid,
                                 kv_valid=kv_valid)
     out.backward(do)
     torch.cuda.synchronize()
     assert [kern.launches - b for kern, b in zip(flash.KERNELS, before)] == [1, 1]
     q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
-    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
     ref = flash.flash_attention_reference(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
     grads = flash.flash_attention_bwd_reference(q, k, v, out.detach(), do, **kw)
@@ -196,18 +198,59 @@ def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, 
                                    atol=GRAD_TOL[dtype], msg=f"d{name}")
 
 
-def test_flash_kernels_refuse_head_dim_320(cuda):
-    """Past Dh 256 the kernels take no head dim: the wrappers raise, and
-    nothing launches."""
-    x = torch.zeros(1, 2, 1024, 320, device=cuda)
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [192, 256])
+@pytest.mark.parametrize("T", [1024, 1408, 1433])
+def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, masks):
+    """K4 at the head dims past the packed kernels' (causal, the long path's
+    regime) against the plain forward and backward."""
+    _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 5 * T + Dh))
+
+
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [320, 384, 512, 1024])
+@pytest.mark.parametrize("T", [1024, 1433])
+def test_flash_kernels_past_head_dim_256_match_plain(cuda, T, Dh, dtype, masks):
+    """K4 where a cluster of ceil(Dh / 128) CTAs splits the head dim by
+    columns (the last slice ragged at 320), causal, against the plain forward
+    and backward."""
+    _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 7 * T + Dh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [448, 640])
+def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
+    """The cluster kernels without the causal mask at a ragged T, against the
+    plain versions, and two calls bit for bit equal (each CTA sums the
+    cluster's partials in rank order)."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1100, Dh, dtype, "suffix", Dh)
+    _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid, causal=False)
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=False, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    runs = []
+    for _ in range(2):
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        runs.append((o, lse, *flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("Dh", [1088, 96])
+def test_flash_kernels_refuse_head_dims_past_1024_or_off_64(cuda, Dh):
+    """Past Dh 1024 (more than the 8 CTAs of a portable cluster) or at a head
+    dim that is not a multiple of 64 the kernels take nothing: the wrappers
+    raise, and nothing launches."""
+    x = torch.zeros(1, 2, 1024, Dh, device=cuda)
     before = [kern.launches for kern in flash.KERNELS]
     with pytest.raises(ValueError, match="head_dim"):
-        flash.flash_attention(x, x, x, causal=True, scale=320 ** -0.5)
+        flash.flash_attention(x, x, x, causal=True, scale=Dh ** -0.5)
     with pytest.raises(ValueError, match="head_dim"):
-        flash.flash_attention_fwd(x, x, x, causal=True, scale=320 ** -0.5)
+        flash.flash_attention_fwd(x, x, x, causal=True, scale=Dh ** -0.5)
     lse = torch.zeros(1, 2, 1024, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        flash.flash_attention_bwd(x, x, x, x, x, lse, causal=True, scale=320 ** -0.5)
+        flash.flash_attention_bwd(x, x, x, x, x, lse, causal=True, scale=Dh ** -0.5)
     assert [kern.launches for kern in flash.KERNELS] == before
 
 

@@ -13,7 +13,9 @@ the Pallas kernel in the TPU interpreter (``FLASH_TRACE_COUNT`` must grow).
 The same at head_dim 256 (hidden 512 over 2 heads, 1+1 layers): K4 takes
 the decoder self-attention at Dh 192 and 256 too, where the packed kernels'
 gate (Dh 64 and 128, as the reference's) leaves the cross-attention and the
-encoder on einsum.
+encoder on einsum.  And at head_dim 512 (hidden 512 at one head, 1+1
+layers, the flagship's widths at n_heads=1): K4 past Dh 256, where the head
+axis of the projections and the per-head norms has size 1.
 
 Tolerances: forward outputs 1e-4 (the port's forward parity tolerance,
 tests/test_torch_model.py); one f32 train step, metrics 2e-5 relative and
@@ -47,6 +49,8 @@ def long_batch(seed):
 
 # head_dim 256: hidden 512 over the 2 heads, one encoder and one decoder layer
 ARCH_DH256 = {**ARCH, "hidden_dim": 512, "n_encoder_layers": 1, "n_decoder_layers": 1}
+# head_dim 512: hidden 512 at one head
+ARCH_DH512 = {**ARCH_DH256, "n_heads": 1}
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +61,11 @@ def pair():
 @pytest.fixture(scope="module")
 def pair_dh256():
     return Pair("float32", arch=ARCH_DH256)
+
+
+@pytest.fixture(scope="module")
+def pair_dh512():
+    return Pair("float32", arch=ARCH_DH512)
 
 
 def _forward_inputs(batch):
@@ -132,6 +141,13 @@ def test_long_forward_at_head_dim_256_takes_k4_and_matches_reference(pair_dh256,
     assert packed == []  # the cross-attention at Dh 256 stays on einsum too
 
 
+def test_long_forward_at_head_dim_512_one_head_takes_k4_and_matches_reference(
+        pair_dh512, monkeypatch):
+    assert pair_dh512.arch["hidden_dim"] // pair_dh512.arch["n_heads"] == 512
+    packed = _forward_takes_k4_and_matches_reference(pair_dh512, long_batch(4), monkeypatch)
+    assert packed == []  # the cross-attention at Dh 512 stays on einsum too
+
+
 def test_long_train_step_matches_reference_with_stabilization_live(pair):
     batch = long_batch(2)
     scale, clip = adaptive_stabilization(torch_batch(batch), pair.cfg)
@@ -149,6 +165,16 @@ def test_long_train_step_at_head_dim_256_matches_reference(pair_dh256):
     js, jm = pair_dh256.run_jax(pair_dh256.jax_state(), batch, 0)
     ps = pair_dh256.port_state()
     pm = pair_dh256.run_port(ps, batch, 0)
+    assert pm["stepped"] == 1.0 and pm["loss_scale"] < 1.0
+    assert_metrics(jm, pm)
+    assert_state(js, ps)
+
+
+def test_long_train_step_at_head_dim_512_one_head_matches_reference(pair_dh512):
+    batch = long_batch(5)
+    js, jm = pair_dh512.run_jax(pair_dh512.jax_state(), batch, 0)
+    ps = pair_dh512.port_state()
+    pm = pair_dh512.run_port(ps, batch, 0)
     assert pm["stepped"] == 1.0 and pm["loss_scale"] < 1.0
     assert_metrics(jm, pm)
     assert_state(js, ps)
