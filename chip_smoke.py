@@ -44,14 +44,16 @@ Phases, each printing one JSON line:
 4. dropout: the packed kernels' dropout semantics, as
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
-   against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920
-   and Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433/1920
+   against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920,
+   Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433/1920 and Dh
+   640/768/896 (clusters of 5, 6 and 7 CTAs) x T 1433
    x causal and not x segment ids none/suffix/interior, f32 and bf16, each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
    bit equal, with each head dim's worst share of the allclose bound; then
    its times at the long path's shape B=12, T=1408 at H=8 Dh=64, H=2 Dh=256
    and H=1 Dh=512 (the flagship's hidden 512 over 2 heads and at one), H=4
-   Dh=192 and H=2 Dh=384 (hidden 768), each with its bound, plain version
+   Dh=192 and H=2 Dh=384 (hidden 768), H=1 Dh=1024 (the largest cluster,
+   8 CTAs), each with its bound, plain version
    and SDPA in both dtypes (past Dh 256 SDPA's first fused backend that takes
    the call, pinned, and named).  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
@@ -1025,15 +1027,28 @@ def _flash_masks(kind, B, T, dev, gen):
 
 
 # K4's head dims: 64 and 128 (the packed kernels' too), 192 and 256 (K4's
-# own), and from 320 the cluster kernels (320 and 448 ragged in their last
-# 128-column slice, 1024 the largest cluster)
-FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 1024)
-# the lengths swept up to Dh 256, and past it (fewer, to bound the phase)
-FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1536, 1920), "cluster": (1024, 1433, 1920)}
+# own), and from 320 the cluster kernels (320, 448 and 896 ragged in their
+# last 128-column slice; 640, 768 and 896 clusters of 5, 6 and 7 CTAs, whose
+# exchanged tiles split unevenly; 1024 the largest cluster)
+FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024)
+# the lengths swept up to Dh 256, past it (fewer, to bound the phase), and
+# at the clusters of 5-7 CTAs (one)
+FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1536, 1920), "cluster": (1024, 1433, 1920),
+                 "cluster_5_7": (1433,)}
+
+
+def flash_lengths(Dh: int) -> tuple:
+    """The T that phase kernels_flash sweeps at head dim ``Dh``."""
+    if Dh <= 256:
+        return FLASH_LENGTHS["narrow"]
+    return FLASH_LENGTHS["cluster_5_7" if Dh in (640, 768, 896) else "cluster"]
+
+
 # (H, Dh) of K4's timed rows at the long shape B=12, T=1408: the flagship's 8
 # heads of 64, and its hidden 512 over 2 heads (Dh 256) and one (Dh 512, phase
-# long's models), hidden 768 over 4 (Dh 192) and 2 (Dh 384)
-FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512))
+# long's models), hidden 768 over 4 (Dh 192) and 2 (Dh 384), and Dh 1024 at
+# one head (the largest cluster, 8 CTAs)
+FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512), (1, 1024))
 
 
 def phase_kernels_flash():
@@ -1052,7 +1067,7 @@ def phase_kernels_flash():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for Dh in FLASH_HEAD_DIMS:
-            for T in FLASH_LENGTHS["cluster" if Dh > 256 else "narrow"]:
+            for T in flash_lengths(Dh):
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
                 for causal in (True, False):
@@ -1101,8 +1116,9 @@ def phase_kernels_flash():
             torch.cuda.empty_cache()
     emit({"phase": "kernels_flash", "checks": checks, "two_calls_bitwise_equal": True,
           "f32_independent_of_allow_tf32": True,
-          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920} and "
-                    "Dh{320,384,448,512,1024} x T{1024,1433,1920} x causal/non-causal x "
+          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920}, "
+                    "Dh{320,384,448,512,1024} x T{1024,1433,1920} and Dh{640,768,896} x "
+                    "T{1433} x causal/non-causal x "
                     "segment ids none/suffix/interior",
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst,
           "worst_allclose_ratio": worst_ratio})

@@ -234,11 +234,13 @@ __device__ __forceinline__ void pair_arrive(int id) {
 // together, CTA r owning columns [128 r, 128 r + 128) of every tile (the
 // Dh 128 instantiation's tiles, rings and accumulators).  The row-wise
 // contractions (S = Q K^T, dPd = dO V^T, the rows' delta) are partial sums
-// over a CTA's columns, and each CTA sums the cluster's partials itself, in
-// rank order, reading its peers' shared memory (DSMEM), so every CTA holds
-// the same bits and the softmax, P and dS agree across the cluster; each CTA
-// then takes the output products of its own columns.  Columns past Dh read
-// as zero (TMA's bounds, or a predicate) and are never stored.
+// over a CTA's columns, summed across the cluster through its shared memory
+// (DSMEM) by a reduce-scatter and an all-gather of pushes (ClusterSum): each
+// CTA owns a chunk of every exchanged tile, sums it in rank order, and sends
+// the sum to the others, so every CTA holds the same bits and the softmax, P
+// and dS agree across the cluster; each CTA then takes the output products
+// of its own columns.  Columns past Dh read as zero (TMA's bounds, or a
+// predicate) and are never stored.
 
 __device__ __forceinline__ int cluster_rank() {
   uint32_t r;
@@ -265,18 +267,6 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
   return out;
 }
 
-// this thread's earlier memory accesses ordered before its later ones for
-// every thread of the cluster (with a relaxed arrival after it: a release)
-__device__ __forceinline__ void fence_cluster() {
-  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
-}
-
-// one arrival (relaxed, cluster scope) on an mbarrier of another CTA
-__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
-  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
 // wait (acquire at cluster scope) until the barrier's phase `parity` has
 // completed
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
@@ -292,108 +282,239 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
   } while (!done);
 }
 
-__device__ __forceinline__ float4 ld_peer(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
+// one asynchronous store of U floats (U = 1, 2 or 4) to the shared::cluster
+// address `addr`, completing its 4 U bytes on the mbarrier at `bar` (in the
+// same CTA as addr) with release semantics at cluster scope
+template <int U>
+__device__ __forceinline__ void st_async(uint32_t addr, const float* x, uint32_t bar) {
+  if constexpr (U == 4) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(addr),
+        "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]), "r"(bar)
+        : "memory");
+  } else if constexpr (U == 2) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+            addr),
+        "f"(x[0]), "f"(x[1]), "r"(bar)
+        : "memory");
+  } else {
+    static_assert(U == 1, "a cell of 1, 2 or 4 floats");
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                     addr),
+                 "f"(x[0]), "r"(bar)
+                 : "memory");
+  }
 }
 
-// bytes of a CTA's exchange area: `warps` warps, each two slots of 32 N
-// floats and two mbarriers
-template <int N>
-__host__ __device__ constexpr size_t xch_bytes(int warps) {
-  return (size_t)warps * (2 * 32 * N * sizeof(float) + 2 * sizeof(uint64_t));
+// the U floats of a cell in this CTA's shared memory (4 U-byte aligned), in
+// and out
+template <int U>
+__device__ __forceinline__ void ld_cell(const float* p, float* x) {
+  if constexpr (U == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (U == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
+}
+template <int U>
+__device__ __forceinline__ void st_cell(float* p, const float* x) {
+  if constexpr (U == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (U == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
 }
 
-// thread 0: the exchange area's mbarriers, each expecting an arrival from
-// every lane of the same warp of each other CTA of the cluster
+// An exchanged tile is a warp's M floats a lane (M <= N), cut into cells of
+// U = M / 8 floats (1 below M = 8): cell 32 u + l is floats [U u, U u + U)
+// of lane l, 256 cells (128 at M = 4).  CTA r of c owns cells
+// [ceil(256 r / c), ceil(256 (r + 1) / c)), the owner of cell x is
+// floor(x c / 256), and its reduce-scatter slots hold each other CTA's
+// partial of its cells, ceil(256 / c) cells a sender (at most 7 x 32 = 224
+// cells, at c = 8); its all-gather slots hold every cell at its index (256).
+// A warp's area (of each channel, ClusterSum's K): those 224 + 256 cells of
+// N / 8 floats, 240 N bytes.
 template <int N>
-__device__ __forceinline__ void xch_init(uint8_t* area, int warps, int size) {
-  uint64_t* bars = reinterpret_cast<uint64_t*>(area + (size_t)warps * 2 * 32 * N * sizeof(float));
-  for (int i = 0; i < 2 * warps; ++i) mbar_init(bars + i, 32 * (size - 1));
+__host__ __device__ constexpr size_t xch_warp_bytes() {
+  static_assert(N % 8 == 0, "cells of N / 8 floats");
+  return (size_t)(224 + 256) * (N / 8) * sizeof(float);
+}
+// bytes of a CTA's exchange area: `areas` warp areas (warps x channels),
+// then two mbarriers an area (reduce-scatter, all-gather)
+template <int N>
+__host__ __device__ constexpr size_t xch_bytes(int areas) {
+  return (size_t)areas * (xch_warp_bytes<N>() + 2 * sizeof(uint64_t));
+}
+
+// thread 0: the exchange area's mbarriers, each completed by its warp's
+// lane 0 arriving with the bytes it expects and the peers' stores landing
+template <int N>
+__device__ __forceinline__ void xch_init(uint8_t* area, int areas) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(area + (size_t)areas * xch_warp_bytes<N>());
+  for (int i = 0; i < 2 * areas; ++i) mbar_init(bars + i, 1);
   mbar_fence_init();
 }
 
 // A warp's sums across the cluster, with the same warp of every other CTA:
-// each exchange writes the warp's partials to a slot (float i of lane l at
-// 128 (i / 4) + 4 l + i % 4), fences and arrives on that slot's mbarrier in
-// every peer CTA, waits on its own, and sums the slot of every CTA in rank
-// order.  The
-// slots alternate: a lane writes slot s again two exchanges on, after its
-// wait for the exchange between, whose arrivals every peer lane made after
-// reading slot s.  Each lane reads only its own positions of each slot, so
-// the per-lane arrivals order every read after the write it needs.  All the
-// CTAs' warps make the same exchanges in the same order (the work items,
-// rows and keys are the cluster's, only the columns differ), and the kernel
-// ends on cluster_sync, so that no CTA leaves while a peer reads its slots.
-template <int N>
+// a reduce-scatter and an all-gather, both by pushes (st.async), each
+// completing on the receiver's own mbarrier, so no CTA reads another's
+// shared memory.  Each exchange: lane 0 arrives on both mbarriers with the
+// bytes this CTA will receive (a store may land before that: the phase
+// completes when both have happened); each lane pushes its cells that
+// another CTA owns into that CTA's slots for this sender and parks the cells
+// this CTA owns in its own all-gather slots (v is then dead until the end:
+// its registers are free while the exchange waits), waits for its own
+// slots, sums each of its own cells over the cluster in rank order (((p0 +
+// p1) + p2) + ...) into its all-gather slot and pushes the sum into every
+// other CTA's, waits for those, and reads all its cells back into v.  Every
+// CTA holds the owner's bits of every cell, which are the rank-order sum.
+//
+// Reuse without a credit: every CTA owns at least one cell of every
+// exchange (c <= 8 <= 128 cells), so a sender's push into a peer's slots for
+// exchange n + 1 comes after its all-gather wait of exchange n, which took
+// the peer's sums, which the peer sent after reading (and completing) its
+// slots of exchange n; and a peer's all-gather push of n + 1 comes after
+// this CTA's reduce-scatter push of n + 1, made after it read its all-gather
+// slots of n.  The completions are releases and the waits acquires at
+// cluster scope.  All the CTAs' warps make the same exchanges in the same
+// order (the work items, rows and keys are the cluster's, only the columns
+// differ), and the kernel ends on cluster_sync, so that no CTA leaves while
+// a peer may still push to it.
+//
+// A ClusterSum of K channels holds K such exchanges of a warp, each with its
+// own slots and mbarriers, in three phases (push, reduce, gather), so that
+// the backward's S and dPd exchanges run together: push both, reduce both,
+// then gather both.  No wait of a phase depends on a later phase of any
+// CTA, so the interleaving cannot deadlock.
+template <int N, int K = 1>
 struct ClusterSum {
-  static_assert(N % 4 == 0, "float4 slots");
-  float* slots;     // this warp's two
-  uint64_t* ready;  // their mbarriers
+  static_assert(N % 8 == 0, "cells of N / 8 floats");
+  static constexpr int kAg = 224 * (N / 8);  // the all-gather slots, past the reduce-scatter's
+  static constexpr int kChannel = (int)(xch_warp_bytes<N>() / sizeof(float));
+  float* rs;        // channel 0's slots: 224 cells of reduce-scatter, 256 of all-gather
+  uint64_t* bars;   // channel 0's two mbarriers; channel k's at + 2 k
   int rank, size;
-  uint32_t n;  // exchanges so far: slot n % 2 in its phase n / 2
+  uint32_t phases;  // bit k: channel k's exchanges so far, mod 2
 
-  __device__ __forceinline__ ClusterSum(uint8_t* area, int warps, int warp) : n(0) {
-    slots = reinterpret_cast<float*>(area) + (size_t)warp * 2 * 32 * N;
-    ready = reinterpret_cast<uint64_t*>(area + (size_t)warps * 2 * 32 * N * sizeof(float)) + 2 * warp;
+  // `warps` warps of K channels each; this is warp `warp`'s
+  __device__ __forceinline__ ClusterSum(uint8_t* area, int warps, int warp) : phases(0) {
+    rs = reinterpret_cast<float*>(area + (size_t)warp * K * xch_warp_bytes<N>());
+    bars = reinterpret_cast<uint64_t*>(area + (size_t)warps * K * xch_warp_bytes<N>()) +
+           2 * K * warp;
     rank = cluster_rank();
     size = cluster_size();
   }
 
-  // v (M <= N floats) <- the sum over the cluster's CTAs, in rank order, of
-  // each one's v
+  // an exchange of M floats a lane: cells of U floats, NU a lane; this
+  // CTA's cells [lo, hi), ch the largest chunk (a sender's slots)
   template <int M>
-  __device__ __forceinline__ void operator()(float (&v)[M], int lane) {
-    static_assert(M <= N && M % 4 == 0, "a slot's first M floats a lane");
-#ifdef KOKORO_CLUSTER_SUM_OFF
-    return;  // timing only (scripts/probe_flash_cluster.py): no exchange, wrong sums
-#endif
-    const int slot = n & 1;
-    float* mine = slots + slot * 32 * N + 4 * lane;
+  struct Cut {
+    static_assert(M <= N && (M == 4 || M % 8 == 0) && M <= 32, "cells of 1, 2 or 4 floats");
+    static constexpr int U = M >= 8 ? M / 8 : 1, NU = M / U, CELLS = 32 * NU;
+    static constexpr int SHIFT = NU == 8 ? 8 : 7;
+    uint32_t recip;  // ceil(2^16 / size): ceil(x / size) = ((x + size - 1) recip) >> 16, x < 2^11
+    int size, lo, hi, ch;
+    __device__ __forceinline__ Cut(int rank, int size_) : size(size_) {
+      recip = (65536u + (uint32_t)size - 1u) / (uint32_t)size;
+      lo = ceil_div(CELLS * rank);
+      hi = ceil_div(CELLS * (rank + 1));
+      ch = ceil_div(CELLS);
+    }
+    __device__ __forceinline__ int ceil_div(int x) const {
+      return (int)(((uint32_t)(x + size - 1) * recip) >> 16);
+    }
+  };
+
+  // lane 0 arms both mbarriers with the bytes this CTA will receive; each
+  // lane pushes its cells that another CTA owns into that CTA's slots for
+  // this sender and parks this CTA's own in its all-gather slots (v is dead
+  // until gather)
+  template <int KK, int M>
+  __device__ __forceinline__ void push(const float (&v)[M], int lane) {
+#ifndef KOKORO_CLUSTER_SUM_OFF
+    using C = Cut<M>;
+    constexpr int U = C::U;
+    const C cut(rank, size);
+    float* slots = rs + KK * kChannel;
+    uint64_t* bar = bars + 2 * KK;
+    if (lane == 0) {
+      mbar_expect_tx(bar, (uint32_t)((size - 1) * (cut.hi - cut.lo) * U * 4));
+      mbar_expect_tx(bar + 1, (uint32_t)((C::CELLS - (cut.hi - cut.lo)) * U * 4));
+    }
 #pragma unroll
-    for (int i = 0; i < M / 4; ++i)
-      *reinterpret_cast<float4*>(mine + 128 * i) =
-          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-    // one cluster-scope fence, then relaxed arrivals: a release to each peer
-    // (a release arrival is a fence of its own, one for each peer)
-    fence_cluster();
-    for (int r = 0; r < size; ++r)
-      if (r != rank) mbar_arrive_peer(peer_addr(ready + slot, r));
-    mbar_wait_cluster(ready + slot, (n >> 1) & 1u);
-    // the slots in rank order, CH float4s at a time: a CTA's loads of a chunk
-    // are in flight together (a DSMEM load is a round trip)
-    constexpr int CH = M / 4 < 4 ? M / 4 : 4;
-#pragma unroll
-    for (int i0 = 0; i0 < M / 4; i0 += CH) {
-      float4 x[CH];
-      const uint32_t first = peer_addr(mine, 0) + 512 * i0;
-#pragma unroll
-      for (int i = 0; i < CH; ++i) x[i] = ld_peer(first + 512 * i);
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        v[4 * (i0 + i)] = x[i].x;
-        v[4 * (i0 + i) + 1] = x[i].y;
-        v[4 * (i0 + i) + 2] = x[i].z;
-        v[4 * (i0 + i) + 3] = x[i].w;
-      }
-      for (int r = 1; r < size; ++r) {
-        const uint32_t at = peer_addr(mine, r) + 512 * i0;
-#pragma unroll
-        for (int i = 0; i < CH; ++i) x[i] = ld_peer(at + 512 * i);
-#pragma unroll
-        for (int i = 0; i < CH; ++i) {
-          v[4 * (i0 + i)] += x[i].x;
-          v[4 * (i0 + i) + 1] += x[i].y;
-          v[4 * (i0 + i) + 2] += x[i].z;
-          v[4 * (i0 + i) + 3] += x[i].w;
-        }
+    for (int u = 0; u < C::NU; ++u) {
+      const int cell = 32 * u + lane, r = (cell * size) >> C::SHIFT;
+      if (r != rank) {
+        const int slot = (rank < r ? rank : rank - 1) * cut.ch + cell - cut.ceil_div(C::CELLS * r);
+        st_async<U>(peer_addr(slots + slot * U, r), &v[U * u], peer_addr(bar, r));
+      } else {
+        st_cell<U>(slots + kAg + cell * U, &v[U * u]);
       }
     }
-    ++n;
+#endif
+  }
+
+  // once this CTA's slots have landed: each of its cells summed in rank
+  // order into its all-gather slot and pushed into every other CTA's
+  template <int KK, int M>
+  __device__ __forceinline__ void reduce(int lane) {
+#ifndef KOKORO_CLUSTER_SUM_OFF
+    using C = Cut<M>;
+    constexpr int U = C::U;
+    const C cut(rank, size);
+    float* slots = rs + KK * kChannel;
+    uint64_t* bar = bars + 2 * KK;
+    mbar_wait_cluster(bar, (phases >> KK) & 1u);
+#pragma unroll 1
+    for (int cell = cut.lo + lane; cell < cut.hi; cell += 32) {
+      float* own = slots + kAg + cell * U;
+      // sender i's partial at + i ch U (i past this CTA's rank: i - 1)
+      const float* mine = slots + (cell - cut.lo) * U;
+      float x[U], y[U];
+      ld_cell<U>(rank == 0 ? own : mine, x);
+#pragma unroll 1
+      for (int s = 1; s < size; ++s) {
+        ld_cell<U>(s == rank ? own : mine + (s < rank ? s : s - 1) * cut.ch * U, y);
+#pragma unroll
+        for (int k = 0; k < U; ++k) x[k] += y[k];
+      }
+      st_cell<U>(own, x);
+#pragma unroll 1
+      for (int r = 0; r < size; ++r)
+        if (r != rank) st_async<U>(peer_addr(own, r), x, peer_addr(bar + 1, r));
+    }
+#endif
+  }
+
+  // once every sum has landed: all the cells back into v
+  template <int KK, int M>
+  __device__ __forceinline__ void gather(float (&v)[M], int lane) {
+#ifndef KOKORO_CLUSTER_SUM_OFF
+    using C = Cut<M>;
+    const float* ag = rs + KK * kChannel + kAg;
+    mbar_wait_cluster(bars + 2 * KK + 1, (phases >> KK) & 1u);
+#pragma unroll
+    for (int u = 0; u < C::NU; ++u) ld_cell<C::U>(ag + (32 * u + lane) * C::U, &v[C::U * u]);
+    phases ^= 1u << KK;
+#endif
+  }
+
+  // v (M <= N floats) <- the sum over the cluster's CTAs, in rank order, of
+  // each one's v.  KOKORO_CLUSTER_SUM_OFF compiles the exchange out, leaving
+  // each CTA its own partial (timing only: scripts/probe_flash_cluster.py).
+  template <int M>
+  __device__ __forceinline__ void operator()(float (&v)[M], int lane) {
+    push<0>(v, lane);
+    reduce<0, M>(lane);
+    gather<0>(v, lane);
   }
 };
 
@@ -1057,7 +1178,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int col0 = CL ? kSliceCols * cluster_rank() : 0;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<BN / 2>(xch, 4 * C, cluster_size());
+    if constexpr (CL) xch_init<BN / 2>(xch, 4 * C);
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -1292,10 +1413,11 @@ __device__ __forceinline__ void pd_operand(const float (&p)[32], uint32_t keep,
 }
 
 // the shared memory of a backward CTA's exchange area (CL: its consumers'
-// warps' ClusterSum of 32 floats)
+// warps' ClusterSum of 32 floats, two channels a warp: S and dPd)
+constexpr int kBwdChannels = 2;
 template <int DH, bool CL>
 __host__ __device__ constexpr size_t bwd_xch_bytes(int consumers) {
-  return CL ? xch_bytes<32>(4 * consumers) : 0;
+  return CL ? xch_bytes<32>(kBwdChannels * 4 * consumers) : 0;
 }
 
 // CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
@@ -1331,7 +1453,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const float inv_t = 1.f / (float)a.Tk;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<32>(xch, 4 * C, csize);
+    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C);
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -1383,7 +1505,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         CL ? (size_t)bh * a.Tq * a.dh + col0 : head_offset<FLASH, DH>(b, h, a.H, a.Tq);
     const float scale2 = a.scale * kLog2e;
     // CL: S, dPd and the deltas summed across the cluster, warp by warp
-    ClusterSum<32> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
+    ClusterSum<32, kBwdChannels> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
 
     // the rows' delta (written once for the dK/dV kernel), lse and segment
     float delta[2], lse2[2];
@@ -1429,7 +1551,17 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         const uint32_t keep = DROPOUT ? keep_bits_q(bh, qw + r0, k0, lane, a) : 0u;
         wgmma_wait<1>();  // S is done, dPd may still run
         fence_regs(s);
-        if constexpr (CL) cluster(s, lane);  // the partials of the cluster's columns
+        if constexpr (CL) {
+          // the partials of the cluster's columns: S's exchange pushed while
+          // dPd runs, then dPd's, and the two reduced and gathered together
+          cluster.push<0>(s, lane);
+          wgmma_wait<0>();
+          fence_regs(dp);
+          cluster.push<1>(dp, lane);
+          cluster.reduce<0, 32>(lane);
+          cluster.reduce<1, 32>(lane);
+          cluster.gather<0>(s, lane);
+        }
         if (tile_unmasked<FLASH>(a, keys, seg, qw, k0)) {
 #pragma unroll
           for (int idx = 0; idx < 32; ++idx)
@@ -1453,9 +1585,12 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
             }
           }
         }
-        wgmma_wait<0>();
-        fence_regs(dp);
-        if constexpr (CL) cluster(dp, lane);
+        if constexpr (CL) {
+          cluster.gather<1>(dp, lane);
+        } else {
+          wgmma_wait<0>();
+          fence_regs(dp);
+        }
 #pragma unroll
         for (int idx = 0; idx < 32; ++idx)
           s[idx] = grad_ds<DROPOUT>(s[idx], dp[idx], delta[(idx >> 1) & 1], (keep >> idx) & 1u,
@@ -1567,7 +1702,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const float inv_t = 1.f / (float)a.Tk;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<32>(xch, 4 * C, csize);
+    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C);
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -1620,7 +1755,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const size_t kv_base =
         CL ? (size_t)bh * a.Tk * a.dh + col0 : kv_offset<FLASH, DH>(q_base, b, h, a);
     // CL: S^T and dPd^T summed across the cluster, warp by warp
-    ClusterSum<32> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
+    ClusterSum<32, kBwdChannels> cluster(xch, 4 * C, CL ? 4 * wg + warp_in_group() : 0);
     int kvseg[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1658,20 +1793,26 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const uint32_t keep = DROPOUT ? keep_bits_kv(bh, q0, kw + (r0 & ~3), lane, a) : 0u;
         wgmma_wait<1>();  // S^T is done, dPd^T may still run
         fence_regs(s);
-        if constexpr (CL) cluster(s, lane);  // the partials of the cluster's columns
+        if constexpr (CL) {
+          // the partials of the cluster's columns, as in the dQ kernel; dPd^T
+          // is summed before the dV product is issued (summed under it,
+          // ptxas serialised the products: C7513) and before Pd^T is rounded
+          // (its registers would be live across the exchange)
+          cluster.push<0>(s, lane);
+          wgmma_wait<0>();
+          fence_regs(dp);
+          cluster.push<1>(dp, lane);
+          cluster.reduce<0, 32>(lane);
+          cluster.reduce<1, 32>(lane);
+          cluster.gather<0>(s, lane);
+        }
         const float* lse_t = ring.lse2(stage);
         const float* delta_t = ring.delta(stage);
         transposed_weights<FLASH>(s, a, keys, seg, q0, kw, r0, c0, lse_t, ring.seg(stage), kvseg,
                                   inv_t);
+        if constexpr (CL) cluster.gather<1>(dp, lane);
         // Pd^T to bf16 and its dV product first, running beside dPd^T
         pd_operand<DROPOUT>(s, keep, a, pda);  // bf16(Pd)^T; s keeps p for dS
-        if constexpr (CL) {
-          // dPd^T summed across the cluster before the dV product is issued
-          // (summed under it, ptxas serialised the products: C7513)
-          wgmma_wait<0>();
-          fence_regs(dp);
-          cluster(dp, lane);
-        }
         wgmma_fence();
         accumulate<DH>(acc_dv, pda, dOt);
         wgmma_commit();

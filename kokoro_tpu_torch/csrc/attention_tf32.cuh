@@ -106,11 +106,17 @@
 // barriers while a streamed tile is split: PERF.md section 6 has the times.
 //
 // Past Dh 256 (CL): a cluster of ceil(Dh / 128) CTAs, each the Dh 128
-// kernel on its 128 columns (cp.async predicated to zero past Dh), each
-// score (S, dPd, the delta products) summed across the cluster in rank
-// order after score (cluster_score, tc::ClusterSum), so the forward and the
-// dQ kernel still sum alike and the lse stays exact.  Streamed tiles hold 16
-// rows there, so that the exchange area fits beside the Dh 128 tiles.
+// kernel on its 128 columns (cp.async predicated to zero past Dh) and its
+// 32-row streamed tiles.  The two warps of a row group split each score's
+// contraction (S, dPd, the delta products: 64 columns each, where the
+// Dh 128 kernel has both take all 128), add their partials in shared memory
+// half a tile each, and sum their halves across the cluster (pair_score,
+// tc::ClusterSum's reduce-scatter and all-gather, in rank order), so a score
+// tile crosses DSMEM once a row group and the forward and the dQ kernel
+// still sum alike (the lse stays exact).  The forward shares the halves
+// (pair_share); the backward carries each half through the weights and dS,
+// and the halves meet in a staging tile the pair shares (the dPd slots the
+// warps have read), 225 KB of shared memory a CTA.
 
 #pragma once
 
@@ -139,11 +145,12 @@ __host__ __device__ constexpr int owned_rows() {
   return 16 * kWarps / col_split<DH>();
 }
 // A cluster launch (CL, K4 past Dh 256: DH = 128 columns a CTA, the score
-// partials summed across the cluster) streams tiles of 16 rows, so that the
-// exchange area fits beside the Dh 128 tiles.
+// partials summed across the cluster) streams the Dh 128 kernel's tiles of
+// kClusterRows rows (16 builds too: PERF.md section 6 times both).
+constexpr int kClusterRows = 32;
 template <int DH, bool CL = false>
 __host__ __device__ constexpr int stream_rows() {
-  return CL ? 16 : (DH == 192 ? 16 : 4096 / DH);
+  return CL ? kClusterRows : (DH == 192 ? 16 : 4096 / DH);
 }
 // the dK/dV kernel takes a streamed tile in passes of 32 queries (16 from
 // Dh 192, a whole tile)
@@ -151,7 +158,8 @@ template <int DH, bool CL = false>
 __host__ __device__ constexpr int pass_rows() {
   return stream_rows<DH, CL>() < 32 ? stream_rows<DH, CL>() : 32;
 }
-// a cluster launch's score tiles: 16 x 16 a warp (J = 2), 8 floats a lane
+// a cluster launch's exchanges: half of a row group's 16 x kClusterRows
+// score tile, at most 8 floats a lane
 constexpr int kClusterFloats = 8;
 
 // -- shared memory ----------------------------------------------------------
@@ -183,7 +191,7 @@ __device__ __forceinline__ int pair_at(int n, int c) {
 // groups, the fewest conflicts 64 floats can have.
 template <int NQ>
 __device__ __forceinline__ int w_at(int r, int c) {
-  return r * NQ + (c ^ (NQ >= 32 ? (r & 3) << 3 : ((r >> 1) & 1) << 3));
+  return r * NQ + (c ^ (NQ >= 32 ? (r & 3) << 3 : (NQ == 16 ? ((r >> 1) & 1) << 3 : 0)));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
@@ -411,10 +419,11 @@ __host__ __device__ constexpr int split_k() {
 }
 
 // floats of a CTA's exchange of partial scores: a slot of 16 x 16 (J = 2) a
-// warp from Dh 192, none before
-template <int DH>
+// warp from Dh 192, none before; a cluster launch's pairs, two slots of
+// 16 x S / 2 a row group (pair_score)
+template <int DH, bool CL = false>
 __host__ __device__ constexpr int xch_floats() {
-  return split_k<DH>() > 1 ? kWarps * 256 : 0;
+  return split_k<DH>() > 1 ? kWarps * 256 : (CL ? kWarps * 8 * stream_rows<DH, CL>() : 0);
 }
 
 // a barrier of the split_k warps sharing row group `group` (ids 1..: 0 is
@@ -460,14 +469,60 @@ __device__ __forceinline__ void shared_score(float (&s)[J][4], const Rows& A, co
   }
 }
 
-// shared_score, then in a cluster launch (CL) the sum over the cluster's
-// columns, in rank order
-template <int DH, int J, bool CL, bool SPLIT_B = true, typename Rows>
-__device__ __forceinline__ void cluster_score(float (&s)[J][4], const Rows& A, const float* B,
-                                              int b_row0, int lane, float* xch, int group,
-                                              int part, tc::ClusterSum<kClusterFloats>& cluster) {
-  shared_score<DH, J, SPLIT_B>(s, A, B, b_row0, lane, xch, group, part);
-  if constexpr (CL) cluster(*reinterpret_cast<float(*)[4 * J]>(&s[0][0]), lane);
+// In a cluster launch (CL) the two warps of a row group (part 0 and 1) split
+// each score's contraction over the CTA's 128 columns, part p taking columns
+// [64 p, 64 p + 64), and part p then owns n-tiles [H p, H p + H) of the
+// 16 x 8J tile (H = J / 2).  pair_score: each writes the other's half of
+// its partial to its slot, and after the pair's barrier adds the other's
+// partial of its own half (p0 + p1) and sums that half across the cluster
+// (tc::ClusterSum, in rank order), so each score tile crosses DSMEM once a
+// row group.  Every kernel sums alike, so the forward's lse still gives the
+// dQ kernel's weights back exactly.  slots: the pair's two slots of 4 H
+// floats a lane (lane-major), slot p written by part p.
+template <int DH, int J, bool SPLIT_B = true, typename Rows>
+__device__ __forceinline__ void pair_score(float (&h)[J / 2][4], const Rows& A, const float* B,
+                                           int b_row0, int lane, float* slots, int group,
+                                           int part, tc::ClusterSum<kClusterFloats>& cluster) {
+  constexpr int H = J / 2, KG = DH / 16;  // n-tiles of a half; groups of 8 columns of a part
+  float s[J][4];
+  score<DH, J, SPLIT_B>(s, A, B, b_row0, lane, part * KG, (part + 1) * KG);
+  float* mine = slots + part * 128 * H;
+  const float* theirs = slots + (1 - part) * 128 * H;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32 + lane] = part ? s[j][e] : s[H + j][e];
+  row_group_sync(group, 2);
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h[j][e] = (part ? s[H + j][e] : s[j][e]) + theirs[(4 * j + e) * 32 + lane];
+  cluster(*reinterpret_cast<float(*)[4 * H]>(&h[0][0]), lane);
+}
+
+// The pair's halves (pair_score's h) -> the whole tile in both warps: each
+// writes its half into the slot it read, and after the pair's barrier reads
+// the other's from its own slot.
+template <int J>
+__device__ __forceinline__ void pair_share(float (&s)[J][4], const float (&h)[J / 2][4],
+                                           float* slots, int group, int part, int lane) {
+  constexpr int H = J / 2;
+  float* theirs = slots + (1 - part) * 128 * H;
+  const float* mine = slots + part * 128 * H;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) theirs[(4 * j + e) * 32 + lane] = h[j][e];
+  row_group_sync(group, 2);
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = mine[(4 * j + e) * 32 + lane];
+      s[j][e] = part ? x : h[j][e];
+      s[H + j][e] = part ? h[j][e] : x;
+    }
 }
 
 // a warp's 16 x 8J score tile (its C fragments) -> its staging tile W
@@ -492,6 +547,23 @@ struct StagedRows {
     const int g = lane >> 2, c = 8 * kg + 2 * (lane & 3);
     a_fragment(*reinterpret_cast<const float2*>(W + w_at<NQ>(g, c)),
                *reinterpret_cast<const float2*>(W + w_at<NQ>(g + 8, c)), ab, as);
+  }
+};
+
+// A pair's 16 x 8J tile staged as two sub-tiles of 16 x 8H (H = J / 2, the
+// halves pair_score gives), each swizzled as a staging tile: the A operand
+// of accumulate in a cluster launch.
+template <int H>
+struct PairStagedRows {
+  static constexpr int kUnroll = 1;
+  const float* T0;  // n-tiles [0, H)
+  const float* T1;  // n-tiles [H, 2H)
+  __device__ __forceinline__ void fragment(int kg, int lane, uint32_t (&ab)[4],
+                                           uint32_t (&as)[4]) const {
+    const float* T = kg < H ? T0 : T1;
+    const int g = lane >> 2, c = 8 * (kg < H ? kg : kg - H) + 2 * (lane & 3);
+    a_fragment(*reinterpret_cast<const float2*>(T + w_at<8 * H>(g, c)),
+               *reinterpret_cast<const float2*>(T + w_at<8 * H>(g + 8, c)), ab, as);
   }
 };
 
@@ -659,7 +731,8 @@ __device__ __forceinline__ void cta_tile(int idx, int n_tiles, int heads, bool c
 
 // floats of a CTA's owned tile, of a ring stage (two streamed tiles in
 // pairs, 2 S DH floats each) and of a warp's staging tile (the dQ kernel's
-// 16 x S, the dK/dV kernel's 16 x kPassQ)
+// 16 x S, the dK/dV kernel's 16 x kPassQ; in a cluster launch a row group's
+// two warps share one, so half that a warp: w_cols)
 template <int DH>
 __host__ __device__ constexpr int own_floats() {
   return owned_rows<DH>() * DH;
@@ -667,6 +740,10 @@ __host__ __device__ constexpr int own_floats() {
 template <int DH, bool CL = false>
 __host__ __device__ constexpr int stage_floats() {
   return 4 * stream_rows<DH, CL>() * DH;
+}
+template <bool CL>
+__host__ __device__ constexpr int w_cols(int rows) {
+  return CL ? rows / 2 : rows;
 }
 // bytes of a cluster launch's exchange area (its warps' ClusterSum)
 template <bool CL>
@@ -681,23 +758,83 @@ template <int DH, bool CL = false>
 __host__ __device__ constexpr size_t smem_bytes(int stage_cols) {
   return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH, CL>()) +
          sizeof(float) * 3 * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH>()) + cluster_bytes<CL>();
+         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH, CL>()) + cluster_bytes<CL>();
 }
 template <int DH, bool CL = false>
 __host__ __device__ constexpr bool bwd_fits() {
   // O lands in the second stage before the dQ kernel's loop; the forward's
   // Q lands in its pair tiles before it is split
-  return smem_bytes<DH, CL>(stream_rows<DH, CL>()) <= 232448 &&
+  return smem_bytes<DH, CL>(w_cols<CL>(stream_rows<DH, CL>())) <= 232448 &&
          own_floats<DH>() <= stage_floats<DH, CL>();
 }
 static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<192>() && bwd_fits<256>() &&
                   bwd_fits<tc::kSliceCols, true>(),
               "a CTA's shared memory");
 
+// The weights of a warp's 16 x 8JN tile of queries qw + g (+ 8) and keys
+// k0 + 8 jj + 2t (+ 1) in place, s from S to p (kvseg: the keys' segment
+// ids from k0), through the mask unless `unmasked`.
+template <bool FLASH, int JN>
+__device__ __forceinline__ void q_weights(float (&s)[JN][4], bool unmasked, const AttnArgs& a,
+                                          const KeyRange& keys, bool seg, const int (&qseg)[2],
+                                          const int* kvseg, int qw, int k0,
+                                          const float (&lse_r)[2], float inv_t, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if (unmasked) {
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = expf(s[jj][e] * a.scale - lse_r[e >> 1]);
+  } else {
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * jj + 2 * t + (e & 1);
+        const int row = qw + g + 8 * i, col = k0 + c;
+        const bool in_bounds = row < a.Tq && col < a.Tk;
+        const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, col) &&
+                             (!seg || qseg[i] == kvseg[c]);
+        s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_r[i], a.scale, inv_t);
+      }
+  }
+}
+
+// The same for a transposed tile: rows the keys kw + g (+ 8), columns the
+// queries q0 + qs + 8 jj + 2t (+ 1); lse_t and qseg indexed from q0.
+template <bool FLASH, int JN>
+__device__ __forceinline__ void kv_weights(float (&s)[JN][4], bool unmasked, const AttnArgs& a,
+                                           const KeyRange& keys, bool seg, const int (&kvseg)[2],
+                                           const int* qseg, const float* lse_t, int q0, int qs,
+                                           int kw, float inv_t, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if (unmasked) {
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[jj][e] = expf(s[jj][e] * a.scale - lse_t[qs + 8 * jj + 2 * t + (e & 1)]);
+  } else {
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1, qc = qs + 8 * jj + 2 * t + (e & 1);
+        const int row = q0 + qc, key = kw + g + 8 * i2;
+        const bool in_bounds = row < a.Tq && key < a.Tk;
+        const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, key) &&
+                             (!seg || qseg[qc] == kvseg[i2]);
+        s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_t[qc], a.scale, inv_t);
+      }
+  }
+}
+
 // -- the dQ kernel ------------------------------------------------------------
 
 // CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
-// from 128 * its rank; S, dPd and the deltas summed across the cluster
+// from 128 * its rank; S, dPd and the deltas summed across the cluster by
+// each row group's pair (pair_score), the pair's halves of dS meeting in
+// its staging tile
 template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__(kCtaThreads, 1)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -707,7 +844,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int R = owned_rows<DH>(), S = stream_rows<DH, CL>(), J = S / 8;
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
-  static_assert(!CL || (DH == tc::kSliceCols && J == 2 && FLASH && !DROPOUT),
+  constexpr int WQ = w_cols<CL>(S);         // staging columns a warp
+  static_assert(!CL || (DH == tc::kSliceCols && J % 2 == 0 && FLASH && !DROPOUT),
                 "a cluster launch: K4's 128-column slices");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // the CTA's query rows
@@ -716,9 +854,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* kvseg_s = reinterpret_cast<int*>(ring + kStages * stage_floats<DH, CL>());  // kStages x S
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + 3 * kStages * S);
   volatile uint32_t* keep_s = keep_words;
-  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x S a warp
-  float* xch = Ws + kWarps * 16 * S;  // the partial scores (shared_score)
-  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
+  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x WQ a warp
+  float* xch = Ws + kWarps * 16 * WQ;  // the partial scores (shared_score, pair_score)
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
   float* Os = ring + stage_floats<DH, CL>();  // O in the second stage, until the loop loads it
 
   const int csize = CL ? tc::cluster_size() : 1;
@@ -745,10 +883,13 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
   const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int qw = q0 + wr;                 // its first query
-  float* W = Ws + warp * 16 * S;
+  // its staging tile (CL: its pair's, also the pair's dPd slots) and its
+  // pair's S slots
+  float* W = CL ? Ws + rgroup * 16 * S : Ws + warp * 16 * S;
+  float* xch_s = xch + rgroup * 16 * S;
   const float inv_t = 1.f / (float)a.Tk;
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -777,11 +918,19 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float delta[2];
   {
     float x[2][4], d_kv[2];
-    cluster_score<DH, 2, CL, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part,
-                                    cluster);
-    diagonal(x, lane, delta);
-    cluster_score<DH, 2, CL, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part,
-                                    cluster);
+    if constexpr (CL) {
+      float hx[1][4];
+      pair_score<DH, 2, false>(hx, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch_s, rgroup, part,
+                               cluster);
+      pair_share<2>(x, hx, xch_s, rgroup, part, lane);
+      diagonal(x, lane, delta);
+      pair_score<DH, 2, false>(hx, OwnedRows<DH>{Os, wr}, dOs, wr, lane, W, rgroup, part, cluster);
+      pair_share<2>(x, hx, W, rgroup, part, lane);
+    } else {
+      shared_score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part);
+      diagonal(x, lane, delta);
+      shared_score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part);
+    }
     diagonal(x, lane, d_kv);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -819,40 +968,44 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // a warp whose rows are all before the tile's first key (causal), or past
     // the end, has nothing in it
     if (qw < a.Tq && !(a.causal && k0 > qw + 15)) {
-      float s[J][4], dp[J][4];
-      cluster_score<DH, J, CL>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part, cluster);
-      const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
-      if (block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S)) {
+      const bool unmasked = block_unmasked<FLASH>(a, keys, seg, qw, 16, k0, S);
+      if constexpr (CL) {
+        // the warp's half of the tile: keys k0 + kh ..
+        constexpr int H = J / 2;
+        const int kh = 8 * H * part;
+        float s[H][4], dp[H][4];
+        pair_score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch_s, rgroup, part, cluster);
+        q_weights<FLASH, H>(s, unmasked, a, keys, seg, qseg, kvseg + kh, qw, k0 + kh, lse_r,
+                            inv_t, lane);
+        pair_score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, W, rgroup, part, cluster);
 #pragma unroll
-        for (int jj = 0; jj < J; ++jj)
+        for (int jj = 0; jj < H; ++jj)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[jj][e] = expf(s[jj][e] * a.scale - lse_r[e >> 1]);
+          for (int e = 0; e < 4; ++e)
+            dp[jj][e] = tc::grad_ds<false>(s[jj][e], dp[jj][e], delta[e >> 1], true, a);
+        // dS * scale: the half into the dPd slot this warp read (the other
+        // warp reads the other), then the pair's tile
+        __syncwarp();
+        stage_tile<8 * H, H>(W + 128 * H * (1 - part), dp, lane);
+        row_group_sync(rgroup, 2);
+        accumulate<DH, NC, J>(acc, PairStagedRows<H>{W + 128 * H, W}, Kp, 0, c0, lane);
       } else {
+        float s[J][4], dp[J][4];
+        shared_score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part);
+        const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
+        q_weights<FLASH, J>(s, unmasked, a, keys, seg, qseg, kvseg, qw, k0, lse_r, inv_t, lane);
+        shared_score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part);
 #pragma unroll
         for (int jj = 0; jj < J; ++jj)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1, c = 8 * jj + 2 * t + (e & 1);
-            const int row = qw + g + 8 * i, col = k0 + c;
-            const bool in_bounds = row < a.Tq && col < a.Tk;
-            const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, col) &&
-                                 (!seg || qseg[i] == kvseg[c]);
-            s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_r[i], a.scale,
-                              inv_t);
-          }
+          for (int e = 0; e < 4; ++e)
+            dp[jj][e] = tc::grad_ds<DROPOUT>(s[jj][e], dp[jj][e], delta[e >> 1],
+                                             (keep >> (4 * jj + e)) & 1u, a);
+        stage_tile<S>(W, dp, lane);  // dS * scale
+        __syncwarp();
+        accumulate<DH, NC, J>(acc, StagedRows<S>{W}, Kp, 0, c0, lane);
+        __syncwarp();
       }
-      cluster_score<DH, J, CL>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part,
-                               cluster);
-#pragma unroll
-      for (int jj = 0; jj < J; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[jj][e] = tc::grad_ds<DROPOUT>(s[jj][e], dp[jj][e], delta[e >> 1],
-                                           (keep >> (4 * jj + e)) & 1u, a);
-      stage_tile<S>(W, dp, lane);  // dS * scale
-      __syncwarp();
-      accumulate<DH, NC, J>(acc, StagedRows<S>{W}, Kp, 0, c0, lane);
-      __syncwarp();
     }
     __syncthreads();  // every warp is done with this stage before it is loaded again
   }
@@ -863,7 +1016,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // -- the dK/dV kernel ---------------------------------------------------------
 
 // CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
-// from 128 * its rank; S^T and dPd^T summed across the cluster
+// from 128 * its rank; S^T and dPd^T summed across the cluster by each row
+// group's pair (pair_score), the pair's halves of Pd and dS meeting in its
+// S slots and its staging tile
 template <int DH, bool FLASH, bool DROPOUT, bool CL = false>
 __global__ void __launch_bounds__(kCtaThreads, 1)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -874,8 +1029,10 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NC = DH / col_split<DH>();  // output columns a warp
   constexpr int TS = 2 * S * DH;            // floats of a split streamed tile
   constexpr int kPassQ = pass_rows<DH, CL>(), kPassJ = kPassQ / 8;
-  static_assert(!CL || (DH == tc::kSliceCols && kPassJ == 2 && FLASH && !DROPOUT),
-                "a cluster launch: K4's 128-column slices");
+  constexpr int WQ = w_cols<CL>(kPassQ);  // staging columns a warp
+  static_assert(!CL || (DH == tc::kSliceCols && kPassQ == S && kPassJ % 2 == 0 && FLASH &&
+                        !DROPOUT),
+                "a cluster launch: K4's 128-column slices, a tile in one pass");
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // the CTA's keys
   float* Vs = Ks + own_floats<DH>();
@@ -885,9 +1042,9 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* qseg_s = reinterpret_cast<int*>(delta_s + kStages * S);
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(qseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
-  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x kPassQ a warp
-  float* xch = Ws + kWarps * 16 * kPassQ;  // the partial scores (shared_score)
-  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
+  float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x WQ a warp
+  float* xch = Ws + kWarps * 16 * WQ;  // the partial scores (shared_score, pair_score)
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
 
   const int csize = CL ? tc::cluster_size() : 1;
   const int col0 = CL ? tc::kSliceCols * tc::cluster_rank() : 0;  // CL: the CTA's columns
@@ -917,7 +1074,10 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int kw = k0 + wr;                 // its first key
   const bool my_keys = kw < a.Tk && (keys.uniform || kw < keys.len);
-  float* W = Ws + warp * 16 * kPassQ;
+  // its staging tile (CL: its pair's, also the pair's dPd^T slots) and its
+  // pair's S^T slots
+  float* W = CL ? Ws + rgroup * 16 * kPassQ : Ws + warp * 16 * kPassQ;
+  float* xch_s = xch + rgroup * 16 * kPassQ;
   const float inv_t = 1.f / (float)a.Tk;
   int kvseg[2];
 #pragma unroll
@@ -926,7 +1086,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
   }
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -972,31 +1132,42 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // a pass whose queries all come before the warp's first key (causal)
       // sees none of its keys
       if (!my_keys || (a.causal && q0 + qs + kPassQ - 1 < kw)) continue;
+      const bool unmasked = block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16);
+      if constexpr (CL) {
+        // the warp's half of the transposed tiles: queries qh ..
+        constexpr int H = kPassJ / 2;
+        const int qh = qs + 8 * H * part;
+        float s[H][4], dp[H][4];
+        pair_score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch_s, rgroup, part,
+                               cluster);
+        kv_weights<FLASH, H>(s, unmasked, a, keys, seg, kvseg, qseg, lse_t, q0, qh, kw, inv_t,
+                             lane);
+        pair_score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, W, rgroup, part,
+                               cluster);
+#pragma unroll
+        for (int jj = 0; jj < H; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[jj][e] = tc::grad_ds<false>(s[jj][e], dp[jj][e],
+                                           delta_t[qh + 8 * jj + 2 * t + (e & 1)], true, a);
+        // the halves of Pd into the S^T slots (both read before the dPd^T
+        // barrier), of dS * scale into the dPd^T slot this warp read; then
+        // the pair's tiles
+        stage_tile<8 * H, H>(xch_s + 128 * H * part, s, lane);
+        __syncwarp();
+        stage_tile<8 * H, H>(W + 128 * H * (1 - part), dp, lane);
+        row_group_sync(rgroup, 2);
+        accumulate<DH, NC, kPassJ>(acc_dv, PairStagedRows<H>{xch_s, xch_s + 128 * H}, dOp, qs,
+                                   c0, lane);
+        accumulate<DH, NC, kPassJ>(acc_dk, PairStagedRows<H>{W + 128 * H, W}, Qp, qs, c0, lane);
+        continue;
+      }
       const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
       // transposed tiles: rows the warp's keys, columns the pass's queries
       float s[kPassJ][4], dp[kPassJ][4];
-      cluster_score<DH, kPassJ, CL>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part,
-                                    cluster);
-      if (block_unmasked<FLASH>(a, keys, seg, q0 + qs, kPassQ, kw, 16)) {
-#pragma unroll
-        for (int jj = 0; jj < kPassJ; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[jj][e] = expf(s[jj][e] * a.scale - lse_t[qs + 8 * jj + 2 * t + (e & 1)]);
-      } else {
-#pragma unroll
-        for (int jj = 0; jj < kPassJ; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i2 = e >> 1, qc = qs + 8 * jj + 2 * t + (e & 1);
-            const int row = q0 + qc, key = kw + g + 8 * i2;
-            const bool in_bounds = row < a.Tq && key < a.Tk;
-            const bool visible = in_bounds && is_visible<FLASH>(a, keys, row, key) &&
-                                 (!seg || qseg[qc] == kvseg[i2]);
-            s[jj][e] = weight(s[jj][e], in_bounds, keys.uniform, visible, lse_t[qc], a.scale,
-                              inv_t);
-          }
-      }
+      shared_score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part);
+      kv_weights<FLASH, kPassJ>(s, unmasked, a, keys, seg, kvseg, qseg, lse_t, q0, qs, kw, inv_t,
+                                lane);
       // dV += Pd^T dO, Pd the weights through the dropout flags
       if (DROPOUT) {
         float pd[kPassJ][4];
@@ -1011,8 +1182,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
       accumulate<DH, NC, kPassJ>(acc_dv, StagedRows<kPassQ>{W}, dOp, qs, c0, lane);
-      cluster_score<DH, kPassJ, CL>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup,
-                                    part, cluster);
+      shared_score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup, part);
 #pragma unroll
       for (int jj = 0; jj < kPassJ; ++jj)
 #pragma unroll
@@ -1046,7 +1216,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH, CL>() +
                           kStages * 2 * stream_rows<DH, CL>() * DH) +
          sizeof(int) * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * xch_floats<DH>() + cluster_bytes<CL>();
+         sizeof(float) * xch_floats<DH, CL>() + cluster_bytes<CL>();
 }
 static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 &&
                   fwd_smem_bytes<192>() <= 232448 && fwd_smem_bytes<256>() <= 232448 &&
@@ -1081,9 +1251,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* kvseg_s = reinterpret_cast<int*>(raw + kStages * 2 * S * DH);  // kStages x S
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
-  float* xch = reinterpret_cast<float*>(keep_words + kCtaThreads);  // shared_score's partials
-  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH>());  // CL: ClusterSum's
-  static_assert(!CL || (DH == tc::kSliceCols && J == 2 && FLASH && !DROPOUT),
+  // shared_score's (CL: pair_score's) partials
+  float* xch = reinterpret_cast<float*>(keep_words + kCtaThreads);
+  uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
+  static_assert(!CL || (DH == tc::kSliceCols && J % 2 == 0 && FLASH && !DROPOUT),
                 "a cluster launch: K4's 128-column slices");
 
   const int csize = CL ? tc::cluster_size() : 1;
@@ -1111,7 +1282,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
   const int qw = q0 + wr;                 // its first query
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -1162,7 +1333,14 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kb = step * JS * 8;  // the step's first key in the tile
       const uint32_t keep = keep_tile >> (4 * JS * step);
       float s[JS][4];
-      cluster_score<DH, JS, CL>(s, qa, Kp, kb, lane, xch, rgroup, part, cluster);
+      if constexpr (CL) {  // the pair's halves, summed across the cluster, then shared
+        float hs[JS / 2][4];
+        float* slots = xch + rgroup * 16 * S;
+        pair_score<DH, JS>(hs, qa, Kp, kb, lane, slots, rgroup, part, cluster);
+        pair_share<JS>(s, hs, slots, rgroup, part, lane);
+      } else {
+        shared_score<DH, JS>(s, qa, Kp, kb, lane, xch, rgroup, part);
+      }
       // the logits s * scale, through the mask unless every pair is visible:
       // packed, a masked logit is -1e9; flash, the mask value is added; a key
       // past Tk is no key at all
@@ -1287,8 +1465,8 @@ cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const 
                              const void* dout, const float* lse, float* delta, void* dq, void* dk,
                              void* dv, int B, int dh, const AttnArgs& args, cudaStream_t stream) {
   constexpr int R = owned_rows<DH>();
-  constexpr size_t smem_dq = smem_bytes<DH, true>(stream_rows<DH, true>());
-  constexpr size_t smem_dkdv = smem_bytes<DH, true>(pass_rows<DH, true>());
+  constexpr size_t smem_dq = smem_bytes<DH, true>(w_cols<true>(stream_rows<DH, true>()));
+  constexpr size_t smem_dkdv = smem_bytes<DH, true>(w_cols<true>(pass_rows<DH, true>()));
   const auto dq_kernel = bwd_dq_kernel<DH, true, false, true>;
   const auto dkdv_kernel = bwd_dkdv_kernel<DH, true, false, true>;
   if (delta == nullptr) return cudaErrorInvalidValue;

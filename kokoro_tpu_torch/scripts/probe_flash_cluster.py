@@ -8,7 +8,12 @@ Two readings behind PERF.md section 6 (K4 past head dim 256):
   replay, built as shipped and built with ``-DKOKORO_CLUSTER_SUM_OFF``, which
   compiles the cluster's exchange of the score partials out (each CTA then
   uses its own partial: wrong results, timing only).  The difference is the
-  exchange's share of the time.
+  exchange's share of the time.  Beside it, the bytes that cross DSMEM in
+  one call, counted from the shapes and the kernels' tiling (``dsmem_bytes``),
+  and the rates they imply over the call and over the exchange's share.
+  With ``--parent DIR`` (a checkout of an earlier tree) its kernels are built
+  and timed too, and the bf16 outputs (O, lse, dQ, dK, dV) of both builds are
+  compared bit for bit (by SHA-256 of their bytes).
 * ``numerics``: the long training step's model (hidden 512, 6+6 layers, ff
   1536, seeded init, every dropout 0; B=12, L=256, T=1408) at 1, 2 and 8
   heads (Dh 512, 256, 64).  The bf16 loss on the kernel path, on the plain
@@ -18,7 +23,7 @@ Two readings behind PERF.md section 6 (K4 past head dim 256):
   plain version's, against float64: mean and max error, signed error sum,
   and the share of elements where the two differ.
 
-    python -m kokoro_tpu_torch.scripts.probe_flash_cluster [--out FILE]
+    python -m kokoro_tpu_torch.scripts.probe_flash_cluster [--out FILE] [--parent DIR]
 
 Needs the card and ``nvcc``; each build variant runs in its own process.
 Prints one JSON object (and writes it to ``--out``).
@@ -28,14 +33,77 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 TIMED = ((1, 512), (2, 384), (1, 1024))
-VARIANTS = {"shipped": (), "no_cluster_sum": ("-DKOKORO_CLUSTER_SUM_OFF",)}
+SHAPE = {"B": 12, "T": 1408}
+VARIANTS = {"shipped": (), "no_cluster_sum": ("-DKOKORO_CLUSTER_SUM_OFF",), "parent": ()}
 LIBRARIES = ("flash_attention", "flash_attention_bwd")
+
+
+def _visits(rows: int, keys: int, T: int) -> int:
+    """Causal (row tile, key tile) pairs of a head at length ``T`` where a
+    tile of ``rows`` rows visits a tile of ``keys`` keys: the key tile's
+    first key is at or before the row tile's last row."""
+    return sum((min(r0 + rows, T) - 1) // keys + 1 for r0 in range(0, T, rows))
+
+
+def _visits_t(keys: int, cta_keys: int, queries: int, T: int) -> int:
+    """The same seen from the keys (the dK/dV kernels): a CTA of
+    ``cta_keys`` keys streams query tiles of ``queries`` from its first key,
+    and a group of ``keys`` keys skips a tile whose last query is before
+    its first key."""
+    n = 0
+    for c0 in range(0, T, cta_keys):
+        for kw in range(c0, min(c0 + cta_keys, T), keys):
+            n += sum(1 for q0 in range(c0, T, queries) if q0 + queries - 1 >= kw)
+    return n
+
+
+def dsmem_bytes(kind: str, dtype: str, H: int, Dh: int, design: str = "push") -> dict:
+    """Bytes that cross DSMEM in one causal call of K4's cluster kernels at
+    ``SHAPE`` (B, T) and (H, Dh), from the kernels' tiling.
+
+    ``push`` (shipped): a reduce-scatter and an all-gather of pushes, each
+    exchanged tile moving 2 (c - 1) tiles across the cluster (each CTA sends
+    and receives 2 (c - 1) / c of it); the f32 kernels exchange each 16 x 32
+    score tile of a row group once (the pair of warps a half each).  ``pull``
+    (the design before it): every CTA reads its c - 1 peers' whole tiles,
+    c (c - 1) tiles; f32 16-row streamed tiles, each warp of a pair
+    exchanging its own 16 x 16 tile.  The f32 delta rounds are the dQ kernel's two 16 x 16 products a
+    row group; the bf16 dQ kernel's one exchange of 4 floats a lane a warp."""
+    B, T = SHAPE["B"], SHAPE["T"]
+    c = -(-Dh // 128)
+    heads = B * H
+    tiles = 0  # the bytes of every exchanged tile, each once
+    if dtype == "bfloat16":
+        tile = 4 * 16 * 64 * 4  # a warpgroup's 64 x 64 f32 score tile (four warps)
+        if kind == "fwd":
+            tiles = _visits(64, 64, T) * tile
+        elif kind == "bwd":
+            n_q = -(-T // 64)
+            tiles = 2 * _visits(64, 64, T) * tile + n_q * 4 * 32 * 4 * 4  # dQ + delta
+            tiles += 2 * _visits_t(64, 64, 64, T) * tile  # dK/dV: S^T, dPd^T
+    else:
+        if design == "push":
+            tile, rows = 16 * 32 * 4, 32  # a row group's 16 x 32 tile, once
+            delta = 2 * 16 * 16 * 4
+        else:
+            tile, rows = 2 * 16 * 16 * 4, 16  # each warp of the pair its 16 x 16 tile
+            delta = 2 * 2 * 16 * 16 * 4
+        n_groups = -(-T // 16)
+        if kind == "fwd":
+            tiles = _visits(16, rows, T) * tile
+        elif kind == "bwd":
+            tiles = 2 * _visits(16, rows, T) * tile + n_groups * delta
+            tiles += 2 * _visits_t(16, 64, rows, T) * tile
+    per_tile = 2 * (c - 1) if design == "push" else c * (c - 1)
+    return {"cluster_ctas": c, "exchanged_bytes": heads * tiles,
+            "dsmem_bytes": heads * tiles * per_tile}
 
 
 def graph_ms(fn, iters: int = 10) -> float:
@@ -63,17 +131,19 @@ def graph_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def build(variant: str) -> dict:
+def build(variant: str, parent: str | None = None) -> dict:
     """``{library: path}`` of the flash libraries built with the variant's
-    flags beside the port's own builds."""
+    flags beside the port's own builds (``parent``: from that checkout's
+    sources)."""
     from kokoro_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    csrc = Path(parent) / "kokoro_tpu_torch" / "csrc" if parent else kernels.CSRC_DIR
     paths, procs = {}, []
     for name in LIBRARIES:
         out = kernels.library_path(name).with_name(f"lib{name}-probe-{variant}.so")
         cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *VARIANTS[variant], "-o", str(out),
-               str(kernels.CSRC_DIR / kernels.SOURCES[name])]
+               str(csrc / kernels.SOURCES[name])]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True)))
         paths[name] = out
@@ -84,15 +154,25 @@ def build(variant: str) -> dict:
     return paths
 
 
-def time_variant(variant: str) -> dict:
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_variant(variant: str, parent: str | None = None) -> dict:
     """K4's times at ``TIMED`` with the variant's libraries loaded in place
-    of the port's."""
+    of the port's, and the SHA-256 of each bf16 call's outputs."""
     import torch
 
     from kokoro_tpu_torch.ops import flash_attention as fl
     from kokoro_tpu_torch.ops import kernels
 
-    for name, path in build(variant).items():
+    for name, path in build(variant, parent).items():
         lib = ctypes.CDLL(str(path))
         kernels._declare(name, lib)
         kernels._loaded[name] = lib
@@ -109,23 +189,48 @@ def time_variant(variant: str) -> dict:
             out[key] = {
                 "fwd_ms": graph_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)),
                 "bwd_ms": graph_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw))}
+            if dtype == torch.bfloat16:
+                out[key]["sha256_o_lse_dq_dk_dv"] = digest(
+                    o, lse, *fl.flash_attention_bwd(q, k, v, o, do, lse, **kw))
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
     return out
 
 
-def exchange() -> dict:
+def exchange(parent: str | None = None) -> dict:
     """Each variant's times, from a process of its own (two builds of one
-    library do not share a process)."""
+    library do not share a process); the exchange's share, its bytes and
+    rates; with ``parent``, whether the bf16 outputs equal the parent's."""
     out = {}
     for variant in VARIANTS:
-        proc = subprocess.run([sys.executable, "-m", __spec__.name, "--time-variant", variant],
-                              capture_output=True, text=True, check=True)
+        if variant == "parent" and parent is None:
+            continue
+        cmd = [sys.executable, "-m", __spec__.name, "--time-variant", variant]
+        if variant == "parent":
+            cmd += ["--parent", parent]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
         out[variant] = json.loads(proc.stdout.strip().splitlines()[-1])
-    share = {key: {kind: 1.0 - out["no_cluster_sum"][key][kind] / ms
-                   for kind, ms in times.items()}
-             for key, times in out["shipped"].items()}
-    return {"times_ms": out, "exchange_share": share}
+    share, rates = {}, {}
+    for key, times in out["shipped"].items():
+        H, Dh, dtype = (part.split("=")[-1] for part in key.split("/"))
+        share[key], rates[key] = {}, {}
+        for kind in ("fwd", "bwd"):
+            ms, off = times[f"{kind}_ms"], out["no_cluster_sum"][key][f"{kind}_ms"]
+            share[key][f"{kind}_ms"] = 1.0 - off / ms
+            counted = dsmem_bytes(kind, dtype, int(H), int(Dh))
+            rates[key][kind] = {
+                **counted,
+                "parent_design_dsmem_bytes": dsmem_bytes(kind, dtype, int(H), int(Dh),
+                                                         "pull")["dsmem_bytes"],
+                "gb_per_s_over_call": counted["dsmem_bytes"] / ms / 1e6,
+                "gb_per_s_over_exchange": counted["dsmem_bytes"] / (ms - off) / 1e6
+                if ms > off else None}
+    result = {"times_ms": out, "exchange_share": share, "dsmem": rates}
+    if "parent" in out:
+        result["bf16_bitwise_equal_to_parent"] = {
+            key: times["sha256_o_lse_dq_dk_dv"] == out["parent"][key]["sha256_o_lse_dq_dk_dv"]
+            for key, times in out["shipped"].items() if "sha256_o_lse_dq_dk_dv" in times}
+    return result
 
 
 def numerics() -> dict:
@@ -216,10 +321,15 @@ def numerics() -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None)
+    parser.add_argument("--parent", default=None,
+                        help="a checkout of an earlier tree: its kernels are timed beside, and "
+                             "the bf16 outputs compared bit for bit")
+    parser.add_argument("--skip-numerics", action="store_true",
+                        help="the exchange reading only")
     parser.add_argument("--time-variant", choices=sorted(VARIANTS), help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.time_variant:
-        print(json.dumps(time_variant(args.time_variant)))
+        print(json.dumps(time_variant(args.time_variant, args.parent)))
         return 0
     import torch
 
@@ -227,7 +337,9 @@ def main(argv=None) -> int:
         raise SystemExit("needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    result = {"device": smi, "exchange": exchange(), "numerics": numerics()}
+    result = {"device": smi, "exchange": exchange(args.parent)}
+    if not args.skip_numerics:
+        result["numerics"] = numerics()
     text = json.dumps(result)
     print(text)
     if args.out:

@@ -58,7 +58,8 @@ def _visible_rows(q_valid, kv_valid, B, T, causal):
 
 # each value of T, Dh, dtype, causal and mask kind at least once; Dh 192,
 # 256, 384 and 512 in both dtypes, with and without masks; Dh 320 (a ragged
-# last 128-column slice in the port's cluster kernels)
+# last 128-column slice in the port's cluster kernels); Dh 768 and 1024 (the
+# port's clusters of 6 and 8 CTAs)
 CASES = [
     (1024, 64, "float32", True, "none"),
     (1024, 64, "float32", True, "suffix"),
@@ -77,6 +78,8 @@ CASES = [
     (1024, 512, "float32", True, "none"),
     (1024, 512, "bfloat16", True, "interior"),
     (1024, 320, "float32", True, "interior"),
+    (1024, 768, "float32", True, "suffix"),
+    (1024, 1024, "bfloat16", True, "none"),
 ]
 
 

@@ -210,17 +210,18 @@ def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, 
 
 @pytest.mark.parametrize("masks", ["suffix", "interior"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Dh", [320, 384, 512, 1024])
+@pytest.mark.parametrize("Dh", [320, 384, 512, 640, 768, 896, 1024])
 @pytest.mark.parametrize("T", [1024, 1433])
 def test_flash_kernels_past_head_dim_256_match_plain(cuda, T, Dh, dtype, masks):
     """K4 where a cluster of ceil(Dh / 128) CTAs splits the head dim by
-    columns (the last slice ragged at 320), causal, against the plain forward
-    and backward."""
+    columns (the last slice ragged at 320 and 896; clusters of 5, 6 and 7
+    CTAs at 640, 768 and 896, whose exchanged tiles split unevenly), causal,
+    against the plain forward and backward."""
     _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 7 * T + Dh))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Dh", [448, 640])
+@pytest.mark.parametrize("Dh", [448, 640, 768, 896])
 def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
     """The cluster kernels without the causal mask at a ragged T, against the
     plain versions, and two calls bit for bit equal (each CTA sums the
