@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    kernel (the bf16 ``csrc/attention_tc.cuh``, the f32 forward's and
    backward's 3xTF32 ``csrc/attention_tf32.cuh``, whose registers it prints
    by kernel) spills or has its ``wgmma`` serialised; the registers of the 12
-   K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV), and a
+   K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV; the f32
+   ones ``csrc/attention_tf32_wide.cuh``'s), and a
    failure unless all 12 were built; the registers of the 6 K4 cluster
    kernels past Dh 256 (the same six, each CTA of a cluster of
    ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
@@ -55,7 +56,9 @@ Phases, each printing one JSON line:
    Dh=192 and H=2 Dh=384 (hidden 768), H=1 Dh=1024 (the largest cluster,
    8 CTAs), each with its bound, plain version
    and SDPA in both dtypes (past Dh 256 SDPA's first fused backend that takes
-   the call, pinned, and named).  Then the long path's other
+   the call, pinned, and named), each kernel's device ms of a call
+   (``kernel_split_ms``; the f32 rows at Dh 192 and 256 also on a line of
+   their own, the backward's dQ against its dK/dV kernel).  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -1128,6 +1131,12 @@ def phase_kernels_flash():
         timings.update(flash_times(12, 1408, H, Dh, gen))
     emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 causal",
           "times": {f"{n}/{d}/H={H}/Dh={Dh}": r for (n, d, H, Dh), r in timings.items()}})
+    # the f32 kernels at Dh 192 and 256 (csrc/attention_tf32_wide.cuh): each
+    # kernel's device ms, the backward's dQ against its dK/dV kernel
+    emit({"phase": "kernel_split_f32_dh192_256", "shape": "B=12 T=1408 causal",
+          "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
+                              for (n, d, H, Dh), r in timings.items()
+                              if d == "float32" and Dh in (192, 256)}})
     # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
     timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
                for (n, d, H, Dh), r in timings.items()}
@@ -4337,7 +4346,7 @@ def run_phases(phases, work: Path) -> int:
                     **{f"Dh={Dh}/{dname}": {
                         **{k: timings[(kern.name, dname, f"Dh={Dh}")][k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                            "max_abs_err", "tflops", "bound_share")},
+                            "max_abs_err", "tflops", "bound_share", "kernel_split_ms")},
                         **{k: v for k, v in timings[(kern.name, dname, f"Dh={Dh}")].items()
                            if k == "library_backend"},
                         "shape": f"B=12 T=1408 H={H} Dh={Dh} causal"}

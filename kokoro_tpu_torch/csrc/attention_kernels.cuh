@@ -68,7 +68,9 @@
 // operand split into two TF32 parts, three mma.sync products for each
 // product, as accurate as f32 FMA; the forward takes S by the backward's
 // own products, so its lse and the backward's recompute agree bit for
-// bit); the CUDA cores take only the softmax and the dropout.  f32 trains
+// bit; K4 at Dh 192 and 256 in attention_tf32_wide.cuh, on raw streamed
+// tiles that each warp splits as it reads them); the CUDA cores take only
+// the softmax and the dropout.  f32 trains
 // too: TrainingConfig.compute_dtype = "float32",
 // which `kokoro-train --profile-dtypes` picks where its A/B finds it faster,
 // runs K1, K2 and the packed backward in f32 with use_flash_attention.
@@ -92,6 +94,7 @@
 #include "attention_common.cuh"
 #include "attention_tc.cuh"
 #include "attention_tf32.cuh"
+#include "attention_tf32_wide.cuh"
 
 namespace kokoro_attn {
 
@@ -118,8 +121,8 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
   if (dtype == 1 && Dh == 64) return tc::launch_fwd<64, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
   if (dtype == 1 && Dh == 128) return tc::launch_fwd<128, FLASH, DROPOUT>(q, k, v, o, res, lse, B, a, s);
   if constexpr (FLASH && !DROPOUT) {  // K4 also at Dh 192 and 256
-    if (dtype == 0 && Dh == 192) return tf32::launch_fwd<192, true, false>(q, k, v, o, lse, B, a, s);
-    if (dtype == 0 && Dh == 256) return tf32::launch_fwd<256, true, false>(q, k, v, o, lse, B, a, s);
+    if (dtype == 0 && Dh == 192) return tf32::wide::launch_fwd<192>(q, k, v, o, lse, B, a, s);
+    if (dtype == 0 && Dh == 256) return tf32::wide::launch_fwd<256>(q, k, v, o, lse, B, a, s);
     if (dtype == 1 && Dh == 192)
       return tc::launch_fwd<192, true, false>(q, k, v, o, res, lse, B, a, s);
     if (dtype == 1 && Dh == 256)
@@ -156,9 +159,9 @@ cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const 
                                                a, s);
   if constexpr (FLASH && !DROPOUT) {  // K4 also at Dh 192 and 256
     if (dtype == 0 && Dh == 192)
-      return tf32::launch_bwd<192, true, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+      return tf32::wide::launch_bwd<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
     if (dtype == 0 && Dh == 256)
-      return tf32::launch_bwd<256, true, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+      return tf32::wide::launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
     if (dtype == 1 && Dh == 192)
       return tc::launch_bwd<192, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
                                               s);

@@ -1,9 +1,10 @@
 // The f32 attention on Hopper's tensor cores in 3xTF32 (sm_90a): the
 // forward kernel and the backward's dQ and dK/dV kernels of both mask
 // policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128
-// (the flash policy without dropout also 192 and 256, and from 320 to 1024
-// as a cluster of Dh 128 CTAs: template argument CL), with the numerics
-// contract of attention_kernels.cuh.  Replaces no TPU
+// (the flash policy without dropout also from 320 to 1024 as a cluster of
+// Dh 128 CTAs: template argument CL; K4 at Dh 192 and 256 has kernels of its
+// own, attention_tf32_wide.cuh, built on this header's products), with the
+// numerics contract of attention_kernels.cuh.  Replaces no TPU
 // kernel of its own: it is the f32 instantiation of the kernels that
 // packed_attention.cu, flash_attention.cu, packed_attention_bwd.cu and
 // flash_attention_bwd.cu launch (their notes name the TPU kernels).
@@ -67,22 +68,15 @@
 //
 // Structure: a CTA is 8 warps and owns 128 rows at Dh 64 (16 a warp), 64 at
 // Dh 128 (two warps share each 16 rows, each with half of the output
-// columns), 32 from Dh 192 (four warps share each 16 rows, each with a
-// quarter of the output columns): the forward's and the dQ kernel's query
-// rows, the dK/dV kernel's keys.  From Dh 192 the four warps also split
-// each score's contraction (S, dPd, the delta products) into quarters of
-// Dh, whose partials meet in shared memory and are summed in the warps'
-// order (shared_score), so no warp repeats another's products; every
-// kernel sums the same way, so the forward's lse still gives the dQ
-// kernel's weights back exactly.  A streamed tile (64 rows at Dh 64, 32 at
-// Dh 128, 16 from Dh 192) arrives by cp.async through a ring of two stages,
-// the next tile's load under this tile's products.  The backward
-// (FlashAttention-2's split, no atomics: each gradient element is summed by
-// one thread in a fixed order, so two calls are bitwise equal) splits a
-// stage in place, four barriers a tile; its shared memory is 226.5 KB (dQ)
-// and 210.5 KB (dK/dV) a CTA at Dh 64, 209.75 KB at Dh 128.  The dK/dV
-// kernel takes a streamed tile in passes of 32 queries (from Dh 192 the
-// whole tile of 16).  The forward lands the f32 rows in a ring apart from the
+// columns): the forward's and the dQ kernel's query rows, the dK/dV
+// kernel's keys.  A streamed tile (64 rows at Dh 64, 32 at Dh 128) arrives
+// by cp.async through a ring of two stages, the next tile's load under this
+// tile's products.  The backward (FlashAttention-2's split, no atomics:
+// each gradient element is summed by one thread in a fixed order, so two
+// calls are bitwise equal) splits a stage in place, four barriers a tile;
+// its shared memory is 226.5 KB (dQ) and 210.5 KB (dK/dV) a CTA at Dh 64,
+// 209.75 KB at Dh 128.  The dK/dV kernel takes a streamed tile in passes of
+// 32 queries.  The forward lands the f32 rows in a ring apart from the
 // pairs, two barriers a tile; a row's 8J scores of a tile sit in one quad,
 // so its max and sum take two shuffles and alpha rescales the warp's O
 // accumulators in registers; 193.5 KB a CTA (Q's pairs 64 KB, the tile's K
@@ -104,6 +98,8 @@
 // twice f32's bytes, so shared memory's 128 bytes a clock bound a tile
 // about as tightly as the products do; and a CTA's warps wait at its
 // barriers while a streamed tile is split: PERF.md section 6 has the times.
+// At 32 rows a CTA (Dh 192 and 256) that split, its barriers and the pairs'
+// reads cost more than they save: attention_tf32_wide.cuh reads raw tiles.
 //
 // Past Dh 256 (CL): a cluster of ceil(Dh / 128) CTAs, each the Dh 128
 // kernel on its 128 columns (cp.async predicated to zero past Dh) and its
@@ -130,16 +126,45 @@ constexpr int kWarps = 8;
 constexpr int kCtaThreads = 32 * kWarps;
 constexpr int kStages = 2;
 
-// warps sharing each 16 owned rows, each taking DH / split output columns:
-// 64 at Dh 64, 128 and 256, 48 at Dh 192 (96 spilled the dK/dV kernel's two
-// accumulators)
+// Probe switches: python -m kokoro_tpu_torch.scripts.probe_flash_tf32_wide
+// builds the kernels with each of these defined to read what the part costs
+// (the results are wrong: timing only); the port's own build defines none.
+//   KOKORO_TF32_SPLIT_OFF: the split of the streamed tiles into TF32 pairs
+//     (a CTA's split_stage / split_rows, their barrier included);
+//   KOKORO_TF32_EXCHANGE_OFF: the score partials' exchange between the warps
+//     of a row group (attention_tf32_wide.cuh's exchange: each warp keeps its
+//     own partial);
+//   KOKORO_TF32_BARRIERS_OFF: the CTA-wide barriers of the streaming loops.
+#ifdef KOKORO_TF32_SPLIT_OFF
+constexpr bool kProbeSplitOff = true;
+#else
+constexpr bool kProbeSplitOff = false;
+#endif
+#ifdef KOKORO_TF32_EXCHANGE_OFF
+constexpr bool kProbeExchangeOff = true;
+#else
+constexpr bool kProbeExchangeOff = false;
+#endif
+#ifdef KOKORO_TF32_BARRIERS_OFF
+constexpr bool kProbeBarriersOff = true;
+#else
+constexpr bool kProbeBarriersOff = false;
+#endif
+
+// a CTA-wide barrier of a streaming loop
+__device__ __forceinline__ void ring_sync() {
+  if constexpr (!kProbeBarriersOff) __syncthreads();
+}
+
+// warps sharing each 16 owned rows, each taking DH / split output columns
+// (64); Dh 192 and 256 have kernels of their own (attention_tf32_wide.cuh)
 template <int DH>
 __host__ __device__ constexpr int col_split() {
-  return DH == 64 ? 1 : (DH == 128 ? 2 : 4);
+  static_assert(DH == 64 || DH == 128, "Dh 64 or 128 (a cluster CTA: 128)");
+  return DH == 64 ? 1 : 2;
 }
 // rows a CTA owns (16 a group of warps) and rows a streamed tile holds: 128
-// and 64, 64 and 32, 32 and 16, 32 and 16 at Dh 64, 128, 192 and 256 (a
-// split stage of two tiles is 64 KB, 48 KB at Dh 192)
+// and 64 at Dh 64, 64 and 32 at Dh 128 (a split stage of two tiles is 64 KB)
 template <int DH>
 __host__ __device__ constexpr int owned_rows() {
   return 16 * kWarps / col_split<DH>();
@@ -150,10 +175,9 @@ __host__ __device__ constexpr int owned_rows() {
 constexpr int kClusterRows = 32;
 template <int DH, bool CL = false>
 __host__ __device__ constexpr int stream_rows() {
-  return CL ? kClusterRows : (DH == 192 ? 16 : 4096 / DH);
+  return CL ? kClusterRows : 4096 / DH;
 }
-// the dK/dV kernel takes a streamed tile in passes of 32 queries (16 from
-// Dh 192, a whole tile)
+// the dK/dV kernel takes a streamed tile in passes of 32 queries
 template <int DH, bool CL = false>
 __host__ __device__ constexpr int pass_rows() {
   return stream_rows<DH, CL>() < 32 ? stream_rows<DH, CL>() : 32;
@@ -186,9 +210,9 @@ __device__ __forceinline__ int pair_at(int n, int c) {
 
 // A warp's staging tile of P or dS (16 rows of NQ floats), swizzled as an
 // owned tile: the accumulator's pairs in, the A fragments' pairs out.  At
-// NQ = 16 (Dh 192 and 256) two rows share a bank line, and the block c / 8
-// moves by bit 1 of the row: rows g = 0..7 land on four distinct 8-bank
-// groups, the fewest conflicts 64 floats can have.
+// NQ = 16 (a cluster pair's half tiles) two rows share a bank line, and the
+// block c / 8 moves by bit 1 of the row: rows g = 0..7 land on four
+// distinct 8-bank groups, the fewest conflicts 64 floats can have.
 template <int NQ>
 __device__ __forceinline__ int w_at(int r, int c) {
   return r * NQ + (c ^ (NQ >= 32 ? (r & 3) << 3 : (NQ == 16 ? ((r >> 1) & 1) << 3 : 0)));
@@ -271,6 +295,7 @@ __device__ __forceinline__ void store_pairs(float* tile, int idx, float4 x) {
 // tile: every thread reads its raw values, the CTA waits, then writes.
 template <int DH, bool CL = false>
 __device__ __forceinline__ void split_stage(float* stage) {
+  if constexpr (kProbeSplitOff) return;
   constexpr int S = stream_rows<DH, CL>(), N4 = S * DH / 4 / kCtaThreads;  // float4 a thread a tile
   float4 x[2][N4];
 #pragma unroll
@@ -293,6 +318,7 @@ __device__ __forceinline__ void split_stage(float* stage) {
 // differ, so no thread waits for another between its reads and its writes.
 template <int DH, int ROWS, int N>
 __device__ __forceinline__ void split_rows(const float* raw, float* pairs) {
+  if constexpr (kProbeSplitOff) return;
   constexpr int N4 = ROWS * DH / 4 / kCtaThreads;  // float4 a thread a tile
   float4 x[N][N4];
 #pragma unroll
@@ -410,63 +436,17 @@ __device__ __forceinline__ void score(float (&s)[J][4], const Rows& A, const flo
   }
 }
 
-// From Dh 192 the col_split warps sharing 16 rows split each score's
-// contraction: each takes DH / split columns, and the partials meet in
-// shared memory, summed in the warps' order.
-template <int DH>
-__host__ __device__ constexpr int split_k() {
-  return DH > 128 ? col_split<DH>() : 1;
-}
-
-// floats of a CTA's exchange of partial scores: a slot of 16 x 16 (J = 2) a
-// warp from Dh 192, none before; a cluster launch's pairs, two slots of
-// 16 x S / 2 a row group (pair_score)
+// floats of a cluster launch's exchange of partial scores (pair_score): two
+// slots of 16 x S / 2 a row group
 template <int DH, bool CL = false>
 __host__ __device__ constexpr int xch_floats() {
-  return split_k<DH>() > 1 ? kWarps * 256 : (CL ? kWarps * 8 * stream_rows<DH, CL>() : 0);
+  return CL ? kWarps * 8 * stream_rows<DH, CL>() : 0;
 }
 
-// a barrier of the split_k warps sharing row group `group` (ids 1..: 0 is
+// a barrier of the `warps` warps of row group `group` (ids 1..: 0 is
 // __syncthreads)
 __device__ __forceinline__ void row_group_sync(int group, int warps) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(32 * warps) : "memory");
-}
-
-// s = score over all DH columns when the split_k warps of row group `group`
-// share the work: this warp (the part-th of them) takes columns [part,
-// part + 1) * DH / split_k, writes its partial to its slot of xch (the
-// group's split_k slots of 32 J floats a lane, lane-major), and after the
-// group's barrier sums the group's slots in order, so each element is
-// ((p0 + p1) + ...) whichever kernel and warp takes it; the second barrier
-// frees the slots.  Below Dh 192: score itself.
-template <int DH, int J, bool SPLIT_B = true, typename Rows>
-__device__ __forceinline__ void shared_score(float (&s)[J][4], const Rows& A, const float* B,
-                                             int b_row0, int lane, float* xch, int group,
-                                             int part) {
-  constexpr int SK = split_k<DH>();
-  if constexpr (SK == 1) {
-    score<DH, J, SPLIT_B>(s, A, B, b_row0, lane);
-  } else {
-    static_assert(4 * J * 32 == 256, "a slot holds a 16 x 16 tile");
-    constexpr int KG = DH / 8 / SK;  // groups of 8 a part (even)
-    score<DH, J, SPLIT_B>(s, A, B, b_row0, lane, part * KG, (part + 1) * KG);
-    float* slots = xch + group * SK * 256;
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) slots[part * 256 + (4 * j + e) * 32 + lane] = s[j][e];
-    row_group_sync(group, SK);
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sum = slots[(4 * j + e) * 32 + lane];
-#pragma unroll
-        for (int p = 1; p < SK; ++p) sum += slots[p * 256 + (4 * j + e) * 32 + lane];
-        s[j][e] = sum;
-      }
-    row_group_sync(group, SK);
-  }
 }
 
 // In a cluster launch (CL) the two warps of a row group (part 0 and 1) split
@@ -767,8 +747,7 @@ __host__ __device__ constexpr bool bwd_fits() {
   return smem_bytes<DH, CL>(w_cols<CL>(stream_rows<DH, CL>())) <= 232448 &&
          own_floats<DH>() <= stage_floats<DH, CL>();
 }
-static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<192>() && bwd_fits<256>() &&
-                  bwd_fits<tc::kSliceCols, true>(),
+static_assert(bwd_fits<64>() && bwd_fits<128>() && bwd_fits<tc::kSliceCols, true>(),
               "a CTA's shared memory");
 
 // The weights of a warp's 16 x 8JN tile of queries qw + g (+ 8) and keys
@@ -855,7 +834,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + 3 * kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x WQ a warp
-  float* xch = Ws + kWarps * 16 * WQ;  // the partial scores (shared_score, pair_score)
+  float* xch = Ws + kWarps * 16 * WQ;  // CL: the partial scores (pair_score)
   uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
   float* Os = ring + stage_floats<DH, CL>();  // O in the second stage, until the loop loads it
 
@@ -881,7 +860,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
-  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // CL: pair_score's row group
   const int qw = q0 + wr;                 // its first query
   // its staging tile (CL: its pair's, also the pair's dPd slots) and its
   // pair's S slots
@@ -927,9 +906,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       pair_score<DH, 2, false>(hx, OwnedRows<DH>{Os, wr}, dOs, wr, lane, W, rgroup, part, cluster);
       pair_share<2>(x, hx, W, rgroup, part, lane);
     } else {
-      shared_score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane, xch, rgroup, part);
+      score<DH, 2, false>(x, OwnedRows<DH>{dOs, wr}, Os, wr, lane);
       diagonal(x, lane, delta);
-      shared_score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane, xch, rgroup, part);
+      score<DH, 2, false>(x, OwnedRows<DH>{Os, wr}, dOs, wr, lane);
     }
     diagonal(x, lane, d_kv);
 #pragma unroll
@@ -960,9 +939,9 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     if (DROPOUT) keep_s[threadIdx.x] = keep_bits_q<J>(bh, qw + g, k0, lane, a);
     cp_async_wait<1>();
-    __syncthreads();
+    ring_sync();
     split_stage<DH, CL>(st);
-    __syncthreads();
+    ring_sync();
     const float *Kp = st, *Vp = st + TS;
     const int* kvseg = kvseg_s + (j % kStages) * S;
     // a warp whose rows are all before the tile's first key (causal), or past
@@ -991,10 +970,10 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         accumulate<DH, NC, J>(acc, PairStagedRows<H>{W + 128 * H, W}, Kp, 0, c0, lane);
       } else {
         float s[J][4], dp[J][4];
-        shared_score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane, xch, rgroup, part);
+        score<DH, J>(s, OwnedRows<DH>{Qs, wr}, Kp, 0, lane);
         const uint32_t keep = DROPOUT ? keep_s[threadIdx.x] : 0u;
         q_weights<FLASH, J>(s, unmasked, a, keys, seg, qseg, kvseg, qw, k0, lse_r, inv_t, lane);
-        shared_score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane, xch, rgroup, part);
+        score<DH, J>(dp, OwnedRows<DH>{dOs, wr}, Vp, 0, lane);
 #pragma unroll
         for (int jj = 0; jj < J; ++jj)
 #pragma unroll
@@ -1007,7 +986,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncwarp();
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is loaded again
+    ring_sync();  // every warp is done with this stage before it is loaded again
   }
   if (!CL || c0 < cols) store_rows<NC>(dq + q_base, acc, qw, c0, a.Tq, D, lane);
   if constexpr (CL) tc::cluster_sync();  // no CTA leaves while a peer reads its slots
@@ -1043,7 +1022,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(qseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
   float* Ws = reinterpret_cast<float*>(keep_words + kCtaThreads);  // 16 x WQ a warp
-  float* xch = Ws + kWarps * 16 * WQ;  // the partial scores (shared_score, pair_score)
+  float* xch = Ws + kWarps * 16 * WQ;  // CL: the partial scores (pair_score)
   uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
 
   const int csize = CL ? tc::cluster_size() : 1;
@@ -1071,7 +1050,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first key in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
-  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // CL: pair_score's row group
   const int kw = k0 + wr;                 // its first key
   const bool my_keys = kw < a.Tk && (keys.uniform || kw < keys.len);
   // its staging tile (CL: its pair's, also the pair's dPd^T slots) and its
@@ -1117,9 +1096,9 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     if (DROPOUT) keep_s[threadIdx.x] = keep_bits_kv<S / 8>(bh, q0, kw + (g & ~3), lane, a);
     cp_async_wait<1>();
-    __syncthreads();
+    ring_sync();
     split_stage<DH, CL>(st);
-    __syncthreads();
+    ring_sync();
     const float *Qp = st, *dOp = st + TS;
     const float* lse_t = lse_s + stage * S;
     const float* delta_t = delta_s + stage * S;
@@ -1165,7 +1144,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const uint32_t kp = keep >> (pass * kPassQ / 2);  // the pass's flags, from bit 0
       // transposed tiles: rows the warp's keys, columns the pass's queries
       float s[kPassJ][4], dp[kPassJ][4];
-      shared_score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane, xch, rgroup, part);
+      score<DH, kPassJ>(s, OwnedRows<DH>{Ks, wr}, Qp, qs, lane);
       kv_weights<FLASH, kPassJ>(s, unmasked, a, keys, seg, kvseg, qseg, lse_t, q0, qs, kw, inv_t,
                                 lane);
       // dV += Pd^T dO, Pd the weights through the dropout flags
@@ -1182,7 +1161,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
       accumulate<DH, NC, kPassJ>(acc_dv, StagedRows<kPassQ>{W}, dOp, qs, c0, lane);
-      shared_score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane, xch, rgroup, part);
+      score<DH, kPassJ>(dp, OwnedRows<DH>{Vs, wr}, dOp, qs, lane);
 #pragma unroll
       for (int jj = 0; jj < kPassJ; ++jj)
 #pragma unroll
@@ -1197,7 +1176,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       accumulate<DH, NC, kPassJ>(acc_dk, StagedRows<kPassQ>{W}, Qp, qs, c0, lane);
       __syncwarp();
     }
-    __syncthreads();  // every warp is done with this stage before it is loaded again
+    ring_sync();  // every warp is done with this stage before it is loaded again
   }
   if (!CL || c0 < cols) {
     store_rows<NC>(dk + kv_base, acc_dk, kw, c0, a.Tk, D, lane);
@@ -1219,7 +1198,6 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
          sizeof(float) * xch_floats<DH, CL>() + cluster_bytes<CL>();
 }
 static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 &&
-                  fwd_smem_bytes<192>() <= 232448 && fwd_smem_bytes<256>() <= 232448 &&
                   fwd_smem_bytes<tc::kSliceCols, true>() <= 232448,
               "a CTA's shared memory");
 
@@ -1251,7 +1229,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* kvseg_s = reinterpret_cast<int*>(raw + kStages * 2 * S * DH);  // kStages x S
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(kvseg_s + kStages * S);
   volatile uint32_t* keep_s = keep_words;
-  // shared_score's (CL: pair_score's) partials
+  // CL: pair_score's partials
   float* xch = reinterpret_cast<float*>(keep_words + kCtaThreads);
   uint8_t* cxch = reinterpret_cast<uint8_t*>(xch + xch_floats<DH, CL>());  // CL: ClusterSum's
   static_assert(!CL || (DH == tc::kSliceCols && J % 2 == 0 && FLASH && !DROPOUT),
@@ -1279,7 +1257,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * (warp % (R / 16));  // the warp's first row in the tile
   const int c0 = (warp / (R / 16)) * NC;  // its first output column
-  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // shared_score's row group
+  const int rgroup = warp % (R / 16), part = warp / (R / 16);  // CL: pair_score's row group
   const int qw = q0 + wr;                 // its first query
   if constexpr (CL) {
     if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
@@ -1318,11 +1296,11 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (DROPOUT) keep_s[threadIdx.x] = keep_bits_q<J>(bh, qw + g, k0, lane, a);
     cp_async_wait<0>();
     // tile j has landed, and every warp is done with the previous tile's pairs
-    __syncthreads();
+    ring_sync();
     if (j + 1 < n_tiles) issue(j + 1);
     cp_async_commit();
     split_rows<DH, S, 2>(raw + (j % kStages) * 2 * S * DH, Kp);
-    __syncthreads();
+    ring_sync();
     const int* kvseg = kvseg_s + (j % kStages) * S;
     // a warp whose rows are all before the tile's first key (causal), or past
     // the end, has nothing in it
@@ -1339,7 +1317,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         pair_score<DH, JS>(hs, qa, Kp, kb, lane, slots, rgroup, part, cluster);
         pair_share<JS>(s, hs, slots, rgroup, part, lane);
       } else {
-        shared_score<DH, JS>(s, qa, Kp, kb, lane, xch, rgroup, part);
+        score<DH, JS>(s, qa, Kp, kb, lane);
       }
       // the logits s * scale, through the mask unless every pair is visible:
       // packed, a masked logit is -1e9; flash, the mask value is added; a key

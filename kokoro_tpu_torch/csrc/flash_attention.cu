@@ -38,7 +38,9 @@
 // 192 and 256 (the flagship's hidden 512 over 2 heads: H=2, the same bytes
 // and operations as H=8, Dh=64) the bf16 kernel streams 64-key tiles through
 // three or two stages and stores O from registers; the f32 kernel's four
-// warps of each 16 rows split S's contraction (attention_tf32.cuh).  From
+// warps of each 16 rows split S's contraction, Q split once into registers,
+// K and V read raw through a three-stage ring and split by each warp as it
+// reads them (attention_tf32_wide.cuh).  From
 // Dh 320 (the flagship's hidden 512 at one head: Dh 512, H=1, again the same
 // bytes and operations) no CTA holds a tile's rows: a cluster of
 // ceil(Dh / 128) CTAs takes each work item, each CTA the Dh 128 kernel on its

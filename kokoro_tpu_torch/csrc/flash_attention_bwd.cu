@@ -26,11 +26,13 @@
 // f32-accurate work the f32 kernels get from the TF32 tensor cores in three
 // products, where the CUDA cores' 67 TFLOP/s f32 FMA rate would give 0.91
 // ms).  Shared memory: bf16 82 / 164 / 196.9 / 196.9 KB a CTA (Dh 64 / 128 /
-// 192 / 256), f32 226.5 (dQ) and 210.5 (dK/dV) / 209.75 / 161.4 / 209.4 KB
-// (attention_tf32.cuh).  From Dh 192 the bf16 dK/dV kernel's two consumer
-// warpgroups share 64 keys, one accumulating dV and one dK (both
-// accumulators of a 64-key tile would take Dh registers a thread), and the
-// f32 kernels' four warps of each 16 rows split S's and dPd's contraction.
+// 192 / 256), f32 226.5 (dQ) and 210.5 (dK/dV) / 209.75 (attention_tf32.cuh)
+// / 225.1 / 224.75 KB (attention_tf32_wide.cuh).  From Dh 192 the bf16 dK/dV
+// kernel's two consumer warpgroups share 64 keys, one accumulating dV and one
+// dK (both accumulators of a 64-key tile would take Dh registers a thread);
+// the f32 kernels' four warps of each 16 rows split S's and dPd's
+// contraction, exchange the two partials together once a 32-row tile, and
+// read the streamed tiles raw, each warp splitting what it reads.
 // From Dh 320 a cluster of ceil(Dh / 128) CTAs takes each 64-row tile, each
 // CTA the Dh 128 kernel on its 128 columns, summing the cluster's partial S,
 // dPd and row deltas in rank order from its peers' shared memory (f32: tiles

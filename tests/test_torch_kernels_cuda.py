@@ -208,6 +208,50 @@ def test_flash_kernels_at_head_dims_192_and_256_match_plain(cuda, T, Dh, dtype, 
     _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 5 * T + Dh))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [192, 256])
+@pytest.mark.parametrize("T", [1, 100, 1100])
+def test_flash_kernels_at_head_dims_192_and_256_noncausal(cuda, T, Dh, dtype):
+    """K4 at Dh 192 and 256 without the causal mask, at lengths inside one
+    streamed tile and past a ragged last one, against the plain forward and
+    backward."""
+    _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, "suffix" if T > 301 else
+                                                  "interior", 11 * T + Dh), causal=False)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Dh", [192, 256])
+def test_f32_flash_one_key_rows_at_head_dims_192_and_256(cuda, Dh, causal):
+    """Rows that see exactly one key (segment ids of their own, shared with
+    that key alone; at and beside the 32-row tile edges): the forward's lse
+    gives the backward's recompute the key's weight 1 exactly and the row's
+    delta equals its dPd exactly, so its dS is exactly 0 and its dQ row is
+    exactly zero; O and every gradient, the key's dK and dV included, within
+    the f32 tolerances of the plain version."""
+    B, H, T = 2, 2, 1433
+    g = torch.Generator().manual_seed(Dh + causal)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, F32) for _ in range(4))
+    rows = [0, 31, 32, 47, 700, T - 1]
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    for i, r in enumerate(rows):
+        q_seg[:, r] = 2 + i
+    kv_seg = q_seg.clone()  # key r alone shares row r's segment
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, :, rows], torch.zeros_like(dq[:, :, rows]))
+    torch.testing.assert_close(o, flash.flash_attention_reference(q, k, v, **kw), rtol=TOL[F32],
+                               atol=TOL[F32])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, (dq, dk, dv)):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
+    # the one-key rows' keys take their gradient from their own row alone
+    for name, a, b in zip("kv", ref[1:], (dk, dv)):
+        torch.testing.assert_close(b[:, :, rows], a[:, :, rows], rtol=GRAD_TOL[F32],
+                                   atol=GRAD_TOL[F32], msg=f"d{name} at the one-key rows' keys")
+
+
 @pytest.mark.parametrize("masks", ["suffix", "interior"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh", [320, 384, 512, 640, 768, 896, 1024])
@@ -622,10 +666,12 @@ def test_f32_flash_row_without_visible_key(cuda):
 
 def _f32_backward_case(policy, device):
     """A backward call of ``policy`` (causal, kvlen at rate 0.2, flash with
-    segment ids) on fixed f32 inputs, as a function of no arguments."""
+    segment ids; flash_192 and flash_256 at those head dims) on fixed f32
+    inputs, as a function of no arguments."""
     B, H, T, Dh = 4, 2, 433, 64
     g = torch.Generator().manual_seed(43)
-    if policy == "flash":
+    if policy.startswith("flash"):
+        Dh = int(policy.split("_")[1]) if "_" in policy else Dh
         q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(device, F32) for _ in range(4))
         q_seg = torch.ones(B, T, dtype=torch.int32, device=device)
         q_seg[:, T // 3:] = 2
@@ -643,7 +689,7 @@ def _f32_backward_case(policy, device):
     return lambda: bwd(q, k, v, o, do, lse, res, **kw)
 
 
-@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash"])
+@pytest.mark.parametrize("policy", ["causal", "kvlen", "flash", "flash_192", "flash_256"])
 def test_f32_backward_is_bitwise_deterministic_whatever_allow_tf32(cuda, policy):
     """Two calls give the same dQ, dK and dV bit for bit, and so does a call
     with ``torch.backends.cuda.matmul.allow_tf32`` on: the 3xTF32 kernels do
@@ -702,12 +748,15 @@ def test_f32_forward_at_rate_matches_plain(cuda, policy, Dh, T):
 
 
 @pytest.mark.parametrize("policy, rate", [("causal", 0.0), ("causal", 0.2), ("kvlen", 0.0),
-                                          ("kvlen", 0.2), ("flash", 0.0)])
+                                          ("kvlen", 0.2), ("flash", 0.0), ("flash_192", 0.0),
+                                          ("flash_256", 0.0)])
 def test_f32_forward_is_bitwise_deterministic_whatever_allow_tf32(cuda, policy, rate):
     """Two calls give the same O and lse bit for bit, and so does a call with
     ``torch.backends.cuda.matmul.allow_tf32`` on: the 3xTF32 forward does
-    not read the flag."""
-    kern, _ = _forward_case(policy, 4, 1433, 2, 64, cuda, seed=31, rate=rate, dtype=F32)
+    not read the flag (flash_192 and flash_256: K4 at those head dims)."""
+    Dh = int(policy.split("_")[1]) if "_" in policy else 64
+    policy = policy.split("_")[0]
+    kern, _ = _forward_case(policy, 4, 1433, 2, Dh, cuda, seed=31, rate=rate, dtype=F32)
     first, second = kern()[:2], kern()[:2]
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
