@@ -267,7 +267,10 @@ those of phase parallel ``parallel_path``, their launches per step on a
 rank of the (2, 2) mesh and the head count, and every kernel ``sp_pp_path``,
 its launches per trainer step on the ``seq`` and ``stage`` paths, 0,
 and K4's ``head_dims_192_256``, its times at Dh 256 and 192 in both dtypes
-and its launches per long step at ``n_heads=2``, and ``head_dims_320_1024``,
+(with the backend SDPA picks there, and the backward's dQ and dK/dV
+kernels apart, as phase kernels_flash's lines ``kernel_split_bf16_dh192_256``
+and ``kernel_split_f32_dh192_256`` print them) and its launches per long
+step at ``n_heads=2``, and ``head_dims_320_1024``,
 its cluster kernels' times at Dh 512 and 384 in both dtypes (with SDPA's
 backend there) and its launches per long step at ``n_heads=1``), the
 ``nvidia-smi`` line
@@ -1137,6 +1140,11 @@ def phase_kernels_flash():
           "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
                               for (n, d, H, Dh), r in timings.items()
                               if d == "float32" and Dh in (192, 256)}})
+    # the bf16 kernels at Dh 192 and 256 (csrc/attention_tc_wide.cuh): the same
+    emit({"phase": "kernel_split_bf16_dh192_256", "shape": "B=12 T=1408 causal",
+          "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
+                              for (n, d, H, Dh), r in timings.items()
+                              if d == "bfloat16" and Dh in (192, 256)}})
     # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
     timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
                for (n, d, H, Dh), r in timings.items()}
@@ -1154,6 +1162,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
     import torch.nn.functional as F
 
     from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.scripts.probe_flash_tc_wide import sdpa_default_backend
 
     dev = torch.device("cuda")
     timings = {}
@@ -1173,6 +1182,9 @@ def flash_times(B, T, H, Dh, gen) -> dict:
         # past Dh 256 SDPA's flash backend refuses: the first fused backend
         # that takes the call, pinned, else the math backend
         backend = sdpa_backend(leaves, do) if Dh > 256 else None
+        # at Dh 192 and 256 SDPA runs unpinned: the backend it picks, named
+        named = (backend if backend is not None else
+                 sdpa_default_backend(*leaves, Dh ** -0.5) if Dh in (192, 256) else None)
 
         def sdpa_fwd():
             with sdpa_pinned(backend):
@@ -1181,7 +1193,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), leaves, do)
 
-        library = {} if backend is None else {"library_backend": backend}
+        library = {} if named is None else {"library_backend": named}
         timings[("flash_attention_fwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,

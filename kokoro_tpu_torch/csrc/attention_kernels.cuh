@@ -63,7 +63,8 @@
 // bf16 runs on the tensor cores (attention_tc.cuh: wgmma products, TMA loads,
 // P, Pd and dS kept in registers as wgmma's A operand; both directions
 // warp-specialised, a producer warpgroup feeding consumer warpgroups through
-// a ring; the forward persistent, 128 query rows a work item).  f32 runs on
+// a ring; the forward persistent, 128 query rows a work item; K4 at Dh 192
+// and 256 in attention_tc_wide.cuh).  f32 runs on
 // the tensor cores in 3xTF32 in both directions (attention_tf32.cuh: each
 // operand split into two TF32 parts, three mma.sync products for each
 // product, as accurate as f32 FMA; the forward takes S by the backward's
@@ -93,6 +94,7 @@
 
 #include "attention_common.cuh"
 #include "attention_tc.cuh"
+#include "attention_tc_wide.cuh"
 #include "attention_tf32.cuh"
 #include "attention_tf32_wide.cuh"
 
@@ -123,10 +125,10 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
   if constexpr (FLASH && !DROPOUT) {  // K4 also at Dh 192 and 256
     if (dtype == 0 && Dh == 192) return tf32::wide::launch_fwd<192>(q, k, v, o, lse, B, a, s);
     if (dtype == 0 && Dh == 256) return tf32::wide::launch_fwd<256>(q, k, v, o, lse, B, a, s);
-    if (dtype == 1 && Dh == 192)
-      return tc::launch_fwd<192, true, false>(q, k, v, o, res, lse, B, a, s);
-    if (dtype == 1 && Dh == 256)
-      return tc::launch_fwd<256, true, false>(q, k, v, o, res, lse, B, a, s);
+    if (dtype == 1 && Dh == 192 && res == nullptr)
+      return tc::wide::launch_fwd<192>(q, k, v, o, lse, B, a, s);
+    if (dtype == 1 && Dh == 256 && res == nullptr)
+      return tc::wide::launch_fwd<256>(q, k, v, o, lse, B, a, s);
     if (cluster_head_dim(Dh) && res == nullptr) {
       if (dtype == 0) return tf32::launch_fwd_split(q, k, v, o, lse, B, Dh, a, s);
       if (dtype == 1) return tc::launch_fwd_split(q, k, v, o, lse, B, Dh, a, s);
@@ -162,12 +164,10 @@ cudaError_t dispatch_bwd(int dtype, int Dh, const void* q, const void* k, const 
       return tf32::wide::launch_bwd<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
     if (dtype == 0 && Dh == 256)
       return tf32::wide::launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
-    if (dtype == 1 && Dh == 192)
-      return tc::launch_bwd<192, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
-                                              s);
-    if (dtype == 1 && Dh == 256)
-      return tc::launch_bwd<256, true, false>(q, k, v, o, res, dout, lse, delta, dq, dk, dv, B, a,
-                                              s);
+    if (dtype == 1 && Dh == 192 && res == nullptr)
+      return tc::wide::launch_bwd<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+    if (dtype == 1 && Dh == 256 && res == nullptr)
+      return tc::wide::launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
     if (cluster_head_dim(Dh) && res == nullptr) {
       if (dtype == 0)
         return tf32::launch_bwd_split(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Dh, a, s);

@@ -1,8 +1,9 @@
 // The bf16 attention kernels on Hopper's tensor cores (sm_90a): the forward,
 // dQ and dK/dV templates of attention_kernels.cuh redesigned around wgmma and
 // TMA, with the same two mask policies (packed K1/K2/K3, flash K4), dropout
-// on or off, Dh 64 or 128 (the flash policy without dropout also 192 and
-// 256, and from 320 to 1024 as a cluster of Dh 128 CTAs: "clusters" below),
+// on or off, Dh 64 or 128 (the flash policy without dropout also from 320
+// to 1024, as a cluster of Dh 128 CTAs: "clusters" below; at 192 and 256 it
+// has kernels of its own, attention_tc_wide.cuh, built from these pieces),
 // and the same numerics contract (see attention_kernels.cuh): S and dPd in
 // f32; the unnormalised exp, Pd and dS * scale rounded to bf16 exactly where
 // they become tensor-core operands; f32 sums, the f32 row lse.
@@ -26,19 +27,16 @@
 // transposes S^T = K Q^T, dPd^T = V dO^T) is m64n64k16 with both operands in
 // shared memory, K-major; an output product (O += P V, dQ += dS K,
 // dV += Pd^T dO, dK += dS^T Q) is m64n{Dh}k16 with A from registers and B in
-// shared memory MN-major (the transpose flag); from Dh 192, one m64n128k16
-// product a 128-column block of the output (and m64n64k16 for the last 64
-// columns of Dh 192).
+// shared memory MN-major (the transpose flag); from Dh 192
+// (attention_tc_wide.cuh), one m64n128k16 product a 128-column block of the
+// output (and m64n64k16 for the last 64 columns of Dh 192).
 //
 // The forward is warp-specialised like the backward: a CTA is a producer
 // warpgroup and two consumer warpgroups of 64 query rows each (384 threads,
 // setmaxnreg 24/240, at Dh 64 and 128 alike), so every key and value tile
 // streamed through the ring (fwd_stages) serves 128 query rows; a streamed
 // tile is 128 keys at Dh 64 (a 64 x 128 score tile a consumer: twice the
-// work between two waits), 64 from Dh 128.  From Dh 192 the two query tiles
-// and the ring take the shared memory (a stage of K and V is 48 KB at Dh
-// 192, 64 KB at Dh 256: three stages, two), and each consumer stores its O
-// from registers.  The kernel is persistent, one CTA
+// work between two waits), 64 at Dh 128.  The kernel is persistent, one CTA
 // an SM: a work item is (query tile of 128 rows, head), the causal mask's
 // heaviest items first, dealt to the CTAs in a snake order, and the producer
 // loads an item's query tiles while the previous item's last tiles and
@@ -60,12 +58,7 @@
 // producer warpgroup and, at Dh 64, two consumer warpgroups (384 threads,
 // one CTA an SM; setmaxnreg gives the producer 24 registers a thread and
 // the consumers 240), at Dh 128 one (256 threads: its dK and dV accumulators
-// alone take 128 registers a thread).  From Dh 192 the dQ kernel has one
-// consumer (its accumulator alone takes 128 registers a thread at Dh 256)
-// and the dK/dV kernel two that share the CTA's 64 keys, one accumulating
-// dV, the other dK (each recomputes S^T; the dK one also dP^T); at Dh 256
-// the ring has two stages (a stage is 64 KB beside the CTA's own 64 KB).
-// One producer warp keeps TMA loads in flight through a ring of bwd_stages
+// alone take 128 registers a thread).  One producer warp keeps TMA loads in flight through a ring of bwd_stages
 // stages (full/empty mbarriers) and writes each stage's row data (the dK/dV kernel's lse and delta, the flash segment
 // ids).  The consumers share each streamed tile: the dQ kernel's CTA owns 64
 // query rows a consumer and streams the key/value tiles, the dK/dV kernel's
@@ -93,8 +86,6 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 
-#include <type_traits>
-
 #include "attention_common.cuh"
 
 namespace kokoro_attn {
@@ -105,6 +96,31 @@ constexpr int kWG = 128;                // threads of a warpgroup
 constexpr uint32_t kBox = 64 * 64 * 2;  // one TMA box: 64 rows of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Probe switches: python -m kokoro_tpu_torch.scripts.probe_flash_tc_wide
+// builds the kernels with each of these defined to read what the part costs
+// in K4's kernels at Dh 192 and 256 (attention_tc_wide.cuh; the results are
+// wrong: timing only; the other instantiations do not read them); the port's
+// own build defines none.
+//   KOKORO_TC_LOADS_OFF: a streamed tile is loaded only on the ring's first
+//     pass, so the consumers wait on no load after it;
+//   KOKORO_TC_ELEMENTWISE_OFF: the softmax of the forward, and the weights
+//     and dS of the backward, are not computed (the raw products stand in).
+#ifdef KOKORO_TC_LOADS_OFF
+constexpr bool kProbeLoadsOff = true;
+#else
+constexpr bool kProbeLoadsOff = false;
+#endif
+#ifdef KOKORO_TC_ELEMENTWISE_OFF
+constexpr bool kProbeElementwiseOff = true;
+#else
+constexpr bool kProbeElementwiseOff = false;
+#endif
+// whether a probe switch acts on the instantiation at head dim DH
+template <int DH>
+__host__ __device__ constexpr bool probed(bool on) {
+  return on && DH > 128 && DH <= 256;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -753,42 +769,34 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, uint8_t* res, const flo
 
 // -- warp specialisation (the forward and the backward) -----------------------
 
-// ring depth of the backward's streamed tiles: three, two at Dh 256 (a
-// stage of two 64-row tiles is 64 KB there, the CTA's own two tiles 64 KB)
+// ring depth of the backward's streamed tiles
 template <int DH>
 __host__ __device__ constexpr int bwd_stages() {
-  return DH == 256 ? 2 : 3;
+  return 3;
 }
-constexpr int kMaxStages = 5;  // the most a ring has (the forward's, fwd_stages)
-// consumer warpgroups of a forward CTA: two at every head size, sharing each
-// streamed key/value tile (its one accumulator fits 240 registers at Dh 256)
+constexpr int kMaxStages = 5;  // stages the ring area (Ring, kRingBytes) has room for
+// consumer warpgroups of a forward CTA: two, sharing each streamed key/value
+// tile
 template <int DH>
 __host__ __device__ constexpr int fwd_consumers() {
   return 2;
 }
 // consumer warpgroups of a dQ CTA: two at Dh 64, sharing each streamed tile;
-// one from Dh 128 (at Dh 256 its dQ accumulator alone takes 128 registers a
-// thread, and a CTA of three warpgroups may give each thread 168)
+// one at Dh 128
 template <int DH>
 __host__ __device__ constexpr int dq_consumers() {
   return DH == 64 ? 2 : 1;
 }
 // the dK/dV kernel: at Dh 64 two consumer warpgroups of 64 keys each share
 // each streamed tile; at Dh 128 one, whose dK and dV accumulators take 128
-// registers a thread; from Dh 192, where the two would take Dh, two
-// warpgroups share the CTA's 64 keys, one accumulating dV and one dK
-// (ROLE_DV, ROLE_DK)
-template <int DH>
-__host__ __device__ constexpr bool dkdv_split() {
-  return DH > 128;
-}
+// registers a thread
 template <int DH>
 __host__ __device__ constexpr int dkdv_consumers() {
   return DH == 128 ? 1 : 2;
 }
 template <int DH>
 __host__ __device__ constexpr int dkdv_keys() {  // keys a CTA owns
-  return dkdv_split<DH>() ? kBK : dkdv_consumers<DH>() * kBK;
+  return dkdv_consumers<DH>() * kBK;
 }
 // with two consumers: 128 x 24 + 256 x 240 = 384 x 168 registers
 constexpr int kProducerRegs = 24;
@@ -979,25 +987,17 @@ __device__ __forceinline__ bool tile_unmasked(const AttnArgs& a, const KeyRange&
 // -- the forward ----------------------------------------------------------------
 
 // keys a streamed tile of the forward: 128 at Dh 64 (a 64 x 128 score tile a
-// consumer), 64 from Dh 128, whose O accumulator takes the registers
+// consumer), 64 at Dh 128, whose O accumulator takes the registers
 template <int DH>
 __host__ __device__ constexpr int fwd_bn() {
   return DH == 64 ? 128 : 64;
 }
-// whether O leaves through shared memory and TMA stores (Dh 64 and 128); from
-// Dh 192 the two query tiles and the ring take the shared memory, and each
-// consumer stores its rows from registers
-template <int DH>
-__host__ __device__ constexpr bool fwd_staged_store() {
-  return DH <= 128;
-}
 // ring stages: a consumer holds two (the tile of its S and the one of its
 // P V), the rest are in flight; as many as shared memory holds beside the
-// query and output tiles (Dh 256: a 64-key stage is 64 KB, and two, with
-// the 64 KB of query rows, are what fits)
+// query and output tiles
 template <int DH>
 __host__ __device__ constexpr int fwd_stages() {
-  return fwd_bn<DH>() == 128 ? 4 : (DH == 64 ? 5 : (DH == 256 ? 2 : 3));
+  return DH == 64 ? 4 : 3;
 }
 
 // 2^x in one MUFU.EX2 instruction (subnormal results flushed to 0)
@@ -1136,7 +1136,7 @@ __device__ __forceinline__ FwdItem fwd_item(int w, int n_q, int heads, const Att
 // launch, whose exchange area takes that shared memory
 template <int DH, bool CL>
 __host__ __device__ constexpr bool fwd_stages_o() {
-  return fwd_staged_store<DH>() && !CL;
+  return !CL;
 }
 
 // RES: also write O's rounding residual (the packed forward under grad).
@@ -1159,7 +1159,6 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   constexpr int STAGES = fwd_stages<DH>();
   constexpr bool STAGE_O = fwd_stages_o<DH, CL>();
   constexpr uint32_t STAGED = STAGE_O ? C * TILE : 0;
-  static_assert(fwd_staged_store<DH>() || (FLASH && !RES), "Dh 192 and 256: the flash policy only");
   static_assert(!CL || (DH == kSliceCols && BN == 64 && FLASH && !DROPOUT && !RES),
                 "a cluster launch: K4's 128-column slices");
   extern __shared__ uint8_t smem_raw[];
@@ -1373,12 +1372,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
             }
             bulk_commit();
           }
-        } else if constexpr (CL) {  // the CTA's columns of rows a.dh elements apart
+        } else {  // CL: the CTA's columns of rows a.dh elements apart
           store_rows<DH>(o + ((size_t)it.bh * a.Tq) * a.dh + col0, acc, qw, r0, c0, a.Tq, a.dh,
                          inv, a.dh - col0);
-        } else {  // the flash layout: rows DH elements apart
-          store_rows<DH>(o + head_offset<FLASH, DH>(it.b, it.h, a.H, a.Tq), acc, qw, r0, c0,
-                         a.Tq, DH, inv);
         }
       }
     }
@@ -1676,11 +1672,10 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   constexpr int C = dkdv_consumers<DH>();
   constexpr int NK = dkdv_keys<DH>() / kBK;  // the CTA's key tiles
   constexpr int STAGES = bwd_stages<DH>();
-  static_assert(!dkdv_split<DH>() || (FLASH && !DROPOUT), "Dh 192 and 256: the flash policy only");
   static_assert(!CL || (DH == kSliceCols && C == 1 && FLASH && !DROPOUT),
                 "a cluster launch: K4's 128-column slices");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Ks = align1024(smem_raw);  // the CTA's keys: one tile a consumer (split: one)
+  uint8_t* Ks = align1024(smem_raw);  // the CTA's keys: one tile a consumer
   uint8_t* Vs = Ks + NK * TILE;
   uint8_t* Qs = Vs + NK * TILE;       // STAGES stages
   uint8_t* dOs = Qs + STAGES * TILE;
@@ -1742,7 +1737,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         }
       }
     }
-  } else if constexpr (!dkdv_split<DH>()) {  // a consumer warpgroup: 64 keys
+  } else {  // a consumer warpgroup: 64 keys
     if constexpr (C > 1) regs_inc<kConsumerRegs>();
     const int wg = group - 1, t = threadIdx.x & (kWG - 1);
     const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
@@ -1859,103 +1854,6 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float one[2] = {1.f, 1.f};
     store_rows<DH>(dk + kv_base, acc_dk, kw, r0, c0, a.Tk, D, one, cols);
     store_rows<DH>(dv + kv_base, acc_dv, kw, r0, c0, a.Tk, D, one, cols);
-  } else {  // split: the CTA's 64 keys, consumer 1 accumulating dV, consumer 2 dK
-    regs_inc<kConsumerRegs>();
-    const int t = threadIdx.x & (kWG - 1);
-    const int r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
-    const int kw = k0;
-    const bool my_keys = kw < a.Tk;
-    const size_t kv_base = head_offset<FLASH, DH>(b, h, a.H, a.Tk);
-    int kvseg[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int key = kw + r0 + 8 * i;
-      kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
-    }
-    // one role: dV += bf16(P)^T dO, or dK += bf16(dS * scale)^T Q with dS from
-    // dP^T = V dO^T; each recomputes S^T = K Q^T
-    const auto role = [&](auto dk_role) {
-      constexpr bool DK = decltype(dk_role)::value;
-      float acc[DH / 2], s[32], dp[DK ? 32 : 1];
-      uint32_t op[4][4];  // the output product's A operand
-      zero(acc);
-      if (n_tiles > 0) mbar_wait(ring.own, 0);
-      int stage = 0, phase = 0, prev = 0;
-      bool pending = false;  // the previous tile's output product may still run
-      for (int i = 0; i < n_tiles; ++i) {
-        const int q0 = q_begin + i * kBQ;
-        mbar_wait(ring.full + stage, phase);
-        if (my_keys && (!a.causal || q0 + kBQ - 1 >= kw)) {
-          const uint8_t* Qt = Qs + stage * TILE;
-          const uint8_t* dOt = dOs + stage * TILE;
-          wgmma_fence();
-          score_tile<DH, 64>(s, Ks, Qt);
-          wgmma_commit();
-          if (pending) {  // the previous product is done: its stage is free
-            wgmma_wait<1>();
-            fence_operand(op);
-            fence_regs(acc);
-            release(ring.empty + prev, lane);
-          }
-          if constexpr (DK) {
-            score_tile<DH, 64>(dp, Vs, dOt);
-            wgmma_commit();
-            wgmma_wait<1>();  // S^T is done, dP^T may still run
-          } else {
-            wgmma_wait<0>();
-          }
-          fence_regs(s);
-          transposed_weights<FLASH>(s, a, keys, seg, q0, kw, r0, c0, ring.lse2(stage),
-                                    ring.seg(stage), kvseg, inv_t);
-          if constexpr (DK) {
-            const float* delta_t = ring.delta(stage);
-            wgmma_wait<0>();
-            fence_regs(dp);
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-              for (int v = 0; v < 4; ++v) {
-                const int idx = 4 * jj + v, qc = 8 * jj + c0 + (v & 1);
-                dp[idx] = grad_ds<false>(s[idx], dp[idx], delta_t[qc], true, a);
-              }
-            }
-            to_a_operand(dp, op);  // bf16(dS * scale)^T
-            wgmma_fence();
-            accumulate<DH>(acc, op, Qt);
-          } else {
-            to_a_operand(s, op);  // bf16(P)^T
-            wgmma_fence();
-            accumulate<DH>(acc, op, dOt);
-          }
-          wgmma_commit();
-          pending = true;
-          prev = stage;
-        } else {  // none of the CTA's keys is visible to the tile
-          if (pending) {
-            wgmma_wait<0>();
-            fence_operand(op);
-            fence_regs(acc);
-            release(ring.empty + prev, lane);
-            pending = false;
-          }
-          release(ring.empty + stage, lane);
-        }
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_operand(op);
-      fence_regs(acc);
-      const float one[2] = {1.f, 1.f};
-      store_rows<DH>((DK ? dk : dv) + kv_base, acc, kw, r0, c0, a.Tk, DH, one);
-    };
-    if (group == 1) {
-      role(std::false_type{});
-    } else {
-      role(std::true_type{});
-    }
   }
   if constexpr (CL) cluster_sync();  // no CTA leaves while a peer reads its slots
 }
@@ -2027,18 +1925,12 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   constexpr int C = fwd_consumers<DH>();
   // the query (and, staged, the output and residual) tiles, then the stages'
   // key and value tiles
-  constexpr size_t smem = ring_smem_bytes<DH>((fwd_staged_store<DH>() ? 3 : 1) * C,
-                                              fwd_stages<DH>() * fwd_bn<DH>() / 64);
+  constexpr size_t smem = ring_smem_bytes<DH>(3 * C, fwd_stages<DH>() * fwd_bn<DH>() / 64);
   static_assert(smem <= 232448, "a CTA's shared memory");
   static bool configured = false, configured_res = false;
-  cudaError_t err;
-  if constexpr (fwd_staged_store<DH>()) {
-    err = res == nullptr ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
-                         : allow_smem(fwd_kernel<DH, FLASH, DROPOUT, true>, smem, configured_res);
-  } else {  // the residual is the packed forward's
-    err = res == nullptr ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
-                         : cudaErrorInvalidValue;
-  }
+  cudaError_t err =
+      res == nullptr ? allow_smem(fwd_kernel<DH, FLASH, DROPOUT, false>, smem, configured)
+                     : allow_smem(fwd_kernel<DH, FLASH, DROPOUT, true>, smem, configured_res);
   CUtensorMap mq, mk, mv, mo, mres;
   if (err == cudaSuccess) err = make_map<FLASH>(&mq, q, B, a.H, a.Tq, DH);
   if (err == cudaSuccess) err = make_map<FLASH>(&mk, k, B, a.H, a.Tk, DH);
@@ -2057,12 +1949,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   const unsigned ctas = (unsigned)(items < sms ? items : sms);
   constexpr int threads = (1 + C) * kWG;
   bf16* out = static_cast<bf16*>(o);
-  if constexpr (fwd_staged_store<DH>()) {
-    if (res != nullptr) {
-      fwd_kernel<DH, FLASH, DROPOUT, true><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
-                                                                           out, lse, a, B);
-      return cudaGetLastError();
-    }
+  if (res != nullptr) {
+    fwd_kernel<DH, FLASH, DROPOUT, true><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
+                                                                         out, lse, a, B);
+    return cudaGetLastError();
   }
   fwd_kernel<DH, FLASH, DROPOUT, false><<<ctas, threads, smem, stream>>>(mq, mk, mv, mo, mres,
                                                                         out, lse, a, B);

@@ -36,8 +36,9 @@
 // its bound is 165 TFLOP/s of f32-accurate work (0.148 ms here; the CUDA
 // cores' 67 TFLOP/s f32 FMA rate would allow no less than 0.36 ms).  At Dh
 // 192 and 256 (the flagship's hidden 512 over 2 heads: H=2, the same bytes
-// and operations as H=8, Dh=64) the bf16 kernel streams 64-key tiles through
-// three or two stages and stores O from registers; the f32 kernel's four
+// and operations as H=8, Dh=64) the bf16 kernel (attention_tc_wide.cuh)
+// streams 64-key tiles with K and V in slots of their own, K freed by S and
+// V by P V, and stores O from registers; the f32 kernel's four
 // warps of each 16 rows split S's contraction, Q split once into registers,
 // K and V read raw through a three-stage ring and split by each warp as it
 // reads them (attention_tf32_wide.cuh).  From

@@ -25,12 +25,15 @@
 // tensor-core peak the bf16 kernels run on; 0.370 ms at the 165 TFLOP/s of
 // f32-accurate work the f32 kernels get from the TF32 tensor cores in three
 // products, where the CUDA cores' 67 TFLOP/s f32 FMA rate would give 0.91
-// ms).  Shared memory: bf16 82 / 164 / 196.9 / 196.9 KB a CTA (Dh 64 / 128 /
-// 192 / 256), f32 226.5 (dQ) and 210.5 (dK/dV) / 209.75 (attention_tf32.cuh)
-// / 225.1 / 224.75 KB (attention_tf32_wide.cuh).  From Dh 192 the bf16 dK/dV
-// kernel's two consumer warpgroups share 64 keys, one accumulating dV and one
-// dK (both accumulators of a 64-key tile would take Dh registers a thread);
-// the f32 kernels' four warps of each 16 rows split S's and dPd's
+// ms).  Shared memory: bf16 82 / 164 KB a CTA (Dh 64 / 128), at Dh 192 / 256
+// (attention_tc_wide.cuh) dQ 217.8 / 225.6 KB and dK/dV 211.3 / 226.5 KB; f32
+// 226.5 (dQ) and 210.5 (dK/dV) / 209.75 (attention_tf32.cuh) / 225.1 /
+// 224.75 KB (attention_tf32_wide.cuh).  From Dh 192 the bf16 dQ kernel's two
+// consumer warpgroups of 64 rows share the streamed tiles, K and V in
+// slots of their own; the dK/dV kernel's two share 64 keys, one computing
+// S^T and handing P^T over and accumulating dV, the other dK (both
+// accumulators of a 64-key tile would take Dh registers a thread); the f32
+// kernels' four warps of each 16 rows split S's and dPd's
 // contraction, exchange the two partials together once a 32-row tile, and
 // read the streamed tiles raw, each warp splitting what it reads.
 // From Dh 320 a cluster of ceil(Dh / 128) CTAs takes each 64-row tile, each

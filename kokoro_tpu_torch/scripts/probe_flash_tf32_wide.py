@@ -164,18 +164,21 @@ def kernel_split_ms(fn, calls: int = 10) -> dict:
             for ev in prof.key_averages() if ev.device_type.name == "CUDA"}
 
 
-def build(variant: str, parent: str | None = None, libraries=LIBRARIES) -> dict:
+def build(variant: str, parent: str | None = None, libraries=LIBRARIES, flags=None,
+          tag: str = "tf32probe") -> dict:
     """``{library: path}`` of ``libraries`` built with the variant's flags
-    beside the port's own builds (``parent``: from that checkout's
+    (``flags``, else ``VARIANTS[variant]``) beside the port's own builds,
+    named after ``tag`` and the variant (``parent``: from that checkout's
     sources)."""
     from kokoro_tpu_torch.ops import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     csrc = Path(parent) / "kokoro_tpu_torch" / "csrc" if parent else kernels.CSRC_DIR
+    flags = VARIANTS[variant] if flags is None else flags
     paths, procs = {}, []
     for name in libraries:
-        out = kernels.library_path(name).with_name(f"lib{name}-tf32probe-{variant}.so")
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *VARIANTS[variant], "-o", str(out),
+        out = kernels.library_path(name).with_name(f"lib{name}-{tag}-{variant}.so")
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flags, "-o", str(out),
                str(csrc / kernels.SOURCES[name])]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True)))
@@ -310,8 +313,12 @@ def time_variant(variant: str, parent: str | None = None, rounds: int = 1) -> di
     return out
 
 
-def _run_variant(variant: str, parent: str | None, rounds: int = 1, digests: bool = False) -> dict:
-    cmd = [sys.executable, "-m", __spec__.name, "--time-variant", variant, "--rounds", str(rounds)]
+def run_variant(module: str, variant: str, parent: str | None, rounds: int = 1,
+                digests: bool = False) -> dict:
+    """``python -m module --time-variant variant ...`` in a process of its
+    own (two builds of one library do not share a process): its last line,
+    a JSON object."""
+    cmd = [sys.executable, "-m", module, "--time-variant", variant, "--rounds", str(rounds)]
     if digests:
         cmd.append("--digests")
     if parent is not None:
@@ -320,6 +327,10 @@ def _run_variant(variant: str, parent: str | None, rounds: int = 1, digests: boo
     if proc.returncode:
         raise RuntimeError(f"variant {variant} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _run_variant(variant: str, parent: str | None, rounds: int = 1, digests: bool = False) -> dict:
+    return run_variant(__spec__.name, variant, parent, rounds, digests)
 
 
 def parts(parent: str | None = None) -> dict:

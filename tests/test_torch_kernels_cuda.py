@@ -9,6 +9,11 @@ Tolerances: forward f32 2e-5 and bf16 2e-2, gradients f32 1e-4 and bf16
 with TF32 off.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -250,6 +255,63 @@ def test_f32_flash_one_key_rows_at_head_dims_192_and_256(cuda, Dh, causal):
     for name, a, b in zip("kv", ref[1:], (dk, dv)):
         torch.testing.assert_close(b[:, :, rows], a[:, :, rows], rtol=GRAD_TOL[F32],
                                    atol=GRAD_TOL[F32], msg=f"d{name} at the one-key rows' keys")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Dh", [192, 256])
+def test_bf16_flash_rows_with_zero_or_one_key_at_head_dims_192_and_256(cuda, Dh, causal):
+    """bf16 K4 at Dh 192 and 256 (csrc/attention_tc_wide.cuh) with segment
+    ids that leave rows seeing one key (a segment shared with that key
+    alone, at and beside the 64- and 128-row tile edges) and rows seeing none
+    (a segment no key has): O and every gradient against the plain version;
+    a row with no key has O = 0, lse = +inf and dQ = 0; two calls bit for bit
+    equal."""
+    B, H, T = 2, 2, 1433
+    g = torch.Generator().manual_seed(3 * Dh + causal)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, BF16) for _ in range(4))
+    one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    for i, r in enumerate(one):
+        q_seg[:, r] = 2 + i
+    kv_seg = q_seg.clone()  # key r alone shares row r's segment
+    for r in none:
+        q_seg[:, r] = 100 + r  # no key's segment
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    runs = []
+    for _ in range(2):
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        runs.append((o, lse, *flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    o, lse, dq, dk, dv = runs[0]
+    assert torch.equal(o[:, :, none], torch.zeros_like(o[:, :, none]))
+    assert torch.isinf(lse[:, :, none]).all() and torch.isfinite(lse[:, :, one]).all()
+    assert torch.equal(dq[:, :, none], torch.zeros_like(dq[:, :, none]))
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[BF16], atol=TOL[BF16])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, (dq, dk, dv)):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
+def test_kernel_outputs_bit_for_bit_the_parents(cuda):
+    """With ``KOKORO_PARENT_TREE`` naming a checkout of an earlier tree:
+    ``probe_flash_tf32_wide --digests`` builds both trees' kernels and hashes
+    every kernel's outputs (packed, folded, flash at Dh 64-1024, bf16 and
+    f32); every case but bf16 K4 at Dh 192 and 256 is the earlier tree's bit
+    for bit."""
+    parent = os.environ.get("KOKORO_PARENT_TREE")
+    if not parent:
+        pytest.skip("set KOKORO_PARENT_TREE to a checkout of the tree to compare with")
+    proc = subprocess.run([sys.executable, "-m", "kokoro_tpu_torch.scripts.probe_flash_tf32_wide",
+                           "--digests", "--parent", parent], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    may_differ = {f"flash/bfloat16/Dh={Dh}/causal={c}" for Dh in (192, 256) for c in (True, False)}
+    assert result["cases"] == len(result["equal"]) + len(result["differ"])
+    assert set(result["differ"]) <= may_differ, result["differ"]
 
 
 @pytest.mark.parametrize("masks", ["suffix", "interior"])
