@@ -19,8 +19,11 @@ Phases, each printing one JSON line:
    failure unless all 12 were built; the registers of the 6 K4 cluster
    kernels past Dh 256 (the same six, each CTA of a cluster of
    ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
-   and a failure unless all 6 were built; and the host-side C++ duration
-   aligner (``csrc/aligner.cpp``, ``g++``).
+   and a failure unless all 6 were built; how many clusters of 3 to 16 CTAs
+   of each of the six the card holds at once at its shared memory
+   (``cluster_occupancy``, ``cudaOccupancyMaxActiveClusters``; past 8 a
+   non-portable size), and a failure where it holds none; and the
+   host-side C++ duration aligner (``csrc/aligner.cpp``, ``g++``).
 2. kernels: the packed forward kernels (K1 causal, K2 kv-length) against their
    plain PyTorch version (TF32 off), f32 at 2e-5 and bf16 at 2e-2 abs/rel, the
    reference's own forward tolerances; each f32 forward (K1 and K2 at rates 0
@@ -47,16 +50,19 @@ Phases, each printing one JSON line:
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
    against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920,
    Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433/1920 and Dh
-   640/768/896 (clusters of 5, 6 and 7 CTAs) x T 1433
+   640/768/896 (clusters of 5, 6 and 7 CTAs) and, at H=2, 1088/1152/1280/
+   1408/1536/1664/1792/1920/2048 (clusters of 9 to 16) x T 1433
    x causal and not x segment ids none/suffix/interior, f32 and bf16, each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
    bit equal, with each head dim's worst share of the allclose bound; then
    its times at the long path's shape B=12, T=1408 at H=8 Dh=64, H=2 Dh=256
    and H=1 Dh=512 (the flagship's hidden 512 over 2 heads and at one), H=4
-   Dh=192 and H=2 Dh=384 (hidden 768), H=1 Dh=1024 (the largest cluster,
-   8 CTAs), each with its bound, plain version
+   Dh=192 and H=2 Dh=384 (hidden 768), H=1 Dh=1024 (the largest portable
+   cluster, 8 CTAs), H=1 Dh=1152, 1536 and 2048 (clusters of 9, 12 and 16),
+   each with its bound, plain version
    and SDPA in both dtypes (past Dh 256 SDPA's first fused backend that takes
-   the call, pinned, and named), each kernel's device ms of a call
+   the call, pinned, and named; past 1024 its memory-efficient backend
+   pinned, or the words of its refusal), each kernel's device ms of a call
    (``kernel_split_ms``; the f32 rows at Dh 192 and 256 also on a line of
    their own, the backward's dQ against its dK/dV kernel).  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
@@ -101,7 +107,9 @@ Phases, each printing one JSON line:
    K4 forward and backward once per decoder layer a step and no other
    wrapper (the cross-attention at Dh 256 stays on einsum, as in the
    reference).  (e) The same at ``n_heads=1`` (head dim 512, K4's cluster
-   kernels), without the 8-head step, 3 timed bf16 steps.
+   kernels), without the 8-head step, 3 timed bf16 steps.  (f) The same
+   with the model widened to hidden 1536 at one head (head dim 1536, K4
+   over clusters of 12 CTAs), B=12, with the step's peak memory.
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -271,8 +279,11 @@ and K4's ``head_dims_192_256``, its times at Dh 256 and 192 in both dtypes
 kernels apart, as phase kernels_flash's lines ``kernel_split_bf16_dh192_256``
 and ``kernel_split_f32_dh192_256`` print them) and its launches per long
 step at ``n_heads=2``, and ``head_dims_320_1024``,
-its cluster kernels' times at Dh 512 and 384 in both dtypes (with SDPA's
-backend there) and its launches per long step at ``n_heads=1``), the
+its cluster kernels' times at Dh 384, 512 and 1024 in both dtypes (with SDPA's
+backend there) and its launches per long step at ``n_heads=1``, and
+``head_dims_1088_2048``, its times at Dh 1152, 1536 and 2048 (SDPA's
+memory-efficient time or its refusal) and its launches per long step at
+hidden 1536 and one head), the
 ``nvidia-smi`` line
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
@@ -573,13 +584,17 @@ def phase_device():
                              if is_cluster_kernel(fn)})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    occupancy = cluster_occupancy()
     emit({"phase": "device", "nvidia_smi": smi, "build_s": build_s,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
           "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
           "cluster_registers": cluster_regs,
-          "cluster_ctas": {Dh: -(-Dh // 128) for Dh in range(320, 1025, 64)},
+          "cluster_ctas": {Dh: fl.cluster_ctas(Dh) for Dh in fl.SUPPORTED_HEAD_DIMS if Dh > 256},
+          "cluster_occupancy": occupancy,
           "tf32_matmul": False, "tf32_cudnn": False})
     # each head dim: the bf16 and f32 forward, dQ and dK/dV kernels
     if len(wide_regs) != 12:
@@ -595,7 +610,28 @@ def phase_device():
         raise AssertionError(f"the tensor-core kernels spill registers: {tensor_core}")
     if any(serialized.values()):  # every wgmma is a tensor-core kernel's
         raise AssertionError(f"ptxas serialises wgmma: {serialized}")
+    refused = {kern: [c for c, n in fits.items() if n < 1] for kern, fits in occupancy.items()}
+    if any(refused.values()):
+        raise AssertionError(f"the card holds no cluster of these sizes: {refused}")
     return smi
+
+
+def cluster_occupancy() -> dict:
+    """``{"<dtype>/<kernel>": {c: clusters}}``: how many clusters of c CTAs
+    (3 to 16, the head dims 320-2048) of each of the six K4 cluster kernels
+    (bf16 and f32 forward, dQ and dK/dV) the card holds at once at the
+    kernel's shared memory (``cudaOccupancyMaxActiveClusters``)."""
+    import torch
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for c in range(3, fl.MAX_CLUSTER_CTAS + 1):
+            for kern, n in fl.cluster_fits(dtype, c).items():
+                out.setdefault(f"{dname}/{kern}", {})[c] = n
+    return out
 
 
 # the mangled namespaces of the tensor-core kernels: the bf16 templates
@@ -1035,26 +1071,33 @@ def _flash_masks(kind, B, T, dev, gen):
 # K4's head dims: 64 and 128 (the packed kernels' too), 192 and 256 (K4's
 # own), and from 320 the cluster kernels (320, 448 and 896 ragged in their
 # last 128-column slice; 640, 768 and 896 clusters of 5, 6 and 7 CTAs, whose
-# exchanged tiles split unevenly; 1024 the largest cluster)
-FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024)
+# exchanged tiles split unevenly; 1024 the largest portable cluster), and
+# past 1024 one head dim of every cluster size from 9 to 16, larger than the
+# portable 8 (1088 ragged)
+FLASH_PAST_1024 = (1088, 1152, 1280, 1408, 1536, 1664, 1792, 1920, 2048)
+FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024, *FLASH_PAST_1024)
 # the lengths swept up to Dh 256, past it (fewer, to bound the phase), and
-# at the clusters of 5-7 CTAs (one)
+# at the clusters of 5-7 and of 9-16 CTAs (one)
 FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1536, 1920), "cluster": (1024, 1433, 1920),
-                 "cluster_5_7": (1433,)}
+                 "cluster_5_7_9_16": (1433,)}
 
 
 def flash_lengths(Dh: int) -> tuple:
     """The T that phase kernels_flash sweeps at head dim ``Dh``."""
     if Dh <= 256:
         return FLASH_LENGTHS["narrow"]
-    return FLASH_LENGTHS["cluster_5_7" if Dh in (640, 768, 896) else "cluster"]
+    one = Dh in (640, 768, 896) or Dh in FLASH_PAST_1024
+    return FLASH_LENGTHS["cluster_5_7_9_16" if one else "cluster"]
 
 
 # (H, Dh) of K4's timed rows at the long shape B=12, T=1408: the flagship's 8
 # heads of 64, and its hidden 512 over 2 heads (Dh 256) and one (Dh 512, phase
 # long's models), hidden 768 over 4 (Dh 192) and 2 (Dh 384), and Dh 1024 at
-# one head (the largest cluster, 8 CTAs)
-FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512), (1, 1024))
+# one head (the largest portable cluster, 8 CTAs); then past 1024 at one head,
+# Dh 1152, 1536 (hidden 1536, phase long's model at one head) and 2048
+# (clusters of 9, 12 and 16 CTAs)
+FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512), (1, 1024),
+               (1, 1152), (1, 1536), (1, 2048))
 
 
 def phase_kernels_flash():
@@ -1068,11 +1111,12 @@ def phase_kernels_flash():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4)
-    B, H = 2, 8
+    B = 2
     worst, worst_ratio, checks = {}, {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for Dh in FLASH_HEAD_DIMS:
+            H = 2 if Dh > 1024 else 8  # past 1024 fewer heads, to bound the phase
             for T in flash_lengths(Dh):
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
@@ -1124,8 +1168,9 @@ def phase_kernels_flash():
           "f32_independent_of_allow_tf32": True,
           "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920}, "
                     "Dh{320,384,448,512,1024} x T{1024,1433,1920} and Dh{640,768,896} x "
-                    "T{1433} x causal/non-causal x "
-                    "segment ids none/suffix/interior",
+                    "T{1433}; B=2 H=2 Dh{1088,1152,1280,1408,1536,1664,1792,1920,2048} x "
+                    "T{1433}; x causal/non-causal x segment ids none/suffix/interior",
+          "cluster_ctas_checked": sorted({fl.cluster_ctas(Dh) for Dh in FLASH_HEAD_DIMS if Dh > 256}),
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst,
           "worst_allclose_ratio": worst_ratio})
 
@@ -1157,7 +1202,9 @@ def flash_times(B, T, H, Dh, gen) -> dict:
     """K4 forward and backward, causal, at (B, H, T, Dh), both dtypes: each
     against its plain version, then its device time, its bound, its plain
     version's time and SDPA's (forward; forward and backward minus forward),
-    keyed ``(wrapper, dtype, H, Dh)``."""
+    keyed ``(wrapper, dtype, H, Dh)``.  Past Dh 1024 SDPA runs with its
+    memory-efficient backend pinned, and where that refuses the shape the row
+    holds its words (``library_refused``) and no library time."""
     import torch
     import torch.nn.functional as F
 
@@ -1180,8 +1227,14 @@ def flash_times(B, T, H, Dh, gen) -> dict:
                     for n, a, b in zip("qkv", grads, ref))
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         # past Dh 256 SDPA's flash backend refuses: the first fused backend
-        # that takes the call, pinned, else the math backend
-        backend = sdpa_backend(leaves, do) if Dh > 256 else None
+        # that takes the call, pinned, else the math backend; past 1024 the
+        # memory-efficient backend, pinned, or the words of its refusal
+        refused = None
+        if Dh > 1024:
+            backend = "EFFICIENT_ATTENTION"
+            refused = sdpa_refusal(leaves, do, backend)
+        else:
+            backend = sdpa_backend(leaves, do) if Dh > 256 else None
         # at Dh 192 and 256 SDPA runs unpinned: the backend it picks, named
         named = (backend if backend is not None else
                  sdpa_default_backend(*leaves, Dh ** -0.5) if Dh in (192, 256) else None)
@@ -1194,6 +1247,8 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             torch.autograd.grad(sdpa_fwd(), leaves, do)
 
         library = {} if named is None else {"library_backend": named}
+        if refused is not None:
+            library["library_refused"] = refused
         timings[("flash_attention_fwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
@@ -1202,7 +1257,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             ms_for_backward=graph_time_ms(
                 lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_reference(q, k, v, **kw), iters=3),
-            library_ms=graph_time_ms(sdpa_fwd), **library)
+            library_ms=None if refused else graph_time_ms(sdpa_fwd), **library)
         timings[("flash_attention_bwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True, backward=True),
             graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
@@ -1210,7 +1265,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             **profiled_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw), 2),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
                 q, k, v, o, do, **kw), iters=3),
-            library_ms=library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd), **library)
+            library_ms=None if refused else library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd), **library)
         del q, k, v, do, o, lse, grads, ref, leaves
         torch.cuda.empty_cache()
     return timings
@@ -1226,6 +1281,28 @@ def sdpa_pinned(backend):
 
     return contextlib.nullcontext() if backend is None else sdpa_kernel(
         getattr(SDPBackend, backend))
+
+
+def sdpa_refusal(leaves, do, backend):
+    """None where SDPA's causal forward and backward run on ``leaves`` with
+    ``backend`` pinned; else the words of its refusal: the error and the
+    warnings that give its reasons."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            with sdpa_pinned(backend):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            return None
+        except RuntimeError as exc:
+            error = str(exc)
+    return {"error": error, "warnings": sorted({str(w.message) for w in caught})}
 
 
 def sdpa_backend(leaves, do) -> str:
@@ -2022,29 +2099,37 @@ def phase_long():
     del state, step, batch
     torch.cuda.empty_cache()
 
-    # (d) K4 at head dim 256, (e) at head dim 512 (the cluster kernels)
+    # (d) K4 at head dim 256, (e) at head dim 512 (the cluster kernels), (f)
+    # at head dim 1536 (a cluster of 12 CTAs, larger than the portable 8)
     dh256, dh256_counts = long_head_dim(n_layers, LONG_DH256, timed_steps=5)
     emit({"phase": "long_dh256", **dh256})
     dh512, dh512_counts = long_head_dim(n_layers, LONG_DH512, timed_steps=3)
     emit({"phase": "long_dh512", **dh512})
-    return per_step[-1], dh256_counts, dh512_counts
+    dh1536, dh1536_counts = long_head_dim(n_layers, LONG_DH1536, timed_steps=3)
+    emit({"phase": "long_dh1536", **dh1536})
+    return per_step[-1], dh256_counts, dh512_counts, dh1536_counts
 
 
 # phase long at head dims 256 and 512: the flagship's hidden 512 over 2 heads
 # and at one head (its parameter count), where K4 takes the decoder
 # self-attention and the packed kernels' gate (Dh 64 and 128) leaves the
-# cross-attention on einsum; at Dh 512 K4 runs its cluster kernels
+# cross-attention on einsum; at Dh 512 K4 runs its cluster kernels; and the
+# model widened to hidden 1536 at one head (Dh 1536: K4 over clusters of 12
+# CTAs), as the JAX package's config takes it
 LONG_DH256 = dict(n_heads=2)
 LONG_DH512 = dict(n_heads=1)
+LONG_DH1536 = dict(hidden_dim=1536, n_heads=1)
 
 
-def bf16_step_gap(dev, n_heads: int, f32_loss: bool = False) -> dict:
+def bf16_step_gap(dev, overrides: dict, f32_loss: bool = False) -> dict:
     """One bf16 forward and backward of the long regime (B=12, L=256,
-    T=1408; every dropout rate 0, SpecAugment off) from one init, kernel
-    path against plain path: the loss's relative gap, the gradient's over
-    all tensors and its worst tensor's, and each wrapper's launches on the
-    kernel path.  With ``f32_loss``, also the plain path's loss in f32 from
-    the same init and each bf16 path's relative distance to it."""
+    T=1408; every dropout rate 0, SpecAugment off) at the model fields
+    ``overrides`` (``n_heads``, and ``hidden_dim`` where it is not 512) from
+    one init, kernel path against plain path: the loss's relative gap, the
+    gradient's over all tensors and its worst tensor's, and each wrapper's
+    launches on the kernel path.  With ``f32_loss``, also the plain path's
+    loss in f32 from the same init and each bf16 path's relative distance to
+    it."""
     import torch
 
     from kokoro_tpu_torch.cli.profile_paths import LONG_REGIME, LONG_SHAPE, training_batch
@@ -2061,7 +2146,7 @@ def bf16_step_gap(dev, n_heads: int, f32_loss: bool = False) -> dict:
         paths.append(("plain_f32", False, "float32"))
     for name, flash, dtype in paths:
         model_cfg, train_cfg = get_default_config(**{
-            **LONG_REGIME, **NO_DROPOUT, "n_heads": n_heads, "use_flash_attention": flash})
+            **LONG_REGIME, **NO_DROPOUT, **overrides, "use_flash_attention": flash})
         model = KokoroModel(model_cfg)
         if init is None:
             init = model.init_weights(torch.Generator().manual_seed(0)).state_dict()
@@ -2087,8 +2172,10 @@ def bf16_step_gap(dev, n_heads: int, f32_loss: bool = False) -> dict:
     (loss_k, grads_k), (loss_p, grads_p) = readings["kernel"], readings["plain"]
     leaf, leaf_name, all_rel = relative_gap(grads_p, grads_k)
     if not (math.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k.values())):
-        raise AssertionError(f"bf16 long step at n_heads={n_heads}: not finite")
-    out = {"n_heads": n_heads, "head_dim": 512 // n_heads, "compute_dtype": train_cfg.compute_dtype,
+        raise AssertionError(f"bf16 long step at {overrides}: not finite")
+    out = {"hidden_dim": model_cfg.hidden_dim, "n_heads": model_cfg.n_heads,
+           "head_dim": model_cfg.hidden_dim // model_cfg.n_heads,
+           "compute_dtype": train_cfg.compute_dtype,
            "loss_kernel": loss_k,
            "loss_plain": loss_p, "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
            "grad_all_rel": all_rel, "grad_leaf_rel": leaf, "worst_grad": leaf_name,
@@ -2103,7 +2190,8 @@ def bf16_step_gap(dev, n_heads: int, f32_loss: bool = False) -> dict:
 
 def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
     """The long regime at ``overrides`` (``LONG_DH256``: Dh 256;
-    ``LONG_DH512``: Dh 512).  (a) f32: ``train_parity`` (kernel path against
+    ``LONG_DH512``: Dh 512; ``LONG_DH1536``: hidden 1536 at one head, Dh
+    1536).  (a) f32: ``train_parity`` (kernel path against
     plain path, 3 steps, the planted dK control on K4), K4 forward and
     backward once per decoder layer in the kernel path's step and no other
     wrapper.  (b) bf16: one step from one init, kernel path against plain
@@ -2117,8 +2205,8 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
     from kokoro_tpu_torch.ops import flash_attention as fl
 
     dev = torch.device("cuda")
-    n_heads = overrides["n_heads"]
-    Dh = 512 // n_heads
+    n_heads, hidden = overrides["n_heads"], overrides.get("hidden_dim", 512)
+    Dh = hidden // n_heads
     flash = {kern.name for kern in fl.KERNELS}
     want = lambda counts: {name: (n_layers if name in flash else 0) for name in counts}
     f32 = train_parity(4, LONG_SHAPE["L"], LONG_SHAPE["T"], fl, "flash_attention_bwd",
@@ -2127,9 +2215,9 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
         raise AssertionError(f"f32 long step at Dh {Dh} launches {f32['launches_per_step']}")
     key = f"Dh={Dh}"
     one_head = n_heads == 1
-    bf16 = {key: bf16_step_gap(dev, n_heads, f32_loss=one_head)}
+    bf16 = {key: bf16_step_gap(dev, overrides, f32_loss=one_head)}
     if Dh == 256:
-        bf16["Dh=64"] = bf16_step_gap(dev, 8)
+        bf16["Dh=64"] = bf16_step_gap(dev, dict(n_heads=8))
     if bf16[key]["launches"] != want(bf16[key]["launches"]):
         raise AssertionError(f"bf16 long step at Dh {Dh} launches {bf16[key]['launches']}")
     gap = bf16[key]
@@ -2152,6 +2240,7 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
     for _ in range(2):
         step(state, batch, gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     metrics, per_step = [], []
     t0 = time.perf_counter()
     for _ in range(timed_steps):
@@ -2165,11 +2254,14 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
             raise AssertionError(f"long step at Dh {Dh} not finite or skipped: {m}")
         if counts != want(counts):
             raise AssertionError(f"long step at Dh {Dh} launches {counts}, expected {want(counts)}")
+    peak = torch.cuda.max_memory_allocated()
     del state, step, batch
     torch.cuda.empty_cache()
-    return {"model": f"hidden 512, 6+6 layers, ff 1536, n_heads {n_heads} (head_dim {Dh})",
+    return {"model": f"hidden {hidden}, {n_layers}+{n_layers} layers, ff 1536, "
+                     f"n_heads {n_heads} (head_dim {Dh})", **LONG_SHAPE,
             "f32_parity": f32, "bf16_step": bf16, "bf16_limits": BF16_STEP_LIMIT,
-            "bf16_step_ms": ms, "timed_steps": timed_steps, "launches_per_step": per_step[-1],
+            "bf16_step_ms": ms, "timed_steps": timed_steps, "peak_memory_gb": peak / 1e9,
+            "launches_per_step": per_step[-1],
             "losses": [m["total"] for m in metrics]}, per_step[-1]
 
 
@@ -4282,9 +4374,9 @@ def run_phases(phases, work: Path) -> int:
             if c:
                 counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
     long_step = "per bf16 long training step (B=12 L=256 T=1408)"
-    dh256_counts, dh512_counts = {}, {}
+    dh256_counts, dh512_counts, dh1536_counts = {}, {}, {}
     if "long" in phases:  # launches in one bf16 long training step
-        long_path, dh256_counts, dh512_counts = timed("long", phase_long)
+        long_path, dh256_counts, dh512_counts, dh1536_counts = timed("long", phase_long)
         for name, c in long_path.items():
             if name.startswith("flash"):
                 counts[name] = (c, long_step)
@@ -4350,8 +4442,10 @@ def run_phases(phases, work: Path) -> int:
         if kern.name.startswith("flash"):  # K4 at head dims 192 and 256, and past 256
             for key, timed_dims, path_counts, path in (
                     ("head_dims_192_256", FLASH_TIMED[1:3], dh256_counts, "n_heads=2, head_dim 256"),
-                    ("head_dims_320_1024", FLASH_TIMED[3:], dh512_counts,
-                     "n_heads=1, head_dim 512: the cluster kernels")):
+                    ("head_dims_320_1024", FLASH_TIMED[3:6], dh512_counts,
+                     "n_heads=1, head_dim 512: the cluster kernels"),
+                    ("head_dims_1088_2048", FLASH_TIMED[6:], dh1536_counts,
+                     "hidden_dim=1536, n_heads=1, head_dim 1536: clusters of 12 CTAs")):
                 row[key] = {
                     "launches": path_counts[kern.name],
                     "launches_are": f"per bf16 long training step at {path} (B=12 L=256 T=1408)",
@@ -4360,7 +4454,7 @@ def run_phases(phases, work: Path) -> int:
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                             "max_abs_err", "tflops", "bound_share", "kernel_split_ms")},
                         **{k: v for k, v in timings[(kern.name, dname, f"Dh={Dh}")].items()
-                           if k == "library_backend"},
+                           if k in ("library_backend", "library_refused")},
                         "shape": f"B=12 T=1408 H={H} Dh={Dh} causal"}
                        for H, Dh in timed_dims for dname in ("bfloat16", "float32")}}
         if kern.name in mfa_counts:  # the slice's own path: the trainer on MFA durations

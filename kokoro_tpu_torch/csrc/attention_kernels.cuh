@@ -1,7 +1,8 @@
 // The attention kernels of the port, templated on a mask policy: the f32
-// forward and backward in attention_tf32.cuh, the bf16 forward and backward
-// in attention_tc.cuh, and here their contract and the dispatch between
-// them.  The entry points (packed_attention.cu,
+// forward and backward in attention_tf32.cuh (K4 at Dh 192 and 256 in
+// attention_tf32_wide.cuh), the bf16 forward and backward in attention_tc.cuh
+// (K4 at Dh 192 and 256 in attention_tc_wide.cuh), and here their contract
+// and the dispatch between them.  The entry points (packed_attention.cu,
 // packed_attention_bwd.cu, flash_attention.cu, flash_attention_bwd.cu) are
 // thin launches of these templates.
 //
@@ -19,8 +20,8 @@
 //     visible key writes O = 0 and lse = +inf, so its P, and every gradient
 //     through it, is 0.
 // Both: f32 or bf16, Dh in {64, 128} (flash also {192, 256}, and every
-// multiple of 64 from 320 to 1024: a cluster of ceil(Dh / 128) CTAs splits
-// the head dim by columns, attention_tc.cuh), any lengths >= 1 (the ragged
+// multiple of 64 from 320 to 2048: a cluster of ceil(Dh / 128) CTAs, 3 to
+// 16, splits the head dim by columns, attention_tc.cuh), any lengths >= 1 (the ragged
 // edge is masked by bounds: rows and columns past the end are zero-filled
 // on load, excluded from the softmax and never stored).
 //
@@ -101,14 +102,17 @@
 namespace kokoro_attn {
 
 // whether the flash policy's kernels take head dim Dh past 256: a multiple
-// of 64 up to 1024, the head dim split over a cluster of ceil(Dh / 128) CTAs
+// of 64 up to 2048, the head dim split over a cluster of ceil(Dh / 128) CTAs
+// (3 to 16; past 8 a non-portable cluster size)
 inline bool cluster_head_dim(int Dh) {
   return Dh > 256 && Dh <= tc::kMaxClusterDh && Dh % 64 == 0;
 }
 
-// dtype: 0 = float32 (the 3xTF32 forward of attention_tf32.cuh), 1 =
-// bfloat16 (the tensor-core forward of attention_tc.cuh); Dh 64 or 128, and
-// for the flash policy (no dropout) also 192, 256 and cluster_head_dim's.
+// dtype: 0 = float32 (the 3xTF32 forward of attention_tf32.cuh; at Dh 192
+// and 256 attention_tf32_wide.cuh's), 1 = bfloat16 (the tensor-core forward
+// of attention_tc.cuh; at Dh 192 and 256 attention_tc_wide.cuh's); Dh 64 or
+// 128, and for the flash policy (no dropout) also 192, 256 and
+// cluster_head_dim's.
 // `res`: NULL, or (bf16 only) where the forward writes O's rounding residual
 // for the backward
 template <bool FLASH, bool DROPOUT>
@@ -137,9 +141,11 @@ cudaError_t dispatch_fwd(int dtype, int Dh, const void* q, const void* k, const 
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32 (the 3xTF32 kernels of attention_tf32.cuh), 1 =
-// bfloat16 (attention_tc.cuh); Dh 64 or 128, and for the flash policy (no
-// dropout) also 192, 256 and cluster_head_dim's.  `delta`: the (B, H, Tq) f32 workspace that
+// dtype: 0 = float32 (the 3xTF32 kernels of attention_tf32.cuh; at Dh 192
+// and 256 attention_tf32_wide.cuh's), 1 = bfloat16 (attention_tc.cuh; at
+// Dh 192 and 256 attention_tc_wide.cuh's); Dh 64 or 128, and for the flash
+// policy (no dropout) also 192, 256 and cluster_head_dim's.  `delta`: the
+// (B, H, Tq) f32 workspace that
 // carries each row's delta from the dQ kernel to the dK/dV kernel (both
 // dtypes).  `res`: the packed bf16 forward's residual of O (NULL otherwise)
 template <bool FLASH, bool DROPOUT>

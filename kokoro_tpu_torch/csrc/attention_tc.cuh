@@ -2,7 +2,7 @@
 // dQ and dK/dV templates of attention_kernels.cuh redesigned around wgmma and
 // TMA, with the same two mask policies (packed K1/K2/K3, flash K4), dropout
 // on or off, Dh 64 or 128 (the flash policy without dropout also from 320
-// to 1024, as a cluster of Dh 128 CTAs: "clusters" below; at 192 and 256 it
+// to 2048, as a cluster of Dh 128 CTAs: "clusters" below; at 192 and 256 it
 // has kernels of its own, attention_tc_wide.cuh, built from these pieces),
 // and the same numerics contract (see attention_kernels.cuh): S and dPd in
 // f32; the unnormalised exp, Pd and dS * scale rounded to bf16 exactly where
@@ -349,32 +349,68 @@ __device__ __forceinline__ void st_cell(float* p, const float* x) {
   }
 }
 
+// the cluster of a K4 call past Dh 256: c = ceil(Dh / 128) CTAs of 128
+// columns each, at most 16 (Hopper's largest cluster, which a kernel takes
+// once it allows a non-portable size; 8 is the portable one), so Dh up to
+// 2048
+constexpr int kSliceCols = 128;
+constexpr int kMaxClusterCtas = 16;
+constexpr int kMaxClusterDh = kMaxClusterCtas * kSliceCols;
+__host__ __device__ constexpr int slice_ctas(int dh) { return (dh + kSliceCols - 1) / kSliceCols; }
+
+// the reduce-scatter slots of an exchange in a cluster of c CTAs: the most
+// cells an owner receives, (c - 1) ceil(256 / c).  The portable sizes (c <=
+// 8) share one layout, the most any of them needs (224, at c = 8); a larger
+// cluster takes its own (232-252).
+__host__ __device__ constexpr int rs_cells(int c) {
+  return c <= 8 ? 224 : (c - 1) * ((256 + c - 1) / c);
+}
+// every size's exchanges fit its slots (of 256 cells, and of 128 cells of
+// one float at M = 4)
+__host__ __device__ constexpr bool rs_cells_fit() {
+  for (int c = 2; c <= kMaxClusterCtas; ++c)
+    if ((c - 1) * ((256 + c - 1) / c) > rs_cells(c) || (c - 1) * ((128 + c - 1) / c) > rs_cells(c))
+      return false;
+  return true;
+}
+static_assert(rs_cells_fit(), "an owner's slots hold every sender's cells");
+
 // An exchanged tile is a warp's M floats a lane (M <= N), cut into cells of
 // U = M / 8 floats (1 below M = 8): cell 32 u + l is floats [U u, U u + U)
 // of lane l, 256 cells (128 at M = 4).  CTA r of c owns cells
 // [ceil(256 r / c), ceil(256 (r + 1) / c)), the owner of cell x is
 // floor(x c / 256), and its reduce-scatter slots hold each other CTA's
-// partial of its cells, ceil(256 / c) cells a sender (at most 7 x 32 = 224
-// cells, at c = 8); its all-gather slots hold every cell at its index (256).
-// A warp's area (of each channel, ClusterSum's K): those 224 + 256 cells of
-// N / 8 floats, 240 N bytes.
+// partial of its cells, ceil(256 / c) cells a sender (rs_cells(c) slots:
+// 224 up to c = 8, at most 252, at c = 15); its all-gather slots hold every
+// cell at its index (256).  A warp's area (of each channel, ClusterSum's K):
+// those rs_cells(c) + 256 cells of N / 8 floats (240 N bytes up to c = 8),
+// rounded up to 16 bytes.
 template <int N>
-__host__ __device__ constexpr size_t xch_warp_bytes() {
+__host__ __device__ constexpr size_t xch_warp_bytes(int c) {
   static_assert(N % 8 == 0, "cells of N / 8 floats");
-  return (size_t)(224 + 256) * (N / 8) * sizeof(float);
+  return ((size_t)(rs_cells(c) + 256) * (N / 8) * sizeof(float) + 15) / 16 * 16;
 }
-// bytes of a CTA's exchange area: `areas` warp areas (warps x channels),
-// then two mbarriers an area (reduce-scatter, all-gather)
+// bytes of a CTA's exchange area in a cluster of c: `areas` warp areas
+// (warps x channels), then two mbarriers an area (reduce-scatter,
+// all-gather)
 template <int N>
-__host__ __device__ constexpr size_t xch_bytes(int areas) {
-  return (size_t)areas * (xch_warp_bytes<N>() + 2 * sizeof(uint64_t));
+__host__ __device__ constexpr size_t xch_bytes(int areas, int c) {
+  return (size_t)areas * (xch_warp_bytes<N>(c) + 2 * sizeof(uint64_t));
+}
+// the most of any cluster size (the kernels' shared memory limit)
+template <int N>
+__host__ __device__ constexpr size_t max_xch_bytes(int areas) {
+  size_t most = 0;
+  for (int c = 2; c <= kMaxClusterCtas; ++c)
+    most = xch_bytes<N>(areas, c) > most ? xch_bytes<N>(areas, c) : most;
+  return most;
 }
 
 // thread 0: the exchange area's mbarriers, each completed by its warp's
 // lane 0 arriving with the bytes it expects and the peers' stores landing
 template <int N>
-__device__ __forceinline__ void xch_init(uint8_t* area, int areas) {
-  uint64_t* bars = reinterpret_cast<uint64_t*>(area + (size_t)areas * xch_warp_bytes<N>());
+__device__ __forceinline__ void xch_init(uint8_t* area, int areas, int c) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(area + (size_t)areas * xch_warp_bytes<N>(c));
   for (int i = 0; i < 2 * areas; ++i) mbar_init(bars + i, 1);
   mbar_fence_init();
 }
@@ -394,7 +430,7 @@ __device__ __forceinline__ void xch_init(uint8_t* area, int areas) {
 // CTA holds the owner's bits of every cell, which are the rank-order sum.
 //
 // Reuse without a credit: every CTA owns at least one cell of every
-// exchange (c <= 8 <= 128 cells), so a sender's push into a peer's slots for
+// exchange (c <= 16 <= 128 cells), so a sender's push into a peer's slots for
 // exchange n + 1 comes after its all-gather wait of exchange n, which took
 // the peer's sums, which the peer sent after reading (and completing) its
 // slots of exchange n; and a peer's all-gather push of n + 1 comes after
@@ -413,20 +449,23 @@ __device__ __forceinline__ void xch_init(uint8_t* area, int areas) {
 template <int N, int K = 1>
 struct ClusterSum {
   static_assert(N % 8 == 0, "cells of N / 8 floats");
-  static constexpr int kAg = 224 * (N / 8);  // the all-gather slots, past the reduce-scatter's
-  static constexpr int kChannel = (int)(xch_warp_bytes<N>() / sizeof(float));
-  float* rs;        // channel 0's slots: 224 cells of reduce-scatter, 256 of all-gather
+  // channel 0's slots: rs_cells(size) cells of reduce-scatter, then 256 of
+  // all-gather, at kAg floats
+  float* rs;
   uint64_t* bars;   // channel 0's two mbarriers; channel k's at + 2 k
   int rank, size;
+  int kAg, kChannel;  // floats to the all-gather slots, and from a channel to the next
   uint32_t phases;  // bit k: channel k's exchanges so far, mod 2
 
   // `warps` warps of K channels each; this is warp `warp`'s
   __device__ __forceinline__ ClusterSum(uint8_t* area, int warps, int warp) : phases(0) {
-    rs = reinterpret_cast<float*>(area + (size_t)warp * K * xch_warp_bytes<N>());
-    bars = reinterpret_cast<uint64_t*>(area + (size_t)warps * K * xch_warp_bytes<N>()) +
-           2 * K * warp;
     rank = cluster_rank();
     size = cluster_size();
+    const size_t warp_bytes = xch_warp_bytes<N>(size);
+    rs = reinterpret_cast<float*>(area + (size_t)warp * K * warp_bytes);
+    bars = reinterpret_cast<uint64_t*>(area + (size_t)warps * K * warp_bytes) + 2 * K * warp;
+    kAg = rs_cells(size) * (N / 8);
+    kChannel = (int)(warp_bytes / sizeof(float));
   }
 
   // an exchange of M floats a lane: cells of U floats, NU a lane; this
@@ -436,7 +475,10 @@ struct ClusterSum {
     static_assert(M <= N && (M == 4 || M % 8 == 0) && M <= 32, "cells of 1, 2 or 4 floats");
     static constexpr int U = M >= 8 ? M / 8 : 1, NU = M / U, CELLS = 32 * NU;
     static constexpr int SHIFT = NU == 8 ? 8 : 7;
-    uint32_t recip;  // ceil(2^16 / size): ceil(x / size) = ((x + size - 1) recip) >> 16, x < 2^11
+    // ceil(2^16 / size): ceil(x / size) = ((x + size - 1) recip) >> 16, exact
+    // while x + size - 1 < 2^16 / size (size 16 divides 2^16), so for every
+    // x <= 256 x 16 at size <= 16
+    uint32_t recip;
     int size, lo, hi, ch;
     __device__ __forceinline__ Cut(int rank, int size_) : size(size_) {
       recip = (65536u + (uint32_t)size - 1u) / (uint32_t)size;
@@ -533,12 +575,6 @@ struct ClusterSum {
     gather<0>(v, lane);
   }
 };
-
-// the cluster of a K4 call past Dh 256: c = ceil(Dh / 128) CTAs of 128
-// columns each, at most 8 (the portable cluster size)
-constexpr int kSliceCols = 128;
-constexpr int kMaxClusterDh = 8 * kSliceCols;
-__host__ __device__ constexpr int slice_ctas(int dh) { return (dh + kSliceCols - 1) / kSliceCols; }
 
 // -- wgmma ------------------------------------------------------------------
 
@@ -1168,7 +1204,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   uint8_t* Ks = Rs + STAGED;          // STAGES stages
   uint8_t* Vs = Ks + STAGES * KVT;
   uint8_t* xch = Vs + STAGES * KVT;   // CL: the consumers' warps' exchange area
-  const Ring ring = carve_ring(xch + (CL ? xch_bytes<BN / 2>(4 * C) : 0));
+  const Ring ring = carve_ring(xch + (CL ? xch_bytes<BN / 2>(4 * C, cluster_size()) : 0));
 
   const int n_q = (a.Tq + C * kBQ - 1) / (C * kBQ), heads = B * a.H, items = n_q * heads;
   const bool seg = FLASH && a.q_seg != nullptr;
@@ -1177,7 +1213,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int col0 = CL ? kSliceCols * cluster_rank() : 0;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<BN / 2>(xch, 4 * C);
+    if constexpr (CL) xch_init<BN / 2>(xch, 4 * C, cluster_size());
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -1412,8 +1448,8 @@ __device__ __forceinline__ void pd_operand(const float (&p)[32], uint32_t keep,
 // warps' ClusterSum of 32 floats, two channels a warp: S and dPd)
 constexpr int kBwdChannels = 2;
 template <int DH, bool CL>
-__host__ __device__ constexpr size_t bwd_xch_bytes(int consumers) {
-  return CL ? xch_bytes<32>(kBwdChannels * 4 * consumers) : 0;
+__host__ __device__ constexpr size_t bwd_xch_bytes(int consumers, int c) {
+  return CL ? xch_bytes<32>(kBwdChannels * 4 * consumers, c) : 0;
 }
 
 // CL (K4 past Dh 256, DH = 128): a cluster launch, the CTA's 128 columns
@@ -1436,9 +1472,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   uint8_t* Ks = dOs + C * TILE;       // STAGES stages
   uint8_t* Vs = Ks + STAGES * TILE;
   uint8_t* xch = Vs + STAGES * TILE;  // CL: the consumers' warps' exchange area
-  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C));
-
   const int csize = CL ? cluster_size() : 1;
+  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C, csize));
+
   const int col0 = CL ? kSliceCols * cluster_rank() : 0;  // CL: the CTA's columns
   const int q0 = (int)(blockIdx.x / csize) * C * kBQ, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
@@ -1449,7 +1485,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const float inv_t = 1.f / (float)a.Tk;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C);
+    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C, csize);
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -1680,9 +1716,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   uint8_t* Qs = Vs + NK * TILE;       // STAGES stages
   uint8_t* dOs = Qs + STAGES * TILE;
   uint8_t* xch = dOs + STAGES * TILE;  // CL: the consumer's warps' exchange area
-  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C));
-
   const int csize = CL ? cluster_size() : 1;
+  const Ring ring = carve_ring(xch + bwd_xch_bytes<DH, CL>(C, csize));
+
   const int col0 = CL ? kSliceCols * cluster_rank() : 0;  // CL: the CTA's columns
   const int k0 = (int)(blockIdx.x / csize) * NK * kBK, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.H + h);
@@ -1697,7 +1733,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const float inv_t = 1.f / (float)a.Tk;
   if (threadIdx.x == 0) {
     ring_init(ring, C, STAGES);
-    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C);
+    if constexpr (CL) xch_init<32>(xch, kBwdChannels * 4 * C, csize);
   }
   __syncthreads();
   if constexpr (CL) cluster_sync();  // every CTA's barriers exist before a peer arrives
@@ -2018,23 +2054,71 @@ struct ClusterLaunch {
   }
 };
 
-// K4's forward at a head dim dh past 256 (a multiple of 64 up to 1024): the
+// Clusters of c CTAs of `kernel` (`threads` and `smem` bytes a CTA) the
+// card holds at once, into `fit` (0: none); the first call allows the
+// kernel `smem_max` bytes (its widest cluster's) and a cluster past the
+// portable 8 (cudaFuncAttributeNonPortableClusterSizeAllowed), and each
+// size's count is kept in `fits` (-1: none).
+template <typename Kernel>
+cudaError_t cluster_fit(Kernel kernel, int threads, size_t smem_max, size_t smem, int c,
+                        bool& configured, int (&fits)[kMaxClusterCtas + 1], int& fit) {
+  fit = 0;
+  if (c < 1 || c > kMaxClusterCtas) return cudaErrorInvalidValue;
+  if (!configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if (fits[c] == 0) {
+    ClusterLaunch probe(dim3(c), threads, smem, c, nullptr);
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &probe.cfg);
+    if (err != cudaSuccess) return err;
+    fits[c] = n > 0 ? n : -1;
+  }
+  fit = fits[c] > 0 ? fits[c] : 0;
+  return cudaSuccess;
+}
+
+// the shared memory of the forward's cluster kernel in a cluster of c
+// (c = 0: the most of any size): its query tiles and ring, then the
+// consumers' warps' exchange area
+template <int DH = kSliceCols>
+__host__ __device__ constexpr size_t fwd_split_smem(int c) {
+  constexpr int areas = 4 * fwd_consumers<DH>();
+  return ring_smem_bytes<DH>(fwd_consumers<DH>(), fwd_stages<DH>() * fwd_bn<DH>() / 64) +
+         (c > 0 ? xch_bytes<fwd_bn<DH>() / 2>(areas, c) : max_xch_bytes<fwd_bn<DH>() / 2>(areas));
+}
+
+// clusters of c CTAs of the forward's cluster kernel the card holds at once
+// (a template, so that only a source that launches it compiles its kernel)
+template <int DH = kSliceCols>
+cudaError_t fwd_split_fit(int c, int& fit) {
+  static_assert(fwd_split_smem<DH>(0) <= 232448, "a CTA's shared memory");
+  static bool configured = false;
+  static int fits[kMaxClusterCtas + 1] = {};
+  return cluster_fit(fwd_kernel<DH, true, false, false, true>, (1 + fwd_consumers<DH>()) * kWG,
+                     fwd_split_smem<DH>(0), fwd_split_smem<DH>(c), c, configured, fits, fit);
+}
+
+// K4's forward at a head dim dh past 256 (a multiple of 64 up to 2048): the
 // persistent forward over clusters of slice_ctas(dh) CTAs, as many clusters
-// as fit on the card at once (at most one a work item).  (A template, so
-// that only a source that launches it compiles its kernel.)
+// as fit on the card at once (at most one a work item);
+// cudaErrorInvalidConfiguration where the card holds no such cluster
 template <int DH = kSliceCols>
 cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* o, float* lse,
                              int B, int dh, const AttnArgs& args, cudaStream_t stream) {
   constexpr int C = fwd_consumers<DH>();
   const auto kernel = fwd_kernel<DH, true, false, false, true>;
-  constexpr size_t smem = ring_smem_bytes<DH>(C, fwd_stages<DH>() * fwd_bn<DH>() / 64) +
-                          xch_bytes<fwd_bn<DH>() / 2>(4 * C);
-  static_assert(smem <= 232448, "a CTA's shared memory");
   const int c = slice_ctas(dh);
   AttnArgs a = args;
   a.dh = dh;
-  static bool configured = false;
-  cudaError_t err = allow_smem(kernel, smem, configured);
+  int fit = 0;
+  cudaError_t err = fwd_split_fit<DH>(c, fit);
+  if (err == cudaSuccess && fit < 1) err = cudaErrorInvalidConfiguration;
   CUtensorMap mq, mk, mv;
   if (err == cudaSuccess) err = make_map<true>(&mq, q, B, a.H, a.Tq, dh);
   if (err == cudaSuccess) err = make_map<true>(&mk, k, B, a.H, a.Tk, dh);
@@ -2043,40 +2127,58 @@ cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* 
   const long long items = (long long)((a.Tq + C * kBQ - 1) / (C * kBQ)) * a.H * B;
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
   constexpr int threads = (1 + C) * kWG;
-  static int fits[kMaxClusterDh / kSliceCols + 1] = {};  // clusters of c CTAs the card holds
-  if (fits[c] == 0) {
-    ClusterLaunch probe(dim3(c), threads, smem, c, stream);
-    err = cudaOccupancyMaxActiveClusters(&fits[c], kernel, &probe.cfg);
-    if (err != cudaSuccess) return err;
-    if (fits[c] < 1) return cudaErrorInvalidConfiguration;
-  }
-  const int fit = fits[c];
   const unsigned clusters = (unsigned)(items < fit ? items : fit);
-  ClusterLaunch launch(dim3(clusters * c), threads, smem, c, stream);
+  ClusterLaunch launch(dim3(clusters * c), threads, fwd_split_smem<DH>(c), c, stream);
   // O leaves from registers: the output and residual maps are never read
   return cudaLaunchKernelEx(&launch.cfg, kernel, mq, mk, mv, mq, mq, static_cast<bf16*>(o), lse,
                             a, B);
 }
 
+// the shared memory of the backward's cluster kernels (dQ and dK/dV alike)
+// in a cluster of c (c = 0: the most of any size): the CTA's own tiles and
+// ring, then its consumer's warps' exchange area
+template <int DH = kSliceCols>
+__host__ __device__ constexpr size_t bwd_split_smem(int c) {
+  return ring_smem_bytes<DH>(2, bwd_stages<DH>()) +
+         (c > 0 ? bwd_xch_bytes<DH, true>(1, c) : max_xch_bytes<32>(kBwdChannels * 4));
+}
+
+// clusters of c CTAs of the backward's dQ and dK/dV cluster kernels the card
+// holds at once
+template <int DH = kSliceCols>
+cudaError_t bwd_split_fit(int c, int& fit_dq, int& fit_dkdv) {
+  static_assert(dq_consumers<DH>() == 1 && dkdv_consumers<DH>() == 1, "one consumer a CTA");
+  static_assert(bwd_split_smem<DH>(0) <= 232448, "a CTA's shared memory");
+  static bool configured_dq = false, configured_dkdv = false;
+  static int fits_dq[kMaxClusterCtas + 1] = {}, fits_dkdv[kMaxClusterCtas + 1] = {};
+  constexpr int threads = 2 * kWG;
+  constexpr size_t most = bwd_split_smem<DH>(0);
+  fit_dkdv = 0;
+  const cudaError_t err = cluster_fit(bwd_dq_kernel<DH, true, false, true>, threads, most,
+                                      bwd_split_smem<DH>(c), c, configured_dq, fits_dq, fit_dq);
+  if (err != cudaSuccess) return err;
+  return cluster_fit(bwd_dkdv_kernel<DH, true, false, true>, threads, most,
+                     bwd_split_smem<DH>(c), c, configured_dkdv, fits_dkdv, fit_dkdv);
+}
+
 // K4's backward at a head dim dh past 256: the dQ kernel, then the dK/dV
 // kernel, each over clusters of slice_ctas(dh) CTAs, a cluster a 64-row tile
-// of a head
+// of a head; cudaErrorInvalidConfiguration where the card holds no cluster
+// of either
 template <int DH = kSliceCols>
 cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta, void* dq, void* dk,
                              void* dv, int B, int dh, const AttnArgs& args, cudaStream_t stream) {
-  static_assert(dq_consumers<DH>() == 1 && dkdv_consumers<DH>() == 1, "one consumer a CTA");
   const auto dq_kernel = bwd_dq_kernel<DH, true, false, true>;
   const auto dkdv_kernel = bwd_dkdv_kernel<DH, true, false, true>;
-  constexpr size_t smem = ring_smem_bytes<DH>(2, bwd_stages<DH>()) + bwd_xch_bytes<DH, true>(1);
-  static_assert(smem <= 232448, "a CTA's shared memory");
   if (delta == nullptr) return cudaErrorInvalidValue;
   const int c = slice_ctas(dh);
+  const size_t smem = bwd_split_smem<DH>(c);
   AttnArgs a = args;
   a.dh = dh;
-  static bool configured_dq = false, configured_dkdv = false;
-  cudaError_t err = allow_smem(dq_kernel, smem, configured_dq);
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel, smem, configured_dkdv);
+  int fit_dq = 0, fit_dkdv = 0;
+  cudaError_t err = bwd_split_fit<DH>(c, fit_dq, fit_dkdv);
+  if (err == cudaSuccess && (fit_dq < 1 || fit_dkdv < 1)) err = cudaErrorInvalidConfiguration;
   CUtensorMap mq, mk, mv, mdo;
   if (err == cudaSuccess) err = make_map<true>(&mq, q, B, a.H, a.Tq, dh);
   if (err == cudaSuccess) err = make_map<true>(&mk, k, B, a.H, a.Tk, dh);

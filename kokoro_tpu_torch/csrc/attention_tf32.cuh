@@ -1,7 +1,7 @@
 // The f32 attention on Hopper's tensor cores in 3xTF32 (sm_90a): the
 // forward kernel and the backward's dQ and dK/dV kernels of both mask
 // policies (packed K1/K2/K3, flash K4), dropout on or off, Dh 64 or 128
-// (the flash policy without dropout also from 320 to 1024 as a cluster of
+// (the flash policy without dropout also from 320 to 2048 as a cluster of
 // Dh 128 CTAs: template argument CL; K4 at Dh 192 and 256 has kernels of its
 // own, attention_tf32_wide.cuh, built on this header's products), with the
 // numerics contract of attention_kernels.cuh.  Replaces no TPU
@@ -101,7 +101,7 @@
 // At 32 rows a CTA (Dh 192 and 256) that split, its barriers and the pairs'
 // reads cost more than they save: attention_tf32_wide.cuh reads raw tiles.
 //
-// Past Dh 256 (CL): a cluster of ceil(Dh / 128) CTAs, each the Dh 128
+// Past Dh 256 (CL): a cluster of ceil(Dh / 128) CTAs (3 to 16), each the Dh 128
 // kernel on its 128 columns (cp.async predicated to zero past Dh) and its
 // 32-row streamed tiles.  The two warps of a row group split each score's
 // contraction (S, dPd, the delta products: 64 columns each, where the
@@ -112,7 +112,9 @@
 // still sum alike (the lse stays exact).  The forward shares the halves
 // (pair_share); the backward carries each half through the weights and dS,
 // and the halves meet in a staging tile the pair shares (the dPd slots the
-// warps have read), 225 KB of shared memory a CTA.
+// warps have read), 230,272 bytes of shared memory a CTA up to 8 CTAs and
+// at most 231,168 past them (of 232,448; the exchange's slots sized by the
+// cluster's size, tc::rs_cells).
 
 #pragma once
 
@@ -183,7 +185,8 @@ __host__ __device__ constexpr int pass_rows() {
   return stream_rows<DH, CL>() < 32 ? stream_rows<DH, CL>() : 32;
 }
 // a cluster launch's exchanges: half of a row group's 16 x kClusterRows
-// score tile, at most 8 floats a lane
+// score tile, at most 8 floats a lane (cells of one float: 256 a tile, 128
+// at 4 floats a lane, whose slots tc::ClusterSum sizes for c <= 16)
 constexpr int kClusterFloats = 8;
 
 // -- shared memory ----------------------------------------------------------
@@ -725,20 +728,24 @@ template <bool CL>
 __host__ __device__ constexpr int w_cols(int rows) {
   return CL ? rows / 2 : rows;
 }
-// bytes of a cluster launch's exchange area (its warps' ClusterSum)
+// bytes of a cluster launch's exchange area (its warps' ClusterSum) in a
+// cluster of c CTAs (c = 0: the most of any size)
 template <bool CL>
-__host__ __device__ constexpr size_t cluster_bytes() {
-  return CL ? tc::xch_bytes<kClusterFloats>(kWarps) : 0;
+__host__ __device__ constexpr size_t cluster_bytes(int c) {
+  return !CL ? 0
+             : c > 0 ? tc::xch_bytes<kClusterFloats>(kWarps, c)
+                     : tc::max_xch_bytes<kClusterFloats>(kWarps);
 }
 // the two owned tiles, the ring, its row data (three words a streamed row),
 // a word a thread (its dropout flags of the tile, drawn before the barrier
 // and read back after it, so that the Philox rounds are not scheduled among
 // the products), then the warps' staging tiles, then (CL) the exchange area
+// of a cluster of c CTAs (0: the most of any size)
 template <int DH, bool CL = false>
-__host__ __device__ constexpr size_t smem_bytes(int stage_cols) {
+__host__ __device__ constexpr size_t smem_bytes(int stage_cols, int c = 0) {
   return sizeof(float) * (2 * own_floats<DH>() + kStages * stage_floats<DH, CL>()) +
          sizeof(float) * 3 * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH, CL>()) + cluster_bytes<CL>();
+         sizeof(float) * (kWarps * 16 * stage_cols + xch_floats<DH, CL>()) + cluster_bytes<CL>(c);
 }
 template <int DH, bool CL = false>
 __host__ __device__ constexpr bool bwd_fits() {
@@ -868,7 +875,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* xch_s = xch + rgroup * 16 * S;
   const float inv_t = 1.f / (float)a.Tk;
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -1065,7 +1072,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     kvseg[i] = (seg && key < a.Tk) ? a.kv_seg[(size_t)b * a.Tk + key] : 1;
   }
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -1189,13 +1196,14 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // the forward's shared memory: the CTA's query rows in pairs, the split K
 // and V tiles (one set), the ring of their f32 rows (K's, then V's, a
-// stage), the ring's segment ids and a word a thread (its dropout flags)
+// stage), the ring's segment ids and a word a thread (its dropout flags);
+// CL: then the exchange area of a cluster of c CTAs (0: the most of any size)
 template <int DH, bool CL = false>
-__host__ __device__ constexpr size_t fwd_smem_bytes() {
+__host__ __device__ constexpr size_t fwd_smem_bytes(int c = 0) {
   return sizeof(float) * (2 * own_floats<DH>() + stage_floats<DH, CL>() +
                           kStages * 2 * stream_rows<DH, CL>() * DH) +
          sizeof(int) * kStages * stream_rows<DH, CL>() + sizeof(uint32_t) * kCtaThreads +
-         sizeof(float) * xch_floats<DH, CL>() + cluster_bytes<CL>();
+         sizeof(float) * xch_floats<DH, CL>() + cluster_bytes<CL>(c);
 }
 static_assert(fwd_smem_bytes<64>() <= 232448 && fwd_smem_bytes<128>() <= 232448 &&
                   fwd_smem_bytes<tc::kSliceCols, true>() <= 232448,
@@ -1260,7 +1268,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rgroup = warp % (R / 16), part = warp / (R / 16);  // CL: pair_score's row group
   const int qw = q0 + wr;                 // its first query
   if constexpr (CL) {
-    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps);
+    if (threadIdx.x == 0) tc::xch_init<kClusterFloats>(cxch, kWarps, csize);
     tc::cluster_sync();  // every CTA's barriers exist before a peer arrives
   }
   tc::ClusterSum<kClusterFloats> cluster(cxch, kWarps, CL ? warp : 0);
@@ -1414,20 +1422,33 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-// K4's forward at a head dim dh past 256 (a multiple of 64 up to 1024): a
-// cluster of tc::slice_ctas(dh) CTAs a tile of 64 query rows
+// clusters of c CTAs of the forward's cluster kernel the card holds at once
+// (a template, so that only a source that launches it compiles its kernel)
+template <int DH = tc::kSliceCols>
+cudaError_t fwd_split_fit(int c, int& fit) {
+  static bool configured = false;
+  static int fits[tc::kMaxClusterCtas + 1] = {};
+  return tc::cluster_fit(fwd_kernel<DH, true, false, true>, kCtaThreads,
+                         fwd_smem_bytes<DH, true>(), fwd_smem_bytes<DH, true>(c), c, configured,
+                         fits, fit);
+}
+
+// K4's forward at a head dim dh past 256 (a multiple of 64 up to 2048): a
+// cluster of tc::slice_ctas(dh) CTAs a tile of 64 query rows;
+// cudaErrorInvalidConfiguration where the card holds no such cluster
 template <int DH = tc::kSliceCols>
 cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* o, float* lse,
                              int B, int dh, const AttnArgs& args, cudaStream_t stream) {
   constexpr int R = owned_rows<DH>();
-  constexpr size_t smem = fwd_smem_bytes<DH, true>();
   const auto kernel = fwd_kernel<DH, true, false, true>;
   const int c = tc::slice_ctas(dh);
+  const size_t smem = fwd_smem_bytes<DH, true>(c);
   AttnArgs a = args;
   a.dh = dh;
-  static bool configured = false;
-  const cudaError_t err = tc::allow_smem(kernel, smem, configured);
+  int fit = 0;
+  const cudaError_t err = fwd_split_fit<DH>(c, fit);
   if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
   const long long ctas = (long long)((a.Tq + R - 1) / R) * a.H * B * c;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   tc::ClusterLaunch launch(dim3((unsigned)ctas), kCtaThreads, smem, c, stream);
@@ -1436,25 +1457,51 @@ cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* 
                             static_cast<float*>(o), lse, a, B);
 }
 
+// the shared memory of the backward's cluster kernels in a cluster of c
+// CTAs (0: the most of any size)
+template <int DH = tc::kSliceCols>
+__host__ __device__ constexpr size_t dq_split_smem(int c) {
+  return smem_bytes<DH, true>(w_cols<true>(stream_rows<DH, true>()), c);
+}
+template <int DH = tc::kSliceCols>
+__host__ __device__ constexpr size_t dkdv_split_smem(int c) {
+  return smem_bytes<DH, true>(w_cols<true>(pass_rows<DH, true>()), c);
+}
+
+// clusters of c CTAs of the backward's dQ and dK/dV cluster kernels the card
+// holds at once
+template <int DH = tc::kSliceCols>
+cudaError_t bwd_split_fit(int c, int& fit_dq, int& fit_dkdv) {
+  static bool configured_dq = false, configured_dkdv = false;
+  static int fits_dq[tc::kMaxClusterCtas + 1] = {}, fits_dkdv[tc::kMaxClusterCtas + 1] = {};
+  fit_dkdv = 0;
+  const cudaError_t err =
+      tc::cluster_fit(bwd_dq_kernel<DH, true, false, true>, kCtaThreads, dq_split_smem<DH>(0),
+                      dq_split_smem<DH>(c), c, configured_dq, fits_dq, fit_dq);
+  if (err != cudaSuccess) return err;
+  return tc::cluster_fit(bwd_dkdv_kernel<DH, true, false, true>, kCtaThreads,
+                         dkdv_split_smem<DH>(0), dkdv_split_smem<DH>(c), c, configured_dkdv,
+                         fits_dkdv, fit_dkdv);
+}
+
 // K4's backward at a head dim dh past 256: the dQ kernel, then the dK/dV
-// kernel, each a cluster of tc::slice_ctas(dh) CTAs a tile of 64 rows
+// kernel, each a cluster of tc::slice_ctas(dh) CTAs a tile of 64 rows;
+// cudaErrorInvalidConfiguration where the card holds no cluster of either
 template <int DH = tc::kSliceCols>
 cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta, void* dq, void* dk,
                              void* dv, int B, int dh, const AttnArgs& args, cudaStream_t stream) {
   constexpr int R = owned_rows<DH>();
-  constexpr size_t smem_dq = smem_bytes<DH, true>(w_cols<true>(stream_rows<DH, true>()));
-  constexpr size_t smem_dkdv = smem_bytes<DH, true>(w_cols<true>(pass_rows<DH, true>()));
   const auto dq_kernel = bwd_dq_kernel<DH, true, false, true>;
   const auto dkdv_kernel = bwd_dkdv_kernel<DH, true, false, true>;
   if (delta == nullptr) return cudaErrorInvalidValue;
   const int c = tc::slice_ctas(dh);
   AttnArgs a = args;
   a.dh = dh;
-  static bool configured_dq = false, configured_dkdv = false;
-  cudaError_t err = tc::allow_smem(dq_kernel, smem_dq, configured_dq);
-  if (err == cudaSuccess) err = tc::allow_smem(dkdv_kernel, smem_dkdv, configured_dkdv);
+  int fit_dq = 0, fit_dkdv = 0;
+  cudaError_t err = bwd_split_fit<DH>(c, fit_dq, fit_dkdv);
   if (err != cudaSuccess) return err;
+  if (fit_dq < 1 || fit_dkdv < 1) return cudaErrorInvalidConfiguration;
   const long long heads = (long long)a.H * B;
   const long long ctas_dq = (long long)((a.Tq + R - 1) / R) * heads * c;
   const long long ctas_dkdv = (long long)((a.Tk + R - 1) / R) * heads * c;
@@ -1463,11 +1510,13 @@ cudaError_t launch_bwd_split(const void* q, const void* k, const void* v, const 
   const float* fk = static_cast<const float*>(k);
   const float* fv = static_cast<const float*>(v);
   const float* fdo = static_cast<const float*>(dout);
-  tc::ClusterLaunch launch_dq(dim3((unsigned)ctas_dq), kCtaThreads, smem_dq, c, stream);
+  tc::ClusterLaunch launch_dq(dim3((unsigned)ctas_dq), kCtaThreads, dq_split_smem<DH>(c), c,
+                              stream);
   err = cudaLaunchKernelEx(&launch_dq.cfg, dq_kernel, fq, fk, fv, static_cast<const float*>(o),
                            fdo, lse, delta, static_cast<float*>(dq), a, B);
   if (err != cudaSuccess) return err;
-  tc::ClusterLaunch launch_dkdv(dim3((unsigned)ctas_dkdv), kCtaThreads, smem_dkdv, c, stream);
+  tc::ClusterLaunch launch_dkdv(dim3((unsigned)ctas_dkdv), kCtaThreads, dkdv_split_smem<DH>(c),
+                                c, stream);
   return cudaLaunchKernelEx(&launch_dkdv.cfg, dkdv_kernel, fq, fk, fv, fdo, lse,
                             static_cast<const float*>(delta), static_cast<float*>(dk),
                             static_cast<float*>(dv), a, B);

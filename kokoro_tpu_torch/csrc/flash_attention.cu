@@ -7,7 +7,7 @@
 // self-attention at T >= 1024 with T a multiple of 128.  Here: q of shape
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
 // float32 or bfloat16, Dh in {64, 128, 192, 256} or a multiple of 64 from
-// 320 to 1024, any Tq, Tk >= 1; optional
+// 320 to 2048, any Tq, Tk >= 1; optional
 // causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
 // (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
 // library's kernel takes a head dim up to 128 or a multiple of 128 (it
@@ -46,7 +46,9 @@
 // bytes and operations) no CTA holds a tile's rows: a cluster of
 // ceil(Dh / 128) CTAs takes each work item, each CTA the Dh 128 kernel on its
 // 128 columns, and each sums the cluster's partial S tiles in rank order from
-// its peers' shared memory (attention_tc.cuh, "clusters").
+// its peers' shared memory (attention_tc.cuh, "clusters"); past Dh 1024 the
+// cluster (9 to 16 CTAs) is larger than the portable 8, which the kernels
+// allow (cudaFuncAttributeNonPortableClusterSizeAllowed).
 
 #include "attention_kernels.cuh"
 
@@ -67,4 +69,16 @@ extern "C" int kokoro_flash_attention_fwd(const void* q, const void* k, const vo
   const AttnArgs a{nullptr, q_seg, kv_seg, Tq, Tk, H, scale, causal, 0u, 1.f, 0u, 0u};
   return (int)dispatch_fwd<true, false>(dtype, Dh, q, k, v, o, nullptr, lse, B, a,
                                         static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of c CTAs (3 to 16: the head dims past 256, c = ceil(Dh / 128)) of
+// the forward's cluster kernel the card holds at once, at the kernel's shared
+// memory, into *clusters (0: none, and a launch at such a head dim returns
+// cudaErrorInvalidConfiguration).  dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t.
+extern "C" int kokoro_flash_attention_fwd_clusters(int dtype, int c, int* clusters) {
+  if (clusters == nullptr || c < 3 || c > tc::kMaxClusterCtas) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)tf32::fwd_split_fit(c, *clusters);
+  if (dtype == 1) return (int)tc::fwd_split_fit(c, *clusters);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,7 @@
 // _flash_attention_dq_kernel) of jax.experimental.pallas.ops.tpu.flash_attention.
 // Inputs q, o, dO (B, H, Tq, Dh), k, v (B, H, Tk, Dh), head-first and
 // contiguous, f32 or bf16, Dh in {64, 128, 192, 256} or a multiple of 64
-// from 320 to 1024, the forward's f32 row
+// from 320 to 2048, the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
 // kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
@@ -38,8 +38,11 @@
 // read the streamed tiles raw, each warp splitting what it reads.
 // From Dh 320 a cluster of ceil(Dh / 128) CTAs takes each 64-row tile, each
 // CTA the Dh 128 kernel on its 128 columns, summing the cluster's partial S,
-// dPd and row deltas in rank order from its peers' shared memory (f32: tiles
-// of 16 streamed rows, so that the exchange fits beside the Dh 128 tiles).
+// dPd and row deltas in rank order through its peers' shared memory (f32:
+// tiles of 32 streamed rows, the two warps of each 16 rows splitting each
+// score's contraction, so that the exchange fits beside the Dh 128 tiles);
+// past Dh 1024 the cluster (9 to 16 CTAs) is a non-portable size, which the
+// kernels allow.
 
 #include "attention_kernels.cuh"
 
@@ -64,4 +67,18 @@ extern "C" int kokoro_flash_attention_bwd(const void* q, const void* k, const vo
   const AttnArgs a{nullptr, q_seg, kv_seg, Tq, Tk, H, scale, causal, 0u, 1.f, 0u, 0u};
   return (int)dispatch_bwd<true, false>(dtype, Dh, q, k, v, o, nullptr, dout, lse, delta, dq,
                                         dk, dv, B, a, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of c CTAs (3 to 16, c = ceil(Dh / 128)) of the backward's dQ and
+// dK/dV cluster kernels the card holds at once, at their shared memory, into
+// *dq_clusters and *dkdv_clusters (0: none, and a launch at such a head dim
+// returns cudaErrorInvalidConfiguration).  dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t.
+extern "C" int kokoro_flash_attention_bwd_clusters(int dtype, int c, int* dq_clusters,
+                                                   int* dkdv_clusters) {
+  if (dq_clusters == nullptr || dkdv_clusters == nullptr || c < 3 || c > tc::kMaxClusterCtas)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)tf32::bwd_split_fit(c, *dq_clusters, *dkdv_clusters);
+  if (dtype == 1) return (int)tc::bwd_split_fit(c, *dq_clusters, *dkdv_clusters);
+  return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,8 @@ Attention routes with ``use_flash``, in the reference's order
 
 1. K4 (``ops/flash_attention.py``): causal attention at T >= 1024 in multiples
    of 128 with attention dropout inactive, on the head-split path, at every
-   head dim that is a multiple of 64 up to 1024 (at one head of the
-   flagship's hidden 512, Dh 512);
+   head dim that is a multiple of 64 up to 2048 (at one head of the
+   flagship's hidden 512, Dh 512; of hidden 1536, Dh 1536);
 2. K1 (``ops/fused_attention.py``, packed): any other causal self-attention;
 3. K2 (packed, kv lengths): cross-attention with q_len == kv_len;
 4. K3 (``fused_attention``, folded): causal attention on the head-split path

@@ -13,9 +13,11 @@ query's); no dropout.
 * :func:`flash_supported` is the reference's shape gate without its
   ``default_backend() == "tpu"`` clause: the port routes by shape on every
   device, and the CPU runs the plain version.  It admits every multiple of
-  64 up to 1024, the kernels' head dims (the reference: any multiple of 64;
-  past 1024 the port runs the plain path).  From 320 a cluster of
-  ceil(head_dim / 128) CTAs splits the head dim by columns.
+  64 up to 2048, the kernels' head dims (the reference: any multiple of 64;
+  past 2048 the port runs the plain path).  From 320 a cluster of
+  ceil(head_dim / 128) CTAs splits the head dim by columns: 3 to 16 CTAs,
+  past 8 (head dims past 1024) a cluster larger than the portable size.
+  :func:`cluster_fits` reads how many such clusters the card holds.
   ``_pick_block_q`` (TPU block tuning) has no counterpart: the kernels tile
   by 64 at any T.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
@@ -32,8 +34,10 @@ query's); no dropout.
   row and passes no gradient through it; both versions do the same.
 * :data:`flash_attention_fwd` / :data:`flash_attention_bwd` launch the kernels
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) and count
-  their launches.  :class:`FlashAttentionFunction` runs plain forward and
-  backward on CPU tensors and the kernels, and nothing else, on CUDA tensors.
+  their launches; a launch the card refuses (at a cluster size it holds no
+  cluster of, say) raises, naming the kernel and the cluster size.
+  :class:`FlashAttentionFunction` runs plain forward and backward on CPU
+  tensors and the kernels, and nothing else, on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -48,18 +52,20 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the library's DEFAULT_MAS
 FLASH_MIN_LEN = 1024
 FLASH_BLOCK = 128
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-# the kernels' head dims, K4's own: every multiple of 64 up to 1024 (from
-# 320 over a cluster of CTAs, at most 8 of 128 columns each); the packed
+# the kernels' head dims, K4's own: every multiple of 64 up to 2048 (from
+# 320 over a cluster of CTAs of 128 columns each, at most 16); the packed
 # kernels (ops/fused_attention.py) take 64 and 128
-SUPPORTED_HEAD_DIMS = tuple(range(64, 1025, 64))
+SLICE_COLS = 128
+MAX_CLUSTER_CTAS = 16
+SUPPORTED_HEAD_DIMS = tuple(range(64, MAX_CLUSTER_CTAS * SLICE_COLS + 1, 64))
 
 
 def flash_supported(q_len: int, kv_len: int, head_dim: int, causal: bool = True) -> bool:
     """The reference's K4 shape gate (``blocks.py::_flash_supported``): causal,
     both lengths multiples of 128 and at least 1024, head_dim a multiple of
     64; and, narrower than the reference, head_dim in
-    :data:`SUPPORTED_HEAD_DIMS` (a multiple of 64 up to 1024), the ones the
-    kernels take: past 1024 the reference's gate admits flash and the
+    :data:`SUPPORTED_HEAD_DIMS` (a multiple of 64 up to 2048), the ones the
+    kernels take: past 2048 the reference's gate admits flash and the
     port's does not."""
     return (
         causal
@@ -83,7 +89,8 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} is not a multiple of 64 from 64 to 1024")
+        raise ValueError(f"head_dim {q.shape[3]} is not a multiple of 64 from 64 to "
+                         f"{SUPPORTED_HEAD_DIMS[-1]}")
 
 
 def segment_ids(q, k, q_valid: Optional[torch.Tensor], kv_valid: Optional[torch.Tensor]
@@ -183,6 +190,52 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def cluster_ctas(head_dim: int) -> int:
+    """CTAs of the cluster that takes a work item at ``head_dim``: one a
+    128-column slice past 256 (3 to 16), else 1."""
+    return -(-head_dim // SLICE_COLS) if head_dim > 256 else 1
+
+
+def cluster_fits(dtype: torch.dtype, ctas: int) -> dict:
+    """How many clusters of ``ctas`` CTAs (3 to 16) of each K4 cluster
+    kernel of ``dtype`` the current card holds at once, at the kernel's shared
+    memory (``cudaOccupancyMaxActiveClusters``): ``{"fwd": n, "dq": n,
+    "dkdv": n}``; 0 where it holds none, and a launch there raises."""
+    from kokoro_tpu_torch.ops import kernels
+
+    if not 3 <= ctas <= MAX_CLUSTER_CTAS:
+        raise ValueError(f"a K4 cluster has 3 to {MAX_CLUSTER_CTAS} CTAs, not {ctas}")
+    code = 0 if dtype == torch.float32 else 1
+    fwd, dq, dkdv = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = kernels.load("flash_attention").kokoro_flash_attention_fwd_clusters(
+        code, ctas, ctypes.byref(fwd))
+    if err == 0:
+        err = kernels.load("flash_attention_bwd").kokoro_flash_attention_bwd_clusters(
+            code, ctas, ctypes.byref(dq), ctypes.byref(dkdv))
+    if err != 0:
+        raise RuntimeError(f"the occupancy query of K4's clusters of {ctas} CTAs failed: "
+                           f"cudaError_t {err}")
+    return {"fwd": fwd.value, "dq": dq.value, "dkdv": dkdv.value}
+
+
+def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Tensor) -> str:
+    """The message of a refused launch: at a cluster head dim, the cluster
+    size and each of the wrapper's kernels the card holds no cluster of."""
+    Dh, ctas = q.shape[3], cluster_ctas(q.shape[3])
+    msg = f"{name} kernel launch failed: cudaError_t {err}"
+    if ctas == 1:
+        return msg
+    try:
+        fits = cluster_fits(q.dtype, ctas)
+    except RuntimeError as exc:
+        return f"{msg} ({exc})"
+    none = [k for k in kernels_of if fits[k] == 0]
+    if none:
+        return (f"{msg}: the card holds no cluster of {ctas} CTAs (head_dim {Dh}, "
+                f"{str(q.dtype).split('.')[1]}) of the {' and '.join(none)} kernel")
+    return f"{msg} (head_dim {Dh}: clusters of {ctas} CTAs, the card holds {fits})"
+
+
 class FlashAttentionKernel:
     """Wrapper of ``kokoro_flash_attention_fwd``.  ``launches`` counts the
     launches this wrapper made, and nothing else."""
@@ -220,7 +273,7 @@ class FlashAttentionKernel:
                 0 if q.dtype == torch.float32 else 1, stream,
             )
         if err != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t {err}")
+            raise RuntimeError(_launch_error(self.name, ("fwd",), err, q))
         self.launches += 1
         return (o, lse) if return_lse else o
 
@@ -267,7 +320,7 @@ class FlashAttentionBwdKernel:
                 0 if q.dtype == torch.float32 else 1, stream,
             )
         if err != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: cudaError_t {err}")
+            raise RuntimeError(_launch_error(self.name, ("dq", "dkdv"), err, q))
         self.launches += 1
         return dq, dk, dv
 
@@ -321,7 +374,7 @@ def flash_attention(
     ``q_valid`` / ``kv_valid`` ``(B, T)`` (True or 1 = valid) mask keys
     whose validity differs from the query's.  Refuses dtypes other than
     float32/bfloat16 and a head_dim that is not a multiple of 64 from 64 to
-    1024 on every device; the caller gates shapes with
+    2048 on every device; the caller gates shapes with
     :func:`flash_supported`."""
     _check(q, k, v)
     q_seg, kv_seg = segment_ids(q, k, q_valid, kv_valid)

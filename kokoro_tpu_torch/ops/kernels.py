@@ -122,9 +122,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.kokoro_flash_attention_fwd
         # q k v o lse q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype, stream
         fn.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
+        # dtype, cluster size, clusters the card holds (a library built from an
+        # earlier tree, which a probe may load, lacks it)
+        if hasattr(lib, "kokoro_flash_attention_fwd_clusters"):
+            lib.kokoro_flash_attention_fwd_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.kokoro_flash_attention_fwd_clusters.restype = i
     elif name == "flash_attention_bwd":
         fn = lib.kokoro_flash_attention_bwd
         # q k v o do lse delta dq dk dv q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype,
         # stream
         fn.argtypes = [p] * 12 + [i] * 5 + [f, i, i, p]
+        # dtype, cluster size, clusters of the dQ and of the dK/dV kernel
+        if hasattr(lib, "kokoro_flash_attention_bwd_clusters"):
+            lib.kokoro_flash_attention_bwd_clusters.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
+            lib.kokoro_flash_attention_bwd_clusters.restype = i
     fn.restype = i

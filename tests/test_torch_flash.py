@@ -105,7 +105,15 @@ def _library_reference(q, k, v, causal, scale, q_valid, kv_valid):
 
 @pytest.mark.parametrize("T,Dh,dname,causal,masks", CASES)
 def test_plain_matches_library_kernel_in_interpret_mode(T, Dh, dname, causal, masks):
-    B, H = 2, 2
+    hold_plain_against_library(T, Dh, dname, causal, masks)
+
+
+def hold_plain_against_library(T, Dh, dname, causal, masks, B=2, H=2):
+    """The port's K4 (plain on the CPU) against the reference's
+    ``_flash_attention`` with the library kernel in the Pallas TPU
+    interpreter, or, at a head dim above 128 that is not a multiple of 128,
+    against the library's plain reference: forward and gradients at
+    ``FWD_TOL`` / ``GRAD_TOL``, inputs from a numpy seed."""
     rng = np.random.default_rng(T + Dh)
     q, k, v, do = (rng.standard_normal((B, H, T, Dh)).astype(np.float32) for _ in range(4))
     q_valid, kv_valid = _masks(masks, B, T, rng)
@@ -207,9 +215,13 @@ def test_flash_gate_is_the_references_without_its_backend_clause():
     assert port.flash_supported(1024, 1024, 1024)
     assert not port.flash_supported(1024, 1024, 96)   # Dh % 64
     assert not port.flash_supported(896, 896, 512)    # below 1024
-    # narrower than the reference: the kernels take Dh up to 1024 (a cluster
-    # of at most 8 CTAs of 128 columns)
-    assert not port.flash_supported(1024, 1024, 1088)
+    # past 1024 a cluster of 9 to 16 CTAs (larger than the portable 8)
+    assert port.flash_supported(1024, 1024, 1088)
+    assert port.flash_supported(1408, 1408, 1536)
+    assert port.flash_supported(1024, 1024, 2048)
+    # narrower than the reference: the kernels take Dh up to 2048 (a cluster
+    # of at most 16 CTAs of 128 columns)
+    assert not port.flash_supported(1024, 1024, 2112)
 
 
 def _route(T, training, rate, key_given=False, d_model=128, n_heads=2):
@@ -272,11 +284,12 @@ def test_routing_head_split_causal_takes_k3_and_k4():
     (384, 1024, False, ["K4"]),   # Dh 192
     (384, 1000, False, []),       # not a multiple of 128
     (640, 1024, False, ["K4"]),   # Dh 320: the cluster kernels
-    (2176, 1024, False, []),      # Dh 1088: beyond the kernels, the plain path
+    (2176, 1024, False, ["K4"]),  # Dh 1088: a cluster of 9 CTAs
+    (4224, 1024, False, []),      # Dh 2112: beyond the kernels, the plain path
 ])
 def test_routing_at_head_dims_192_and_256(d_model, T, key_given, expected):
     """K4 takes its own head dims, the packed kernels (K1, K2, K3) theirs:
-    past Dh 128 (192, 256, and from 320 to 1024 over a cluster of CTAs) the
+    past Dh 128 (192, 256, and from 320 to 2048 over a cluster of CTAs) the
     long causal self-attention takes K4 and every other site stays on einsum,
     as in the reference."""
     assert _route(T, False, 0.0, key_given=key_given, d_model=d_model) == expected

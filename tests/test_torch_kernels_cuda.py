@@ -300,8 +300,9 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
     """With ``KOKORO_PARENT_TREE`` naming a checkout of an earlier tree:
     ``probe_flash_tf32_wide --digests`` builds both trees' kernels and hashes
     every kernel's outputs (packed, folded, flash at Dh 64-1024, bf16 and
-    f32); every case but bf16 K4 at Dh 192 and 256 is the earlier tree's bit
-    for bit."""
+    f32, the head dims both trees take); every case is the earlier tree's
+    bit for bit (the cluster exchange's slots are sized for clusters of up
+    to 16, and its sums are the same rank-order sums)."""
     parent = os.environ.get("KOKORO_PARENT_TREE")
     if not parent:
         pytest.skip("set KOKORO_PARENT_TREE to a checkout of the tree to compare with")
@@ -309,25 +310,30 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
                            "--digests", "--parent", parent], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    may_differ = {f"flash/bfloat16/Dh={Dh}/causal={c}" for Dh in (192, 256) for c in (True, False)}
     assert result["cases"] == len(result["equal"]) + len(result["differ"])
-    assert set(result["differ"]) <= may_differ, result["differ"]
+    assert result["differ"] == [], result["differ"]
+
+
+# one head dim of every cluster size past the portable 8: 9 CTAs (1088, its
+# last slice ragged) to 16 (2048)
+PAST_1024 = [1088, 1152, 1280, 1408, 1536, 1664, 1792, 1920, 2048]
 
 
 @pytest.mark.parametrize("masks", ["suffix", "interior"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Dh", [320, 384, 512, 640, 768, 896, 1024])
+@pytest.mark.parametrize("Dh", [320, 384, 512, 640, 768, 896, 1024, *PAST_1024])
 @pytest.mark.parametrize("T", [1024, 1433])
 def test_flash_kernels_past_head_dim_256_match_plain(cuda, T, Dh, dtype, masks):
     """K4 where a cluster of ceil(Dh / 128) CTAs splits the head dim by
-    columns (the last slice ragged at 320 and 896; clusters of 5, 6 and 7
-    CTAs at 640, 768 and 896, whose exchanged tiles split unevenly), causal,
+    columns (the last slice ragged at 320, 896 and 1088; clusters of 5, 6
+    and 7 CTAs at 640, 768 and 896, whose exchanged tiles split unevenly;
+    past 1024 clusters of 9 to 16, larger than the portable 8), causal,
     against the plain forward and backward."""
     _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 7 * T + Dh))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Dh", [448, 640, 768, 896])
+@pytest.mark.parametrize("Dh", [448, 640, 768, 896, *PAST_1024])
 def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
     """The cluster kernels without the causal mask at a ragged T, against the
     plain versions, and two calls bit for bit equal (each CTA sums the
@@ -344,11 +350,11 @@ def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("Dh", [1088, 96])
+@pytest.mark.parametrize("Dh", [2112, 96])
 def test_flash_kernels_refuse_head_dims_past_1024_or_off_64(cuda, Dh):
-    """Past Dh 1024 (more than the 8 CTAs of a portable cluster) or at a head
-    dim that is not a multiple of 64 the kernels take nothing: the wrappers
-    raise, and nothing launches."""
+    """Past Dh 2048 (more than the 16 CTAs of Hopper's largest cluster) or
+    at a head dim that is not a multiple of 64 the kernels take nothing: the
+    wrappers raise, and nothing launches."""
     x = torch.zeros(1, 2, 1024, Dh, device=cuda)
     before = [kern.launches for kern in flash.KERNELS]
     with pytest.raises(ValueError, match="head_dim"):
@@ -359,6 +365,18 @@ def test_flash_kernels_refuse_head_dims_past_1024_or_off_64(cuda, Dh):
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention_bwd(x, x, x, x, x, lse, causal=True, scale=Dh ** -0.5)
     assert [kern.launches for kern in flash.KERNELS] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_card_holds_every_cluster_size(cuda, dtype):
+    """Each of K4's cluster kernels fits at least one cluster of every size
+    from 3 to 16 CTAs on the card, and a size outside 3-16 is refused."""
+    for c in range(3, flash.MAX_CLUSTER_CTAS + 1):
+        fits = flash.cluster_fits(dtype, c)
+        assert set(fits) == {"fwd", "dq", "dkdv"} and min(fits.values()) >= 1, (c, fits)
+    for c in (2, flash.MAX_CLUSTER_CTAS + 1):
+        with pytest.raises(ValueError, match="CTAs"):
+            flash.cluster_fits(dtype, c)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -15,7 +15,10 @@ the decoder self-attention at Dh 192 and 256 too, where the packed kernels'
 gate (Dh 64 and 128, as the reference's) leaves the cross-attention and the
 encoder on einsum.  And at head_dim 512 (hidden 512 at one head, 1+1
 layers, the flagship's widths at n_heads=1): K4 past Dh 256, where the head
-axis of the projections and the per-head norms has size 1.
+axis of the projections and the per-head norms has size 1.  And at head_dim
+1536 (hidden 1536 at one head, 1+1 layers, ff 256): K4 past Dh 1024, where
+the port's kernels split the head dim over a cluster of 12 CTAs; the
+weights reach the port through the converter as at the other widths.
 
 Tolerances: forward outputs 1e-4 (the port's forward parity tolerance,
 tests/test_torch_model.py); one f32 train step, metrics 2e-5 relative and
@@ -51,6 +54,8 @@ def long_batch(seed):
 ARCH_DH256 = {**ARCH, "hidden_dim": 512, "n_encoder_layers": 1, "n_decoder_layers": 1}
 # head_dim 512: hidden 512 at one head
 ARCH_DH512 = {**ARCH_DH256, "n_heads": 1}
+# head_dim 1536: hidden 1536 at one head
+ARCH_DH1536 = {**ARCH_DH256, "hidden_dim": 1536, "n_heads": 1}
 
 
 @pytest.fixture(scope="module")
@@ -66,6 +71,11 @@ def pair_dh256():
 @pytest.fixture(scope="module")
 def pair_dh512():
     return Pair("float32", arch=ARCH_DH512)
+
+
+@pytest.fixture(scope="module")
+def pair_dh1536():
+    return Pair("float32", arch=ARCH_DH1536)
 
 
 def _forward_inputs(batch):
@@ -148,6 +158,13 @@ def test_long_forward_at_head_dim_512_one_head_takes_k4_and_matches_reference(
     assert packed == []  # the cross-attention at Dh 512 stays on einsum too
 
 
+def test_long_forward_at_head_dim_1536_one_head_takes_k4_and_matches_reference(
+        pair_dh1536, monkeypatch):
+    assert pair_dh1536.arch["hidden_dim"] // pair_dh1536.arch["n_heads"] == 1536
+    packed = _forward_takes_k4_and_matches_reference(pair_dh1536, long_batch(6), monkeypatch)
+    assert packed == []  # the cross-attention at Dh 1536 stays on einsum too
+
+
 def test_long_train_step_matches_reference_with_stabilization_live(pair):
     batch = long_batch(2)
     scale, clip = adaptive_stabilization(torch_batch(batch), pair.cfg)
@@ -175,6 +192,16 @@ def test_long_train_step_at_head_dim_512_one_head_matches_reference(pair_dh512):
     js, jm = pair_dh512.run_jax(pair_dh512.jax_state(), batch, 0)
     ps = pair_dh512.port_state()
     pm = pair_dh512.run_port(ps, batch, 0)
+    assert pm["stepped"] == 1.0 and pm["loss_scale"] < 1.0
+    assert_metrics(jm, pm)
+    assert_state(js, ps)
+
+
+def test_long_train_step_at_head_dim_1536_one_head_matches_reference(pair_dh1536):
+    batch = long_batch(7)
+    js, jm = pair_dh1536.run_jax(pair_dh1536.jax_state(), batch, 0)
+    ps = pair_dh1536.port_state()
+    pm = pair_dh1536.run_port(ps, batch, 0)
     assert pm["stepped"] == 1.0 and pm["loss_scale"] < 1.0
     assert_metrics(jm, pm)
     assert_state(js, ps)
