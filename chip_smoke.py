@@ -16,7 +16,10 @@ Phases, each printing one JSON line:
    by kernel) spills or has its ``wgmma`` serialised; the registers of the 12
    K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV; the f32
    ones ``csrc/attention_tf32_wide.cuh``'s), and a
-   failure unless all 12 were built; the registers of the 6 K4 cluster
+   failure unless all 12 were built; the registers of the 12 K4 kernels
+   past Dh 2048 (``csrc/attention_scores.cuh``: each dtype's scores, row
+   pass, the two products, the backward's scores and row deltas), and a
+   failure unless all 12 were built or one spills; the registers of the 6 K4 cluster
    kernels past Dh 256 (the same six, each CTA of a cluster of
    ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
    and a failure unless all 6 were built; how many clusters of 3 to 16 CTAs
@@ -48,10 +51,12 @@ Phases, each printing one JSON line:
 4. dropout: the packed kernels' dropout semantics, as
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
-   against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1536/1920,
-   Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433/1920 and Dh
+   against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1920,
+   Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433 and Dh
    640/768/896 (clusters of 5, 6 and 7 CTAs) and, at H=2, 1088/1152/1280/
-   1408/1536/1664/1792/1920/2048 (clusters of 9 to 16) x T 1433
+   1408/1536/1664/1792/1920/2048 (clusters of 9 to 16) x T 1433 and past
+   2048 (the scores in device memory) 2112/2176/2304/2560/3072/4096 x T 1433
+   (2176 and 2560 also T 1024) and, at H=1, 8192
    x causal and not x segment ids none/suffix/interior, f32 and bf16, each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
    bit equal, with each head dim's worst share of the allclose bound; then
@@ -59,12 +64,18 @@ Phases, each printing one JSON line:
    and H=1 Dh=512 (the flagship's hidden 512 over 2 heads and at one), H=4
    Dh=192 and H=2 Dh=384 (hidden 768), H=1 Dh=1024 (the largest portable
    cluster, 8 CTAs), H=1 Dh=1152, 1536 and 2048 (clusters of 9, 12 and 16),
-   each with its bound, plain version
+   H=1 Dh=2560 and 4096 (the scores in device memory; 3 device kernels a
+   forward, 5 a backward), each with its bound, plain version
    and SDPA in both dtypes (past Dh 256 SDPA's first fused backend that takes
    the call, pinned, and named; past 1024 its memory-efficient backend
    pinned, or the words of its refusal), each kernel's device ms of a call
    (``kernel_split_ms``; the f32 rows at Dh 192 and 256 also on a line of
-   their own, the backward's dQ against its dK/dV kernel).  Then the long path's other
+   their own, the backward's dQ against its dK/dV kernel).  Then
+   (``kernels_flash_scores``) the scores path's launch grid against
+   ``ops/flash_scores.py``'s, rows that see one key or none at Dh 2112 and
+   2560, and the scores path called directly at Dh 1536 and 2048 against
+   the plain versions, and (``kernel_times_flash_scores``) its times there at
+   B=12 T=1408 H=1 beside the cluster kernels'.  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -109,7 +120,9 @@ Phases, each printing one JSON line:
    reference).  (e) The same at ``n_heads=1`` (head dim 512, K4's cluster
    kernels), without the 8-head step, 3 timed bf16 steps.  (f) The same
    with the model widened to hidden 1536 at one head (head dim 1536, K4
-   over clusters of 12 CTAs), B=12, with the step's peak memory.
+   over clusters of 12 CTAs), B=12, with the step's peak memory.  (g) The
+   same at hidden 2560, one head (head dim 2560, K4 with the scores in
+   device memory, ``csrc/attention_scores.cuh``), B=12, 3 timed steps.
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -283,7 +296,8 @@ its cluster kernels' times at Dh 384, 512 and 1024 in both dtypes (with SDPA's
 backend there) and its launches per long step at ``n_heads=1``, and
 ``head_dims_1088_2048``, its times at Dh 1152, 1536 and 2048 (SDPA's
 memory-efficient time or its refusal) and its launches per long step at
-hidden 1536 and one head), the
+hidden 1536 and one head, and ``head_dims_2112_up``, its times at Dh 2560
+and 4096 and its launches per long step at hidden 2560 and one head), the
 ``nvidia-smi`` line
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
@@ -568,6 +582,7 @@ def phase_device():
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
     regs, spills, serialized, tf32_regs, wide_regs, cluster_regs = {}, {}, {}, {}, {}, {}
+    scores_regs = {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -582,6 +597,9 @@ def phase_device():
         # template argument CL true)
         cluster_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                              if is_cluster_kernel(fn)})
+        # K4 past Dh 2048: the scores-in-memory kernels (csrc/attention_scores.cuh)
+        scores_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                            if SCORES_NAMESPACE in fn})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
     from kokoro_tpu_torch.ops import flash_attention as fl
@@ -592,8 +610,8 @@ def phase_device():
           "aligner_library": str(native.library_path().relative_to(ROOT)),
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
           "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
-          "cluster_registers": cluster_regs,
-          "cluster_ctas": {Dh: fl.cluster_ctas(Dh) for Dh in fl.SUPPORTED_HEAD_DIMS if Dh > 256},
+          "cluster_registers": cluster_regs, "scores_registers": scores_regs,
+          "cluster_ctas": {Dh: fl.cluster_ctas(Dh) for Dh in fl.CLUSTER_HEAD_DIMS},
           "cluster_occupancy": occupancy,
           "tf32_matmul": False, "tf32_cudnn": False})
     # each head dim: the bf16 and f32 forward, dQ and dK/dV kernels
@@ -604,6 +622,11 @@ def phase_device():
     # is an argument of the launch)
     if len(cluster_regs) != 6:
         raise AssertionError(f"expected 6 K4 cluster kernels, ptxas built {sorted(cluster_regs)}")
+    # past Dh 2048, each dtype: the scores, row pass, products over keys and
+    # over queries, the backward's scores and the row deltas
+    if len(scores_regs) != 12:
+        raise AssertionError(f"expected 12 K4 scores-in-memory kernels, ptxas built "
+                             f"{sorted(scores_regs)}")
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -638,7 +661,9 @@ def cluster_occupancy() -> dict:
 # (csrc/attention_tc.cuh) and the f32 forward and backward in 3xTF32
 # (csrc/attention_tf32.cuh)
 TF32_NAMESPACE = "kokoro_attn4tf32"
-TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE)
+# K4 past Dh 2048 (csrc/attention_scores.cuh: mma.sync, bf16 and 3xTF32)
+SCORES_NAMESPACE = "kokoro_attn6scores"
+TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE, SCORES_NAMESPACE)
 
 
 def is_cluster_kernel(mangled: str) -> bool:
@@ -1073,21 +1098,34 @@ def _flash_masks(kind, B, T, dev, gen):
 # last 128-column slice; 640, 768 and 896 clusters of 5, 6 and 7 CTAs, whose
 # exchanged tiles split unevenly; 1024 the largest portable cluster), and
 # past 1024 one head dim of every cluster size from 9 to 16, larger than the
-# portable 8 (1088 ragged)
+# portable 8 (1088 ragged); past 2048 the scores in device memory (2112
+# with a ragged 64-column last strip, 2560 the model of phase long's hidden
+# 2560 at one head, up to 8192)
 FLASH_PAST_1024 = (1088, 1152, 1280, 1408, 1536, 1664, 1792, 1920, 2048)
-FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024, *FLASH_PAST_1024)
-# the lengths swept up to Dh 256, past it (fewer, to bound the phase), and
-# at the clusters of 5-7 and of 9-16 CTAs (one)
-FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1536, 1920), "cluster": (1024, 1433, 1920),
-                 "cluster_5_7_9_16": (1433,)}
+FLASH_PAST_2048 = (2112, 2176, 2304, 2560, 3072, 4096, 8192)
+FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024, *FLASH_PAST_1024,
+                   *FLASH_PAST_2048)
+# the lengths swept up to Dh 256, past it (fewer, to keep the script well
+# inside its time limit), and at the clusters of 5-7 and of 9-16 CTAs and
+# past 2048 (one; 1024 too at 2176 and 2560)
+FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1920), "cluster": (1024, 1433),
+                 "cluster_5_7_9_16": (1433,), "scores_1024": (1024, 1433)}
 
 
 def flash_lengths(Dh: int) -> tuple:
     """The T that phase kernels_flash sweeps at head dim ``Dh``."""
     if Dh <= 256:
         return FLASH_LENGTHS["narrow"]
-    one = Dh in (640, 768, 896) or Dh in FLASH_PAST_1024
+    if Dh in (2176, 2560):
+        return FLASH_LENGTHS["scores_1024"]
+    one = Dh in (640, 768, 896) or Dh in FLASH_PAST_1024 or Dh in FLASH_PAST_2048
     return FLASH_LENGTHS["cluster_5_7_9_16" if one else "cluster"]
+
+
+def flash_heads(Dh: int) -> int:
+    """Heads of phase kernels_flash's cases at head dim ``Dh`` (B=2): fewer
+    past 1024, to bound the phase, and one at 8192."""
+    return 8 if Dh <= 1024 else (1 if Dh >= 8192 else 2)
 
 
 # (H, Dh) of K4's timed rows at the long shape B=12, T=1408: the flagship's 8
@@ -1097,7 +1135,10 @@ def flash_lengths(Dh: int) -> tuple:
 # Dh 1152, 1536 (hidden 1536, phase long's model at one head) and 2048
 # (clusters of 9, 12 and 16 CTAs)
 FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512), (1, 1024),
-               (1, 1152), (1, 1536), (1, 2048))
+               (1, 1152), (1, 1536), (1, 2048), (1, 2560), (1, 4096))
+# the scores-in-memory kernels called directly where the wrappers take the
+# cluster kernels: held and timed beside them (B=12 T=1408 H=1)
+SCORES_BESIDE_CLUSTERS = (1536, 2048)
 
 
 def phase_kernels_flash():
@@ -1113,10 +1154,11 @@ def phase_kernels_flash():
     gen = torch.Generator(device="cpu").manual_seed(4)
     B = 2
     worst, worst_ratio, checks = {}, {}, 0
+    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for Dh in FLASH_HEAD_DIMS:
-            H = 2 if Dh > 1024 else 8  # past 1024 fewer heads, to bound the phase
+            H = flash_heads(Dh)
             for T in flash_lengths(Dh):
                 q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype)
                                for _ in range(4))
@@ -1166,19 +1208,27 @@ def phase_kernels_flash():
             torch.cuda.empty_cache()
     emit({"phase": "kernels_flash", "checks": checks, "two_calls_bitwise_equal": True,
           "f32_independent_of_allow_tf32": True,
-          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1536,1920}, "
-                    "Dh{320,384,448,512,1024} x T{1024,1433,1920} and Dh{640,768,896} x "
+          "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1920}, "
+                    "Dh{320,384,448,512,1024} x T{1024,1433} and Dh{640,768,896} x "
                     "T{1433}; B=2 H=2 Dh{1088,1152,1280,1408,1536,1664,1792,1920,2048} x "
-                    "T{1433}; x causal/non-causal x segment ids none/suffix/interior",
-          "cluster_ctas_checked": sorted({fl.cluster_ctas(Dh) for Dh in FLASH_HEAD_DIMS if Dh > 256}),
+                    "T{1433}; past 2048 (the scores in device memory) B=2 H=2 "
+                    "Dh{2112,2176,2304,2560,3072,4096} x T{1433} (and T 1024 at 2176, 2560), "
+                    "H=1 Dh 8192; x causal/non-causal x segment ids none/suffix/interior",
+          "cluster_ctas_checked": sorted({fl.cluster_ctas(Dh) for Dh in FLASH_HEAD_DIMS
+                                          if 256 < Dh <= fl.MAX_CLUSTER_HEAD_DIM}),
           "tolerance": {"forward": TOL, "grad": GRAD_TOL}, "max_abs_err": worst,
-          "worst_allclose_ratio": worst_ratio})
+          "worst_allclose_ratio": worst_ratio, "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "kernels_flash_scores", **scores_path_checks(gen),
+          "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
 
     timings = {}
     for H, Dh in FLASH_TIMED:
         timings.update(flash_times(12, 1408, H, Dh, gen))
     emit({"phase": "kernel_times_flash", "shape": "B=12 T=1408 causal",
-          "times": {f"{n}/{d}/H={H}/Dh={Dh}": r for (n, d, H, Dh), r in timings.items()}})
+          "times": {f"{n}/{d}/H={H}/Dh={Dh}": r for (n, d, H, Dh), r in timings.items()},
+          "wall_s": time.perf_counter() - t0})
     # the f32 kernels at Dh 192 and 256 (csrc/attention_tf32_wide.cuh): each
     # kernel's device ms, the backward's dQ against its dK/dV kernel
     emit({"phase": "kernel_split_f32_dh192_256", "shape": "B=12 T=1408 causal",
@@ -1190,6 +1240,16 @@ def phase_kernels_flash():
           "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
                               for (n, d, H, Dh), r in timings.items()
                               if d == "bfloat16" and Dh in (192, 256)}})
+    # the scores-in-memory kernels where the wrappers take the cluster kernels
+    scores = {}
+    for Dh in SCORES_BESIDE_CLUSTERS:
+        scores.update(scores_times(12, 1408, 1, Dh, gen))
+    emit({"phase": "kernel_times_flash_scores", "shape": "B=12 T=1408 H=1 causal",
+          "called": "flash_attention_{fwd,bwd}_scores directly (the wrappers route these "
+                    "head dims to the cluster kernels)",
+          "times": {f"{n}/{d}/Dh={Dh}": {**r, "cluster_ms": timings[(
+              "flash_attention_" + n.split("_")[2], d, 1, Dh)]["ms"]}
+              for (n, d, Dh), r in scores.items()}})
     # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
     timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
                for (n, d, H, Dh), r in timings.items()}
@@ -1252,7 +1312,8 @@ def flash_times(B, T, H, Dh, gen) -> dict:
         timings[("flash_attention_fwd", dname, H, Dh)] = timed_row(
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
-            **profiled_kernels(lambda: fl.flash_attention_fwd(q, k, v, **kw), 1),
+            **profiled_kernels(lambda: fl.flash_attention_fwd(q, k, v, **kw),
+                               3 if fl.scores_path(Dh) else 1),
             # under grad: the lse written too (the flash forward has no dropout)
             ms_for_backward=graph_time_ms(
                 lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
@@ -1262,13 +1323,154 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             attention_bound(B, T, H, Dh, dname, True, backward=True),
             graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
             max_abs_err=err_g,
-            **profiled_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw), 2),
+            **profiled_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+                               5 if fl.scores_path(Dh) else 2),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
                 q, k, v, o, do, **kw), iters=3),
             library_ms=None if refused else library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd), **library)
         del q, k, v, do, o, lse, grads, ref, leaves
         torch.cuda.empty_cache()
     return timings
+
+
+def scores_path_checks(gen) -> dict:
+    """K4's scores-in-memory kernels beyond the sweep: (a) the compiled
+    launcher's grid against ``flash_scores.grid``; (b) rows that see one key
+    and rows that see none, both dtypes, causal and not, at Dh 2112 and 2560
+    (T=1433, B=2, H=1): the one-key rows' dQ exactly 0, the no-key rows' O
+    and dQ exactly 0 and lse +inf, every output within the tolerances, two
+    calls bit for bit; (c) the kernels called directly at the cluster head
+    dims ``SCORES_BESIDE_CLUSTERS`` (T=1433, B=2, H=2, every mask kind,
+    causal), against the plain versions and bitwise over two calls."""
+    import torch
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+    from kokoro_tpu_torch.ops import flash_scores as fs
+
+    dev = torch.device("cuda")
+    grids = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for Tq, Tk, Dh, causal in ((1433, 1433, 2112, True), (1408, 1408, 2560, True),
+                                   (1024, 1024, 8192, False), (300, 1000, 4096, True)):
+            want, got = fs.grid(Tq, Tk, Dh, causal, dtype), fs.launch_grid(Tq, Tk, Dh, causal,
+                                                                            dtype)
+            if want != got:
+                raise AssertionError(f"scores grid at {(Tq, Tk, Dh, causal, dtype)}: the "
+                                     f"launcher's {got}, flash_scores.grid's {want}")
+            grids += 1
+    worst = {}
+
+    def hold(where, dname, outs, refs, tols):
+        for label, a, b, tol in zip(("o", "dq", "dk", "dv"), outs, refs, tols):
+            err = close_or_raise(f"{where} {label}", a, b, tol)
+            key = f"{'fwd' if label == 'o' else 'bwd'}/{dname}"
+            worst[key] = max(worst.get(key, 0.0), err)
+
+    rows = []
+    B, T = 2, 1433
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for Dh in (2112, 2560):
+            q, k, v, do = (torch.randn(B, 1, T, Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+            q_seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+            for i, r in enumerate(one):
+                q_seg[:, r] = 2 + i
+            kv_seg = q_seg.clone()  # key r alone shares row r's segment
+            for r in none:
+                q_seg[:, r] = 100 + r  # no key's segment
+            for causal in (True, False):
+                kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+                runs = []
+                for _ in range(2):
+                    o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+                    runs.append((o, lse, *fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+                torch.cuda.synchronize()
+                where = f"{dname} Dh={Dh} causal={causal} one-key and no-key rows"
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"{where}: two calls differ")
+                o, lse, dq, dk, dv = runs[0]
+                zero = lambda x, r: torch.equal(x[:, :, r], torch.zeros_like(x[:, :, r]))  # noqa: E731
+                if not (zero(dq, one) and zero(o, none) and zero(dq, none)
+                        and torch.isinf(lse[:, :, none]).all()
+                        and torch.isfinite(lse[:, :, one]).all()):
+                    raise AssertionError(f"{where}: a one-key row's dQ, or a no-key row's O, "
+                                         f"dQ or lse, is not what the contract says")
+                ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+                hold(where, dname, (o, dq, dk, dv),
+                     (fl.flash_attention_reference(q, k, v, **kw), *ref),
+                     (TOL[dname],) + (GRAD_TOL[dname],) * 3)
+                rows.append(where)
+            del q, k, v, do
+    direct = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for Dh in SCORES_BESIDE_CLUSTERS:
+            q, k, v, do = (torch.randn(B, 2, T, Dh, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            for kind in ("none", "suffix", "interior"):
+                q_valid, kv_valid = _flash_masks(kind, B, T, dev, gen)
+                q_seg, kv_seg = fl.segment_ids(q, k, q_valid, kv_valid)
+                kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+                runs = []
+                for _ in range(2):
+                    o, lse = fl.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
+                    runs.append((o, lse, *fl.flash_attention_bwd_scores(q, k, v, o, do, lse,
+                                                                        **kw)))
+                torch.cuda.synchronize()
+                where = f"{dname} Dh={Dh} T={T} masks={kind} scores path called directly"
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"{where}: two calls differ")
+                o, lse, dq, dk, dv = runs[0]
+                ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+                hold(where, dname, (o, dq, dk, dv),
+                     (fl.flash_attention_reference(q, k, v, **kw), *ref),
+                     (TOL[dname],) + (GRAD_TOL[dname],) * 3)
+                direct += 1
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    return {"grids_equal_the_launchers": grids, "one_and_no_key_cases": rows,
+            "direct_at_cluster_head_dims": direct, "max_abs_err": worst,
+            "tolerance": {"forward": TOL, "grad": GRAD_TOL}}
+
+
+def scores_times(B, T, H, Dh, gen) -> dict:
+    """The scores-in-memory kernels called directly at (B, H, T, Dh), causal,
+    both dtypes: each against its plain version, then its device time, each
+    device kernel's time and the share of the bound, keyed
+    ``(name, dtype, Dh)``."""
+    import torch
+
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
+        kw = dict(causal=True, scale=Dh ** -0.5)
+        where = f"scores path {dname} B={B} T={T} H={H} Dh={Dh}"
+        o, lse = fl.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
+        err_o = close_or_raise(where, o, fl.flash_attention_reference(q, k, v, **kw), TOL[dname])
+        grads = fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)
+        ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+        err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
+                    for n, a, b in zip("qkv", grads, ref))
+        out[("flash_scores_fwd", dname, Dh)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True),
+            graph_time_ms(lambda: fl.flash_attention_fwd_scores(q, k, v, **kw)),
+            max_abs_err=err_o,
+            **profiled_kernels(lambda: fl.flash_attention_fwd_scores(q, k, v, **kw), 3))
+        out[("flash_scores_bwd", dname, Dh)] = timed_row(
+            attention_bound(B, T, H, Dh, dname, True, backward=True),
+            graph_time_ms(lambda: fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)),
+            max_abs_err=err_g,
+            **profiled_kernels(lambda: fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw),
+                               5))
+        del q, k, v, do, o, lse, grads, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -2100,14 +2302,17 @@ def phase_long():
     torch.cuda.empty_cache()
 
     # (d) K4 at head dim 256, (e) at head dim 512 (the cluster kernels), (f)
-    # at head dim 1536 (a cluster of 12 CTAs, larger than the portable 8)
+    # at head dim 1536 (a cluster of 12 CTAs, larger than the portable 8),
+    # (g) at head dim 2560 (the scores in device memory)
     dh256, dh256_counts = long_head_dim(n_layers, LONG_DH256, timed_steps=5)
     emit({"phase": "long_dh256", **dh256})
     dh512, dh512_counts = long_head_dim(n_layers, LONG_DH512, timed_steps=3)
     emit({"phase": "long_dh512", **dh512})
     dh1536, dh1536_counts = long_head_dim(n_layers, LONG_DH1536, timed_steps=3)
     emit({"phase": "long_dh1536", **dh1536})
-    return per_step[-1], dh256_counts, dh512_counts, dh1536_counts
+    dh2560, dh2560_counts = long_head_dim(n_layers, LONG_DH2560, timed_steps=3)
+    emit({"phase": "long_dh2560", **dh2560})
+    return per_step[-1], dh256_counts, dh512_counts, dh1536_counts, dh2560_counts
 
 
 # phase long at head dims 256 and 512: the flagship's hidden 512 over 2 heads
@@ -2115,10 +2320,12 @@ def phase_long():
 # self-attention and the packed kernels' gate (Dh 64 and 128) leaves the
 # cross-attention on einsum; at Dh 512 K4 runs its cluster kernels; and the
 # model widened to hidden 1536 at one head (Dh 1536: K4 over clusters of 12
-# CTAs), as the JAX package's config takes it
+# CTAs), as the JAX package's config takes it, and to hidden 2560 at one
+# head (Dh 2560: K4 with the scores in device memory)
 LONG_DH256 = dict(n_heads=2)
 LONG_DH512 = dict(n_heads=1)
 LONG_DH1536 = dict(hidden_dim=1536, n_heads=1)
+LONG_DH2560 = dict(hidden_dim=2560, n_heads=1)
 
 
 def bf16_step_gap(dev, overrides: dict, f32_loss: bool = False) -> dict:
@@ -2191,7 +2398,7 @@ def bf16_step_gap(dev, overrides: dict, f32_loss: bool = False) -> dict:
 def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
     """The long regime at ``overrides`` (``LONG_DH256``: Dh 256;
     ``LONG_DH512``: Dh 512; ``LONG_DH1536``: hidden 1536 at one head, Dh
-    1536).  (a) f32: ``train_parity`` (kernel path against
+    1536; ``LONG_DH2560``: hidden 2560 at one head, Dh 2560).  (a) f32: ``train_parity`` (kernel path against
     plain path, 3 steps, the planted dK control on K4), K4 forward and
     backward once per decoder layer in the kernel path's step and no other
     wrapper.  (b) bf16: one step from one init, kernel path against plain
@@ -4374,9 +4581,10 @@ def run_phases(phases, work: Path) -> int:
             if c:
                 counts[name] = (c, "per bf16 preset training step (B=32 L=96 T=512)")
     long_step = "per bf16 long training step (B=12 L=256 T=1408)"
-    dh256_counts, dh512_counts, dh1536_counts = {}, {}, {}
+    dh256_counts, dh512_counts, dh1536_counts, dh2560_counts = {}, {}, {}, {}
     if "long" in phases:  # launches in one bf16 long training step
-        long_path, dh256_counts, dh512_counts, dh1536_counts = timed("long", phase_long)
+        (long_path, dh256_counts, dh512_counts, dh1536_counts,
+         dh2560_counts) = timed("long", phase_long)
         for name, c in long_path.items():
             if name.startswith("flash"):
                 counts[name] = (c, long_step)
@@ -4444,8 +4652,11 @@ def run_phases(phases, work: Path) -> int:
                     ("head_dims_192_256", FLASH_TIMED[1:3], dh256_counts, "n_heads=2, head_dim 256"),
                     ("head_dims_320_1024", FLASH_TIMED[3:6], dh512_counts,
                      "n_heads=1, head_dim 512: the cluster kernels"),
-                    ("head_dims_1088_2048", FLASH_TIMED[6:], dh1536_counts,
-                     "hidden_dim=1536, n_heads=1, head_dim 1536: clusters of 12 CTAs")):
+                    ("head_dims_1088_2048", FLASH_TIMED[6:9], dh1536_counts,
+                     "hidden_dim=1536, n_heads=1, head_dim 1536: clusters of 12 CTAs"),
+                    ("head_dims_2112_up", FLASH_TIMED[9:], dh2560_counts,
+                     "hidden_dim=2560, n_heads=1, head_dim 2560: the scores in device "
+                     "memory (csrc/attention_scores.cuh)")):
                 row[key] = {
                     "launches": path_counts[kern.name],
                     "launches_are": f"per bf16 long training step at {path} (B=12 L=256 T=1408)",

@@ -7,7 +7,8 @@
 // self-attention at T >= 1024 with T a multiple of 128.  Here: q of shape
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
 // float32 or bfloat16, Dh in {64, 128, 192, 256} or a multiple of 64 from
-// 320 to 2048, any Tq, Tk >= 1; optional
+// 320 to 2048 (past 2048, any multiple of 64: kokoro_flash_attention_fwd_scores
+// below, attention_scores.cuh), any Tq, Tk >= 1; optional
 // causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
 // (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
 // library's kernel takes a head dim up to 128 or a multiple of 128 (it
@@ -51,6 +52,7 @@
 // allow (cudaFuncAttributeNonPortableClusterSizeAllowed).
 
 #include "attention_kernels.cuh"
+#include "attention_scores.cuh"
 
 using namespace kokoro_attn;
 
@@ -81,4 +83,48 @@ extern "C" int kokoro_flash_attention_fwd_clusters(int dtype, int c, int* cluste
   if (dtype == 0) return (int)tf32::fwd_split_fit(c, *clusters);
   if (dtype == 1) return (int)tc::fwd_split_fit(c, *clusters);
   return (int)cudaErrorInvalidValue;
+}
+
+// K4 past Dh 2048 (any multiple of 64 from 64 on; the wrapper takes it past
+// 2048), the scores in device memory (attention_scores.cuh): the scores
+// kernel, the row pass and O = P~ V / l, three launches on `stream`.
+// Workspaces, (B H, Mq, Nk) with Mq, Nk = Tq, Tk rounded up to 128:
+// s_ws f32, p_ws of the input type (f32: may be s_ws); l_ws (B H, Tq) f32.
+// lse: NULL or (B H, Tq) f32 (+inf on a row with no visible key).  Returns
+// a cudaError_t; does not synchronise.
+extern "C" int kokoro_flash_attention_fwd_scores(const void* q, const void* k, const void* v,
+                                                 void* o, float* lse, const int* q_seg,
+                                                 const int* kv_seg, float* s_ws, void* p_ws,
+                                                 float* l_ws, int B, int H, int Tq, int Tk,
+                                                 int Dh, float scale, int causal, int dtype,
+                                                 void* stream) {
+  if (!scores::valid(B, H, Tq, Tk, Dh, q_seg, kv_seg) || s_ws == nullptr || p_ws == nullptr ||
+      l_ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  scores::Args a{};
+  a.q = q, a.k = k, a.v = v, a.q_seg = q_seg, a.kv_seg = kv_seg;
+  a.s = s_ws, a.p = p_ws, a.l = l_ws, a.lse_out = lse;
+  a.H = H, a.Tq = Tq, a.Tk = Tk, a.Dh = Dh;
+  a.Mq = scores::tiles_of(Tq) * scores::kTile, a.Nk = scores::tiles_of(Tk) * scores::kTile;
+  a.scale = scale, a.causal = causal != 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)scores::launch_fwd<float>(a, o, B * H, st);
+  if (dtype == 1) return (int)scores::launch_fwd<__nv_bfloat16>(a, o, B * H, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The scores path's launch grid at (Tq, Tk, Dh, causal, dtype), into
+// counts[5]: score tiles a (b, h), CTAs a score tile, apply's row tiles over
+// queries and over keys, 128-column strips of the head dim
+// (ops/flash_scores.py::grid computes the same).  Returns a cudaError_t.
+extern "C" int kokoro_flash_attention_scores_grid(int Tq, int Tk, int Dh, int causal, int dtype,
+                                                  int* counts) {
+  if (counts == nullptr || Tq <= 0 || Tk <= 0 || Dh < 64 || Dh % 64 != 0 || dtype < 0 ||
+      dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const scores::Grid g = dtype == 0 ? scores::grid_of<float>(Tq, Tk, Dh, causal != 0)
+                                    : scores::grid_of<__nv_bfloat16>(Tq, Tk, Dh, causal != 0);
+  counts[0] = g.score_tiles, counts[1] = g.ctas_a_tile, counts[2] = g.query_rows;
+  counts[3] = g.key_rows, counts[4] = g.strips;
+  return 0;
 }

@@ -6,7 +6,8 @@
 // _flash_attention_dq_kernel) of jax.experimental.pallas.ops.tpu.flash_attention.
 // Inputs q, o, dO (B, H, Tq, Dh), k, v (B, H, Tk, Dh), head-first and
 // contiguous, f32 or bf16, Dh in {64, 128, 192, 256} or a multiple of 64
-// from 320 to 2048, the forward's f32 row
+// from 320 to 2048 (past 2048, any multiple of 64:
+// kokoro_flash_attention_bwd_scores below, attention_scores.cuh), the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
 // kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
@@ -45,6 +46,7 @@
 // kernels allow.
 
 #include "attention_kernels.cuh"
+#include "attention_scores.cuh"
 
 using namespace kokoro_attn;
 
@@ -82,3 +84,33 @@ extern "C" int kokoro_flash_attention_bwd_clusters(int dtype, int c, int* dq_clu
   if (dtype == 1) return (int)tc::bwd_split_fit(c, *dq_clusters, *dkdv_clusters);
   return (int)cudaErrorInvalidValue;
 }
+
+// Gradients of kokoro_flash_attention_fwd_scores (o and lse its outputs for
+// the same inputs): each row's delta, the scores kernel's P and dS, then
+// dQ = dS K, dK = dS^T Q, dV = P^T dO; five launches on `stream`.
+// Workspaces: delta (B H, Tq) f32; p_ws and ds_ws (B H, Mq, Nk) of the
+// input type, Mq, Nk = Tq, Tk rounded up to 128.  Returns a cudaError_t;
+// does not synchronise.
+extern "C" int kokoro_flash_attention_bwd_scores(const void* q, const void* k, const void* v,
+                                                 const void* o, const void* dout,
+                                                 const float* lse, float* delta, void* dq,
+                                                 void* dk, void* dv, const int* q_seg,
+                                                 const int* kv_seg, void* p_ws, void* ds_ws,
+                                                 int B, int H, int Tq, int Tk, int Dh,
+                                                 float scale, int causal, int dtype,
+                                                 void* stream) {
+  if (!scores::valid(B, H, Tq, Tk, Dh, q_seg, kv_seg) || p_ws == nullptr || ds_ws == nullptr ||
+      delta == nullptr || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  scores::Args a{};
+  a.q = q, a.k = k, a.v = v, a.o = o, a.dout = dout, a.q_seg = q_seg, a.kv_seg = kv_seg;
+  a.lse = lse, a.delta = delta, a.p = p_ws, a.ds = ds_ws;
+  a.H = H, a.Tq = Tq, a.Tk = Tk, a.Dh = Dh;
+  a.Mq = scores::tiles_of(Tq) * scores::kTile, a.Nk = scores::tiles_of(Tk) * scores::kTile;
+  a.scale = scale, a.causal = causal != 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)scores::launch_bwd<float>(a, dq, dk, dv, B * H, st);
+  if (dtype == 1) return (int)scores::launch_bwd<__nv_bfloat16>(a, dq, dk, dv, B * H, st);
+  return (int)cudaErrorInvalidValue;
+}
+

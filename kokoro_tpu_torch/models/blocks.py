@@ -18,8 +18,9 @@ Attention routes with ``use_flash``, in the reference's order
 
 1. K4 (``ops/flash_attention.py``): causal attention at T >= 1024 in multiples
    of 128 with attention dropout inactive, on the head-split path, at every
-   head dim that is a multiple of 64 up to 2048 (at one head of the
-   flagship's hidden 512, Dh 512; of hidden 1536, Dh 1536);
+   head dim that is a multiple of 64 (at one head of the flagship's hidden
+   512, Dh 512; of hidden 1536, Dh 1536; of hidden 2560, Dh 2560, where the
+   kernels keep the scores in device memory);
 2. K1 (``ops/fused_attention.py``, packed): any other causal self-attention;
 3. K2 (packed, kv lengths): cross-attention with q_len == kv_len;
 4. K3 (``fused_attention``, folded): causal attention on the head-split path
@@ -29,7 +30,7 @@ Attention routes with ``use_flash``, in the reference's order
 
 K1, K2 and K3 take head dims 64 and 128, as the reference's packed gate
 does (``fused_attention.SUPPORTED_HEAD_DIMS``); K4 takes its own
-(``flash_attention.SUPPORTED_HEAD_DIMS``).
+(``flash_attention.supported_head_dim``: every multiple of 64).
 
 The packed routes take any T: the reference's TPU-only gates (128 <= T <=
 896) do not carry over, so K1 and K2 also run outside K4's regime where the

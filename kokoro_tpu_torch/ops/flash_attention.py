@@ -13,11 +13,13 @@ query's); no dropout.
 * :func:`flash_supported` is the reference's shape gate without its
   ``default_backend() == "tpu"`` clause: the port routes by shape on every
   device, and the CPU runs the plain version.  It admits every multiple of
-  64 up to 2048, the kernels' head dims (the reference: any multiple of 64;
-  past 2048 the port runs the plain path).  From 320 a cluster of
-  ceil(head_dim / 128) CTAs splits the head dim by columns: 3 to 16 CTAs,
-  past 8 (head dims past 1024) a cluster larger than the portable size.
-  :func:`cluster_fits` reads how many such clusters the card holds.
+  64 (:func:`supported_head_dim`), as the reference does.  From 320 to 2048
+  a cluster of ceil(head_dim / 128) CTAs splits the head dim by columns: 3
+  to 16 CTAs, past 8 (head dims past 1024) a cluster larger than the
+  portable size; :func:`cluster_fits` reads how many such clusters the card
+  holds.  Past 2048 (more columns than Hopper's largest cluster) the kernels
+  keep the scores in device memory (``ops/flash_scores.py``,
+  ``csrc/attention_scores.cuh``): no cluster and no upper limit.
   ``_pick_block_q`` (TPU block tuning) has no counterpart: the kernels tile
   by 64 at any T.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
@@ -35,7 +37,8 @@ query's); no dropout.
 * :data:`flash_attention_fwd` / :data:`flash_attention_bwd` launch the kernels
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) and count
   their launches; a launch the card refuses (at a cluster size it holds no
-  cluster of, say) raises, naming the kernel and the cluster size.
+  cluster of, say) raises, naming the kernel, the head dim and, at a
+  cluster head dim, the cluster size.
   :class:`FlashAttentionFunction` runs plain forward and backward on CPU
   tensors and the kernels, and nothing else, on CUDA tensors.
 """
@@ -52,26 +55,38 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the library's DEFAULT_MAS
 FLASH_MIN_LEN = 1024
 FLASH_BLOCK = 128
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-# the kernels' head dims, K4's own: every multiple of 64 up to 2048 (from
-# 320 over a cluster of CTAs of 128 columns each, at most 16); the packed
-# kernels (ops/fused_attention.py) take 64 and 128
+# the kernels' head dims, K4's own: every multiple of 64 (from 320 to 2048
+# over a cluster of CTAs of 128 columns each, at most 16; past 2048 the
+# scores in device memory); the packed kernels (ops/fused_attention.py)
+# take 64 and 128
 SLICE_COLS = 128
 MAX_CLUSTER_CTAS = 16
-SUPPORTED_HEAD_DIMS = tuple(range(64, MAX_CLUSTER_CTAS * SLICE_COLS + 1, 64))
+MAX_CLUSTER_HEAD_DIM = MAX_CLUSTER_CTAS * SLICE_COLS
+# the head dims of the cluster kernels
+CLUSTER_HEAD_DIMS = tuple(range(320, MAX_CLUSTER_HEAD_DIM + 1, 64))
+
+
+def supported_head_dim(head_dim: int) -> bool:
+    """Whether K4's kernels take ``head_dim``: a multiple of 64, at least 64
+    (the reference's gate admits the same)."""
+    return head_dim >= 64 and head_dim % 64 == 0
+
+
+def scores_path(head_dim: int) -> bool:
+    """Whether the wrappers take ``head_dim`` to the scores-in-memory
+    kernels (``ops/flash_scores.py``): past the clusters' 2048."""
+    return head_dim > MAX_CLUSTER_HEAD_DIM
 
 
 def flash_supported(q_len: int, kv_len: int, head_dim: int, causal: bool = True) -> bool:
     """The reference's K4 shape gate (``blocks.py::_flash_supported``): causal,
     both lengths multiples of 128 and at least 1024, head_dim a multiple of
-    64; and, narrower than the reference, head_dim in
-    :data:`SUPPORTED_HEAD_DIMS` (a multiple of 64 up to 2048), the ones the
-    kernels take: past 2048 the reference's gate admits flash and the
-    port's does not."""
+    64 (:func:`supported_head_dim`), every one of which the kernels take."""
     return (
         causal
         and q_len % FLASH_BLOCK == 0
         and kv_len % FLASH_BLOCK == 0
-        and head_dim in SUPPORTED_HEAD_DIMS
+        and supported_head_dim(head_dim)
         and q_len >= FLASH_MIN_LEN
         and kv_len >= FLASH_MIN_LEN
     )
@@ -88,9 +103,8 @@ def _check(q, k, v):
                         f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} is not a multiple of 64 from 64 to "
-                         f"{SUPPORTED_HEAD_DIMS[-1]}")
+    if not supported_head_dim(q.shape[3]):
+        raise ValueError(f"head_dim {q.shape[3]} is not a multiple of 64 (at least 64)")
 
 
 def segment_ids(q, k, q_valid: Optional[torch.Tensor], kv_valid: Optional[torch.Tensor]
@@ -192,8 +206,8 @@ def _ptr(x: Optional[torch.Tensor]):
 
 def cluster_ctas(head_dim: int) -> int:
     """CTAs of the cluster that takes a work item at ``head_dim``: one a
-    128-column slice past 256 (3 to 16), else 1."""
-    return -(-head_dim // SLICE_COLS) if head_dim > 256 else 1
+    128-column slice from 320 to 2048 (3 to 16), else 1 (no cluster)."""
+    return -(-head_dim // SLICE_COLS) if 256 < head_dim <= MAX_CLUSTER_HEAD_DIM else 1
 
 
 def cluster_fits(dtype: torch.dtype, ctas: int) -> dict:
@@ -219,12 +233,15 @@ def cluster_fits(dtype: torch.dtype, ctas: int) -> dict:
 
 
 def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Tensor) -> str:
-    """The message of a refused launch: at a cluster head dim, the cluster
-    size and each of the wrapper's kernels the card holds no cluster of."""
+    """The message of a refused launch: the head dim and its kernels; at a
+    cluster head dim, the cluster size and each of the wrapper's kernels the
+    card holds no cluster of."""
     Dh, ctas = q.shape[3], cluster_ctas(q.shape[3])
     msg = f"{name} kernel launch failed: cudaError_t {err}"
+    if scores_path(Dh):
+        return f"{msg} (head_dim {Dh}: the scores-in-memory kernels, csrc/attention_scores.cuh)"
     if ctas == 1:
-        return msg
+        return f"{msg} (head_dim {Dh})"
     try:
         fits = cluster_fits(q.dtype, ctas)
     except RuntimeError as exc:
@@ -258,6 +275,11 @@ class FlashAttentionKernel:
         if (q_seg is None) != (kv_seg is None):
             raise ValueError("q_seg and kv_seg come together")
         _kernel_check({"q": q, "k": k, "v": v, "q_seg": q_seg, "kv_seg": kv_seg})
+        if scores_path(q.shape[3]):
+            out = flash_attention_fwd_scores(q, k, v, causal=causal, scale=scale, q_seg=q_seg,
+                                             kv_seg=kv_seg, return_lse=return_lse)
+            self.launches += 1
+            return out
         from kokoro_tpu_torch.ops import kernels
 
         lib = kernels.load("flash_attention")
@@ -293,17 +315,13 @@ class FlashAttentionBwdKernel:
 
     def __call__(self, q, k, v, o, do, lse, *, causal: bool, scale: float,
                  q_seg: Optional[torch.Tensor] = None, kv_seg: Optional[torch.Tensor] = None):
-        _check(q, k, v)
-        if (q_seg is None) != (kv_seg is None):
-            raise ValueError("q_seg and kv_seg come together")
-        for label, x in (("o", o), ("do", do)):
-            if x.shape != q.shape or x.dtype != q.dtype:
-                raise ValueError(f"{label} must match q's shape and dtype")
+        _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg)
+        if scores_path(q.shape[3]):
+            grads = flash_attention_bwd_scores(q, k, v, o, do, lse, causal=causal, scale=scale,
+                                               q_seg=q_seg, kv_seg=kv_seg)
+            self.launches += 1
+            return grads
         B, H, Tq, Dh = q.shape
-        if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
-            raise ValueError("lse must be float32 (B, H, Tq)")
-        _kernel_check({"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse,
-                       "q_seg": q_seg, "kv_seg": kv_seg})
         from kokoro_tpu_torch.ops import kernels
 
         lib = kernels.load("flash_attention_bwd")
@@ -328,6 +346,56 @@ class FlashAttentionBwdKernel:
 flash_attention_fwd = FlashAttentionKernel()
 flash_attention_bwd = FlashAttentionBwdKernel()
 KERNELS = (flash_attention_fwd, flash_attention_bwd)
+
+
+def _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg):
+    _check(q, k, v)
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg come together")
+    for label, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"{label} must match q's shape and dtype")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError("lse must be float32 (B, H, Tq)")
+    _kernel_check({"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse,
+                   "q_seg": q_seg, "kv_seg": kv_seg})
+
+
+# the scores-in-memory kernels at any head dim (ops/flash_scores.py): the
+# wrappers' route past 2048, callable at any multiple of 64 for a
+# measurement (they count nothing)
+def flash_attention_fwd_scores(q, k, v, *, causal: bool, scale: float,
+                               q_seg: Optional[torch.Tensor] = None,
+                               kv_seg: Optional[torch.Tensor] = None, return_lse: bool = False):
+    """``kokoro_flash_attention_fwd_scores`` on CUDA tensors: ``o``, or
+    ``(o, lse)``; raises where the launch is refused."""
+    from kokoro_tpu_torch.ops import flash_scores
+
+    _check(q, k, v)
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg come together")
+    _kernel_check({"q": q, "k": k, "v": v, "q_seg": q_seg, "kv_seg": kv_seg})
+    err, o, lse = flash_scores.scores_fwd(q, k, v, causal=causal, scale=scale, q_seg=q_seg,
+                                          kv_seg=kv_seg, return_lse=return_lse)
+    if err != 0:
+        raise RuntimeError(_launch_error(flash_attention_fwd.name, ("fwd",), err, q))
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_scores(q, k, v, o, do, lse, *, causal: bool, scale: float,
+                               q_seg: Optional[torch.Tensor] = None,
+                               kv_seg: Optional[torch.Tensor] = None):
+    """``kokoro_flash_attention_bwd_scores`` on CUDA tensors: ``(dq, dk,
+    dv)`` from the scores forward's ``o`` and ``lse``; raises where the
+    launch is refused."""
+    from kokoro_tpu_torch.ops import flash_scores
+
+    _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg)
+    err, dq, dk, dv = flash_scores.scores_bwd(q, k, v, o, do, lse, causal=causal, scale=scale,
+                                              q_seg=q_seg, kv_seg=kv_seg)
+    if err != 0:
+        raise RuntimeError(_launch_error(flash_attention_bwd.name, ("dq", "dkdv"), err, q))
+    return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -373,8 +441,8 @@ def flash_attention(
     CPU tensors run the plain versions; CUDA tensors launch the kernels.
     ``q_valid`` / ``kv_valid`` ``(B, T)`` (True or 1 = valid) mask keys
     whose validity differs from the query's.  Refuses dtypes other than
-    float32/bfloat16 and a head_dim that is not a multiple of 64 from 64 to
-    2048 on every device; the caller gates shapes with
+    float32/bfloat16 and a head_dim that is not a multiple of 64 on every
+    device; the caller gates shapes with
     :func:`flash_supported`."""
     _check(q, k, v)
     q_seg, kv_seg = segment_ids(q, k, q_valid, kv_valid)

@@ -127,6 +127,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         if hasattr(lib, "kokoro_flash_attention_fwd_clusters"):
             lib.kokoro_flash_attention_fwd_clusters.argtypes = [i, i, ctypes.POINTER(i)]
             lib.kokoro_flash_attention_fwd_clusters.restype = i
+        # past Dh 2048: q k v o lse q_seg kv_seg s_ws p_ws l_ws, B H Tq Tk Dh, scale,
+        # causal dtype, stream; and the path's grid (Tq Tk Dh causal dtype, counts[5])
+        if hasattr(lib, "kokoro_flash_attention_fwd_scores"):
+            lib.kokoro_flash_attention_fwd_scores.argtypes = [p] * 10 + [i] * 5 + [f, i, i, p]
+            lib.kokoro_flash_attention_fwd_scores.restype = i
+            lib.kokoro_flash_attention_scores_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+            lib.kokoro_flash_attention_scores_grid.restype = i
     elif name == "flash_attention_bwd":
         fn = lib.kokoro_flash_attention_bwd
         # q k v o do lse delta dq dk dv q_seg kv_seg, B H Tq Tk Dh, scale, causal dtype,
@@ -136,4 +143,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         if hasattr(lib, "kokoro_flash_attention_bwd_clusters"):
             lib.kokoro_flash_attention_bwd_clusters.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
             lib.kokoro_flash_attention_bwd_clusters.restype = i
+        # past Dh 2048: q k v o do lse delta dq dk dv q_seg kv_seg p_ws ds_ws, B H Tq
+        # Tk Dh, scale, causal dtype, stream
+        if hasattr(lib, "kokoro_flash_attention_bwd_scores"):
+            lib.kokoro_flash_attention_bwd_scores.argtypes = [p] * 14 + [i] * 5 + [f, i, i, p]
+            lib.kokoro_flash_attention_bwd_scores.restype = i
     fn.restype = i

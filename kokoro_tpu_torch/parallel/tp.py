@@ -173,8 +173,12 @@ def norms(tensors: Sequence[torch.Tensor], names: Optional[Sequence[str]] = None
           layout: Optional[Layout] = None) -> List[torch.Tensor]:
     """Per-tensor f32 L2 norms of the WHOLE tensors: under a ``layout`` a
     sharded tensor's squares are summed over the ``model`` group, in one
-    collective (none when nothing is sharded)."""
-    out = list(torch._foreach_norm([t.float() for t in tensors]))
+    collective (none when nothing is sharded).  CPU tensors sum their squares
+    in f64: PyTorch's CPU f32 norm drifts with the element count (1.9e-4
+    relative at 2560 x 2560), where the card's reduction, and the
+    reference's, stay within f32's rounding."""
+    wide = [t.double() if t.device.type == "cpu" else t.float() for t in tensors]
+    out = [x.float() for x in torch._foreach_norm(wide)]
     idx = [] if layout is None else [i for i, n in enumerate(names) if n in layout.splits]
     if idx:
         sq = torch.stack([out[i] for i in idx]) ** 2

@@ -219,9 +219,13 @@ def test_flash_gate_is_the_references_without_its_backend_clause():
     assert port.flash_supported(1024, 1024, 1088)
     assert port.flash_supported(1408, 1408, 1536)
     assert port.flash_supported(1024, 1024, 2048)
-    # narrower than the reference: the kernels take Dh up to 2048 (a cluster
-    # of at most 16 CTAs of 128 columns)
-    assert not port.flash_supported(1024, 1024, 2112)
+    # past 2048 (more columns than a cluster of 16 CTAs holds) the kernels
+    # keep the scores in device memory: every multiple of 64, as the reference
+    assert port.flash_supported(1024, 1024, 2112)
+    assert port.flash_supported(1408, 1408, 2560)
+    assert port.flash_supported(1024, 1024, 8192)
+    assert not port.flash_supported(1024, 1024, 2080)   # Dh % 64
+    assert not port.flash_supported(1024, 1024, 4100)   # Dh % 64
 
 
 def _route(T, training, rate, key_given=False, d_model=128, n_heads=2):
@@ -285,13 +289,14 @@ def test_routing_head_split_causal_takes_k3_and_k4():
     (384, 1000, False, []),       # not a multiple of 128
     (640, 1024, False, ["K4"]),   # Dh 320: the cluster kernels
     (2176, 1024, False, ["K4"]),  # Dh 1088: a cluster of 9 CTAs
-    (4224, 1024, False, []),      # Dh 2112: beyond the kernels, the plain path
+    (4224, 1024, False, ["K4"]),  # Dh 2112: the scores in device memory
 ])
 def test_routing_at_head_dims_192_and_256(d_model, T, key_given, expected):
     """K4 takes its own head dims, the packed kernels (K1, K2, K3) theirs:
-    past Dh 128 (192, 256, and from 320 to 2048 over a cluster of CTAs) the
-    long causal self-attention takes K4 and every other site stays on einsum,
-    as in the reference."""
+    past Dh 128 (192, 256, from 320 to 2048 over a cluster of CTAs, and
+    past 2048 with the scores in device memory) the long causal
+    self-attention takes K4 and every other site stays on einsum, as in the
+    reference."""
     assert _route(T, False, 0.0, key_given=key_given, d_model=d_model) == expected
 
 

@@ -9,6 +9,7 @@ Tolerances: forward f32 2e-5 and bf16 2e-2, gradients f32 1e-4 and bf16
 with TF32 off.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from kokoro_tpu_torch.ops import flash_attention as flash
+from kokoro_tpu_torch.ops import flash_scores
 from kokoro_tpu_torch.ops import fused_attention as port
 
 pytestmark = pytest.mark.cuda
@@ -350,10 +352,10 @@ def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("Dh", [2112, 96])
+@pytest.mark.parametrize("Dh", [2080, 96])
 def test_flash_kernels_refuse_head_dims_past_1024_or_off_64(cuda, Dh):
-    """Past Dh 2048 (more than the 16 CTAs of Hopper's largest cluster) or
-    at a head dim that is not a multiple of 64 the kernels take nothing: the
+    """At a head dim that is not a multiple of 64 (past 2048 as below it:
+    every multiple of 64 has its kernels) the kernels take nothing: the
     wrappers raise, and nothing launches."""
     x = torch.zeros(1, 2, 1024, Dh, device=cuda)
     before = [kern.launches for kern in flash.KERNELS]
@@ -908,3 +910,143 @@ def test_f32_forward_then_backward_with_empty_and_one_key_rows(cuda, rate):
     ref = port.packed_attention_bwd_reference(q, k, v, do, causal=False, **kw)
     for name, a, b in zip("qkv", ref, grads):
         torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
+
+
+# -- K4 past Dh 2048: the scores in device memory (csrc/attention_scores.cuh)
+# 2112: a ragged 64-column last strip; 2560: the model of phase long's hidden
+# 2560 at one head; 4096
+PAST_2048 = [2112, 2560, 4096]
+
+
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", PAST_2048)
+@pytest.mark.parametrize("T", [1024, 1433])
+def test_flash_kernels_past_head_dim_2048_match_plain(cuda, T, Dh, dtype, masks):
+    """K4 past Dh 2048, causal, through the autograd Function: one launch of
+    each wrapper a call, O and every gradient against the plain versions."""
+    _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 13 * T + Dh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", PAST_2048)
+def test_flash_scores_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
+    """Past Dh 2048 without the causal mask (every score tile launched, a
+    ragged T of 1100) against the plain versions, and two calls bit for bit
+    equal (no atomics: each output element summed by one thread in a fixed
+    order)."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1100, Dh, dtype, "suffix", Dh + 1)
+    _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid, causal=False)
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=False, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    runs = []
+    for _ in range(2):
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        runs.append((o, lse, *flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [2112, 2560])
+def test_flash_scores_rows_with_zero_or_one_key(cuda, Dh, dtype, causal):
+    """Rows that see one key (a segment shared with that key alone, at and
+    beside the 64- and 128-row tile edges) and rows that see none (a segment
+    no key has): a one-key row's dQ is exactly 0 (its delta is taken by its
+    dP's own products, so dP - delta is 0), a no-key row's O and dQ are 0
+    and its lse +inf; O and every gradient, the one-key rows' keys' dK and
+    dV included, within the tolerances of the plain version."""
+    B, H, T = 2, 1, 1433
+    g = torch.Generator().manual_seed(Dh + 2 * causal + (dtype == BF16))
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, dtype) for _ in range(4))
+    one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    for i, r in enumerate(one):
+        q_seg[:, r] = 2 + i
+    kv_seg = q_seg.clone()  # key r alone shares row r's segment
+    for r in none:
+        q_seg[:, r] = 100 + r  # no key's segment
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, :, one], torch.zeros_like(dq[:, :, one]))
+    assert torch.equal(o[:, :, none], torch.zeros_like(o[:, :, none]))
+    assert torch.equal(dq[:, :, none], torch.zeros_like(dq[:, :, none]))
+    assert torch.isinf(lse[:, :, none]).all() and torch.isfinite(lse[:, :, one]).all()
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, (dq, dk, dv)):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype], msg=f"d{name}")
+    for name, a, b in zip("kv", ref[1:], (dk, dv)):
+        torch.testing.assert_close(b[:, :, one].float(), a[:, :, one].float(),
+                                   rtol=GRAD_TOL[dtype], atol=GRAD_TOL[dtype],
+                                   msg=f"d{name} at the one-key rows' keys")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh", [1536, 2048])
+def test_flash_scores_path_at_cluster_head_dims_matches_plain(cuda, Dh, dtype):
+    """The scores-in-memory kernels called directly where the wrappers take
+    the cluster kernels (they take any multiple of 64): against the plain
+    versions, and no wrapper counts a launch."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1433, Dh, dtype, "interior", Dh)
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    before = [kern.launches for kern in flash.KERNELS]
+    o, lse = flash.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
+    grads = flash.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in flash.KERNELS] == before
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype], msg=f"d{name}")
+
+
+@pytest.mark.parametrize("Tq,Tk,Dh,causal", [(1433, 1433, 2112, True), (1408, 1408, 2560, True),
+                                             (1024, 1024, 8192, False), (300, 1000, 4096, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_scores_grid_is_the_launchers(cuda, Tq, Tk, Dh, causal, dtype):
+    """The compiled launcher's grid (``kokoro_flash_attention_scores_grid``)
+    is ``ops/flash_scores.py``'s, which the CPU tests hold against the
+    visible pairs."""
+    assert flash_scores.launch_grid(Tq, Tk, Dh, causal, dtype) == \
+        flash_scores.grid(Tq, Tk, Dh, causal, dtype)
+
+
+def test_flash_scores_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses raises, naming the wrapper's kernel and
+    the head dim, counts nothing and falls back to nothing; the library
+    refuses a grid past its z limit (B H > 65535) itself."""
+    Dh = 2560
+    x = torch.zeros(1, 1, 1024, Dh, device=cuda)
+    lse = torch.zeros(1, 1, 1024, device=cuda)
+    before = [kern.launches for kern in flash.KERNELS]
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+    from kokoro_tpu_torch.ops import kernels
+
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "load", lambda name: Refusing())
+        with pytest.raises(RuntimeError, match="flash_attention_fwd.*head_dim 2560"):
+            flash.flash_attention_fwd(x, x, x, causal=True, scale=Dh ** -0.5)
+        with pytest.raises(RuntimeError, match="flash_attention_bwd.*head_dim 2560"):
+            flash.flash_attention_bwd(x, x, x, x, x, lse, causal=True, scale=Dh ** -0.5)
+    assert [kern.launches for kern in flash.KERNELS] == before
+    lib = kernels.load("flash_attention")
+    y = torch.zeros(1, 1, 1, Dh, device=cuda)
+    ws = torch.zeros(1, 128, 128, device=cuda)
+    err = lib.kokoro_flash_attention_fwd_scores(
+        y.data_ptr(), y.data_ptr(), y.data_ptr(), y.data_ptr(), None, None, None,
+        ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 2, 65535, 1, 1, Dh,
+        ctypes.c_float(1.0), 1, 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue, before any launch
