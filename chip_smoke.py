@@ -16,10 +16,13 @@ Phases, each printing one JSON line:
    by kernel) spills or has its ``wgmma`` serialised; the registers of the 12
    K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV; the f32
    ones ``csrc/attention_tf32_wide.cuh``'s), and a
-   failure unless all 12 were built; the registers of the 12 K4 kernels
-   past Dh 2048 (``csrc/attention_scores.cuh``: each dtype's scores, row
-   pass, the two products, the backward's scores and row deltas), and a
-   failure unless all 12 were built or one spills; the registers of the 6 K4 cluster
+   failure unless all 12 were built; the registers of the K4 kernels with
+   the scores in device memory (``csrc/attention_scores.cuh``: bf16's
+   scores, row pass, the two products, the backward's scores and row
+   deltas, and the f32 row pass; ``csrc/attention_scores_tf32.cuh``: the
+   f32 scores, row deltas, backward's scores and two products on wgmma),
+   and a failure unless all 7 and 5 were built, or one spills or has its
+   ``wgmma`` serialised; the registers of the 6 K4 cluster
    kernels past Dh 256 (the same six, each CTA of a cluster of
    ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
    and a failure unless all 6 were built; how many clusters of 3 to 16 CTAs
@@ -57,7 +60,9 @@ Phases, each printing one JSON line:
    1408/1536/1664/1792/1920/2048 (clusters of 9 to 16) x T 1433 and past
    2048 (the scores in device memory) 2112/2176/2304/2560/3072/4096 x T 1433
    (2176 and 2560 also T 1024) and, at H=1, 8192
-   x causal and not x segment ids none/suffix/interior, f32 and bf16, each
+   x causal and not x segment ids none/suffix/interior, f32 and bf16 (f32
+   from ``F32_SCORES_FROM`` on through the scores path on wgmma,
+   ``csrc/attention_scores_tf32.cuh``), each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
    bit equal, with each head dim's worst share of the allclose bound; then
    its times at the long path's shape B=12, T=1408 at H=8 Dh=64, H=2 Dh=256
@@ -73,9 +78,17 @@ Phases, each printing one JSON line:
    their own, the backward's dQ against its dK/dV kernel).  Then
    (``kernels_flash_scores``) the scores path's launch grid against
    ``ops/flash_scores.py``'s, rows that see one key or none at Dh 2112 and
-   2560, and the scores path called directly at Dh 1536 and 2048 against
-   the plain versions, and (``kernel_times_flash_scores``) its times there at
-   B=12 T=1408 H=1 beside the cluster kernels'.  Then the long path's other
+   2560 (f32 also at the crossover and 1536), the bf16 scores path called
+   directly at Dh 1536 and 2048 and the f32 on-chip kernels called directly
+   at every head dim up to 2048 where the f32 wrappers take the scores path,
+   against the plain versions; the f32 scores path's kernel split
+   (``kernel_split_f32_scores``); the bf16 scores path's times at Dh 1536
+   and 2048, B=12 T=1408 H=1, beside the cluster kernels'
+   (``kernel_times_flash_scores``); and the crossover table
+   (``kernel_times_flash_crossover``, the same shape): the scores path and
+   the on-chip kernels at the sampled head dims 192-2048 in f32 (the
+   route's ``F32_SCORES_FROM``) and, for reference, in bf16.  Then the long
+   path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -122,7 +135,11 @@ Phases, each printing one JSON line:
    with the model widened to hidden 1536 at one head (head dim 1536, K4
    over clusters of 12 CTAs), B=12, with the step's peak memory.  (g) The
    same at hidden 2560, one head (head dim 2560, K4 with the scores in
-   device memory, ``csrc/attention_scores.cuh``), B=12, 3 timed steps.
+   device memory, ``csrc/attention_scores.cuh``), B=12, 3 timed steps.  Each
+   f32 parity run prints its paths' ms a step (3 steps) and K4's
+   scores-path launches a step, which must be every K4 launch from
+   ``F32_SCORES_FROM`` on (the f32 kernel path at Dh 512, 1536 and 2560 goes
+   through ``csrc/attention_scores_tf32.cuh``) and none below.
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -297,8 +314,13 @@ backend there) and its launches per long step at ``n_heads=1``, and
 ``head_dims_1088_2048``, its times at Dh 1152, 1536 and 2048 (SDPA's
 memory-efficient time or its refusal) and its launches per long step at
 hidden 1536 and one head, and ``head_dims_2112_up``, its times at Dh 2560
-and 4096 and its launches per long step at hidden 2560 and one head), the
-``nvidia-smi`` line
+and 4096 and its launches per long step at hidden 2560 and one head), then
+the two kernels of K4's f32 scores path on wgmma
+(``flash_attention_{fwd,bwd}_f32_scores``, ``csrc/attention_scores_tf32.cuh``,
+reached through the K4 wrappers from ``F32_SCORES_FROM`` on: their
+scores-path launches per f32 kernel-path step at hidden 1536 and one head,
+and their times at B=12 T=1408 H=1 Dh 1536 and at every timed head dim the
+route gives them), the ``nvidia-smi`` line
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
@@ -358,6 +380,8 @@ PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded"
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
+# K4's scores-path launches a step of phase long's f32 kernel-path steps, by head dim
+F32_SCORES_LAUNCHES = {}
 
 
 def emit(obj) -> None:
@@ -582,7 +606,7 @@ def phase_device():
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
     regs, spills, serialized, tf32_regs, wide_regs, cluster_regs = {}, {}, {}, {}, {}, {}
-    scores_regs = {}
+    scores_regs, scores_tf32_regs = {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -600,6 +624,9 @@ def phase_device():
         # K4 past Dh 2048: the scores-in-memory kernels (csrc/attention_scores.cuh)
         scores_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                             if SCORES_NAMESPACE in fn})
+        # K4's f32 scores path on wgmma (csrc/attention_scores_tf32.cuh)
+        scores_tf32_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                                 if SCORES_TF32_NAMESPACE in fn})
         # ptxas serialises wgmma where it cannot keep the products asynchronous
         serialized[name] = sorted({ln.strip() for ln in lines if "Performance Loss" in ln})
     from kokoro_tpu_torch.ops import flash_attention as fl
@@ -611,6 +638,7 @@ def phase_device():
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
           "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
           "cluster_registers": cluster_regs, "scores_registers": scores_regs,
+          "scores_tf32_registers": scores_tf32_regs,
           "cluster_ctas": {Dh: fl.cluster_ctas(Dh) for Dh in fl.CLUSTER_HEAD_DIMS},
           "cluster_occupancy": occupancy,
           "tf32_matmul": False, "tf32_cudnn": False})
@@ -622,11 +650,17 @@ def phase_device():
     # is an argument of the launch)
     if len(cluster_regs) != 6:
         raise AssertionError(f"expected 6 K4 cluster kernels, ptxas built {sorted(cluster_regs)}")
-    # past Dh 2048, each dtype: the scores, row pass, products over keys and
-    # over queries, the backward's scores and the row deltas
-    if len(scores_regs) != 12:
-        raise AssertionError(f"expected 12 K4 scores-in-memory kernels, ptxas built "
-                             f"{sorted(scores_regs)}")
+    # the scores path in bf16 (csrc/attention_scores.cuh: the scores, row
+    # pass, products over keys and over queries, the backward's scores and
+    # the row deltas) and its f32 row pass
+    if len(scores_regs) != 7:
+        raise AssertionError(f"expected 7 K4 scores-in-memory kernels (bf16 and the f32 row "
+                             f"pass), ptxas built {sorted(scores_regs)}")
+    # in f32 on wgmma: the scores, the row deltas, the backward's scores and
+    # the products over keys and over queries
+    if len(scores_tf32_regs) != 5:
+        raise AssertionError(f"expected 5 K4 f32 scores-path kernels on wgmma, ptxas built "
+                             f"{sorted(scores_tf32_regs)}")
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -661,9 +695,12 @@ def cluster_occupancy() -> dict:
 # (csrc/attention_tc.cuh) and the f32 forward and backward in 3xTF32
 # (csrc/attention_tf32.cuh)
 TF32_NAMESPACE = "kokoro_attn4tf32"
-# K4 past Dh 2048 (csrc/attention_scores.cuh: mma.sync, bf16 and 3xTF32)
+# K4's scores path (csrc/attention_scores.cuh: bf16 on mma.sync, the f32 row
+# pass) and its f32 products in 3xTF32 on wgmma (csrc/attention_scores_tf32.cuh)
 SCORES_NAMESPACE = "kokoro_attn6scores"
-TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE, SCORES_NAMESPACE)
+SCORES_TF32_NAMESPACE = "kokoro_attn11scores_tf32"
+TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE, SCORES_NAMESPACE,
+                          SCORES_TF32_NAMESPACE)
 
 
 def is_cluster_kernel(mangled: str) -> bool:
@@ -1240,16 +1277,36 @@ def phase_kernels_flash():
           "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
                               for (n, d, H, Dh), r in timings.items()
                               if d == "bfloat16" and Dh in (192, 256)}})
-    # the scores-in-memory kernels where the wrappers take the cluster kernels
+    # the f32 wrappers' scores path (csrc/attention_scores_tf32.cuh): each
+    # kernel's device ms
+    emit({"phase": "kernel_split_f32_scores", "shape": "B=12 T=1408 causal",
+          "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
+                              for (n, d, H, Dh), r in timings.items()
+                              if d == "float32" and fl.scores_path(Dh, torch.float32)}})
+    # the bf16 scores-in-memory kernels where the wrappers take the cluster
+    # kernels (the f32 on-chip kernels where the wrappers take the scores
+    # path: the crossover table below)
     scores = {}
     for Dh in SCORES_BESIDE_CLUSTERS:
         scores.update(scores_times(12, 1408, 1, Dh, gen))
     emit({"phase": "kernel_times_flash_scores", "shape": "B=12 T=1408 H=1 causal",
           "called": "flash_attention_{fwd,bwd}_scores directly (the wrappers route these "
-                    "head dims to the cluster kernels)",
+                    "head dims to the cluster kernels in bf16)",
           "times": {f"{n}/{d}/Dh={Dh}": {**r, "cluster_ms": timings[(
               "flash_attention_" + n.split("_")[2], d, 1, Dh)]["ms"]}
               for (n, d, Dh), r in scores.items()}})
+    # the f32 crossover (and, for reference, bf16's, which is not routed):
+    # the scores path and the on-chip kernels at the sampled head dims, B=12
+    # T=1408 H=1 causal (the wrappers take one of the two)
+    from kokoro_tpu_torch.scripts.probe_flash_scores_tf32 import SAMPLED, crossover
+    from kokoro_tpu_torch.scripts.probe_flash_scores_tf32 import times as family_times
+
+    table = crossover(family_times(SAMPLED, sdpa=False, wrapper=False, iters=5))
+    emit({"phase": "kernel_times_flash_crossover", "shape": "B=12 T=1408 H=1 causal",
+          "f32_scores_from": fl.F32_SCORES_FROM, **table})
+    if table["float32"]["scores_from"] != fl.F32_SCORES_FROM:
+        print(f"chip_smoke: this card's f32 crossover is Dh {table['float32']['scores_from']}, "
+              f"the route's F32_SCORES_FROM {fl.F32_SCORES_FROM}", file=sys.stderr)
     # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
     timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
                for (n, d, H, Dh), r in timings.items()}
@@ -1313,7 +1370,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             attention_bound(B, T, H, Dh, dname, True),
             graph_time_ms(lambda: fl.flash_attention_fwd(q, k, v, **kw)), max_abs_err=err_o,
             **profiled_kernels(lambda: fl.flash_attention_fwd(q, k, v, **kw),
-                               3 if fl.scores_path(Dh) else 1),
+                               3 if fl.scores_path(Dh, dtype) else 1),
             # under grad: the lse written too (the flash forward has no dropout)
             ms_for_backward=graph_time_ms(
                 lambda: fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)),
@@ -1324,7 +1381,7 @@ def flash_times(B, T, H, Dh, gen) -> dict:
             graph_time_ms(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)),
             max_abs_err=err_g,
             **profiled_kernels(lambda: fl.flash_attention_bwd(q, k, v, o, do, lse, **kw),
-                               5 if fl.scores_path(Dh) else 2),
+                               5 if fl.scores_path(Dh, dtype) else 2),
             plain_ms=cuda_time_ms(lambda: fl.flash_attention_bwd_reference(
                 q, k, v, o, do, **kw), iters=3),
             library_ms=None if refused else library_bwd_ms(sdpa_fwd, sdpa_fwd_bwd), **library)
@@ -1336,12 +1393,16 @@ def flash_times(B, T, H, Dh, gen) -> dict:
 def scores_path_checks(gen) -> dict:
     """K4's scores-in-memory kernels beyond the sweep: (a) the compiled
     launcher's grid against ``flash_scores.grid``; (b) rows that see one key
-    and rows that see none, both dtypes, causal and not, at Dh 2112 and 2560
-    (T=1433, B=2, H=1): the one-key rows' dQ exactly 0, the no-key rows' O
-    and dQ exactly 0 and lse +inf, every output within the tolerances, two
-    calls bit for bit; (c) the kernels called directly at the cluster head
-    dims ``SCORES_BESIDE_CLUSTERS`` (T=1433, B=2, H=2, every mask kind,
-    causal), against the plain versions and bitwise over two calls."""
+    and rows that see none, both dtypes, causal and not, at Dh 2112 and 2560,
+    and in f32 at the crossover ``F32_SCORES_FROM`` and 1536 (T=1433, B=2,
+    H=1): the one-key rows' dQ exactly 0, the no-key rows' O and dQ exactly
+    0 and lse +inf, every output within the tolerances, two calls bit for
+    bit; (c) the family the wrappers do not take, called directly: the bf16
+    scores kernels at the cluster head dims ``SCORES_BESIDE_CLUSTERS``, the
+    f32 on-chip kernels at every head dim of ``FLASH_HEAD_DIMS`` up to 2048
+    where the f32 wrappers take the scores path (T=1433, B=2, H=2, causal;
+    the bf16 ones every mask kind, the f32 ones one kind each in turn),
+    against the plain versions and bitwise over two calls."""
     import torch
 
     from kokoro_tpu_torch.ops import flash_attention as fl
@@ -1368,58 +1429,66 @@ def scores_path_checks(gen) -> dict:
 
     rows = []
     B, T = 2, 1433
-    for dtype in (torch.float32, torch.bfloat16):
+    one_key_cases = [(torch.float32, Dh) for Dh in (2112, 2560, fl.F32_SCORES_FROM, 1536)]
+    one_key_cases += [(torch.bfloat16, Dh) for Dh in (2112, 2560)]
+    for dtype, Dh in one_key_cases:
         dname = str(dtype).split(".")[1]
-        for Dh in (2112, 2560):
-            q, k, v, do = (torch.randn(B, 1, T, Dh, generator=gen).to(dev, dtype)
-                           for _ in range(4))
-            one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
-            q_seg = torch.ones(B, T, dtype=torch.int32, device=dev)
-            for i, r in enumerate(one):
-                q_seg[:, r] = 2 + i
-            kv_seg = q_seg.clone()  # key r alone shares row r's segment
-            for r in none:
-                q_seg[:, r] = 100 + r  # no key's segment
-            for causal in (True, False):
-                kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
-                runs = []
-                for _ in range(2):
-                    o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-                    runs.append((o, lse, *fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
-                torch.cuda.synchronize()
-                where = f"{dname} Dh={Dh} causal={causal} one-key and no-key rows"
-                if not all(torch.equal(a, b) for a, b in zip(*runs)):
-                    raise AssertionError(f"{where}: two calls differ")
-                o, lse, dq, dk, dv = runs[0]
-                zero = lambda x, r: torch.equal(x[:, :, r], torch.zeros_like(x[:, :, r]))  # noqa: E731
-                if not (zero(dq, one) and zero(o, none) and zero(dq, none)
-                        and torch.isinf(lse[:, :, none]).all()
-                        and torch.isfinite(lse[:, :, one]).all()):
-                    raise AssertionError(f"{where}: a one-key row's dQ, or a no-key row's O, "
-                                         f"dQ or lse, is not what the contract says")
-                ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
-                hold(where, dname, (o, dq, dk, dv),
-                     (fl.flash_attention_reference(q, k, v, **kw), *ref),
-                     (TOL[dname],) + (GRAD_TOL[dname],) * 3)
-                rows.append(where)
-            del q, k, v, do
+        q, k, v, do = (torch.randn(B, 1, T, Dh, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+        q_seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+        for i, r in enumerate(one):
+            q_seg[:, r] = 2 + i
+        kv_seg = q_seg.clone()  # key r alone shares row r's segment
+        for r in none:
+            q_seg[:, r] = 100 + r  # no key's segment
+        for causal in (True, False):
+            kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+            runs = []
+            for _ in range(2):
+                o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+                runs.append((o, lse, *fl.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+            torch.cuda.synchronize()
+            where = f"{dname} Dh={Dh} causal={causal} one-key and no-key rows"
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"{where}: two calls differ")
+            o, lse, dq, dk, dv = runs[0]
+            zero = lambda x, r: torch.equal(x[:, :, r], torch.zeros_like(x[:, :, r]))  # noqa: E731
+            if not (zero(dq, one) and zero(o, none) and zero(dq, none)
+                    and torch.isinf(lse[:, :, none]).all()
+                    and torch.isfinite(lse[:, :, one]).all()):
+                raise AssertionError(f"{where}: a one-key row's dQ, or a no-key row's O, "
+                                     f"dQ or lse, is not what the contract says")
+            ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+            hold(where, dname, (o, dq, dk, dv),
+                 (fl.flash_attention_reference(q, k, v, **kw), *ref),
+                 (TOL[dname],) + (GRAD_TOL[dname],) * 3)
+            rows.append(where)
+        del q, k, v, do
     direct = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    unreached = [Dh for Dh in FLASH_HEAD_DIMS
+                 if fl.scores_path(Dh, torch.float32) and Dh <= fl.MAX_CLUSTER_HEAD_DIM]
+    for dtype, family, dims in ((torch.bfloat16, "scores", SCORES_BESIDE_CLUSTERS),
+                                (torch.float32, "onchip", unreached)):
         dname = str(dtype).split(".")[1]
-        for Dh in SCORES_BESIDE_CLUSTERS:
+        fwd = getattr(fl, f"flash_attention_fwd_{family}")
+        bwd = getattr(fl, f"flash_attention_bwd_{family}")
+        for i, Dh in enumerate(dims):
             q, k, v, do = (torch.randn(B, 2, T, Dh, generator=gen).to(dev, dtype)
                            for _ in range(4))
-            for kind in ("none", "suffix", "interior"):
+            # the bf16 scores path every mask kind; the many f32 on-chip head
+            # dims one kind each, in turn (to bound the phase's time)
+            kinds = ("none", "suffix", "interior")
+            for kind in (kinds if family == "scores" else kinds[i % 3:i % 3 + 1]):
                 q_valid, kv_valid = _flash_masks(kind, B, T, dev, gen)
                 q_seg, kv_seg = fl.segment_ids(q, k, q_valid, kv_valid)
                 kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
                 runs = []
                 for _ in range(2):
-                    o, lse = fl.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
-                    runs.append((o, lse, *fl.flash_attention_bwd_scores(q, k, v, o, do, lse,
-                                                                        **kw)))
+                    o, lse = fwd(q, k, v, return_lse=True, **kw)
+                    runs.append((o, lse, *bwd(q, k, v, o, do, lse, **kw)))
                 torch.cuda.synchronize()
-                where = f"{dname} Dh={Dh} T={T} masks={kind} scores path called directly"
+                where = f"{dname} Dh={Dh} T={T} masks={kind} {family} kernels called directly"
                 if not all(torch.equal(a, b) for a, b in zip(*runs)):
                     raise AssertionError(f"{where}: two calls differ")
                 o, lse, dq, dk, dv = runs[0]
@@ -1431,22 +1500,23 @@ def scores_path_checks(gen) -> dict:
             del q, k, v, do
     torch.cuda.empty_cache()
     return {"grids_equal_the_launchers": grids, "one_and_no_key_cases": rows,
-            "direct_at_cluster_head_dims": direct, "max_abs_err": worst,
+            "direct_calls": direct, "f32_onchip_direct_head_dims": unreached,
+            "max_abs_err": worst,
             "tolerance": {"forward": TOL, "grad": GRAD_TOL}}
 
 
 def scores_times(B, T, H, Dh, gen) -> dict:
-    """The scores-in-memory kernels called directly at (B, H, T, Dh), causal,
-    both dtypes: each against its plain version, then its device time, each
-    device kernel's time and the share of the bound, keyed
-    ``(name, dtype, Dh)``."""
+    """The bf16 scores-in-memory kernels called directly at (B, H, T, Dh),
+    causal (the f32 ones are the wrappers' route there): each against its
+    plain version, then its device time, each device kernel's time and the
+    share of the bound, keyed ``(name, dtype, Dh)``."""
     import torch
 
     from kokoro_tpu_torch.ops import flash_attention as fl
 
     dev = torch.device("cuda")
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16,):
         dname = str(dtype).split(".")[1]
         q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
         kw = dict(causal=True, scale=Dh ** -0.5)
@@ -2008,10 +2078,19 @@ def all_kernels():
 def zero_counts():
     for kern in all_kernels():
         kern.launches = 0
+        if hasattr(kern, "scores_launches"):
+            kern.scores_launches = 0
 
 
 def read_counts():
     return {kern.name: kern.launches for kern in all_kernels()}
+
+
+def read_scores_counts():
+    """K4's launches that took its scores path (``scores_path``), by wrapper."""
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    return {kern.name: kern.scores_launches for kern in fl.KERNELS}
 
 
 def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
@@ -2020,8 +2099,10 @@ def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
     with seeded noise planted on ``planted_module.planted_attr``'s dK;
     ``model_overrides`` go to ``KokoroConfig`` (phase long: ``n_heads=2``).
     Returns the readings, with each wrapper's launches in the kernel path's
-    first forward and backward (one step's); raises when the sound run breaks
-    a limit or the planted one breaks none."""
+    first forward and backward (one step's), those of K4's that took its
+    scores path, and each path's ms of each of its 3 steps (host clock
+    around the synchronised step); raises when the sound run breaks a limit
+    or the planted one breaks none."""
     import torch
 
     from kokoro_tpu_torch.cli.profile_paths import training_batch
@@ -2042,7 +2123,7 @@ def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
     init = KokoroModel(KokoroConfig(**no_dropout, **model_overrides)).init_weights(
         torch.Generator().manual_seed(0)).state_dict()
     batch = training_batch(KokoroConfig(), B, T, L, dev)
-    paths, step_launches = {}, None
+    paths, step_launches, scores_launches, step_ms = {}, None, None, {}
     for name, flash in (("kernel", True), ("plain", False), ("planted_dk", True)):
         model = KokoroModel(KokoroConfig(**no_dropout, **model_overrides,
                                          use_flash_attention=flash))
@@ -2055,14 +2136,21 @@ def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
         if name == "planted_dk":
             setattr(planted_module, planted_attr, PlantedDk(real_bwd))
         try:
-            counts0 = read_counts()
+            counts0, scores0 = read_counts(), read_scores_counts()
             total, _ = make_loss_fn(model, cfg, spec_augment=False)(
                 batch, Rng.from_generator(torch.Generator().manual_seed(0)))
             grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
             grads = {n: g for n, g in zip(params, grads) if g is not None}
             if name == "kernel":
                 step_launches = {k: c - counts0[k] for k, c in read_counts().items()}
-            metrics = [step(state, batch, torch.Generator().manual_seed(i)) for i in range(3)]
+                scores_launches = {k: c - scores0[k] for k, c in read_scores_counts().items()}
+            metrics, step_ms[name] = [], []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(step(state, batch, torch.Generator().manual_seed(i)))
+                torch.cuda.synchronize()
+                step_ms[name].append((time.perf_counter() - t0) * 1e3)
         finally:
             setattr(planted_module, planted_attr, real_bwd)
         torch.cuda.synchronize()
@@ -2089,6 +2177,7 @@ def train_parity(B, L, T, planted_module, planted_attr, **model_overrides):
             "moved_all_rel": moved_all, "stepped": [m["stepped"] for m in mk]}
     result = {"steps": 3, "B": B, "L": L, "T": T, "planted": planted_attr,
               "model_overrides": model_overrides, "launches_per_step": step_launches,
+              "k4_scores_path_launches_per_step": scores_launches, "step_ms": step_ms,
               "limits": TRAIN_LIMIT, **parity,
               "plain_path": [{k: m[k] for k in ("total", "grad_norm", "stepped")} for m in mp]}
     del paths, gp, dp, gk, dk
@@ -2420,6 +2509,13 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
                        **overrides)
     if f32["launches_per_step"] != want(f32["launches_per_step"]):
         raise AssertionError(f"f32 long step at Dh {Dh} launches {f32['launches_per_step']}")
+    # from the f32 crossover on, every K4 launch of the f32 step takes the
+    # scores path (csrc/attention_scores_tf32.cuh), else none
+    routed = n_layers if fl.scores_path(Dh, torch.float32) else 0
+    F32_SCORES_LAUNCHES[Dh] = f32["k4_scores_path_launches_per_step"]
+    if f32["k4_scores_path_launches_per_step"] != {name: routed for name in flash}:
+        raise AssertionError(f"f32 long step at Dh {Dh}: K4's scores-path launches "
+                             f"{f32['k4_scores_path_launches_per_step']}, expected {routed} each")
     key = f"Dh={Dh}"
     one_head = n_heads == 1
     bf16 = {key: bf16_step_gap(dev, overrides, f32_loss=one_head)}
@@ -4724,6 +4820,27 @@ def run_phases(phases, work: Path) -> int:
                 "launches_are": "per long training step with the trainer's diagnostics on "
                                 "(phase tools: 2 microbatches of B=12 L=256 T=1408)"}
         kernels.append(row)
+    # K4's f32 scores path on wgmma (csrc/attention_scores_tf32.cuh), reached
+    # through the K4 wrappers from F32_SCORES_FROM on: its path is phase
+    # long's f32 kernel-path step at hidden 1536, one head (head dim 1536)
+    from kokoro_tpu_torch.ops import flash_attention as fl
+
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "tflops",
+              "bound_share", "kernel_split_ms")
+    for kern in fl.KERNELS:
+        r = timings[(kern.name, "float32", "Dh=1536")]
+        kernels.append({
+            "name": f"{kern.name}_f32_scores", "route": "cuda",
+            "source": "kokoro_tpu_torch/csrc/attention_scores_tf32.cuh",
+            "replaces": kern.replaces, "launches": F32_SCORES_LAUNCHES[1536][kern.name],
+            **{k: r[k] for k in fields}, "dtype": "float32",
+            "shape": "B=12 T=1408 H=1 Dh=1536 causal", "wrapper": kern.name,
+            "launches_are": "the wrapper's scores-path launches per f32 kernel-path step of "
+                            "phase long at hidden 1536, one head (B=4 L=256 T=1408)",
+            "scores_from_head_dim": fl.F32_SCORES_FROM,
+            "at_head_dims": {f"Dh={Dh}": {k: timings[(kern.name, "float32", f"Dh={Dh}")][k]
+                                          for k in fields}
+                             for H, Dh in FLASH_TIMED if fl.scores_path(Dh, torch.float32)}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

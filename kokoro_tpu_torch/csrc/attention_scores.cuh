@@ -1,10 +1,12 @@
 // K4 past head dim 2048, "scores in memory" (sm_90a): the forward and the
 // backward of the flash policy (attention_kernels.cuh's contract: causal
 // triangle and segment ids, -0.7 * FLT_MAX added to a masked logit, no
-// dropout) at every head dim that is a multiple of 64, for bf16 and f32.
-// flash_attention.cu and flash_attention_bwd.cu launch them
-// (kokoro_flash_attention_{fwd,bwd}_scores) and the wrappers of
-// ops/flash_attention.py take them past Dh 2048.  They replace the same TPU
+// dropout) at every head dim that is a multiple of 64, bf16 here, f32 in
+// attention_scores_tf32.cuh (wgmma, TMA), which takes this file's schedule
+// and its f32 row pass.  flash_attention.cu and flash_attention_bwd.cu
+// launch them (kokoro_flash_attention_{fwd,bwd}_scores) and the wrappers of
+// ops/flash_attention.py take them past Dh 2048 (f32: attention_scores_tf32.cuh
+// from F32_SCORES_FROM on).  They replace the same TPU
 // kernels as the rest of K4: the library Pallas flash attention behind
 // kokoro_tpu/models/blocks.py::_flash_attention (forward
 // _flash_attention_kernel, pl.pallas_call flash_attention.py:758; backward
@@ -20,8 +22,8 @@
 // cross-CTA exchange, no cluster, and no limit on the head dim.
 //
 // Three templates, each a plain tiled product or a row pass:
-//   * scores: one CTA a (128 queries x 128 keys) tile of one (b, h) (bf16;
-//     f32: two CTAs of 64 queries each), S = Q K^T over the whole head dim
+//   * scores: one CTA a (128 queries x 128 keys) tile of one (b, h),
+//     S = Q K^T over the whole head dim
 //     in chunks of kChunk columns through a kStages-stage cp.async ring,
 //     then S *= scale and the mask; under causal only the tiles on or below
 //     the diagonal are launched (score_tile).  The backward's CTA takes S
@@ -47,29 +49,22 @@
 //
 // Products (no library GEMM): bf16 on mma.sync.m16n8k16 (ldmatrix, .trans
 // for the operands stored with the contraction as their row: V, K, Q, dO
-// in apply, and dS^T, P^T), f32 accumulate; f32 in 3xTF32 on
-// mma.sync.m16n8k8 (attention_tf32.cuh's three products a product), each
-// operand split by split_t (attention_tf32_wide.cuh: small is the f32
-// remainder the tensor cores truncate, so a one-key row's O splits as its
-// key's V row does), every 16 of the contraction into a fresh accumulator
-// joined by an f32 add (the tensor cores' own accumulation truncates).  A
-// CTA is 8 warps, 2 x 4 over its tile: bf16 warps of 64 x 32 (a CTA 128 x
-// 128), f32 of 32 x 32 (64 x 128).  Shared memory rows are padded so that
-// every ldmatrix and every f32 fragment read hits distinct banks.  Every
+// in apply, and dS^T, P^T), f32 accumulate.  A CTA is 8 warps, 2 x 4 over
+// its tile, warps of 64 x 32 (a CTA 128 x 128).  Shared memory rows are
+// padded so that every ldmatrix read hits distinct banks.  Every
 // output element is summed by one thread in a fixed order and nothing is
 // atomic: two calls are bitwise equal, and nothing reads
 // torch.backends.cuda.matmul.allow_tf32.
 //
 // Workspaces (the wrapper allocates them; a kernel allocates nothing): S in
-// f32 and P~ in the input type (forward), P and dS in the input type
-// (backward), each (B H, Mq, Nk) with Mq, Nk = Tq, Tk rounded up to 128,
+// f32 and P~ in the input type (forward; the f32 row pass writes P~ over S),
+// P and dS in the input type (backward), each (B H, Mq, Nk) with Mq, Nk = Tq, Tk rounded up to 128,
 // whatever the head dim; the forward's row sums l (B H, Tq) f32, the
 // backward's delta (B H, Tq) f32.  A scheduled score tile is written whole
 // (zeros past Tq and Tk), so that apply reads nothing unwritten.  Offsets
 // are 64-bit.
 //
-// What bounds them on an H100 (989 TFLOP/s bf16, 165 TFLOP/s of 3xTF32
-// work, 3.35 TB/s): a call does 4 Dh (forward) or 10 Dh (backward; 12 Dh
+// What bounds them on an H100 (989 TFLOP/s bf16, 3.35 TB/s): a call does 4 Dh (forward) or 10 Dh (backward; 12 Dh
 // here, with S recomputed and the delta's products) operations a visible
 // (query, key) pair, and past Dh 2048 at the long path's T = 1408 those
 // are the bound (the bf16 forward at Dh 2560, B=12, H=1, causal: 0.123 ms
@@ -85,7 +80,6 @@
 #include "attention_common.cuh"
 #include "attention_tc.cuh"
 #include "attention_tf32.cuh"
-#include "attention_tf32_wide.cuh"
 
 namespace kokoro_attn {
 namespace scores {
@@ -98,18 +92,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kWarpsM = 2, kWarpsN = 4;  // a CTA's warps over its rows x columns
 constexpr int kStrip = 128;   // head-dim columns a CTA of apply writes
 
-// fragments of m16 x n8 a warp takes: bf16 64 x 32, f32 32 x 32
+// fragments of m16 x n8 a warp takes: 64 x 32
 template <typename T> struct Frags;
 template <> struct Frags<__nv_bfloat16> { static constexpr int MT = 4, NT = 4; };
-template <> struct Frags<float> { static constexpr int MT = 2, NT = 4; };
 
 // rows of a CTA's tile (its columns: kWarpsN * 8 * NT = 128 = kTile)
 template <typename T>
 __host__ __device__ constexpr int cta_rows() {
   return kWarpsM * 16 * Frags<T>::MT;
 }
-static_assert(kWarpsN * 8 * Frags<float>::NT == kTile && kWarpsN * 8 * Frags<__nv_bfloat16>::NT == kTile,
-              "a CTA's columns are a score tile's");
+static_assert(kWarpsN * 8 * Frags<__nv_bfloat16>::NT == kTile, "a CTA's columns are a score tile's");
 
 template <typename T>
 using Acc = float[Frags<T>::MT][Frags<T>::NT][4];
@@ -288,67 +280,6 @@ __device__ __forceinline__ void chunk_product(Acc<__nv_bfloat16>& acc, const __n
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-  }
-}
-
-// acc += a chunk's product, f32 in 3xTF32: 4 steps of 8, each 16 of the
-// contraction into a fresh accumulator joined by an f32 add
-template <bool A_KM, bool B_KN>
-__device__ __forceinline__ void chunk_product(Acc<float>& acc, const float* As, const float* Bs) {
-  using S = Stage<float, A_KM, B_KN>;
-  constexpr int MT = Frags<float>::MT, NT = Frags<float>::NT;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm0 = warp_row0<float>(), wn0 = warp_col0();
-#pragma unroll
-  for (int kk = 0; kk < kChunk; kk += 16) {
-    float part[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-#pragma unroll
-    for (int ks = kk; ks < kk + 16; ks += 8) {
-      uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = wm0 + mt * 16 + g;
-        float x[4];
-        if constexpr (!A_KM) {
-          x[0] = As[r * S::A_LD + ks + t];
-          x[1] = As[(r + 8) * S::A_LD + ks + t];
-          x[2] = As[r * S::A_LD + ks + t + 4];
-          x[3] = As[(r + 8) * S::A_LD + ks + t + 4];
-        } else {
-          x[0] = As[(ks + t) * S::A_LD + r];
-          x[1] = As[(ks + t) * S::A_LD + r + 8];
-          x[2] = As[(ks + t + 4) * S::A_LD + r];
-          x[3] = As[(ks + t + 4) * S::A_LD + r + 8];
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tf32::wide::split_t(x[e], ab[mt][e], as[mt][e]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = wn0 + nt * 8 + g;
-        const float y0 = B_KN ? Bs[(ks + t) * S::B_LD + c] : Bs[c * S::B_LD + ks + t];
-        const float y1 = B_KN ? Bs[(ks + t + 4) * S::B_LD + c] : Bs[c * S::B_LD + ks + t + 4];
-        tf32::wide::split_t(y0, bb[nt][0], bs[nt][0]);
-        tf32::wide::split_t(y1, bb[nt][1], bs[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          tf32::mma3(part[mt][nt], ab[mt], as[mt], bb[nt][0], bb[nt][1], bs[nt][0], bs[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
   }
 }
 
@@ -654,7 +585,7 @@ constexpr int kApplySmem = Stage<T, OVER_QUERIES, true>::BYTES;
 // grids (and the schedule's counts: ops/flash_scores.py::grid mirrors this)
 struct Grid {
   int score_tiles;  // score tiles a (b, h)
-  int ctas_a_tile;  // CTAs a score tile (bf16 1, f32 2)
+  int ctas_a_tile;  // CTAs a score tile (1)
   int query_rows;   // apply's row tiles over queries (O, dQ)
   int key_rows;     // over keys (dK, dV)
   int strips;       // 128-column strips of the head dim

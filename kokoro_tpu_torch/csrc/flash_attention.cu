@@ -8,7 +8,8 @@
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
 // float32 or bfloat16, Dh in {64, 128, 192, 256} or a multiple of 64 from
 // 320 to 2048 (past 2048, any multiple of 64: kokoro_flash_attention_fwd_scores
-// below, attention_scores.cuh), any Tq, Tk >= 1; optional
+// below, attention_scores.cuh; f32 there from F32_SCORES_FROM on,
+// attention_scores_tf32.cuh), any Tq, Tk >= 1; optional
 // causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
 // (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
 // library's kernel takes a head dim up to 128 or a multiple of 128 (it
@@ -53,6 +54,7 @@
 
 #include "attention_kernels.cuh"
 #include "attention_scores.cuh"
+#include "attention_scores_tf32.cuh"
 
 using namespace kokoro_attn;
 
@@ -85,9 +87,10 @@ extern "C" int kokoro_flash_attention_fwd_clusters(int dtype, int c, int* cluste
   return (int)cudaErrorInvalidValue;
 }
 
-// K4 past Dh 2048 (any multiple of 64 from 64 on; the wrapper takes it past
-// 2048), the scores in device memory (attention_scores.cuh): the scores
-// kernel, the row pass and O = P~ V / l, three launches on `stream`.
+// K4 with the scores in device memory (any multiple of 64 from 64 on; the
+// wrapper takes it past 2048 in bf16, attention_scores.cuh, and in f32 from
+// F32_SCORES_FROM on, attention_scores_tf32.cuh): the scores kernel, the
+// row pass and O = P~ V / l, three launches on `stream`.
 // Workspaces, (B H, Mq, Nk) with Mq, Nk = Tq, Tk rounded up to 128:
 // s_ws f32, p_ws of the input type (f32: may be s_ws); l_ws (B H, Tq) f32.
 // lse: NULL or (B H, Tq) f32 (+inf on a row with no visible key).  Returns
@@ -108,7 +111,7 @@ extern "C" int kokoro_flash_attention_fwd_scores(const void* q, const void* k, c
   a.Mq = scores::tiles_of(Tq) * scores::kTile, a.Nk = scores::tiles_of(Tk) * scores::kTile;
   a.scale = scale, a.causal = causal != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)scores::launch_fwd<float>(a, o, B * H, st);
+  if (dtype == 0) return (int)scores_tf32::launch_fwd(a, o, B * H, st);
   if (dtype == 1) return (int)scores::launch_fwd<__nv_bfloat16>(a, o, B * H, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -122,7 +125,7 @@ extern "C" int kokoro_flash_attention_scores_grid(int Tq, int Tk, int Dh, int ca
   if (counts == nullptr || Tq <= 0 || Tk <= 0 || Dh < 64 || Dh % 64 != 0 || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
-  const scores::Grid g = dtype == 0 ? scores::grid_of<float>(Tq, Tk, Dh, causal != 0)
+  const scores::Grid g = dtype == 0 ? scores_tf32::grid_of(Tq, Tk, Dh, causal != 0)
                                     : scores::grid_of<__nv_bfloat16>(Tq, Tk, Dh, causal != 0);
   counts[0] = g.score_tiles, counts[1] = g.ctas_a_tile, counts[2] = g.query_rows;
   counts[3] = g.key_rows, counts[4] = g.strips;

@@ -19,7 +19,10 @@ query's); no dropout.
   portable size; :func:`cluster_fits` reads how many such clusters the card
   holds.  Past 2048 (more columns than Hopper's largest cluster) the kernels
   keep the scores in device memory (``ops/flash_scores.py``,
-  ``csrc/attention_scores.cuh``): no cluster and no upper limit.
+  ``csrc/attention_scores.cuh``): no cluster and no upper limit.  In f32
+  the scores path starts at :data:`F32_SCORES_FROM` (its kernels on wgmma,
+  ``csrc/attention_scores_tf32.cuh``, faster than the on-chip f32 kernels
+  from there on at the long path's shape): :func:`scores_path`.
   ``_pick_block_q`` (TPU block tuning) has no counterpart: the kernels tile
   by 64 at any T.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
@@ -38,7 +41,10 @@ query's); no dropout.
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) and count
   their launches; a launch the card refuses (at a cluster size it holds no
   cluster of, say) raises, naming the kernel, the head dim and, at a
-  cluster head dim, the cluster size.
+  cluster head dim, the cluster size.  :func:`flash_attention_fwd_onchip` /
+  :func:`flash_attention_bwd_onchip` and :func:`flash_attention_fwd_scores`
+  / :func:`flash_attention_bwd_scores` launch either family at any head dim
+  it takes, without counting, for the measurements that compare them.
   :class:`FlashAttentionFunction` runs plain forward and backward on CPU
   tensors and the kernels, and nothing else, on CUDA tensors.
 """
@@ -64,6 +70,11 @@ MAX_CLUSTER_CTAS = 16
 MAX_CLUSTER_HEAD_DIM = MAX_CLUSTER_CTAS * SLICE_COLS
 # the head dims of the cluster kernels
 CLUSTER_HEAD_DIMS = tuple(range(320, MAX_CLUSTER_HEAD_DIM + 1, 64))
+# f32 takes the scores path from this head dim on: the smallest sampled head
+# dim from which its forward + backward beat the on-chip kernels' at B=12,
+# T=1408, H=1, causal, there and at every sampled head dim above it
+# (chip_smoke.py kernel_times_flash_crossover; PERF.md)
+F32_SCORES_FROM = 192
 
 
 def supported_head_dim(head_dim: int) -> bool:
@@ -72,9 +83,13 @@ def supported_head_dim(head_dim: int) -> bool:
     return head_dim >= 64 and head_dim % 64 == 0
 
 
-def scores_path(head_dim: int) -> bool:
-    """Whether the wrappers take ``head_dim`` to the scores-in-memory
-    kernels (``ops/flash_scores.py``): past the clusters' 2048."""
+def scores_path(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the wrappers take ``head_dim`` in ``dtype`` to the
+    scores-in-memory kernels (``ops/flash_scores.py``): bf16 past the
+    clusters' 2048, f32 from :data:`F32_SCORES_FROM` on (64 and 128, the
+    packed kernels' own head dims, never)."""
+    if dtype == torch.float32:
+        return head_dim >= F32_SCORES_FROM and head_dim > 128
     return head_dim > MAX_CLUSTER_HEAD_DIM
 
 
@@ -232,13 +247,15 @@ def cluster_fits(dtype: torch.dtype, ctas: int) -> dict:
     return {"fwd": fwd.value, "dq": dq.value, "dkdv": dkdv.value}
 
 
-def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Tensor) -> str:
-    """The message of a refused launch: the head dim and its kernels; at a
-    cluster head dim, the cluster size and each of the wrapper's kernels the
-    card holds no cluster of."""
+def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Tensor, *,
+                  scores: bool) -> str:
+    """The message of a refused launch: the head dim and its kernels (the
+    scores-in-memory kernels where ``scores``); at a cluster head dim, the
+    cluster size and each of the wrapper's kernels the card holds no cluster
+    of."""
     Dh, ctas = q.shape[3], cluster_ctas(q.shape[3])
     msg = f"{name} kernel launch failed: cudaError_t {err}"
-    if scores_path(Dh):
+    if scores:
         return f"{msg} (head_dim {Dh}: the scores-in-memory kernels, csrc/attention_scores.cuh)"
     if ctas == 1:
         return f"{msg} (head_dim {Dh})"
@@ -255,7 +272,8 @@ def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Ten
 
 class FlashAttentionKernel:
     """Wrapper of ``kokoro_flash_attention_fwd``.  ``launches`` counts the
-    launches this wrapper made, and nothing else."""
+    launches this wrapper made, and nothing else; ``scores_launches`` those
+    of them that took the scores path (:func:`scores_path`)."""
 
     name = "flash_attention_fwd"
     source = "kokoro_tpu_torch/csrc/flash_attention.cu"
@@ -265,44 +283,28 @@ class FlashAttentionKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.scores_launches = 0
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                  scale: float, q_seg: Optional[torch.Tensor] = None,
                  kv_seg: Optional[torch.Tensor] = None, return_lse: bool = False):
         """``o``, or ``(o, lse)`` with the f32 row log-sum-exp ``(B, H, Tq)``
         the backward kernels need (+inf on rows without a visible key)."""
+        kw = dict(causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg, return_lse=return_lse)
         _check(q, k, v)
-        if (q_seg is None) != (kv_seg is None):
-            raise ValueError("q_seg and kv_seg come together")
-        _kernel_check({"q": q, "k": k, "v": v, "q_seg": q_seg, "kv_seg": kv_seg})
-        if scores_path(q.shape[3]):
-            out = flash_attention_fwd_scores(q, k, v, causal=causal, scale=scale, q_seg=q_seg,
-                                             kv_seg=kv_seg, return_lse=return_lse)
-            self.launches += 1
-            return out
-        from kokoro_tpu_torch.ops import kernels
-
-        lib = kernels.load("flash_attention")
-        B, H, Tq, Dh = q.shape
-        o = torch.empty_like(q)
-        lse = torch.empty(B, H, Tq, device=q.device) if return_lse else None
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            err = lib.kokoro_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse),
-                _ptr(q_seg), _ptr(kv_seg), B, H, Tq, k.shape[2], Dh,
-                ctypes.c_float(float(scale)), int(causal),
-                0 if q.dtype == torch.float32 else 1, stream,
-            )
-        if err != 0:
-            raise RuntimeError(_launch_error(self.name, ("fwd",), err, q))
+        if scores_path(q.shape[3], q.dtype):
+            out = flash_attention_fwd_scores(q, k, v, **kw)
+            self.scores_launches += 1
+        else:
+            out = flash_attention_fwd_onchip(q, k, v, **kw)
         self.launches += 1
-        return (o, lse) if return_lse else o
+        return out
 
 
 class FlashAttentionBwdKernel:
     """Wrapper of ``kokoro_flash_attention_bwd`` (the dQ kernel, then the dK/dV
-    kernel).  ``launches`` counts the calls that launched them."""
+    kernel).  ``launches`` counts the calls that launched them;
+    ``scores_launches`` those of them that took the scores path."""
 
     name = "flash_attention_bwd"
     source = "kokoro_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -312,35 +314,19 @@ class FlashAttentionBwdKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.scores_launches = 0
 
     def __call__(self, q, k, v, o, do, lse, *, causal: bool, scale: float,
                  q_seg: Optional[torch.Tensor] = None, kv_seg: Optional[torch.Tensor] = None):
-        _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg)
-        if scores_path(q.shape[3]):
-            grads = flash_attention_bwd_scores(q, k, v, o, do, lse, causal=causal, scale=scale,
-                                               q_seg=q_seg, kv_seg=kv_seg)
-            self.launches += 1
-            return grads
-        B, H, Tq, Dh = q.shape
-        from kokoro_tpu_torch.ops import kernels
-
-        lib = kernels.load("flash_attention_bwd")
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # the kernels' workspace: each row's di, from dQ to dK/dV
-        delta = torch.empty_like(lse)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            err = lib.kokoro_flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _ptr(q_seg), _ptr(kv_seg), B, H, Tq, k.shape[2], Dh,
-                ctypes.c_float(float(scale)), int(causal),
-                0 if q.dtype == torch.float32 else 1, stream,
-            )
-        if err != 0:
-            raise RuntimeError(_launch_error(self.name, ("dq", "dkdv"), err, q))
+        kw = dict(causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
+        _check(q, k, v)
+        if scores_path(q.shape[3], q.dtype):
+            grads = flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)
+            self.scores_launches += 1
+        else:
+            grads = flash_attention_bwd_onchip(q, k, v, o, do, lse, **kw)
         self.launches += 1
-        return dq, dk, dv
+        return grads
 
 
 flash_attention_fwd = FlashAttentionKernel()
@@ -361,8 +347,70 @@ def _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg):
                    "q_seg": q_seg, "kv_seg": kv_seg})
 
 
+# the kernels that keep the scores on chip (csrc/flash_attention{,_bwd}.cu
+# through attention_kernels.cuh: Dh 64 to 2048, past 256 over clusters):
+# the wrappers' route below scores_path, callable at every head dim they
+# take for a measurement (they count nothing)
+def flash_attention_fwd_onchip(q, k, v, *, causal: bool, scale: float,
+                               q_seg: Optional[torch.Tensor] = None,
+                               kv_seg: Optional[torch.Tensor] = None, return_lse: bool = False):
+    """``kokoro_flash_attention_fwd`` on CUDA tensors: ``o``, or ``(o,
+    lse)``; raises where the launch is refused."""
+    from kokoro_tpu_torch.ops import kernels
+
+    _check(q, k, v)
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg come together")
+    _kernel_check({"q": q, "k": k, "v": v, "q_seg": q_seg, "kv_seg": kv_seg})
+    lib = kernels.load("flash_attention")
+    B, H, Tq, Dh = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Tq, device=q.device) if return_lse else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.kokoro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse),
+            _ptr(q_seg), _ptr(kv_seg), B, H, Tq, k.shape[2], Dh,
+            ctypes.c_float(float(scale)), int(causal),
+            0 if q.dtype == torch.float32 else 1, stream,
+        )
+    if err != 0:
+        raise RuntimeError(_launch_error(flash_attention_fwd.name, ("fwd",), err, q,
+                                         scores=False))
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_onchip(q, k, v, o, do, lse, *, causal: bool, scale: float,
+                               q_seg: Optional[torch.Tensor] = None,
+                               kv_seg: Optional[torch.Tensor] = None):
+    """``kokoro_flash_attention_bwd`` (the dQ kernel, then the dK/dV kernel)
+    on CUDA tensors: ``(dq, dk, dv)`` from the on-chip forward's ``o`` and
+    ``lse``; raises where the launch is refused."""
+    from kokoro_tpu_torch.ops import kernels
+
+    _check_bwd(q, k, v, o, do, lse, q_seg, kv_seg)
+    lib = kernels.load("flash_attention_bwd")
+    B, H, Tq, Dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the kernels' workspace: each row's di, from dQ to dK/dV
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.kokoro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(q_seg), _ptr(kv_seg), B, H, Tq, k.shape[2], Dh,
+            ctypes.c_float(float(scale)), int(causal),
+            0 if q.dtype == torch.float32 else 1, stream,
+        )
+    if err != 0:
+        raise RuntimeError(_launch_error(flash_attention_bwd.name, ("dq", "dkdv"), err, q,
+                                         scores=False))
+    return dq, dk, dv
+
+
 # the scores-in-memory kernels at any head dim (ops/flash_scores.py): the
-# wrappers' route past 2048, callable at any multiple of 64 for a
+# wrappers' route from scores_path on, callable at any multiple of 64 for a
 # measurement (they count nothing)
 def flash_attention_fwd_scores(q, k, v, *, causal: bool, scale: float,
                                q_seg: Optional[torch.Tensor] = None,
@@ -378,7 +426,8 @@ def flash_attention_fwd_scores(q, k, v, *, causal: bool, scale: float,
     err, o, lse = flash_scores.scores_fwd(q, k, v, causal=causal, scale=scale, q_seg=q_seg,
                                           kv_seg=kv_seg, return_lse=return_lse)
     if err != 0:
-        raise RuntimeError(_launch_error(flash_attention_fwd.name, ("fwd",), err, q))
+        raise RuntimeError(_launch_error(flash_attention_fwd.name, ("fwd",), err, q,
+                                         scores=True))
     return (o, lse) if return_lse else o
 
 
@@ -394,7 +443,8 @@ def flash_attention_bwd_scores(q, k, v, o, do, lse, *, causal: bool, scale: floa
     err, dq, dk, dv = flash_scores.scores_bwd(q, k, v, o, do, lse, causal=causal, scale=scale,
                                               q_seg=q_seg, kv_seg=kv_seg)
     if err != 0:
-        raise RuntimeError(_launch_error(flash_attention_bwd.name, ("dq", "dkdv"), err, q))
+        raise RuntimeError(_launch_error(flash_attention_bwd.name, ("dq", "dkdv"), err, q,
+                                         scores=True))
     return dq, dk, dv
 
 

@@ -1,16 +1,18 @@
-"""K4 past head dim 2048: the "scores in memory" kernels' launches, their
-workspaces and their schedule.
+"""K4's "scores in memory" kernels: their launches, their workspaces and
+their schedule.
 
-The kernels (``csrc/attention_scores.cuh``, launched by
+The kernels (``csrc/attention_scores.cuh`` in bf16,
+``csrc/attention_scores_tf32.cuh`` in f32, launched by
 ``kokoro_flash_attention_{fwd,bwd}_scores`` in ``csrc/flash_attention.cu``
 and ``csrc/flash_attention_bwd.cu``) keep each head's score matrix in device
 memory: a scores product over the whole head dim into (128 x 128)-tiles,
 a row pass, and products over keys or queries by 128-column strips of the
 head dim, so they take any head dim that is a multiple of 64.
-``ops/flash_attention.py``'s wrappers send them every head dim past 2048
-(the cluster kernels' largest) and count the launches; :func:`scores_fwd` /
-:func:`scores_bwd` here launch without counting, so that a measurement can
-also run them at head dims the wrappers give the cluster kernels.
+``ops/flash_attention.py``'s wrappers send them bf16 past 2048 (the cluster
+kernels' largest) and f32 from ``F32_SCORES_FROM`` on, and count the
+launches; :func:`scores_fwd` / :func:`scores_bwd` here launch without
+counting, so that a measurement can also run them at head dims the wrappers
+give the on-chip kernels.
 
 The schedule functions mirror the launcher's (``attention_scores.cuh``:
 ``score_tiles``, ``score_tile``, ``apply_range``, ``grid_of``), for the
@@ -28,13 +30,14 @@ from typing import Optional, Tuple
 import torch
 
 TILE = 128    # a score tile: 128 queries x 128 keys; the workspaces are padded to it
-CHUNK = 32    # the contraction's chunk
+CHUNK = 32    # the contraction's chunk (f32: 128 bytes, one row of the 128-byte swizzle)
 STRIP = 128   # head-dim columns a CTA of the products over keys or queries writes
 
 
 def cta_rows(dtype: torch.dtype) -> int:
-    """Rows of a CTA's tile: bf16 128 (warps of 64 x 32), f32 64 (32 x 32)."""
-    return 128 if dtype == torch.bfloat16 else 64
+    """Rows of a CTA's tile, a whole score tile in both dtypes: bf16 eight
+    warps of 64 x 32, f32 two warpgroups of 64 x 128 (wgmma)."""
+    return TILE
 
 
 def tiles_of(T: int) -> int:
@@ -151,7 +154,9 @@ def scores_fwd(q, k, v, *, causal: bool, scale: float, q_seg=None, kv_seg=None,
 
 def scores_bwd(q, k, v, o, do, lse, *, causal: bool, scale: float, q_seg=None, kv_seg=None):
     """Launch the backward (row deltas, scores, dQ, dK, dV) on CUDA tensors
-    checked by the caller: ``(err, dq, dk, dv)``; counts nothing."""
+    checked by the caller: ``(err, dq, dk, dv)``; counts nothing.  The
+    workspaces: bf16 P and dS; f32 P^T, dS and dS^T (the B operands of dV,
+    dQ and dK on wgmma)."""
     from kokoro_tpu_torch.ops import kernels
 
     lib = kernels.load("flash_attention_bwd")
@@ -159,13 +164,18 @@ def scores_bwd(q, k, v, o, do, lse, *, causal: bool, scale: float, q_seg=None, k
     Tk = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    p = torch.empty(B * H, padded(Tq), padded(Tk), dtype=q.dtype, device=q.device)
-    ds = torch.empty_like(p)
+    ds = torch.empty(B * H, padded(Tq), padded(Tk), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        p = torch.empty(B * H, padded(Tk), padded(Tq), device=q.device)
+        ds_t = torch.empty_like(p)
+    else:
+        p, ds_t = torch.empty_like(ds), None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.kokoro_flash_attention_bwd_scores(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(q_seg), _ptr(kv_seg), p.data_ptr(), ds.data_ptr(), B, H, Tq, Tk, Dh,
+            _ptr(q_seg), _ptr(kv_seg), p.data_ptr(), ds.data_ptr(), _ptr(ds_t), B, H, Tq, Tk,
+            Dh,
             ctypes.c_float(float(scale)), int(causal), _code(q.dtype), stream)
     return err, dq, dk, dv

@@ -143,9 +143,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         if hasattr(lib, "kokoro_flash_attention_bwd_clusters"):
             lib.kokoro_flash_attention_bwd_clusters.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
             lib.kokoro_flash_attention_bwd_clusters.restype = i
-        # past Dh 2048: q k v o do lse delta dq dk dv q_seg kv_seg p_ws ds_ws, B H Tq
-        # Tk Dh, scale, causal dtype, stream
+        # the scores path: q k v o do lse delta dq dk dv q_seg kv_seg p_ws ds_ws dst_ws,
+        # B H Tq Tk Dh, scale, causal dtype, stream
         if hasattr(lib, "kokoro_flash_attention_bwd_scores"):
-            lib.kokoro_flash_attention_bwd_scores.argtypes = [p] * 14 + [i] * 5 + [f, i, i, p]
+            lib.kokoro_flash_attention_bwd_scores.argtypes = [p] * 15 + [i] * 5 + [f, i, i, p]
             lib.kokoro_flash_attention_bwd_scores.restype = i
     fn.restype = i

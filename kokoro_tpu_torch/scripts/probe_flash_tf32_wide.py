@@ -26,7 +26,10 @@ Two readings behind PERF.md section 6 (K4's f32 kernels at Dh 192/256):
   outputs on fixed inputs (packed K1/K2 and their backward at rates 0 and
   0.1, folded K3, flash K4 at Dh 64-1024, bf16 and f32), built from this
   tree's sources and from DIR's, and which cases differ: what a change to
-  some kernels leaves bit for bit as it was.
+  some kernels leaves bit for bit as it was.  K4 in f32 from
+  ``F32_SCORES_FROM`` on is the on-chip kernels called directly
+  (``flash_onchip``): the wrappers take the scores path there, whose
+  kernels are not the earlier tree's.
 
     python -m kokoro_tpu_torch.scripts.probe_flash_tf32_wide [--out FILE] [--parent DIR]
     python -m kokoro_tpu_torch.scripts.probe_flash_tf32_wide --digests --parent DIR
@@ -257,11 +260,16 @@ def digest_outputs(parent: str | None = None) -> dict:
             q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(dev, dtype) for _ in range(4))
             seg = torch.ones(B, T, dtype=torch.int32, device=dev)
             seg[1, 700:] = 0
+            # where the wrappers take the f32 scores path, the kernels they
+            # took before, called directly
+            onchip = fl.scores_path(Dh, dtype)
+            fwd, bwd = ((fl.flash_attention_fwd_onchip, fl.flash_attention_bwd_onchip) if onchip
+                        else (fl.flash_attention_fwd, fl.flash_attention_bwd))
             for causal in (True, False):
                 kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=seg, kv_seg=seg.clone())
-                o, lse = fl.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-                out[f"flash/{dn}/Dh={Dh}/causal={causal}"] = digest(
-                    o, lse, *fl.flash_attention_bwd(q, k, v, o, do, lse, **kw))
+                o, lse = fwd(q, k, v, return_lse=True, **kw)
+                out[f"flash{'_onchip' if onchip else ''}/{dn}/Dh={Dh}/causal={causal}"] = digest(
+                    o, lse, *bwd(q, k, v, o, do, lse, **kw))
     return out
 
 

@@ -15,6 +15,7 @@ its own, so that its cases take a worker of their own.
 """
 
 import pytest
+import torch
 
 from kokoro_tpu_torch.ops import flash_attention as port
 from tests.test_torch_flash import hold_plain_against_library
@@ -37,5 +38,5 @@ CASES = [
 @pytest.mark.parametrize("T,Dh,dname,causal,masks", CASES)
 def test_plain_matches_library_past_head_dim_2048(T, Dh, dname, causal, masks):
     assert port.flash_supported(T, T, Dh)
-    assert port.scores_path(Dh) and port.cluster_ctas(Dh) == 1
+    assert port.scores_path(Dh, getattr(torch, dname)) and port.cluster_ctas(Dh) == 1
     hold_plain_against_library(T, Dh, dname, causal, masks, B=1, H=1)

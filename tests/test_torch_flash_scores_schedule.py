@@ -24,6 +24,7 @@ import torch
 from kokoro_tpu_torch.ops import flash_scores as fs
 
 HEADER = Path(fs.__file__).resolve().parents[1] / "csrc" / "attention_scores.cuh"
+TF32_HEADER = HEADER.with_name("attention_scores_tf32.cuh")
 LENGTHS = [(1, 1), (100, 100), (128, 128), (129, 129), (1024, 1024), (1408, 1408),
            (1433, 1433), (300, 1000), (1000, 300)]
 
@@ -95,14 +96,18 @@ def test_schedule_constants_are_the_headers():
     warps_m = int(re.search(r"kWarpsM = (\d+)", text).group(1))
     frags = dict(re.findall(r"struct Frags<(\w+)> \{ static constexpr int MT = (\d+)", text))
     assert warps_m * 16 * int(frags["__nv_bfloat16"]) == fs.cta_rows(torch.bfloat16)
-    assert warps_m * 16 * int(frags["float"]) == fs.cta_rows(torch.float32)
+    # f32: two warpgroups of 64 rows (csrc/attention_scores_tf32.cuh)
+    tf32 = TF32_HEADER.read_text()
+    consumers = int(re.search(r"constexpr int kConsumers = (\d+);", tf32).group(1))
+    assert consumers * 64 == fs.cta_rows(torch.float32)
 
 
 def test_grid_at_the_models_shape():
     """Hidden 2560 at one head (B=12, T=1408, causal): 66 of the 121 score
-    tiles a head, 20 strips of the head dim; f32 takes two CTAs a tile."""
+    tiles a head, 20 strips of the head dim; one CTA a tile in both dtypes
+    (f32 two warpgroups of 64 rows on wgmma)."""
     g = fs.grid(1408, 1408, 2560, True, torch.bfloat16)
     assert g == {"score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11,
                  "strips": 20}
     assert fs.grid(1408, 1408, 2560, True, torch.float32) == {
-        "score_tiles": 66, "ctas_a_tile": 2, "query_rows": 22, "key_rows": 22, "strips": 20}
+        "score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11, "strips": 20}

@@ -304,7 +304,12 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
     every kernel's outputs (packed, folded, flash at Dh 64-1024, bf16 and
     f32, the head dims both trees take); every case is the earlier tree's
     bit for bit (the cluster exchange's slots are sized for clusters of up
-    to 16, and its sums are the same rank-order sums)."""
+    to 16, and its sums are the same rank-order sums).  The wrappers' f32
+    outputs at the digests' head dims from ``F32_SCORES_FROM`` on are not
+    compared: the wrappers take the f32 scores path there, whose kernels
+    (``csrc/attention_scores_tf32.cuh``) are new and sum in another order;
+    the on-chip kernels they took before are compared there instead, called
+    directly (``flash_onchip``)."""
     parent = os.environ.get("KOKORO_PARENT_TREE")
     if not parent:
         pytest.skip("set KOKORO_PARENT_TREE to a checkout of the tree to compare with")
@@ -314,6 +319,11 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["cases"] == len(result["equal"]) + len(result["differ"])
     assert result["differ"] == [], result["differ"]
+    from kokoro_tpu_torch.scripts.probe_flash_tf32_wide import DIGEST_HEAD_DIMS
+
+    onchip = {f"flash_onchip/float32/Dh={Dh}/causal={c}" for Dh in DIGEST_HEAD_DIMS
+              for c in (True, False) if flash.scores_path(Dh, F32)}
+    assert onchip <= set(result["equal"]), sorted(onchip - set(result["equal"]))
 
 
 # one head dim of every cluster size past the portable 8: 9 CTAs (1088, its
@@ -329,17 +339,19 @@ def test_flash_kernels_past_head_dim_256_match_plain(cuda, T, Dh, dtype, masks):
     """K4 where a cluster of ceil(Dh / 128) CTAs splits the head dim by
     columns (the last slice ragged at 320, 896 and 1088; clusters of 5, 6
     and 7 CTAs at 640, 768 and 896, whose exchanged tiles split unevenly;
-    past 1024 clusters of 9 to 16, larger than the portable 8), causal,
-    against the plain forward and backward."""
+    past 1024 clusters of 9 to 16, larger than the portable 8; f32 from
+    ``F32_SCORES_FROM`` on through the scores path), causal, against the
+    plain forward and backward."""
     _hold_flash_against_plain(*_wide_flash_inputs(cuda, T, Dh, dtype, masks, 7 * T + Dh))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh", [448, 640, 768, 896, *PAST_1024])
 def test_flash_cluster_kernels_noncausal_and_bitwise(cuda, Dh, dtype):
-    """The cluster kernels without the causal mask at a ragged T, against the
-    plain versions, and two calls bit for bit equal (each CTA sums the
-    cluster's partials in rank order)."""
+    """The cluster kernels (f32 from ``F32_SCORES_FROM`` on: the scores
+    path) without the causal mask at a ragged T, against the plain
+    versions, and two calls bit for bit equal (each CTA sums the cluster's
+    partials in rank order)."""
     q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1100, Dh, dtype, "suffix", Dh)
     _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid, causal=False)
     q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
@@ -1007,6 +1019,99 @@ def test_flash_scores_path_at_cluster_head_dims_matches_plain(cuda, Dh, dtype):
     for name, a, b in zip("qkv", ref, grads):
         torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[dtype],
                                    atol=GRAD_TOL[dtype], msg=f"d{name}")
+
+
+# -- K4's f32 scores path on wgmma (csrc/attention_scores_tf32.cuh): the
+# crossover, 1088 (a ragged 64-column last strip), 1536 (phase long's hidden
+# 1536 at one head), 2048, 2560, 4096, 8192
+F32_SCORES = sorted({flash.F32_SCORES_FROM, 1088, 1536, 2048, 2560, 4096, 8192})
+
+
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("Dh", F32_SCORES)
+def test_f32_wrappers_take_the_scores_kernels_and_match_plain(cuda, Dh, masks):
+    """The f32 wrappers from the crossover on, causal, T=1433, through the
+    autograd Function: one launch of each wrapper, counted as a scores-path
+    launch, its outputs bit for bit those of the scores kernels called
+    directly, and O and every gradient against the plain versions."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1433, Dh, F32, masks, 17 * Dh)
+    assert flash.scores_path(Dh, F32)
+    before = [kern.scores_launches for kern in flash.KERNELS]
+    _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid)
+    assert [kern.scores_launches - b for kern, b in zip(flash.KERNELS, before)] == [1, 1]
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    grads = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    o2, lse2 = flash.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
+    grads2 = flash.flash_attention_bwd_scores(q, k, v, o2, do, lse2, **kw)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (o2, lse2, *grads2)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Dh", sorted({flash.F32_SCORES_FROM, 1088, 1536}))
+def test_f32_scores_rows_with_zero_or_one_key_and_bitwise(cuda, Dh, causal):
+    """The f32 scores path at the crossover and at the cluster head dims it
+    took over: rows that see one key have dQ exactly 0 (their dP - delta,
+    hence dS, is exactly 0), rows that see none O and dQ 0 and lse +inf,
+    every output within the plain version's tolerances, and two calls bit
+    for bit equal."""
+    B, H, T = 2, 1, 1433
+    g = torch.Generator().manual_seed(5 * Dh + causal)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, F32) for _ in range(4))
+    one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    for i, r in enumerate(one):
+        q_seg[:, r] = 2 + i
+    kv_seg = q_seg.clone()  # key r alone shares row r's segment
+    for r in none:
+        q_seg[:, r] = 100 + r  # no key's segment
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    runs = []
+    for _ in range(2):
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        runs.append((o, lse, *flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    o, lse, dq, dk, dv = runs[0]
+    assert torch.equal(dq[:, :, one], torch.zeros_like(dq[:, :, one]))
+    assert torch.equal(o[:, :, none], torch.zeros_like(o[:, :, none]))
+    assert torch.equal(dq[:, :, none], torch.zeros_like(dq[:, :, none]))
+    assert torch.isinf(lse[:, :, none]).all() and torch.isfinite(lse[:, :, one]).all()
+    torch.testing.assert_close(o, flash.flash_attention_reference(q, k, v, **kw), rtol=TOL[F32],
+                               atol=TOL[F32])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, (dq, dk, dv)):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
+
+
+# the f32 head dims of the on-chip kernels (Dh 192 to 2048) that the
+# wrappers no longer reach: called directly, against the plain versions
+F32_ONCHIP_UNREACHED = [Dh for Dh in (192, 256, 320, 384, 512, 768, 1024, 1088, 1536, 2048)
+                        if flash.scores_path(Dh, F32)]
+
+
+@pytest.mark.parametrize("Dh", F32_ONCHIP_UNREACHED)
+def test_f32_onchip_kernels_the_route_no_longer_reaches_match_plain(cuda, Dh):
+    """The f32 on-chip kernels (``csrc/attention_tf32{,_wide}.cuh``, past Dh
+    256 over clusters) called directly where the wrappers take the scores
+    path: O and every gradient against the plain versions, no wrapper
+    counting a launch."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1433, Dh, F32, "suffix", 19 * Dh)
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    before = [kern.launches for kern in flash.KERNELS]
+    o, lse = flash.flash_attention_fwd_onchip(q, k, v, return_lse=True, **kw)
+    grads = flash.flash_attention_bwd_onchip(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in flash.KERNELS] == before
+    torch.testing.assert_close(o, flash.flash_attention_reference(q, k, v, **kw), rtol=TOL[F32],
+                               atol=TOL[F32])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
 
 
 @pytest.mark.parametrize("Tq,Tk,Dh,causal", [(1433, 1433, 2112, True), (1408, 1408, 2560, True),
