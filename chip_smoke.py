@@ -17,12 +17,12 @@ Phases, each printing one JSON line:
    K4 kernels at Dh 192 and 256 (bf16 and f32 forward, dQ and dK/dV; the f32
    ones ``csrc/attention_tf32_wide.cuh``'s), and a
    failure unless all 12 were built; the registers of the K4 kernels with
-   the scores in device memory (``csrc/attention_scores.cuh``: bf16's
-   scores, row pass, the two products, the backward's scores and row
-   deltas, and the f32 row pass; ``csrc/attention_scores_tf32.cuh``: the
-   f32 scores, row deltas, backward's scores and two products on wgmma),
-   and a failure unless all 7 and 5 were built, or one spills or has its
-   ``wgmma`` serialised; the registers of the 6 K4 cluster
+   the scores in device memory (``csrc/attention_scores.cuh``: the row pass
+   in both dtypes; ``csrc/attention_scores_tc.cuh`` in bf16 and
+   ``csrc/attention_scores_tf32.cuh`` in f32: the scores, row deltas,
+   backward's scores and two products on wgmma), and a failure unless all
+   2, 5 and 5 were built, or one spills or has its ``wgmma`` serialised;
+   the registers of the 6 K4 cluster
    kernels past Dh 256 (the same six, each CTA of a cluster of
    ceil(Dh / 128) on 128 columns) and the cluster size of each head dim,
    and a failure unless all 6 were built; how many clusters of 3 to 16 CTAs
@@ -55,14 +55,14 @@ Phases, each printing one JSON line:
    ``scripts/verify_attention_numerics.py`` measures the TPU's.
 5. kernels_flash: K4 (``ops/flash_attention.py``) forward and backward
    against their plain versions, Dh 64/128/192/256 x T 1024/1408/1433/1920,
-   Dh 320/384/448/512/1024 (the cluster kernels) x T 1024/1433 and Dh
-   640/768/896 (clusters of 5, 6 and 7 CTAs) and, at H=2, 1088/1152/1280/
+   Dh 320/384/448/512/640/768/896/1024 x T 1433 and, at H=2, 1088/1152/1280/
    1408/1536/1664/1792/1920/2048 (clusters of 9 to 16) x T 1433 and past
    2048 (the scores in device memory) 2112/2176/2304/2560/3072/4096 x T 1433
    (2176 and 2560 also T 1024) and, at H=1, 8192
-   x causal and not x segment ids none/suffix/interior, f32 and bf16 (f32
-   from ``F32_SCORES_FROM`` on through the scores path on wgmma,
-   ``csrc/attention_scores_tf32.cuh``), each
+   x causal and not x segment ids none/suffix/interior, f32 and bf16 (each
+   from its crossover on, ``F32_SCORES_FROM`` / ``BF16_SCORES_FROM``,
+   through the scores path on wgmma, ``csrc/attention_scores_tf32.cuh`` /
+   ``csrc/attention_scores_tc.cuh``), each
    case called twice (f32 a third time with ``allow_tf32`` on) and bit for
    bit equal, with each head dim's worst share of the allclose bound; then
    its times at the long path's shape B=12, T=1408 at H=8 Dh=64, H=2 Dh=256
@@ -76,19 +76,17 @@ Phases, each printing one JSON line:
    pinned, or the words of its refusal), each kernel's device ms of a call
    (``kernel_split_ms``; the f32 rows at Dh 192 and 256 also on a line of
    their own, the backward's dQ against its dK/dV kernel).  Then
-   (``kernels_flash_scores``) the scores path's launch grid against
-   ``ops/flash_scores.py``'s, rows that see one key or none at Dh 2112 and
-   2560 (f32 also at the crossover and 1536), the bf16 scores path called
-   directly at Dh 1536 and 2048 and the f32 on-chip kernels called directly
-   at every head dim up to 2048 where the f32 wrappers take the scores path,
-   against the plain versions; the f32 scores path's kernel split
-   (``kernel_split_f32_scores``); the bf16 scores path's times at Dh 1536
-   and 2048, B=12 T=1408 H=1, beside the cluster kernels'
-   (``kernel_times_flash_scores``); and the crossover table
-   (``kernel_times_flash_crossover``, the same shape): the scores path and
-   the on-chip kernels at the sampled head dims 192-2048 in f32 (the
-   route's ``F32_SCORES_FROM``) and, for reference, in bf16.  Then the long
-   path's other
+   (``kernels_flash_scores``) the scores path's launch grid (its chunk
+   included) against ``ops/flash_scores.py``'s, rows that see one key or
+   none at Dh 2112 and 2560 and, in each dtype, at its crossover and 1536,
+   and the on-chip kernels called directly at every head dim up to 2048
+   where the wrappers of their dtype take the scores path, against the
+   plain versions; each dtype's scores path's kernel split
+   (``kernel_split_f32_scores``, ``kernel_split_bf16_scores``); and the
+   crossover table (``kernel_times_flash_crossover``, B=12 T=1408 H=1): the
+   scores path and the on-chip kernels, forward and backward, at the
+   sampled head dims 192-2048 in both dtypes beside the route's
+   ``F32_SCORES_FROM`` and ``BF16_SCORES_FROM``.  Then the long path's other
    attention kernels, K2 forward and the packed kv-length backward, at its
    cross-attention shape B=12, T=1408, H=8, Dh=64 against their plain
    versions (f32 and bf16, rates 0 and 0.1, kv lengths 1408 as the long batch
@@ -124,22 +122,22 @@ Phases, each printing one JSON line:
    forward only; the run directory synthesises through ``KokoroTTS``.  (b)
    kernel path against plain path of the long step in f32 (B=4, L=256,
    T=1408) with the limits of (9a), the planted fault on K4's dK.  (c) the
-   bf16 long step at B=12, L=256, T=1408: 2 warm-up and 10 timed steps.  (d)
+   bf16 long step at B=12, L=256, T=1408: 2 warm-up and 5 timed steps.  (d)
    the same model at ``n_heads=2`` (head dim 256, ``long_head_dim``): (b)
    in f32, a bf16 step kernel path against plain path within
-   ``BF16_STEP_LIMIT`` beside the same at 8 heads, and 5 timed bf16 steps;
+   ``BF16_STEP_LIMIT`` beside the same at 8 heads, and 3 timed bf16 steps;
    K4 forward and backward once per decoder layer a step and no other
    wrapper (the cross-attention at Dh 256 stays on einsum, as in the
-   reference).  (e) The same at ``n_heads=1`` (head dim 512, K4's cluster
-   kernels), without the 8-head step, 3 timed bf16 steps.  (f) The same
-   with the model widened to hidden 1536 at one head (head dim 1536, K4
-   over clusters of 12 CTAs), B=12, with the step's peak memory.  (g) The
-   same at hidden 2560, one head (head dim 2560, K4 with the scores in
-   device memory, ``csrc/attention_scores.cuh``), B=12, 3 timed steps.  Each
-   f32 parity run prints its paths' ms a step (3 steps) and K4's
-   scores-path launches a step, which must be every K4 launch from
-   ``F32_SCORES_FROM`` on (the f32 kernel path at Dh 512, 1536 and 2560 goes
-   through ``csrc/attention_scores_tf32.cuh``) and none below.
+   reference).  (e) The same at ``n_heads=1`` (head dim 512), without the
+   8-head step, 3 timed bf16 steps.  (f) The same with the model widened to
+   hidden 1536 at one head (head dim 1536), B=12, with the step's peak
+   memory.  (g) The same at hidden 2560, one head (head dim 2560), B=12, 3
+   timed steps.  Each f32 parity run prints its paths' ms a step (3 steps)
+   and K4's scores-path launches a step, and each timed bf16 step K4's
+   scores-path launches (``bf16_k4_scores_path_launches_per_step``): every
+   K4 launch from the dtype's crossover on (``F32_SCORES_FROM``,
+   ``BF16_SCORES_FROM``: at Dh 512, 1536 and 2560 both dtypes' steps go
+   through ``csrc/attention_scores_tf32.cuh`` / ``_tc.cuh``) and none below.
 11. mfa: the MFA-supervised data path and kokoro-infer.  The long corpus of
    (10), each text ending in a word with a geminate, gets one TextGrid per
    utterance (``write_alignments``); ``cli.preprocess --validate-only``
@@ -208,8 +206,8 @@ Phases, each printing one JSON line:
    0.01 of f32, weights within 0.005 relative.  ms a step and peak memory
    are printed; no attention kernel launches.
 15. scripts: the other ported tools at reduced size: ``bench_serving`` (4
-   clients, 12 requests, Griffin-Lim) on phase quality's run directory,
-   ``bench_batched_decode`` (streams 1 and 8, 128 frames, bf16),
+   clients, 8 requests, Griffin-Lim) on phase quality's run directory,
+   ``bench_batched_decode`` (streams 1 and 8, 64 frames, bf16),
    ``bench_step_shapes`` (the first two ``CONFIGS_SHORT`` rows: each packed
    wrapper 6 launches a step), ``examples_validation``, the host tools
    (phoneme coverage, split lengths, warm-up table, drop-path card) on the
@@ -309,8 +307,9 @@ and K4's ``head_dims_192_256``, its times at Dh 256 and 192 in both dtypes
 kernels apart, as phase kernels_flash's lines ``kernel_split_bf16_dh192_256``
 and ``kernel_split_f32_dh192_256`` print them) and its launches per long
 step at ``n_heads=2``, and ``head_dims_320_1024``,
-its cluster kernels' times at Dh 384, 512 and 1024 in both dtypes (with SDPA's
-backend there) and its launches per long step at ``n_heads=1``, and
+its times at Dh 384, 512 and 1024 in both dtypes (the scores path from each
+dtype's crossover on; with SDPA's backend there) and its launches per long
+step at ``n_heads=1``, and
 ``head_dims_1088_2048``, its times at Dh 1152, 1536 and 2048 (SDPA's
 memory-efficient time or its refusal) and its launches per long step at
 hidden 1536 and one head, and ``head_dims_2112_up``, its times at Dh 2560
@@ -320,7 +319,11 @@ the two kernels of K4's f32 scores path on wgmma
 reached through the K4 wrappers from ``F32_SCORES_FROM`` on: their
 scores-path launches per f32 kernel-path step at hidden 1536 and one head,
 and their times at B=12 T=1408 H=1 Dh 1536 and at every timed head dim the
-route gives them), the ``nvidia-smi`` line
+route gives them) and the two of its bf16 scores path on wgmma
+(``flash_attention_{fwd,bwd}_bf16_scores``, ``csrc/attention_scores_tc.cuh``,
+from ``BF16_SCORES_FROM`` on: their scores-path launches per timed bf16
+step at hidden 1536 and one head, and their times likewise), the
+``nvidia-smi`` line
 and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
 back to the CPU or to a plain version.  Exits non-zero without CUDA or
@@ -380,8 +383,10 @@ PHASES = ["kernels", "kernels_bwd", "dropout", "kernels_flash", "kernels_folded"
 # peak allocated bytes of the bf16 steps of phases train and long, which
 # phase tools holds the memory planner to
 MEASURED_PEAKS = {}
-# K4's scores-path launches a step of phase long's f32 kernel-path steps, by head dim
+# K4's scores-path launches a step of phase long's f32 kernel-path steps and
+# of its timed bf16 steps, by head dim
 F32_SCORES_LAUNCHES = {}
+BF16_SCORES_LAUNCHES = {}
 
 
 def emit(obj) -> None:
@@ -415,19 +420,25 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def graph_time_ms(fn) -> float:
-    """Device time of one call of ``fn``: 20 calls captured in one CUDA graph,
-    the graph replayed between CUDA events, the median of 5 replays over 20.
-    No host work (argument checks, ``torch.empty``, the ctypes call) falls
-    inside the timed window, so a kernel of 0.1 ms is timed by the device
-    and not by its wrapper."""
+    """Device time of one call of ``fn``: 20 calls (4 where a call takes a
+    millisecond or more) captured in one CUDA graph, the graph replayed
+    between CUDA events, the median of 5 replays over the calls.  No host
+    work (argument checks, ``torch.empty``, the ctypes call) falls inside the
+    timed window, so a kernel of 0.1 ms is timed by the device and not by its
+    wrapper."""
     import statistics
 
     import torch
 
-    iters = 20
-    for _ in range(3):
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = 4 if start.elapsed_time(end) >= 1.0 else 20
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -606,7 +617,7 @@ def phase_device():
     if not native.native_available():  # the host-side C++ aligner of phase mfa
         raise AssertionError("the native duration aligner (csrc/aligner.cpp) did not build")
     regs, spills, serialized, tf32_regs, wide_regs, cluster_regs = {}, {}, {}, {}, {}, {}
-    scores_regs, scores_tf32_regs = {}, {}
+    scores_regs, scores_tc_regs, scores_tf32_regs = {}, {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -621,9 +632,12 @@ def phase_device():
         # template argument CL true)
         cluster_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                              if is_cluster_kernel(fn)})
-        # K4 past Dh 2048: the scores-in-memory kernels (csrc/attention_scores.cuh)
+        # K4's scores path: the row pass of both dtypes (csrc/attention_scores.cuh)
         scores_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                             if SCORES_NAMESPACE in fn})
+        # its bf16 products on wgmma (csrc/attention_scores_tc.cuh)
+        scores_tc_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
+                               if SCORES_TC_NAMESPACE in fn})
         # K4's f32 scores path on wgmma (csrc/attention_scores_tf32.cuh)
         scores_tf32_regs.update({fn: used for fn, used in ptxas_registers(lines).items()
                                  if SCORES_TF32_NAMESPACE in fn})
@@ -638,7 +652,7 @@ def phase_device():
           "ptxas": regs, "spills": spills, "wgmma_serialized": serialized,
           "tf32_registers": tf32_regs, "dh192_256_registers": wide_regs,
           "cluster_registers": cluster_regs, "scores_registers": scores_regs,
-          "scores_tf32_registers": scores_tf32_regs,
+          "scores_tc_registers": scores_tc_regs, "scores_tf32_registers": scores_tf32_regs,
           "cluster_ctas": {Dh: fl.cluster_ctas(Dh) for Dh in fl.CLUSTER_HEAD_DIMS},
           "cluster_occupancy": occupancy,
           "tf32_matmul": False, "tf32_cudnn": False})
@@ -650,17 +664,16 @@ def phase_device():
     # is an argument of the launch)
     if len(cluster_regs) != 6:
         raise AssertionError(f"expected 6 K4 cluster kernels, ptxas built {sorted(cluster_regs)}")
-    # the scores path in bf16 (csrc/attention_scores.cuh: the scores, row
-    # pass, products over keys and over queries, the backward's scores and
-    # the row deltas) and its f32 row pass
-    if len(scores_regs) != 7:
-        raise AssertionError(f"expected 7 K4 scores-in-memory kernels (bf16 and the f32 row "
-                             f"pass), ptxas built {sorted(scores_regs)}")
-    # in f32 on wgmma: the scores, the row deltas, the backward's scores and
-    # the products over keys and over queries
-    if len(scores_tf32_regs) != 5:
-        raise AssertionError(f"expected 5 K4 f32 scores-path kernels on wgmma, ptxas built "
-                             f"{sorted(scores_tf32_regs)}")
+    # the scores path's row pass (csrc/attention_scores.cuh), one a dtype
+    if len(scores_regs) != 2:
+        raise AssertionError(f"expected 2 K4 scores-path row passes (bf16 and f32), ptxas "
+                             f"built {sorted(scores_regs)}")
+    # each dtype on wgmma: the scores, the row deltas, the backward's scores
+    # and the products over keys and over queries
+    for label, built in (("bf16", scores_tc_regs), ("f32", scores_tf32_regs)):
+        if len(built) != 5:
+            raise AssertionError(f"expected 5 K4 {label} scores-path kernels on wgmma, ptxas "
+                                 f"built {sorted(built)}")
     tensor_core = {fn: sp for fn, sp in spills.items()
                    if any(ns in fn for ns in TENSOR_CORE_NAMESPACES)}
     if tensor_core:
@@ -695,12 +708,14 @@ def cluster_occupancy() -> dict:
 # (csrc/attention_tc.cuh) and the f32 forward and backward in 3xTF32
 # (csrc/attention_tf32.cuh)
 TF32_NAMESPACE = "kokoro_attn4tf32"
-# K4's scores path (csrc/attention_scores.cuh: bf16 on mma.sync, the f32 row
-# pass) and its f32 products in 3xTF32 on wgmma (csrc/attention_scores_tf32.cuh)
+# K4's scores path (csrc/attention_scores.cuh: the row pass of both dtypes),
+# its bf16 products on wgmma (csrc/attention_scores_tc.cuh) and its f32
+# products in 3xTF32 on wgmma (csrc/attention_scores_tf32.cuh)
 SCORES_NAMESPACE = "kokoro_attn6scores"
+SCORES_TC_NAMESPACE = "kokoro_attn9scores_tc"
 SCORES_TF32_NAMESPACE = "kokoro_attn11scores_tf32"
 TENSOR_CORE_NAMESPACES = ("kokoro_attn2tc", TF32_NAMESPACE, SCORES_NAMESPACE,
-                          SCORES_TF32_NAMESPACE)
+                          SCORES_TC_NAMESPACE, SCORES_TF32_NAMESPACE)
 
 
 def is_cluster_kernel(mangled: str) -> bool:
@@ -1142,21 +1157,17 @@ FLASH_PAST_1024 = (1088, 1152, 1280, 1408, 1536, 1664, 1792, 1920, 2048)
 FLASH_PAST_2048 = (2112, 2176, 2304, 2560, 3072, 4096, 8192)
 FLASH_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896, 1024, *FLASH_PAST_1024,
                    *FLASH_PAST_2048)
-# the lengths swept up to Dh 256, past it (fewer, to keep the script well
-# inside its time limit), and at the clusters of 5-7 and of 9-16 CTAs and
-# past 2048 (one; 1024 too at 2176 and 2560)
-FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1920), "cluster": (1024, 1433),
-                 "cluster_5_7_9_16": (1433,), "scores_1024": (1024, 1433)}
+# the lengths swept up to Dh 256 and past it (one, to keep the script well
+# inside its time limit; 1024 too at 2176 and 2560)
+FLASH_LENGTHS = {"narrow": (1024, 1408, 1433, 1920), "wide": (1433,),
+                 "scores_1024": (1024, 1433)}
 
 
 def flash_lengths(Dh: int) -> tuple:
     """The T that phase kernels_flash sweeps at head dim ``Dh``."""
     if Dh <= 256:
         return FLASH_LENGTHS["narrow"]
-    if Dh in (2176, 2560):
-        return FLASH_LENGTHS["scores_1024"]
-    one = Dh in (640, 768, 896) or Dh in FLASH_PAST_1024 or Dh in FLASH_PAST_2048
-    return FLASH_LENGTHS["cluster_5_7_9_16" if one else "cluster"]
+    return FLASH_LENGTHS["scores_1024" if Dh in (2176, 2560) else "wide"]
 
 
 def flash_heads(Dh: int) -> int:
@@ -1170,12 +1181,10 @@ def flash_heads(Dh: int) -> int:
 # long's models), hidden 768 over 4 (Dh 192) and 2 (Dh 384), and Dh 1024 at
 # one head (the largest portable cluster, 8 CTAs); then past 1024 at one head,
 # Dh 1152, 1536 (hidden 1536, phase long's model at one head) and 2048
-# (clusters of 9, 12 and 16 CTAs)
+# (clusters of 9, 12 and 16 CTAs); from each dtype's crossover on the
+# wrappers take the scores path
 FLASH_TIMED = ((8, 64), (2, 256), (4, 192), (2, 384), (1, 512), (1, 1024),
                (1, 1152), (1, 1536), (1, 2048), (1, 2560), (1, 4096))
-# the scores-in-memory kernels called directly where the wrappers take the
-# cluster kernels: held and timed beside them (B=12 T=1408 H=1)
-SCORES_BESIDE_CLUSTERS = (1536, 2048)
 
 
 def phase_kernels_flash():
@@ -1246,8 +1255,7 @@ def phase_kernels_flash():
     emit({"phase": "kernels_flash", "checks": checks, "two_calls_bitwise_equal": True,
           "f32_independent_of_allow_tf32": True,
           "shapes": "B=2 H=8; Dh{64,128,192,256} x T{1024,1408,1433,1920}, "
-                    "Dh{320,384,448,512,1024} x T{1024,1433} and Dh{640,768,896} x "
-                    "T{1433}; B=2 H=2 Dh{1088,1152,1280,1408,1536,1664,1792,1920,2048} x "
+                    "Dh{320,384,448,512,640,768,896,1024} x T{1433}; B=2 H=2 Dh{1088,1152,1280,1408,1536,1664,1792,1920,2048} x "
                     "T{1433}; past 2048 (the scores in device memory) B=2 H=2 "
                     "Dh{2112,2176,2304,2560,3072,4096} x T{1433} (and T 1024 at 2176, 2560), "
                     "H=1 Dh 8192; x causal/non-causal x segment ids none/suffix/interior",
@@ -1277,36 +1285,29 @@ def phase_kernels_flash():
           "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
                               for (n, d, H, Dh), r in timings.items()
                               if d == "bfloat16" and Dh in (192, 256)}})
-    # the f32 wrappers' scores path (csrc/attention_scores_tf32.cuh): each
-    # kernel's device ms
-    emit({"phase": "kernel_split_f32_scores", "shape": "B=12 T=1408 causal",
-          "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
-                              for (n, d, H, Dh), r in timings.items()
-                              if d == "float32" and fl.scores_path(Dh, torch.float32)}})
-    # the bf16 scores-in-memory kernels where the wrappers take the cluster
-    # kernels (the f32 on-chip kernels where the wrappers take the scores
-    # path: the crossover table below)
-    scores = {}
-    for Dh in SCORES_BESIDE_CLUSTERS:
-        scores.update(scores_times(12, 1408, 1, Dh, gen))
-    emit({"phase": "kernel_times_flash_scores", "shape": "B=12 T=1408 H=1 causal",
-          "called": "flash_attention_{fwd,bwd}_scores directly (the wrappers route these "
-                    "head dims to the cluster kernels in bf16)",
-          "times": {f"{n}/{d}/Dh={Dh}": {**r, "cluster_ms": timings[(
-              "flash_attention_" + n.split("_")[2], d, 1, Dh)]["ms"]}
-              for (n, d, Dh), r in scores.items()}})
-    # the f32 crossover (and, for reference, bf16's, which is not routed):
-    # the scores path and the on-chip kernels at the sampled head dims, B=12
-    # T=1408 H=1 causal (the wrappers take one of the two)
+    # each dtype's wrappers on the scores path (csrc/attention_scores_tf32.cuh,
+    # csrc/attention_scores_tc.cuh): each kernel's device ms
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        dname = str(dtype).split(".")[1]
+        emit({"phase": f"kernel_split_{label}_scores", "shape": "B=12 T=1408 causal",
+              "kernel_split_ms": {f"{n}/H={H}/Dh={Dh}": r["kernel_split_ms"]
+                                  for (n, d, H, Dh), r in timings.items()
+                                  if d == dname and fl.scores_path(Dh, dtype)}})
+    # each dtype's crossover: the scores path and the on-chip kernels, each
+    # called directly, at the sampled head dims, B=12 T=1408 H=1 causal (the
+    # wrappers take one of the two)
     from kokoro_tpu_torch.scripts.probe_flash_scores_tf32 import SAMPLED, crossover
     from kokoro_tpu_torch.scripts.probe_flash_scores_tf32 import times as family_times
 
     table = crossover(family_times(SAMPLED, sdpa=False, wrapper=False, iters=5))
     emit({"phase": "kernel_times_flash_crossover", "shape": "B=12 T=1408 H=1 causal",
-          "f32_scores_from": fl.F32_SCORES_FROM, **table})
-    if table["float32"]["scores_from"] != fl.F32_SCORES_FROM:
-        print(f"chip_smoke: this card's f32 crossover is Dh {table['float32']['scores_from']}, "
-              f"the route's F32_SCORES_FROM {fl.F32_SCORES_FROM}", file=sys.stderr)
+          "f32_scores_from": fl.F32_SCORES_FROM, "bf16_scores_from": fl.BF16_SCORES_FROM,
+          **table})
+    for dname, route in (("float32", "F32_SCORES_FROM"), ("bfloat16", "BF16_SCORES_FROM")):
+        if table[dname]["scores_from"] != getattr(fl, route):
+            print(f"chip_smoke: this card's {dname} crossover is Dh "
+                  f"{table[dname]['scores_from']}, the route's {route} {getattr(fl, route)}",
+                  file=sys.stderr)
     # the flagship's rows (H=8, Dh=64) keep their keys; the others carry their head dim
     timings = {(n, d) if (H, Dh) == FLASH_TIMED[0] else (n, d, f"Dh={Dh}"): r
                for (n, d, H, Dh), r in timings.items()}
@@ -1393,16 +1394,15 @@ def flash_times(B, T, H, Dh, gen) -> dict:
 def scores_path_checks(gen) -> dict:
     """K4's scores-in-memory kernels beyond the sweep: (a) the compiled
     launcher's grid against ``flash_scores.grid``; (b) rows that see one key
-    and rows that see none, both dtypes, causal and not, at Dh 2112 and 2560,
-    and in f32 at the crossover ``F32_SCORES_FROM`` and 1536 (T=1433, B=2,
-    H=1): the one-key rows' dQ exactly 0, the no-key rows' O and dQ exactly
-    0 and lse +inf, every output within the tolerances, two calls bit for
-    bit; (c) the family the wrappers do not take, called directly: the bf16
-    scores kernels at the cluster head dims ``SCORES_BESIDE_CLUSTERS``, the
-    f32 on-chip kernels at every head dim of ``FLASH_HEAD_DIMS`` up to 2048
-    where the f32 wrappers take the scores path (T=1433, B=2, H=2, causal;
-    the bf16 ones every mask kind, the f32 ones one kind each in turn),
-    against the plain versions and bitwise over two calls."""
+    and rows that see none, both dtypes, causal and not, at Dh 2112 and 2560
+    and at each dtype's crossover (``F32_SCORES_FROM``, ``BF16_SCORES_FROM``)
+    and 1536 (T=1433, B=2, H=1): the one-key rows' dQ exactly 0, the no-key
+    rows' O and dQ exactly 0 and lse +inf, every output within the
+    tolerances, two calls bit for bit; (c) the on-chip kernels the wrappers
+    no longer take, called directly: each dtype's at every head dim of
+    ``FLASH_HEAD_DIMS`` up to 2048 where its wrappers take the scores path
+    (T=1433, B=2, H=2, causal, one mask kind each in turn), against the
+    plain versions and bitwise over two calls."""
     import torch
 
     from kokoro_tpu_torch.ops import flash_attention as fl
@@ -1412,7 +1412,8 @@ def scores_path_checks(gen) -> dict:
     grids = 0
     for dtype in (torch.float32, torch.bfloat16):
         for Tq, Tk, Dh, causal in ((1433, 1433, 2112, True), (1408, 1408, 2560, True),
-                                   (1024, 1024, 8192, False), (300, 1000, 4096, True)):
+                                   (1024, 1024, 8192, False), (300, 1000, 4096, True),
+                                   (1408, 1408, 512, True), (1433, 1433, 1088, False)):
             want, got = fs.grid(Tq, Tk, Dh, causal, dtype), fs.launch_grid(Tq, Tk, Dh, causal,
                                                                             dtype)
             if want != got:
@@ -1430,7 +1431,7 @@ def scores_path_checks(gen) -> dict:
     rows = []
     B, T = 2, 1433
     one_key_cases = [(torch.float32, Dh) for Dh in (2112, 2560, fl.F32_SCORES_FROM, 1536)]
-    one_key_cases += [(torch.bfloat16, Dh) for Dh in (2112, 2560)]
+    one_key_cases += [(torch.bfloat16, Dh) for Dh in (2112, 2560, fl.BF16_SCORES_FROM, 1536)]
     for dtype, Dh in one_key_cases:
         dname = str(dtype).split(".")[1]
         q, k, v, do = (torch.randn(B, 1, T, Dh, generator=gen).to(dev, dtype)
@@ -1465,30 +1466,27 @@ def scores_path_checks(gen) -> dict:
                  (TOL[dname],) + (GRAD_TOL[dname],) * 3)
             rows.append(where)
         del q, k, v, do
-    direct = 0
-    unreached = [Dh for Dh in FLASH_HEAD_DIMS
-                 if fl.scores_path(Dh, torch.float32) and Dh <= fl.MAX_CLUSTER_HEAD_DIM]
-    for dtype, family, dims in ((torch.bfloat16, "scores", SCORES_BESIDE_CLUSTERS),
-                                (torch.float32, "onchip", unreached)):
+    direct, unreached = 0, {}
+    for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        fwd = getattr(fl, f"flash_attention_fwd_{family}")
-        bwd = getattr(fl, f"flash_attention_bwd_{family}")
+        unreached[dname] = dims = [Dh for Dh in FLASH_HEAD_DIMS
+                                   if fl.scores_path(Dh, dtype) and Dh <= fl.MAX_CLUSTER_HEAD_DIM]
         for i, Dh in enumerate(dims):
             q, k, v, do = (torch.randn(B, 2, T, Dh, generator=gen).to(dev, dtype)
                            for _ in range(4))
-            # the bf16 scores path every mask kind; the many f32 on-chip head
-            # dims one kind each, in turn (to bound the phase's time)
+            # one mask kind a head dim, in turn (to bound the phase's time)
             kinds = ("none", "suffix", "interior")
-            for kind in (kinds if family == "scores" else kinds[i % 3:i % 3 + 1]):
+            for kind in kinds[i % 3:i % 3 + 1]:
                 q_valid, kv_valid = _flash_masks(kind, B, T, dev, gen)
                 q_seg, kv_seg = fl.segment_ids(q, k, q_valid, kv_valid)
                 kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
                 runs = []
                 for _ in range(2):
-                    o, lse = fwd(q, k, v, return_lse=True, **kw)
-                    runs.append((o, lse, *bwd(q, k, v, o, do, lse, **kw)))
+                    o, lse = fl.flash_attention_fwd_onchip(q, k, v, return_lse=True, **kw)
+                    runs.append((o, lse, *fl.flash_attention_bwd_onchip(q, k, v, o, do, lse,
+                                                                        **kw)))
                 torch.cuda.synchronize()
-                where = f"{dname} Dh={Dh} T={T} masks={kind} {family} kernels called directly"
+                where = f"{dname} Dh={Dh} T={T} masks={kind} on-chip kernels called directly"
                 if not all(torch.equal(a, b) for a, b in zip(*runs)):
                     raise AssertionError(f"{where}: two calls differ")
                 o, lse, dq, dk, dv = runs[0]
@@ -1500,47 +1498,9 @@ def scores_path_checks(gen) -> dict:
             del q, k, v, do
     torch.cuda.empty_cache()
     return {"grids_equal_the_launchers": grids, "one_and_no_key_cases": rows,
-            "direct_calls": direct, "f32_onchip_direct_head_dims": unreached,
+            "direct_calls": direct, "onchip_direct_head_dims": unreached,
             "max_abs_err": worst,
             "tolerance": {"forward": TOL, "grad": GRAD_TOL}}
-
-
-def scores_times(B, T, H, Dh, gen) -> dict:
-    """The bf16 scores-in-memory kernels called directly at (B, H, T, Dh),
-    causal (the f32 ones are the wrappers' route there): each against its
-    plain version, then its device time, each device kernel's time and the
-    share of the bound, keyed ``(name, dtype, Dh)``."""
-    import torch
-
-    from kokoro_tpu_torch.ops import flash_attention as fl
-
-    dev = torch.device("cuda")
-    out = {}
-    for dtype in (torch.bfloat16,):
-        dname = str(dtype).split(".")[1]
-        q, k, v, do = (torch.randn(B, H, T, Dh, generator=gen).to(dev, dtype) for _ in range(4))
-        kw = dict(causal=True, scale=Dh ** -0.5)
-        where = f"scores path {dname} B={B} T={T} H={H} Dh={Dh}"
-        o, lse = fl.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
-        err_o = close_or_raise(where, o, fl.flash_attention_reference(q, k, v, **kw), TOL[dname])
-        grads = fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)
-        ref = fl.flash_attention_bwd_reference(q, k, v, o, do, **kw)
-        err_g = max(close_or_raise(f"{where} d{n}", a, b, GRAD_TOL[dname])
-                    for n, a, b in zip("qkv", grads, ref))
-        out[("flash_scores_fwd", dname, Dh)] = timed_row(
-            attention_bound(B, T, H, Dh, dname, True),
-            graph_time_ms(lambda: fl.flash_attention_fwd_scores(q, k, v, **kw)),
-            max_abs_err=err_o,
-            **profiled_kernels(lambda: fl.flash_attention_fwd_scores(q, k, v, **kw), 3))
-        out[("flash_scores_bwd", dname, Dh)] = timed_row(
-            attention_bound(B, T, H, Dh, dname, True, backward=True),
-            graph_time_ms(lambda: fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw)),
-            max_abs_err=err_g,
-            **profiled_kernels(lambda: fl.flash_attention_bwd_scores(q, k, v, o, do, lse, **kw),
-                               5))
-        del q, k, v, do, o, lse, grads, ref
-        torch.cuda.empty_cache()
-    return out
 
 
 SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -2366,12 +2326,12 @@ def phase_long():
     torch.cuda.reset_peak_memory_stats()
     metrics, per_step = [], []
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(LONG_TIMED_STEPS):
         zero_counts()  # each step is a main-path run: counts from 0
         metrics.append(step(state, batch, gen))
         per_step.append(read_counts())
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 10
+    ms = (time.perf_counter() - t0) * 1e3 / LONG_TIMED_STEPS
     for m, counts in zip(metrics, per_step):
         if not (m["stepped"] == 1.0 and math.isfinite(m["total"]) and m["loss_scale"] < 1.0):
             raise AssertionError(f"long step not finite, skipped or unstabilised: {m}")
@@ -2381,7 +2341,7 @@ def phase_long():
     B, T = LONG_SHAPE["B"], LONG_SHAPE["T"]
     emit({"phase": "long", "config": "scripts/quality_run.py --long through get_default_config "
           "(bf16 compute, f32 params, no attention-weight dropout, SpecAugment, no remat)",
-          **LONG_SHAPE, "timed_steps": 10, "ms_per_step": ms,
+          **LONG_SHAPE, "timed_steps": LONG_TIMED_STEPS, "ms_per_step": ms,
           "mel_frames_per_s": B * T / (ms / 1e3),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": per_step[-1], "loss_scale": metrics[-1]["loss_scale"],
@@ -2393,7 +2353,7 @@ def phase_long():
     # (d) K4 at head dim 256, (e) at head dim 512 (the cluster kernels), (f)
     # at head dim 1536 (a cluster of 12 CTAs, larger than the portable 8),
     # (g) at head dim 2560 (the scores in device memory)
-    dh256, dh256_counts = long_head_dim(n_layers, LONG_DH256, timed_steps=5)
+    dh256, dh256_counts = long_head_dim(n_layers, LONG_DH256, timed_steps=3)
     emit({"phase": "long_dh256", **dh256})
     dh512, dh512_counts = long_head_dim(n_layers, LONG_DH512, timed_steps=3)
     emit({"phase": "long_dh512", **dh512})
@@ -2407,11 +2367,12 @@ def phase_long():
 # phase long at head dims 256 and 512: the flagship's hidden 512 over 2 heads
 # and at one head (its parameter count), where K4 takes the decoder
 # self-attention and the packed kernels' gate (Dh 64 and 128) leaves the
-# cross-attention on einsum; at Dh 512 K4 runs its cluster kernels; and the
+# cross-attention on einsum; at Dh 512 K4 takes the scores path; and the
 # model widened to hidden 1536 at one head (Dh 1536: K4 over clusters of 12
 # CTAs), as the JAX package's config takes it, and to hidden 2560 at one
 # head (Dh 2560: K4 with the scores in device memory)
 LONG_DH256 = dict(n_heads=2)
+LONG_TIMED_STEPS = 5  # phase long (c): timed bf16 steps at the flagship's 8 heads
 LONG_DH512 = dict(n_heads=1)
 LONG_DH1536 = dict(hidden_dim=1536, n_heads=1)
 LONG_DH2560 = dict(hidden_dim=2560, n_heads=1)
@@ -2544,19 +2505,27 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
         step(state, batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    metrics, per_step = [], []
+    metrics, per_step, scores_per_step = [], [], []
     t0 = time.perf_counter()
     for _ in range(timed_steps):
         zero_counts()  # each step is a main-path run: counts from 0
         metrics.append(step(state, batch, gen))
         per_step.append(read_counts())
+        scores_per_step.append(read_scores_counts())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed_steps
-    for m, counts in zip(metrics, per_step):
+    # from the bf16 crossover on, every K4 launch of the bf16 step takes the
+    # scores path (csrc/attention_scores_tc.cuh), else none
+    routed = {name: n_layers if fl.scores_path(Dh, torch.bfloat16) else 0 for name in flash}
+    for m, counts, scores in zip(metrics, per_step, scores_per_step):
         if not (m["stepped"] == 1.0 and math.isfinite(m["total"])):
             raise AssertionError(f"long step at Dh {Dh} not finite or skipped: {m}")
         if counts != want(counts):
             raise AssertionError(f"long step at Dh {Dh} launches {counts}, expected {want(counts)}")
+        if scores != routed:
+            raise AssertionError(f"bf16 long step at Dh {Dh}: K4's scores-path launches "
+                                 f"{scores}, expected {routed}")
+    BF16_SCORES_LAUNCHES[Dh] = scores_per_step[-1]
     peak = torch.cuda.max_memory_allocated()
     del state, step, batch
     torch.cuda.empty_cache()
@@ -2565,6 +2534,7 @@ def long_head_dim(n_layers: int, overrides: dict, timed_steps: int):
             "f32_parity": f32, "bf16_step": bf16, "bf16_limits": BF16_STEP_LIMIT,
             "bf16_step_ms": ms, "timed_steps": timed_steps, "peak_memory_gb": peak / 1e9,
             "launches_per_step": per_step[-1],
+            "bf16_k4_scores_path_launches_per_step": scores_per_step[-1],
             "losses": [m["total"] for m in metrics]}, per_step[-1]
 
 
@@ -3329,8 +3299,8 @@ def phase_vocoder_train():
 
 # ---------------------------------------------------------------------------
 # phase scripts: the repository's remaining tools on the port, at reduced size
-SCRIPTS_SERVING = ["--clients", "4", "--requests", "12"]
-SCRIPTS_DECODE = {"streams": (1, 8), "frames": 128}
+SCRIPTS_SERVING = ["--clients", "4", "--requests", "8"]
+SCRIPTS_DECODE = {"streams": (1, 8), "frames": 64}
 
 
 def quiet(fn, *args):
@@ -3345,7 +3315,7 @@ def phase_scripts(quality: Path):
     """Every other ported tool at a reduced size, each failing the phase on
     an error row or a non-zero exit: ``bench_serving`` (4 clients, 12
     requests) on phase quality's run directory under ``quality``,
-    ``bench_batched_decode`` (streams 1 and 8, 128 frames),
+    ``bench_batched_decode`` (streams 1 and 8, 64 frames),
     ``bench_step_shapes`` (the first two ``CONFIGS_SHORT`` rows),
     ``examples_validation``, the host tools on the quality corpus and
     ``verify_setup``, which must PASS.  K1, K2 and the packed backwards are
@@ -3375,7 +3345,8 @@ def phase_scripts(quality: Path):
     serving, _ = timed_tool("bench_serving", bench_serving.run, bench_serving.parse_args(
         ["--model", str(quality / "run"), *SCRIPTS_SERVING]))
     conc = serving["concurrent"]
-    if not (conc["requests"] == 12 and 1 <= conc["dispatches"] <= conc["requests"]
+    if not (conc["requests"] == int(SCRIPTS_SERVING[3])
+            and 1 <= conc["dispatches"] <= conc["requests"]
             and serving["single_stream_s"] > 0 and conc["p95_s"] >= conc["p50_s"] > 0):
         raise AssertionError(f"bench_serving: {serving}")
     decode, _ = timed_tool("bench_batched_decode", bench_batched_decode.sweep, dev,
@@ -3429,7 +3400,7 @@ def phase_scripts(quality: Path):
 
 # ---------------------------------------------------------------------------
 # phase bench: the repository's two headline benchmarks on the port
-BENCH_E2E_EPOCHS = 2          # measured end-to-end epochs (the full bench: 6)
+BENCH_E2E_EPOCHS = 1          # measured end-to-end epochs (the full bench: 6)
 BENCH_INFERENCE_FRAMES = 128  # forced decode length (the full bench: 1024)
 
 
@@ -4747,12 +4718,14 @@ def run_phases(phases, work: Path) -> int:
             for key, timed_dims, path_counts, path in (
                     ("head_dims_192_256", FLASH_TIMED[1:3], dh256_counts, "n_heads=2, head_dim 256"),
                     ("head_dims_320_1024", FLASH_TIMED[3:6], dh512_counts,
-                     "n_heads=1, head_dim 512: the cluster kernels"),
+                     "n_heads=1, head_dim 512: the scores path from each dtype's crossover "
+                     "on, else the cluster kernels"),
                     ("head_dims_1088_2048", FLASH_TIMED[6:9], dh1536_counts,
-                     "hidden_dim=1536, n_heads=1, head_dim 1536: clusters of 12 CTAs"),
+                     "hidden_dim=1536, n_heads=1, head_dim 1536: the scores path from each "
+                     "dtype's crossover on, else clusters of 12 CTAs"),
                     ("head_dims_2112_up", FLASH_TIMED[9:], dh2560_counts,
                      "hidden_dim=2560, n_heads=1, head_dim 2560: the scores in device "
-                     "memory (csrc/attention_scores.cuh)")):
+                     "memory (csrc/attention_scores_tc.cuh)")):
                 row[key] = {
                     "launches": path_counts[kern.name],
                     "launches_are": f"per bf16 long training step at {path} (B=12 L=256 T=1408)",
@@ -4820,27 +4793,36 @@ def run_phases(phases, work: Path) -> int:
                 "launches_are": "per long training step with the trainer's diagnostics on "
                                 "(phase tools: 2 microbatches of B=12 L=256 T=1408)"}
         kernels.append(row)
-    # K4's f32 scores path on wgmma (csrc/attention_scores_tf32.cuh), reached
-    # through the K4 wrappers from F32_SCORES_FROM on: its path is phase
-    # long's f32 kernel-path step at hidden 1536, one head (head dim 1536)
+    # K4's scores path on wgmma, reached through the K4 wrappers from each
+    # dtype's crossover on: f32 (csrc/attention_scores_tf32.cuh), its path
+    # phase long's f32 kernel-path step at hidden 1536, one head (head dim
+    # 1536); bf16 (csrc/attention_scores_tc.cuh), its path phase long's timed
+    # bf16 step there
     from kokoro_tpu_torch.ops import flash_attention as fl
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "tflops",
               "bound_share", "kernel_split_ms")
-    for kern in fl.KERNELS:
-        r = timings[(kern.name, "float32", "Dh=1536")]
-        kernels.append({
-            "name": f"{kern.name}_f32_scores", "route": "cuda",
-            "source": "kokoro_tpu_torch/csrc/attention_scores_tf32.cuh",
-            "replaces": kern.replaces, "launches": F32_SCORES_LAUNCHES[1536][kern.name],
-            **{k: r[k] for k in fields}, "dtype": "float32",
-            "shape": "B=12 T=1408 H=1 Dh=1536 causal", "wrapper": kern.name,
-            "launches_are": "the wrapper's scores-path launches per f32 kernel-path step of "
-                            "phase long at hidden 1536, one head (B=4 L=256 T=1408)",
-            "scores_from_head_dim": fl.F32_SCORES_FROM,
-            "at_head_dims": {f"Dh={Dh}": {k: timings[(kern.name, "float32", f"Dh={Dh}")][k]
-                                          for k in fields}
-                             for H, Dh in FLASH_TIMED if fl.scores_path(Dh, torch.float32)}})
+    for dtype, label, header, launches, step_is, route in (
+            (torch.float32, "f32", "tf32", F32_SCORES_LAUNCHES,
+             "f32 kernel-path step of phase long at hidden 1536, one head (B=4 L=256 T=1408)",
+             fl.F32_SCORES_FROM),
+            (torch.bfloat16, "bf16", "tc", BF16_SCORES_LAUNCHES,
+             "timed bf16 step of phase long at hidden 1536, one head (B=12 L=256 T=1408)",
+             fl.BF16_SCORES_FROM)):
+        dname = str(dtype).split(".")[1]
+        for kern in fl.KERNELS:
+            r = timings[(kern.name, dname, "Dh=1536")]
+            kernels.append({
+                "name": f"{kern.name}_{label}_scores", "route": "cuda",
+                "source": f"kokoro_tpu_torch/csrc/attention_scores_{header}.cuh",
+                "replaces": kern.replaces, "launches": launches[1536][kern.name],
+                **{k: r[k] for k in fields}, "dtype": dname,
+                "shape": "B=12 T=1408 H=1 Dh=1536 causal", "wrapper": kern.name,
+                "launches_are": f"the wrapper's scores-path launches per {step_is}",
+                "scores_from_head_dim": route,
+                "at_head_dims": {f"Dh={Dh}": {k: timings[(kern.name, dname, f"Dh={Dh}")][k]
+                                              for k in fields}
+                                 for H, Dh in FLASH_TIMED if fl.scores_path(Dh, dtype)}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@
 // _flash_attention_kernel, pl.pallas_call flash_attention.py:758; backward
 // _flash_attention_bwd_dkv :1121 and _flash_attention_bwd_dq :1456).
 //
-// The schedule is attention_scores.cuh's (its bf16 kernels and its f32 row
-// pass stay as they are): a scores kernel S = Q K^T over the whole head dim
+// The schedule is attention_scores.cuh's (its f32 row pass stays as it
+// is; bf16 has its own products, attention_scores_tc.cuh): a scores kernel S = Q K^T over the whole head dim
 // into an f32 workspace, the row pass (m, l, lse, P~ over S in place), and
 // products over keys or queries by 128-column strips of the head dim; the
 // backward's row deltas, its scores kernel (S, then dP = dO V^T, then P and

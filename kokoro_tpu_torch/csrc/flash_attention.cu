@@ -7,9 +7,10 @@
 // self-attention at T >= 1024 with T a multiple of 128.  Here: q of shape
 // (B, H, Tq, Dh), k and v (B, H, Tk, Dh), o like q, head-first and contiguous,
 // float32 or bfloat16, Dh in {64, 128, 192, 256} or a multiple of 64 from
-// 320 to 2048 (past 2048, any multiple of 64: kokoro_flash_attention_fwd_scores
-// below, attention_scores.cuh; f32 there from F32_SCORES_FROM on,
-// attention_scores_tf32.cuh), any Tq, Tk >= 1; optional
+// 320 to 2048 (any multiple of 64: kokoro_flash_attention_fwd_scores below,
+// the scores in device memory, which the wrappers take in bf16 from
+// BF16_SCORES_FROM on, attention_scores_tc.cuh, and in f32 from
+// F32_SCORES_FROM on, attention_scores_tf32.cuh), any Tq, Tk >= 1; optional
 // causal mask (col <= row) and optional segment ids q_seg (B, Tq), kv_seg
 // (B, Tk) int32 (the library's SegmentIds: valid = 1, padding = 0).  The
 // library's kernel takes a head dim up to 128 or a multiple of 128 (it
@@ -54,6 +55,7 @@
 
 #include "attention_kernels.cuh"
 #include "attention_scores.cuh"
+#include "attention_scores_tc.cuh"
 #include "attention_scores_tf32.cuh"
 
 using namespace kokoro_attn;
@@ -88,9 +90,9 @@ extern "C" int kokoro_flash_attention_fwd_clusters(int dtype, int c, int* cluste
 }
 
 // K4 with the scores in device memory (any multiple of 64 from 64 on; the
-// wrapper takes it past 2048 in bf16, attention_scores.cuh, and in f32 from
-// F32_SCORES_FROM on, attention_scores_tf32.cuh): the scores kernel, the
-// row pass and O = P~ V / l, three launches on `stream`.
+// wrapper takes it in bf16 from BF16_SCORES_FROM on, attention_scores_tc.cuh,
+// and in f32 from F32_SCORES_FROM on, attention_scores_tf32.cuh): the scores
+// kernel, the row pass and O = P~ V / l, three launches on `stream`.
 // Workspaces, (B H, Mq, Nk) with Mq, Nk = Tq, Tk rounded up to 128:
 // s_ws f32, p_ws of the input type (f32: may be s_ws); l_ws (B H, Tq) f32.
 // lse: NULL or (B H, Tq) f32 (+inf on a row with no visible key).  Returns
@@ -112,22 +114,24 @@ extern "C" int kokoro_flash_attention_fwd_scores(const void* q, const void* k, c
   a.scale = scale, a.causal = causal != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)scores_tf32::launch_fwd(a, o, B * H, st);
-  if (dtype == 1) return (int)scores::launch_fwd<__nv_bfloat16>(a, o, B * H, st);
+  if (dtype == 1) return (int)scores_tc::launch_fwd(a, o, B * H, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The scores path's launch grid at (Tq, Tk, Dh, causal, dtype), into
-// counts[5]: score tiles a (b, h), CTAs a score tile, apply's row tiles over
-// queries and over keys, 128-column strips of the head dim
-// (ops/flash_scores.py::grid computes the same).  Returns a cudaError_t.
+// counts[6]: score tiles a (b, h), CTAs a score tile, apply's row tiles over
+// queries and over keys, 128-column strips of the head dim, and the
+// contraction's chunk in elements (ops/flash_scores.py::grid computes the
+// same).  Returns a cudaError_t.
 extern "C" int kokoro_flash_attention_scores_grid(int Tq, int Tk, int Dh, int causal, int dtype,
                                                   int* counts) {
   if (counts == nullptr || Tq <= 0 || Tk <= 0 || Dh < 64 || Dh % 64 != 0 || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
   const scores::Grid g = dtype == 0 ? scores_tf32::grid_of(Tq, Tk, Dh, causal != 0)
-                                    : scores::grid_of<__nv_bfloat16>(Tq, Tk, Dh, causal != 0);
+                                    : scores_tc::grid_of(Tq, Tk, Dh, causal != 0);
   counts[0] = g.score_tiles, counts[1] = g.ctas_a_tile, counts[2] = g.query_rows;
   counts[3] = g.key_rows, counts[4] = g.strips;
+  counts[5] = dtype == 0 ? scores_tf32::kChunk : scores_tc::kChunk;
   return 0;
 }

@@ -6,9 +6,10 @@
 // _flash_attention_dq_kernel) of jax.experimental.pallas.ops.tpu.flash_attention.
 // Inputs q, o, dO (B, H, Tq, Dh), k, v (B, H, Tk, Dh), head-first and
 // contiguous, f32 or bf16, Dh in {64, 128, 192, 256} or a multiple of 64
-// from 320 to 2048 (past 2048, any multiple of 64:
-// kokoro_flash_attention_bwd_scores below, attention_scores.cuh; f32 there
-// from F32_SCORES_FROM on, attention_scores_tf32.cuh), the forward's f32 row
+// from 320 to 2048 (any multiple of 64: kokoro_flash_attention_bwd_scores
+// below, the scores in device memory, which the wrappers take in bf16 from
+// BF16_SCORES_FROM on, attention_scores_tc.cuh, and in f32 from
+// F32_SCORES_FROM on, attention_scores_tf32.cuh), the forward's f32 row
 // log-sum-exp (B, H, Tq) (flash_attention.cu) and the forward's causal flag
 // and segment ids; outputs dQ, dK, dV of the inputs' shapes and type.  The
 // kernels (dispatched by attention_kernels.cuh) are the dQ and dK/dV kernels
@@ -48,6 +49,7 @@
 
 #include "attention_kernels.cuh"
 #include "attention_scores.cuh"
+#include "attention_scores_tc.cuh"
 #include "attention_scores_tf32.cuh"
 
 using namespace kokoro_attn;
@@ -90,8 +92,8 @@ extern "C" int kokoro_flash_attention_bwd_clusters(int dtype, int c, int* dq_clu
 // Gradients of kokoro_flash_attention_fwd_scores (o and lse its outputs for
 // the same inputs): each row's delta, the scores kernel's P and dS, then
 // dQ = dS K, dK = dS^T Q, dV = P^T dO; five launches on `stream`.
-// Workspaces: delta (B H, Tq) f32; bf16: p_ws (P) and ds_ws (dS) (B H, Mq,
-// Nk), dst_ws unused (NULL); f32 (attention_scores_tf32.cuh): p_ws P^T
+// Workspaces: delta (B H, Tq) f32; bf16 (attention_scores_tc.cuh): p_ws (P)
+// and ds_ws (dS) (B H, Mq, Nk), dst_ws unused (NULL); f32 (attention_scores_tf32.cuh): p_ws P^T
 // (B H, Nk, Mq), ds_ws dS (B H, Mq, Nk) and dst_ws dS^T (B H, Nk, Mq);
 // Mq, Nk = Tq, Tk rounded up to 128.  Returns a cudaError_t; does not
 // synchronise.
@@ -118,7 +120,7 @@ extern "C" int kokoro_flash_attention_bwd_scores(const void* q, const void* k, c
     if (dst_ws == nullptr) return (int)cudaErrorInvalidValue;
     return (int)scores_tf32::launch_bwd(a, dst_ws, dq, dk, dv, B * H, st);
   }
-  if (dtype == 1) return (int)scores::launch_bwd<__nv_bfloat16>(a, dq, dk, dv, B * H, st);
+  if (dtype == 1) return (int)scores_tc::launch_bwd(a, dq, dk, dv, B * H, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,10 +19,12 @@ query's); no dropout.
   portable size; :func:`cluster_fits` reads how many such clusters the card
   holds.  Past 2048 (more columns than Hopper's largest cluster) the kernels
   keep the scores in device memory (``ops/flash_scores.py``,
-  ``csrc/attention_scores.cuh``): no cluster and no upper limit.  In f32
-  the scores path starts at :data:`F32_SCORES_FROM` (its kernels on wgmma,
-  ``csrc/attention_scores_tf32.cuh``, faster than the on-chip f32 kernels
-  from there on at the long path's shape): :func:`scores_path`.
+  ``csrc/attention_scores.cuh``): no cluster and no upper limit.  Each dtype
+  takes that path from its crossover on, the smallest head dim from which
+  its scores kernels (on wgmma, fed by TMA: ``csrc/attention_scores_tc.cuh``
+  in bf16, ``csrc/attention_scores_tf32.cuh`` in f32) beat the on-chip kernels
+  at the long path's shape: :data:`BF16_SCORES_FROM`,
+  :data:`F32_SCORES_FROM`, :func:`scores_path`.
   ``_pick_block_q`` (TPU block tuning) has no counterpart: the kernels tile
   by 64 at any T.
 * :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
@@ -70,11 +72,12 @@ MAX_CLUSTER_CTAS = 16
 MAX_CLUSTER_HEAD_DIM = MAX_CLUSTER_CTAS * SLICE_COLS
 # the head dims of the cluster kernels
 CLUSTER_HEAD_DIMS = tuple(range(320, MAX_CLUSTER_HEAD_DIM + 1, 64))
-# f32 takes the scores path from this head dim on: the smallest sampled head
-# dim from which its forward + backward beat the on-chip kernels' at B=12,
-# T=1408, H=1, causal, there and at every sampled head dim above it
-# (chip_smoke.py kernel_times_flash_crossover; PERF.md)
+# each dtype takes the scores path from this head dim on: the smallest
+# sampled head dim from which its forward + backward beat the on-chip
+# kernels' at B=12, T=1408, H=1, causal, there and at every sampled head dim
+# above it (chip_smoke.py kernel_times_flash_crossover; PERF.md)
 F32_SCORES_FROM = 192
+BF16_SCORES_FROM = 320
 
 
 def supported_head_dim(head_dim: int) -> bool:
@@ -85,12 +88,11 @@ def supported_head_dim(head_dim: int) -> bool:
 
 def scores_path(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the wrappers take ``head_dim`` in ``dtype`` to the
-    scores-in-memory kernels (``ops/flash_scores.py``): bf16 past the
-    clusters' 2048, f32 from :data:`F32_SCORES_FROM` on (64 and 128, the
-    packed kernels' own head dims, never)."""
-    if dtype == torch.float32:
-        return head_dim >= F32_SCORES_FROM and head_dim > 128
-    return head_dim > MAX_CLUSTER_HEAD_DIM
+    scores-in-memory kernels (``ops/flash_scores.py``): bf16 from
+    :data:`BF16_SCORES_FROM`, f32 from :data:`F32_SCORES_FROM` on (64 and
+    128, the packed kernels' own head dims, never)."""
+    start = F32_SCORES_FROM if dtype == torch.float32 else BF16_SCORES_FROM
+    return head_dim >= start and head_dim > 128
 
 
 def flash_supported(q_len: int, kv_len: int, head_dim: int, causal: bool = True) -> bool:
@@ -256,7 +258,9 @@ def _launch_error(name: str, kernels_of: Tuple[str, ...], err: int, q: torch.Ten
     Dh, ctas = q.shape[3], cluster_ctas(q.shape[3])
     msg = f"{name} kernel launch failed: cudaError_t {err}"
     if scores:
-        return f"{msg} (head_dim {Dh}: the scores-in-memory kernels, csrc/attention_scores.cuh)"
+        header = "tf32" if q.dtype == torch.float32 else "tc"
+        return (f"{msg} (head_dim {Dh}: the scores-in-memory kernels, "
+                f"csrc/attention_scores_{header}.cuh)")
     if ctas == 1:
         return f"{msg} (head_dim {Dh})"
     try:

@@ -1,22 +1,23 @@
 """K4's "scores in memory" kernels: their launches, their workspaces and
 their schedule.
 
-The kernels (``csrc/attention_scores.cuh`` in bf16,
-``csrc/attention_scores_tf32.cuh`` in f32, launched by
+The kernels (``csrc/attention_scores_tc.cuh`` in bf16,
+``csrc/attention_scores_tf32.cuh`` in f32, both wgmma fed by TMA, sharing
+``csrc/attention_scores.cuh``'s schedule and row pass; launched by
 ``kokoro_flash_attention_{fwd,bwd}_scores`` in ``csrc/flash_attention.cu``
 and ``csrc/flash_attention_bwd.cu``) keep each head's score matrix in device
 memory: a scores product over the whole head dim into (128 x 128)-tiles,
 a row pass, and products over keys or queries by 128-column strips of the
 head dim, so they take any head dim that is a multiple of 64.
-``ops/flash_attention.py``'s wrappers send them bf16 past 2048 (the cluster
-kernels' largest) and f32 from ``F32_SCORES_FROM`` on, and count the
+``ops/flash_attention.py``'s wrappers send them bf16 from
+``BF16_SCORES_FROM`` and f32 from ``F32_SCORES_FROM`` on, and count the
 launches; :func:`scores_fwd` / :func:`scores_bwd` here launch without
 counting, so that a measurement can also run them at head dims the wrappers
 give the on-chip kernels.
 
-The schedule functions mirror the launcher's (``attention_scores.cuh``:
-``score_tiles``, ``score_tile``, ``apply_range``, ``grid_of``), for the
-workspaces' sizes and the tests on the CPU;
+The schedule functions mirror the launchers' (``attention_scores.cuh``:
+``score_tiles``, ``score_tile``, ``apply_range``; each dtype's ``grid_of``
+and chunk), for the workspaces' sizes and the tests on the CPU;
 ``kokoro_flash_attention_scores_grid`` returns the launcher's own counts on
 the card.
 """
@@ -30,13 +31,19 @@ from typing import Optional, Tuple
 import torch
 
 TILE = 128    # a score tile: 128 queries x 128 keys; the workspaces are padded to it
-CHUNK = 32    # the contraction's chunk (f32: 128 bytes, one row of the 128-byte swizzle)
+CHUNK = 32    # the f32 contraction's chunk: 128 bytes, one row of the 128-byte swizzle
+BF16_CHUNK = 64  # bf16's: the same 128 bytes
 STRIP = 128   # head-dim columns a CTA of the products over keys or queries writes
 
 
+def chunk_of(dtype: torch.dtype) -> int:
+    """The contraction's chunk of ``dtype``'s kernels, in elements."""
+    return CHUNK if dtype == torch.float32 else BF16_CHUNK
+
+
 def cta_rows(dtype: torch.dtype) -> int:
-    """Rows of a CTA's tile, a whole score tile in both dtypes: bf16 eight
-    warps of 64 x 32, f32 two warpgroups of 64 x 128 (wgmma)."""
+    """Rows of a CTA's tile, a whole score tile in both dtypes: two
+    warpgroups of 64 x 128 (wgmma)."""
     return TILE
 
 
@@ -77,17 +84,18 @@ def score_tile(t: int, Tq: int, Tk: int, causal: bool) -> Tuple[int, int]:
 
 
 def apply_range(r0: int, rows: int, Tq: int, Tk: int, causal: bool,
-                over_queries: bool) -> Tuple[int, int]:
+                over_queries: bool, chunk: int = CHUNK) -> Tuple[int, int]:
     """The contraction ``[k0, k1)`` of the row tile ``r0 .. r0 + rows`` of a
     product over keys (rows are queries: O, dQ; under causal up to the
     tile's last query) or over queries (rows are keys: dK, dV; under causal
-    from the tile's first key), in whole chunks of ``CHUNK``."""
+    from the tile's first key), in whole chunks of ``chunk`` (the dtype's,
+    :func:`chunk_of`)."""
     if over_queries:
         end = Tq
     else:
         end = min(Tk, r0 + rows) if causal else Tk
     k0 = r0 if over_queries and causal else 0
-    k1 = -(-end // CHUNK) * CHUNK
+    k1 = -(-end // chunk) * chunk
     return k0, max(k0, k1)
 
 
@@ -100,24 +108,27 @@ def dh_strips(Dh: int) -> list:
 def grid(Tq: int, Tk: int, Dh: int, causal: bool, dtype: torch.dtype) -> dict:
     """The launch's counts, as ``kokoro_flash_attention_scores_grid`` gives
     them: score tiles a (b, h), CTAs a score tile, the row tiles of the
-    products over queries' rows (O, dQ) and over keys' rows (dK, dV), and the
-    head dim's strips."""
+    products over queries' rows (O, dQ) and over keys' rows (dK, dV), the
+    head dim's strips, and the contraction's chunk."""
     rows = cta_rows(dtype)
     return {"score_tiles": score_tile_count(Tq, Tk, causal), "ctas_a_tile": TILE // rows,
             "query_rows": -(-Tq // rows), "key_rows": -(-Tk // rows),
-            "strips": len(dh_strips(Dh))}
+            "strips": len(dh_strips(Dh)), "chunk": chunk_of(dtype)}
+
+
+GRID_KEYS = ("score_tiles", "ctas_a_tile", "query_rows", "key_rows", "strips", "chunk")
 
 
 def launch_grid(Tq: int, Tk: int, Dh: int, causal: bool, dtype: torch.dtype) -> dict:
     """``grid``'s counts from the compiled launcher (on the machine with the card)."""
     from kokoro_tpu_torch.ops import kernels
 
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * len(GRID_KEYS))()
     err = kernels.load("flash_attention").kokoro_flash_attention_scores_grid(
         Tq, Tk, Dh, int(causal), 0 if dtype == torch.float32 else 1, out)
     if err != 0:
         raise RuntimeError(f"kokoro_flash_attention_scores_grid failed: cudaError_t {err}")
-    return dict(zip(("score_tiles", "ctas_a_tile", "query_rows", "key_rows", "strips"), out))
+    return dict(zip(GRID_KEYS, out))
 
 
 def _code(dtype: torch.dtype) -> int:

@@ -128,7 +128,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             lib.kokoro_flash_attention_fwd_clusters.argtypes = [i, i, ctypes.POINTER(i)]
             lib.kokoro_flash_attention_fwd_clusters.restype = i
         # past Dh 2048: q k v o lse q_seg kv_seg s_ws p_ws l_ws, B H Tq Tk Dh, scale,
-        # causal dtype, stream; and the path's grid (Tq Tk Dh causal dtype, counts[5])
+        # causal dtype, stream; and the path's grid (Tq Tk Dh causal dtype, counts[6])
         if hasattr(lib, "kokoro_flash_attention_fwd_scores"):
             lib.kokoro_flash_attention_fwd_scores.argtypes = [p] * 10 + [i] * 5 + [f, i, i, p]
             lib.kokoro_flash_attention_fwd_scores.restype = i

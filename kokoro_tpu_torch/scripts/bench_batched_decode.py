@@ -20,7 +20,7 @@ writes it with the card's name and power limit and the configuration.
     python -m kokoro_tpu_torch.scripts.bench_batched_decode [--out FILE] [--device cuda|cpu]
 
 ``sweep(device, streams, frames)`` runs other stream counts and lengths
-(``chip_smoke.py`` runs streams 1 and 8 at 128 frames).
+(``chip_smoke.py`` runs streams 1 and 8 at 64 frames).
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""The schedule of K4's kernels past head dim 2048 (``csrc/attention_scores.cuh``)
-in plain Python, against the visible (query, key) pairs enumerated one by one.
+"""The schedule of K4's scores-in-memory kernels (``csrc/attention_scores.cuh``,
+each dtype's chunk and grid in ``csrc/attention_scores_tc.cuh`` and
+``csrc/attention_scores_tf32.cuh``) in plain Python, against the visible
+(query, key) pairs enumerated one by one.
 
 ``ops/flash_scores.py`` mirrors the launcher's schedule: ``score_tile_count``
 and ``score_tile`` (the flat list of (query tile, key tile) the scores kernel
@@ -25,6 +27,7 @@ from kokoro_tpu_torch.ops import flash_scores as fs
 
 HEADER = Path(fs.__file__).resolve().parents[1] / "csrc" / "attention_scores.cuh"
 TF32_HEADER = HEADER.with_name("attention_scores_tf32.cuh")
+BF16_HEADER = HEADER.with_name("attention_scores_tc.cuh")
 LENGTHS = [(1, 1), (100, 100), (128, 128), (129, 129), (1024, 1024), (1408, 1408),
            (1433, 1433), (300, 1000), (1000, 300)]
 
@@ -55,7 +58,7 @@ def test_score_tiles_are_the_tiles_with_a_visible_pair(Tq, Tk, causal):
 @pytest.mark.parametrize("Tq,Tk", LENGTHS)
 def test_apply_contractions_cover_the_visible_pairs_and_read_written_tiles(Tq, Tk, causal,
                                                                            dtype):
-    rows = fs.cta_rows(dtype)
+    rows, chunk = fs.cta_rows(dtype), fs.chunk_of(dtype)
     visible = _visible(Tq, Tk, causal)
     written = set(_listed(Tq, Tk, causal))
 
@@ -64,8 +67,8 @@ def test_apply_contractions_cover_the_visible_pairs_and_read_written_tiles(Tq, T
 
     for over_queries, T_rows in ((False, Tq), (True, Tk)):
         for r0 in range(0, T_rows, rows):
-            k0, k1 = fs.apply_range(r0, rows, Tq, Tk, causal, over_queries)
-            assert k0 % fs.CHUNK == 0 and k1 % fs.CHUNK == 0 and k0 <= k1
+            k0, k1 = fs.apply_range(r0, rows, Tq, Tk, causal, over_queries, chunk)
+            assert k0 % chunk == 0 and k1 % chunk == 0 and k0 <= k1
             r1 = min(r0 + rows, T_rows)
             if over_queries:  # rows are keys: the queries that see them
                 need = np.nonzero(visible[:, r0:r1].any(1))[0]
@@ -93,21 +96,23 @@ def test_schedule_constants_are_the_headers():
     text = HEADER.read_text()
     const = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
     assert (const["kTile"], const["kChunk"], const["kStrip"]) == (fs.TILE, fs.CHUNK, fs.STRIP)
-    warps_m = int(re.search(r"kWarpsM = (\d+)", text).group(1))
-    frags = dict(re.findall(r"struct Frags<(\w+)> \{ static constexpr int MT = (\d+)", text))
-    assert warps_m * 16 * int(frags["__nv_bfloat16"]) == fs.cta_rows(torch.bfloat16)
-    # f32: two warpgroups of 64 rows (csrc/attention_scores_tf32.cuh)
-    tf32 = TF32_HEADER.read_text()
-    consumers = int(re.search(r"constexpr int kConsumers = (\d+);", tf32).group(1))
-    assert consumers * 64 == fs.cta_rows(torch.float32)
+    # each dtype: two warpgroups of 64 rows and its own chunk
+    # (csrc/attention_scores_tc.cuh in bf16, csrc/attention_scores_tf32.cuh in f32)
+    for header, dtype in ((BF16_HEADER, torch.bfloat16), (TF32_HEADER, torch.float32)):
+        own = {name: int(v) for name, v in
+               re.findall(r"constexpr int (k\w+) = (\d+);", header.read_text())}
+        assert own["kConsumers"] * 64 == own["kTile"] == fs.cta_rows(dtype)
+        assert own["kChunk"] == fs.chunk_of(dtype)
 
 
 def test_grid_at_the_models_shape():
     """Hidden 2560 at one head (B=12, T=1408, causal): 66 of the 121 score
     tiles a head, 20 strips of the head dim; one CTA a tile in both dtypes
-    (f32 two warpgroups of 64 rows on wgmma)."""
+    (two warpgroups of 64 rows on wgmma), the contraction in chunks of 128
+    bytes (64 bf16, 32 f32)."""
     g = fs.grid(1408, 1408, 2560, True, torch.bfloat16)
     assert g == {"score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11,
-                 "strips": 20}
+                 "strips": 20, "chunk": 64}
     assert fs.grid(1408, 1408, 2560, True, torch.float32) == {
-        "score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11, "strips": 20}
+        "score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11, "strips": 20,
+        "chunk": 32}

@@ -35,10 +35,11 @@ SMEM_LIMIT = 232448  # an H100 CTA's shared memory
 
 @pytest.mark.parametrize("Dh", [64, 128, *SAMPLED, 2112, 2560, 4096, 8192])
 def test_route_per_dtype(Dh):
-    """f32 from the crossover on, bf16 past the clusters' 2048, Dh 64 and
-    128 (the packed kernels' head dims) never."""
+    """Each dtype from its crossover on (f32 ``F32_SCORES_FROM``, bf16
+    ``BF16_SCORES_FROM``), Dh 64 and 128 (the packed kernels' head dims)
+    never."""
     f32, bf16 = port.scores_path(Dh, torch.float32), port.scores_path(Dh, torch.bfloat16)
-    assert bf16 == (Dh > 2048)
+    assert bf16 == (Dh >= port.BF16_SCORES_FROM)
     assert f32 == (Dh >= port.F32_SCORES_FROM)
     if Dh in (64, 128):
         assert not f32 and not bf16
@@ -77,7 +78,7 @@ def test_grid_at_the_models_shape(Dh):
     11 row tiles of 128 a product, a strip of 128 head-dim columns each."""
     assert fs.grid(1408, 1408, Dh, True, torch.float32) == {
         "score_tiles": 66, "ctas_a_tile": 1, "query_rows": 11, "key_rows": 11,
-        "strips": Dh // 128}
+        "strips": Dh // 128, "chunk": 32}
 
 
 # -- the split, emulated ---------------------------------------------------------

@@ -304,12 +304,13 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
     every kernel's outputs (packed, folded, flash at Dh 64-1024, bf16 and
     f32, the head dims both trees take); every case is the earlier tree's
     bit for bit (the cluster exchange's slots are sized for clusters of up
-    to 16, and its sums are the same rank-order sums).  The wrappers' f32
-    outputs at the digests' head dims from ``F32_SCORES_FROM`` on are not
-    compared: the wrappers take the f32 scores path there, whose kernels
-    (``csrc/attention_scores_tf32.cuh``) are new and sum in another order;
-    the on-chip kernels they took before are compared there instead, called
-    directly (``flash_onchip``)."""
+    to 16, and its sums are the same rank-order sums).  The wrappers'
+    outputs at the digests' head dims from each dtype's crossover on (f32
+    ``F32_SCORES_FROM``, bf16 ``BF16_SCORES_FROM``) are not compared: the
+    wrappers take the scores path there, whose kernels
+    (``csrc/attention_scores_tf32.cuh``, ``csrc/attention_scores_tc.cuh``)
+    sum in another order than the on-chip kernels; those on-chip kernels are
+    compared there instead, called directly (``flash_onchip``)."""
     parent = os.environ.get("KOKORO_PARENT_TREE")
     if not parent:
         pytest.skip("set KOKORO_PARENT_TREE to a checkout of the tree to compare with")
@@ -321,8 +322,9 @@ def test_kernel_outputs_bit_for_bit_the_parents(cuda):
     assert result["differ"] == [], result["differ"]
     from kokoro_tpu_torch.scripts.probe_flash_tf32_wide import DIGEST_HEAD_DIMS
 
-    onchip = {f"flash_onchip/float32/Dh={Dh}/causal={c}" for Dh in DIGEST_HEAD_DIMS
-              for c in (True, False) if flash.scores_path(Dh, F32)}
+    onchip = {f"flash_onchip/{str(dtype).split('.')[1]}/Dh={Dh}/causal={c}"
+              for dtype in (F32, BF16) for Dh in DIGEST_HEAD_DIMS for c in (True, False)
+              if flash.scores_path(Dh, dtype)}
     assert onchip <= set(result["equal"]), sorted(onchip - set(result["equal"]))
 
 
@@ -1114,13 +1116,111 @@ def test_f32_onchip_kernels_the_route_no_longer_reaches_match_plain(cuda, Dh):
         torch.testing.assert_close(b, a, rtol=GRAD_TOL[F32], atol=GRAD_TOL[F32], msg=f"d{name}")
 
 
+# -- K4's bf16 scores path on wgmma (csrc/attention_scores_tc.cuh): the
+# crossover, 384, 512 (the flagship's hidden 512 at one head), 1088 (a
+# ragged 64-column last strip), 1536 (hidden 1536 at one head), 2048, 2560,
+# 4096, 8192
+BF16_SCORES = sorted({flash.BF16_SCORES_FROM, 384, 512, 1088, 1536, 2048, 2560, 4096, 8192})
+
+
+@pytest.mark.parametrize("masks", ["suffix", "interior"])
+@pytest.mark.parametrize("Dh", BF16_SCORES)
+def test_bf16_wrappers_take_the_scores_kernels_and_match_plain(cuda, Dh, masks):
+    """The bf16 wrappers from the crossover on, causal, T=1433, through the
+    autograd Function: one launch of each wrapper, counted as a scores-path
+    launch, its outputs bit for bit those of the scores kernels called
+    directly, and O and every gradient against the plain versions."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1433, Dh, BF16, masks, 23 * Dh)
+    assert flash.scores_path(Dh, BF16)
+    before = [kern.scores_launches for kern in flash.KERNELS]
+    _hold_flash_against_plain(q, k, v, do, q_valid, kv_valid)
+    assert [kern.scores_launches - b for kern, b in zip(flash.KERNELS, before)] == [1, 1]
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    grads = flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    o2, lse2 = flash.flash_attention_fwd_scores(q, k, v, return_lse=True, **kw)
+    grads2 = flash.flash_attention_bwd_scores(q, k, v, o2, do, lse2, **kw)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (o2, lse2, *grads2)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Dh", sorted({flash.BF16_SCORES_FROM, 512, 1088, 1536}))
+def test_bf16_scores_rows_with_zero_or_one_key_and_bitwise(cuda, Dh, causal):
+    """The bf16 scores path at the crossover and at the cluster head dims it
+    took over: rows that see one key have dQ exactly 0 (their delta is taken
+    by dP's own products, chunk order and accumulation, so dP - delta, hence
+    dS, is exactly 0), rows that see none O and dQ 0 and lse +inf, every
+    output within the plain version's tolerances, and two calls bit for bit
+    equal."""
+    B, H, T = 2, 1, 1433
+    g = torch.Generator().manual_seed(7 * Dh + causal)
+    q, k, v, do = (torch.randn(B, H, T, Dh, generator=g).to(cuda, BF16) for _ in range(4))
+    one, none = [0, 63, 64, 127, 128, 700, T - 1], [5, 200, 1300]
+    q_seg = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    for i, r in enumerate(one):
+        q_seg[:, r] = 2 + i
+    kv_seg = q_seg.clone()  # key r alone shares row r's segment
+    for r in none:
+        q_seg[:, r] = 100 + r  # no key's segment
+    kw = dict(causal=causal, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    runs = []
+    for _ in range(2):
+        o, lse = flash.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        runs.append((o, lse, *flash.flash_attention_bwd(q, k, v, o, do, lse, **kw)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+    o, lse, dq, dk, dv = runs[0]
+    assert torch.equal(dq[:, :, one], torch.zeros_like(dq[:, :, one]))
+    assert torch.equal(o[:, :, none], torch.zeros_like(o[:, :, none]))
+    assert torch.equal(dq[:, :, none], torch.zeros_like(dq[:, :, none]))
+    assert torch.isinf(lse[:, :, none]).all() and torch.isfinite(lse[:, :, one]).all()
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[BF16], atol=TOL[BF16])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, (dq, dk, dv)):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
+# the bf16 head dims of the on-chip kernels (Dh 192 to 2048) that the
+# wrappers no longer reach: called directly, against the plain versions
+BF16_ONCHIP_UNREACHED = [Dh for Dh in (192, 256, 320, 384, 512, 768, 1024, 1088, 1536, 2048)
+                         if flash.scores_path(Dh, BF16)]
+
+
+@pytest.mark.parametrize("Dh", BF16_ONCHIP_UNREACHED)
+def test_bf16_onchip_kernels_the_route_no_longer_reaches_match_plain(cuda, Dh):
+    """The bf16 on-chip kernels (``csrc/attention_tc.cuh``, past Dh 256 over
+    clusters) called directly where the wrappers take the scores path: O and
+    every gradient against the plain versions, no wrapper counting a
+    launch."""
+    q, k, v, do, q_valid, kv_valid = _wide_flash_inputs(cuda, 1433, Dh, BF16, "suffix", 29 * Dh)
+    q_seg, kv_seg = flash.segment_ids(q, k, q_valid, kv_valid)
+    kw = dict(causal=True, scale=Dh ** -0.5, q_seg=q_seg, kv_seg=kv_seg)
+    before = [kern.launches for kern in flash.KERNELS]
+    o, lse = flash.flash_attention_fwd_onchip(q, k, v, return_lse=True, **kw)
+    grads = flash.flash_attention_bwd_onchip(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in flash.KERNELS] == before
+    torch.testing.assert_close(o.float(), flash.flash_attention_reference(q, k, v, **kw).float(),
+                               rtol=TOL[BF16], atol=TOL[BF16])
+    ref = flash.flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    for name, a, b in zip("qkv", ref, grads):
+        torch.testing.assert_close(b.float(), a.float(), rtol=GRAD_TOL[BF16],
+                                   atol=GRAD_TOL[BF16], msg=f"d{name}")
+
+
 @pytest.mark.parametrize("Tq,Tk,Dh,causal", [(1433, 1433, 2112, True), (1408, 1408, 2560, True),
-                                             (1024, 1024, 8192, False), (300, 1000, 4096, True)])
+                                             (1024, 1024, 8192, False), (300, 1000, 4096, True),
+                                             (1408, 1408, 512, True), (1433, 1433, 1088, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_scores_grid_is_the_launchers(cuda, Tq, Tk, Dh, causal, dtype):
     """The compiled launcher's grid (``kokoro_flash_attention_scores_grid``)
-    is ``ops/flash_scores.py``'s, which the CPU tests hold against the
-    visible pairs."""
+    is ``ops/flash_scores.py``'s, each dtype's chunk included, which the CPU
+    tests hold against the visible pairs."""
     assert flash_scores.launch_grid(Tq, Tk, Dh, causal, dtype) == \
         flash_scores.grid(Tq, Tk, Dh, causal, dtype)
 
