@@ -1,6 +1,8 @@
 """Frame-budget batching with static length buckets, and collate.
 
-The port's own copy of ``kokoro_tpu/data/batching.py`` (numpy only): the
+The port's own copy of ``kokoro_tpu/data/batching.py`` (numpy only; the
+spans ``kokoro.plan`` and ``kokoro.collate`` and ``collate``'s frame counts
+are ``utils/profiling.py``'s): the
 reference's ``DynamicFrameBatchSampler`` packing (sqrt(N) quantile length
 buckets or per-bucket grouping, greedy packing with ``cost = quantized rows
 x max frames``, min/max batch sizes, heavy-batch spreading or shape-major
@@ -20,6 +22,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from kokoro_tpu_torch.config import TrainingConfig
+from kokoro_tpu_torch.utils.profiling import count_batch, span
 
 
 def _bucket_up(value: int, buckets: Sequence[int]) -> int:
@@ -114,95 +117,96 @@ class FrameBudgetBatcher:
         self.epoch = epoch
 
     def build_batches(self, epoch: int = 0) -> List[List[int]]:
-        n = len(self.lengths)
-        if n == 0:
-            return []
-        rng = np.random.default_rng(self.seed + epoch)
+        with span("plan"):
+            n = len(self.lengths)
+            if n == 0:
+                return []
+            rng = np.random.default_rng(self.seed + epoch)
 
-        if self.pack_mode == "bucket" and self.mel_buckets:
-            # group by each item's own padded mel bucket; no cross-bucket
-            # mixing.  The per-group budget check uses the BUCKET size, not
-            # the running max — the padded cost is what the device pays.
-            groups: Dict[int, List[int]] = {}
-            for i in range(n):
-                groups.setdefault(
-                    _bucket_up(self.lengths[i][0], self.mel_buckets), []
-                ).append(i)
-            buckets = [groups[k] for k in sorted(groups)]
-            for b in buckets:
-                rng.shuffle(b)
-            batches: List[List[int]] = []
-            current: List[int] = []
-            for bucket_len, bucket in zip(sorted(groups), buckets):
-                for idx in bucket:
-                    if current and (
-                        self._quantized_rows(len(current) + 1) * bucket_len
-                        > self.max_frames
-                        or len(current) >= self.max_batch
-                    ):
-                        batches.append(current)
+            if self.pack_mode == "bucket" and self.mel_buckets:
+                # group by each item's own padded mel bucket; no cross-bucket
+                # mixing.  The per-group budget check uses the BUCKET size, not
+                # the running max — the padded cost is what the device pays.
+                groups: Dict[int, List[int]] = {}
+                for i in range(n):
+                    groups.setdefault(
+                        _bucket_up(self.lengths[i][0], self.mel_buckets), []
+                    ).append(i)
+                buckets = [groups[k] for k in sorted(groups)]
+                for b in buckets:
+                    rng.shuffle(b)
+                batches: List[List[int]] = []
+                current: List[int] = []
+                for bucket_len, bucket in zip(sorted(groups), buckets):
+                    for idx in bucket:
+                        if current and (
+                            self._quantized_rows(len(current) + 1) * bucket_len
+                            > self.max_frames
+                            or len(current) >= self.max_batch
+                        ):
+                            batches.append(current)
+                            current = []
+                        current.append(idx)
+                    # carry_tail: a group's ragged tail rides into the NEXT
+                    # (larger) bucket group — those few items pad up one bucket,
+                    # which costs far less than a whole batch of padded rows.
+                    # Without carry, flush per group (one ragged batch each).
+                    if not self.carry_tail:
+                        if current and (
+                            len(current) >= self.min_batch
+                            or not self.drop_incomplete
+                        ):
+                            batches.append(current)
                         current = []
-                    current.append(idx)
-                # carry_tail: a group's ragged tail rides into the NEXT
-                # (larger) bucket group — those few items pad up one bucket,
-                # which costs far less than a whole batch of padded rows.
-                # Without carry, flush per group (one ragged batch each).
-                if not self.carry_tail:
-                    if current and (
-                        len(current) >= self.min_batch
-                        or not self.drop_incomplete
-                    ):
-                        batches.append(current)
-                    current = []
-            if current and (
-                len(current) >= self.min_batch or not self.drop_incomplete
-            ):
-                batches.append(current)
-            if self.batch_order == "shape_major":
-                return self._shape_major(batches, rng)
-            return self._spread_heavy(batches, rng)
-
-        # sqrt(N) quantile buckets over mel length (<= 16) keep batchmates
-        # similar-length, minimizing padding (reference :951-1010)
-        order = sorted(range(n), key=lambda i: self.lengths[i][0])
-        n_buckets = min(16, max(1, int(math.sqrt(n))))
-        bucket_size = math.ceil(n / n_buckets)
-        buckets = [
-            order[k : k + bucket_size] for k in range(0, n, bucket_size)
-        ]
-        for b in buckets:
-            rng.shuffle(b)
-
-        batches: List[List[int]] = []
-        current: List[int] = []
-        current_max = 0
-        for bucket in buckets:
-            for idx in bucket:
-                mel_len = self.lengths[idx][0]
-                new_max = max(current_max, mel_len)
-                cost = self._quantized_rows(len(current) + 1) * new_max
-                if current and (
-                    cost > self.max_frames or len(current) >= self.max_batch
-                ):
-                    batches.append(current)
-                    current, current_max = [], 0
-                    new_max = mel_len
-                current.append(idx)
-                current_max = new_max
-            if not self.carry_tail:
                 if current and (
                     len(current) >= self.min_batch or not self.drop_incomplete
                 ):
                     batches.append(current)
-                current, current_max = [], 0
-        if current and (
-            len(current) >= self.min_batch or not self.drop_incomplete
-        ):
-            batches.append(current)
+                if self.batch_order == "shape_major":
+                    return self._shape_major(batches, rng)
+                return self._spread_heavy(batches, rng)
 
-        if self.batch_order == "shape_major":
-            return self._shape_major(batches, rng)
-        return self._spread_heavy(batches, rng)
+            # sqrt(N) quantile buckets over mel length (<= 16) keep batchmates
+            # similar-length, minimizing padding (reference :951-1010)
+            order = sorted(range(n), key=lambda i: self.lengths[i][0])
+            n_buckets = min(16, max(1, int(math.sqrt(n))))
+            bucket_size = math.ceil(n / n_buckets)
+            buckets = [
+                order[k : k + bucket_size] for k in range(0, n, bucket_size)
+            ]
+            for b in buckets:
+                rng.shuffle(b)
+
+            batches: List[List[int]] = []
+            current: List[int] = []
+            current_max = 0
+            for bucket in buckets:
+                for idx in bucket:
+                    mel_len = self.lengths[idx][0]
+                    new_max = max(current_max, mel_len)
+                    cost = self._quantized_rows(len(current) + 1) * new_max
+                    if current and (
+                        cost > self.max_frames or len(current) >= self.max_batch
+                    ):
+                        batches.append(current)
+                        current, current_max = [], 0
+                        new_max = mel_len
+                    current.append(idx)
+                    current_max = new_max
+                if not self.carry_tail:
+                    if current and (
+                        len(current) >= self.min_batch or not self.drop_incomplete
+                    ):
+                        batches.append(current)
+                    current, current_max = [], 0
+            if current and (
+                len(current) >= self.min_batch or not self.drop_incomplete
+            ):
+                batches.append(current)
+
+            if self.batch_order == "shape_major":
+                return self._shape_major(batches, rng)
+            return self._spread_heavy(batches, rng)
 
     def _padded_shape(self, batch: List[int]) -> Tuple[int, int]:
         """The static (mel_bucket, phoneme_bucket) this batch pads to."""
@@ -298,57 +302,59 @@ def collate(
     as the reference's max_seq_length cap).  An empty ``features`` list (a
     process whose block is pure padding) is valid only with forced dims.
     """
-    B = len(features)
-    out_B = max(B, pad_batch_to or B)
-    if not features and (pad_mel_to is None or pad_phoneme_to is None):
-        raise ValueError("empty collate requires pad_mel_to and pad_phoneme_to")
-    mel_max = max((int(f["mel_length"]) for f in features), default=1)
-    phon_max = max((int(f["phoneme_length"]) for f in features), default=1)
-    if pad_mel_to is not None:
-        mel_max = pad_mel_to
-    if pad_phoneme_to is not None:
-        phon_max = pad_phoneme_to
-    # Hard sequence-dim cap (reference trainer.py:2168-2184
-    # _cap_batch_sequence_dimensions, config.max_sequence_dim_cap): no batch
-    # tensor ever exceeds the cap; over-long samples truncate with clamped
-    # lengths.
-    cap = int(config.max_sequence_dim_cap)
-    if cap > 0:
-        mel_max = min(mel_max, cap)
-        phon_max = min(phon_max, cap)
-    T = _bucket_up(mel_max, config.mel_bucket_sizes)
-    L = _bucket_up(phon_max, config.phoneme_bucket_sizes)
-    if cap > 0:
-        T = min(T, cap)
-        L = min(L, cap)
-    M = n_mels
+    with span("collate"):
+        B = len(features)
+        out_B = max(B, pad_batch_to or B)
+        if not features and (pad_mel_to is None or pad_phoneme_to is None):
+            raise ValueError("empty collate requires pad_mel_to and pad_phoneme_to")
+        mel_max = max((int(f["mel_length"]) for f in features), default=1)
+        phon_max = max((int(f["phoneme_length"]) for f in features), default=1)
+        if pad_mel_to is not None:
+            mel_max = pad_mel_to
+        if pad_phoneme_to is not None:
+            phon_max = pad_phoneme_to
+        # Hard sequence-dim cap (reference trainer.py:2168-2184
+        # _cap_batch_sequence_dimensions, config.max_sequence_dim_cap): no batch
+        # tensor ever exceeds the cap; over-long samples truncate with clamped
+        # lengths.
+        cap = int(config.max_sequence_dim_cap)
+        if cap > 0:
+            mel_max = min(mel_max, cap)
+            phon_max = min(phon_max, cap)
+        T = _bucket_up(mel_max, config.mel_bucket_sizes)
+        L = _bucket_up(phon_max, config.phoneme_bucket_sizes)
+        if cap > 0:
+            T = min(T, cap)
+            L = min(L, cap)
+        M = n_mels
 
-    batch = {
-        "mel_specs": np.zeros((out_B, T, M), np.float32),
-        "phoneme_indices": np.zeros((out_B, L), np.int32),
-        "stress_indices": np.zeros((out_B, L), np.int32),
-        "phoneme_durations": np.zeros((out_B, L), np.int32),
-        "pitch_targets": np.zeros((out_B, T), np.float32),
-        "energy_targets": np.zeros((out_B, T), np.float32),
-        "stop_token_targets": np.zeros((out_B, T), np.float32),
-        "mel_lengths": np.zeros((out_B,), np.int32),
-        "phoneme_lengths": np.zeros((out_B,), np.int32),
-    }
-    tail = config.stop_token_smooth_tail
-    decay = config.stop_token_smooth_decay
-    for i, f in enumerate(features):
-        t = min(int(f["mel_length"]), T)
-        l = min(int(f["phoneme_length"]), L)
-        batch["mel_specs"][i, :t] = f["mel_spec"][:t]
-        batch["phoneme_indices"][i, :l] = f["phoneme_indices"][:l]
-        batch["stress_indices"][i, :l] = f["stress_indices"][:l]
-        batch["phoneme_durations"][i, :l] = f["phoneme_durations"][:l]
-        batch["pitch_targets"][i, :t] = f["pitch"][:t]
-        batch["energy_targets"][i, :t] = f["energy"][:t]
-        batch["mel_lengths"][i] = t
-        batch["phoneme_lengths"][i] = l
-        # smoothed stop tail: frame[t-1-k] = decay^k (reference dataset.py:32-65)
-        n_tail = min(tail + 1, t)
-        ks = np.arange(n_tail, dtype=np.float32)
-        batch["stop_token_targets"][i, t - n_tail : t] = (decay**ks)[::-1]
+        batch = {
+            "mel_specs": np.zeros((out_B, T, M), np.float32),
+            "phoneme_indices": np.zeros((out_B, L), np.int32),
+            "stress_indices": np.zeros((out_B, L), np.int32),
+            "phoneme_durations": np.zeros((out_B, L), np.int32),
+            "pitch_targets": np.zeros((out_B, T), np.float32),
+            "energy_targets": np.zeros((out_B, T), np.float32),
+            "stop_token_targets": np.zeros((out_B, T), np.float32),
+            "mel_lengths": np.zeros((out_B,), np.int32),
+            "phoneme_lengths": np.zeros((out_B,), np.int32),
+        }
+        tail = config.stop_token_smooth_tail
+        decay = config.stop_token_smooth_decay
+        for i, f in enumerate(features):
+            t = min(int(f["mel_length"]), T)
+            l = min(int(f["phoneme_length"]), L)
+            batch["mel_specs"][i, :t] = f["mel_spec"][:t]
+            batch["phoneme_indices"][i, :l] = f["phoneme_indices"][:l]
+            batch["stress_indices"][i, :l] = f["stress_indices"][:l]
+            batch["phoneme_durations"][i, :l] = f["phoneme_durations"][:l]
+            batch["pitch_targets"][i, :t] = f["pitch"][:t]
+            batch["energy_targets"][i, :t] = f["energy"][:t]
+            batch["mel_lengths"][i] = t
+            batch["phoneme_lengths"][i] = l
+            # smoothed stop tail: frame[t-1-k] = decay^k (reference dataset.py:32-65)
+            n_tail = min(tail + 1, t)
+            ks = np.arange(n_tail, dtype=np.float32)
+            batch["stop_token_targets"][i, t - n_tail : t] = (decay**ks)[::-1]
+    count_batch(int(batch["mel_lengths"].sum()), out_B * T)
     return batch

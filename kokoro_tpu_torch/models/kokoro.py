@@ -53,6 +53,7 @@ from kokoro_tpu_torch.models.rng import Rng, dropout, fold
 from kokoro_tpu_torch.models.variance import SimpleDurationAdaptor, VarianceAdaptor
 from kokoro_tpu_torch.parallel.mesh import frame_window
 from kokoro_tpu_torch.ops.specaugment import apply_spec_augment
+from kokoro_tpu_torch.utils.profiling import span
 
 
 def _remat(fn, *args):
@@ -177,44 +178,57 @@ class KokoroModel(nn.Module):
     # -- encoder ---------------------------------------------------------
     def encode_text(self, phoneme_indices, stress_indices, padding_mask,
                     rng: Optional[Rng] = None, checkpoint_segments: int = 0):
-        c = self.config
-        d = c.hidden_dim
-        x = self.text_embedding(phoneme_indices) * math.sqrt(d)
-        if c.use_stress_embedding and stress_indices is not None:
-            stress = self.stress_embedding(stress_indices)
-            x = x + stress * (stress_indices != 0)[..., None].to(stress.dtype)
-        x = dropout(add_positional_encoding(x, 0), c.encoder_dropout, fold(rng, "pe_dropout"),
-                    self.training)
-        n = len(self.encoder_layers)
-        rngs = [fold(rng, f"encoder_layer_{i}") for i in range(n)]
-        if checkpoint_segments > 0 and n:
-            per = -(-n // max(1, min(checkpoint_segments, n)))
-            for lo in range(0, n, per):
-                hi = min(lo + per, n)
+        with span("encoder"):
+            c = self.config
+            d = c.hidden_dim
+            x = self.text_embedding(phoneme_indices) * math.sqrt(d)
+            if c.use_stress_embedding and stress_indices is not None:
+                stress = self.stress_embedding(stress_indices)
+                x = x + stress * (stress_indices != 0)[..., None].to(stress.dtype)
+            x = dropout(add_positional_encoding(x, 0), c.encoder_dropout, fold(rng, "pe_dropout"),
+                        self.training)
+            n = len(self.encoder_layers)
+            rngs = [fold(rng, f"encoder_layer_{i}") for i in range(n)]
+            if checkpoint_segments > 0 and n:
+                per = -(-n // max(1, min(checkpoint_segments, n)))
+                for lo in range(0, n, per):
+                    hi = min(lo + per, n)
 
-                def run_segment(h, mask, lo=lo, hi=hi):
-                    for i in range(lo, hi):
-                        h = self.encoder_layers[i](h, mask, rngs[i])
-                    return h
+                    def run_segment(h, mask, lo=lo, hi=hi):
+                        for i in range(lo, hi):
+                            h = self.encoder_layers[i](h, mask, rngs[i])
+                        return h
 
-                x = _remat(run_segment, x, padding_mask)
-        else:
-            for layer, layer_rng in zip(self.encoder_layers, rngs):
-                x = layer(x, padding_mask, layer_rng)
-        x = self.encoder_norm(x)
-        return torch.where(padding_mask[:, :, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
+                    x = _remat(run_segment, x, padding_mask)
+            else:
+                for layer, layer_rng in zip(self.encoder_layers, rngs):
+                    x = layer(x, padding_mask, layer_rng)
+            x = self.encoder_norm(x)
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            return torch.where(padding_mask[:, :, None], zero, x)
 
     def encode_and_expand(self, phoneme_indices, stress_indices, padding_mask,
                           max_frames: int, pitch_targets=None, energy_targets=None,
                           phoneme_durations=None, rng: Optional[Rng] = None,
-                          checkpoint_segments: int = 0):
+                          checkpoint_segments: int = 0, spec_augment: Optional[dict] = None):
+        """The encoder, then the variance adaptor and, in training with
+        ``spec_augment`` (``TrainingConfig.spec_augment_args()``),
+        SpecAugment on the expanded memory.  Returns (memory, dur_pred,
+        pitch_pred, energy_pred, frame_mask)."""
         text_encoded = self.encode_text(phoneme_indices, stress_indices, padding_mask, rng,
                                         checkpoint_segments)
-        return self.adaptor(
-            text_encoded, max_frames, mask=padding_mask, pitch_target=pitch_targets,
-            energy_target=energy_targets, duration_target=phoneme_durations,
-            rng=fold(rng, self.adaptor_name),
-        )
+        with span("variance"):
+            memory, *predictions = self.adaptor(
+                text_encoded, max_frames, mask=padding_mask, pitch_target=pitch_targets,
+                energy_target=energy_targets, duration_target=phoneme_durations,
+                rng=fold(rng, self.adaptor_name),
+            )
+            if self.training and spec_augment is not None:
+                if rng is None:
+                    raise ValueError("SpecAugment in a training forward needs an Rng")
+                gen = rng.fold("specaugment").generator(memory.device)
+                memory = apply_spec_augment(memory, gen, **spec_augment)
+        return (memory, *predictions)
 
     # -- teacher-forced decoder ------------------------------------------
     def prepare_decoder_input(self, mel_specs: torch.Tensor,
@@ -232,38 +246,31 @@ class KokoroModel(nn.Module):
 
     def decode_training(self, memory, memory_padding_mask, mel_specs, mel_padding_mask=None,
                         rng: Optional[Rng] = None, remat: bool = False):
-        x = self.prepare_decoder_input(mel_specs, rng)
-        offset, n = frame_window(self.sp_mesh, x.shape[1])
-        x = x[:, offset:offset + n]
-        for i, layer in enumerate(self.decoder_layers):
-            args = (x, memory, memory_padding_mask, mel_padding_mask, None, None,
-                    fold(rng, f"decoder_layer_{i}"))
-            x, _ = _remat(layer, *args) if remat else layer(*args)
-        return self.finish_decoding(x)
+        with span("decoder"):
+            x = self.prepare_decoder_input(mel_specs, rng)
+            offset, n = frame_window(self.sp_mesh, x.shape[1])
+            x = x[:, offset:offset + n]
+            for i, layer in enumerate(self.decoder_layers):
+                args = (x, memory, memory_padding_mask, mel_padding_mask, None, None,
+                        fold(rng, f"decoder_layer_{i}"))
+                x, _ = _remat(layer, *args) if remat else layer(*args)
+            return self.finish_decoding(x)
 
     def forward_memory(self, phoneme_indices, stress_indices, text_padding_mask,
                        max_frames: int, pitch_targets=None, energy_targets=None,
                        phoneme_durations=None, rng: Optional[Rng] = None,
                        spec_augment: Optional[dict] = None, checkpoint_segments: int = 0):
-        """Everything before the decoder stack: encode + expand, then in
-        training SpecAugment on the expanded memory when ``spec_augment``
-        (``TrainingConfig.spec_augment_args()``) is given.  Returns (memory,
-        dur_pred, pitch_pred, energy_pred, frame_mask)."""
+        """Everything before the decoder stack: :meth:`encode_and_expand`
+        with an all-valid text mask when none is given."""
         if text_padding_mask is None:
             text_padding_mask = torch.zeros(phoneme_indices.shape, dtype=torch.bool,
                                             device=phoneme_indices.device)
-        memory, dur_pred, pitch_pred, energy_pred, frame_mask = self.encode_and_expand(
+        return self.encode_and_expand(
             phoneme_indices, stress_indices, text_padding_mask, max_frames,
             pitch_targets=pitch_targets, energy_targets=energy_targets,
             phoneme_durations=phoneme_durations, rng=rng,
-            checkpoint_segments=checkpoint_segments,
+            checkpoint_segments=checkpoint_segments, spec_augment=spec_augment,
         )
-        if self.training and spec_augment is not None:
-            if rng is None:
-                raise ValueError("SpecAugment in a training forward needs an Rng")
-            gen = rng.fold("specaugment").generator(memory.device)
-            memory = apply_spec_augment(memory, gen, **spec_augment)
-        return memory, dur_pred, pitch_pred, energy_pred, frame_mask
 
     def forward(self, phoneme_indices, mel_specs, phoneme_durations, stress_indices=None,
                 text_padding_mask=None, mel_padding_mask=None, pitch_targets=None,

@@ -59,6 +59,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from kokoro_tpu_torch.utils.profiling import count_attention
+
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the library's DEFAULT_MASK_VALUE
 FLASH_MIN_LEN = 1024
 FLASH_BLOCK = 128
@@ -499,6 +501,9 @@ def flash_attention(
     device; the caller gates shapes with
     :func:`flash_supported`."""
     _check(q, k, v)
+    B, H, T, Dh = q.shape
+    count_attention("flash", B, T, H, Dh, q.dtype, causal,
+                    torch.is_grad_enabled() and q.requires_grad)
     q_seg, kv_seg = segment_ids(q, k, q_valid, kv_valid)
     return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                         q_seg, kv_seg, causal, scale)

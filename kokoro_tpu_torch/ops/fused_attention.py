@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 
 from kokoro_tpu_torch.ops.philox import attention_keep_mask, keep_threshold
+from kokoro_tpu_torch.utils.profiling import count_attention
 
 NEG_INF = -1e9  # masked-logit constant, as in models/blocks.py
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -402,6 +403,9 @@ def packed_attention(
     Refuses dtypes other than float32/bfloat16 and head_dim outside
     {64, 128} on every device."""
     _check(q, k, v, num_heads, kv_lengths, dropout_rate, seed)
+    B, T, D = q.shape
+    count_attention("packed", B, T, num_heads, D // num_heads, q.dtype, causal,
+                    torch.is_grad_enabled() and q.requires_grad)
     kv_lengths = None if causal else kv_lengths
     return PackedAttentionFunction.apply(q, k, v, kv_lengths, num_heads, scale,
                                          "causal" if causal else "kvlen", dropout_rate, seed)

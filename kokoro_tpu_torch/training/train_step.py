@@ -76,6 +76,7 @@ from kokoro_tpu_torch.training.optimizer import (
     FusedAdamW, apply_preclips, apply_weight_norm_constraints, ema_update,
     grad_explosion_threshold, update_grad_explosion_ema,
 )
+from kokoro_tpu_torch.utils.profiling import span
 
 LOSS_KEYS = ("total", "mel", "duration", "stop", "pitch", "energy")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -220,24 +221,25 @@ def _model_outputs(model: KokoroModel, batch, rng, spec_augment, segments, param
 
 def _losses(out, batch, config: TrainingConfig, mesh: Optional[Mesh] = None,
             frame_offset: int = 0):
-    return calculate_training_losses(
-        predicted_mel=out["predicted_mel"],
-        predicted_log_durations=out["predicted_log_durations"],
-        predicted_stop_logits=out["predicted_stop_logits"],
-        mel_specs=batch["mel_specs"], phoneme_durations=batch["phoneme_durations"],
-        stop_token_targets=batch["stop_token_targets"], mel_lengths=batch["mel_lengths"],
-        phoneme_lengths=batch["phoneme_lengths"], predicted_pitch=out["predicted_pitch"],
-        predicted_energy=out["predicted_energy"], pitch_targets=batch.get("pitch_targets"),
-        energy_targets=batch.get("energy_targets"),
-        duration_loss_weight=config.duration_loss_weight,
-        stop_token_loss_weight=config.stop_token_loss_weight,
-        pitch_loss_weight=config.pitch_loss_weight,
-        energy_loss_weight=config.energy_loss_weight,
-        stop_token_pos_weight=config.stop_token_pos_weight,
-        duration_huber_delta=config.duration_huber_delta,
-        pitch_huber_delta=config.pitch_huber_delta,
-        energy_huber_delta=config.energy_huber_delta, mesh=mesh, frame_offset=frame_offset,
-    )
+    with span("loss"):
+        return calculate_training_losses(
+            predicted_mel=out["predicted_mel"],
+            predicted_log_durations=out["predicted_log_durations"],
+            predicted_stop_logits=out["predicted_stop_logits"],
+            mel_specs=batch["mel_specs"], phoneme_durations=batch["phoneme_durations"],
+            stop_token_targets=batch["stop_token_targets"], mel_lengths=batch["mel_lengths"],
+            phoneme_lengths=batch["phoneme_lengths"], predicted_pitch=out["predicted_pitch"],
+            predicted_energy=out["predicted_energy"], pitch_targets=batch.get("pitch_targets"),
+            energy_targets=batch.get("energy_targets"),
+            duration_loss_weight=config.duration_loss_weight,
+            stop_token_loss_weight=config.stop_token_loss_weight,
+            pitch_loss_weight=config.pitch_loss_weight,
+            energy_loss_weight=config.energy_loss_weight,
+            stop_token_pos_weight=config.stop_token_pos_weight,
+            duration_huber_delta=config.duration_huber_delta,
+            pitch_huber_delta=config.pitch_huber_delta,
+            energy_huber_delta=config.energy_huber_delta, mesh=mesh, frame_offset=frame_offset,
+        )
 
 
 def make_loss_fn(model: KokoroModel, config: TrainingConfig, spec_augment: bool = True,
@@ -270,41 +272,47 @@ def apply_gradient_update(state: TrainState, grads: List[torch.Tensor],
     returns the step's metrics as floats, ``loss_scale`` (the
     stabilization's smallest loss scale of the step) among them."""
     layout, names = state.layout, state.names
-    raw_norm = global_norm(grads, names, layout)
-    if preclip_norms is not None:
-        apply_preclips(grads, [preclip_norms[n] for n in names], names, layout)
-    clipped_norm = global_norm(grads, names, layout)
-    # the step's one host read, rank 0's on every rank: everything below is
-    # decided from these
-    values = torch.stack([raw_norm, clipped_norm, clip_norm.float(), loss_scale.float()]
-                         + [losses[k].float() for k in LOSS_KEYS])
-    if layout is not None:
-        layout.mesh.broadcast(values)
-    values = values.tolist()
-    raw, clipped, clip, scale = values[:4]
-    metrics = dict(zip(LOSS_KEYS, values[4:]), loss_scale=scale)
-    threshold = grad_explosion_threshold(state.grad_ema, state.grad_ema_steps,
-                                         state.opt_step, config)
-    exploded = raw > threshold
-    if exploded:
-        clip = config.emergency_clip_norm
-    finite = math.isfinite(raw) and math.isfinite(metrics["total"])
-    if finite:
-        torch._foreach_mul_(grads, min(1.0, clip / (clipped + 1e-6)))
-        state.optimizer.step(grads)
-        params = state.params
-        apply_weight_norm_constraints(params, config, layout)
-        every = max(int(config.ema_update_every), 1)
-        if every == 1 or (state.opt_step + 1) % every == 0:
-            ema_update([state.ema[n] for n in state.names],
-                       [params[n].detach() for n in state.names], ema_decay)
-            state.ema_updates += 1
-        state.grad_ema = update_grad_explosion_ema(state.grad_ema, state.grad_ema_steps,
-                                                   raw, config.grad_explosion_ema_decay)
-        state.grad_ema_steps += 1
-        state.opt_step += 1
-    else:
-        state.skipped_steps += 1
+    ordinal = state.opt_step + state.skipped_steps
+    with span("optimizer", ordinal):
+        with span("clip", ordinal):
+            raw_norm = global_norm(grads, names, layout)
+            if preclip_norms is not None:
+                apply_preclips(grads, [preclip_norms[n] for n in names], names, layout)
+            clipped_norm = global_norm(grads, names, layout)
+        # the step's one host read, rank 0's on every rank: everything below is
+        # decided from these
+        with span("host_read", ordinal):
+            values = torch.stack([raw_norm, clipped_norm, clip_norm.float(), loss_scale.float()]
+                                 + [losses[k].float() for k in LOSS_KEYS])
+            if layout is not None:
+                layout.mesh.broadcast(values)
+            values = values.tolist()
+        raw, clipped, clip, scale = values[:4]
+        metrics = dict(zip(LOSS_KEYS, values[4:]), loss_scale=scale)
+        threshold = grad_explosion_threshold(state.grad_ema, state.grad_ema_steps,
+                                             state.opt_step, config)
+        exploded = raw > threshold
+        if exploded:
+            clip = config.emergency_clip_norm
+        finite = math.isfinite(raw) and math.isfinite(metrics["total"])
+        if finite:
+            with span("update", ordinal):
+                torch._foreach_mul_(grads, min(1.0, clip / (clipped + 1e-6)))
+                state.optimizer.step(grads)
+                params = state.params
+                apply_weight_norm_constraints(params, config, layout)
+                every = max(int(config.ema_update_every), 1)
+                if every == 1 or (state.opt_step + 1) % every == 0:
+                    with span("ema", ordinal):
+                        ema_update([state.ema[n] for n in state.names],
+                                   [params[n].detach() for n in state.names], ema_decay)
+                    state.ema_updates += 1
+                state.grad_ema = update_grad_explosion_ema(state.grad_ema, state.grad_ema_steps,
+                                                           raw, config.grad_explosion_ema_decay)
+                state.grad_ema_steps += 1
+                state.opt_step += 1
+        else:
+            state.skipped_steps += 1
     metrics.update(grad_norm=raw, grad_norm_clipped=min(clipped, clip), clip_norm=clip,
                    exploded=float(exploded), stepped=float(finite))
     return metrics
@@ -327,12 +335,15 @@ def step_gradients(state: TrainState, batch: Dict[str, torch.Tensor],
     else:
         A, micro = 1, [batch]
     grads, losses, clip, scale = None, None, None, None
+    ordinal = state.opt_step + state.skipped_steps
     for mb in micro:
         rng = step_rng(generator, mesh)
         loss_scale, mb_clip = adaptive_stabilization(mb, config, mesh)
         scale = loss_scale if scale is None else torch.minimum(scale, loss_scale)
-        total, mb_losses = loss_fn(mb, rng)
-        mb_grads = torch.autograd.grad(total, params, allow_unused=True)
+        with span("forward", ordinal):
+            total, mb_losses = loss_fn(mb, rng)
+        with span("backward", ordinal):
+            mb_grads = torch.autograd.grad(total, params, allow_unused=True)
         mb_grads = [torch.zeros_like(p) if g is None else g
                     for g, p in zip(mb_grads, params)]
         torch._foreach_mul_(mb_grads, loss_scale)
@@ -362,10 +373,11 @@ def make_train_step(config: TrainingConfig, preclip_norms: Optional[Dict[str, fl
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, float]:
-        grads, losses, clip, scale = step_gradients(state, batch, generator, config,
-                                                    spec_augment)
-        return apply_gradient_update(state, grads, losses, clip, scale, config=config,
-                                     preclip_norms=preclip_norms, ema_decay=ema_decay)
+        with span("train_step", state.opt_step + state.skipped_steps):
+            grads, losses, clip, scale = step_gradients(state, batch, generator, config,
+                                                        spec_augment)
+            return apply_gradient_update(state, grads, losses, clip, scale, config=config,
+                                         preclip_norms=preclip_norms, ema_decay=ema_decay)
 
     return train_step
 

@@ -30,8 +30,9 @@ Port of ``kokoro_tpu/training/trainer.py`` (``KokoroTrainer`` /
   training); TensorBoard's custom-scalars layout; a ``torch.profiler``
   window (``utils/profiling.trace``) into ``<run>/profiler_logs`` over the
   first ``profile_steps`` optimizer steps of epoch ``profile_epoch_start``,
-  closed on an exception too; the ``InterbatchProfiler``'s ``data`` and
-  ``step`` phases; weight histograms every epoch; every
+  closed on an exception too, in which the spans ``kokoro.data`` (a step's
+  assembly and copy) and the step's own show; the ``InterbatchProfiler``'s
+  phases of the same names; weight histograms every epoch; every
   ``histogram_every_steps`` optimizer steps the diagnostic step
   (``train_step.make_diagnostic_step``) for gradient histograms,
   ``metrics/train_spectral_convergence``, the train spectrogram images and,
@@ -115,7 +116,7 @@ from kokoro_tpu_torch.training.train_step import (
     LOSS_KEYS, batch_masks, create_train_state, make_diagnostic_step, make_eval_step,
     make_train_step,
 )
-from kokoro_tpu_torch.utils.profiling import InterbatchProfiler, trace
+from kokoro_tpu_torch.utils.profiling import DATA, STEP, InterbatchProfiler, span, trace
 
 logger = logging.getLogger(__name__)
 
@@ -449,17 +450,18 @@ class KokoroTrainer:
                                  if cfg.enable_interbatch_profiling else None)
         for start in range(0, len(batches), accum):
             if ib is not None:
-                ib.start("data")
-            batch = self._assemble(batches[start:start + accum], rng)
-            shape_key = (tuple(batch["mel_specs"].shape), 1)
-            self._shape_counts[shape_key] = self._shape_counts.get(shape_key, 0) + 1
-            device_batch = self._to_device(batch)
+                ib.start(DATA)
+            with span("data", self.state.opt_step + self.state.skipped_steps):
+                batch = self._assemble(batches[start:start + accum], rng)
+                shape_key = (tuple(batch["mel_specs"].shape), 1)
+                self._shape_counts[shape_key] = self._shape_counts.get(shape_key, 0) + 1
+                device_batch = self._to_device(batch)
             if ib is not None:
-                ib.end("data")
-                ib.start("step")
+                ib.end(DATA)
+                ib.start(STEP)
             metrics = step_fn(self.state, device_batch, self.generator)
             if ib is not None:
-                ib.end("step")
+                ib.end(STEP)
             self.host_step += 1
             if self._trace is not None:
                 self._trace_steps_left -= 1
@@ -483,7 +485,7 @@ class KokoroTrainer:
                 self._log_train_diagnostics(device_batch, batch, self.host_step)
         if ib is not None:
             elapsed = time.perf_counter() - t_epoch
-            n = len(ib.phases.get("step", []))
+            n = len(ib.phases.get(STEP, []))
             logger.info("Epoch %d: %d optimizer steps in %.1fs (%.2f steps/s)", epoch + 1, n,
                         elapsed, n / max(elapsed, 1e-9))
             if ib.phases:

@@ -1,18 +1,35 @@
-"""Profiling tools: device traces, device memory stats, interbatch phases,
-step timing and the bf16/f32 A/B.
+"""Profiling tools: device traces, the port's spans and counters,
+interbatch phases, step timing and the bf16/f32 A/B.
 
 Port of ``kokoro_tpu/utils/profiling.py`` on PyTorch:
 
 * :func:`trace` — ``torch.profiler`` CPU and CUDA activity into a Chrome
   trace (Perfetto, TensorBoard's profiler plugin);
-* :class:`DeviceProfiler` — per-stage device memory from
-  ``torch.cuda.memory_stats()`` under the reference's keys
-  (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``);
-* :class:`InterbatchProfiler` — wall-clock phase times, the reference's API;
+* :func:`span` — a ``kokoro.<name>`` range on the profiler's timeline where
+  the work happens (the training step's phases, the model's parts, the data
+  path), free when no profiler runs;
+* :func:`counters` — the batches and frames ``collate`` gave and the calls
+  of the attention entries by shape, as plain counts;
+* :class:`InterbatchProfiler` — wall-clock phase times, the reference's API,
+  its phases named as the trainer's spans;
 * :func:`profile_step_fn` — step times that end in a device synchronise;
 * :func:`compare_dtype_policies` / :func:`profile_dtype_for_config` — the
   bf16-against-f32 step-time A/B that ``kokoro-train --profile-dtypes``
   runs before training.
+
+The spans (each ``kokoro.<name>``; those of a training step carry its host
+ordinal, ``opt_step + skipped_steps`` at entry, as the range's one input,
+seen where the session records shapes, all but the model's parts, which
+sit inside ``forward``):
+
+* ``train_step`` (``training/train_step.py::make_train_step``'s step), and
+  in it ``forward`` (a microbatch's losses; in it ``encoder``, ``variance``,
+  ``decoder`` and ``loss``), ``backward`` (``torch.autograd.grad``; its
+  launches come from the autograd engine's own thread) and ``optimizer``
+  (everything after the gradients; in it ``clip``, ``host_read`` and
+  ``update``, which holds ``ema``);
+* ``plan`` (``FrameBudgetBatcher.build_batches``), ``collate`` and ``data``
+  (the trainer's assembly and copy of a step's batch).
 """
 
 from __future__ import annotations
@@ -21,11 +38,13 @@ import contextlib
 import dataclasses
 import logging
 import statistics
+import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from kokoro_tpu_torch.device import resolve_device
 
@@ -63,48 +82,85 @@ def trace(logdir: str | Path):
         yield prof
 
 
+# -- spans -------------------------------------------------------------------
+SPAN_PREFIX = "kokoro."
+DATA = SPAN_PREFIX + "data"
+STEP = SPAN_PREFIX + "train_step"
+_NO_SPAN = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _range(name: str, inputs: tuple):
+    # record_function's own ``args`` is a string, which the profiler keeps
+    # empty among an event's inputs; this entry keeps an int
+    handle = torch.autograd._record_function_with_args_enter(name, *inputs)
+    try:
+        yield
+    finally:
+        torch.autograd._record_function_with_args_exit(handle)
+
+
+def span(name: str, args: Optional[int] = None):
+    """``with span(name, args):`` records ``kokoro.<name>`` on the running
+    ``torch.profiler`` session's host timeline, beside the device activity
+    it launches, with ``args`` (a step's ordinal) as its one input.  With no
+    session it returns one shared no-op context after one read of the
+    profiler's enabled flag: no range, no device work, no synchronise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _range(SPAN_PREFIX + name, () if args is None else (args,))
+
+
+# -- counters -----------------------------------------------------------------
+# the serving thread and the trainer's may count at once
+_counts_lock = threading.Lock()
+_batches = {"batches": 0, "frames_true": 0, "frames_padded": 0}
+_attention: Dict[Tuple, int] = {}
+
+
+def count_batch(frames_true: int, frames_padded: int) -> None:
+    """One collated batch: its true (unpadded) mel frames and rows x padded T."""
+    with _counts_lock:
+        _batches["batches"] += 1
+        _batches["frames_true"] += frames_true
+        _batches["frames_padded"] += frames_padded
+
+
+def count_attention(kind: str, B: int, T: int, H: int, Dh: int, dtype: torch.dtype,
+                    causal: bool, grad: bool) -> None:
+    """One call of an attention entry (``kind``: ``packed`` or ``flash``)."""
+    key = (kind, B, T, H, Dh, dtype, causal, grad)
+    with _counts_lock:
+        _attention[key] = _attention.get(key, 0) + 1
+
+
+def counters() -> Dict:
+    """A snapshot: ``batches``, ``frames_true``, ``frames_padded`` of
+    ``collate``, and ``attention``: calls by ``(kind, B, T, H, Dh, dtype,
+    causal, grad)``, the dtype's name without ``torch.``."""
+    with _counts_lock:
+        attention = {k[:5] + (str(k[5]).replace("torch.", ""),) + k[6:]: n
+                     for k, n in _attention.items()}
+        return dict(_batches, attention=attention)
+
+
+def reset_counters() -> None:
+    with _counts_lock:
+        for k in _batches:
+            _batches[k] = 0
+        _attention.clear()
+
+
 def _synchronize() -> None:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
-class DeviceProfiler:
-    """Per-stage device memory logging."""
-
-    def __init__(self, enabled: bool = True):
-        self.enabled = enabled
-        self.stages: List[Dict] = []
-
-    @staticmethod
-    def memory_stats() -> Dict[str, float]:
-        """The caching allocator's bytes in use and their peak, and the
-        card's memory (``mem_get_info``); zeros without CUDA."""
-        if not torch.cuda.is_available():
-            return {"bytes_in_use": 0, "peak_bytes_in_use": 0, "bytes_limit": 0}
-        stats = torch.cuda.memory_stats()
-        return {
-            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
-            "bytes_limit": torch.cuda.mem_get_info()[1],
-        }
-
-    def log_stage(self, name: str) -> None:
-        if not self.enabled:
-            return
-        stats = self.memory_stats()
-        self.stages.append({"stage": name, **stats})
-        logger.info("[mem] %s: %.1f MB in use (peak %.1f MB)", name,
-                    stats["bytes_in_use"] / 1e6, stats["peak_bytes_in_use"] / 1e6)
-
-    def summary(self) -> str:
-        if not self.stages:
-            return "no stages recorded"
-        peak = max(s["peak_bytes_in_use"] for s in self.stages)
-        return f"{len(self.stages)} stages, peak {peak / 1e6:.1f} MB"
-
-
 class InterbatchProfiler:
-    """Wall-clock phase profiler (the trainer's ``data`` and ``step``)."""
+    """Wall-clock phase profiler.  The trainer's phases are named as its
+    spans, :data:`DATA` and :data:`STEP` (which the trainer and the step
+    open themselves); a report is logged every ``report_interval`` ends of
+    :data:`STEP`."""
 
     def __init__(self, report_interval: int = 100):
         self.report_interval = report_interval
@@ -120,7 +176,7 @@ class InterbatchProfiler:
         if t0 is None:
             return
         self.phases.setdefault(phase, []).append(time.perf_counter() - t0)
-        if phase == "step":
+        if phase == STEP:
             self._count += 1
             if self.report_interval and self._count % self.report_interval == 0:
                 logger.info(self.report())
@@ -130,11 +186,6 @@ class InterbatchProfiler:
                  f"median {statistics.median(times) * 1e3:.1f}ms n={len(times)}"
                  for phase, times in sorted(self.phases.items()) if times]
         return "interbatch profile: " + "; ".join(lines)
-
-    def throughput(self, items_per_step: float) -> float:
-        steps = self.phases.get("step", [])
-        total = sum(steps)
-        return len(steps) * items_per_step / total if total else 0.0
 
 
 def profile_step_fn(step_fn: Callable, args: tuple, n_steps: int = 10,

@@ -140,8 +140,12 @@ def test_spectrogram_images_and_custom_scalars_present(runs):
 def test_profiler_window_and_logged_diagnostics(runs):
     _, run_dir, log = runs[0]["on"]
     traces = list((run_dir / "profiler_logs").glob("*.pt.trace.json"))
-    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
-    for line in ("Duration pred @1:", "Duration pred @2:", "interbatch profile: data:",
+    events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    assert events
+    spans = {e.get("name") for e in events if str(e.get("name", "")).startswith("kokoro.")}
+    assert {"kokoro.data", "kokoro.collate", "kokoro.train_step", "kokoro.forward",
+            "kokoro.backward", "kokoro.optimizer", "kokoro.host_read"} <= spans, spans
+    for line in ("Duration pred @1:", "Duration pred @2:", "interbatch profile: kokoro.data:",
                  "optimizer steps in", "Feature cache:"):
         assert line in log, line
     _, off_dir, off_log = runs[0]["off"]

@@ -1,7 +1,7 @@
 """The port's ``utils/`` against the JAX package's: ``misc`` (size format,
 training-time estimate, parameter counts), ``cache_manager`` (status on one
-cache directory, clear, the CLI), ``profiling`` (``DeviceProfiler``,
-``InterbatchProfiler`` and ``compare_dtype_policies`` with a stub step, the
+cache directory, clear, the CLI), ``profiling`` (``InterbatchProfiler``
+and ``compare_dtype_policies`` with a stub step, the
 A/B's synthetic batch and model fields) and ``memory_planner.count_params``
 equal to the reference's at the smoke and the flagship widths."""
 
@@ -91,27 +91,6 @@ def test_cache_manager_cli(tmp_path, capsys):
 
 
 # -- profiling ----------------------------------------------------------------------------
-def test_device_profiler_without_cuda(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    prof = profiling.DeviceProfiler()
-    prof.log_stage("setup")
-    assert prof.stages == [{"stage": "setup", "bytes_in_use": 0, "peak_bytes_in_use": 0,
-                            "bytes_limit": 0}]
-    assert prof.summary() == "1 stages, peak 0.0 MB"
-    off = profiling.DeviceProfiler(enabled=False)
-    off.log_stage("x")
-    assert off.summary() == ref_profiling.DeviceProfiler(enabled=False).summary()
-
-
-def test_device_profiler_reads_the_caching_allocator(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "memory_stats", lambda: {
-        "allocated_bytes.all.current": 5, "allocated_bytes.all.peak": 7})
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda: (10, 80))
-    assert profiling.DeviceProfiler.memory_stats() == {
-        "bytes_in_use": 5, "peak_bytes_in_use": 7, "bytes_limit": 80}
-
-
 def test_interbatch_profiler_matches_reference(monkeypatch):
     clock = iter(np.arange(0.0, 100.0, 0.25))
     fake = lambda: next(clock)  # noqa: E731
@@ -125,9 +104,9 @@ def test_interbatch_profiler_matches_reference(monkeypatch):
             ib.start("step")
             ib.end("step")
         ib.end("never_started")
-        reports.append((ib.report(), ib.throughput(16), sorted(ib.phases)))
+        reports.append((ib.report(), sorted(ib.phases)))
     assert reports[0] == reports[1]
-    assert reports[0][2] == ["data", "step"]
+    assert reports[0][1] == ["data", "step"]
 
 
 def test_compare_dtype_policies_with_a_stub_step(monkeypatch):
